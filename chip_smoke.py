@@ -25,17 +25,33 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
    engine and through an engine on the gather path with the legacy sampler;
    the streams must agree up to a divergence at a near-tie (top-2 logits of
    the plain path within 2 bf16 ulps);
-5. prints one JSON ``{"kernels": [...]}`` line and, last, one JSON line
-   ``{"ok": true, "device": {...}}``.
+5. train: ``python -m datatunerx_tpu_torch.tuning.train`` (its ``main``)
+   for ``preset:tinyllama-1.1b`` at full width and depth, LoRA r8 on
+   q_proj,v_proj, ``--attention flash --remat dots --bf16``, packed to
+   1024, batch 8, 8 steps, on a CSV written from a seed; requires the K1,
+   K2 and K3 launch counters (zeroed just before) to have moved, finite
+   loss and grad norm, non-zero LoRA B leaves after the first step, and the
+   manifest, a checkpoint and ``model.npz`` written; prints step time,
+   tokens/s over the steady steps and the peak memory;
+6. train parity: one ``Trainer.train_step`` (and one gradient) at
+   tinyllama width and 4 layers on one packed batch, with
+   ``attention_impl="flash"`` and with ``"xla"``: losses within 1e-2
+   relative, LoRA gradients within 3e-2 relative (bf16 compute);
+7. prints one JSON ``{"kernels": [...]}`` line (K7, K8, K9, K1, K2, K3)
+   and, last, one JSON line ``{"ok": true, "device": {...}}``.
 
-``--phase kernels`` stops after phase 2. The script imports nothing of JAX
-or of the JAX package.
+Phase 2 also holds K1 (flash forward), K2 (dQ) and K3 (dK/dV) against
+their plain versions at the training shapes (B=8 H=32 KV=4 T=1024 d=64,
+causal, bf16), on a packed batch and at d=128. ``--phase kernels`` stops
+after phase 2; ``--phase train`` runs phases 1, 2, 5 and 6. The script
+imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -126,17 +142,18 @@ def gathered(torch, pool, tables):
     return pool[tbl].reshape(B, -1, pool.shape[-2], pool.shape[-1])
 
 
-def sdpa(torch, q, k, v, mask):
+def sdpa(torch, q, k, v, mask=None, causal=False):
     """Yardstick: one PyTorch SDPA call, q [B, H, T, d], k/v [B, KV, S, d]."""
     F = torch.nn.functional
     G = q.shape[1] // k.shape[1]
     try:
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              is_causal=causal,
                                               enable_gqa=True)
     except TypeError:  # torch without enable_gqa
         return F.scaled_dot_product_attention(
             q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1),
-            attn_mask=mask)
+            attn_mask=mask, is_causal=causal)
 
 
 def close_enough(torch, got, want, atol, rtol):
@@ -307,6 +324,170 @@ def check_k9(torch, timer, gen):
         "library_ms": results["simple"]["library_ms"],
         "shape": f"S={S} V={V} (Vp={vp}), simple mode; greedy printed above",
     }
+
+
+# ------------------------------------------------------------ phase 2, K1-K3
+FLASH_TOL = (2**-6, 2**-6)  # bf16: one rounding of f32 sums in another order
+
+
+def flash_inputs(torch, B, T, H, KV, d, gen, segments=0):
+    """bf16 q, k, v, dO on the card; with ``segments`` > 0, ids of that many
+    packed segments per row plus a pad tail (id 0)."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(torch.bfloat16).cuda()
+
+    seg = None
+    if segments:
+        seg = torch.zeros((B, T), dtype=torch.int32)
+        for b in range(B):
+            n = segments + b % 3  # 3-5 segments per row
+            cuts = sorted(torch.randperm(T - 64, generator=gen)[:n - 1]
+                          .add(16).tolist())
+            for i, (lo, hi) in enumerate(zip([0] + cuts, cuts + [T - 40])):
+                seg[b, lo:hi] = i + 1
+        seg = seg.cuda()
+    return rnd(B, T, H, d), rnd(B, T, KV, d), rnd(B, T, KV, d), \
+        rnd(B, T, H, d), seg
+
+
+def visible_pairs(torch, B, T, H, seg):
+    """(query, key) pairs the causal + segment mask lets through, over all
+    heads: what the kernels' work is, counted from this run's data."""
+    if seg is None:
+        return B * H * T * (T + 1) // 2
+    total = 0
+    for b in range(B):
+        ids, counts = torch.unique(seg[b], return_counts=True)
+        total += sum(int(c) * (int(c) + 1) // 2 for c in counts.tolist())
+    return total * H
+
+
+def flash_cases(torch, gen):
+    return [
+        ("causal", flash_inputs(torch, 8, 1024, 32, 4, 64, gen)),
+        ("packed", flash_inputs(torch, 8, 1024, 32, 4, 64, gen, segments=3)),
+        ("d128", flash_inputs(torch, 2, 1024, 32, 32, 128, gen)),
+    ]
+
+
+def check_flash(torch, timer, gen):
+    """K1, K2 and K3 against their plain versions on three inputs; the
+    timed entries are the causal case at the training shapes."""
+    from datatunerx_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for case, (q, k, v, do, seg) in flash_cases(torch, gen):
+        B, T, H, d = q.shape
+        KV = k.shape[2]
+        got_o, got_lse = fa.flash_fwd(q, k, v, seg)
+        want_o, want_lse = fa._plain_fwd(q, k, v, seg, True, 512, 512)
+        dsum = fa.row_dot(do, want_o)
+        got_dq = fa.flash_bwd_dq(q, k, v, do, want_lse, dsum, seg)
+        got_dk, got_dv = fa.flash_bwd_dkv(q, k, v, do, want_lse, dsum, seg)
+        want_dq = fa._plain_bwd_dq(q, k, v, do, want_lse, dsum, seg, True,
+                                   512, 512)
+        want_dk, want_dv = fa._plain_bwd_dkv(q, k, v, do, want_lse, dsum,
+                                             seg, True, 512, 512)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, pairs in (("K1", [(got_o, want_o)]),
+                            ("K2", [(got_dq, want_dq)]),
+                            ("K3", [(got_dk, want_dk), (got_dv, want_dv)])):
+            err = 0.0
+            for got, want in pairs:
+                if not bool(torch.isfinite(got.float()).all()):
+                    fail(f"{name} ({case}) wrote non-finite values")
+                ok, e = close_enough(torch, got, want, *FLASH_TOL)
+                if not ok:
+                    fail(f"{name} ({case}) disagrees with its plain version:"
+                         f" max abs err {e}")
+                err = max(err, e)
+            errs[name] = err
+        lse_err = float((got_lse - want_lse).abs().max())
+        if lse_err > 1e-3:
+            fail(f"K1 ({case}) lse differs from the plain version by "
+                 f"{lse_err}")
+        pairs = visible_pairs(torch, B, T, H, seg)
+        io = 2 * (2 * B * T * H * d + 2 * B * T * KV * d)  # q,o|dO + k,v
+        stats = 2 * B * H * T * 4
+        seg_b = 0 if seg is None else B * T * 4
+        bounds = {
+            "K1": bound_ms(io + B * H * T * 4 + seg_b, 4 * d * pairs,
+                           BF16_OPS_PER_S),
+            "K2": bound_ms(io + 2 * B * T * H * d + stats + seg_b,
+                           6 * d * pairs, BF16_OPS_PER_S),
+            "K3": bound_ms(io + 4 * B * T * KV * d + stats + seg_b,
+                           8 * d * pairs, BF16_OPS_PER_S),
+        }
+        ms = {
+            "K1": timer.ms(lambda: fa.flash_fwd(q, k, v, seg)),
+            "K2": timer.ms(lambda: fa.flash_bwd_dq(q, k, v, do, want_lse,
+                                                   dsum, seg)),
+            "K3": timer.ms(lambda: fa.flash_bwd_dkv(q, k, v, do, want_lse,
+                                                    dsum, seg)),
+        }
+        line = (f"  flash {case} [B={B} T={T} H={H} KV={KV} d={d}"
+                f"{'' if seg is None else ', 3-5 segments/row'}]: " + ", ".join(
+                    f"{n} {ms[n]:.3f} ms (err {errs[n]:.3g}, bound "
+                    f"{bounds[n][0]:.4f})" for n in ms))
+        log(line)
+        out[case] = (errs, ms, bounds)
+        if case != "causal":
+            continue
+        plain = {
+            "K1": timer.ms(lambda: fa._plain_fwd(q, k, v, seg, True, 512,
+                                                 512), reps=3, warmup=1),
+            "K2": timer.ms(lambda: fa._plain_bwd_dq(
+                q, k, v, do, want_lse, dsum, seg, True, 512, 512), reps=3,
+                warmup=1),
+            "K3": timer.ms(lambda: fa._plain_bwd_dkv(
+                q, k, v, do, want_lse, dsum, seg, True, 512, 512), reps=3,
+                warmup=1),
+        }
+        qs, ks, vs, dos = (t.transpose(1, 2) for t in (q, k, v, do))
+        lib_fwd = timer.ms(lambda: sdpa(torch, qs, ks, vs, causal=True))
+        leaf = [t.detach().requires_grad_() for t in (qs, ks, vs)]
+        o = sdpa(torch, *leaf, causal=True)
+        lib_bwd = timer.ms(lambda: torch.autograd.grad(
+            o, leaf, dos, retain_graph=True))
+
+        def fwd_bwd():
+            o2 = sdpa(torch, *leaf, causal=True)
+            torch.autograd.grad(o2, leaf, dos)
+
+        lib_fb = timer.ms(fwd_bwd)
+        log(f"  SDPA (library yardstick, causal case): forward "
+            f"{lib_fwd:.3f} ms, backward {lib_bwd:.3f} ms, forward+backward "
+            f"{lib_fb:.3f} ms; kernels K1+K2+K3 "
+            f"{ms['K1'] + ms['K2'] + ms['K3']:.3f} ms")
+        out["plain"], out["lib"] = plain, {"K1": lib_fwd, "K2": lib_bwd,
+                                           "K3": lib_bwd}
+    errs, ms, bounds = out["causal"]
+    meta = {
+        "K1": ("K1 flash_fwd", "datatunerx_tpu/ops/flash_attention.py:85",
+               fa.flash_fwd),
+        "K2": ("K2 flash_bwd_dq", "datatunerx_tpu/ops/flash_attention.py:191",
+               fa.flash_bwd_dq),
+        "K3": ("K3 flash_bwd_dkv",
+               "datatunerx_tpu/ops/flash_attention.py:233", fa.flash_bwd_dkv),
+    }
+    entries = []
+    for key, (name, replaces, counter) in meta.items():
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "datatunerx_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces, "counter": counter,
+            "max_abs_err": max(out[c][0][key] for c in
+                               ("causal", "packed", "d128")),
+            "tolerance": "atol 2^-6 + rtol 2^-6 (bf16), causal/packed/d128",
+            "ms": ms[key], "plain_ms": out["plain"][key],
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            "library_ms": out["lib"][key],
+            "shape": "B=8 T=1024 H=32 KV=4 d=64 causal bf16 (timed); "
+                     "library: SDPA " + ("forward" if key == "K1" else
+                                         "backward (dQ, dK, dV together)"),
+        })
+    return entries
 
 
 # ------------------------------------------------------------------ phase 3
@@ -489,10 +670,232 @@ def parity_phase(torch, eng):
         plain.close()
 
 
+# ------------------------------------------------------------------ phase 5
+TRAIN_STEPS = 8
+PROFILE_STEPS = 2  # steps 2-3 run under torch.profiler; 4-8 are timed
+TRAIN_SHAPE = dict(batch=8, block=1024)
+KERNEL_GROUPS = (("flash K1-K3", ("flash_",)),
+                 ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")))
+
+
+def device_breakdown(trace_path, steps):
+    """Device time per step by kernel group, and the busy share, from the
+    CLI's torch.profiler chrome trace: busy = the union of GPU kernel and
+    copy intervals over the span from the first to the last of them."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                  "gpu_memset")
+           and "dur" in e]
+    if not gpu:
+        fail("the profiled train steps recorded no GPU events")
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for e in gpu:
+        name = e["name"].lower()
+        for group, keys in KERNEL_GROUPS:
+            if any(k in name for k in keys):
+                groups[group] += e["dur"]
+                break
+        else:
+            groups["other"] += e["dur"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in gpu)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s0, s1 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, s1
+        else:
+            cur_e = max(cur_e, s1)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    return ({k: v / 1e3 / steps for k, v in groups.items()},
+            busy / window, window / 1e3 / steps)
+
+
+def write_train_csv(path, seed=0, n=1500):
+    """Instruction/response rows of varied length, made from a seed."""
+    import csv
+    import random
+
+    rnd = random.Random(seed)
+    words = ["alpha", "beta", "gamma", "delta", "tensor", "kernel", "train",
+             "model", "token", "layer", "adapter", "rank"]
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["instruction", "response"])
+        for i in range(n):
+            q = " ".join(rnd.choice(words) for _ in range(rnd.randint(2, 16)))
+            a = " ".join(rnd.choice(words) for _ in range(rnd.randint(4, 30)))
+            w.writerow([f"#{i}: {q}?", a])
+
+
+def train_phase(torch, tmp):
+    from datatunerx_tpu_torch.ops import flash_attention as fa
+    from datatunerx_tpu_torch.training import train_lib
+    from datatunerx_tpu_torch.tuning import train
+
+    csv_path = os.path.join(tmp, "train.csv")
+    write_train_csv(csv_path)
+    out, store, export = (os.path.join(tmp, n) for n in
+                          ("out", "store", "export"))
+    argv = ["--model_name_or_path", "preset:tinyllama-1.1b",
+            "--train_path", csv_path, "--template", "alpaca",
+            "--finetuning_type", "lora", "--lora_target", "q_proj,v_proj",
+            "--attention", "flash", "--remat", "dots", "--bf16",
+            "--block_size", str(TRAIN_SHAPE["block"]), "--pack_sequences",
+            "--per_device_train_batch_size", str(TRAIN_SHAPE["batch"]),
+            "--max_steps", str(TRAIN_STEPS), "--logging_steps", "1",
+            "--output_dir", out, "--storage_path", store,
+            "--export_dir", export, "--device", "cuda",
+            "--profile_steps", str(PROFILE_STEPS)]
+    # time each step to its end on the device, and look at the adapters
+    # after the first (B starts at 0)
+    real_step = train_lib.Trainer.train_step
+    times, seen = [], {}
+
+    def timed_step(self, state, batch):
+        t0 = time.perf_counter()
+        new, metrics = real_step(self, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if "b_max" not in seen:
+            seen["b_max"] = min(float(ab["b"].abs().max()) for ab in
+                                new.lora["layers"].values())
+            seen["rows"] = batch["segment_ids"].shape
+            seen["segments"] = float(batch["segment_ids"].amax(1).float()
+                                     .mean())
+        return new, metrics
+
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    train_lib.Trainer.train_step = timed_step
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc = train.main(argv)
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+    finally:
+        train_lib.Trainer.train_step = real_step
+    if rc != 0:
+        fail(f"train CLI returned {rc}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"train phase: kernel {name} was never launched")
+    L = 22
+    want = {"flash_fwd": 2 * L * TRAIN_STEPS, "flash_bwd_dq": L * TRAIN_STEPS,
+            "flash_bwd_dkv": L * TRAIN_STEPS}
+    if launches != want:
+        fail(f"train phase launches {launches}, expected {want} (remat dots:"
+             " K1 twice per layer per step)")
+    with open(os.path.join(out, "watch", "trainer_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if len(recs) != TRAIN_STEPS:
+        fail(f"{len(recs)} train records, expected {TRAIN_STEPS}")
+    for r in recs:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                and r["grad_norm"] > 0):
+            fail(f"step {r['current_steps']}: loss {r['loss']} grad_norm "
+                 f"{r['grad_norm']}")
+    if not seen.get("b_max", 0) > 0:
+        fail("a LoRA B leaf is still all zeros after the first step")
+    with open(os.path.join(store, "out", "manifest.json")) as f:
+        manifest = json.load(f)
+    ckpt = os.path.join(manifest["checkpoint"], "state.pt")
+    npz = os.path.join(export, "model.npz")
+    for path in (ckpt, npz, os.path.join(export, "config.json")):
+        if not os.path.exists(path):
+            fail(f"train phase did not write {path}")
+    first = 1 + PROFILE_STEPS  # steps after the first and the profiled ones
+    steady = times[first:]
+    step_s = sorted(steady)[len(steady) // 2]
+    positions = TRAIN_SHAPE["batch"] * TRAIN_SHAPE["block"]
+    tokens = sum(r["tokens"] for r in recs[first:]) / len(recs[first:])
+    groups, busy, window_ms = device_breakdown(
+        os.path.join(out, "trace", "trace.json"), PROFILE_STEPS)
+    log(f"  {TRAIN_STEPS} steps in {wall:.1f} s wall (CLI: load, data, "
+        f"train, checkpoint, export); rows {tuple(seen['rows'])}, "
+        f"{seen['segments']:.2f} segments per row")
+    log(f"  step time (steady steps {first + 1}-{TRAIN_STEPS}, median) "
+        f"{step_s * 1e3:.1f}"
+        f" ms, all steps {[round(t * 1e3, 1) for t in times]} ms")
+    log(f"  {positions / step_s:.0f} positions/s, {tokens / step_s:.0f} "
+        f"trained tokens/s; peak memory {peak:.2f} GiB; losses "
+        f"{[round(r['loss'], 4) for r in recs]}")
+    log(f"  launches {launches}; model.npz "
+        f"{os.path.getsize(npz) / 2**30:.2f} GiB")
+    log(f"  profiled steps 2-{1 + PROFILE_STEPS}: {window_ms:.1f} ms of "
+        f"device span per step, busy {busy * 100:.1f} %; device ms per step "
+        + ", ".join(f"{k} {v:.1f}" for k, v in groups.items()))
+    return launches, {"step_ms": step_s * 1e3, "peak_gib": peak}
+
+
+# ------------------------------------------------------------------ phase 6
+def train_parity_phase(torch):
+    """One train step (and one LoRA gradient) with the flash kernels and
+    with the plain xla attention, from the same params, adapters and
+    packed batch."""
+    import dataclasses
+
+    from datatunerx_tpu_torch.data.preprocess import pack_to_block
+    from datatunerx_tpu_torch.models.config import get_config
+    from datatunerx_tpu_torch.models.llama import init_params
+    from datatunerx_tpu_torch.training.train_lib import TrainConfig, Trainer
+
+    gen = torch.Generator().manual_seed(5)
+    exs = []
+    for _ in range(10):
+        n = int(torch.randint(120, 400, (1,), generator=gen))
+        ids = torch.randint(3, 32000, (n,), generator=gen).tolist()
+        exs.append({"input_ids": ids, "labels": ids})
+    batch = pack_to_block(exs, 1024)
+    batch = {k: v[:2] for k, v in batch.items()}
+    results = {}
+    params = None
+    for impl in ("flash", "xla"):
+        cfg = get_config("tinyllama-1.1b", num_layers=4, attention_impl=impl,
+                         remat="dots")
+        if params is None:
+            params = init_params(cfg, seed=0, dtype=torch.bfloat16,
+                                 device="cuda")
+        tr = Trainer(cfg, TrainConfig(lora_dropout=0.0, total_steps=10),
+                     device="cuda")
+        state = tr.init_state(params, 1)
+        lgen = torch.Generator(device="cuda").manual_seed(9)
+        lora = {"layers": {t: {"a": ab["a"], "b": torch.randn(
+            ab["b"].shape, generator=lgen, device="cuda") * 0.01}
+            for t, ab in state.lora["layers"].items()}}
+        state = dataclasses.replace(state, lora=lora,
+                                    opt_state=tr.optimizer.init(lora))
+        dev = tr.put_batch(batch)
+        leaves = [ab[x].requires_grad_() for ab in lora["layers"].values()
+                  for x in ("a", "b")]
+        s, n = tr._forward_loss(params, lora, dev, None, train=False)
+        grads = torch.autograd.grad(s / n, leaves)
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+        _, m = tr.train_step(state, batch)
+        results[impl] = (float(m["loss"]), float(m["grad_norm"]),
+                         torch.cat([g.flatten().float() for g in grads]))
+    (lf, nf, gf), (lx, nx, gx) = results["flash"], results["xla"]
+    rel_g = float((gf - gx).norm() / gx.norm())
+    log(f"  loss flash {lf:.6f} vs xla {lx:.6f}; grad_norm {nf:.6f} vs "
+        f"{nx:.6f}; LoRA grads relative error {rel_g:.3e}")
+    if abs(lf - lx) > 1e-2 * abs(lx):
+        fail(f"train parity: loss {lf} (flash) vs {lx} (xla)")
+    if rel_g > 3e-2 or abs(nf - nx) > 3e-2 * nx:
+        fail(f"train parity: LoRA grads differ by {rel_g:.3e} relative "
+             f"(grad_norm {nf} vs {nx})")
+
+
 # ------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", default="all", choices=["all", "kernels"])
+    ap.add_argument("--phase", default="all",
+                    choices=["all", "kernels", "train"])
     opts = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "datatunerx_tpu_torch", "csrc")):
         fail("datatunerx_tpu_torch/ is missing: run from a repository "
@@ -531,17 +934,40 @@ def main(argv=None) -> int:
             f" ({e['tolerance']}); kernel {e['ms']:.4f} ms, plain "
             f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, bound "
             f"{e['bound_ms']:.5f} ms ({e['bound_by']})")
-    counters = [e["counter"] for e in entries]
+    for e in check_flash(torch, timer, gen):
+        entries.append(e)
+        log(f"  {e['name']} [{e['shape']}]: max abs err {e['max_abs_err']:.3g}"
+            f" ({e['tolerance']}); kernel {e['ms']:.4f} ms, plain "
+            f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, bound "
+            f"{e['bound_ms']:.5f} ms ({e['bound_by']})")
+    del timer
+    torch.cuda.empty_cache()
+    serve_counters = [e["counter"] for e in entries[:3]]
 
-    launches = {c.__name__: 0 for c in counters}
+    launches = {e["counter"].__name__: 0 for e in entries}
     if opts.phase == "all":
         log("[3] serve preset:tinyllama-1.1b (4 concurrent /chat/completions)")
-        eng, launches, _ = serve_phase(torch, counters)
+        eng, served, _ = serve_phase(torch, serve_counters)
+        launches.update(served)
         log("[4] greedy parity: kernels vs gather path + legacy sampler")
         try:
             parity_phase(torch, eng)
         finally:
             eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    if opts.phase in ("all", "train"):
+        import tempfile
+
+        log("[5] train preset:tinyllama-1.1b: LoRA SFT through the trainer "
+            "CLI (flash, remat dots, bf16, packed 8x1024)")
+        with tempfile.TemporaryDirectory(prefix="dtx-smoke-") as tmp:
+            trained, _ = train_phase(torch, tmp)
+        launches.update(trained)
+        torch.cuda.empty_cache()
+        log("[6] train parity: one step with the flash kernels vs plain "
+            "attention (tinyllama width, 4 layers)")
+        train_parity_phase(torch)
 
     line = []
     for e in entries:

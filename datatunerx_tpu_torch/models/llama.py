@@ -14,26 +14,44 @@ remapping (``models/convert.params_from_jax``):
 A Python loop over layers replaces the reference's ``lax.scan``. The paged
 cache is updated IN PLACE (the JAX forward returns new pools): the pos pool
 and each layer's K/V pools are written with ``index_put_``, and the returned
-cache dict shares those tensors. This slice carries the base-weight path of
-``_proj``; LoRA, quantized weights, dropout and NEFTune come with the
-training slices.
+cache dict shares those tensors.
+
+Training (no cache): ``lora=(lora_params, scaling)`` adds ``(drop(h) A) B *
+scaling`` inside each targeted projection; ``segment_ids`` confine packed
+sequences; ``cfg.attention_impl == "flash"`` routes attention through the
+K1-K3 kernels (``ops/flash_attention.py``) under the reference's condition;
+``cfg.remat`` wraps each layer in ``torch.utils.checkpoint`` (``full``) or a
+selective checkpoint that saves only the 2-D projection matmuls (``dots``,
+the counterpart of ``checkpoint_dots_with_no_batch_dims``: the flash
+forward is recomputed in the backward pass, as the Pallas call is).
+LoRA dropout and NEFTune noise draw from ``torch.Generator``s seeded by
+(``dropout_seed``, layer, projection), so a checkpoint's recompute draws
+the same masks; the bits differ from jax.random's. Quantized base weights
+are not ported yet (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from datatunerx_tpu_torch.models.config import ModelConfig
 from datatunerx_tpu_torch.ops.attention import (
+    attention,
     attention_allow,
     cache_positions_update,
     kv_cache_update,
     kv_cache_width,
     kv_cache_write_paged,
     make_causal_bias,
-    xla_attention,
 )
 from datatunerx_tpu_torch.ops.cuda_paged_attention import (
     paged_attention_decode_step,
@@ -100,11 +118,43 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     return params
 
 
-def _proj(h: torch.Tensor, p: dict) -> torch.Tensor:
-    """Dense projection: ``h W (+ b)`` in h's dtype."""
+def mix_seed(*parts: int) -> int:
+    """A 63-bit generator seed from integers (splitmix64 steps): distinct
+    (seed, step, layer, projection) tuples give unrelated streams."""
+    x = 0
+    for part in parts:
+        x = (x ^ (int(part) & 0xFFFFFFFFFFFFFFFF)) + 0x9E3779B97F4A7C15
+        x &= 0xFFFFFFFFFFFFFFFF
+        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+        x ^= x >> 31
+    return x >> 1
+
+
+def _uniform(shape, seed: int, device) -> torch.Tensor:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+
+
+def _proj(h: torch.Tensor, p: dict, lora_p: Optional[dict] = None,
+          lora_scale: float = 0.0, drop_seed: Optional[int] = None,
+          drop_rate: float = 0.0) -> torch.Tensor:
+    """Dense projection with optional LoRA delta: ``h W (+ b) +
+    (drop(h) A) B * scale`` in h's dtype. Dropout applies to the adapter
+    branch input only (peft's ``lora_dropout``): kept lanes scale by
+    1/(1-p)."""
     out = h @ p["kernel"].to(h.dtype)
     if "bias" in p:
         out = out + p["bias"].to(h.dtype)
+    if lora_p is not None:
+        a = lora_p["a"].to(h.dtype)
+        b = lora_p["b"].to(h.dtype)
+        hl = h
+        if drop_seed is not None and drop_rate > 0.0:
+            keep = _uniform(h.shape, drop_seed, h.device) < 1.0 - drop_rate
+            hl = torch.where(keep, h / (1.0 - drop_rate),
+                             torch.zeros_like(h)).to(h.dtype)
+        out = out + ((hl @ a) @ b) * lora_scale
     return out
 
 
@@ -118,10 +168,27 @@ def lm_logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     return logits.to(torch.float32)
 
 
-def _layer(params: Params, i: int) -> dict:
-    """Layer i's leaves, peeled off the stacked [L, ...] tree."""
+def _layer(layers: dict, i: int) -> dict:
+    """Layer i's leaves, peeled off a stacked [L, ...] tree."""
     return {name: {leaf: t[i] for leaf, t in sub.items()}
-            for name, sub in params["layers"].items()}
+            for name, sub in layers.items()}
+
+
+_SAVED_BY_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the 2-D projection matmuls, recompute everything else."""
+    if op in _SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_CONTEXT = {
+    "full": None,
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              _dots_policy),
+}
 
 
 def forward(
@@ -131,8 +198,13 @@ def forward(
     *,
     positions: Optional[torch.Tensor] = None,  # [B, T]
     attention_mask: Optional[torch.Tensor] = None,  # [B, T] 1=valid, 0=pad
+    segment_ids: Optional[torch.Tensor] = None,  # [B, T] packed sequences
     cache: Optional[dict] = None,
+    lora: Optional[tuple] = None,  # (lora_params, scaling)
     compute_dtype=None,
+    lora_dropout: float = 0.0,
+    dropout_seed: Optional[int] = None,
+    neftune_alpha: float = 0.0,
 ):
     """Returns (logits [B, T, V] float32, new_cache | None).
 
@@ -140,12 +212,22 @@ def forward(
     ``cfg.paged_kernel``, single-token steps take the paged decode kernel
     (K7) and multi-token steps the multi-token kernel (K8) with the
     ``attention_allow`` mask operand; with ``paged_kernel`` False they take
-    the biased gather path (the kernels' oracle). Without a cache, plain
-    causal attention."""
+    the biased gather path (the kernels' oracle). Without a cache,
+    ``attention_impl="flash"`` takes the flash kernels when ``T % 128 == 0
+    or T < 128`` (the reference's ``_flash_ok``), else the biased path.
+    ``dropout_seed`` (training only) turns on LoRA dropout and NEFTune."""
     if cfg.sliding_window is not None:
         raise NotImplementedError(
             "sliding-window attention is not ported yet (ROADMAP Queue 1, "
             "forward pass)")
+    if cfg.quantization is not None:
+        raise NotImplementedError(
+            "quantized base weights are not ported yet (ROADMAP Queue 1 "
+            "item 9, QLoRA)")
+    if cfg.attention_impl == "ring":
+        raise NotImplementedError(
+            "ring attention is not ported yet (ROADMAP Queue 1 item 10, "
+            "multi-GPU)")
     B, T = tokens.shape
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32,
@@ -154,6 +236,13 @@ def forward(
     x = params["embed_tokens"]["embedding"][tokens.long()]
     if compute_dtype is not None:
         x = x.to(compute_dtype)
+    if neftune_alpha > 0.0 and dropout_seed is not None:
+        # NEFTune (reference cmd/tuning/parser.py:190-193): uniform noise on
+        # the embedding output, magnitude alpha / sqrt(T * D), training only
+        mag = neftune_alpha / math.sqrt(T * x.shape[-1])
+        noise = _uniform(x.shape, mix_seed(dropout_seed, 0x4EF),
+                         x.device) * 2.0 - 1.0
+        x = x + (noise * mag).to(x.dtype)
 
     seq_len = T if cache is None else kv_cache_width(cache)
     cos, sin = rope_cos_sin(
@@ -173,6 +262,7 @@ def forward(
         kv_positions = positions
         kv_valid = (attention_mask.to(torch.bool)
                     if attention_mask is not None else None)
+        kv_seg = segment_ids
         cache_pos = None
     else:
         # record each new token's rope position in the pos pool (in place);
@@ -184,19 +274,42 @@ def forward(
             cache, positions, attention_mask, gather=not paged_kernel,
             targets=targets)
         kv_valid = None
+        kv_seg = None
+    # flash handles causal + packed segments in-kernel and skips the
+    # [B, T, S] bias entirely; cache decode keeps the biased path
+    flash = (cfg.attention_impl == "flash" and cache is None
+             and (T % 128 == 0 or T < 128))
     bias = allow = None
     if paged_kernel_mt:
         allow = attention_allow(positions, kv_positions, kv_valid)
-    elif not paged_kernel:
-        bias = make_causal_bias(positions, kv_positions, kv_valid)
+    elif not paged_kernel and not flash:
+        bias = make_causal_bias(positions, kv_positions, kv_valid,
+                                q_segment_ids=segment_ids,
+                                kv_segment_ids=kv_seg)
+
+    lora_layers, lora_scale = None, 0.0
+    if lora is not None:
+        lora_params, lora_scale = lora
+        lora_layers = lora_params.get("layers", lora_params)
+    drop = lora_dropout if (dropout_seed is not None
+                            and lora is not None) else 0.0
 
     H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    for i in range(cfg.num_layers):
-        lp = _layer(params, i)
+
+    def layer(x, i):
+        lp = _layer(params["layers"], i)
+        ll = _layer(lora_layers, i) if lora_layers else {}
+        seeds = ([mix_seed(dropout_seed, i, j) for j in range(7)]
+                 if drop > 0.0 else [None] * 7)
+
+        def proj(h, name, j):
+            return _proj(h, lp[name], ll.get(name), lora_scale, seeds[j],
+                         drop)
+
         h = rms_norm(x, lp["input_layernorm"]["scale"], cfg.rms_norm_eps)
-        q = _proj(h, lp["q_proj"]).reshape(B, T, H, d)
-        k = _proj(h, lp["k_proj"]).reshape(B, T, KV, d)
-        v = _proj(h, lp["v_proj"]).reshape(B, T, KV, d)
+        q = proj(h, "q_proj", 0).reshape(B, T, H, d)
+        k = proj(h, "k_proj", 1).reshape(B, T, KV, d)
+        v = proj(h, "v_proj", 2).reshape(B, T, KV, d)
         q = apply_rope_tables(q, rope_cc, rope_ss)
         k = apply_rope_tables(k, rope_cc, rope_ss)
 
@@ -216,15 +329,27 @@ def forward(
                                                      targets)
             else:
                 k_att, v_att = k, v
-            attn = xla_attention(q, k_att, v_att, bias)
-        x = x + _proj(attn.reshape(B, T, cfg.q_dim), lp["o_proj"])
+            attn = attention(q, k_att, v_att, bias,
+                             impl="flash" if flash else "xla",
+                             segment_ids=segment_ids if flash else None)
+        x = x + proj(attn.reshape(B, T, cfg.q_dim), "o_proj", 3)
 
         h = rms_norm(x, lp["post_attention_layernorm"]["scale"],
                      cfg.rms_norm_eps)
-        gate = _proj(h, lp["gate_proj"])
-        up = _proj(h, lp["up_proj"])
+        gate = proj(h, "gate_proj", 4)
+        up = proj(h, "up_proj", 5)
         # silu as the reference spells it (x * sigmoid(x), rounded per op)
-        x = x + _proj(gate * torch.sigmoid(gate) * up, lp["down_proj"])
+        return x + proj(gate * torch.sigmoid(gate) * up, "down_proj", 6)
+
+    remat = (cache is None and torch.is_grad_enabled()
+             and cfg.remat in _REMAT_CONTEXT)
+    for i in range(cfg.num_layers):
+        if remat:
+            context = _REMAT_CONTEXT[cfg.remat]
+            extra = {} if context is None else {"context_fn": context}
+            x = checkpoint(layer, x, i, use_reentrant=False, **extra)
+        else:
+            x = layer(x, i)
 
     x = rms_norm(x, params["norm"]["scale"], cfg.rms_norm_eps)
     logits = lm_logits(params, x, cfg)

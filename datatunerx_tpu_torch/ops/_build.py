@@ -146,6 +146,21 @@ def _declare(lib: ctypes.CDLL):
         # B, T, H, KV, d, bs, nbps, tq, scale, stream
         fn.argtypes = [_P] * 6 + [_I] * 8 + [_F, _P]
         fn.restype = _I
+        # q, k, v, qseg, kseg, out, lse, B, T, S, H, KV, d, causal, scale,
+        # stream
+        fn = getattr(lib, f"dtx_flash_fwd_{dt}")
+        fn.argtypes = [_P] * 7 + [_I] * 7 + [_F, _P]
+        fn.restype = _I
+        # q, k, v, dO, lse, D, qseg, kseg, dq, B, T, S, H, KV, d, causal,
+        # scale, stream
+        fn = getattr(lib, f"dtx_flash_bwd_dq_{dt}")
+        fn.argtypes = [_P] * 9 + [_I] * 7 + [_F, _P]
+        fn.restype = _I
+        # q, k, v, dO, lse, D, qseg, kseg, dk, dv, B, T, S, H, KV, d,
+        # causal, scale, stream
+        fn = getattr(lib, f"dtx_flash_bwd_dkv_{dt}")
+        fn.argtypes = [_P] * 10 + [_I] * 7 + [_F, _P]
+        fn.restype = _I
     fn = lib.dtx_fused_sample
     # x, temps, us, out, S, Vp, greedy, stream
     fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]

@@ -35,13 +35,19 @@ def attention_allow(
     q_positions: torch.Tensor,  # [B, T] absolute positions of queries
     kv_positions: torch.Tensor,  # [B, S] absolute positions of keys
     kv_valid: Optional[torch.Tensor] = None,  # [B, S] bool — False for padding
+    *,
+    q_segment_ids: Optional[torch.Tensor] = None,  # [B, T] packed sequences
+    kv_segment_ids: Optional[torch.Tensor] = None,  # [B, S]
 ) -> torch.Tensor:
     """The boolean attendability tensor [B, T, S] behind the causal bias.
     The paged multi-token kernel consumes this same tensor the gather path
-    biases with, so mask parity between the two holds by construction."""
+    biases with, so mask parity between the two holds by construction.
+    Segment ids confine packed sequences to themselves."""
     ok = kv_positions[:, None, :] <= q_positions[:, :, None]  # causal
     if kv_valid is not None:
         ok = ok & kv_valid[:, None, :]
+    if q_segment_ids is not None and kv_segment_ids is not None:
+        ok = ok & (q_segment_ids[:, :, None] == kv_segment_ids[:, None, :])
     return ok
 
 
@@ -49,10 +55,15 @@ def make_causal_bias(
     q_positions: torch.Tensor,
     kv_positions: torch.Tensor,
     kv_valid: Optional[torch.Tensor] = None,
+    *,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
     dtype=torch.float32,
 ) -> torch.Tensor:
     """Additive bias [B, 1, T, S]: 0 where attendable, finfo.min otherwise."""
-    ok = attention_allow(q_positions, kv_positions, kv_valid)
+    ok = attention_allow(q_positions, kv_positions, kv_valid,
+                         q_segment_ids=q_segment_ids,
+                         kv_segment_ids=kv_segment_ids)
     neg = torch.tensor(torch.finfo(dtype).min, dtype=dtype, device=ok.device)
     zero = torch.zeros((), dtype=dtype, device=ok.device)
     return torch.where(ok, zero, neg)[:, None, :, :]
@@ -75,6 +86,25 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = probs.to(v.dtype).to(torch.float32)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v.to(torch.float32))
     return out.to(v.dtype).reshape(B, T, H, d)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor], *, impl: str = "xla",
+              segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dispatch on ``cfg.attention_impl``: ``xla`` is the biased reference
+    path, ``flash`` the K1-K3 kernels (causal and segments in-kernel, the
+    bias unused). Ring attention needs a mesh (ROADMAP Queue 1 item 10)."""
+    if impl == "xla":
+        return xla_attention(q, k, v, bias)
+    if impl == "flash":
+        from datatunerx_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, bias, segment_ids=segment_ids)
+    if impl == "ring":
+        raise NotImplementedError(
+            "ring attention is not ported yet (ROADMAP Queue 1 item 10, "
+            "multi-GPU)")
+    raise ValueError(f"unknown attention impl {impl!r}")
 
 
 def kv_cache_width(cache: dict) -> int:

@@ -1,0 +1,148 @@
+"""Checkpointing: periodic saves, resume, the completion manifest and the
+merged export (the port of ``datatunerx_tpu/training/checkpoint.py``).
+
+- ``CheckpointManager`` saves the train state with ``torch.save`` under
+  ``<directory>/<step>/state.pt`` (written to a temporary directory and
+  renamed, so a reader never sees half a checkpoint), keeps the newest
+  ``max_to_keep``, and restores the newest (or a given) step. It holds what
+  a resume needs: the step, the trainable tree (the adapters for LoRA — the
+  frozen base is reloaded from the model source — else the params), the
+  optimizer state and the run seed the dropout streams derive from. Orbax
+  checkpoints of the JAX package are not read; the packages cross-load
+  through the export below.
+- ``write_manifest``/``read_manifest``: ``<storage_path>/<run>/manifest.json``
+  plus the legacy ``checkpoint_path`` file, the reference's keys and paths.
+- ``export_merged_model``: the LoRA-merged weights as an HF-layout
+  ``model.npz`` plus ``config.json``, which both packages load.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from datatunerx_tpu_torch.utils import storage
+
+MANIFEST_NAME = "manifest.json"
+LEGACY_PATH_FILE = "checkpoint_path"  # the reference's path-file contract
+STATE_FILE = "state.pt"
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, save_interval_steps: int = 0,
+                 max_to_keep: int = 3):
+        storage.makedirs(directory)
+        self.directory = os.path.abspath(directory)
+        self.save_interval_steps = save_interval_steps
+        self.max_to_keep = max_to_keep
+
+    def maybe_save(self, state, step: int, force: bool = False) -> bool:
+        due = force or (self.save_interval_steps > 0 and step > 0
+                        and step % self.save_interval_steps == 0)
+        if not due:
+            return False
+        payload = {"step": state.step, "seed": state.seed,
+                   "opt_state": state.opt_state}
+        if state.lora is not None:
+            payload["lora"] = state.lora
+        else:
+            payload["params"] = state.params
+        final = os.path.join(self.directory, str(step))
+        tmp = os.path.join(self.directory, f".{step}.tmp-{os.getpid()}")
+        os.makedirs(tmp, exist_ok=True)
+        torch.save(payload, os.path.join(tmp, STATE_FILE))
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        if self.max_to_keep:
+            for old in self.all_steps()[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self.directory, str(old)))
+        return True
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def all_steps(self) -> list:
+        """Every saved step, ascending."""
+        return sorted(int(n) for n in os.listdir(self.directory)
+                      if n.isdigit() and os.path.exists(
+                          os.path.join(self.directory, n, STATE_FILE)))
+
+    def restore(self, state_template, step: Optional[int] = None):
+        """(state, step) with the saved tensors on the template's device;
+        the frozen base params of a LoRA run come from the template."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None, None
+        leaf = (state_template.lora if state_template.lora is not None
+                else state_template.params)
+        device = next(iter(_leaves(leaf))).device
+        saved = torch.load(os.path.join(self.directory, str(step), STATE_FILE),
+                           map_location=device, weights_only=True)
+        return dataclasses.replace(
+            state_template, step=saved["step"], seed=saved["seed"],
+            opt_state=saved["opt_state"],
+            lora=saved.get("lora", state_template.lora),
+            params=saved.get("params", state_template.params)), step
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def write_manifest(storage_path: str, run_name: str, checkpoint_uri: str,
+                   metrics: Optional[dict] = None,
+                   extra: Optional[dict] = None) -> str:
+    """The completion manifest at ``<storage_path>/<run_name>/manifest.json``
+    and the legacy path file."""
+    run_dir = storage.join(storage_path, run_name)
+    storage.makedirs(run_dir)
+    manifest = {
+        "run": run_name,
+        "checkpoint": checkpoint_uri,
+        "finished_at": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+        "metrics": metrics or {},
+    }
+    if extra:
+        manifest.update(extra)
+    path = storage.join(run_dir, MANIFEST_NAME)
+    storage.write_text(path, json.dumps(manifest, indent=1, sort_keys=True))
+    storage.write_text(storage.join(run_dir, LEGACY_PATH_FILE), checkpoint_uri)
+    return path
+
+
+def read_manifest(storage_path: str, run_name: str) -> Optional[dict]:
+    path = storage.join(storage_path, run_name, MANIFEST_NAME)
+    if not storage.exists(path):
+        return None
+    return json.loads(storage.read_text(path))
+
+
+def export_merged_model(params, cfg, export_dir: str, lora=None,
+                        scaling: float = 1.0) -> str:
+    """Export (optionally LoRA-merged) weights as an HF-layout ``model.npz``
+    (float32) plus ``config.json``."""
+    from datatunerx_tpu_torch.models.lora import merge_lora
+    from datatunerx_tpu_torch.utils.hf_convert import export_hf_state_dict
+
+    if lora is not None:
+        params = merge_lora(params, lora, scaling)
+    os.makedirs(export_dir, exist_ok=True)
+    sd = export_hf_state_dict(params, cfg)
+    out = os.path.join(export_dir, "model.npz")
+    np.savez(out, **sd)
+    with open(os.path.join(export_dir, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=1, default=str)
+    return out

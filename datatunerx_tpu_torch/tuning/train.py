@@ -1,0 +1,323 @@
+"""Trainer entry point: ``python -m datatunerx_tpu_torch.tuning.train
+--model_name_or_path … --train_path … --storage_path …`` (the port of
+``datatunerx_tpu/tuning/train.py``, SFT and pt stages on one device).
+
+  parse → load model + tokenizer → template/encode/pack → Trainer →
+  (resume?) → epoch loop [train_step, log, eval, save] → final eval →
+  final checkpoint → completion manifest → merged export
+
+Runs on CUDA unless ``--device cpu``; without a GPU it raises. What this
+slice leaves out is refused up front with the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import sys
+
+import torch
+
+from datatunerx_tpu_torch.data.loader import BatchIterator, CsvDataset
+from datatunerx_tpu_torch.data.prefetch import (
+    HostPrefetcher,
+    MetricsBuffer,
+    PipelineStats,
+    prefetch_batches,
+)
+from datatunerx_tpu_torch.data.preprocess import preprocess_pretrain_records
+from datatunerx_tpu_torch.data.templates import get_template
+from datatunerx_tpu_torch.training.checkpoint import (
+    CheckpointManager,
+    export_merged_model,
+    write_manifest,
+)
+from datatunerx_tpu_torch.training.metrics_log import MetricsLogger
+from datatunerx_tpu_torch.training.train_lib import (
+    TrainConfig,
+    Trainer,
+    resolve_device,
+)
+from datatunerx_tpu_torch.tuning.parser import TrainArgs, parse_train_args
+from datatunerx_tpu_torch.utils import storage
+from datatunerx_tpu_torch.utils.model_loader import load_model_and_tokenizer
+
+
+def refuse_unported(args: TrainArgs):
+    """Raise for what this slice does not carry, naming its ROADMAP item."""
+    refusals = [
+        (args.stage in ("dpo", "rm"),
+         f"--stage {args.stage} (ROADMAP Queue 1 item 8: DPO/RM)"),
+        (args.stage == "ppo", "--stage ppo (ROADMAP Queue 1 item 11)"),
+        (args.streaming,
+         "--streaming (ROADMAP Queue 1 item 8: streaming ingest)"),
+        (bool(args.quantization),
+         "--quantization (ROADMAP Queue 1 item 9: QLoRA)"),
+        (args.attention == "ring",
+         "--attention ring (ROADMAP Queue 1 item 10: multi-GPU)"),
+        (args.num_workers > 1 or any(
+            int(v) > 1 for v in (args.mesh_dims or {}).values()),
+         "a mesh or worker count above 1 (ROADMAP Queue 1 item 10: "
+         "multi-GPU)"),
+        (bool(args.metrics_export_address),
+         "--metrics_export_address (ROADMAP Queue 1 item 12)"),
+        (args.predict_with_generate,
+         "--predict_with_generate (ROADMAP Queue 1 item 8: generative "
+         "eval)"),
+    ]
+    for path in (args.train_path, args.evaluation_path, args.storage_path,
+                 args.export_dir, args.output_dir):
+        refusals.append((path is not None and storage.is_uri(path),
+                         f"object-store URI {path!r} (ROADMAP Queue 1 item "
+                         "11)"))
+    for bad, what in refusals:
+        if bad:
+            raise NotImplementedError(f"not ported yet: {what}")
+
+
+def run(args: TrainArgs) -> dict:
+    refuse_unported(args)
+    device = resolve_device(args.device)
+
+    # ----- model -------------------------------------------------------
+    overrides = dict(remat=args.remat, attention_impl=args.attention)
+    if args.rope_scaling:
+        overrides.update(rope_scaling_type=args.rope_scaling,
+                         rope_scaling_factor=args.rope_scaling_factor)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    cfg, params, tokenizer = load_model_and_tokenizer(
+        args.model_name_or_path, dtype=dtype, seed=args.seed, device=device,
+        config_overrides=overrides)
+
+    # export-only invocation: --export_dir with no --train_path
+    if args.train_path is None:
+        export_merged_model(params, cfg, args.export_dir)
+        return {"steps": 0, "metrics": {}, "manifest": None,
+                "checkpoint_dir": None, "export_dir": args.export_dir}
+
+    # ----- data --------------------------------------------------------
+    template = get_template(args.template, tokenizer)
+    pad_id = tokenizer.pad_token_id or 0
+
+    def encode(path):
+        ds = CsvDataset(path, columns=args.columns_map)
+        if args.stage == "pt":
+            return preprocess_pretrain_records(
+                ds.records, tokenizer, cutoff_len=args.block_size,
+                columns=args.columns_map)
+        return ds.encode(template, tokenizer, cutoff_len=args.block_size)
+
+    train_examples = encode(args.train_path)
+    if not train_examples:
+        raise RuntimeError("Empty dataset!")
+    eval_examples = encode(args.evaluation_path) if args.evaluation_path \
+        else None
+
+    grad_accum = args.gradient_accumulation_steps
+    global_batch = args.per_device_train_batch_size * grad_accum
+    it = BatchIterator(
+        train_examples, global_batch=global_batch, block_size=args.block_size,
+        pad_id=pad_id, grad_accum=grad_accum, seed=args.seed,
+        pack=args.pack_sequences)
+    steps_per_epoch = it.steps_per_epoch()
+    if steps_per_epoch == 0:
+        raise RuntimeError(
+            f"dataset ({len(train_examples)} examples) smaller than one "
+            f"global batch ({global_batch})")
+    total_steps = (args.max_steps if args.max_steps > 0
+                   else int(math.ceil(steps_per_epoch * args.num_train_epochs)))
+
+    # ----- trainer -----------------------------------------------------
+    tcfg = TrainConfig(
+        finetuning_type=args.finetuning_type,
+        lora_rank=args.lora_rank,
+        lora_alpha=args.lora_alpha,
+        lora_dropout=args.lora_dropout,
+        lora_targets=args.lora_targets,
+        num_layer_trainable=args.num_layer_trainable,
+        name_module_trainable=args.name_module_trainable,
+        learning_rate=args.learning_rate,
+        scheduler=args.lr_scheduler_type,
+        optimizer=args.optim,
+        warmup_ratio=args.warmup_ratio,
+        weight_decay=args.weight_decay,
+        max_grad_norm=args.max_grad_norm,
+        total_steps=total_steps,
+        grad_accum=grad_accum,
+        neftune_alpha=args.neft_alpha,
+        compute_dtype=torch.bfloat16 if args.bf16 else None,
+    )
+    trainer = Trainer(cfg, tcfg, device=device)
+    state = trainer.init_state(params, args.seed)
+
+    run_name = args.uid or os.path.basename(args.output_dir.rstrip("/")) \
+        or "run"
+    ckpt_dir = storage.join(args.storage_path, run_name, "checkpoints")
+    ckpt = CheckpointManager(ckpt_dir, save_interval_steps=args.save_steps)
+    start_step = 0
+    if args.resume and ckpt.latest_step() is not None:
+        state, start_step = ckpt.restore(state)
+        print(f"[resume] restored step {start_step} from {ckpt_dir}",
+              flush=True)
+
+    logger = MetricsLogger(args.output_dir, total_steps)
+
+    # ----- loop --------------------------------------------------------
+    # profiling: a torch.profiler window over steps [start+1, start+1+N);
+    # the chrome trace lands in <output_dir>/trace and in the manifest
+    trace_dir = os.path.join(args.output_dir, "trace")
+    prof = None
+    prof_until = None
+    profiled = False
+    pipelined = args.prefetch_depth > 0
+    pipe_stats = PipelineStats() if pipelined else None
+    # step outputs stay on the device and resolve one logging interval
+    # late, so a logging boundary never drains the stream
+    mbuf = MetricsBuffer(lag=1)
+    final_metrics: dict = {}
+
+    def log_resolved(resolved):
+        for s_done, host in resolved:
+            logger.log_train(s_done, host)
+            final_metrics.clear()
+            final_metrics.update(host)
+
+    step = 0  # counts up through start_step (skipping those batches)
+    done = False
+    try:
+        for epoch in range(int(math.ceil(total_steps / steps_per_epoch))):
+            if done:
+                break
+            src = it.epoch(epoch)
+            # resumed: fast-forward on host batches before the pipeline
+            # starts, so skipped batches never reach the device
+            exhausted = False
+            while step < start_step and step < total_steps:
+                if next(src, None) is None:
+                    exhausted = True
+                    break
+                step += 1
+            if step >= total_steps:
+                break
+            host_pf: HostPrefetcher | None = None
+            if exhausted:
+                batches = iter(())
+            elif pipelined:
+                batches, host_pf = prefetch_batches(
+                    src, device=device, depth=args.prefetch_depth,
+                    stats=pipe_stats)
+            else:
+                batches = src
+            try:
+                for batch in batches:
+                    if step >= total_steps:
+                        done = True
+                        break
+                    if (prof is None and not profiled
+                            and args.profile_steps > 0
+                            and step >= start_step + 1):
+                        prof = _start_profiler(device)
+                        prof_until = step + args.profile_steps
+                    state, metrics = trainer.train_step(state, batch)
+                    step += 1
+                    if prof is not None and step >= prof_until:
+                        _stop_profiler(prof, device, trace_dir)
+                        prof, profiled = None, True
+                    if step % args.logging_steps == 0 or step == total_steps:
+                        extra = {"epoch": round(step / steps_per_epoch, 3)}
+                        if pipe_stats is not None:
+                            extra.update(pipe_stats.snapshot())
+                        mbuf.push(step, metrics, extra)
+                        log_resolved(mbuf.pop_ready())
+                    if args.save_steps > 0:
+                        ckpt.maybe_save(state, step)
+                    if (eval_examples and args.eval_steps > 0
+                            and step % args.eval_steps == 0):
+                        _run_eval(trainer, state, eval_examples, args,
+                                  pad_id, logger, step)
+            finally:
+                if host_pf is not None:
+                    host_pf.close()
+            if (eval_examples and args.eval_steps == 0 and not done
+                    and step < total_steps):
+                _run_eval(trainer, state, eval_examples, args, pad_id,
+                          logger, step)
+    finally:
+        # also on a crash: resolve buffered records rather than drop them
+        log_resolved(mbuf.drain())
+    if prof is not None:  # the window reached past the last step
+        _stop_profiler(prof, device, trace_dir)
+        profiled = True
+
+    # ----- final eval / save / manifest / export -------------------------
+    if eval_examples:
+        final_metrics.update(_run_eval(trainer, state, eval_examples, args,
+                                       pad_id, logger, step))
+    ckpt.maybe_save(state, step, force=True)
+    lora_run = tcfg.finetuning_type == "lora"
+    manifest_path = write_manifest(
+        args.storage_path, run_name, storage.join(ckpt_dir, str(step)),
+        metrics=final_metrics,
+        extra={
+            "model": args.model_name_or_path,
+            "finetuning_type": args.finetuning_type,
+            # serving merges the adapter with THIS scaling (alpha/rank)
+            "lora_scaling": trainer.scaling if lora_run else None,
+            "lora_alpha": args.lora_alpha if lora_run else None,
+            "lora_rank": args.lora_rank if lora_run else None,
+            "lora_targets": list(args.lora_targets) if lora_run else None,
+            "stage": args.stage,
+            "optimizer": args.optim,
+            "reward_model": args.reward_model,
+            "template": args.template,
+            "mesh": {"dp": 1, "fsdp": 1, "tp": 1, "sp": 1},
+            "steps": step,
+            "trace": trace_dir if profiled else None,
+        },
+    )
+    if args.export_dir:
+        export_merged_model(state.params, cfg, args.export_dir,
+                            lora=state.lora if lora_run else None,
+                            scaling=trainer.scaling)
+    return {"steps": step, "metrics": final_metrics,
+            "manifest": manifest_path, "checkpoint_dir": ckpt_dir}
+
+
+def _start_profiler(device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.__enter__()
+    return prof
+
+
+def _stop_profiler(prof, device, trace_dir: str):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # the window holds finished steps
+    prof.__exit__(None, None, None)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    print(f"[profile] trace captured to {trace_dir}", flush=True)
+
+
+def _run_eval(trainer, state, eval_examples, args, pad_id, logger, step):
+    eval_it = BatchIterator(
+        eval_examples, global_batch=args.per_device_eval_batch_size,
+        block_size=args.block_size, pad_id=pad_id, shuffle=False,
+        drop_remainder=False)  # pad the tail: every eval example counts
+    m = trainer.evaluate(state, eval_it.epoch(0))
+    logger.log_eval(step, m)
+    return m
+
+
+def main(argv=None):
+    args = parse_train_args(argv)
+    result = run(args)
+    print(f"[done] {result['steps']} steps; manifest: {result['manifest']}",
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -72,3 +72,33 @@ def convert_hf_state_dict(
     if "lm_head.weight" in sd and not cfg.tie_word_embeddings:
         params["lm_head"] = {"kernel": _np(sd["lm_head.weight"]).T.astype(dtype)}
     return params
+
+
+def _host(x) -> np.ndarray:
+    """A tensor (any device/dtype) or array → a float32 numpy array."""
+    if hasattr(x, "detach"):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def export_hf_state_dict(params, cfg: ModelConfig) -> dict:
+    """Inverse of convert_hf_state_dict (float32 numpy arrays, HF key
+    names; a copy of the reference's ``export_hf_state_dict``)."""
+    out = {"model.embed_tokens.weight": _host(params["embed_tokens"]["embedding"])}
+    layers = params["layers"]
+    for hf_name, our_name in _LAYER_KERNELS:
+        kern = _host(layers[our_name]["kernel"])
+        for i in range(cfg.num_layers):
+            out[f"model.layers.{i}.{hf_name}.weight"] = kern[i].T
+        if "bias" in layers[our_name]:
+            bias = _host(layers[our_name]["bias"])
+            for i in range(cfg.num_layers):
+                out[f"model.layers.{i}.{hf_name}.bias"] = bias[i]
+    for hf_name, our_name in _LAYER_NORMS:
+        scale = _host(layers[our_name]["scale"])
+        for i in range(cfg.num_layers):
+            out[f"model.layers.{i}.{hf_name}.weight"] = scale[i]
+    out["model.norm.weight"] = _host(params["norm"]["scale"])
+    if "lm_head" in params:
+        out["lm_head.weight"] = _host(params["lm_head"]["kernel"]).T
+    return out

@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,9 +35,13 @@ def load_model_and_tokenizer(
     dtype=torch.float32,
     seed: int = 0,
     device="cpu",
+    config_overrides: Optional[dict] = None,
 ) -> Tuple[ModelConfig, dict, object]:
+    """``config_overrides`` replaces ModelConfig fields (remat, attention
+    implementation, rope scaling), as the trainer CLI passes them."""
+    overrides = config_overrides or {}
     if path_or_preset.startswith("preset:"):
-        cfg = get_config(path_or_preset.split(":", 1)[1])
+        cfg = get_config(path_or_preset.split(":", 1)[1], **overrides)
         tok = SimpleTokenizer()
         # byte-level tokenizer needs vocab >= 3000+specials
         if cfg.vocab_size < 3100:
@@ -60,6 +64,7 @@ def load_model_and_tokenizer(
               "quantization"):
         if raw.get(k) in ("None", ""):
             raw[k] = None
+    raw.update(overrides)
     cfg = ModelConfig(**raw)
     with np.load(npz) as data:
         sd = dict(data)

@@ -1,0 +1,139 @@
+"""The port's flash attention (K1 forward, K2/K3 backward through the
+autograd Function) against ``datatunerx_tpu.ops.flash_attention`` in Pallas
+interpret mode and ``jax.grad`` of it, on the CPU at float32, where the
+port runs the kernels' plain versions.
+
+Tolerance: atol = rtol = 2e-5 for outputs and lse, 5e-5 for gradients —
+f32 sums over the same tiles in another order (the reference's own flash
+tests hold the forward to the XLA path at 2e-5). Non-causal runs go through
+the reference's ``_fwd``/``_bwd`` with ``causal=False`` (what ring attention
+calls), since its public function is causal-only."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from datatunerx_tpu.ops import flash_attention as jfa
+from datatunerx_tpu_torch.ops import flash_attention as tfa
+
+FWD_TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=5e-5, rtol=5e-5)
+
+
+def _inputs(seed, B=2, T=128, H=4, KV=2, d=32, packed=False):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, T, H, d)).astype(np.float32)
+    k = rng.normal(size=(B, T, KV, d)).astype(np.float32)
+    v = rng.normal(size=(B, T, KV, d)).astype(np.float32)
+    do = rng.normal(size=(B, T, H, d)).astype(np.float32)
+    seg = None
+    if packed:
+        # 3-5 segments per row, then a pad tail with id 0
+        seg = np.zeros((B, T), np.int32)
+        for b in range(B):
+            n = int(rng.integers(3, 6))
+            cuts = np.sort(rng.choice(np.arange(8, T - 8), n - 1,
+                                      replace=False))
+            bounds = [0, *cuts.tolist(), T - 8]
+            for s in range(n):
+                seg[b, bounds[s]:bounds[s + 1]] = s + 1
+    return q, k, v, do, seg
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+CASES = [
+    # T, block, packed, GQA (H, KV)
+    (128, 64, False, (4, 2)),
+    (256, 128, False, (4, 2)),
+    (256, 64, True, (4, 2)),
+    (128, 128, True, (4, 4)),
+]
+
+
+@pytest.mark.parametrize("T,block,packed,heads", CASES)
+def test_forward_and_grads_match_reference(T, block, packed, heads):
+    H, KV = heads
+    q, k, v, do, seg = _inputs(T + block, T=T, H=H, KV=KV, packed=packed)
+
+    def jloss(q, k, v):
+        out = jfa.flash_attention(
+            q, k, v, segment_ids=None if seg is None else jnp.asarray(seg),
+            block_q=block, block_k=block, interpret=True)
+        return jnp.sum(out * jnp.asarray(do)), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                           has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    tout = tfa.flash_attention(tq, tk, tv, segment_ids=_t(seg),
+                               block_q=block, block_k=block)
+    tout.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout),
+                               **FWD_TOL)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
+        assert np.isfinite(got.numpy()).all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_functions_match_reference_fwd_bwd(causal):
+    """The three kernels' plain versions one by one against the reference's
+    _fwd (out, lse) and _bwd (dq, dk, dv), causal and not."""
+    B, T, H, KV, d, blk = 2, 128, 4, 2, 16, 64
+    q, k, v, do, seg = _inputs(7, B=B, T=T, H=H, KV=KV, d=d, packed=True)
+    G = H // KV
+    fold = lambda x, n: jnp.asarray(x).transpose(0, 2, 1, 3).reshape(  # noqa
+        B * n, T, d)
+    jq, jk, jv, jdo = fold(q, H), fold(k, KV), fold(v, KV), fold(do, H)
+    jseg = jnp.asarray(seg)
+    jout, jlse = jfa._fwd(jq, jk, jv, jseg, jseg, block_q=blk, block_k=blk,
+                          interpret=True, H=H, G=G, causal=causal)
+    jdq, jdk, jdv = jfa._bwd(blk, blk, True, G,
+                             (jq, jk, jv, jseg, jseg, jout, jlse), jdo,
+                             causal=causal)
+
+    tq, tk, tv, tdo, tseg = map(_t, (q, k, v, do, seg))
+    out, lse = tfa.flash_fwd(tq, tk, tv, tseg, causal=causal, block_q=blk,
+                             block_k=blk)
+    unfold = lambda x, n: np.asarray(x).reshape(B, n, T, d).transpose(  # noqa
+        0, 2, 1, 3)
+    np.testing.assert_allclose(out.numpy(), unfold(jout, H), **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **FWD_TOL)
+    dsum = tfa.row_dot(tdo, out)
+    dq = tfa.flash_bwd_dq(tq, tk, tv, tdo, lse, dsum, tseg, causal=causal,
+                          block_q=blk, block_k=blk)
+    dk, dv = tfa.flash_bwd_dkv(tq, tk, tv, tdo, lse, dsum, tseg,
+                               causal=causal, block_q=blk, block_k=blk)
+    np.testing.assert_allclose(dq.numpy(), unfold(jdq, H), **GRAD_TOL)
+    np.testing.assert_allclose(dk.numpy(), unfold(jdk, KV), **GRAD_TOL)
+    np.testing.assert_allclose(dv.numpy(), unfold(jdv, KV), **GRAD_TOL)
+
+
+def test_pad_rows_of_a_packed_batch_stay_finite():
+    """A packed row whose tail is pad (id 0) and whose first tiles hold no
+    key of its segment: no NaN forward or backward."""
+    q, k, v, do, seg = _inputs(3, B=1, T=128, H=2, KV=1, d=16, packed=True)
+    seg[0, :] = 2
+    seg[0, 100:] = 0  # pad tail
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, segment_ids=_t(seg), block_q=32,
+                              block_k=32)
+    out.backward(torch.from_numpy(do))
+    for t in (out, tq.grad, tk.grad, tv.grad):
+        assert torch.isfinite(t).all()
+
+
+def test_launch_counters_do_not_move_on_the_cpu():
+    q, k, v, do, _ = _inputs(4, B=1, T=64, H=2, KV=1, d=16)
+    before = (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkv.launches)
+    tq = torch.from_numpy(q).requires_grad_()
+    tfa.flash_attention(tq, _t(k), _t(v)).sum().backward()
+    assert (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == before

@@ -35,6 +35,8 @@ _BLOCKER = textwrap.dedent("""
                                                    pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
+    for name in REQUIRED:  # the slices' entry points and kernel modules
+        assert name in names, name
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", ROOT + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -43,13 +45,26 @@ _BLOCKER = textwrap.dedent("""
 """)
 
 
+REQUIRED = (
+    "datatunerx_tpu_torch.serving.server",
+    "datatunerx_tpu_torch.ops.cuda_paged_attention",
+    "datatunerx_tpu_torch.ops.cuda_sampling",
+    "datatunerx_tpu_torch.ops.flash_attention",
+    "datatunerx_tpu_torch.models.lora",
+    "datatunerx_tpu_torch.training.train_lib",
+    "datatunerx_tpu_torch.training.checkpoint",
+    "datatunerx_tpu_torch.data.prefetch",
+    "datatunerx_tpu_torch.tuning.train",
+)
+
+
 def test_every_module_imports_without_jax():
-    code = f"ROOT = {ROOT!r}\n" + _BLOCKER
+    code = f"ROOT = {ROOT!r}\nREQUIRED = {REQUIRED!r}\n" + _BLOCKER
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 17  # the slice's modules
+    assert n >= 32  # slice 1's modules and slice 2's
 
 
 def test_engine_defaults_to_cuda_and_refuses_without_it():
@@ -60,6 +75,28 @@ def test_engine_defaults_to_cuda_and_refuses_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchedEngine("preset:debug", template="vanilla", max_seq_len=256,
                       slots=2, kv_block_size=16)
+
+
+def test_trainer_cli_defaults_to_cuda_and_refuses_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default would run")
+    from datatunerx_tpu_torch.tuning.parser import parse_train_args
+    from datatunerx_tpu_torch.tuning.train import main
+
+    train = tmp_path / "train.csv"
+    train.write_text("instruction,response\nhi,there\n")
+    argv = ["--model_name_or_path", "preset:debug", "--train_path",
+            str(train), "--storage_path", str(tmp_path / "s"),
+            "--output_dir", str(tmp_path / "o")]
+    assert parse_train_args(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
+    assert not (tmp_path / "o").exists()  # refused before any work
+    from datatunerx_tpu_torch.training.train_lib import Trainer, TrainConfig
+    from datatunerx_tpu_torch.models.config import get_config
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(get_config("debug"), TrainConfig())
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):

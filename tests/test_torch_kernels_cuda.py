@@ -5,7 +5,10 @@ These need an NVIDIA GPU with nvcc (the kernels are built from
 the GPU machine with ``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``.
 Tolerances: float32 atol=rtol=1e-5, bf16 atol 2^-8 / rtol 2^-7 (the
 kernels' f32 sums run in another order than the plain versions'); token ids
-exact for greedy sampling."""
+exact for greedy sampling. Flash attention (K1-K3): float32 1e-4 (sums over
+up to 200 keys in another order, gradients of unit-scale inputs), bf16
+2^-6 (outputs and gradients round once to bf16 from f32 sums taken in
+another order; a bf16 ulp at |x| ~ 2-4 is 2^-6)."""
 
 import pytest
 import torch
@@ -77,6 +80,53 @@ def test_multitoken_kernel_matches_plain(cuda, dtype):
     got = cpa.paged_multitoken_attention(q, k, v, None, None, tables, allow)
     want = cpa._plain_multitoken(q, k, v, tables, allow)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def _flash_inputs(B, T, H, KV, d, dtype, dev, gen, packed):
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(dtype).to(dev)
+
+    seg = None
+    if packed:  # 3 segments and a pad tail per row
+        seg = torch.zeros((B, T), dtype=torch.int32)
+        for b in range(B):
+            cuts = sorted(torch.randperm(T - 16, generator=gen)[:2].add(8)
+                          .tolist())
+            for s, (lo, hi) in enumerate(zip([0] + cuts, cuts + [T - 5])):
+                seg[b, lo:hi] = s + 1
+        seg = seg.to(dev)
+    return rnd(B, T, H, d), rnd(B, T, KV, d), rnd(B, T, KV, d), \
+        rnd(B, T, H, d), seg
+
+
+FLASH_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+             torch.bfloat16: dict(atol=2**-6, rtol=2**-6)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,causal,packed", [(64, True, False),
+                                             (64, True, True),
+                                             (128, False, True),
+                                             (16, True, False)])
+def test_flash_kernels_match_plain(cuda, dtype, d, causal, packed):
+    from datatunerx_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(3)
+    B, T, H, KV = 2, 200, 8, 2  # ragged last tile
+    q, k, v, do, seg = _flash_inputs(B, T, H, KV, d, dtype, cuda, gen, packed)
+    out, lse = fa.flash_fwd(q, k, v, seg, causal=causal)
+    pout, plse = fa._plain_fwd(q, k, v, seg, causal, 64, 64)
+    torch.testing.assert_close(out.float(), pout.float(), **FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-4)
+    dsum = fa.row_dot(do, pout)
+    dq = fa.flash_bwd_dq(q, k, v, do, plse, dsum, seg, causal=causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, plse, dsum, seg, causal=causal)
+    pdq = fa._plain_bwd_dq(q, k, v, do, plse, dsum, seg, causal, 64, 64)
+    pdk, pdv = fa._plain_bwd_dkv(q, k, v, do, plse, dsum, seg, causal, 64, 64)
+    for got, want in ((dq, pdq), (dk, pdk), (dv, pdv)):
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **FLASH_TOL[dtype])
 
 
 @pytest.mark.parametrize("mode", ["greedy", "simple"])

@@ -1,0 +1,151 @@
+"""The port's trainer CLI end to end on the CPU (``--device cpu``, the
+``preset:debug`` model, a tiny CSV): the manifest carries the reference's
+keys and ``trainer_log.jsonl`` the same record keys as a JAX CLI run on the
+same CSV; ``--resume`` continues from the saved step; the ``model.npz``
+export loads into the JAX package's ``load_model_and_tokenizer`` (logits
+equal the port's merged forward at f32: atol 2e-4 / rtol 2e-3, the
+tolerance tests/test_model_parity.py uses) and serves from the port's
+``BatchedEngine``."""
+
+import csv
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from datatunerx_tpu.models.llama import forward as jforward
+from datatunerx_tpu.tuning.train import main as jmain
+from datatunerx_tpu.utils.model_loader import load_model_and_tokenizer as jload
+from datatunerx_tpu_torch.models.llama import forward as tforward
+from datatunerx_tpu_torch.models.lora import merge_lora
+from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
+from datatunerx_tpu_torch.tuning.train import main as tmain
+from datatunerx_tpu_torch.tuning.train import run as trun
+from datatunerx_tpu_torch.tuning.parser import parse_train_args
+
+
+def _csv(path):
+    rows = [(f"add {k}+{k}", f"answer {2 * k}") for k in range(40)]
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["instruction", "response"])
+        w.writerows(rows)
+    return str(path)
+
+
+def _argv(tmp, name, **extra):
+    flags = dict(model_name_or_path="preset:debug",
+                 train_path=_csv(tmp / "train.csv"),
+                 evaluation_path=str(tmp / "train.csv"),
+                 storage_path=str(tmp / "storage"),
+                 output_dir=str(tmp / name), uid=name, template="alpaca",
+                 block_size="128", pack_sequences="true",
+                 per_device_train_batch_size="2", max_steps="3",
+                 logging_steps="1", bf16="false", remat="none",
+                 attention="xla", lora_dropout="0.0")
+    flags.update(extra)
+    return [x for k, v in flags.items() for x in (f"--{k}", v)]
+
+
+def _log(tmp, name, which="trainer_log.jsonl"):
+    with open(tmp / name / "watch" / which) as f:
+        return [json.loads(line) for line in f]
+
+
+def _manifest(tmp, name):
+    with open(tmp / "storage" / name / "manifest.json") as f:
+        return json.load(f)
+
+
+def test_manifest_and_log_keys_match_the_jax_cli(tmp_path):
+    assert jmain(_argv(tmp_path, "jax")) == 0
+    assert tmain(_argv(tmp_path, "port", device="cpu",
+                       attention="flash", remat="dots")) == 0
+    jm, tm = _manifest(tmp_path, "jax"), _manifest(tmp_path, "port")
+    assert sorted(tm) == sorted(jm)
+    assert sorted(tm["metrics"]) == sorted(jm["metrics"])
+    assert tm["steps"] == jm["steps"] == 3
+    assert os.path.exists(os.path.join(tm["checkpoint"], "state.pt"))
+    with open(tmp_path / "storage" / "port" / "checkpoint_path") as f:
+        assert f.read() == tm["checkpoint"]
+    jl, tl = _log(tmp_path, "jax"), _log(tmp_path, "port")
+    assert len(tl) == len(jl) == 3
+    # which pipe_* means a record holds depends on thread timing in both
+    # packages; every record has the fixed keys, and the run the same set
+    keys = lambda log: sorted(set().union(*log))  # noqa: E731
+    assert keys(tl) == keys(jl)
+    fixed = set.intersection(*(set(r) for r in jl))
+    assert all(fixed <= set(r) for r in tl)
+    assert sorted(_log(tmp_path, "port", "eval_log.jsonl")[-1]) == sorted(
+        _log(tmp_path, "jax", "eval_log.jsonl")[-1])
+    assert all(np.isfinite(r["loss"]) and r["grad_norm"] > 0 for r in tl)
+
+
+def test_resume_continues_from_the_saved_step(tmp_path, capsys):
+    argv = _argv(tmp_path, "res", device="cpu", max_steps="2",
+                 save_steps="1", evaluation_path="")
+    assert tmain(argv) == 0
+    first = _log(tmp_path, "res")
+    argv = _argv(tmp_path, "res", device="cpu", max_steps="4",
+                 save_steps="1", evaluation_path="")
+    assert tmain(argv) == 0
+    assert "[resume] restored step 2" in capsys.readouterr().out
+    steps = [r["current_steps"] for r in _log(tmp_path, "res")]
+    assert steps == [1, 2, 3, 4]
+    assert _manifest(tmp_path, "res")["steps"] == 4
+    assert first[1]["loss"] == _log(tmp_path, "res")[1]["loss"]
+    ckpts = sorted(os.listdir(tmp_path / "storage" / "res" / "checkpoints"))
+    assert ckpts == ["2", "3", "4"]  # max_to_keep 3
+
+
+def test_export_loads_into_both_packages(tmp_path):
+    export = str(tmp_path / "export")
+    args = parse_train_args(_argv(tmp_path, "exp", device="cpu",
+                                  export_dir=export, evaluation_path=""))
+    trun(args)
+    # the run's final adapters, merged by hand, against the export
+    from datatunerx_tpu_torch.training.checkpoint import CheckpointManager
+    from datatunerx_tpu_torch.utils.model_loader import (
+        load_model_and_tokenizer as tload)
+
+    cfg, base, _ = tload("preset:debug", seed=args.seed)
+    ckpt = CheckpointManager(str(tmp_path / "storage" / "exp" / "checkpoints"))
+    saved = torch.load(os.path.join(ckpt.directory, "3", "state.pt"),
+                       weights_only=True)
+    merged = merge_lora(base, saved["lora"], 32.0 / 8)
+    assert saved["lora"]["layers"]["q_proj"]["b"].abs().max() > 0
+
+    jcfg, jparams, _ = jload(export)
+    tokens = np.random.default_rng(0).integers(0, 500, (2, 16)).astype(
+        np.int32)
+    jl, _ = jforward(jparams, jnp.asarray(tokens), jcfg)
+    with torch.no_grad():
+        tl, _ = tforward(merged, torch.from_numpy(tokens), cfg)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-4,
+                               rtol=2e-3)
+
+    eng = BatchedEngine(export, device="cpu", template="vanilla",
+                        max_seq_len=128, slots=2, kv_block_size=16)
+    try:
+        out = eng.generate(eng.tokenizer.encode("add 2+2"), max_new_tokens=4)
+        assert len(out) == 4
+    finally:
+        eng.close()
+
+
+def test_unported_options_are_refused_with_their_item(tmp_path):
+    for extra, item in ((dict(stage="dpo"), "item 8"),
+                        (dict(stage="ppo", reward_model="x"), "item 11"),
+                        (dict(quantization="int8"), "item 9"),
+                        (dict(attention="ring"), "item 10"),
+                        (dict(mesh="dp=2"), "item 10"),
+                        (dict(metrics_export_address="http://x"), "item 12"),
+                        (dict(storage_path="gs://bucket/x"), "item 11"),
+                        (dict(predict_with_generate="true"), "item 8"),
+                        (dict(streaming="true", pack_sequences="false"), "item 8")):
+        argv = _argv(tmp_path, "no", device="cpu", **extra)
+        with pytest.raises(NotImplementedError, match=item):
+            tmain(argv)
