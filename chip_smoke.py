@@ -37,19 +37,35 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
    tinyllama width and 4 layers on one packed batch, with
    ``attention_impl="flash"`` and with ``"xla"``: losses within 1e-2
    relative, LoRA gradients within 3e-2 relative (bf16 compute);
-7. prints one JSON ``{"kernels": [...]}`` line (K7, K8, K9, K1, K2, K3)
-   and, last, one JSON line ``{"ok": true, "device": {...}}``.
+7. QLoRA train: the same CLI run with ``--quantization int4`` (nf4 base,
+   ``quant_impl`` pallas: every projection on K4, its dx on K5), 6 steps
+   with steps 2-3 profiled; the same checks as phase 5, plus exact launch
+   counts per step: K4 = 2 x 7 x 22 = 308 (each projection's forward and
+   its recompute under remat ``dots``, which saves only matmuls), K5 =
+   7 x 22 - 3 = 151 (layer 0's q/k/v inputs come from the frozen
+   embedding and need no gradient), K1-K3 as in phase 5; prints step time,
+   tokens/s, peak memory and device ms by kernel group;
+8. QLoRA int8: 4 steps with ``--quantization int8``: K6 = 308 per step;
+9. QLoRA parity: one train step (int4, then int8) at tinyllama width and
+   4 layers with ``quant_impl="pallas"`` against ``"xla"`` (dequantize,
+   then a plain matmul): the bounds of phase 6;
+10. prints one JSON ``{"kernels": [...]}`` line (K7, K8, K9, K1-K6) and,
+    last, one JSON line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds K1 (flash forward), K2 (dQ) and K3 (dK/dV) against
 their plain versions at the training shapes (B=8 H=32 KV=4 T=1024 d=64,
-causal, bf16), on a packed batch and at d=128. ``--phase kernels`` stops
-after phase 2; ``--phase train`` runs phases 1, 2, 5 and 6. The script
-imports nothing of JAX or of the JAX package.
+causal, bf16), on a packed batch and at d=128, and K4 (nf4 matmul), K5
+(its transposed dx product) and K6 (int8 matmul) at M=8192 rows and each
+projection shape of tinyllama-1.1b, in bf16 and f32. ``--phase kernels``
+stops after phase 2; ``--phase train`` runs phases 1, 2 and 5-9;
+``--phase qlora`` runs phases 1, 2 and 7-9. The script imports nothing of
+JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -490,6 +506,114 @@ def check_flash(torch, timer, gen):
     return entries
 
 
+# ------------------------------------------------------------ phase 2, K4-K6
+QUANT_M = 8192  # packed B8 x T1024 rows
+# (projections, K, N, how many per layer) of tinyllama-1.1b
+QUANT_SHAPES = (("q/o", 2048, 2048, 2), ("k/v", 2048, 256, 2),
+                ("gate/up", 2048, 5632, 2), ("down", 5632, 2048, 1))
+# the staged weights are bit-equal to the plain version's; the f32 sums
+# (over up to 5632 products, in another order) round once to the dtype
+QUANT_TOL = {"bf16": (2**-8, 2**-7), "f32": (1e-4, 1e-4)}
+
+
+def check_quant(torch):
+    """K4, K5 and K6 against their plain versions at M=8192 and every
+    projection shape of tinyllama-1.1b, in bf16 and f32. An entry's times
+    and bound are one layer's worth: the sum over its seven projections
+    (bf16); the library yardstick is cuBLAS's bf16 matmul on a W dequantized
+    beforehand (it does not pay the dequant)."""
+    from datatunerx_tpu_torch.ops import cuda_quant as cq
+    from datatunerx_tpu_torch.ops import quant as tq
+
+    meta = {
+        "K4": ("K4 nf4_matmul", "datatunerx_tpu/ops/pallas_quant.py:109",
+               cq.nf4_matmul),
+        "K5": ("K5 nf4_matmul_t", "datatunerx_tpu/ops/pallas_quant.py:210",
+               cq.nf4_matmul_t),
+        "K6": ("K6 int8_matmul", "datatunerx_tpu/ops/pallas_quant.py:40",
+               cq.int8_matmul),
+    }
+    timer = Timer(torch)
+    M = QUANT_M
+    cgen = torch.Generator(device="cuda").manual_seed(4)
+    tot = {k: dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   bound_ms=0.0, by_bytes=0.0, by_ops=0.0) for k in meta}
+    for label, K, N, count in QUANT_SHAPES:
+        w = torch.randn((K, N), generator=cgen, device="cuda") * 0.02
+        qw, q8 = tq.quantize_nf4(w), tq.quantize_int8(w)
+        del w
+        nf4_w = N * K // 2 + N * K // 64 + 8  # packed, scale_q, meta
+        for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x = torch.randn((M, K), generator=cgen, device="cuda").to(dtype)
+            g = torch.randn((M, N), generator=cgen, device="cuda").to(dtype)
+            calls = {
+                "K4": (lambda: cq.nf4_matmul(x, qw, (K, N)),
+                       lambda: tq.matmul_nf4(x, qw, (K, N))),
+                "K5": (lambda: cq.nf4_matmul_t(g, qw, (K, N)),
+                       lambda: cq._plain_nf4_t(g, qw, (K, N))),
+                "K6": (lambda: cq.int8_matmul(x, q8["q"], q8["scale"]),
+                       lambda: tq.matmul_int8(x, q8["q"], q8["scale"])),
+            }
+            for key, (kern, plain) in calls.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(got.float()).all()):
+                    fail(f"{key} ({label}, {dt}) wrote non-finite values")
+                ok, err = close_enough(torch, got, want, *QUANT_TOL[dt])
+                if not ok:
+                    fail(f"{key} ({label}, {dt}) disagrees with its plain "
+                         f"version: max abs err {err}")
+                tot[key]["err"] = max(tot[key]["err"], err)
+            if dtype is not torch.bfloat16:
+                continue
+            wd = tq.dequant_nf4(qw, (K, N), dtype=dtype).contiguous()
+            w8 = tq.dequant_int8(q8["q"], q8["scale"], dtype=dtype)
+            library = {"K4": lambda: torch.matmul(x, wd),
+                       "K5": lambda: torch.matmul(g, wd.T),
+                       "K6": lambda: torch.matmul(x, w8)}
+            nbytes = {"K4": 2 * M * K + nf4_w + 2 * M * N,
+                      "K5": 2 * M * N + nf4_w + 2 * M * K,
+                      "K6": 2 * M * K + K * N + 4 * N + 2 * M * N}
+            parts = []
+            for key, (kern, plain) in calls.items():
+                b_ms, b_by = bound_ms(nbytes[key], 2 * M * K * N,
+                                      BF16_OPS_PER_S)
+                ms, lib_ms = timer.ms(kern), timer.ms(library[key])
+                t = tot[key]
+                t["ms"] += count * ms
+                t["plain_ms"] += count * timer.ms(plain, reps=3, warmup=1)
+                t["library_ms"] += count * lib_ms
+                t["bound_ms"] += count * b_ms
+                t["by_bytes" if b_by == "bytes" else "by_ops"] += count * b_ms
+                parts.append(f"{key} {ms:.3f} ms "
+                             f"({2 * M * K * N / ms / 1e9:.0f} TFLOP/s; "
+                             f"cuBLAS {lib_ms:.3f}; bound {b_ms:.4f} {b_by})")
+            log(f"  quant {label} [M={M} K={K} N={N} bf16]: "
+                + ", ".join(parts))
+            del wd, w8
+        del qw, q8, x, g
+    entries = []
+    for key, (name, replaces, counter) in meta.items():
+        t = tot[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "datatunerx_tpu_torch/csrc/quant.cu",
+            "replaces": replaces, "counter": counter,
+            "max_abs_err": t["err"],
+            "tolerance": "atol 2^-8 + rtol 2^-7 (bf16), 1e-4 + 1e-4 (f32), "
+                         "all four shapes",
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": ("operations" if t["by_ops"] >= t["by_bytes"]
+                         else "bytes"),
+            "shape": f"one layer's 7 projections at M={M} bf16 (2x q/o "
+                     "2048x2048, 2x k/v 2048x256, 2x gate/up 2048x5632, "
+                     "down 5632x2048), summed; library: cuBLAS bf16 matmul "
+                     "on W dequantized beforehand",
+        })
+    return entries
+
+
 # ------------------------------------------------------------------ phase 3
 def post(port, body, stream=False, trace=""):
     req = urllib.request.Request(
@@ -609,6 +733,9 @@ def serve_phase(torch, counters):
             fail(f"serve phase: kernel {name} was never launched")
     srv.shutdown()
     srv.server_close()
+    # the server's module state would keep the engine's weights and pools on
+    # the card after the caller closes it, inside the train phases' peaks
+    server.STATE.engine = None
     return eng, launches, {"wall_s": wall, "tokens": total}
 
 
@@ -673,8 +800,14 @@ def parity_phase(torch, eng):
 # ------------------------------------------------------------------ phase 5
 TRAIN_STEPS = 8
 PROFILE_STEPS = 2  # steps 2-3 run under torch.profiler; 4-8 are timed
+QLORA_STEPS = 6  # steps 2-3 profiled; 4-6 timed
+INT8_STEPS = 4  # step 1 warms up; 2-4 timed
 TRAIN_SHAPE = dict(batch=8, block=1024)
-KERNEL_GROUPS = (("flash K1-K3", ("flash_",)),
+LAYERS = 22
+# the quant kernels first: their (mangled) names also hold "gemm"
+KERNEL_GROUPS = (("K4 nf4", ("nf4fwd",)), ("K5 nf4 dx", ("nf4t",)),
+                 ("K6 int8", ("int8src",)),
+                 ("flash K1-K3", ("flash_",)),
                  ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")))
 
 
@@ -691,6 +824,7 @@ def device_breakdown(trace_path, steps):
         fail("the profiled train steps recorded no GPU events")
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
+    gpu_total = sum(e["dur"] for e in gpu)
     for e in gpu:
         name = e["name"].lower()
         for group, keys in KERNEL_GROUPS:
@@ -709,8 +843,9 @@ def device_breakdown(trace_path, steps):
             cur_e = max(cur_e, s1)
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
-    return ({k: v / 1e3 / steps for k, v in groups.items()},
-            busy / window, window / 1e3 / steps)
+    return ({k: v / 1e3 / steps for k, v in groups.items() if v or
+             not k.startswith("K")},
+            busy / window, window / 1e3 / steps, gpu_total / 1e3 / steps)
 
 
 def write_train_csv(path, seed=0, n=1500):
@@ -730,25 +865,49 @@ def write_train_csv(path, seed=0, n=1500):
             w.writerow([f"#{i}: {q}?", a])
 
 
-def train_phase(torch, tmp):
+def expected_launches(quant, steps):
+    """Kernel launches the CLI run must make, derived from the model: per
+    step and layer, K1 twice (forward + remat recompute), K2 and K3 once;
+    with an nf4 base K4 on each of the 7 projections twice (forward +
+    recompute: ``dots`` saves only matmuls) and K5 once per projection
+    whose input needs a gradient (all but layer 0's q/k/v, whose input is
+    the frozen embedding's); with int8, K6 as K4."""
+    per = {"flash_fwd": 2 * LAYERS, "flash_bwd_dq": LAYERS,
+           "flash_bwd_dkv": LAYERS, "nf4_matmul": 0, "nf4_matmul_t": 0,
+           "int8_matmul": 0}
+    if quant == "int4":
+        per.update(nf4_matmul=2 * 7 * LAYERS, nf4_matmul_t=7 * LAYERS - 3)
+    elif quant == "int8":
+        per["int8_matmul"] = 2 * 7 * LAYERS
+    return {k: v * steps for k, v in per.items()}
+
+
+def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
+                profile=PROFILE_STEPS, export=True):
+    from datatunerx_tpu_torch.ops import cuda_quant as cq
     from datatunerx_tpu_torch.ops import flash_attention as fa
     from datatunerx_tpu_torch.training import train_lib
     from datatunerx_tpu_torch.tuning import train
 
     csv_path = os.path.join(tmp, "train.csv")
-    write_train_csv(csv_path)
-    out, store, export = (os.path.join(tmp, n) for n in
-                          ("out", "store", "export"))
+    if not os.path.exists(csv_path):
+        write_train_csv(csv_path)
+    tmp = os.path.join(tmp, quant or "lora")
+    out, store, export_dir = (os.path.join(tmp, n) for n in
+                              ("out", "store", "export"))
     argv = ["--model_name_or_path", "preset:tinyllama-1.1b",
             "--train_path", csv_path, "--template", "alpaca",
             "--finetuning_type", "lora", "--lora_target", "q_proj,v_proj",
             "--attention", "flash", "--remat", "dots", "--bf16",
             "--block_size", str(TRAIN_SHAPE["block"]), "--pack_sequences",
             "--per_device_train_batch_size", str(TRAIN_SHAPE["batch"]),
-            "--max_steps", str(TRAIN_STEPS), "--logging_steps", "1",
+            "--max_steps", str(steps), "--logging_steps", "1",
             "--output_dir", out, "--storage_path", store,
-            "--export_dir", export, "--device", "cuda",
-            "--profile_steps", str(PROFILE_STEPS)]
+            "--device", "cuda", "--profile_steps", str(profile)]
+    if quant:
+        argv += ["--quantization", quant]  # quant_impl: pallas (default)
+    if export:
+        argv += ["--export_dir", export_dir]
     # time each step to its end on the device, and look at the adapters
     # after the first (B starts at 0)
     real_step = train_lib.Trainer.train_step
@@ -767,9 +926,12 @@ def train_phase(torch, tmp):
                                      .mean())
         return new, metrics
 
-    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                cq.nf4_matmul, cq.nf4_matmul_t, cq.int8_matmul)
     train_lib.Trainer.train_step = timed_step
     try:
+        gc.collect()
+        held = torch.cuda.memory_allocated() / 2**30  # left by earlier phases
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             c.launches = 0
@@ -782,19 +944,16 @@ def train_phase(torch, tmp):
     if rc != 0:
         fail(f"train CLI returned {rc}")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    want = expected_launches(quant, steps)
     for name, n in launches.items():
-        if n <= 0:
+        if n <= 0 and want[name] > 0:
             fail(f"train phase: kernel {name} was never launched")
-    L = 22
-    want = {"flash_fwd": 2 * L * TRAIN_STEPS, "flash_bwd_dq": L * TRAIN_STEPS,
-            "flash_bwd_dkv": L * TRAIN_STEPS}
     if launches != want:
-        fail(f"train phase launches {launches}, expected {want} (remat dots:"
-             " K1 twice per layer per step)")
+        fail(f"train phase launches {launches}, expected {want}")
     with open(os.path.join(out, "watch", "trainer_log.jsonl")) as f:
         recs = [json.loads(line) for line in f]
-    if len(recs) != TRAIN_STEPS:
-        fail(f"{len(recs)} train records, expected {TRAIN_STEPS}")
+    if len(recs) != steps:
+        fail(f"{len(recs)} train records, expected {steps}")
     for r in recs:
         if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                 and r["grad_norm"] > 0):
@@ -805,44 +964,57 @@ def train_phase(torch, tmp):
     with open(os.path.join(store, "out", "manifest.json")) as f:
         manifest = json.load(f)
     ckpt = os.path.join(manifest["checkpoint"], "state.pt")
-    npz = os.path.join(export, "model.npz")
-    for path in (ckpt, npz, os.path.join(export, "config.json")):
+    npz = os.path.join(export_dir, "model.npz")
+    written = [ckpt] + ([npz, os.path.join(export_dir, "config.json")]
+                        if export else [])
+    for path in written:
         if not os.path.exists(path):
             fail(f"train phase did not write {path}")
-    first = 1 + PROFILE_STEPS  # steps after the first and the profiled ones
+    if export and quant:
+        with open(os.path.join(export_dir, "config.json")) as f:
+            if json.load(f).get("quantization") != quant:
+                fail(f"the export's config.json does not record {quant}")
+    first = 1 + profile  # steps after the first and the profiled ones
     steady = times[first:]
     step_s = sorted(steady)[len(steady) // 2]
     positions = TRAIN_SHAPE["batch"] * TRAIN_SHAPE["block"]
     tokens = sum(r["tokens"] for r in recs[first:]) / len(recs[first:])
-    groups, busy, window_ms = device_breakdown(
-        os.path.join(out, "trace", "trace.json"), PROFILE_STEPS)
-    log(f"  {TRAIN_STEPS} steps in {wall:.1f} s wall (CLI: load, data, "
-        f"train, checkpoint, export); rows {tuple(seen['rows'])}, "
+    log(f"  {steps} steps in {wall:.1f} s wall (CLI: load, "
+        f"{'quantize, ' if quant else ''}data, train, checkpoint"
+        f"{', export' if export else ''}); rows {tuple(seen['rows'])}, "
         f"{seen['segments']:.2f} segments per row")
-    log(f"  step time (steady steps {first + 1}-{TRAIN_STEPS}, median) "
+    log(f"  step time (steady steps {first + 1}-{steps}, median) "
         f"{step_s * 1e3:.1f}"
         f" ms, all steps {[round(t * 1e3, 1) for t in times]} ms")
     log(f"  {positions / step_s:.0f} positions/s, {tokens / step_s:.0f} "
-        f"trained tokens/s; peak memory {peak:.2f} GiB; losses "
+        f"trained tokens/s; peak memory {peak:.2f} GiB ({peak - held:.2f} "
+        f"above the {held:.2f} GiB held before the run); losses "
         f"{[round(r['loss'], 4) for r in recs]}")
-    log(f"  launches {launches}; model.npz "
-        f"{os.path.getsize(npz) / 2**30:.2f} GiB")
-    log(f"  profiled steps 2-{1 + PROFILE_STEPS}: {window_ms:.1f} ms of "
-        f"device span per step, busy {busy * 100:.1f} %; device ms per step "
-        + ", ".join(f"{k} {v:.1f}" for k, v in groups.items()))
+    log(f"  launches {launches}"
+        + (f"; model.npz {os.path.getsize(npz) / 2**30:.2f} GiB"
+           if export else ""))
+    if profile:
+        groups, busy, window_ms, gpu_ms = device_breakdown(
+            os.path.join(out, "trace", "trace.json"), profile)
+        log(f"  profiled steps 2-{1 + profile}: {window_ms:.1f} ms of "
+            f"device span per step, busy {busy * 100:.1f} %; device ms per "
+            "step " + ", ".join(f"{k} {v:.1f} ({v / gpu_ms * 100:.1f} %)"
+                                for k, v in groups.items()))
     return launches, {"step_ms": step_s * 1e3, "peak_gib": peak}
 
 
 # ------------------------------------------------------------------ phase 6
-def train_parity_phase(torch):
-    """One train step (and one LoRA gradient) with the flash kernels and
-    with the plain xla attention, from the same params, adapters and
-    packed batch."""
+def train_parity_phase(torch, variants, quant=None):
+    """One train step (and one LoRA gradient) under each of two config
+    variants — ``(label, overrides)``: the kernels' path first, its plain
+    counterpart second — from the same params (quantized with ``quant``),
+    adapters and packed batch."""
     import dataclasses
 
     from datatunerx_tpu_torch.data.preprocess import pack_to_block
     from datatunerx_tpu_torch.models.config import get_config
     from datatunerx_tpu_torch.models.llama import init_params
+    from datatunerx_tpu_torch.ops.quant import quantize_model_params
     from datatunerx_tpu_torch.training.train_lib import TrainConfig, Trainer
 
     gen = torch.Generator().manual_seed(5)
@@ -855,12 +1027,14 @@ def train_parity_phase(torch):
     batch = {k: v[:2] for k, v in batch.items()}
     results = {}
     params = None
-    for impl in ("flash", "xla"):
-        cfg = get_config("tinyllama-1.1b", num_layers=4, attention_impl=impl,
-                         remat="dots")
+    for label, overrides in variants:
+        cfg = get_config("tinyllama-1.1b", num_layers=4, remat="dots",
+                         **overrides)
         if params is None:
             params = init_params(cfg, seed=0, dtype=torch.bfloat16,
                                  device="cuda")
+            if quant:
+                params = quantize_model_params(params, quant)
         tr = Trainer(cfg, TrainConfig(lora_dropout=0.0, total_steps=10),
                      device="cuda")
         state = tr.init_state(params, 1)
@@ -878,14 +1052,14 @@ def train_parity_phase(torch):
         for leaf in leaves:
             leaf.requires_grad_(False)
         _, m = tr.train_step(state, batch)
-        results[impl] = (float(m["loss"]), float(m["grad_norm"]),
-                         torch.cat([g.flatten().float() for g in grads]))
-    (lf, nf, gf), (lx, nx, gx) = results["flash"], results["xla"]
+        results[label] = (float(m["loss"]), float(m["grad_norm"]),
+                          torch.cat([g.flatten().float() for g in grads]))
+    (a, (lf, nf, gf)), (b, (lx, nx, gx)) = results.items()
     rel_g = float((gf - gx).norm() / gx.norm())
-    log(f"  loss flash {lf:.6f} vs xla {lx:.6f}; grad_norm {nf:.6f} vs "
+    log(f"  loss {a} {lf:.6f} vs {b} {lx:.6f}; grad_norm {nf:.6f} vs "
         f"{nx:.6f}; LoRA grads relative error {rel_g:.3e}")
     if abs(lf - lx) > 1e-2 * abs(lx):
-        fail(f"train parity: loss {lf} (flash) vs {lx} (xla)")
+        fail(f"train parity: loss {lf} ({a}) vs {lx} ({b})")
     if rel_g > 3e-2 or abs(nf - nx) > 3e-2 * nx:
         fail(f"train parity: LoRA grads differ by {rel_g:.3e} relative "
              f"(grad_norm {nf} vs {nx})")
@@ -895,7 +1069,7 @@ def train_parity_phase(torch):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", default="all",
-                    choices=["all", "kernels", "train"])
+                    choices=["all", "kernels", "train", "qlora"])
     opts = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "datatunerx_tpu_torch", "csrc")):
         fail("datatunerx_tpu_torch/ is missing: run from a repository "
@@ -934,13 +1108,15 @@ def main(argv=None) -> int:
             f" ({e['tolerance']}); kernel {e['ms']:.4f} ms, plain "
             f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, bound "
             f"{e['bound_ms']:.5f} ms ({e['bound_by']})")
-    for e in check_flash(torch, timer, gen):
+    flash = check_flash(torch, timer, gen)
+    del timer
+    torch.cuda.empty_cache()
+    for e in flash + check_quant(torch):
         entries.append(e)
         log(f"  {e['name']} [{e['shape']}]: max abs err {e['max_abs_err']:.3g}"
             f" ({e['tolerance']}); kernel {e['ms']:.4f} ms, plain "
             f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, bound "
             f"{e['bound_ms']:.5f} ms ({e['bound_by']})")
-    del timer
     torch.cuda.empty_cache()
     serve_counters = [e["counter"] for e in entries[:3]]
 
@@ -956,18 +1132,47 @@ def main(argv=None) -> int:
             eng.close()
         del eng
         torch.cuda.empty_cache()
-    if opts.phase in ("all", "train"):
+    if opts.phase in ("all", "train", "qlora"):
         import tempfile
 
-        log("[5] train preset:tinyllama-1.1b: LoRA SFT through the trainer "
-            "CLI (flash, remat dots, bf16, packed 8x1024)")
+        # each kernel's launches come from the run of its own path
+        flash_keys = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
         with tempfile.TemporaryDirectory(prefix="dtx-smoke-") as tmp:
-            trained, _ = train_phase(torch, tmp)
-        launches.update(trained)
-        torch.cuda.empty_cache()
-        log("[6] train parity: one step with the flash kernels vs plain "
-            "attention (tinyllama width, 4 layers)")
-        train_parity_phase(torch)
+            if opts.phase != "qlora":
+                log("[5] train preset:tinyllama-1.1b: LoRA SFT through the "
+                    "trainer CLI (flash, remat dots, bf16, packed 8x1024)")
+                trained, _ = train_phase(torch, tmp)
+                launches.update({k: trained[k] for k in flash_keys})
+                torch.cuda.empty_cache()
+                log("[6] train parity: one step with the flash kernels vs "
+                    "plain attention (tinyllama width, 4 layers)")
+                train_parity_phase(torch, [
+                    ("flash", dict(attention_impl="flash")),
+                    ("xla", dict(attention_impl="xla"))])
+                torch.cuda.empty_cache()
+            log("[7] QLoRA train preset:tinyllama-1.1b --quantization int4 "
+                "(nf4 base on K4/K5, flash, remat dots, bf16, packed 8x1024)")
+            trained, _ = train_phase(torch, tmp, quant="int4",
+                                     steps=QLORA_STEPS)
+            launches.update({k: trained[k] for k in
+                             ("nf4_matmul", "nf4_matmul_t")})
+            torch.cuda.empty_cache()
+            log("[8] QLoRA train --quantization int8 (int8 base on K6)")
+            trained, _ = train_phase(torch, tmp, quant="int8",
+                                     steps=INT8_STEPS, profile=0,
+                                     export=False)
+            launches["int8_matmul"] = trained["int8_matmul"]
+            torch.cuda.empty_cache()
+        for mode in ("int4", "int8"):
+            log(f"[9] QLoRA parity ({mode}): one step with quant_impl pallas "
+                "(the kernels) vs xla (dequantize + matmul), tinyllama width, "
+                "4 layers")
+            train_parity_phase(torch, [
+                ("pallas", dict(attention_impl="flash", quantization=mode,
+                                quant_impl="pallas")),
+                ("xla", dict(attention_impl="flash", quantization=mode,
+                             quant_impl="xla"))], quant=mode)
+            torch.cuda.empty_cache()
 
     line = []
     for e in entries:

@@ -7,7 +7,9 @@ it keeps as its own copy. Kernels are hand-written CUDA C++ under ``csrc/``,
 built with nvcc at first use (ops/_build.py); each kernel's wrapper runs its
 plain PyTorch version for CPU tensors only.
 
-This slice carries the paged continuous-batching serving path
+It carries the paged continuous-batching serving path
 (serving/server.py → serving/batched_engine.py → models/llama.py → the paged
-decode, paged multi-token and fused sampling kernels).
+decode, paged multi-token and fused sampling kernels) and SFT/QLoRA training
+(tuning/train.py → training/train_lib.py → models/llama.py → the flash
+attention kernels and, for a quantized base, the nf4/int8 matmul kernels).
 """

@@ -1,9 +1,12 @@
 """The weight bridge: the JAX package's param tree → the port's params.
 
 Both packages keep the same stacked ``[L, in, out]`` tree with the same leaf
-names, so conversion is a leaf-for-leaf copy: no transposes, no renames. The
-caller hands over the JAX tree as numpy (``jax.device_get``); this module
-imports nothing of JAX.
+names, so conversion is a leaf-for-leaf copy: no transposes, no renames. A
+quantized tree crosses too: integer leaves (nf4 ``packed`` uint8,
+``scale_q``/``q`` int8) keep their dtype and bits, and the float leaves of a
+``quant`` collection (``meta``, ``scale``) stay float32. The caller hands
+over the JAX tree as numpy (``jax.device_get``); this module imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -13,35 +16,51 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from datatunerx_tpu_torch.ops.quant import NF4_BLOCK
+
 
 def _to_torch(tree: Mapping[str, Any], device, dtype):
     """Nested dict of numpy arrays → the same nested dict of tensors."""
 
-    def walk(node):
+    def walk(node, quant):
         if isinstance(node, Mapping):
-            return {k: walk(v) for k, v in node.items()}
-        arr = np.array(node, dtype=np.float32, order="C")  # an owned copy
-        return torch.from_numpy(arr).to(device=device, dtype=dtype)
+            return {k: walk(v, quant or k == "quant") for k, v in node.items()}
+        arr = np.asarray(node)
+        if arr.dtype.kind in "iub":  # quantized codes: bits kept
+            return torch.from_numpy(np.array(arr, order="C")).to(device)
+        arr = np.array(arr, dtype=np.float32, order="C")  # an owned copy
+        return torch.from_numpy(arr).to(
+            device=device, dtype=torch.float32 if quant else dtype)
 
-    return walk(tree)
+    return walk(tree, False)
+
+
+def _q_proj_shape(q_proj: Mapping[str, Any], cfg):
+    """(got, want) for the q projection of a full or quantized tree."""
+    L, D, Q = cfg.num_layers, cfg.hidden_size, cfg.q_dim
+    if "kernel" in q_proj:
+        return tuple(q_proj["kernel"].shape), (L, D, Q)
+    quant = q_proj["quant"]
+    if "q" in quant:  # int8
+        return tuple(quant["q"].shape), (L, D, Q)
+    return tuple(quant["scale_q"].shape), (L, D * Q // NF4_BLOCK)  # nf4
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg=None, device="cpu",
                     dtype=torch.float32):
     """Nested dict of numpy arrays (the JAX param tree after
-    ``jax.device_get``) → the same nested dict of ``dtype`` tensors on
-    ``device``. ``cfg``, when given, is checked against the tree's shapes."""
+    ``jax.device_get``, full or quantized) → the same nested dict of
+    tensors on ``device``, float leaves in ``dtype``. ``cfg``, when given,
+    is checked against the tree's shapes."""
     params = _to_torch(tree, device, dtype)
     if cfg is not None:
-        emb = params["embed_tokens"]["embedding"]
-        q = params["layers"]["q_proj"]["kernel"]
+        emb = tuple(params["embed_tokens"]["embedding"].shape)
         want_emb = (cfg.vocab_size, cfg.hidden_size)
-        want_q = (cfg.num_layers, cfg.hidden_size, cfg.q_dim)
-        if tuple(emb.shape) != want_emb or tuple(q.shape) != want_q:
+        q, want_q = _q_proj_shape(params["layers"]["q_proj"], cfg)
+        if emb != want_emb or q != want_q:
             raise ValueError(
-                f"param tree does not fit {cfg.name}: embedding "
-                f"{tuple(emb.shape)} vs {want_emb}, q_proj {tuple(q.shape)} "
-                f"vs {want_q}")
+                f"param tree does not fit {cfg.name}: embedding {emb} vs "
+                f"{want_emb}, q_proj {q} vs {want_q}")
     return params
 
 

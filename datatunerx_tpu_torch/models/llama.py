@@ -11,6 +11,10 @@ remapping (``models/convert.params_from_jax``):
   layers.{gate,up,down}_proj.kernel
   norm.scale [D];  lm_head.kernel [D, V] (absent when tied)
 
+A quantized tree (``ops/quant.quantize_model_params``) replaces each
+projection's ``kernel`` with a ``quant`` collection (int8 ``q``/``scale`` or
+nf4 ``packed``/``scale_q``/``meta``, stacked over layers).
+
 A Python loop over layers replaces the reference's ``lax.scan``. The paged
 cache is updated IN PLACE (the JAX forward returns new pools): the pos pool
 and each layer's K/V pools are written with ``index_put_``, and the returned
@@ -23,11 +27,16 @@ K1-K3 kernels (``ops/flash_attention.py``) under the reference's condition;
 ``cfg.remat`` wraps each layer in ``torch.utils.checkpoint`` (``full``) or a
 selective checkpoint that saves only the 2-D projection matmuls (``dots``,
 the counterpart of ``checkpoint_dots_with_no_batch_dims``: the flash
-forward is recomputed in the backward pass, as the Pallas call is).
+forward and the quantized-matmul kernels are recomputed in the backward
+pass, as the Pallas calls are).
 LoRA dropout and NEFTune noise draw from ``torch.Generator``s seeded by
 (``dropout_seed``, layer, projection), so a checkpoint's recompute draws
-the same masks; the bits differ from jax.random's. Quantized base weights
-are not ported yet (ROADMAP Queue 1 item 9).
+the same masks; the bits differ from jax.random's. Projections with a
+``quant`` collection multiply through ``ops/quant.quantized_matmul``:
+``cfg.quant_impl == "pallas"`` takes the K4/K5 (nf4) and K6 (int8)
+kernels, ``"xla"`` dequantizes and runs a plain matmul. Dispatch keys on the
+tree, not on ``cfg.quantization``, as the reference does: a QLoRA export
+records ``quantization`` in its ``config.json`` and holds full kernels.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from torch.utils.checkpoint import (
 )
 
 from datatunerx_tpu_torch.models.config import ModelConfig
+from datatunerx_tpu_torch.models.lora import target_dims
 from datatunerx_tpu_torch.ops.attention import (
     attention,
     attention_allow,
@@ -58,6 +68,7 @@ from datatunerx_tpu_torch.ops.cuda_paged_attention import (
     paged_attention_multitoken_step,
 )
 from datatunerx_tpu_torch.ops.paged_attention import write_targets
+from datatunerx_tpu_torch.ops.quant import quantized_matmul
 from datatunerx_tpu_torch.ops.rope import (
     apply_rope_tables,
     rope_cos_sin,
@@ -138,12 +149,21 @@ def _uniform(shape, seed: int, device) -> torch.Tensor:
 
 def _proj(h: torch.Tensor, p: dict, lora_p: Optional[dict] = None,
           lora_scale: float = 0.0, drop_seed: Optional[int] = None,
-          drop_rate: float = 0.0) -> torch.Tensor:
+          drop_rate: float = 0.0, quant_mode: Optional[str] = None,
+          dims: Optional[tuple] = None,
+          use_pallas: bool = False) -> torch.Tensor:
     """Dense projection with optional LoRA delta: ``h W (+ b) +
-    (drop(h) A) B * scale`` in h's dtype. Dropout applies to the adapter
-    branch input only (peft's ``lora_dropout``): kept lanes scale by
-    1/(1-p)."""
-    out = h @ p["kernel"].to(h.dtype)
+    (drop(h) A) B * scale`` in h's dtype. The base weight is a
+    full-precision ``kernel`` or a frozen ``quant`` collection
+    (``ops/quant.py``; QLoRA = quantized base + full-precision adapters),
+    multiplied by ``quantized_matmul`` with W's ``dims`` (in, out).
+    Dropout applies to the adapter branch input only (peft's
+    ``lora_dropout``): kept lanes scale by 1/(1-p)."""
+    if "quant" in p:
+        out = quantized_matmul(h, p["quant"], quant_mode, dims,
+                               use_pallas=use_pallas)
+    else:
+        out = h @ p["kernel"].to(h.dtype)
     if "bias" in p:
         out = out + p["bias"].to(h.dtype)
     if lora_p is not None:
@@ -168,10 +188,11 @@ def lm_logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     return logits.to(torch.float32)
 
 
-def _layer(layers: dict, i: int) -> dict:
-    """Layer i's leaves, peeled off a stacked [L, ...] tree."""
-    return {name: {leaf: t[i] for leaf, t in sub.items()}
-            for name, sub in layers.items()}
+def _layer(tree: dict, i: int) -> dict:
+    """Layer i's leaves, peeled off a stacked [L, ...] tree at any depth
+    (a projection's ``quant`` collection nests one level further)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
 
 
 _SAVED_BY_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
@@ -220,10 +241,6 @@ def forward(
         raise NotImplementedError(
             "sliding-window attention is not ported yet (ROADMAP Queue 1, "
             "forward pass)")
-    if cfg.quantization is not None:
-        raise NotImplementedError(
-            "quantized base weights are not ported yet (ROADMAP Queue 1 "
-            "item 9, QLoRA)")
     if cfg.attention_impl == "ring":
         raise NotImplementedError(
             "ring attention is not ported yet (ROADMAP Queue 1 item 10, "
@@ -295,6 +312,7 @@ def forward(
                             and lora is not None) else 0.0
 
     H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    use_pallas = cfg.quant_impl == "pallas"
 
     def layer(x, i):
         lp = _layer(params["layers"], i)
@@ -304,7 +322,8 @@ def forward(
 
         def proj(h, name, j):
             return _proj(h, lp[name], ll.get(name), lora_scale, seeds[j],
-                         drop)
+                         drop, cfg.quantization, target_dims(cfg, name),
+                         use_pallas)
 
         h = rms_norm(x, lp["input_layernorm"]["scale"], cfg.rms_norm_eps)
         q = proj(h, "q_proj", 0).reshape(B, T, H, d)

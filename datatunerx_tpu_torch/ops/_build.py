@@ -25,6 +25,8 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -161,6 +163,15 @@ def _declare(lib: ctypes.CDLL):
         fn = getattr(lib, f"dtx_flash_bwd_dkv_{dt}")
         fn.argtypes = [_P] * 10 + [_I] * 7 + [_F, _P]
         fn.restype = _I
+        # x|g, packed, scale_q, meta, out|dx, M, K, N, stream
+        for name in ("dtx_nf4_matmul", "dtx_nf4_matmul_t"):
+            fn = getattr(lib, f"{name}_{dt}")
+            fn.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+            fn.restype = _I
+        # x, q, scale, out, M, K, N, stream
+        fn = getattr(lib, f"dtx_int8_matmul_{dt}")
+        fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+        fn.restype = _I
     fn = lib.dtx_fused_sample
     # x, temps, us, out, S, Vp, greedy, stream
     fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
@@ -170,3 +181,25 @@ def _declare(lib: ctypes.CDLL):
 def check(code: int, what: str):
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")
+
+
+# --------------------------------------------- what the wrappers check
+def require(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(msg)
+
+
+def operand(t, name: str, dtype, device, vector: bool = True):
+    """A kernel operand: device, dtype, contiguity and, for an operand the
+    kernels read with 16-byte loads (``vector``), its alignment."""
+    require(t.device == device, f"{name} must be on {device}, got {t.device}")
+    require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+    t = t.contiguous()
+    if vector and t.data_ptr() % 16:
+        t = t.clone()
+    return t
+
+
+def stream(t) -> int:
+    """The current CUDA stream of t's device, as the kernels take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -175,20 +175,7 @@ def _plain_bwd_dkv(q, k, v, do, lse, dsum, seg, causal, block_q, block_k):
 
 
 # ----------------------------------------------------------------- wrappers
-def _require(cond: bool, msg: str):
-    if not cond:
-        raise ValueError(msg)
-
-
-def _operand(t: torch.Tensor, name: str, dtype, device) -> torch.Tensor:
-    """What the kernels index memory by: device, dtype, contiguity and the
-    16-byte alignment of their vector loads."""
-    _require(t.device == device, f"{name} must be on {device}, got {t.device}")
-    _require(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
-    t = t.contiguous()
-    if t.data_ptr() % 16:
-        t = t.clone()
-    return t
+_require, _operand, _stream = _build.require, _build.operand, _build.stream
 
 
 def _check_cuda(q, k, v):
@@ -216,10 +203,6 @@ def _seg_operand(seg, q, S):
              f"segment ids must be [B, T] for self-attention, got "
              f"{tuple(seg.shape)} with T={q.shape[1]}, S={S}")
     return _operand(seg.to(torch.int32), "segment_ids", torch.int32, q.device)
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _dims(q, k):

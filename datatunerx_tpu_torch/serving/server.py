@@ -219,7 +219,8 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
 # flag → (value that means "feature off", ROADMAP Queue 1 item it waits for)
 _REFUSED = {
     "checkpoint_path": ("", "item 3 (adapters and tenancy)"),
-    "quantization": ("", "item 9 (QLoRA and serve-time quantization)"),
+    "quantization": ("", "item 1 (dense cache: serve-time quantization "
+                     "rides the single-slot engine)"),
     "adapters": ("", "item 3 (adapters and tenancy)"),
     "adapter_pool": (0, "item 3 (adapters and tenancy)"),
     "adapter_targets": ("", "item 3 (adapters and tenancy)"),

@@ -27,9 +27,9 @@ class TrainArgs:
     quantization: Optional[str] = None  # int4 | int8
     quantization_type: str = "nf4"  # fp4 | nf4
     double_quantization: bool = True
-    quant_impl: str = "pallas"  # pallas (fused kernels) | xla (dequant+dot);
-    # TPU addition — replaces bitsandbytes' kernel selection (reference
-    # train.py:224-234 always uses bnb CUDA kernels when quantized)
+    quant_impl: str = "pallas"  # pallas (the fused CUDA kernels K4-K6; the
+    # reference's name, kept so config.json crosses between the packages) |
+    # xla (dequantize, then a plain matmul)
     rope_scaling: Optional[str] = None  # linear | dynamic
     rope_scaling_factor: float = 2.0
     flash_attn: bool = False

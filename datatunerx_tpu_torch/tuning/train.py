@@ -1,6 +1,8 @@
 """Trainer entry point: ``python -m datatunerx_tpu_torch.tuning.train
 --model_name_or_path … --train_path … --storage_path …`` (the port of
-``datatunerx_tpu/tuning/train.py``, SFT and pt stages on one device).
+``datatunerx_tpu/tuning/train.py``, SFT and pt stages on one device, and
+QLoRA with ``--quantization int4|int8``: the base is quantized on the
+device right after load, the adapters train, and the export dequantizes).
 
   parse → load model + tokenizer → template/encode/pack → Trainer →
   (resume?) → epoch loop [train_step, log, eval, save] → final eval →
@@ -27,6 +29,11 @@ from datatunerx_tpu_torch.data.prefetch import (
 )
 from datatunerx_tpu_torch.data.preprocess import preprocess_pretrain_records
 from datatunerx_tpu_torch.data.templates import get_template
+from datatunerx_tpu_torch.models.lora import target_dims
+from datatunerx_tpu_torch.ops.quant import (
+    dequantize_model_params,
+    quantize_model_params,
+)
 from datatunerx_tpu_torch.training.checkpoint import (
     CheckpointManager,
     export_merged_model,
@@ -51,8 +58,6 @@ def refuse_unported(args: TrainArgs):
         (args.stage == "ppo", "--stage ppo (ROADMAP Queue 1 item 11)"),
         (args.streaming,
          "--streaming (ROADMAP Queue 1 item 8: streaming ingest)"),
-        (bool(args.quantization),
-         "--quantization (ROADMAP Queue 1 item 9: QLoRA)"),
         (args.attention == "ring",
          "--attention ring (ROADMAP Queue 1 item 10: multi-GPU)"),
         (args.num_workers > 1 or any(
@@ -84,6 +89,17 @@ def run(args: TrainArgs) -> dict:
     if args.rope_scaling:
         overrides.update(rope_scaling_type=args.rope_scaling,
                          rope_scaling_factor=args.rope_scaling_factor)
+    if args.quantization:
+        if args.quantization == "int4" and args.quantization_type == "fp4":
+            raise NotImplementedError(
+                "fp4 is not supported; use nf4 (the reference default, "
+                "cmd/tuning/parser.py:45-47)")
+        if args.finetuning_type != "lora":
+            raise ValueError(
+                "--quantization requires finetuning_type lora (quantized "
+                "base weights are frozen, as with bitsandbytes+peft)")
+        overrides["quantization"] = args.quantization
+        overrides["quant_impl"] = args.quant_impl
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     cfg, params, tokenizer = load_model_and_tokenizer(
         args.model_name_or_path, dtype=dtype, seed=args.seed, device=device,
@@ -94,6 +110,11 @@ def run(args: TrainArgs) -> dict:
         export_merged_model(params, cfg, args.export_dir)
         return {"steps": 0, "metrics": {}, "manifest": None,
                 "checkpoint_dir": None, "export_dir": args.export_dir}
+
+    if args.quantization:
+        # on the device; deterministic, so a resume re-quantizes the reloaded
+        # base to the same bytes (the checkpoint holds only the adapters)
+        params = quantize_model_params(params, args.quantization)
 
     # ----- data --------------------------------------------------------
     template = get_template(args.template, tokenizer)
@@ -276,7 +297,12 @@ def run(args: TrainArgs) -> dict:
         },
     )
     if args.export_dir:
-        export_merged_model(state.params, cfg, args.export_dir,
+        export_params = state.params
+        if args.quantization:  # the export holds full (dequantized) kernels
+            export_params = dequantize_model_params(
+                export_params, args.quantization,
+                dims_fn=lambda n: target_dims(cfg, n))
+        export_merged_model(export_params, cfg, args.export_dir,
                             lora=state.lora if lora_run else None,
                             scaling=trainer.scaling)
     return {"steps": step, "metrics": final_metrics,

@@ -55,6 +55,8 @@ REQUIRED = (
     "datatunerx_tpu_torch.training.checkpoint",
     "datatunerx_tpu_torch.data.prefetch",
     "datatunerx_tpu_torch.tuning.train",
+    "datatunerx_tpu_torch.ops.quant",
+    "datatunerx_tpu_torch.ops.cuda_quant",
 )
 
 
@@ -64,7 +66,7 @@ def test_every_module_imports_without_jax():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 32  # slice 1's modules and slice 2's
+    assert n >= 34  # the modules of slices 1, 2 and 3
 
 
 def test_engine_defaults_to_cuda_and_refuses_without_it():

@@ -8,7 +8,10 @@ kernels' f32 sums run in another order than the plain versions'); token ids
 exact for greedy sampling. Flash attention (K1-K3): float32 1e-4 (sums over
 up to 200 keys in another order, gradients of unit-scale inputs), bf16
 2^-6 (outputs and gradients round once to bf16 from f32 sums taken in
-another order; a bf16 ulp at |x| ~ 2-4 is 2^-6)."""
+another order; a bf16 ulp at |x| ~ 2-4 is 2^-6). Quantized matmuls
+(K4-K6): float32 atol=rtol=1e-4 (f32 sums over up to 5632 products in
+another order), bf16 atol 2^-8 / rtol 2^-7 (the staged weights are
+bit-equal to the plain version's; the f32 sums round once to bf16)."""
 
 import pytest
 import torch
@@ -143,3 +146,49 @@ def test_sampling_kernel_matches_plain(cuda, mode):
         assert torch.equal(got, want) and int(got[2]) == 5
     else:
         assert torch.equal(got[temps <= 0], want[temps <= 0])
+
+
+QUANT_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+             torch.bfloat16: dict(atol=2**-8, rtol=2**-7)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N", [(5632, 256), (192, 384), (2048, 144)])
+def test_quant_kernels_match_plain(cuda, dtype, K, N):
+    from datatunerx_tpu_torch.ops import cuda_quant as cq
+    from datatunerx_tpu_torch.ops import quant as tq
+
+    gen = torch.Generator().manual_seed(K + N)
+    w = (torch.randn((K, N), generator=gen) * 0.05).to(cuda)
+    x = torch.randn((2, 100, K), generator=gen).to(dtype).to(cuda)  # M=200
+    g = torch.randn((2, 100, N), generator=gen).to(dtype).to(cuda)
+    qw, q8 = tq.quantize_nf4(w), tq.quantize_int8(w)
+    counts = (cq.nf4_matmul.launches, cq.nf4_matmul_t.launches,
+              cq.int8_matmul.launches)
+    y4 = cq.nf4_matmul(x, qw, (K, N))
+    dx = cq.nf4_matmul_t(g, qw, (K, N))
+    y8 = cq.int8_matmul(x, q8["q"], q8["scale"])
+    assert (cq.nf4_matmul.launches, cq.nf4_matmul_t.launches,
+            cq.int8_matmul.launches) == tuple(c + 1 for c in counts)
+    for got, want in ((y4, tq.matmul_nf4(x, qw, (K, N))),
+                      (dx, cq._plain_nf4_t(g, qw, (K, N))),
+                      (y8, tq.matmul_int8(x, q8["q"], q8["scale"]))):
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **QUANT_TOL[dtype])
+
+
+def test_quant_autograd_runs_the_kernels(cuda):
+    from datatunerx_tpu_torch.ops import cuda_quant as cq
+    from datatunerx_tpu_torch.ops import quant as tq
+
+    gen = torch.Generator().manual_seed(7)
+    K, N = 256, 128
+    w = (torch.randn((K, N), generator=gen) * 0.05).to(cuda)
+    qw = tq.quantize_nf4(w)
+    x = torch.randn((64, K), generator=gen).to(cuda).requires_grad_()
+    before = cq.nf4_matmul_t.launches
+    (got,) = torch.autograd.grad(cq.cuda_matmul_nf4(x, qw, (K, N)).sum(), [x])
+    assert cq.nf4_matmul_t.launches == before + 1
+    want = tq.dequant_nf4(qw, (K, N)).sum(dim=1).expand(64, K)
+    torch.testing.assert_close(got, want, **QUANT_TOL[torch.float32])

@@ -5,7 +5,8 @@ same CSV; ``--resume`` continues from the saved step; the ``model.npz``
 export loads into the JAX package's ``load_model_and_tokenizer`` (logits
 equal the port's merged forward at f32: atol 2e-4 / rtol 2e-3, the
 tolerance tests/test_model_parity.py uses) and serves from the port's
-``BatchedEngine``."""
+``BatchedEngine``; so does a QLoRA run's (``--quantization int4|int8``),
+whose ``config.json`` records the mode over full kernels."""
 
 import csv
 import json
@@ -137,15 +138,86 @@ def test_export_loads_into_both_packages(tmp_path):
 
 
 def test_unported_options_are_refused_with_their_item(tmp_path):
-    for extra, item in ((dict(stage="dpo"), "item 8"),
-                        (dict(stage="ppo", reward_model="x"), "item 11"),
-                        (dict(quantization="int8"), "item 9"),
-                        (dict(attention="ring"), "item 10"),
-                        (dict(mesh="dp=2"), "item 10"),
-                        (dict(metrics_export_address="http://x"), "item 12"),
-                        (dict(storage_path="gs://bucket/x"), "item 11"),
-                        (dict(predict_with_generate="true"), "item 8"),
-                        (dict(streaming="true", pack_sequences="false"), "item 8")):
+    nie = NotImplementedError
+    for extra, exc, item in (
+            (dict(stage="dpo"), nie, "item 8"),
+            (dict(stage="ppo", reward_model="x"), nie, "item 11"),
+            # QLoRA's own refusals, as the reference's
+            (dict(quantization="int4", quantization_type="fp4"), nie, "fp4"),
+            (dict(quantization="int8", finetuning_type="full"), ValueError,
+             "requires finetuning_type lora"),
+            (dict(attention="ring"), nie, "item 10"),
+            (dict(mesh="dp=2"), nie, "item 10"),
+            (dict(metrics_export_address="http://x"), nie, "item 12"),
+            (dict(storage_path="gs://bucket/x"), nie, "item 11"),
+            (dict(predict_with_generate="true"), nie, "item 8"),
+            (dict(streaming="true", pack_sequences="false"), nie, "item 8")):
         argv = _argv(tmp_path, "no", device="cpu", **extra)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(exc, match=item):
             tmain(argv)
+
+
+@pytest.mark.parametrize("mode", ["int4", "int8"])
+def test_qlora_trains_checkpoints_exports_and_serves(tmp_path, mode):
+    """QLoRA through the CLI: the base is quantized after load, the adapters
+    train, the checkpoint holds only the adapters, and the export holds
+    dequantized kernels under a config.json that records the mode, which
+    both packages load and the port serves."""
+    export = str(tmp_path / "export")
+    args = parse_train_args(_argv(
+        tmp_path, "q", device="cpu", quantization=mode, export_dir=export,
+        attention="flash", remat="dots", evaluation_path=""))
+    assert args.quant_impl == "pallas"
+    result = trun(args)
+    assert result["steps"] == 3
+    manifest = _manifest(tmp_path, "q")
+    saved = torch.load(os.path.join(manifest["checkpoint"], "state.pt"),
+                       weights_only=True)
+    assert "params" not in saved
+    assert saved["lora"]["layers"]["q_proj"]["b"].abs().max() > 0
+    assert all(np.isfinite(r["loss"]) for r in _log(tmp_path, "q"))
+    with open(os.path.join(export, "config.json")) as f:
+        assert json.load(f)["quantization"] == mode
+
+    # the export = the re-quantized base, dequantized, plus the adapters
+    from datatunerx_tpu_torch.ops.quant import (
+        dequantize_model_params, quantize_model_params)
+    from datatunerx_tpu_torch.models.lora import target_dims
+    from datatunerx_tpu_torch.utils.model_loader import (
+        load_model_and_tokenizer as tload)
+
+    cfg, base, _ = tload("preset:debug", seed=args.seed)
+    base = dequantize_model_params(quantize_model_params(base, mode), mode,
+                                   lambda n: target_dims(cfg, n))
+    merged = merge_lora(base, saved["lora"], 32.0 / 8)
+    ecfg, eparams, _ = tload(export)
+    assert ecfg.quantization == mode
+    assert "kernel" in eparams["layers"]["q_proj"]
+    jcfg, jparams, _ = jload(export)
+    tokens = np.random.default_rng(1).integers(0, 500, (2, 16)).astype(
+        np.int32)
+    jl, _ = jforward(jparams, jnp.asarray(tokens), jcfg)
+    with torch.no_grad():
+        tl, _ = tforward(merged, torch.from_numpy(tokens), cfg)
+        el, _ = tforward(eparams, torch.from_numpy(tokens), ecfg)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-4,
+                               rtol=2e-3)
+    np.testing.assert_allclose(el.numpy(), np.asarray(jl), atol=2e-4,
+                               rtol=2e-3)
+
+    eng = BatchedEngine(export, device="cpu", template="vanilla",
+                        max_seq_len=128, slots=2, kv_block_size=16)
+    try:
+        out = eng.generate(eng.tokenizer.encode("add 2+2"), max_new_tokens=4)
+        assert len(out) == 4
+    finally:
+        eng.close()
+
+
+def test_quant_impl_flag_parses_as_in_the_reference(tmp_path):
+    argv = _argv(tmp_path, "p", quantization="int8", quant_impl="xla")
+    args = parse_train_args(argv)
+    assert (args.quantization, args.quant_impl) == ("int8", "xla")
+    assert parse_train_args(_argv(tmp_path, "p")).quant_impl == "pallas"
+    with pytest.raises(ValueError, match="quant_impl"):
+        parse_train_args(_argv(tmp_path, "p", quant_impl="mosaic"))

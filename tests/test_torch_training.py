@@ -9,7 +9,9 @@ trajectories rtol 1e-5 / atol 1e-7 (optax evaluates the schedule in f32,
 the port in double); grad_norm rtol 1e-4; updated leaves atol 1e-5 (1 % of
 the 1e-3 learning rate: Adam's first step maps g to lr*g/(|g| + 1e-8),
 which turns f32 summation noise in a gradient of |g| ~ 1e-8 into a visible
-fraction of lr) + rtol 1e-4. LoRA dropout and NEFTune draw from
+fraction of lr) + rtol 1e-4. The QLoRA cases quantize the base with the
+reference (nf4 and int8; its Pallas kernels run in interpret mode) and carry
+the bytes across. LoRA dropout and NEFTune draw from
 torch generators, not jax.random, so a separate test checks the dropout
 keep rate and the 1/(1-p) scaling."""
 
@@ -25,6 +27,7 @@ from datatunerx_tpu.data.preprocess import pack_to_block as jpack
 from datatunerx_tpu.data.preprocess import pad_to_block as jpad
 from datatunerx_tpu.models.config import get_config as jget_config
 from datatunerx_tpu.models.llama import init_params as jinit
+from datatunerx_tpu.ops.quant import quantize_model_params as jquantize
 from datatunerx_tpu.training import optimizer as jopt
 from datatunerx_tpu.training.loss import causal_lm_loss as jloss
 from datatunerx_tpu.training.train_lib import TrainConfig as JTrainConfig
@@ -117,22 +120,29 @@ def _batch(seed, B, T, vocab, packed, accum):
 
 
 CASES = [
-    # finetuning_type, attention, packed, grad_accum
+    # finetuning_type[+base quantization (QLoRA)], attention, packed,
+    # grad_accum
     ("lora", "xla", False, 1),
     ("lora", "flash", True, 1),
     ("lora", "xla", True, 2),
     ("freeze", "xla", True, 1),
     ("full", "flash", False, 2),
+    ("lora+int4", "flash", True, 1),
+    ("lora+int8", "xla", False, 2),
 ]
 
 
 @pytest.mark.parametrize("kind,impl,packed,accum", CASES)
 def test_train_step_matches_reference(kind, impl, packed, accum):
     T, B = 128, 4
-    jcfg = jget_config("debug", attention_impl=impl, remat="full")
+    kind, _, quant = kind.partition("+")
+    qcfg = dict(quantization=quant, quant_impl="pallas") if quant else {}
+    jcfg = jget_config("debug", attention_impl=impl, remat="full", **qcfg)
     tcfg = tget_config("debug", attention_impl=impl,
-                       remat="dots" if impl == "flash" else "full")
+                       remat="dots" if impl == "flash" else "full", **qcfg)
     jparams = jinit(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    if quant:  # the frozen base, quantized by the reference and carried over
+        jparams = jquantize(jparams, quant)
     common = dict(finetuning_type=kind, lora_dropout=0.0, learning_rate=1e-3,
                   total_steps=10, grad_accum=accum, num_layer_trainable=1,
                   weight_decay=0.01)
