@@ -11,10 +11,13 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
 1. device: prints the card's name and power limit (nvidia-smi) and the
    kernel build time;
 2. kernels: runs each kernel of the serving path — K7 paged decode, K8 paged
-   multi-token, K9 fused sampling — on the card at the shapes the
-   tinyllama-1.1b serving path gives it, holds it against its plain PyTorch
-   version on the same inputs with the stated tolerance, and times kernel,
-   plain version and a PyTorch yardstick call with CUDA events;
+   multi-token (each over bf16 pools and, as K7-int8/K8-int8, over int8
+   pools with scale pools, the latter in bf16 and f32 and also against the
+   gather path's dequantized read), K9 fused sampling — on the card at the
+   shapes the tinyllama-1.1b serving path gives it, holds it against its
+   plain PyTorch version on the same inputs with the stated tolerance, and
+   times kernel, plain version and a PyTorch yardstick call with CUDA
+   events;
 3. serve: starts the port's HTTP server in-process for
    ``preset:tinyllama-1.1b`` (full width, random weights from seed 0) with
    ``--kv_block_size 16 --slots 4``, sends four concurrent
@@ -49,17 +52,42 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
 9. QLoRA parity: one train step (int4, then int8) at tinyllama width and
    4 layers with ``quant_impl="pallas"`` against ``"xla"`` (dequantize,
    then a plain matmul): the bounds of phase 6;
-10. prints one JSON ``{"kernels": [...]}`` line (K7, K8, K9, K1-K6) and,
-    last, one JSON line ``{"ok": true, "device": {...}}``.
+10. fused LoRA matmul: drives ``lora_matmul`` (K10; no model path calls it,
+    in either package) at tinyllama-1.1b's adapted projections — q_proj
+    (2048 x 2048) and v_proj (2048 x 256), r = 8, scale 32/8, on a training
+    batch (M = 8192 rows) and a decode step (M = 4), bf16 — against the f32
+    composite ``x W + (x A) B scale`` (atol 2^-5 + rtol 2^-6: the strip and
+    the output each round once to bf16), its launch counter zeroed just
+    before;
+11. prints one JSON ``{"kernels": [...]}`` line (K7, K8, K7-int8, K8-int8,
+    K9, K10, K1-K6) and, last, one JSON line ``{"ok": true, "device":
+    {...}}``.
+
+Three more serving phases run right after phase 4, before any training
+phase (a decode step is bound by the host's launch rate, and the serving
+phases read slower once the trainer's profiler windows and input threads
+have run in the process):
+
+- 3-int8: phase 3 with ``--kv_quant int8`` (int8 KV pool with f32 scale
+  pools), full width and depth; requires the int8 instantiations of K7 and
+  K8 to have launched, and prints TTFT, decode tok/s and the KV pool's bytes
+  beside the bf16 pool's;
+- 4-int8: phase 4 between the int8 kernel engine and the int8 gather engine;
+- 3-dense: the server with its default flags (``--kv_block_size 0``, the
+  dense per-slot cache) answers two concurrent greedy requests, and the
+  dense engine's greedy streams equal the paged gather engine's up to a
+  near-tie.
 
 Phase 2 also holds K1 (flash forward), K2 (dQ) and K3 (dK/dV) against
 their plain versions at the training shapes (B=8 H=32 KV=4 T=1024 d=64,
 causal, bf16), on a packed batch and at d=128, and K4 (nf4 matmul), K5
 (its transposed dx product) and K6 (int8 matmul) at M=8192 rows and each
-projection shape of tinyllama-1.1b, in bf16 and f32. ``--phase kernels``
-stops after phase 2; ``--phase train`` runs phases 1, 2 and 5-9;
-``--phase qlora`` runs phases 1, 2 and 7-9. The script imports nothing of
-JAX or of the JAX package.
+projection shape of tinyllama-1.1b, in bf16 and f32, and K10 (fused LoRA
+matmul) at M=8192 and M=4 rows, N=2048 and N=256, K=2048, r=8, in bf16 and
+f32. ``--phase kernels`` stops after phase 2; ``--phase serve`` runs phases
+1-4, the three above and 10; ``--phase train`` runs phases 1, 2 and 5-9;
+``--phase qlora`` runs phases 1, 2 and 7-9. The script imports nothing of JAX or of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -153,9 +181,38 @@ def make_pool(torch, B, nbps, bs, KV, d, lens, gen):
 
 
 def gathered(torch, pool, tables):
+    """The gather path's linear view of a pool [NB, bs, ...]: [B, W, ...]."""
     tbl = torch.where(tables >= 0, tables, torch.zeros_like(tables)).long()
     B = tables.shape[0]
-    return pool[tbl].reshape(B, -1, pool.shape[-2], pool.shape[-1])
+    return pool[tbl].reshape(B, -1, *pool.shape[2:])
+
+
+def kv_positions(torch, pos, tables):
+    """The gathered position view [B, W], sentinel where no block backs it."""
+    bs = pos.shape[1]
+    view = gathered(torch, pos, tables)
+    return torch.where((tables >= 0).repeat_interleave(bs, 1), view,
+                       torch.full_like(view, SENTINEL))
+
+
+def int8_pools(k, v):
+    """bf16 pools → (int8 pools, f32 scale pools), as the cache writes them."""
+    from datatunerx_tpu_torch.ops.attention import kv_quantize
+
+    kq, ks = kv_quantize(k)
+    vq, vs = kv_quantize(v)
+    return kq, vq, ks, vs
+
+
+def dequantized_view(torch, pools, tables, dtype):
+    """What the gather path reads from int8 pools: [B, W, KV, d] in dtype."""
+    from datatunerx_tpu_torch.ops.attention import kv_dequantize
+
+    kq, vq, ks, vs = pools
+    return (kv_dequantize(gathered(torch, kq, tables),
+                          gathered(torch, ks, tables), dtype),
+            kv_dequantize(gathered(torch, vq, tables),
+                          gathered(torch, vs, tables), dtype))
 
 
 def sdpa(torch, q, k, v, mask=None, causal=False):
@@ -178,99 +235,174 @@ def close_enough(torch, got, want, atol, rtol):
     return ok, float(diff.max())
 
 
-def check_k7(torch, timer, gen):
+PAGED_TOL = (2**-8, 2**-7)  # f32 sums in another order, one bf16 rounding
+
+
+def check_k7(torch, timer, gen, quant=False):
+    """K7 against its plain version. ``quant``: the int8 instantiation, over
+    pools quantized as the cache writes them, in bf16 and f32 and also
+    against the gather path's dequantized read; timed in bf16."""
     from datatunerx_tpu_torch.ops import cuda_paged_attention as cpa
+    from datatunerx_tpu_torch.ops.attention import (
+        make_causal_bias,
+        xla_attention,
+    )
 
     B, H, KV, d, bs, nbps = 4, 32, 4, 64, 16, 64
     lens = [1000, 517, 77, 0]  # ragged, one empty slot
     k, v, tables, pos = make_pool(torch, B, nbps, bs, KV, d, lens, gen)
-    q = torch.randn((B, H, d), generator=gen).to(torch.bfloat16).cuda()
+    q32 = torch.randn((B, H, d), generator=gen).cuda()
     qpos = torch.tensor([max(n - 1, 0) for n in lens], dtype=torch.int32,
                         device="cuda")
-
-    def kern():
-        return cpa.paged_decode_attention(q, k, v, None, None, tables, pos,
-                                          qpos)
-
-    def plain():
-        return cpa._plain_decode(q, k, v, tables, pos, qpos)
-
-    got, want = kern(), plain()
-    torch.cuda.synchronize()
-    ok, err = close_enough(torch, got, want, 2**-8, 2**-7)
-    if not ok:
-        fail(f"K7 disagrees with its plain version: max abs err {err}")
-    if got[3].abs().max().item() != 0:
-        fail("K7: the empty slot did not write zeros")
-    k_all, v_all = gathered(torch, k, tables), gathered(torch, v, tables)
-    kv_pos = gathered(torch, pos[:, :, None, None], tables).reshape(B, -1)
-    kv_pos = torch.where((tables >= 0).repeat_interleave(bs, 1), kv_pos,
-                         torch.full_like(kv_pos, SENTINEL))
+    kv_pos = kv_positions(torch, pos, tables)
+    pools = int8_pools(k, v) if quant else (k, v, None, None)
+    name = "K7-int8" if quant else "K7"
+    err = 0.0
+    for dtype in ((torch.bfloat16, torch.float32) if quant
+                  else (torch.bfloat16,)):
+        q = q32.to(dtype)
+        got = cpa.paged_decode_attention(q, *pools, tables, pos, qpos)
+        want = cpa._plain_decode(q, pools[0], pools[1], tables, pos, qpos,
+                                 pools[2], pools[3])
+        torch.cuda.synchronize()
+        ok, e = close_enough(torch, got, want, *PAGED_TOL)
+        if not ok:
+            fail(f"{name} ({dtype}) disagrees with its plain version: max "
+                 f"abs err {e}")
+        if got[3].abs().max().item() != 0:
+            fail(f"{name}: the empty slot did not write zeros")
+        err = max(err, e)
+        if quant:
+            k_att, v_att = dequantized_view(torch, pools, tables, dtype)
+            bias = make_causal_bias(qpos[:, None], kv_pos)
+            read = xla_attention(q[:, None], k_att, v_att, bias)[:, 0]
+            ok, e = close_enough(torch, got[:3], read[:3], *PAGED_TOL)
+            if not ok:
+                fail(f"{name} ({dtype}) disagrees with the gather path's "
+                     f"dequantized read: max abs err {e}")
+            err = max(err, e)
+    q = q32.to(torch.bfloat16)
+    if quant:
+        k_all, v_all = dequantized_view(torch, pools, tables, torch.bfloat16)
+    else:
+        k_all, v_all = gathered(torch, k, tables), gathered(torch, v, tables)
     mask = (kv_pos <= qpos[:, None])[:, None, None, :]  # [B, 1, 1, W]
     qs, ks, vs = q[:, :, None, :], k_all.transpose(1, 2), v_all.transpose(1, 2)
     valid = sum(lens)
+    # per cached token: its position, and K and V rows of every KV head
+    # (bf16: 2 bytes an element; int8: 1 byte plus one f32 scale per row)
+    token_bytes = 4 + 2 * KV * ((d + 4) if quant else 2 * d)
     nbytes = (2 * q.numel() * 2 + tables.numel() * 4 + qpos.numel() * 4
-              + valid * (4 + 2 * KV * d * 2))
+              + valid * token_bytes)
     b_ms, b_by = bound_ms(nbytes, 4 * H * d * valid, BF16_OPS_PER_S)
+
+    def kern():
+        return cpa.paged_decode_attention(q, *pools, tables, pos, qpos)
+
+    def plain():
+        return cpa._plain_decode(q, pools[0], pools[1], tables, pos, qpos,
+                                 pools[2], pools[3])
+
     return {
-        "name": "K7 paged_decode_attention", "route": "cuda",
+        "name": f"{name} paged_decode_attention"
+                + (" (int8 pools)" if quant else ""), "route": "cuda",
         "source": "datatunerx_tpu_torch/csrc/paged_attention.cu",
         "replaces": "datatunerx_tpu/ops/pallas_paged_attention.py:65",
         "counter": cpa.paged_decode_attention,
-        "max_abs_err": err, "tolerance": "atol 2^-8 + rtol 2^-7 (bf16)",
+        "count": "int8_launches" if quant else "launches",
+        "max_abs_err": err,
+        "tolerance": "atol 2^-8 + rtol 2^-7" + (
+            " (bf16 and f32; vs plain and vs the gather path)" if quant
+            else " (bf16)"),
         "ms": timer.ms(kern), "plain_ms": timer.ms(plain, reps=5),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: sdpa(torch, qs, ks, vs, mask)),
-        "shape": f"B={B} H={H} KV={KV} d={d} bs={bs} nbps={nbps} lens={lens}",
+        "shape": f"B={B} H={H} KV={KV} d={d} bs={bs} nbps={nbps} lens={lens}"
+                 + ("; library: SDPA on the dequantized view" if quant
+                    else ""),
     }
 
 
-def check_k8(torch, timer, gen):
+def check_k8(torch, timer, gen, quant=False):
+    """K8 against its plain version; ``quant`` as in ``check_k7``."""
     from datatunerx_tpu_torch.ops import cuda_paged_attention as cpa
-    from datatunerx_tpu_torch.ops.attention import attention_allow
+    from datatunerx_tpu_torch.ops.attention import (
+        attention_allow,
+        make_causal_bias,
+        xla_attention,
+    )
 
     B, T, H, KV, d, bs, nbps = 1, 256, 32, 4, 64, 16, 64
     lens = [768]  # the third 256-token chunk of a prompt, post-write
     k, v, tables, pos = make_pool(torch, B, nbps, bs, KV, d, lens, gen)
-    q = torch.randn((B, T, H, d), generator=gen).to(torch.bfloat16).cuda()
+    q32 = torch.randn((B, T, H, d), generator=gen).cuda()
     qpos = torch.arange(lens[0] - T, lens[0], dtype=torch.int32,
                         device="cuda")[None]
-    kv_pos = gathered(torch, pos[:, :, None, None], tables).reshape(B, -1)
-    kv_pos = torch.where((tables >= 0).repeat_interleave(bs, 1), kv_pos,
-                         torch.full_like(kv_pos, SENTINEL))
+    kv_pos = kv_positions(torch, pos, tables)
     allow = attention_allow(qpos, kv_pos)
-
-    def kern():
-        return cpa.paged_multitoken_attention(q, k, v, None, None, tables,
-                                              allow)
-
-    def plain():
-        return cpa._plain_multitoken(q, k, v, tables, allow)
-
-    got, want = kern(), plain()
-    torch.cuda.synchronize()
-    ok, err = close_enough(torch, got, want, 2**-8, 2**-7)
-    if not ok:
-        fail(f"K8 disagrees with its plain version: max abs err {err}")
-    k_all, v_all = gathered(torch, k, tables), gathered(torch, v, tables)
+    pools = int8_pools(k, v) if quant else (k, v, None, None)
+    name = "K8-int8" if quant else "K8"
+    err = 0.0
+    for dtype in ((torch.bfloat16, torch.float32) if quant
+                  else (torch.bfloat16,)):
+        q = q32.to(dtype)
+        got = cpa.paged_multitoken_attention(q, *pools, tables, allow)
+        want = cpa._plain_multitoken(q, pools[0], pools[1], tables, allow,
+                                     pools[2], pools[3])
+        torch.cuda.synchronize()
+        ok, e = close_enough(torch, got, want, *PAGED_TOL)
+        if not ok:
+            fail(f"{name} ({dtype}) disagrees with its plain version: max "
+                 f"abs err {e}")
+        err = max(err, e)
+        if quant:
+            k_att, v_att = dequantized_view(torch, pools, tables, dtype)
+            read = xla_attention(q, k_att, v_att,
+                                 make_causal_bias(qpos, kv_pos))
+            ok, e = close_enough(torch, got, read, *PAGED_TOL)
+            if not ok:
+                fail(f"{name} ({dtype}) disagrees with the gather path's "
+                     f"dequantized read: max abs err {e}")
+            err = max(err, e)
+    q = q32.to(torch.bfloat16)
+    if quant:
+        k_all, v_all = dequantized_view(torch, pools, tables, torch.bfloat16)
+    else:
+        k_all, v_all = gathered(torch, k, tables), gathered(torch, v, tables)
     qs = q.transpose(1, 2)
     ks, vs = k_all.transpose(1, 2), v_all.transpose(1, 2)
     mask = allow[:, None]
     valid_pairs = int(allow.sum().item())
+    token_bytes = 2 * KV * ((d + 4) if quant else 2 * d)
     nbytes = (2 * q.numel() * 2 + allow.numel() + tables.numel() * 4
-              + lens[0] * 2 * KV * d * 2)
+              + lens[0] * token_bytes)
     b_ms, b_by = bound_ms(nbytes, 4 * H * d * valid_pairs, BF16_OPS_PER_S)
+
+    def kern():
+        return cpa.paged_multitoken_attention(q, *pools, tables, allow)
+
+    def plain():
+        return cpa._plain_multitoken(q, pools[0], pools[1], tables, allow,
+                                     pools[2], pools[3])
+
     return {
-        "name": "K8 paged_multitoken_attention", "route": "cuda",
+        "name": f"{name} paged_multitoken_attention"
+                + (" (int8 pools)" if quant else ""), "route": "cuda",
         "source": "datatunerx_tpu_torch/csrc/paged_attention.cu",
         "replaces": "datatunerx_tpu/ops/pallas_paged_attention.py:294",
         "counter": cpa.paged_multitoken_attention,
-        "max_abs_err": err, "tolerance": "atol 2^-8 + rtol 2^-7 (bf16)",
+        "count": "int8_launches" if quant else "launches",
+        "max_abs_err": err,
+        "tolerance": "atol 2^-8 + rtol 2^-7" + (
+            " (bf16 and f32; vs plain and vs the gather path)" if quant
+            else " (bf16)"),
         "ms": timer.ms(kern), "plain_ms": timer.ms(plain, reps=5),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: sdpa(torch, qs, ks, vs, mask)),
         "shape": f"B={B} T={T} H={H} KV={KV} d={d} bs={bs} nbps={nbps} "
-                 f"len={lens[0]}",
+                 f"len={lens[0]}"
+                 + ("; library: SDPA on the dequantized view" if quant
+                    else ""),
     }
 
 
@@ -614,6 +746,116 @@ def check_quant(torch):
     return entries
 
 
+# ------------------------------------------------------------- phase 2, K10
+LORA_K, LORA_R, LORA_SCALE = 2048, 8, 32 / 8  # tinyllama-1.1b, r8 alpha 32
+# (label, M, N): a packed B8 x T1024 training batch and a 4-slot decode
+# step, on q_proj (2048 x 2048) and v_proj (2048 x 256)
+LORA_SHAPES = (("train q_proj", 8192, 2048), ("train v_proj", 8192, 256),
+               ("decode q_proj", 4, 2048), ("decode v_proj", 4, 256))
+# kernel and plain version round at the same points; their f32 sums (over
+# 2048 products) run in another order and round once to the dtype
+LORA_TOL = {"bf16": (2**-8, 2**-7), "f32": (1e-4, 1e-4)}
+
+
+def lora_operands(torch, M, N, dtype, gen):
+    def rnd(shape, s):
+        return (torch.randn(shape, generator=gen, device="cuda") * s).to(dtype)
+
+    return (rnd((M, LORA_K), 1.0), rnd((LORA_K, N), 0.02),
+            rnd((LORA_K, LORA_R), 0.02), rnd((LORA_R, N), 0.02))
+
+
+def check_k10(torch):
+    """K10 against its plain version at the four shapes above in bf16 and
+    f32. The entry reports the M=8192, N=2048 bf16 case; the library
+    yardstick is the composite ``x @ w + ((x @ a) @ b) * scale`` on cuBLAS,
+    which writes the [M, N] delta and the [M, r] strip to device memory."""
+    from datatunerx_tpu_torch.ops import cuda_lora as cl
+
+    timer = Timer(torch)
+    cgen = torch.Generator(device="cuda").manual_seed(6)
+    err, entry = 0.0, None
+    K, r, scale = LORA_K, LORA_R, LORA_SCALE
+    for label, M, N in LORA_SHAPES:
+        for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x, w, a, b = lora_operands(torch, M, N, dtype, cgen)
+
+            def kern():
+                return cl.lora_matmul(x, w, a, b, scale)
+
+            def plain():
+                return cl._plain_lora_matmul(x, w, a, b, scale)
+
+            def library():
+                return x @ w + ((x @ a) @ b) * scale
+
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got.float()).all()):
+                fail(f"K10 ({label}, {dt}) wrote non-finite values")
+            ok, e = close_enough(torch, got, want, *LORA_TOL[dt])
+            if not ok:
+                fail(f"K10 ({label}, {dt}) disagrees with its plain version: "
+                     f"max abs err {e}")
+            err = max(err, e)
+            size = 2 if dt == "bf16" else 4
+            nbytes = size * (M * K + K * N + K * r + r * N + M * N)
+            ops = 2 * M * K * N + 2 * M * K * r + 2 * M * r * N
+            b_ms, b_by = bound_ms(nbytes, ops, BF16_OPS_PER_S if dt == "bf16"
+                                  else F32_OPS_PER_S)
+            ms, lib_ms = timer.ms(kern), timer.ms(library)
+            plain_ms = timer.ms(plain, reps=3, warmup=1)
+            log(f"  K10 {label} [M={M} K={K} N={N} r={r} {dt}]: err {e:.3g}, "
+                f"kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s, "
+                f"{nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, "
+                f"composite on cuBLAS {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+                f"({b_by})")
+            if entry is None:  # the first case: train q_proj, bf16
+                entry = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by)
+            del x, w, a, b
+    return [dict(entry, **{
+        "name": "K10 lora_matmul", "route": "cuda",
+        "source": "datatunerx_tpu_torch/csrc/lora.cu",
+        "replaces": "datatunerx_tpu/ops/pallas_lora.py:27",
+        "counter": cl.lora_matmul, "max_abs_err": err,
+        "tolerance": "atol 2^-8 + rtol 2^-7 (bf16), 1e-4 + 1e-4 (f32), all "
+                     "four shapes",
+        "shape": f"M=8192 K={K} N=2048 r={r} bf16 (timed; the other seven "
+                 "cases printed above); library: the composite on cuBLAS",
+    })]
+
+
+def lora_phase(torch):
+    """K10's own path: ``lora_matmul`` at tinyllama-1.1b's adapted
+    projections, against the f32 composite of the same bf16 operands."""
+    from datatunerx_tpu_torch.ops import cuda_lora as cl
+
+    cgen = torch.Generator(device="cuda").manual_seed(7)
+    cl.lora_matmul.launches = 0
+    for label, M, N in LORA_SHAPES:
+        x, w, a, b = lora_operands(torch, M, N, torch.bfloat16, cgen)
+        lead = (8, 1024) if M == 8192 else (4, 1)  # [B, T, K], as a model's
+        got = cl.lora_matmul(x.reshape(*lead, LORA_K), w, a, b, LORA_SCALE)
+        torch.cuda.synchronize()
+        if tuple(got.shape) != (*lead, N) or got.dtype != torch.bfloat16:
+            fail(f"lora_matmul ({label}) returned {tuple(got.shape)} "
+                 f"{got.dtype}")
+        xf, wf, af, bf = (t.float() for t in (x, w, a, b))
+        want = xf @ wf + ((xf @ af) @ bf) * LORA_SCALE
+        ok, e = close_enough(torch, got.reshape(M, N), want, 2**-5, 2**-6)
+        if not ok:
+            fail(f"lora_matmul ({label}) is off the f32 composite by {e}")
+        delta = float((want - xf @ wf).abs().max())
+        log(f"  {label} [{'x'.join(map(str, lead))}x{LORA_K} -> {N}]: max "
+            f"abs err {e:.3g} vs the f32 composite (adapter delta up to "
+            f"{delta:.3g})")
+    n = cl.lora_matmul.launches
+    if n != len(LORA_SHAPES):
+        fail(f"lora phase: {n} K10 launches, expected {len(LORA_SHAPES)}")
+    return {"lora_matmul": n}
+
+
 # ------------------------------------------------------------------ phase 3
 def post(port, body, stream=False, trace=""):
     req = urllib.request.Request(
@@ -645,12 +887,14 @@ def post(port, body, stream=False, trace=""):
                 "wall_s": time.perf_counter() - t0}
 
 
-def serve_phase(torch, counters):
+def start_server(torch, flags):
+    """The port's server, in-process, for tinyllama-1.1b with ``flags``;
+    returns (srv, port, engine) once ``/healthz`` answers 200."""
     from datatunerx_tpu_torch.serving import server
 
     args = server.parse_args([
-        "--model_path", "preset:tinyllama-1.1b", "--kv_block_size", "16",
-        "--slots", "4", "--host", "127.0.0.1", "--port", "0"])
+        "--model_path", "preset:tinyllama-1.1b", *flags,
+        "--host", "127.0.0.1", "--port", "0"])
     srv = server.start(args)
     port = srv.server_address[1]
     th = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -668,10 +912,31 @@ def serve_phase(torch, counters):
             fail(f"/healthz answered {r.status} after load")
     log(f"  engine loaded in {time.perf_counter() - t0:.1f} s: "
         f"decode_path={eng.decode_path} sampling_epilogue="
-        f"{eng.sampling_epilogue} kv_blocks={eng.total_kv_blocks}")
+        f"{eng.sampling_epilogue} kv_quant={eng.kv_quant} "
+        f"kv_blocks={eng.total_kv_blocks} kv_cache_bytes="
+        f"{eng.kv_cache_bytes}")
     # warm-up request (first-call allocations), not counted
     post(port, {"messages": [{"role": "user", "content": "warm up"}],
                 "max_tokens": 8})
+    return srv, port, eng
+
+
+def stop_server(srv):
+    from datatunerx_tpu_torch.serving import server
+
+    srv.shutdown()
+    srv.server_close()
+    # the server's module state would keep the engine's weights and cache on
+    # the card after the caller closes it, inside the train phases' peaks
+    server.STATE.engine = None
+
+
+def serve_phase(torch, counters, flags=("--kv_block_size", "16",
+                                        "--slots", "4"), greedy_only=False):
+    """Concurrent ``/chat/completions`` through the server started with
+    ``flags``; ``counters`` are ``(wrapper, count attribute)`` pairs, zeroed
+    just before the requests and read just after."""
+    srv, port, eng = start_server(torch, flags)
     long_q = " ".join(f"item {i}: the quick brown fox." for i in range(40))
     reqs = [
         ("greedy-long", {"messages": [{"role": "user", "content": long_q}],
@@ -687,28 +952,36 @@ def serve_phase(torch, counters):
                        "max_tokens": 64, "temperature": 0.8, "top_p": 1.0},
          False),
     ]
-    for c in counters:
-        c.launches = 0
-    eng.request_stats.clear()
-    results, errors = {}, []
+    if greedy_only:
+        reqs = reqs[:2]
+    def batch():
+        """The requests, all at once; (results, wall seconds, stats by
+        request name)."""
+        eng.request_stats.clear()
+        results, errors = {}, []
 
-    def run(name, body, stream):
-        try:
-            results[name] = post(port, body, stream=stream, trace=name)
-        except Exception as e:  # noqa: BLE001 — reported below
-            errors.append(f"{name}: {e}")
+        def run(name, body, stream):
+            try:
+                results[name] = post(port, body, stream=stream, trace=name)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{name}: {e}")
 
-    threads = [threading.Thread(target=run, args=r) for r in reqs]
-    t_start = time.perf_counter()
-    for th_ in threads:
-        th_.start()
-    for th_ in threads:
-        th_.join(timeout=900)
-    wall = time.perf_counter() - t_start
-    launches = {c.__name__: c.launches for c in counters}
-    if errors or len(results) != len(reqs):
-        fail(f"serve phase: {errors or 'requests did not finish'}")
-    stats = {s["trace_id"]: s for s in eng.request_stats}
+        threads = [threading.Thread(target=run, args=r) for r in reqs]
+        t_start = time.perf_counter()
+        for th_ in threads:
+            th_.start()
+        for th_ in threads:
+            th_.join(timeout=900)
+        wall = time.perf_counter() - t_start
+        if errors or len(results) != len(reqs):
+            fail(f"serve phase: {errors or 'requests did not finish'}")
+        return results, wall, {s["trace_id"]: s for s in eng.request_stats}
+
+    for c, attr in counters:
+        setattr(c, attr, 0)
+    results, wall, stats = batch()
+    launches = {counter_key(c, attr): getattr(c, attr)
+                for c, attr in counters}
     total = 0
     for name, _, _ in reqs:
         st = stats.get(name)
@@ -724,19 +997,32 @@ def serve_phase(torch, counters):
     if results["greedy-sse"].get("first_delta_s") is None and \
             results["greedy-sse"]["text"]:
         fail("greedy-sse: text arrived without a delta event")
-    if _most_chunks(eng.sched_trace) < 2:
+    if eng.paged and _most_chunks(eng.sched_trace) < 2:
         fail("no prompt was prefilled in two or more chunks")
-    log(f"  4 concurrent requests: {total} tokens in {wall:.2f} s wall "
-        f"({total / wall:.1f} tok/s aggregate), launches {launches}")
+    log(f"  {len(reqs)} concurrent requests: {total} tokens in {wall:.2f} s "
+        f"wall ({total / wall:.1f} tok/s aggregate), launches {launches}")
     for name, n in launches.items():
         if n <= 0:
             fail(f"serve phase: kernel {name} was never launched")
-    srv.shutdown()
-    srv.server_close()
-    # the server's module state would keep the engine's weights and pools on
-    # the card after the caller closes it, inside the train phases' peaks
-    server.STATE.engine = None
+    # the same batch twice more, for the spread inside one process: the
+    # decode step follows the host, whose speed moves from second to second
+    for again in (2, 3):
+        _, wall_n, stats_n = batch()
+        ttft = sorted(s["ttft_s"] for s in stats_n.values())
+        tpot = sorted(s["tpot_s"] for s in stats_n.values() if s["tpot_s"])
+        tokens = sum(s["tokens"] for s in stats_n.values())
+        log(f"  batch {again} (not counted): TTFT median "
+            f"{ttft[len(ttft) // 2] * 1e3:.1f} ms, decode "
+            f"{1.0 / tpot[len(tpot) // 2]:.1f} tok/s per request, "
+            f"{tokens / wall_n:.1f} tok/s aggregate")
+    stop_server(srv)
     return eng, launches, {"wall_s": wall, "tokens": total}
+
+
+def counter_key(counter, attr="launches") -> str:
+    """A kernel's key in the launch table: its wrapper's name, with
+    ``:int8`` for the count of its int8 instantiation."""
+    return counter.__name__ + (":int8" if attr == "int8_launches" else "")
 
 
 def _most_chunks(sched_trace) -> int:
@@ -752,14 +1038,18 @@ def _most_chunks(sched_trace) -> int:
 
 
 # ------------------------------------------------------------------ phase 4
-def parity_phase(torch, eng):
+def parity_phase(torch, eng, kv_quant=None):
+    """Greedy streams of ``eng`` against an engine on the paged gather path
+    with the legacy sampler (and the same KV quantization): equal, or
+    diverging at a near-tie of the gather path's logits."""
     from datatunerx_tpu_torch.models.llama import forward
     from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
     from datatunerx_tpu_torch.utils.decoding import prepare_prompt
 
     plain = BatchedEngine("preset:tinyllama-1.1b", template="llama2",
                           max_seq_len=1024, slots=4, kv_block_size=16,
-                          paged_kernel="off", sampling_epilogue="off")
+                          kv_quant=kv_quant, paged_kernel="off",
+                          sampling_epilogue="off")
     try:
         tok = eng.tokenizer
         prompts = [tok.encode("The capital of France is"),
@@ -1069,7 +1359,7 @@ def train_parity_phase(torch, variants, quant=None):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", default="all",
-                    choices=["all", "kernels", "train", "qlora"])
+                    choices=["all", "kernels", "serve", "train", "qlora"])
     opts = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "datatunerx_tpu_torch", "csrc")):
         fail("datatunerx_tpu_torch/ is missing: run from a repository "
@@ -1101,30 +1391,36 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(0)
     timer = Timer(torch)
     entries = []
-    for check in (check_k7, check_k8, check_k9):
-        e = check(torch, timer, gen)
+
+    def report(e):
         entries.append(e)
         log(f"  {e['name']} [{e['shape']}]: max abs err {e['max_abs_err']:.3g}"
             f" ({e['tolerance']}); kernel {e['ms']:.4f} ms, plain "
             f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, bound "
             f"{e['bound_ms']:.5f} ms ({e['bound_by']})")
+
+    for check, quant in ((check_k7, False), (check_k8, False),
+                         (check_k7, True), (check_k8, True)):
+        report(check(torch, timer, gen, quant))
+    report(check_k9(torch, timer, gen))
     flash = check_flash(torch, timer, gen)
     del timer
     torch.cuda.empty_cache()
-    for e in flash + check_quant(torch):
-        entries.append(e)
-        log(f"  {e['name']} [{e['shape']}]: max abs err {e['max_abs_err']:.3g}"
-            f" ({e['tolerance']}); kernel {e['ms']:.4f} ms, plain "
-            f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, bound "
-            f"{e['bound_ms']:.5f} ms ({e['bound_by']})")
+    for e in check_k10(torch) + flash + check_quant(torch):
+        report(e)
     torch.cuda.empty_cache()
-    serve_counters = [e["counter"] for e in entries[:3]]
-
-    launches = {e["counter"].__name__: 0 for e in entries}
-    if opts.phase == "all":
+    for e in entries:
+        e["key"] = counter_key(e["counter"], e.get("count", "launches"))
+    by_name = {e["name"].split()[0]: (e["counter"], e.get("count", "launches"))
+               for e in entries}
+    launches = {e["key"]: 0 for e in entries}
+    serving = opts.phase in ("all", "serve")
+    if serving:
         log("[3] serve preset:tinyllama-1.1b (4 concurrent /chat/completions)")
-        eng, served, _ = serve_phase(torch, serve_counters)
+        eng, served, _ = serve_phase(
+            torch, [by_name[k] for k in ("K7", "K8", "K9")])
         launches.update(served)
+        bf16_pool_bytes = eng.kv_cache_bytes
         log("[4] greedy parity: kernels vs gather path + legacy sampler")
         try:
             parity_phase(torch, eng)
@@ -1132,6 +1428,36 @@ def main(argv=None) -> int:
             eng.close()
         del eng
         torch.cuda.empty_cache()
+        log("[3-int8] serve with --kv_quant int8 (int8 KV pool + f32 scale pools; "
+            "4 concurrent /chat/completions)")
+        eng, served, _ = serve_phase(
+            torch, [by_name[k] for k in ("K7-int8", "K8-int8")],
+            flags=("--kv_block_size", "16", "--kv_quant", "int8",
+                   "--slots", "4"))
+        launches.update(served)
+        log(f"  KV pool (K, V and scales): int8 {eng.kv_cache_bytes} bytes, "
+            f"bf16 {bf16_pool_bytes} bytes "
+            f"({eng.kv_cache_bytes / bf16_pool_bytes:.4f} of it)")
+        log("[4-int8] greedy parity: int8 kernels vs the int8 gather path")
+        try:
+            parity_phase(torch, eng, kv_quant="int8")
+        finally:
+            eng.close()
+        del eng
+        torch.cuda.empty_cache()
+        log("[3-dense] serve with the server's default flags (--kv_block_size "
+            "0: the dense cache), 2 concurrent greedy requests, then greedy "
+            "parity with the paged gather path")
+        eng, _, _ = serve_phase(torch, [], flags=(), greedy_only=True)
+        try:
+            if eng.decode_path != "dense" or eng.total_kv_blocks is not None:
+                fail(f"the default flags gave decode_path {eng.decode_path}")
+            parity_phase(torch, eng)
+        finally:
+            eng.close()
+        del eng
+        torch.cuda.empty_cache()
+
     if opts.phase in ("all", "train", "qlora"):
         import tempfile
 
@@ -1174,12 +1500,20 @@ def main(argv=None) -> int:
                              quant_impl="xla"))], quant=mode)
             torch.cuda.empty_cache()
 
+    if serving:
+        log("[10] fused LoRA matmul (K10) at tinyllama-1.1b's adapted "
+            "projections vs the f32 composite")
+        launches.update(lora_phase(torch))
+    if opts.phase == "all":
+        for e in entries:
+            if launches[e["key"]] <= 0:
+                fail(f"{e['name']} was never launched on its path")
     line = []
     for e in entries:
         line.append({
             "name": e["name"], "route": e["route"], "source": e["source"],
             "replaces": e["replaces"],
-            "launches": launches[e["counter"].__name__],
+            "launches": launches[e["key"]],
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"]})

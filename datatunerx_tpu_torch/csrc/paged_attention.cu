@@ -37,6 +37,19 @@
 // block order. Still simple: CUDA-core f32 FMAs, no wgmma/TMA, no split
 // over table entries.
 //
+// int8 pools (the int8 KV cache; reference :89-108 and :312-323) are further
+// instantiations of the same two kernels, not another algorithm: the staging
+// step loads 16 int8 values per 16-byte load, multiplies each by the f32
+// scale of its (token, KV head) from the scale pools [NB, bs, KV], rounds
+// the product through the compute dtype (kv_dequantize's one rounding;
+// identity for f32) and stores f32 in shared memory. The multiply is an
+// explicit __fmul_rn whose result is rounded and stored before any score
+// product reads it, so no FMA contraction can change a bit and bf16 results
+// equal the gather path's dequantized read. Tiles are staged as f32 either
+// way, so the shared-memory budget per chunk is unchanged; the bytes read
+// per cached token halve (d int8 + one f32 scale per head vector against 2*d).
+// A head dim that is not a multiple of 16 takes the element-wise loop.
+//
 // Masking: K7 compares the pos pool (POS_SENTINEL on unwritten lanes) with
 // the query's rope position; K8 reads the [B, T, nbps*bs] allow operand,
 // the same boolean the gather path turns into its bias. A slot with no live
@@ -46,6 +59,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define DTX_NEG_INF (-1e30f)
 #define DTX_MAX_CHUNK 8
@@ -60,6 +75,9 @@ template <>
 __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+
+template <>
+__device__ __forceinline__ float to_f<int8_t>(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -103,33 +121,63 @@ struct Vec16<float> {
   }
 };
 
+template <>
+struct Vec16<int8_t> {
+  static constexpr int W = 16;
+  __device__ __forceinline__ static void cvt(const uint4& u, float* o) {
+    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[i] = (float)b[i];
+  }
+};
+
+// A pool element as the compute dtype sees it: int8 pools (P = int8_t) give
+// round_T(f32(x) * scale), an explicit multiply and one rounding; pools in
+// the compute dtype are taken as they are (s unused).
+template <typename T, typename P>
+__device__ __forceinline__ float dequant(float raw, float s) {
+  if constexpr (std::is_same<P, int8_t>::value)
+    return round_to<T>(__fmul_rn(raw, s));
+  else
+    return raw;
+}
+
 // Stage the K tiles (rows padded to d+1 floats, so per-row score loops are
 // free of bank conflicts) and, in pass 1, the V tiles of the chunk's live
 // table blocks: slot c of the chunk holds physical block blk_s[c].
-template <typename T>
-__device__ __forceinline__ void stage_chunk(const T* kp, const T* vp,
+// ksc/vsc are the int8 pools' scale pools [NB, bs, KV] (unused otherwise).
+template <typename T, typename P>
+__device__ __forceinline__ void stage_chunk(const P* kp, const P* vp,
+                                            const float* ksc,
+                                            const float* vsc,
                                             const int* blk_s, int ch, int kv,
                                             int KV, int d, int bs,
                                             bool with_v, bool vec, float* k_s,
                                             float* v_s) {
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
   const int rows = ch * bs;
   if (vec) {
-    constexpr int W = Vec16<T>::W;
+    constexpr int W = Vec16<P>::W;
     const int per_row = d / W;
     for (int u = threadIdx.x; u < rows * per_row; u += blockDim.x) {
       const int row = u / per_row, col = (u - row * per_row) * W;
       const int c = row / bs, t = row - c * bs;
       const int blk = blk_s[c];
       if (blk < 0) continue;
-      const size_t g = (((size_t)blk * bs + t) * KV + kv) * d + col;
+      const size_t sc = ((size_t)blk * bs + t) * KV + kv;
+      const size_t g = sc * d + col;
       float f[W];
-      Vec16<T>::cvt(*reinterpret_cast<const uint4*>(kp + g), f);
+      Vec16<P>::cvt(*reinterpret_cast<const uint4*>(kp + g), f);
+      const float sk = kQuant ? ksc[sc] : 1.f;
 #pragma unroll
-      for (int i = 0; i < W; ++i) k_s[row * (d + 1) + col + i] = f[i];
+      for (int i = 0; i < W; ++i)
+        k_s[row * (d + 1) + col + i] = dequant<T, P>(f[i], sk);
       if (with_v) {
-        Vec16<T>::cvt(*reinterpret_cast<const uint4*>(vp + g), f);
+        Vec16<P>::cvt(*reinterpret_cast<const uint4*>(vp + g), f);
+        const float sv = kQuant ? vsc[sc] : 1.f;
 #pragma unroll
-        for (int i = 0; i < W; ++i) v_s[row * d + col + i] = f[i];
+        for (int i = 0; i < W; ++i)
+          v_s[row * d + col + i] = dequant<T, P>(f[i], sv);
       }
     }
     return;
@@ -139,9 +187,12 @@ __device__ __forceinline__ void stage_chunk(const T* kp, const T* vp,
     const int c = row / bs, t = row - c * bs;
     const int blk = blk_s[c];
     if (blk < 0) continue;
-    const size_t g = (((size_t)blk * bs + t) * KV + kv) * d + col;
-    k_s[row * (d + 1) + col] = to_f<T>(kp[g]);
-    if (with_v) v_s[i] = to_f<T>(vp[g]);
+    const size_t sc = ((size_t)blk * bs + t) * KV + kv;
+    const size_t g = sc * d + col;
+    k_s[row * (d + 1) + col] =
+        dequant<T, P>(to_f<P>(kp[g]), kQuant ? ksc[sc] : 1.f);
+    if (with_v)
+      v_s[i] = dequant<T, P>(to_f<P>(vp[g]), kQuant ? vsc[sc] : 1.f);
   }
 }
 
@@ -296,10 +347,12 @@ __device__ __forceinline__ void chunk_rows(int pass, int R, int ch, int bs,
 
 // ---------------------------------------------------------------- K7
 // grid (KV * G/gs, B); one block per (slot, group of gs query heads).
-template <typename T>
+template <typename T, typename P>
 __global__ void paged_decode_kernel(const T* __restrict__ q,
-                                    const T* __restrict__ kp,
-                                    const T* __restrict__ vp,
+                                    const P* __restrict__ kp,
+                                    const P* __restrict__ vp,
+                                    const float* __restrict__ ksc,
+                                    const float* __restrict__ vsc,
                                     const int* __restrict__ tables,
                                     const int* __restrict__ pos_pool,
                                     const int* __restrict__ q_pos,
@@ -336,8 +389,8 @@ __global__ void paged_decode_kernel(const T* __restrict__ q,
   for (int pass = 0; pass < 2; ++pass) {
     for (int j0 = 0; j0 < nbps; j0 += ch) {
       if (!load_chunk(trow, j0, nbps, ch, blk_s, any_s)) continue;
-      stage_chunk<T>(kp, vp, blk_s, ch, kv, KV, d, bs, pass == 1, vec, k_s,
-                     v_s);
+      stage_chunk<T, P>(kp, vp, ksc, vsc, blk_s, ch, kv, KV, d, bs,
+                        pass == 1, vec, k_s, v_s);
       for (int i = threadIdx.x; i < cb; i += blockDim.x) {
         const int blk = blk_s[i / bs];
         ok_s[i] = blk >= 0 && pos_pool[(size_t)blk * bs + i % bs] <= qp;
@@ -356,10 +409,12 @@ __global__ void paged_decode_kernel(const T* __restrict__ q,
 // ---------------------------------------------------------------- K8
 // grid (KV, B, ceil(T / tq)); one block per (KV head, slot, tile of tq query
 // rows) handles G*tq rows, row r = g*tq + tt.
-template <typename T>
+template <typename T, typename P>
 __global__ void paged_multitoken_kernel(const T* __restrict__ q,
-                                        const T* __restrict__ kp,
-                                        const T* __restrict__ vp,
+                                        const P* __restrict__ kp,
+                                        const P* __restrict__ vp,
+                                        const float* __restrict__ ksc,
+                                        const float* __restrict__ vsc,
                                         const int* __restrict__ tables,
                                         const uint8_t* __restrict__ allow,
                                         T* __restrict__ out, int Tq, int H,
@@ -398,8 +453,8 @@ __global__ void paged_multitoken_kernel(const T* __restrict__ q,
   for (int pass = 0; pass < 2; ++pass) {
     for (int j0 = 0; j0 < nbps; j0 += ch) {
       if (!load_chunk(trow, j0, nbps, ch, blk_s, any_s)) continue;
-      stage_chunk<T>(kp, vp, blk_s, ch, kv, KV, d, bs, pass == 1, vec, k_s,
-                     v_s);
+      stage_chunk<T, P>(kp, vp, ksc, vsc, blk_s, ch, kv, KV, d, bs,
+                        pass == 1, vec, k_s, v_s);
       for (int i = threadIdx.x; i < tq * cb; i += blockDim.x) {
         const int tt = i / cb, ct = i - tt * cb;
         const int t = t0 + tt;
@@ -445,14 +500,16 @@ size_t multitoken_smem(int R, int tq, int ch, int bs, int d) {
          sizeof(int) * ((size_t)tq * cb + ch + 1);
 }
 
-template <typename T>
+// 16-byte loads need rows of whole vectors and aligned pools.
+template <typename P>
 bool vec_ok(const void* a, const void* b, int d) {
-  return d % Vec16<T>::W == 0 && (uintptr_t)a % 16 == 0 &&
+  return d % Vec16<P>::W == 0 && (uintptr_t)a % 16 == 0 &&
          (uintptr_t)b % 16 == 0;
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch_decode(const void* q, const void* k_pool, const void* v_pool,
+                  const float* k_scale, const float* v_scale,
                   const int* tables, const int* pos_pool, const int* q_pos,
                   void* out, int B, int H, int KV, int d, int bs, int nbps,
                   float scale, cudaStream_t stream) {
@@ -463,18 +520,19 @@ int launch_decode(const void* q, const void* k_pool, const void* v_pool,
   int ch = DTX_MAX_CHUNK;
   while (ch > 1 && decode_smem(gs, ch, bs, d) > kSmemCap) ch /= 2;
   const size_t smem = decode_smem(gs, ch, bs, d);
-  int err = set_smem(paged_decode_kernel<T>, smem);
+  int err = set_smem(paged_decode_kernel<T, P>, smem);
   if (err) return err;
   dim3 grid(KV * (G / gs), B);
-  paged_decode_kernel<T><<<grid, 128, smem, stream>>>(
-      (const T*)q, (const T*)k_pool, (const T*)v_pool, tables, pos_pool,
-      q_pos, (T*)out, H, KV, d, bs, nbps, gs, ch, scale,
-      vec_ok<T>(k_pool, v_pool, d));
+  paged_decode_kernel<T, P><<<grid, 128, smem, stream>>>(
+      (const T*)q, (const P*)k_pool, (const P*)v_pool, k_scale, v_scale,
+      tables, pos_pool, q_pos, (T*)out, H, KV, d, bs, nbps, gs, ch, scale,
+      vec_ok<P>(k_pool, v_pool, d));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch_multitoken(const void* q, const void* k_pool, const void* v_pool,
+                      const float* k_scale, const float* v_scale,
                       const int* tables, const uint8_t* allow, void* out,
                       int B, int Tq, int H, int KV, int d, int bs, int nbps,
                       int tq, float scale, cudaStream_t stream) {
@@ -482,59 +540,60 @@ int launch_multitoken(const void* q, const void* k_pool, const void* v_pool,
   int ch = DTX_MAX_CHUNK;
   while (ch > 1 && multitoken_smem(R, tq, ch, bs, d) > kSmemCap) ch /= 2;
   const size_t smem = multitoken_smem(R, tq, ch, bs, d);
-  int err = set_smem(paged_multitoken_kernel<T>, smem);
+  int err = set_smem(paged_multitoken_kernel<T, P>, smem);
   if (err) return err;
   dim3 grid(KV, B, (Tq + tq - 1) / tq);
-  paged_multitoken_kernel<T><<<grid, 256, smem, stream>>>(
-      (const T*)q, (const T*)k_pool, (const T*)v_pool, tables, allow,
-      (T*)out, Tq, H, KV, d, bs, nbps, tq, ch, scale,
-      vec_ok<T>(k_pool, v_pool, d));
+  paged_multitoken_kernel<T, P><<<grid, 256, smem, stream>>>(
+      (const T*)q, (const P*)k_pool, (const P*)v_pool, k_scale, v_scale,
+      tables, allow, (T*)out, Tq, H, KV, d, bs, nbps, tq, ch, scale,
+      vec_ok<P>(k_pool, v_pool, d));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" {
+// Pools in the compute dtype (SUFFIX bf16/f32) and int8 pools with their
+// scale pools (i8_bf16/i8_f32).
+#define DTX_PAGED_ENTRIES(SUFFIX, T)                                          \
+  extern "C" int dtx_paged_decode_##SUFFIX(                                   \
+      const void* q, const void* k_pool, const void* v_pool,                  \
+      const void* tables, const void* pos_pool, const void* q_pos,            \
+      void* out, int B, int H, int KV, int d, int bs, int nbps, float scale,  \
+      void* stream) {                                                         \
+    return launch_decode<T, T>(                                               \
+        q, k_pool, v_pool, nullptr, nullptr, (const int*)tables,              \
+        (const int*)pos_pool, (const int*)q_pos, out, B, H, KV, d, bs, nbps,  \
+        scale, (cudaStream_t)stream);                                         \
+  }                                                                           \
+  extern "C" int dtx_paged_decode_i8_##SUFFIX(                                \
+      const void* q, const void* k_pool, const void* v_pool,                  \
+      const void* k_scale, const void* v_scale, const void* tables,           \
+      const void* pos_pool, const void* q_pos, void* out, int B, int H,       \
+      int KV, int d, int bs, int nbps, float scale, void* stream) {           \
+    return launch_decode<T, int8_t>(                                          \
+        q, k_pool, v_pool, (const float*)k_scale, (const float*)v_scale,      \
+        (const int*)tables, (const int*)pos_pool, (const int*)q_pos, out, B,  \
+        H, KV, d, bs, nbps, scale, (cudaStream_t)stream);                     \
+  }                                                                           \
+  extern "C" int dtx_paged_multitoken_##SUFFIX(                               \
+      const void* q, const void* k_pool, const void* v_pool,                  \
+      const void* tables, const void* allow, void* out, int B, int Tq, int H, \
+      int KV, int d, int bs, int nbps, int tq, float scale, void* stream) {   \
+    return launch_multitoken<T, T>(                                           \
+        q, k_pool, v_pool, nullptr, nullptr, (const int*)tables,              \
+        (const uint8_t*)allow, out, B, Tq, H, KV, d, bs, nbps, tq, scale,     \
+        (cudaStream_t)stream);                                                \
+  }                                                                           \
+  extern "C" int dtx_paged_multitoken_i8_##SUFFIX(                            \
+      const void* q, const void* k_pool, const void* v_pool,                  \
+      const void* k_scale, const void* v_scale, const void* tables,           \
+      const void* allow, void* out, int B, int Tq, int H, int KV, int d,      \
+      int bs, int nbps, int tq, float scale, void* stream) {                  \
+    return launch_multitoken<T, int8_t>(                                      \
+        q, k_pool, v_pool, (const float*)k_scale, (const float*)v_scale,      \
+        (const int*)tables, (const uint8_t*)allow, out, B, Tq, H, KV, d, bs,  \
+        nbps, tq, scale, (cudaStream_t)stream);                               \
+  }
 
-int dtx_paged_decode_bf16(const void* q, const void* k_pool,
-                          const void* v_pool, const void* tables,
-                          const void* pos_pool, const void* q_pos, void* out,
-                          int B, int H, int KV, int d, int bs, int nbps,
-                          float scale, void* stream) {
-  return launch_decode<__nv_bfloat16>(
-      q, k_pool, v_pool, (const int*)tables, (const int*)pos_pool,
-      (const int*)q_pos, out, B, H, KV, d, bs, nbps, scale,
-      (cudaStream_t)stream);
-}
-
-int dtx_paged_decode_f32(const void* q, const void* k_pool,
-                         const void* v_pool, const void* tables,
-                         const void* pos_pool, const void* q_pos, void* out,
-                         int B, int H, int KV, int d, int bs, int nbps,
-                         float scale, void* stream) {
-  return launch_decode<float>(q, k_pool, v_pool, (const int*)tables,
-                              (const int*)pos_pool, (const int*)q_pos, out, B,
-                              H, KV, d, bs, nbps, scale, (cudaStream_t)stream);
-}
-
-int dtx_paged_multitoken_bf16(const void* q, const void* k_pool,
-                              const void* v_pool, const void* tables,
-                              const void* allow, void* out, int B, int Tq,
-                              int H, int KV, int d, int bs, int nbps, int tq,
-                              float scale, void* stream) {
-  return launch_multitoken<__nv_bfloat16>(
-      q, k_pool, v_pool, (const int*)tables, (const uint8_t*)allow, out, B,
-      Tq, H, KV, d, bs, nbps, tq, scale, (cudaStream_t)stream);
-}
-
-int dtx_paged_multitoken_f32(const void* q, const void* k_pool,
-                             const void* v_pool, const void* tables,
-                             const void* allow, void* out, int B, int Tq,
-                             int H, int KV, int d, int bs, int nbps, int tq,
-                             float scale, void* stream) {
-  return launch_multitoken<float>(q, k_pool, v_pool, (const int*)tables,
-                                  (const uint8_t*)allow, out, B, Tq, H, KV, d,
-                                  bs, nbps, tq, scale, (cudaStream_t)stream);
-}
-
-}  // extern "C"
+DTX_PAGED_ENTRIES(bf16, __nv_bfloat16)
+DTX_PAGED_ENTRIES(f32, float)

@@ -7,6 +7,10 @@ quantized tree crosses too: integer leaves (nf4 ``packed`` uint8,
 ``quant`` collection (``meta``, ``scale``) stay float32. The caller hands
 over the JAX tree as numpy (``jax.device_get``); this module imports
 nothing of JAX.
+
+``cache_from_jax`` carries a KV cache across the same way (dense or paged,
+bf16/f32 or int8 with scales), so that both packages can start from one
+cache state.
 """
 
 from __future__ import annotations
@@ -83,3 +87,32 @@ def lora_from_jax(tree: Mapping[str, Any], cfg=None, device="cpu",
                     f"adapter {name} does not fit {cfg.name}: a "
                     f"{tuple(ab['a'].shape)}, b {tuple(ab['b'].shape)}")
     return lora
+
+
+def cache_from_jax(tree: Mapping[str, Any], device="cpu"):
+    """A JAX KV cache dict (numpy leaves after ``jax.device_get``: dense
+    ``init_cache`` or paged ``init_paged_cache``, with or without
+    ``k_scale``/``v_scale``) → the port's cache dict on ``device``. Every
+    leaf keeps its dtype and bits (bf16 leaves arrive as ml_dtypes arrays
+    and are reinterpreted, not rounded). A paged cache (one with
+    ``block_tables``) gains the port's scratch block: one more block at the
+    end of ``k``/``v``/the scale pools (zeros) and of ``pos`` (sentinel)."""
+    from datatunerx_tpu_torch.ops.paged_attention import POS_SENTINEL
+
+    def leaf(arr):
+        arr = np.asarray(arr)
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(np.array(arr.view(np.uint16), order="C"))
+            return t.view(torch.bfloat16)
+        return torch.from_numpy(np.array(arr, order="C"))
+
+    cache = {name: leaf(arr) for name, arr in tree.items()}
+    if "block_tables" in cache:
+        for name in ("k", "v", "k_scale", "v_scale"):
+            if name in cache:
+                t = cache[name]  # [L, NB, bs, ...] → [L, NB + 1, bs, ...]
+                cache[name] = torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
+        pos = cache["pos"]
+        cache["pos"] = torch.cat(
+            [pos, torch.full_like(pos[:1], POS_SENTINEL)], dim=0)
+    return {name: t.to(device) for name, t in cache.items()}

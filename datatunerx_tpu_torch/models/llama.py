@@ -15,10 +15,11 @@ A quantized tree (``ops/quant.quantize_model_params``) replaces each
 projection's ``kernel`` with a ``quant`` collection (int8 ``q``/``scale`` or
 nf4 ``packed``/``scale_q``/``meta``, stacked over layers).
 
-A Python loop over layers replaces the reference's ``lax.scan``. The paged
-cache is updated IN PLACE (the JAX forward returns new pools): the pos pool
-and each layer's K/V pools are written with ``index_put_``, and the returned
-cache dict shares those tensors.
+A Python loop over layers replaces the reference's ``lax.scan``. The cache
+(paged block pool or dense rows, ``init_cache``; bf16/f32 or int8 with
+``k_scale``/``v_scale`` leaves) is updated IN PLACE (the JAX forward returns
+new arrays): the position table and each layer's K/V leaves are written with
+``index_put_``, and the returned cache dict shares those tensors.
 
 Training (no cache): ``lora=(lora_params, scaling)`` adds ``(drop(h) A) B *
 scaling`` inside each targeted projection; ``segment_ids`` confine packed
@@ -58,6 +59,7 @@ from datatunerx_tpu_torch.ops.attention import (
     attention,
     attention_allow,
     cache_positions_update,
+    cache_write_targets,
     kv_cache_update,
     kv_cache_width,
     kv_cache_write_paged,
@@ -67,7 +69,7 @@ from datatunerx_tpu_torch.ops.cuda_paged_attention import (
     paged_attention_decode_step,
     paged_attention_multitoken_step,
 )
-from datatunerx_tpu_torch.ops.paged_attention import write_targets
+from datatunerx_tpu_torch.ops.paged_attention import POS_SENTINEL
 from datatunerx_tpu_torch.ops.quant import quantized_matmul
 from datatunerx_tpu_torch.ops.rope import (
     apply_rope_tables,
@@ -127,6 +129,38 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     if not cfg.tie_word_embeddings:
         params["lm_head"] = {"kernel": dense((D, cfg.vocab_size))}
     return params
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, per_slot: bool = False,
+               quantize: Optional[str] = None, device="cpu") -> dict:
+    """Dense KV cache: ``k``/``v`` ``[L, batch, max_len, KV, d]``, ``pos``
+    ``[batch, max_len]`` (the rope position of each written lane; the
+    sentinel marks unwritten lanes and pads) and the write cursor ``len`` —
+    a scalar, or ``[batch]`` with ``per_slot=True`` (continuous batching
+    keeps rows at different depths in one decode step).
+    ``quantize="int8"`` stores K/V as int8 with an f32 scale per head vector
+    (``k_scale``/``v_scale`` ``[L, batch, max_len, KV]``), dequantized on
+    read. The paged alternative is ``ops/paged_attention.init_paged_cache``;
+    both serve the cache interface of ``ops/attention.py``."""
+    L = cfg.num_layers
+    shape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    cache = {
+        "len": torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
+                           device=device),
+        "pos": torch.full((batch, max_len), POS_SENTINEL, dtype=torch.int32,
+                          device=device),
+    }
+    if quantize == "int8":
+        dtype = torch.int8
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=device)
+    elif quantize:
+        raise ValueError(f"unsupported cache quantization {quantize!r}")
+    cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+    cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
 
 
 def mix_seed(*parts: int) -> int:
@@ -232,8 +266,9 @@ def forward(
     Dispatch follows the reference: over a paged cache with
     ``cfg.paged_kernel``, single-token steps take the paged decode kernel
     (K7) and multi-token steps the multi-token kernel (K8) with the
-    ``attention_allow`` mask operand; with ``paged_kernel`` False they take
-    the biased gather path (the kernels' oracle). Without a cache,
+    ``attention_allow`` mask operand; with ``paged_kernel`` False, and over
+    a dense cache, they take the biased full-width read (the kernels'
+    oracle). An int8 cache hands its scale leaves along. Without a cache,
     ``attention_impl="flash"`` takes the flash kernels when ``T % 128 == 0
     or T < 128`` (the reference's ``_flash_ok``), else the biased path.
     ``dropout_seed`` (training only) turns on LoRA dropout and NEFTune."""
@@ -282,11 +317,11 @@ def forward(
         kv_seg = segment_ids
         cache_pos = None
     else:
-        # record each new token's rope position in the pos pool (in place);
-        # pads get the sentinel. The decode kernel masks the pool through
-        # the tables, so it needs no gathered view. The write targets serve
-        # every layer's K/V pools too.
-        targets = write_targets(cache, T)
+        # record each new token's rope position in the cache's position
+        # table (in place); pads get the sentinel. The decode kernel masks
+        # the pos pool through the tables, so it needs no gathered view.
+        # The write targets serve every layer's K/V leaves too.
+        targets = cache_write_targets(cache, T)
         cache_pos, kv_positions = cache_positions_update(
             cache, positions, attention_mask, gather=not paged_kernel,
             targets=targets)
@@ -313,6 +348,7 @@ def forward(
 
     H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     use_pallas = cfg.quant_impl == "pallas"
+    quant_kv = cache is not None and "k_scale" in cache
 
     def layer(x, i):
         lp = _layer(params["layers"], i)
@@ -334,18 +370,20 @@ def forward(
 
         if cache is not None:
             ck, cv = cache["k"][i], cache["v"][i]
+            cks = cache["k_scale"][i] if quant_kv else None
+            cvs = cache["v_scale"][i] if quant_kv else None
         if cache is not None and paged_kernel:
-            kv_cache_write_paged(cache, ck, cv, k, v, targets)
+            kv_cache_write_paged(cache, ck, cv, cks, cvs, k, v, targets)
             attn = paged_attention_decode_step(
-                q, ck, cv, None, None, cache, cache_pos, positions)
+                q, ck, cv, cks, cvs, cache, cache_pos, positions)
         elif cache is not None and paged_kernel_mt:
-            kv_cache_write_paged(cache, ck, cv, k, v, targets)
+            kv_cache_write_paged(cache, ck, cv, cks, cvs, k, v, targets)
             attn = paged_attention_multitoken_step(
-                q, ck, cv, None, None, cache, allow)
+                q, ck, cv, cks, cvs, cache, allow)
         else:
             if cache is not None:
-                _, _, k_att, v_att = kv_cache_update(cache, ck, cv, k, v,
-                                                     targets)
+                *_, k_att, v_att = kv_cache_update(cache, ck, cv, cks, cvs,
+                                                   k, v, targets)
             else:
                 k_att, v_att = k, v
             attn = attention(q, k_att, v_att, bias,

@@ -148,6 +148,13 @@ def _declare(lib: ctypes.CDLL):
         # B, T, H, KV, d, bs, nbps, tq, scale, stream
         fn.argtypes = [_P] * 6 + [_I] * 8 + [_F, _P]
         fn.restype = _I
+        # the int8-pool instantiations: k_scale, v_scale after v_pool
+        fn = getattr(lib, f"dtx_paged_decode_i8_{dt}")
+        fn.argtypes = [_P] * 9 + [_I] * 6 + [_F, _P]
+        fn.restype = _I
+        fn = getattr(lib, f"dtx_paged_multitoken_i8_{dt}")
+        fn.argtypes = [_P] * 8 + [_I] * 8 + [_F, _P]
+        fn.restype = _I
         # q, k, v, qseg, kseg, out, lse, B, T, S, H, KV, d, causal, scale,
         # stream
         fn = getattr(lib, f"dtx_flash_fwd_{dt}")
@@ -171,6 +178,10 @@ def _declare(lib: ctypes.CDLL):
         # x, q, scale, out, M, K, N, stream
         fn = getattr(lib, f"dtx_int8_matmul_{dt}")
         fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+        fn.restype = _I
+        # x, w, a, b, out, M, K, N, r, scale, stream
+        fn = getattr(lib, f"dtx_lora_matmul_{dt}")
+        fn.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
         fn.restype = _I
     fn = lib.dtx_fused_sample
     # x, temps, us, out, S, Vp, greedy, stream

@@ -1,12 +1,21 @@
-"""Attention ops and the paged KV-cache interface (the port of
-``datatunerx_tpu/ops/attention.py``, paged branch).
+"""Attention ops and the KV-cache interface (the port of
+``datatunerx_tpu/ops/attention.py``).
 
 Shapes: q [B, T, H, d]; k, v [B, S, KV, d] with H = KV * G (GQA).
 Bias is additive, broadcastable to [B, 1, T, S]; softmax runs in f32.
 
-The model writes and reads the cache through ``cache_positions_update`` /
-``kv_cache_update``. This slice carries the paged block-pool cache only (a
-cache dict with ``block_tables``); the dense layouts come with a later slice.
+The model writes and reads the cache through ``cache_write_targets`` /
+``cache_positions_update`` / ``kv_cache_update``, over either layout: the
+paged block pool (a cache dict with ``block_tables``,
+``ops/paged_attention.py``) or the dense ``[L, B, S, KV, d]`` rows of
+``models/llama.init_cache`` (scalar or per-slot cursors). Both hold bf16/f32
+or, with ``k_scale``/``v_scale`` leaves, int8 K/V quantized per head vector on
+write and dequantized on read.
+
+Writes are in place (the JAX functions return new arrays). A dense write
+past a row's end is dropped, as JAX's scatter drops it, without a
+device-side assert and without a host sync: such a target is pointed at a
+lane the step does not write and given that lane's own value back.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from datatunerx_tpu_torch.ops.paged_attention import (
     paged_kv_write,
     paged_record_positions,
     paged_view_width,
+    write_targets,
 )
 
 
@@ -107,46 +117,135 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
+# ------------------------------------------------------- KV cache interface
+def kv_quantize(x: torch.Tensor):
+    """[..., head_dim] → (int8 values, per-vector f32 scale), bit for bit
+    the reference's: ``scale = max|x| / 127`` in f32, values
+    ``round(x / max(scale, 1e-8))`` half-to-even, clipped to ±127."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=-1) / 127.0
+    safe = scale.clamp(min=1e-8)
+    q = torch.round(xf / safe[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype):
+    """The f32 product ``q * scale``, rounded once to ``dtype``."""
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
 def kv_cache_width(cache: dict) -> int:
     """Linear key width attention sees for one slot — the rope ``seq_len``."""
-    return paged_view_width(cache)
+    if "block_tables" in cache:
+        return paged_view_width(cache)
+    return cache["k"].shape[2]
 
 
-def _require_paged(cache: dict):
-    if "block_tables" not in cache:
-        raise ValueError(
-            "the dense KV cache is not ported yet (ROADMAP Queue 1, "
-            "'dense cache'); pass a paged cache (init_paged_cache)")
+def _dense_targets(cache: dict, T: int):
+    """``(rows, lanes, valid)`` of the next ``T`` lanes of each dense row.
+
+    Scalar cursor: one window for every row, its start clamped so that the
+    window fits (``dynamic_update_slice``'s rule); ``rows``/``valid`` are
+    None. Per-slot cursors: lane ``len[b] + t``; a lane past the row's end is
+    invalid and points ``T`` lanes back instead, at a lane this step writes
+    nowhere else, which ``_dense_put`` hands its own value."""
+    S = cache["k"].shape[2]
+    if T > S:
+        raise ValueError(f"{T} new tokens do not fit a cache row of {S}")
+    start = cache["len"].to(torch.int64)
+    steps = torch.arange(T, dtype=torch.int64, device=start.device)
+    if start.dim() == 0:
+        return None, start.clamp(0, S - T) + steps, None
+    idx = start[:, None] + steps[None, :]  # [B, T]
+    valid = idx < S
+    lanes = torch.where(valid, idx, idx - T).clamp(0, S - 1)
+    rows = torch.arange(idx.shape[0], dtype=torch.int64,
+                        device=start.device)[:, None]
+    return rows, lanes, valid
+
+
+def _dense_put(buf: torch.Tensor, targets, new: torch.Tensor):
+    """Write ``new [B, T, ...]`` into ``buf [B, S, ...]`` at ``targets``, in
+    place; invalid targets keep what the buffer holds."""
+    rows, lanes, valid = targets
+    new = new.to(buf.dtype)
+    if rows is None:
+        buf.index_copy_(1, lanes, new)
+        return buf
+    keep = valid.reshape(valid.shape + (1,) * (new.dim() - 2))
+    buf.index_put_((rows, lanes), torch.where(keep, new, buf[rows, lanes]))
+    return buf
+
+
+def cache_write_targets(cache: dict, T: int):
+    """Where the next ``T`` tokens of each slot land — the same for the
+    position table and every layer's K/V (and scales), so a forward computes
+    it once and hands it to the calls below."""
+    if "block_tables" in cache:
+        return write_targets(cache, T)
+    return _dense_targets(cache, T)
 
 
 def cache_positions_update(cache: dict, positions: torch.Tensor,
                            attention_mask, gather: bool = True,
                            targets=None):
     """Record the new tokens' rope positions at each slot's write cursor (in
-    place in the pos pool). Returns ``(pos_pool, kv_positions)``; pads
-    (attention_mask 0) get POS_SENTINEL so they are masked everywhere.
-    ``gather=False`` (the decode kernel) skips the gathered view."""
-    _require_paged(cache)
+    place). Returns ``(pos_state, kv_positions)``: the dense ``[B, S]`` table
+    or the paged pos pool, and the per-slot linear view ``[B, W]`` the causal
+    check masks against; pads (attention_mask 0) get POS_SENTINEL so they are
+    masked everywhere. ``gather=False`` (the paged decode kernel) skips the
+    gathered view."""
     pos_update = positions
     if attention_mask is not None:
         pos_update = torch.where(attention_mask.to(torch.bool), positions,
                                  torch.full_like(positions, POS_SENTINEL))
-    return paged_record_positions(cache, pos_update, gather=gather,
-                                  targets=targets)
+    if "block_tables" in cache:
+        return paged_record_positions(cache, pos_update, gather=gather,
+                                      targets=targets)
+    if targets is None:
+        targets = _dense_targets(cache, positions.shape[1])
+    cache_pos = _dense_put(cache["pos"], targets, pos_update)
+    return cache_pos, cache_pos
 
 
-def kv_cache_write_paged(cache: dict, ck, cv, k, v, targets=None):
-    """Paged write WITHOUT the gathered read — the kernel path: scatter the
-    new tokens through the block tables into one layer's pools (in place)."""
-    return paged_kv_write(ck, cv, cache["block_tables"], cache["len"],
-                          k.to(ck.dtype), v.to(cv.dtype), targets)
+def _quantize_new(cks, k, v, ck, cv):
+    """The new tokens as the cache stores them: int8 + scales for an int8
+    cache, else cast to the cache's dtype. K and V are quantized in one
+    stacked call (each head vector has its own scale, so stacking changes
+    no bit): the decode step is bound by the count of small launches."""
+    if cks is not None:
+        q, scale = kv_quantize(torch.stack((k, v)))
+        return q[0], q[1], scale[0], scale[1]
+    return k.to(ck.dtype), v.to(cv.dtype), None, None
 
 
-def kv_cache_update(cache: dict, ck, cv, k, v, targets=None):
-    """One layer's cache write + full-width read: returns the pools (updated
-    in place) and the ``[B, W, KV, d]`` views attention reads."""
-    _require_paged(cache)
-    ck, cv, k_all, v_all = paged_kv_update(
-        ck, cv, cache["block_tables"], cache["len"],
-        k.to(ck.dtype), v.to(cv.dtype), targets)
-    return ck, cv, k_all.to(k.dtype), v_all.to(v.dtype)
+def kv_cache_write_paged(cache: dict, ck, cv, cks, cvs, k, v, targets=None):
+    """Paged write WITHOUT the gathered read — the kernel path: quantize the
+    new tokens exactly as ``kv_cache_update`` would and scatter them through
+    the block tables into one layer's pools (in place)."""
+    k_w, v_w, ks_w, vs_w = _quantize_new(cks, k, v, ck, cv)
+    return paged_kv_write(ck, cv, cks, cvs, cache["block_tables"],
+                          cache["len"], k_w, v_w, ks_w, vs_w, targets)
+
+
+def kv_cache_update(cache: dict, ck, cv, cks, cvs, k, v, targets=None):
+    """One layer's cache write + full-width read. ``ck``/``cv`` (and the int8
+    scale leaves ``cks``/``cvs``, else None) are one layer's cache leaves,
+    updated in place; returns them plus the ``[B, W, KV, d]`` views attention
+    reads, dequantized when the cache is int8."""
+    k_w, v_w, ks_w, vs_w = _quantize_new(cks, k, v, ck, cv)
+    if "block_tables" in cache:
+        ck, cv, cks, cvs, k_all, v_all, ks_all, vs_all = paged_kv_update(
+            ck, cv, cks, cvs, cache["block_tables"], cache["len"],
+            k_w, v_w, ks_w, vs_w, targets)
+    else:
+        if targets is None:
+            targets = _dense_targets(cache, k.shape[1])
+        for buf, new in ((ck, k_w), (cv, v_w), (cks, ks_w), (cvs, vs_w)):
+            if buf is not None:
+                _dense_put(buf, targets, new)
+        k_all, v_all, ks_all, vs_all = ck, cv, cks, cvs
+    if cks is not None:
+        return (ck, cv, cks, cvs, kv_dequantize(k_all, ks_all, k.dtype),
+                kv_dequantize(v_all, vs_all, v.dtype))
+    return ck, cv, cks, cvs, k_all.to(k.dtype), v_all.to(v.dtype)

@@ -3,7 +3,13 @@
 
 K7 (one-token decode) and K8 (multi-token chunks) are hand-written CUDA in
 ``csrc/paged_attention.cu``; the design note there says what bounds them and
-why they keep the reference's two passes. Each wrapper below launches its
+why they keep the reference's two passes. Pools are q's dtype (bf16/f32), or
+int8 with f32 scale pools ``[NB+1, bs, KV]``: the int8 instantiations
+dequantize each staged tile as ``kv_dequantize`` does (f32 product, rounded
+through q's dtype), so they read what the gather path reads. Head dims that
+are not a multiple of 16 (int8), 8 (bf16) or 4 (f32) take the kernels'
+element-wise staging loop instead of 16-byte loads. Each wrapper below
+launches its
 kernel for CUDA tensors (or raises) and runs the kernel's plain PyTorch
 version, which repeats the kernel's arithmetic block by block, only for CPU
 tensors — the port's counterpart of Pallas interpret mode. Both read the
@@ -11,7 +17,8 @@ pools through the tables in place; the gathered view of the gather path
 (``ops/attention.kv_cache_update`` + ``xla_attention``) never exists.
 
 ``paged_decode_attention.launches`` and ``paged_multitoken_attention.launches``
-count kernel launches (plain-version calls are not counted).
+count kernel launches (plain-version calls are not counted);
+``.int8_launches`` counts those of them that ran the int8 instantiation.
 """
 
 from __future__ import annotations
@@ -21,17 +28,10 @@ from typing import Optional
 import torch
 
 from datatunerx_tpu_torch.ops import _build
-from datatunerx_tpu_torch.ops.attention import softmax_scale
+from datatunerx_tpu_torch.ops.attention import kv_dequantize, softmax_scale
 
 NEG_INF = -1e30  # finite: -inf - -inf would NaN
 _KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
-
-
-def _no_int8(k_scale, v_scale):
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV pools are not ported yet (ROADMAP Queue 2: the int8 "
-            "variant of K7/K8)")
 
 
 def _require(cond: bool, msg: str):
@@ -39,14 +39,40 @@ def _require(cond: bool, msg: str):
         raise ValueError(msg)
 
 
-def _check_cuda_operands(q, k_pool, v_pool, tables):
+def _check_pools(q, k_pool, v_pool, k_scale, v_scale) -> bool:
+    """The pools' dtype rule, on any device: q's dtype with no scales, or
+    int8 with both f32 scale pools ``[NB+1, bs, KV]``. Returns whether the
+    pools are int8."""
+    _require(k_pool.dim() == 4 and k_pool.shape == v_pool.shape,
+             f"pools must be matching [NB, bs, KV, d], got "
+             f"{tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
+    _require(k_pool.dtype == v_pool.dtype,
+             f"pools differ in dtype: {k_pool.dtype} and {v_pool.dtype}")
+    if k_pool.dtype != torch.int8:
+        _require(k_pool.dtype == q.dtype and k_scale is None
+                 and v_scale is None,
+                 f"pools must be q's dtype {q.dtype} without scale pools, or "
+                 f"int8 with both scale pools; got {k_pool.dtype} pools"
+                 + (" with scale pools" if k_scale is not None
+                    or v_scale is not None else ""))
+        return False
+    _require(k_scale is not None and v_scale is not None,
+             "int8 pools need both scale pools (k_scale, v_scale)")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _require(t.dtype == torch.float32
+                 and tuple(t.shape) == tuple(k_pool.shape[:3])
+                 and t.device == k_pool.device,
+                 f"{name} must be float32 {tuple(k_pool.shape[:3])} on "
+                 f"{k_pool.device}, got {t.dtype} {tuple(t.shape)} on "
+                 f"{t.device}")
+    return True
+
+
+def _check_cuda_operands(q, k_pool, v_pool, k_scale, v_scale, tables):
     """What the kernels index memory by: devices, dtypes, contiguity and
     the shapes tying q, the pools and the tables together."""
     _require(q.device.type == "cuda",
              f"paged attention kernels run on CUDA tensors, got {q.device}")
-    _require(k_pool.dim() == 4 and k_pool.shape == v_pool.shape,
-             f"pools must be matching [NB, bs, KV, d], got "
-             f"{tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
     _require(k_pool.shape[-1] == q.shape[-1],
              f"head dim of q {q.shape[-1]} != pools' {k_pool.shape[-1]}")
     _require(q.shape[-2] % k_pool.shape[2] == 0,
@@ -56,29 +82,47 @@ def _check_cuda_operands(q, k_pool, v_pool, tables):
              f"tables must be [B={q.shape[0]}, nbps] on {q.device}")
     _require(q.dtype in _KERNEL_DTYPES,
              f"paged attention kernels take bf16/f32, got {q.dtype}")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        _require(t.device == q.device and t.dtype == q.dtype,
-                 f"{name} must match q ({q.device}, {q.dtype}), "
-                 f"got {t.device}, {t.dtype}")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                    ("k_scale", k_scale), ("v_scale", v_scale)):
+        if t is None:
+            continue
+        _require(t.device == q.device,
+                 f"{name} must be on {q.device}, got {t.device}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
     _require(tables.dtype == torch.int32 and tables.is_contiguous(),
              "block tables must be contiguous int32")
 
 
+def _kernel(name: str, q, quant: bool):
+    """The C entry point: ``dtx_paged_<name>[_i8]_<bf16|f32>``."""
+    return getattr(_build.library(),
+                   f"dtx_paged_{name}{'_i8' if quant else ''}_"
+                   f"{_KERNEL_DTYPES[q.dtype]}")
+
+
+def _scale_ptrs(quant: bool, k_scale, v_scale):
+    return (k_scale.data_ptr(), v_scale.data_ptr()) if quant else ()
+
+
 # ------------------------------------------------------------------- plain
-def _block_scores(qf, k_pool, tbl_j, scale):
-    """Scaled f32 scores of q ``[B, KV, G, T, d]`` against one table column's
-    K blocks: ``[B, KV, G, T, bs]``."""
-    kt = k_pool[tbl_j].to(torch.float32)  # [B, bs, KV, d]
-    return torch.einsum("bkgtd,bskd->bkgts", qf, kt) * scale
+def _block(pool, scale_pool, tbl_j, dtype):
+    """One table column's blocks ``[B, bs, KV, d]`` as f32: int8 pools
+    dequantized by their scales through ``dtype``, as the gather path's
+    ``kv_dequantize`` (and the kernels' staging step) does."""
+    blk = pool[tbl_j]
+    if scale_pool is not None:
+        blk = kv_dequantize(blk, scale_pool[tbl_j], dtype)
+    return blk.to(torch.float32)
 
 
-def _plain_paged_attention(q, k_pool, v_pool, tables, lane_mask):
+def _plain_paged_attention(q, k_pool, v_pool, k_scale, v_scale, tables,
+                           lane_mask):
     """The kernels' arithmetic in PyTorch, vectorised over slots and heads:
     q ``[B, T, H, d]``; ``lane_mask(j) -> [B, T, bs]`` bool says which lanes
     of table column j each query row may attend. Pass 0 builds the f32
     running max/normaliser over the live blocks in table order; pass 1 rounds
-    ``exp(s - m) / max(l, 1e-30)`` to q's dtype before the f32 PV product."""
+    ``exp(s - m) / max(l, 1e-30)`` to q's dtype before the f32 PV product.
+    int8 pools are dequantized block by block."""
     B, T, H, d = q.shape
     KV = k_pool.shape[2]
     G = H // KV
@@ -93,7 +137,8 @@ def _plain_paged_attention(q, k_pool, v_pool, tables, lane_mask):
     acc = torch.zeros((B, KV, G, T, d), dtype=torch.float32, device=q.device)
 
     def masked_scores(j):
-        s = _block_scores(qf, k_pool, tbl[:, j], scale)
+        kt = _block(k_pool, k_scale, tbl[:, j], q.dtype)
+        s = torch.einsum("bkgtd,bskd->bkgts", qf, kt) * scale
         ok = lane_mask(j)[:, None, None, :, :]  # [B, 1, 1, T, bs]
         return torch.where(ok, s, torch.full_like(s, NEG_INF))
 
@@ -109,14 +154,15 @@ def _plain_paged_attention(q, k_pool, v_pool, tables, lane_mask):
     for j in range(nbps):
         s = masked_scores(j)
         p = (torch.exp(s - m[..., None]) / l_row).to(q.dtype).to(torch.float32)
-        vt = v_pool[tbl[:, j]].to(torch.float32)  # [B, bs, KV, d]
+        vt = _block(v_pool, v_scale, tbl[:, j], q.dtype)
         upd = torch.einsum("bkgts,bskd->bkgtd", p, vt)
         acc = torch.where(live[:, j][:, None, None, None, None], acc + upd,
                           acc)
     return acc.permute(0, 3, 1, 2, 4).reshape(B, T, H, d).to(q.dtype)
 
 
-def _plain_decode(q, k_pool, v_pool, tables, pos_pool, q_positions):
+def _plain_decode(q, k_pool, v_pool, tables, pos_pool, q_positions,
+                  k_scale=None, v_scale=None):
     """K7's plain version: q ``[B, H, d]`` → ``[B, H, d]``."""
     qp = q_positions.to(torch.int64)[:, None, None]  # [B, 1, 1]
 
@@ -125,11 +171,12 @@ def _plain_decode(q, k_pool, v_pool, tables, pos_pool, q_positions):
                           torch.zeros_like(tables[:, j])).long()
         return pos_pool[blk][:, None, :].to(torch.int64) <= qp  # [B, 1, bs]
 
-    return _plain_paged_attention(q[:, None], k_pool, v_pool, tables,
-                                  lane_mask)[:, 0]
+    return _plain_paged_attention(q[:, None], k_pool, v_pool, k_scale,
+                                  v_scale, tables, lane_mask)[:, 0]
 
 
-def _plain_multitoken(q, k_pool, v_pool, tables, allow):
+def _plain_multitoken(q, k_pool, v_pool, tables, allow, k_scale=None,
+                      v_scale=None):
     """K8's plain version: q ``[B, T, H, d]``, allow ``[B, T, nbps*bs]``."""
     bs = k_pool.shape[1]
     ok = allow.to(torch.bool)
@@ -137,7 +184,8 @@ def _plain_multitoken(q, k_pool, v_pool, tables, allow):
     def lane_mask(j):
         return ok[:, :, j * bs:(j + 1) * bs]
 
-    return _plain_paged_attention(q, k_pool, v_pool, tables, lane_mask)
+    return _plain_paged_attention(q, k_pool, v_pool, k_scale, v_scale,
+                                  tables, lane_mask)
 
 
 # ----------------------------------------------------------------- wrappers
@@ -145,7 +193,7 @@ def paged_decode_attention(
     q: torch.Tensor,          # [B, H, d] — the decode step's single token
     k_pool: torch.Tensor,     # [NB+1, bs, KV, d] one layer's block pool
     v_pool: torch.Tensor,
-    k_scale: Optional[torch.Tensor],  # int8 pools: not ported (None)
+    k_scale: Optional[torch.Tensor],  # [NB+1, bs, KV] f32 (int8 pools) | None
     v_scale: Optional[torch.Tensor],
     tables: torch.Tensor,     # [B, nbps] int32, -1 = unallocated
     pos_pool: torch.Tensor,   # [NB+1, bs] int32, POST-write
@@ -153,12 +201,13 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """In-place paged decode attention (K7): out ``[B, H, d]`` in q.dtype.
     Slots whose tables hold no valid block produce zeros."""
-    _no_int8(k_scale, v_scale)
+    quant = _check_pools(q, k_pool, v_pool, k_scale, v_scale)
     if q.device.type == "cpu":
-        return _plain_decode(q, k_pool, v_pool, tables, pos_pool, q_positions)
+        return _plain_decode(q, k_pool, v_pool, tables, pos_pool, q_positions,
+                             k_scale, v_scale)
     B, H, d = q.shape
     _, bs, KV, _ = k_pool.shape
-    _check_cuda_operands(q, k_pool, v_pool, tables)
+    _check_cuda_operands(q, k_pool, v_pool, k_scale, v_scale, tables)
     _require(pos_pool.dtype == torch.int32 and pos_pool.is_contiguous()
              and tuple(pos_pool.shape) == tuple(k_pool.shape[:2])
              and pos_pool.device == q.device,
@@ -170,17 +219,20 @@ def paged_decode_attention(
     q = q.contiguous()
     qpos = q_positions.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    fn = getattr(_build.library(), f"dtx_paged_decode_{_KERNEL_DTYPES[q.dtype]}")
-    code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-              tables.data_ptr(), pos_pool.data_ptr(), qpos.data_ptr(),
-              out.data_ptr(), B, H, KV, d, bs, tables.shape[1],
-              softmax_scale(d), torch.cuda.current_stream(q.device).cuda_stream)
+    code = _kernel("decode", q, quant)(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        *_scale_ptrs(quant, k_scale, v_scale), tables.data_ptr(),
+        pos_pool.data_ptr(), qpos.data_ptr(), out.data_ptr(), B, H, KV, d, bs,
+        tables.shape[1], softmax_scale(d),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "paged decode kernel (K7)")
     paged_decode_attention.launches += 1
+    paged_decode_attention.int8_launches += quant
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.int8_launches = 0
 
 
 def multitoken_tile(T: int, G: int) -> int:
@@ -200,31 +252,34 @@ def paged_multitoken_attention(
     """In-place paged attention for q_len > 1 (K8): out ``[B, T, H, d]``.
     ``allow`` must be ``attention_allow(...)`` over the POST-write gathered
     kv positions — the one tensor the gather path biases with."""
-    _no_int8(k_scale, v_scale)
+    quant = _check_pools(q, k_pool, v_pool, k_scale, v_scale)
     B, T, H, d = q.shape
     _, bs, KV, _ = k_pool.shape
     nbps = tables.shape[1]
     _require(tuple(allow.shape) == (B, T, nbps * bs),
              f"allow {tuple(allow.shape)} != {(B, T, nbps * bs)}")
     if q.device.type == "cpu":
-        return _plain_multitoken(q, k_pool, v_pool, tables, allow)
-    _check_cuda_operands(q, k_pool, v_pool, tables)
+        return _plain_multitoken(q, k_pool, v_pool, tables, allow, k_scale,
+                                 v_scale)
+    _check_cuda_operands(q, k_pool, v_pool, k_scale, v_scale, tables)
     _require(allow.device == q.device, f"allow must be on {q.device}")
     q = q.contiguous()
     allow_u8 = allow.to(torch.bool).contiguous()  # one byte per lane
     out = torch.empty_like(q)
-    fn = getattr(_build.library(),
-                 f"dtx_paged_multitoken_{_KERNEL_DTYPES[q.dtype]}")
-    code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-              tables.data_ptr(), allow_u8.data_ptr(), out.data_ptr(),
-              B, T, H, KV, d, bs, nbps, multitoken_tile(T, H // KV),
-              softmax_scale(d), torch.cuda.current_stream(q.device).cuda_stream)
+    code = _kernel("multitoken", q, quant)(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        *_scale_ptrs(quant, k_scale, v_scale), tables.data_ptr(),
+        allow_u8.data_ptr(), out.data_ptr(), B, T, H, KV, d, bs, nbps,
+        multitoken_tile(T, H // KV), softmax_scale(d),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "paged multi-token kernel (K8)")
     paged_multitoken_attention.launches += 1
+    paged_multitoken_attention.int8_launches += quant
     return out
 
 
 paged_multitoken_attention.launches = 0
+paged_multitoken_attention.int8_launches = 0
 
 
 def paged_attention_decode_step(q, ck, cv, cks, cvs, cache: dict,

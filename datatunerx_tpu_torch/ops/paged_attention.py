@@ -126,23 +126,33 @@ def blocks_for_depth(depth: int, block_size: int, overshoot: int = 0,
 
 def init_paged_cache(cfg, slots: int, num_blocks: int, block_size: int,
                      blocks_per_slot: int, dtype=torch.bfloat16,
-                     device="cpu") -> Dict:
+                     quantize: Optional[str] = None, device="cpu") -> Dict:
     """Block-pool KV cache. ``block_tables`` is ``[slots, blocks_per_slot]``
     int32 (-1 = unallocated); ``len`` is the per-slot linear write cursor;
     ``pos`` records each written token's rope position per (block, offset).
     Pools hold ``num_blocks + 1`` blocks: the last is the scratch target of
-    invalid writes (see the module docstring)."""
+    invalid writes (see the module docstring). ``quantize="int8"`` stores K/V
+    as int8 with f32 ``k_scale``/``v_scale`` pools, one scale per (token, KV
+    head); the scale pools carry the scratch block too."""
     L = cfg.num_layers
     shape = (L, num_blocks + 1, block_size, cfg.num_kv_heads, cfg.head_dim)
-    return {
+    cache = {
         "len": torch.zeros((slots,), dtype=torch.int32, device=device),
         "pos": torch.full((num_blocks + 1, block_size), POS_SENTINEL,
                           dtype=torch.int32, device=device),
         "block_tables": torch.full((slots, blocks_per_slot), -1,
                                    dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+    if quantize == "int8":
+        dtype = torch.int8
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=device)
+    elif quantize:
+        raise ValueError(f"unsupported cache quantization {quantize!r}")
+    cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+    cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
 
 
 def num_pool_blocks(pos_pool: torch.Tensor) -> int:
@@ -208,27 +218,40 @@ def paged_record_positions(cache: Dict, pos_update: torch.Tensor,
     return pool, gathered.reshape(tables.shape[0], -1)
 
 
-def paged_kv_write(ck, cv, tables, lens, k_w, v_w, targets=None):
+def paged_kv_write(ck, cv, cks, cvs, tables, lens, k_w, v_w, ks_w, vs_w,
+                   targets=None):
     """Per-layer paged write WITHOUT the gathered read-back — the kernel
-    path's half of ``paged_kv_update``: scatter the new tokens' K/V through
-    the block tables into the pools ``ck``/``cv`` ``[NB+1, bs, KV, d]`` (in
-    place) and return them; attention then reads the blocks in place."""
+    path's half of ``paged_kv_update``: scatter the new tokens' K/V (and, for
+    int8 pools, their scales ``ks_w``/``vs_w`` into the scale pools
+    ``cks``/``cvs``) through the block tables into the pools ``ck``/``cv``
+    ``[NB+1, bs, KV, d]`` (in place) and return the pools; attention then
+    reads the blocks in place."""
     if targets is None:
         targets = _write_targets(tables, lens, k_w.shape[1], ck.shape[1],
                                  ck.shape[0] - 1)
     ck.index_put_(targets, k_w.to(ck.dtype))
     cv.index_put_(targets, v_w.to(cv.dtype))
-    return ck, cv
+    if cks is not None:
+        cks.index_put_(targets, ks_w.to(cks.dtype))
+        cvs.index_put_(targets, vs_w.to(cvs.dtype))
+    return ck, cv, cks, cvs
 
 
-def paged_kv_update(ck, cv, tables, lens, k_w, v_w, targets=None):
+def paged_kv_update(ck, cv, cks, cvs, tables, lens, k_w, v_w, ks_w, vs_w,
+                    targets=None):
     """Per-layer paged write + gathered read: the pools are updated in place
-    and the gathered ``[B, W, KV, d]`` views attention reads are returned —
+    and returned with the gathered ``[B, W, KV, d]`` views attention reads
+    (and the gathered ``[B, W, KV]`` scales of int8 pools, else None) —
     element-identical to a dense row for every written lane, sentinel-masked
     elsewhere."""
     B = k_w.shape[0]
-    ck, cv = paged_kv_write(ck, cv, tables, lens, k_w, v_w, targets)
+    ck, cv, cks, cvs = paged_kv_write(ck, cv, cks, cvs, tables, lens,
+                                      k_w, v_w, ks_w, vs_w, targets)
     tbl = _gather_tables(tables)
     k_all = ck[tbl].reshape(B, -1, ck.shape[-2], ck.shape[-1])
     v_all = cv[tbl].reshape(B, -1, cv.shape[-2], cv.shape[-1])
-    return ck, cv, k_all, v_all
+    ks_all = vs_all = None
+    if cks is not None:
+        ks_all = cks[tbl].reshape(B, -1, cks.shape[-1])
+        vs_all = cvs[tbl].reshape(B, -1, cvs.shape[-1])
+    return ck, cv, cks, cvs, k_all, v_all, ks_all, vs_all

@@ -1,27 +1,36 @@
-"""Continuous-batching inference engine over a paged KV cache: the port of
-the paged path of ``datatunerx_tpu/serving/batched_engine.py``.
+"""Continuous-batching inference engine: the port of the cold-admission
+paths of ``datatunerx_tpu/serving/batched_engine.py`` over both cache layouts.
 
+- DENSE KV cache (``kv_block_size == 0``, the default;
+  models/llama.init_cache with per-slot cursors): every slot owns a
+  ``max_seq_len`` row. Admission prefills the whole (bucketed) prompt into a
+  fresh one-row cache in one forward, copies that row into the slot's row
+  and arms the slot at once; decode attention reads the full rows.
 - PAGED KV cache (``kv_block_size > 0``, ops/paged_attention.py): a pool of
   fixed-size blocks plus per-slot block tables. Admission reserves
   ``ceil((prompt + max_new) / block_size)`` blocks from a free list.
-- CHUNKED PREFILL: a cold prompt prefills directly into its slot's blocks in
-  ``prefill_chunk``-token forwards, interleaved with decode (at most
-  ``prefill_token_budget`` prompt tokens between decode chunks).
+- CHUNKED PREFILL (paged): a cold prompt prefills directly into its slot's
+  blocks in ``prefill_chunk``-token forwards, interleaved with decode (at
+  most ``prefill_token_budget`` prompt tokens between decode chunks).
+- ``kv_quant="int8"`` stores K/V as int8 with an f32 scale per head vector
+  on either layout: about half the cache bytes per token, quantized on
+  write and dequantized on read (inside the paged kernels on their path).
 - decode runs in CHUNKS of K tokens: a Python loop of K single-token steps
   with every operand on the device; the one host sync per chunk is the
   transfer of the emitted tokens (and the active mask) that lets
   ``Request.push`` stream them.
-- with ``paged_kernel`` on, decode attention is the paged decode kernel (K7)
-  and prefill chunks the multi-token kernel (K8); with ``sampling_epilogue``
-  on, each step samples through the fused sampling kernel (K9). ``auto``
-  means on under CUDA. Off gives the gather path and the legacy sampler.
+- with ``paged_kernel`` on (paged layout only), decode attention is the
+  paged decode kernel (K7) and prefill chunks the multi-token kernel (K8);
+  with ``sampling_epilogue`` on, each step samples through the fused
+  sampling kernel (K9). ``auto`` means on under CUDA. Off gives the gather
+  path and the legacy sampler.
 
 The scheduler thread owns every piece of slot state; callers only enqueue
 requests. The caches are updated in place.
 
-This slice refuses what it does not carry yet (dense cache, prefix cache,
-adapters, int8 KV, speculative decoding, overcommit, tenancy): each such
-argument raises ``ValueError`` naming its ROADMAP item.
+The port refuses what it does not carry yet (prefix cache, adapters,
+speculative decoding, overcommit, tenancy): each such argument raises
+``ValueError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from datatunerx_tpu_torch.data.templates import Template, get_template
-from datatunerx_tpu_torch.models.llama import forward
+from datatunerx_tpu_torch.models.llama import forward, init_cache
 from datatunerx_tpu_torch.ops.cuda_sampling import sample_rows
 from datatunerx_tpu_torch.ops.paged_attention import (
     POS_SENTINEL,
@@ -53,7 +62,6 @@ MAX_STOP = 8  # static per-slot stop-token capacity
 
 # what each refused argument waits for (ROADMAP Queue 1)
 _NOT_PORTED = {
-    "kv_block_size=0": "item 1 (dense cache)",
     "prefix_cache": "item 2 (prefix cache and KV overcommit)",
     "kv_overcommit": "item 2 (prefix cache and KV overcommit)",
     "checkpoint_path": "item 3 (adapters and tenancy)",
@@ -61,7 +69,6 @@ _NOT_PORTED = {
     "adapter_pool": "item 3 (adapters and tenancy)",
     "tenants": "item 3 (adapters and tenancy)",
     "host_adapter_cache_mb": "item 3 (adapters and tenancy)",
-    "kv_quant": "item 4 (int8 KV cache)",
     "spec_draft": "item 5 (speculative decoding)",
     "spec_tree": "item 5 (speculative decoding)",
 }
@@ -73,11 +80,16 @@ def _refuse(arg: str):
         f"{_NOT_PORTED[arg]}")
 
 
-def _resolve_auto(value, name: str, cuda: bool) -> bool:
+def _mode(value, name: str) -> str:
     mode = value if isinstance(value, str) else ("on" if value else "off")
     mode = (mode or "auto").strip().lower()
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"{name} must be auto|on|off, got {value!r}")
+    return mode
+
+
+def _resolve_auto(value, name: str, cuda: bool) -> bool:
+    mode = _mode(value, name)
     return mode == "on" or (mode == "auto" and cuda)
 
 
@@ -145,7 +157,6 @@ class BatchedEngine:
         for arg, val in (("checkpoint_path", checkpoint_path),
                          ("adapters", adapters),
                          ("adapter_pool", adapter_pool),
-                         ("kv_quant", kv_quant),
                          ("prefix_cache", prefix_cache),
                          ("kv_overcommit", (kv_overcommit or "off") != "off"),
                          ("spec_draft", spec_draft),
@@ -154,8 +165,10 @@ class BatchedEngine:
                          ("host_adapter_cache_mb", host_adapter_cache_mb)):
             if val:
                 _refuse(arg)
-        if kv_block_size <= 0:
-            _refuse("kv_block_size=0")
+        self.kv_quant = kv_quant or None
+        if self.kv_quant not in (None, "int8"):
+            raise ValueError(
+                f"unsupported cache quantization {self.kv_quant!r}")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -172,7 +185,14 @@ class BatchedEngine:
         self.slots = slots
         self.chunk = max(1, decode_chunk)
 
-        self.paged_kernel = _resolve_auto(paged_kernel, "paged_kernel", cuda)
+        self.paged = kv_block_size > 0
+        self.block_size = int(kv_block_size)
+        if _mode(paged_kernel, "paged_kernel") == "on" and not self.paged:
+            raise ValueError(
+                "--paged_kernel on requires the paged KV cache "
+                "(--kv_block_size > 0)")
+        self.paged_kernel = self.paged and _resolve_auto(
+            paged_kernel, "paged_kernel", cuda)
         if self.paged_kernel:
             import dataclasses
 
@@ -183,22 +203,28 @@ class BatchedEngine:
         # legacy sampler; written by the scheduler thread only
         self.sampling_stats = {"fused_steps": 0, "legacy_steps": 0}
 
-        self.block_size = int(kv_block_size)
-        if self.max_seq_len % self.block_size:
-            raise ValueError(
-                f"kv_block_size {self.block_size} must divide "
-                f"max_seq_len {self.max_seq_len}")
-        self.blocks_per_slot = self.max_seq_len // self.block_size
-        total_blocks = int(kv_blocks or slots * self.blocks_per_slot)
-        if total_blocks < self.blocks_per_slot:
-            raise ValueError(
-                f"kv_blocks {total_blocks} cannot hold one full-length "
-                f"request ({self.blocks_per_slot} blocks of "
-                f"{self.block_size})")
-        self._allocator = BlockAllocator(total_blocks)
-        self._cache = init_paged_cache(
-            self.cfg, slots, total_blocks, self.block_size,
-            self.blocks_per_slot, dtype=torch.bfloat16, device=self.device)
+        self._allocator: Optional[BlockAllocator] = None
+        if self.paged:
+            if self.max_seq_len % self.block_size:
+                raise ValueError(
+                    f"kv_block_size {self.block_size} must divide "
+                    f"max_seq_len {self.max_seq_len}")
+            self.blocks_per_slot = self.max_seq_len // self.block_size
+            total_blocks = int(kv_blocks or slots * self.blocks_per_slot)
+            if total_blocks < self.blocks_per_slot:
+                raise ValueError(
+                    f"kv_blocks {total_blocks} cannot hold one full-length "
+                    f"request ({self.blocks_per_slot} blocks of "
+                    f"{self.block_size})")
+            self._allocator = BlockAllocator(total_blocks)
+            self._cache = init_paged_cache(
+                self.cfg, slots, total_blocks, self.block_size,
+                self.blocks_per_slot, dtype=torch.bfloat16,
+                quantize=self.kv_quant, device=self.device)
+        else:
+            self._cache = init_cache(
+                self.cfg, slots, self.max_seq_len, dtype=torch.bfloat16,
+                per_slot=True, quantize=self.kv_quant, device=self.device)
         # chunked prefill runs in bucket-multiple forwards
         self.prefill_chunk = max(
             DECODE_BUCKET,
@@ -237,7 +263,8 @@ class BatchedEngine:
             collections.OrderedDict()
         self._encode_memo_lock = threading.Lock()
         # scheduler-tick trace, for tests and TTFT/TPOT forensics:
-        # ("admit", slot, plen, mode) / ("prefill", slot, ntokens) /
+        # ("admit", slot, plen, "chunked" | "dense") /
+        # ("prefill", slot, ntokens) /
         # ("activate", slot) / ("decode", K) / ("finish", slot)
         self.sched_trace: "collections.deque[tuple]" = \
             collections.deque(maxlen=4096)
@@ -253,16 +280,28 @@ class BatchedEngine:
     @property
     def decode_path(self) -> str:
         """How decode attention reads the KV cache: ``kernel`` (the in-place
-        paged kernels; their plain versions for CPU tensors) or ``gather``."""
+        paged kernels; their plain versions for CPU tensors), ``gather``
+        (the paged gathered view) or ``dense`` (the slots' full rows)."""
+        if not self.paged:
+            return "dense"
         return "kernel" if self.paged_kernel else "gather"
 
     @property
-    def total_kv_blocks(self) -> int:
-        return self._allocator.num_blocks
+    def total_kv_blocks(self) -> Optional[int]:
+        """Blocks in the paged pool; None on the dense layout."""
+        return self._allocator.num_blocks if self.paged else None
 
     @property
-    def free_kv_blocks(self) -> int:
-        return self._allocator.free_count
+    def free_kv_blocks(self) -> Optional[int]:
+        return self._allocator.free_count if self.paged else None
+
+    @property
+    def kv_cache_bytes(self) -> int:
+        """Device bytes of the K/V leaves and, for an int8 cache, their
+        scales (the position table and cursors are not counted)."""
+        return sum(t.numel() * t.element_size()
+                   for name, t in self._cache.items()
+                   if name in ("k", "v", "k_scale", "v_scale"))
 
     def _trace(self, *event):
         self.sched_trace.append(event)
@@ -296,14 +335,19 @@ class BatchedEngine:
                 return
 
     def _admit_slot(self, req: Request, slot: int) -> bool:
-        """Reserve the slot's blocks (False = pool exhausted; the request
-        stays queued), install its table, scrub the blocks' recycled
-        positions to the sentinel (chunked prefill reveals the whole table to
-        attention before every lane is written), rewind the slot's cursor and
-        register the prompt for chunked prefill."""
+        """Occupy ``slot`` with ``req``. Dense: prefill monolithically and
+        arm the slot at once. Paged: reserve the slot's blocks (False = pool
+        exhausted; the request stays queued), install its table, scrub the
+        blocks' recycled positions to the sentinel (chunked prefill reveals
+        the whole table to attention before every lane is written), rewind
+        the slot's cursor and register the prompt for chunked prefill."""
         ids, mask, positions, plen, n_prompt, max_new, _ = prepare_prompt(
             req.prompt_ids, self.tokenizer.eos_token_id,
             self.max_seq_len, req.max_new_tokens)
+        if not self.paged:
+            self._admit_dense(req, slot, ids, mask, positions, plen,
+                              n_prompt, max_new)
+            return True
         blocks = self._allocator.alloc(blocks_for_depth(
             plen + max_new, self.block_size, cap_depth=self.max_seq_len))
         if blocks is None:
@@ -327,6 +371,31 @@ class BatchedEngine:
         }
         self._trace("admit", slot, plen, "chunked")
         return True
+
+    def _admit_dense(self, req: Request, slot: int, ids, mask, positions,
+                     plen: int, n_prompt: int, max_new: int):
+        """Dense admission: prefill the bucketed prompt into a fresh one-row
+        cache (scalar cursor) in one forward, copy the row — K/V, scales and
+        positions, sentinel lanes included, which scrubs what the slot's last
+        request left — into the slot's row, set its cursor and arm it."""
+        dev = self.device
+        row = init_cache(self.cfg, 1, self.max_seq_len, dtype=torch.bfloat16,
+                         quantize=self.kv_quant, device=dev)
+        logits, row = forward(
+            self.params, torch.tensor([ids], dtype=torch.int32, device=dev),
+            self.cfg,
+            positions=torch.tensor([positions], dtype=torch.int32, device=dev),
+            attention_mask=torch.tensor([mask], dtype=torch.int32, device=dev),
+            cache=row, compute_dtype=torch.bfloat16)
+        for name in ("k", "v", "k_scale", "v_scale"):
+            if name in self._cache:
+                self._cache[name][:, slot] = row[name][:, 0]
+        self._cache["pos"][slot] = row["pos"][0]
+        self._cache["len"][slot] = plen
+        self._slot_req[slot] = req
+        self._trace("admit", slot, plen, "dense")
+        self._arm_slot(slot, req, logits[0, plen - 1], plen, n_prompt,
+                       max_new)
 
     def _prefill_chunk_fn(self, slot: int, ids, mask, positions):
         """One chunk of a slot's prompt written straight into its blocks of
@@ -380,13 +449,20 @@ class BatchedEngine:
     def _finish_prefill(self, slot: int, st: dict, row_logits):
         """Arm a chunk-prefilled slot's decode state."""
         del self._pending[slot]
-        req = st["req"]
-        max_new = max(1, min(st["max_new"], self.max_seq_len - st["plen"]))
+        self._arm_slot(slot, st["req"], row_logits, st["plen"],
+                       st["n_prompt"], st["max_new"])
+
+    def _arm_slot(self, slot: int, req: Request, row_logits, plen: int,
+                  n_prompt: int, max_new: int):
+        """Set a prefilled slot's decode state: its last-token logits, rope
+        position, token budget (clamped to the room left after ``plen``
+        cache lanes), sampling parameters, stop ids and generator."""
+        max_new = max(1, min(max_new, self.max_seq_len - plen))
         stop_row = torch.full((MAX_STOP,), -1, dtype=torch.int32)
         stop_row[:len(req.stop_ids)] = torch.tensor(req.stop_ids,
                                                     dtype=torch.int32)
         self._logits[slot] = row_logits
-        self._pos[slot] = st["n_prompt"]
+        self._pos[slot] = n_prompt
         self._remaining[slot] = max_new
         self._active[slot] = True
         self._temps[slot] = float(req.temperature)

@@ -5,13 +5,16 @@ port of ``datatunerx_tpu/serving/server.py`` (its chat surface).
 error when loading failed). ``/chat/completions`` and
 ``/v1/chat/completions`` answer with the same keys as the JAX server, as JSON
 or, with ``"stream": true``, as SSE ``chat.completion.chunk`` events ending in
-``data: [DONE]``. The engine is the port's paged ``BatchedEngine`` on CUDA
-unless ``--device cpu`` is given.
+``data: [DONE]``. The engine is the port's ``BatchedEngine`` on CUDA unless
+``--device cpu`` is given: over the dense cache by default
+(``--kv_block_size 0``), over the paged block pool with ``--kv_block_size N``
+(the paged attention kernels), and with ``--kv_quant int8`` over an int8
+cache on either layout.
 
 Run::
 
     python -m datatunerx_tpu_torch.serving.server \\
-        --model_path preset:tinyllama-1.1b --kv_block_size 16
+        --model_path preset:tinyllama-1.1b --kv_block_size 16 --kv_quant int8
 
 The flag names are the JAX server's. Flags whose feature is not ported yet
 are refused at startup with the ROADMAP item they wait for.
@@ -186,8 +189,8 @@ class Handler(BaseHTTPRequestHandler):
 
 
 def load_engine_async(model_path, template="llama2", max_seq_len=1024,
-                      slots=4, decode_chunk=8, kv_block_size=0, kv_blocks=0,
-                      prefill_chunk=256, prefill_token_budget=0,
+                      slots=4, decode_chunk=8, kv_quant="", kv_block_size=0,
+                      kv_blocks=0, prefill_chunk=256, prefill_token_budget=0,
                       paged_kernel="auto", sampling_epilogue="auto",
                       device="cuda", seed=0):
     """Build the engine on a background thread; ``/healthz`` flips to 200
@@ -202,6 +205,7 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
             STATE.engine = BatchedEngine(
                 model_path, template=template, max_seq_len=max_seq_len,
                 slots=slots, decode_chunk=decode_chunk,
+                kv_quant=kv_quant or None,
                 kv_block_size=kv_block_size, kv_blocks=kv_blocks or None,
                 paged_kernel=paged_kernel or "auto",
                 sampling_epilogue=sampling_epilogue or "auto",
@@ -219,12 +223,11 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
 # flag → (value that means "feature off", ROADMAP Queue 1 item it waits for)
 _REFUSED = {
     "checkpoint_path": ("", "item 3 (adapters and tenancy)"),
-    "quantization": ("", "item 1 (dense cache: serve-time quantization "
-                     "rides the single-slot engine)"),
+    "quantization": ("", "item 1 (serve-time quantization rides the "
+                     "single-request engine)"),
     "adapters": ("", "item 3 (adapters and tenancy)"),
     "adapter_pool": (0, "item 3 (adapters and tenancy)"),
     "adapter_targets": ("", "item 3 (adapters and tenancy)"),
-    "kv_quant": ("", "item 4 (int8 KV cache)"),
     "prefix_cache": (0, "item 2 (prefix cache and KV overcommit)"),
     "kv_overcommit": ("off", "item 2 (prefix cache and KV overcommit)"),
     "spec_draft_config": ("", "item 5 (speculative decoding)"),
@@ -260,11 +263,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adapter_pool", type=int, default=0)
     p.add_argument("--adapter_rank_max", type=int, default=8)
     p.add_argument("--adapter_targets", default="")
-    p.add_argument("--kv_quant", default="", choices=["", "int8"])
+    p.add_argument("--kv_quant", default="", choices=["", "int8"],
+                   help="KV cache quantization: int8 stores K/V as int8 with "
+                        "an f32 scale per head vector (about half the cache "
+                        "bytes per token)")
     p.add_argument("--prefix_cache", type=int, default=0)
     p.add_argument("--kv_block_size", type=int, default=0,
-                   help="paged KV cache block size in tokens (required: the "
-                        "dense cache is not ported yet)")
+                   help="paged KV cache block size in tokens (0 = the dense "
+                        "per-slot cache)")
     p.add_argument("--kv_blocks", type=int, default=0,
                    help="total blocks in the paged pool (default "
                         "slots × max_seq_len / kv_block_size)")
@@ -299,8 +305,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def parse_args(argv=None) -> argparse.Namespace:
     """Parse the JAX server's flags; refuse those whose feature the port
-    does not carry yet, and a single-slot server (the dense single-request
-    engine is not ported)."""
+    does not carry yet, and a single-slot server (the single-request engine
+    is not ported)."""
     p = build_parser()
     args = p.parse_args(argv)
     for flag, (off, item) in _REFUSED.items():
@@ -309,11 +315,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     f"(ROADMAP Queue 1 {item})")
     if args.slots < 2:
         p.error("--slots < 2 selects the single-request engine, which is not "
-                "ported yet (ROADMAP Queue 1 item 1 (dense cache))")
-    if args.kv_block_size <= 0:
-        p.error("--kv_block_size 0 selects the dense cache, which is not "
-                "ported yet (ROADMAP Queue 1 item 1 (dense cache)); serve "
-                "with --kv_block_size 16")
+                "ported yet (ROADMAP Queue 1 item 1 (single-request engine))")
+    if args.paged_kernel == "on" and args.kv_block_size <= 0:
+        p.error("--paged_kernel on requires the paged KV cache "
+                "(--kv_block_size > 0)")
     return args
 
 
@@ -323,6 +328,7 @@ def start(args: argparse.Namespace) -> ThreadingHTTPServer:
     load_engine_async(
         args.model_path, template=args.template, max_seq_len=args.max_seq_len,
         slots=args.slots, decode_chunk=args.decode_chunk,
+        kv_quant=args.kv_quant,
         kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
         prefill_chunk=args.prefill_chunk,
         prefill_token_budget=args.prefill_token_budget,

@@ -123,11 +123,9 @@ def test_sampled_streams_are_seeded_and_paths_agree(export_dir):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"kv_block_size": 0}, "item 1"),
     ({"prefix_cache": 4}, "item 2"),
     ({"kv_overcommit": "on"}, "item 2"),
     ({"adapters": {"a": "/nowhere"}}, "item 3"),
-    ({"kv_quant": "int8"}, "item 4"),
     ({"spec_draft": "take:1"}, "item 5"),
 ])
 def test_flags_outside_the_slice_are_refused(kwargs, item):
@@ -141,6 +139,11 @@ def test_bad_modes_raise():
     with pytest.raises(ValueError, match="auto|on|off"):
         BatchedEngine("preset:debug", device="cpu",
                       **dict(KW, paged_kernel="sometimes"))
+    with pytest.raises(ValueError, match="unsupported cache quantization"):
+        BatchedEngine("preset:debug", device="cpu", **dict(KW, kv_quant="fp8"))
+    with pytest.raises(ValueError, match="requires the paged KV cache"):
+        BatchedEngine("preset:debug", device="cpu",
+                      **dict(KW, kv_block_size=0, paged_kernel="on"))
 
 
 def test_auto_resolves_off_on_the_cpu():

@@ -11,7 +11,12 @@ up to 200 keys in another order, gradients of unit-scale inputs), bf16
 another order; a bf16 ulp at |x| ~ 2-4 is 2^-6). Quantized matmuls
 (K4-K6): float32 atol=rtol=1e-4 (f32 sums over up to 5632 products in
 another order), bf16 atol 2^-8 / rtol 2^-7 (the staged weights are
-bit-equal to the plain version's; the f32 sums round once to bf16)."""
+bit-equal to the plain version's; the f32 sums round once to bf16). The
+int8-pool instantiations of K7/K8 hold K7/K8's tolerances (their staged
+tiles equal the plain version's dequantized blocks bit for bit). The fused
+LoRA matmul (K10): float32 atol=rtol=1e-4, bf16 atol 2^-8 / rtol 2^-7 (the
+kernel and its plain version round at the same points and differ only in
+the order of their f32 sums)."""
 
 import pytest
 import torch
@@ -83,6 +88,90 @@ def test_multitoken_kernel_matches_plain(cuda, dtype):
     got = cpa.paged_multitoken_attention(q, k, v, None, None, tables, allow)
     want = cpa._plain_multitoken(q, k, v, tables, allow)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def _int8_pools(k, v):
+    from datatunerx_tpu_torch.ops.attention import kv_quantize
+
+    kq, ks = kv_quantize(k.float())
+    vq, vs = kv_quantize(v.float())
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 8])  # 8: the element-wise staging loop
+def test_decode_kernel_int8_pools_match_plain(cuda, dtype, d):
+    gen = torch.Generator().manual_seed(4)
+    lens = [40, 0, 17, 1]
+    tables, pos, k, v = _pool(lens, 4, 16, 2, d, torch.float32, cuda, gen)
+    kq, vq, ks, vs = _int8_pools(k, v)
+    q = torch.randn((4, 8, d), generator=gen).to(dtype).to(cuda)
+    qpos = torch.tensor([max(n - 1, 0) for n in lens], dtype=torch.int32,
+                        device=cuda)
+    before = (cpa.paged_decode_attention.launches,
+              cpa.paged_decode_attention.int8_launches)
+    got = cpa.paged_decode_attention(q, kq, vq, ks, vs, tables, pos, qpos)
+    assert (cpa.paged_decode_attention.launches,
+            cpa.paged_decode_attention.int8_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = cpa._plain_decode(q, kq, vq, tables, pos, qpos, ks, vs)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert not got[1].any()
+    with pytest.raises(ValueError, match="scale pools"):
+        cpa.paged_decode_attention(q, kq, vq, None, None, tables, pos, qpos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_multitoken_kernel_int8_pools_match_plain(cuda, dtype):
+    gen = torch.Generator().manual_seed(5)
+    lens, T, bs = [48, 30], 12, 16
+    tables, pos, k, v = _pool(lens, 4, bs, 2, 16, torch.float32, cuda, gen)
+    kq, vq, ks, vs = _int8_pools(k, v)
+    q = torch.randn((2, T, 8, 16), generator=gen).to(dtype).to(cuda)
+    qpos = torch.stack([torch.arange(n - T, n) for n in lens]).to(cuda)
+    tbl = torch.where(tables >= 0, tables, torch.zeros_like(tables)).long()
+    view = torch.where((tables >= 0)[:, :, None], pos[tbl],
+                       torch.full_like(pos[tbl], SENT)).reshape(2, -1)
+    allow = attention_allow(qpos, view)
+    before = cpa.paged_multitoken_attention.int8_launches
+    got = cpa.paged_multitoken_attention(q, kq, vq, ks, vs, tables, allow)
+    assert cpa.paged_multitoken_attention.int8_launches == before + 1
+    want = cpa._plain_multitoken(q, kq, vq, tables, allow, ks, vs)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+LORA_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+            torch.bfloat16: dict(atol=2**-8, rtol=2**-7)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,r", [
+    (160, 128, 256, 8),    # the reference test's shape
+    (4, 2048, 256, 8),     # a decode step on v_proj
+    (200, 200, 136, 4),    # M, N, K off every tile; r rows of 8 bytes
+    (37, 150, 99, 20),     # rows that are not whole 16-byte vectors; RP=32
+    (130, 64, 128, 64),    # the largest rank
+])
+def test_lora_kernel_matches_plain(cuda, dtype, M, K, N, r):
+    from datatunerx_tpu_torch.ops import cuda_lora as cl
+
+    gen = torch.Generator().manual_seed(M + K + N + r)
+
+    def rnd(shape, s=1.0):
+        return (torch.randn(shape, generator=gen) * s).to(dtype).to(cuda)
+
+    x, w = rnd((M, K)), rnd((K, N), 0.05)
+    a, b = rnd((K, r), 0.05), rnd((r, N), 0.05)
+    before = cl.lora_matmul.launches
+    got = cl.lora_matmul(x, w, a, b, 4.0)
+    assert cl.lora_matmul.launches == before + 1
+    want = cl._plain_lora_matmul(x, w, a, b, 4.0)
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **LORA_TOL[dtype])
+    # the adapter really contributes: far from the base product alone
+    base = cl._plain_lora_matmul(x, w, a, torch.zeros_like(b), 4.0)
+    assert (got.float() - base.float()).abs().max() > 10 * LORA_TOL[dtype]["atol"]
 
 
 def _flash_inputs(B, T, H, KV, d, dtype, dev, gen, packed):

@@ -135,9 +135,9 @@ def test_paged_writes_and_gathers_match_reference(T):
     jk, jv, _, _, jka, jva, _, _ = jpa.paged_kv_update(
         jc["k"][0], jc["v"][0], None, None, jc["block_tables"], jc["len"],
         jnp.asarray(kw), jnp.asarray(vw), None, None)
-    tk, tv, tka, tva = tpa.paged_kv_update(
-        tc["k"][0], tc["v"][0], tc["block_tables"], tc["len"],
-        torch.from_numpy(kw), torch.from_numpy(vw))
+    tk, tv, _, _, tka, tva, _, _ = tpa.paged_kv_update(
+        tc["k"][0], tc["v"][0], None, None, tc["block_tables"], tc["len"],
+        torch.from_numpy(kw), torch.from_numpy(vw), None, None)
     assert tk.data_ptr() == tc["k"][0].data_ptr()  # updated in place
     np.testing.assert_array_equal(tk[:-1].numpy(), np.asarray(jk))
     np.testing.assert_array_equal(tv[:-1].numpy(), np.asarray(jv))
@@ -238,11 +238,33 @@ def test_multitoken_plain_matches_pallas_kernel(case, dt):
                                np.asarray(want, np.float32)[live], **tol)
 
 
-def test_kernel_wrappers_refuse_int8_pools():
+@pytest.mark.parametrize("fault, match", [
+    ("int8_without_scales", "need both scale pools"),
+    ("float_with_scales", "without scale pools"),
+    ("scale_shape", "k_scale must be float32"),
+    ("scale_dtype", "v_scale must be float32"),
+    ("mixed_pools", "pools differ in dtype"),
+])
+def test_kernel_wrappers_check_pool_dtypes(fault, match):
+    """The pools are q's dtype with no scales, or int8 with both f32 scale
+    pools [NB, bs, KV]; anything else is a ValueError from either wrapper."""
     q = torch.zeros((1, 4, 8))
     pool = torch.zeros((3, BS, 2, 8))
-    with pytest.raises(NotImplementedError, match="int8"):
-        tpk.paged_decode_attention(q, pool, pool, pool, pool,
-                                   torch.zeros((1, 2), dtype=torch.int32),
+    ipool = pool.to(torch.int8)
+    scale = torch.zeros((3, BS, 2))
+    args = {
+        "int8_without_scales": (ipool, ipool, None, None),
+        "float_with_scales": (pool, pool, scale, scale),
+        "scale_shape": (ipool, ipool, scale[:, :, :1], scale),
+        "scale_dtype": (ipool, ipool, scale, scale.double()),
+        "mixed_pools": (ipool, pool, scale, scale),
+    }[fault]
+    tables = torch.zeros((1, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        tpk.paged_decode_attention(q, *args, tables,
                                    torch.zeros((3, BS), dtype=torch.int32),
                                    torch.zeros((1,), dtype=torch.int32))
+    with pytest.raises(ValueError, match=match):
+        tpk.paged_multitoken_attention(
+            q[:, None], *args, tables,
+            torch.zeros((1, 1, 2 * BS), dtype=torch.bool))

@@ -176,16 +176,81 @@ def test_response_keys_equal_the_jax_servers():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--adapters", "a=/x"], ["--prefix_cache", "4"], ["--kv_quant", "int8"],
+    ["--adapters", "a=/x"], ["--prefix_cache", "4"],
     ["--kv_overcommit", "on"], ["--spec_draft_config", "take:1"],
     ["--quantization", "int8"], ["--tenants_config", "{}"],
-    ["--checkpoint_path", "/x"], ["--slots", "1"], ["--kv_block_size", "0"],
+    ["--checkpoint_path", "/x"], ["--slots", "1"],
 ])
 def test_flags_outside_the_slice_are_refused(extra, capsys):
     with pytest.raises(SystemExit) as exc:
         tserver.parse_args(ARGS + extra)
     assert exc.value.code == 2
     assert "ROADMAP Queue 1" in capsys.readouterr().err
+
+
+def _serve_one(extra, check):
+    """Start the server with ARGS + extra, wait for the engine, answer one
+    chat, hand the engine to ``check`` and shut everything down."""
+    saved = (tserver.STATE.engine, tserver.STATE.error)
+    tserver.STATE.engine, tserver.STATE.error = None, None
+    srv = tserver.start(tserver.parse_args(ARGS + extra))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        port = srv.server_address[1]
+        _wait_healthy(port)
+        code, body = _request(port, "POST", "/chat/completions", CHAT)
+        assert code == 200, body
+        assert isinstance(
+            json.loads(body)["choices"][0]["message"]["content"], str)
+        check(tserver.STATE.engine)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        if tserver.STATE.engine is not None:
+            tserver.STATE.engine.close()
+        tserver.STATE.engine, tserver.STATE.error = saved
+
+
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_server_accepts_kv_quant_int8(layout):
+    import torch
+
+    def check(eng):
+        assert eng.kv_quant == "int8"
+        assert eng._cache["k"].dtype == torch.int8
+        assert eng._cache["k_scale"].dtype == torch.float32
+        assert eng.decode_path == ("gather" if layout == "paged" else "dense")
+
+    block = ["--kv_block_size", "0"] if layout == "dense" else []
+    _serve_one(block + ["--kv_quant", "int8"], check)
+
+
+def test_server_default_block_size_is_the_dense_cache():
+    """``--kv_block_size`` defaults to 0 in both servers, and the port's
+    answers it with the dense engine."""
+    args = tserver.parse_args(["--model_path", "preset:debug"])
+    assert args.kv_block_size == 0 and args.kv_quant == ""
+    import inspect
+
+    assert inspect.signature(jserver.load_engine_async).parameters[
+        "kv_block_size"].default == 0
+
+    def check(eng):
+        assert eng.decode_path == "dense"
+        assert eng.total_kv_blocks is None and eng.free_kv_blocks is None
+        assert "block_tables" not in eng._cache
+        assert any(e[0] == "admit" and e[3] == "dense"
+                   for e in eng.sched_trace)
+
+    _serve_one(["--kv_block_size", "0"], check)
+
+
+def test_paged_kernel_on_needs_the_paged_cache(capsys):
+    with pytest.raises(SystemExit) as exc:
+        tserver.parse_args(ARGS + ["--kv_block_size", "0",
+                                   "--paged_kernel", "on"])
+    assert exc.value.code == 2
+    assert "requires the paged KV cache" in capsys.readouterr().err
 
 
 def test_defaults_run_on_cuda():
