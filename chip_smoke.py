@@ -47,7 +47,8 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
    its recompute under remat ``dots``, which saves only matmuls), K5 =
    7 x 22 - 3 = 151 (layer 0's q/k/v inputs come from the frozen
    embedding and need no gradient), K1-K3 as in phase 5; prints step time,
-   tokens/s, peak memory and device ms by kernel group;
+   tokens/s, peak memory and device ms by kernel group (flash K1 and flash
+   K2/K3 apart, as in phase 5);
 8. QLoRA int8: 4 steps with ``--quantization int8``: K6 = 308 per step;
 9. QLoRA parity: one train step (int4, then int8) at tinyllama width and
    4 layers with ``quant_impl="pallas"`` against ``"xla"`` (dequantize,
@@ -80,7 +81,10 @@ have run in the process):
 
 Phase 2 also holds K1 (flash forward), K2 (dQ) and K3 (dK/dV) against
 their plain versions at the training shapes (B=8 H=32 KV=4 T=1024 d=64,
-causal, bf16), on a packed batch and at d=128, and K4 (nf4 matmul), K5
+causal, bf16), on a packed batch and at d=128, printing for each case the
+pair K2+K3 against one SDPA backward (which computes dQ, dK and dV
+together; masked to the segments on the packed batch) and the bf16 K2/K3's
+registers, spills, shared bytes and blocks per SM, and K4 (nf4 matmul), K5
 (its transposed dx product) and K6 (int8 matmul) at M=8192 rows and each
 projection shape of tinyllama-1.1b, in bf16 and f32, and K10 (fused LoRA
 matmul) at M=8192 and M=4 rows, N=2048 and N=256, K=2048, r=8, in bf16 and
@@ -579,6 +583,10 @@ def check_flash(torch, timer, gen):
                     f"{n} {ms[n]:.3f} ms (err {errs[n]:.3g}, bound "
                     f"{bounds[n][0]:.4f})" for n in ms))
         log(line)
+        lib_bwd = sdpa_bwd_ms(torch, timer, q, k, v, do, seg)
+        pair = ms["K2"] + ms["K3"]
+        log(f"  flash {case}: K2+K3 {pair:.4f} ms vs SDPA backward (dQ, dK, dV "
+            f"together) {lib_bwd:.4f} ms: {pair / lib_bwd:.2f}x")
         out[case] = (errs, ms, bounds)
         if case != "causal":
             continue
@@ -595,9 +603,6 @@ def check_flash(torch, timer, gen):
         qs, ks, vs, dos = (t.transpose(1, 2) for t in (q, k, v, do))
         lib_fwd = timer.ms(lambda: sdpa(torch, qs, ks, vs, causal=True))
         leaf = [t.detach().requires_grad_() for t in (qs, ks, vs)]
-        o = sdpa(torch, *leaf, causal=True)
-        lib_bwd = timer.ms(lambda: torch.autograd.grad(
-            o, leaf, dos, retain_graph=True))
 
         def fwd_bwd():
             o2 = sdpa(torch, *leaf, causal=True)
@@ -610,6 +615,7 @@ def check_flash(torch, timer, gen):
             f"{ms['K1'] + ms['K2'] + ms['K3']:.3f} ms")
         out["plain"], out["lib"] = plain, {"K1": lib_fwd, "K2": lib_bwd,
                                            "K3": lib_bwd}
+    log_flash_resources()
     errs, ms, bounds = out["causal"]
     meta = {
         "K1": ("K1 flash_fwd", "datatunerx_tpu/ops/flash_attention.py:85",
@@ -621,6 +627,8 @@ def check_flash(torch, timer, gen):
     }
     entries = []
     for key, (name, replaces, counter) in meta.items():
+        library = ("SDPA forward" if key == "K1" else
+                   "SDPA backward (dQ, dK, dV together), compare with K2+K3")
         entries.append({
             "name": name, "route": "cuda",
             "source": "datatunerx_tpu_torch/csrc/flash_attention.cu",
@@ -630,12 +638,50 @@ def check_flash(torch, timer, gen):
             "tolerance": "atol 2^-6 + rtol 2^-6 (bf16), causal/packed/d128",
             "ms": ms[key], "plain_ms": out["plain"][key],
             "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
-            "library_ms": out["lib"][key],
+            "library_ms": out["lib"][key], "library": library,
             "shape": "B=8 T=1024 H=32 KV=4 d=64 causal bf16 (timed); "
-                     "library: SDPA " + ("forward" if key == "K1" else
-                                         "backward (dQ, dK, dV together)"),
+                     "library: " + library,
         })
     return entries
+
+
+def log_flash_resources():
+    """What the bf16 K2 and K3 take of an SM, as built (the compiler's
+    registers and spills, as ``nvcc -Xptxas -v`` reports them)."""
+    import ctypes
+
+    from datatunerx_tpu_torch.ops import _build
+
+    for d in (64, 128):
+        r = (ctypes.c_int * 8)()
+        _build.check(_build.library().dtx_flash_bwd_resources(
+            d, ctypes.addressof(r)), "flash backward resources")
+        log(f"  bf16 K2/K3 at d={d}: " + "; ".join(
+            f"{n} {r[i]} registers, {r[i + 1]} spill bytes, {r[i + 2]} "
+            f"shared bytes, {r[i + 3]} blocks/SM"
+            for n, i in (("K2", 0), ("K3", 4))))
+
+
+def sdpa_bwd_ms(torch, timer, q, k, v, do, seg):
+    """SDPA backward's device time on the inputs of a flash case: causal,
+    and with ``seg`` the same-segment mask (K and V repeated to the query
+    heads beforehand, since a masked SDPA may not take GQA)."""
+    qs, ks, vs, dos = (t.transpose(1, 2) for t in (q, k, v, do))
+    mask = None
+    if seg is not None:
+        T = q.shape[1]
+        causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+        mask = (seg[:, None, :, None] == seg[:, None, None, :]) & causal
+        G = q.shape[2] // k.shape[2]
+        ks, vs = ks.repeat_interleave(G, 1), vs.repeat_interleave(G, 1)
+    leaf = [t.detach().requires_grad_() for t in (qs, ks, vs)]
+    if mask is None:
+        o = sdpa(torch, *leaf, causal=True)
+    else:
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *leaf, attn_mask=mask)
+    return timer.ms(lambda: torch.autograd.grad(o, leaf, dos,
+                                                retain_graph=True))
 
 
 # ------------------------------------------------------------ phase 2, K4-K6
@@ -1097,7 +1143,8 @@ LAYERS = 22
 # the quant kernels first: their (mangled) names also hold "gemm"
 KERNEL_GROUPS = (("K4 nf4", ("nf4fwd",)), ("K5 nf4 dx", ("nf4t",)),
                  ("K6 int8", ("int8src",)),
-                 ("flash K1-K3", ("flash_",)),
+                 ("flash K1", ("flash_fwd",)),
+                 ("flash K2/K3", ("flash_bwd",)),
                  ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")))
 
 
@@ -1516,7 +1563,8 @@ def main(argv=None) -> int:
             "launches": launches[e["key"]],
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-            "bound_by": e["bound_by"], "library_ms": e["library_ms"]})
+            "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+            **({"library": e["library"]} if "library" in e else {})})
     log(card)  # name and power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,34 +13,75 @@
 //
 // What bounds them on an H100: operations. At the training shapes (T = 1024,
 // d = 64) each query/key tile pair does 2*64*64*d FMAs for every 4*64*d
-// bytes it stages, far above the card's ops:byte ridge. These first
-// versions run the products on CUDA cores in f32 (f32 accumulation, as the
-// reference's preferred_element_type), so their ceiling is the 67 TFLOP/s
-// f32 rate, not the 989 TFLOP/s bf16 tensor-core rate the bound is stated
-// against; mma/wgmma tiles are later work.
+// bytes it stages, far above the card's ops:byte ridge. Two designs share
+// the grid structure below.
 //
-// What the design does about it:
+// Shared by both:
 // - The TPU's sequential grid axis becomes a loop inside one block: K1 and
 //   K2 give a block 64 query rows of one (batch, head) and loop over 64-key
 //   tiles, carrying the online-softmax max/normaliser (K1) or the dQ sum
 //   (K2) in registers; K3 gives a block 64 key rows of one (batch, KV head)
 //   and loops over the G query heads of its group and their query tiles, so
 //   the GQA group sum of dK/dV happens in registers (no repeat of K/V, no
-//   atomics, one rounding at the end).
+//   atomics, one rounding at the end). Blocks with the most tiles launch
+//   first.
 // - The causal skip is a loop bound (K1/K2: keys up to the tile's last row;
 //   K3: query tiles from the key tile's first row), the element mask stays
 //   for the diagonal tile.
-// - Tiles are staged in shared memory as f32 with an odd row pitch (d + 1),
-//   so column walks are free of bank conflicts; each thread owns a 4 x 4
-//   register tile of the 64 x 64 score block and the matching rows of the
-//   output, so row statistics stay in registers and row reductions are
-//   16-lane shuffles.
 // - Masked lanes give p = 0 explicitly, and rows keep the reference's finite
 //   NEG_INF and the l >= 1e-30 clamp, so packed pad rows never produce NaN.
+//
+// Design 1, K1 (both dtypes) and the f32 K2/K3: CUDA cores, f32. Tiles are
+// staged synchronously in shared memory as f32 with an odd row pitch
+// (d + 1), so column walks are free of bank conflicts; 256 threads each own
+// a 4 x 4 register tile of the 64 x 64 score block and the matching rows of
+// the output, so row statistics stay in registers and row reductions are
+// 16-lane shuffles. Bound by the 67 TFLOP/s f32 rate (in practice by the 8
+// shared loads per 16 FMAs of a 4 x 4 tile), not the 989 TFLOP/s bf16
+// tensor-core rate the bound is stated against. The f32 instantiations stay
+// here because TF32 would not hold their 1e-4 tolerance; they serve tests
+// and f32 training.
+//
+// Design 2, the bf16 K2/K3: tensor cores (mma.sync.m16n8k16, bf16 in, f32
+// accumulate) fed by cp.async, FlashAttention-2's backward split in two.
+// - 128 threads, 4 warps of 16 rows (K2: query rows, K3: key rows). Tiles
+//   stay bf16 in shared memory with a row pitch of d + 8 elements: rows stay
+//   16-byte aligned for 16-byte cp.async, and the 8 rows an ldmatrix phase
+//   reads fall into 8 distinct 16-byte bank groups.
+// - The streamed operand arrives in a two-stage ring (K2: K, V and the key
+//   tile's segment ids; K3: Q, dO and the query tile's lse, D and segment
+//   ids), tile i + 1 loading while tile i computes; rows past the end are
+//   zero-filled by cp.async's source size, so the products stay finite.
+// - K2: S = Q K^T and dP = dO V^T with A = Q / dO rows (ldmatrix) and B = K /
+//   V stored [key][d], which is the B operand's col layout (plain ldmatrix).
+//   dS is formed on the f32 C fragments; two adjacent n8 tiles, packed to
+//   bf16, are the A fragment of one k16 step of dQ += dS K, whose B is
+//   K [key][d] read as [k][n] through ldmatrix.trans.
+// - K3 computes the transposed scores: S^T = K Q^T and dP^T = V dO^T, so P^T
+//   and dS^T are register A fragments of dV += P^T dO and dK += dS^T Q, with
+//   B = dO / Q through ldmatrix.trans. Nothing passes through shared memory
+//   but the staged inputs. At d = 128 its query tile is 32 rows, so the two
+//   f32 score fragments fit beside the 128 accumulator registers.
+// - P = exp2(s * scale * log2 e - lse * log2 e) and dS = P (dP - D) scale in
+//   f32 on the fragments; the masks use the fragment's own (row, column).
+// - Numerics: S and dP are as in design 1 (bf16 inputs are exact in f32,
+//   sums are f32). One rounding point is new: P (K3) and dS (K2, K3) round
+//   to bf16 as operands of the second products, where the reference keeps
+//   f32; relative error 2^-9 per term, random in sign, well inside the
+//   2^-6 bf16 tolerance the outputs are held to. dQ, dK and dV accumulate
+//   in f32 and round once.
+// - What a wgmma/TMA version would add: 64-row warpgroup products with B
+//   (and A for S/dP) read straight from swizzled shared memory, so the
+//   ldmatrix traffic and most of the issue slots go; TMA loads issued by one
+//   producer warp into a deeper mbarrier ring, freeing the consumers'
+//   registers and the per-tile barriers; and 128-row key tiles in K3, which
+//   halve the Q/dO traffic per key row.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -498,6 +539,443 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   }
 }
 
+// ------------------------------------------------- bf16 K2/K3: mma.sync
+using bf16 = __nv_bfloat16;
+constexpr int MT = 128;  // threads per block: 4 warps of 16 rows
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// 16 (or 4) bytes global -> shared, asynchronous; zero-filled if !ok
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ROWS rows of D bf16 (row r at src + r*ld) into s[r*(D+8) + c]; rows >=
+// nvalid are zero
+template <int D, int ROWS>
+__device__ __forceinline__ void async_rows(bf16* s, const bf16* src, long ld,
+                                           int nvalid) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < ROWS * CPR; c += MT) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const bool ok = r < nvalid;
+    cp16(s + r * (D + 8) + col, ok ? src + (long)r * ld + col : src, ok);
+  }
+}
+
+// n f32 values (or segment ids; zeros if src is null) from src[0..nvalid)
+template <typename E>
+__device__ __forceinline__ void async_vec(E* s, const E* src, int n,
+                                          int nvalid) {
+  for (int r = threadIdx.x; r < n; r += MT) {
+    if (src == nullptr)
+      s[r] = E(0);
+    else
+      cp4(s + r, r < nvalid ? src + r : src, r < nvalid);
+  }
+}
+
+// Fragments of mma.m16n8k16 (lane = 4 g + t). The x4 loads give an A
+// fragment (rows r0.., k c0..) of a [row][k] tile, or, with .trans, the B
+// fragments of n tiles c0 and c0 + 8 (k rows r0..) of a [k][n] tile; the
+// lane address pattern is the same.
+__device__ __forceinline__ void ldsm_x4(const bf16* tile, int pitch, int r0,
+                                        int c0, uint32_t* f) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t a =
+      smem_u32(tile + (r0 + (lane & 15)) * pitch + c0 + (lane >> 4) * 8);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(f[0]), "=r"(f[1]), "=r"(f[2]), "=r"(f[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_t(const bf16* tile, int pitch, int r0,
+                                          int c0, uint32_t* f) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t a =
+      smem_u32(tile + (r0 + (lane & 15)) * pitch + c0 + (lane >> 4) * 8);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(f[0]), "=r"(f[1]), "=r"(f[2]), "=r"(f[3])
+      : "r"(a));
+}
+// The B fragments of n tiles n0 and n0 + 8 (k columns k0..) of an [n][k]
+// tile: f[0], f[1] for n0, f[2], f[3] for n0 + 8.
+__device__ __forceinline__ void ldsm_b_x4(const bf16* tile, int pitch, int n0,
+                                          int k0, uint32_t* f) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t a = smem_u32(tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) *
+                                         pitch +
+                              k0 + ((lane >> 3) & 1) * 8);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(f[0]), "=r"(f[1]), "=r"(f[2]), "=r"(f[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The C fragments of n8 tiles 2kk and 2kk + 1 (16 rows x 16 columns) as
+// the bf16 A fragment of k step kk.
+__device__ __forceinline__ void c_to_a(const float (*c)[4], int kk,
+                                       uint32_t* a) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// acc[16 rows, D] += A-fragments a[N/16] [16, N] @ tile[N][D] (row-major
+// [k][n], read through ldmatrix.trans), for one (acc, a, tile) set or two
+// interleaved. Each k step loads its B fragments (up to 64 columns of d at
+// a time) before its products, which then issue back to back.
+template <int D, int N, int SETS>
+__device__ __forceinline__ void mma_rows_t(float (*acc0)[4],
+                                           const uint32_t (*a0)[4],
+                                           const bf16* tile0,
+                                           float (*acc1)[4],
+                                           const uint32_t (*a1)[4],
+                                           const bf16* tile1) {
+  constexpr int DC = D / 16 < 4 ? D / 16 : 4;  // 16-column pairs per batch
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int d0 = 0; d0 < D / 16; d0 += DC) {
+      uint32_t f0[DC][4], f1[DC][4];
+#pragma unroll
+      for (int dn = 0; dn < DC; ++dn) {
+        ldsm_x4_t(tile0, D + 8, kk * 16, (d0 + dn) * 16, f0[dn]);
+        if constexpr (SETS == 2)
+          ldsm_x4_t(tile1, D + 8, kk * 16, (d0 + dn) * 16, f1[dn]);
+      }
+#pragma unroll
+      for (int dn = 0; dn < DC; ++dn) {
+        mma_bf16(acc0[2 * (d0 + dn)], a0[kk], f0[dn][0], f0[dn][1]);
+        mma_bf16(acc0[2 * (d0 + dn) + 1], a0[kk], f0[dn][2], f0[dn][3]);
+        if constexpr (SETS == 2) {
+          mma_bf16(acc1[2 * (d0 + dn)], a1[kk], f1[dn][0], f1[dn][1]);
+          mma_bf16(acc1[2 * (d0 + dn) + 1], a1[kk], f1[dn][2], f1[dn][3]);
+        }
+      }
+    }
+}
+
+// x[16, N] = A[16 rows at r0 of ta] @ tb[N][D]^T and y likewise from
+// (ua, ub): the two score-shaped products of a tile, sharing the k loop
+// and its fragment loads, as above.
+template <int D, int N>
+__device__ __forceinline__ void mma_scores(float (*x)[4], float (*y)[4],
+                                           const bf16* ta, const bf16* tb,
+                                           const bf16* ua, const bf16* ub,
+                                           int r0) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t a[4], u[4], fb[N / 16][4], fu[N / 16][4];
+    ldsm_x4(ta, D + 8, r0, ks * 16, a);
+    ldsm_x4(ua, D + 8, r0, ks * 16, u);
+#pragma unroll
+    for (int np = 0; np < N / 16; ++np) {
+      ldsm_b_x4(tb, D + 8, np * 16, ks * 16, fb[np]);
+      ldsm_b_x4(ub, D + 8, np * 16, ks * 16, fu[np]);
+    }
+#pragma unroll
+    for (int np = 0; np < N / 16; ++np) {
+      mma_bf16(x[2 * np], a, fb[np][0], fb[np][1]);
+      mma_bf16(x[2 * np + 1], a, fb[np][2], fb[np][3]);
+      mma_bf16(y[2 * np], u, fu[np][0], fu[np][1]);
+      mma_bf16(y[2 * np + 1], u, fu[np][2], fu[np][3]);
+    }
+  }
+}
+
+// 16 rows x D of f32 accumulators to bf16 rows (row g and g + 8 of the
+// warp's 16) at out + row * ld
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, long ld, int row0,
+                                           int nrows, const float (*acc)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = g + 8 * i;
+    if (row0 + r >= nrows) continue;
+    bf16* o = out + (long)(row0 + r) * ld + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+          __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1]);
+  }
+}
+
+template <int D>
+struct Dq {
+  static constexpr size_t smem() {
+    return (size_t)(2 * BQ + 4 * BK) * (D + 8) * 2 + 2 * BK * 4;
+  }
+};
+
+// K2: a block owns 64 query rows of one (batch, head); warp w rows
+// 16w..16w+15. Q and dO are staged once; K, V and the key segment ids
+// stream through the ring. At d <= 64, 3 blocks an SM (<= 168 registers;
+// 4 blocks spill and run slower).
+template <int D>
+__global__ void __launch_bounds__(MT, D <= 64 ? 3 : 1) flash_bwd_dq_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    const int* __restrict__ qseg, const int* __restrict__ kseg,
+    bf16* __restrict__ dq, int Tq, int S, int H, int KV, float scale,
+    int causal) {
+  constexpr int P = D + 8, NB = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sO = sQ + BQ * P;
+  bf16* sK = sO + BQ * P;      // [2][BK][P]
+  bf16* sV = sK + 2 * BK * P;  // [2][BK][P]
+  int* sKs = reinterpret_cast<int*>(sV + 2 * BK * P);  // [2][BK]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // x fastest: every head's last query tile (the most key tiles) first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const long qld = (long)H * D, kld = (long)KV * D;
+  const long qoff = ((long)b * Tq * H + h) * D + (long)q0 * qld;
+  const bf16* kb = k + ((long)b * S * KV + kvh) * D;
+  const bf16* vb = v + ((long)b * S * KV + kvh) * D;
+  const int* ksb = kseg == nullptr ? nullptr : kseg + (long)b * S;
+
+  async_rows<D, BQ>(sQ, q + qoff, qld, min(BQ, Tq - q0));
+  async_rows<D, BQ>(sO, dout + qoff, qld, min(BQ, Tq - q0));
+  auto load_kv = [&](int k0, int st) {
+    const int nk = min(BK, S - k0);
+    async_rows<D, BK>(sK + st * BK * P, kb + (long)k0 * kld, kld, nk);
+    async_rows<D, BK>(sV + st * BK * P, vb + (long)k0 * kld, kld, nk);
+    async_vec<int>(sKs + st * BK, ksb == nullptr ? nullptr : ksb + k0, BK,
+                   nk);
+  };
+
+  // the thread's two rows (g, g + 8 of the warp's 16): log2-domain lse, D,
+  // segment id and the last key each may see (-1: a row past Tq)
+  float l2[2], dr[2];
+  int qs[2], lim[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + 8 * i;
+    const bool in = row < Tq;
+    l2[i] = in ? lse[(long)bh * Tq + row] * LOG2E : 0.f;
+    dr[i] = in ? dsum[(long)bh * Tq + row] : 0.f;
+    qs[i] = (in && qseg != nullptr) ? qseg[(long)b * Tq + row] : 0;
+    lim[i] = !in ? -1 : (causal ? min(row, S - 1) : S - 1);
+  }
+  const float sl2 = scale * LOG2E;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const int kend = causal ? min(S, q0 + BQ) : S;
+  const int ntiles = (kend + BK - 1) / BK;
+  if (ntiles > 0) load_kv(0, 0);
+  cp_commit();  // Q, dO and the first K/V tile
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1, k0 = it * BK;
+    cp_wait<0>();  // tile it has landed
+    // one barrier a tile: past it, tile it is visible to every warp and
+    // every warp is done with tile it - 1, whose stage the next load reuses
+    __syncthreads();
+    if (it + 1 < ntiles) load_kv(k0 + BK, st ^ 1);
+    cp_commit();
+    const bf16* tK = sK + st * BK * P;
+    const int* tks = sKs + st * BK;
+
+    float s[NB][4], dp[NB][4];
+    mma_scores<D, BK>(s, dp, sQ, tK, sO, sV + st * BK * P, warp * 16);
+
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int c = 8 * j + 2 * t;  // the fragment's columns c, c + 1
+      const int2 kid = *reinterpret_cast<const int2*>(tks + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const bool ok = k0 + c + (e & 1) <= lim[i] &&
+                        qs[i] == ((e & 1) ? kid.y : kid.x);
+        const float p = ok ? exp2f(fmaf(s[j][e], sl2, -l2[i])) : 0.f;
+        s[j][e] = p * (dp[j][e] - dr[i]) * scale;  // dS
+      }
+    }
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) c_to_a(s, kk, da[kk]);
+    mma_rows_t<D, BK, 1>(acc, da, tK, nullptr, nullptr, nullptr);
+  }
+  cp_wait<0>();
+
+  store_rows<D>(dq + ((long)b * Tq * H + h) * D, qld, q0 + warp * 16, Tq,
+                acc);
+}
+
+// K3: a block owns 64 key rows of one (batch, KV head); warp w rows
+// 16w..16w+15. K and V are staged once; Q, dO and the query tile's lse, D
+// and segment ids stream through the ring, over the G heads of the group
+// and their query tiles.
+template <int D>
+struct Dkv {
+  static constexpr int P = D + 8;
+  static constexpr int QT = D > 64 ? 32 : 64;  // query rows per tile
+  static constexpr size_t smem() {
+    return (size_t)(2 * BK + 4 * QT) * P * 2 + 2 * 3 * QT * 4;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(MT) flash_bwd_dkv_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    const int* __restrict__ qseg, const int* __restrict__ kseg,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int S, int H,
+    int KV, float scale, int causal) {
+  constexpr int P = Dkv<D>::P, QT = Dkv<D>::QT, NB = QT / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + BK * P;
+  bf16* sQ = sV + BK * P;      // [2][QT][P]
+  bf16* sO = sQ + 2 * QT * P;  // [2][QT][P]
+  float* sL = reinterpret_cast<float*>(sO + 2 * QT * P);  // [2][QT]
+  float* sD = sL + 2 * QT;                                 // [2][QT]
+  int* sQs = reinterpret_cast<int*>(sD + 2 * QT);          // [2][QT]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.y * BK;  // x fastest: every first key tile first
+  const int bkv = blockIdx.x, b = bkv / KV, kvh = bkv % KV;
+  const int G = H / KV;
+  const long qld = (long)H * D, kld = (long)KV * D;
+  const long koff = ((long)b * S * KV + kvh) * D;
+
+  async_rows<D, BK>(sK, k + koff + (long)k0 * kld, kld, min(BK, S - k0));
+  async_rows<D, BK>(sV, v + koff + (long)k0 * kld, kld, min(BK, S - k0));
+
+  const int q_first = causal ? (k0 / QT) * QT : 0;
+  const int nqt = Tq > q_first ? (Tq - q_first + QT - 1) / QT : 0;
+  const int total = G * nqt;
+  auto load_q = [&](int it, int st) {
+    const int h = kvh * G + it / nqt, q0 = q_first + (it % nqt) * QT;
+    const long bh = (long)b * H + h;
+    const long qoff = ((long)b * Tq * H + h) * D + (long)q0 * qld;
+    const int nq = min(QT, Tq - q0);
+    async_rows<D, QT>(sQ + st * QT * P, q + qoff, qld, nq);
+    async_rows<D, QT>(sO + st * QT * P, dout + qoff, qld, nq);
+    async_vec<float>(sL + st * QT, lse + bh * Tq + q0, QT, nq);
+    async_vec<float>(sD + st * QT, dsum + bh * Tq + q0, QT, nq);
+    async_vec<int>(sQs + st * QT,
+                   qseg == nullptr ? nullptr : qseg + (long)b * Tq + q0, QT,
+                   nq);
+  };
+
+  // the thread's two key rows: segment id and the first query each may
+  // see (a row past S sees none)
+  int ks[2], lo[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int krow = k0 + warp * 16 + g + 8 * i;
+    const bool in = krow < S;
+    ks[i] = (in && kseg != nullptr) ? kseg[(long)b * S + krow] : 0;
+    lo[i] = !in ? Tq : (causal ? krow : 0);
+  }
+  const float sl2 = scale * LOG2E;
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  if (total > 0) load_q(0, 0);
+  cp_commit();  // K, V and the first query tile
+  for (int it = 0; it < total; ++it) {
+    const int st = it & 1, q0 = q_first + (it % nqt) * QT;
+    cp_wait<0>();
+    __syncthreads();  // as in K2: one barrier a tile
+    if (it + 1 < total) load_q(it + 1, st ^ 1);
+    cp_commit();
+    const bf16* tQ = sQ + st * QT * P;
+    const bf16* tO = sO + st * QT * P;
+    const float* tL = sL + st * QT;
+    const float* tD = sD + st * QT;
+    const int* tqs = sQs + st * QT;
+
+    float sT[NB][4], dpT[NB][4];  // S^T, dP^T: [16 keys][QT queries]
+    mma_scores<D, QT>(sT, dpT, sK, tQ, sV, tO, warp * 16);
+
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int c = 8 * j + 2 * t;  // the fragment's columns c, c + 1
+      const float2 l = *reinterpret_cast<const float2*>(tL + c);
+      const float2 dd = *reinterpret_cast<const float2*>(tD + c);
+      const int2 qid = *reinterpret_cast<const int2*>(tqs + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, odd = e & 1, qrow = q0 + c + odd;
+        const bool ok = qrow >= lo[i] && qrow < Tq &&
+                        ks[i] == (odd ? qid.y : qid.x);
+        const float p = ok ? exp2f(fmaf(sT[j][e], sl2,
+                                        -(odd ? l.y : l.x) * LOG2E))
+                           : 0.f;
+        sT[j][e] = p;
+        dpT[j][e] = p * (dpT[j][e] - (odd ? dd.y : dd.x)) * scale;  // dS^T
+      }
+    }
+    uint32_t pa[QT / 16][4], da[QT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      c_to_a(sT, kk, pa[kk]);
+      c_to_a(dpT, kk, da[kk]);
+    }
+    mma_rows_t<D, QT, 2>(dva, pa, tO, dka, da, tQ);
+  }
+  cp_wait<0>();
+
+  store_rows<D>(dk + koff, kld, k0 + warp * 16, S, dka);
+  store_rows<D>(dv + koff, kld, k0 + warp * 16, S, dva);
+}
+
 // ----------------------------------------------------------------- launch
 template <typename K>
 int set_smem(K kern, size_t bytes) {
@@ -525,15 +1003,26 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* dsum, const int* qs,
               const int* ks, void* dq, int B, int Tq, int S, int H, int KV,
               int causal, float scale, cudaStream_t st) {
-  const size_t smem = ((2 * BQ + 2 * BK) * (D + 1) + BQ * (BK + 1)) * 4 +
-                      (BQ + BK) * 4;
-  auto kern = flash_bwd_dq_kernel<T, D>;
-  if (int e = set_smem(kern, smem)) return e;
-  dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  kern<<<grid, NT, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, qs,
-      ks, (T*)dq, Tq, S, H, KV, scale, causal);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = Dq<D>::smem();
+    auto kern = flash_bwd_dq_mma_kernel<D>;
+    if (int e = set_smem(kern, smem)) return e;
+    dim3 grid(B * H, (Tq + BQ - 1) / BQ);
+    kern<<<grid, MT, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, qs,
+        ks, (T*)dq, Tq, S, H, KV, scale, causal);
+    return (int)cudaGetLastError();
+  } else {
+    const size_t smem = ((2 * BQ + 2 * BK) * (D + 1) + BQ * (BK + 1)) * 4 +
+                        (BQ + BK) * 4;
+    auto kern = flash_bwd_dq_kernel<T, D>;
+    if (int e = set_smem(kern, smem)) return e;
+    dim3 grid((Tq + BQ - 1) / BQ, B * H);
+    kern<<<grid, NT, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, qs,
+        ks, (T*)dq, Tq, S, H, KV, scale, causal);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -541,15 +1030,26 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* dsum, const int* qs,
                const int* ks, void* dk, void* dv, int B, int Tq, int S,
                int H, int KV, int causal, float scale, cudaStream_t st) {
-  const size_t smem = ((2 * BQ + 2 * BK) * (D + 1) + BK * (BQ + 1)) * 4 +
-                      (3 * BQ + BK) * 4;
-  auto kern = flash_bwd_dkv_kernel<T, D>;
-  if (int e = set_smem(kern, smem)) return e;
-  dim3 grid((S + BK - 1) / BK, B * KV);
-  kern<<<grid, NT, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, qs,
-      ks, (T*)dk, (T*)dv, Tq, S, H, KV, scale, causal);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = Dkv<D>::smem();
+    auto kern = flash_bwd_dkv_mma_kernel<D>;
+    if (int e = set_smem(kern, smem)) return e;
+    dim3 grid(B * KV, (S + BK - 1) / BK);
+    kern<<<grid, MT, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, qs,
+        ks, (T*)dk, (T*)dv, Tq, S, H, KV, scale, causal);
+    return (int)cudaGetLastError();
+  } else {
+    const size_t smem = ((2 * BQ + 2 * BK) * (D + 1) + BK * (BQ + 1)) * 4 +
+                        (3 * BQ + BK) * 4;
+    auto kern = flash_bwd_dkv_kernel<T, D>;
+    if (int e = set_smem(kern, smem)) return e;
+    dim3 grid((S + BK - 1) / BK, B * KV);
+    kern<<<grid, NT, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum, qs,
+        ks, (T*)dk, (T*)dv, Tq, S, H, KV, scale, causal);
+    return (int)cudaGetLastError();
+  }
 }
 
 // head dims the kernels are instantiated for (the wrapper checks first)
@@ -599,6 +1099,36 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
   DTX_FLASH_DISPATCH(d, DKV)
 }
 
+// What the bf16 K2 and K3 take of an SM at head dim D, as the compiler
+// built them: per kernel registers per thread, local (spill) bytes per
+// thread, dynamic shared bytes per block and resident blocks per SM.
+template <typename K>
+int resources(K kern, size_t smem, int* out) {
+  cudaFuncAttributes a;
+  if (int e = (int)cudaFuncGetAttributes(&a, kern)) return e;
+  if (int e = set_smem(kern, smem)) return e;
+  int blocks = 0;
+  if (int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kern, MT, smem))
+    return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  return 0;
+}
+
+template <int D>
+int bwd_resources_d(int* out) {
+  if (int e = resources(flash_bwd_dq_mma_kernel<D>, Dq<D>::smem(), out))
+    return e;
+  return resources(flash_bwd_dkv_mma_kernel<D>, Dkv<D>::smem(), out + 4);
+}
+
+#define RES(D) bwd_resources_d<D>(out)
+int bwd_resources(int d, int* out) { DTX_FLASH_DISPATCH(d, RES) }
+
+#undef RES
 #undef FWD
 #undef DQ
 #undef DKV
@@ -634,3 +1164,9 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 DTX_FLASH_ENTRIES(bf16, __nv_bfloat16)
 DTX_FLASH_ENTRIES(f32, float)
+
+// out[0..3]: the bf16 K2's registers, spill bytes, shared bytes and blocks
+// per SM at head dim d; out[4..7]: K3's.
+extern "C" int dtx_flash_bwd_resources(int d, int* out) {
+  return bwd_resources(d, out);
+}

@@ -183,6 +183,9 @@ def _declare(lib: ctypes.CDLL):
         fn = getattr(lib, f"dtx_lora_matmul_{dt}")
         fn.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
         fn.restype = _I
+    fn = lib.dtx_flash_bwd_resources  # d, int out[8]
+    fn.argtypes = [_I, _P]
+    fn.restype = _I
     fn = lib.dtx_fused_sample
     # x, temps, us, out, S, Vp, greedy, stream
     fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]

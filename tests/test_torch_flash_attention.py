@@ -1,7 +1,8 @@
 """The port's flash attention (K1 forward, K2/K3 backward through the
 autograd Function) against ``datatunerx_tpu.ops.flash_attention`` in Pallas
-interpret mode and ``jax.grad`` of it, on the CPU at float32, where the
-port runs the kernels' plain versions.
+interpret mode and ``jax.grad`` of it, on the CPU at float32 (and the
+backward's plain versions also in bf16), where the port runs the kernels'
+plain versions.
 
 Tolerance: atol = rtol = 2e-5 for outputs and lse, 5e-5 for gradients —
 f32 sums over the same tiles in another order (the reference's own flash
@@ -113,6 +114,51 @@ def test_kernel_functions_match_reference_fwd_bwd(causal):
     np.testing.assert_allclose(dq.numpy(), unfold(jdq, H), **GRAD_TOL)
     np.testing.assert_allclose(dk.numpy(), unfold(jdk, KV), **GRAD_TOL)
     np.testing.assert_allclose(dv.numpy(), unfold(jdv, KV), **GRAD_TOL)
+
+
+BF16_TOL = dict(atol=2**-6, rtol=2**-6)
+
+
+@pytest.mark.parametrize("causal,packed", [(True, False), (True, True),
+                                           (False, True)])
+def test_plain_backward_matches_reference_in_bf16(causal, packed):
+    """K2's and K3's plain versions on bf16 inputs against the reference's
+    _bwd in interpret mode on the same bf16 inputs, with the forward's out
+    and lse shared. On the card the bf16 kernels are held to these plain
+    versions, so this closes the chain kernel -> plain -> reference in the
+    working dtype. Tolerance atol = rtol = 2^-6: both round f32 sums of the
+    same products once to bf16, in another order, and the reference rounds
+    dK/dV per query head before its group sum where the port sums the G
+    heads in f32 and rounds once."""
+    B, T, H, KV, d, blk = 2, 128, 4, 2, 32, 64
+    q, k, v, do, seg = _inputs(11, B=B, T=T, H=H, KV=KV, d=d, packed=packed)
+    G = H // KV
+    fold = lambda x, n: jnp.asarray(x, jnp.bfloat16).transpose(  # noqa
+        0, 2, 1, 3).reshape(B * n, T, d)
+    jq, jk, jv, jdo = fold(q, H), fold(k, KV), fold(v, KV), fold(do, H)
+    jseg = jnp.asarray(np.zeros((B, T), np.int32) if seg is None else seg)
+    jout, jlse = jfa._fwd(jq, jk, jv, jseg, jseg, block_q=blk, block_k=blk,
+                          interpret=True, H=H, G=G, causal=causal)
+    jdq, jdk, jdv = jfa._bwd(blk, blk, True, G,
+                             (jq, jk, jv, jseg, jseg, jout, jlse), jdo,
+                             causal=causal)
+
+    def unfold(x, n):
+        return np.array(x.astype(jnp.float32)).reshape(B, n, T, d) \
+            .transpose(0, 2, 1, 3)
+
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    tout = torch.from_numpy(unfold(jout, H)).to(torch.bfloat16)
+    lse = torch.from_numpy(np.array(jlse))
+    dsum = tfa.row_dot(tdo, tout)
+    opts = dict(causal=causal, block_q=blk, block_k=blk)
+    dq = tfa.flash_bwd_dq(tq, tk, tv, tdo, lse, dsum, _t(seg), **opts)
+    dk, dv = tfa.flash_bwd_dkv(tq, tk, tv, tdo, lse, dsum, _t(seg), **opts)
+    for got, want in ((dq, unfold(jdq, H)), (dk, unfold(jdk, KV)),
+                      (dv, unfold(jdv, KV))):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
 
 
 def test_pad_rows_of_a_packed_batch_stay_finite():
