@@ -79,11 +79,16 @@ have run in the process):
   dense engine's greedy streams equal the paged gather engine's up to a
   near-tie.
 
-Phase 2 also holds K1 (flash forward), K2 (dQ) and K3 (dK/dV) against
-their plain versions at the training shapes (B=8 H=32 KV=4 T=1024 d=64,
-causal, bf16), on a packed batch and at d=128, printing for each case the
-pair K2+K3 against one SDPA backward (which computes dQ, dK and dV
-together; masked to the segments on the packed batch) and the bf16 K2/K3's
+The bf16 K1-K3 and the bf16 K8 (over bf16 and over int8 pools) are
+tensor-core kernels (``mma.sync`` bf16 -> f32, fed by ``cp.async``; the
+skeleton of ``csrc/mma_sm90.cuh``); the f32 instantiations and the rest run
+on CUDA cores. Phase 2 prints K8's registers, spill bytes, shared bytes
+and blocks per SM at the smoke shape, and also holds K1 (flash forward), K2
+(dQ) and K3 (dK/dV) against their plain versions at the training shapes
+(B=8 H=32 KV=4 T=1024 d=64, causal, bf16), on a packed batch and at d=128,
+printing for each case K1 against one SDPA forward and the pair K2+K3
+against one SDPA backward (which computes dQ, dK and dV together; both
+masked to the segments on the packed batch) and the bf16 K1/K2/K3's
 registers, spills, shared bytes and blocks per SM, and K4 (nf4 matmul), K5
 (its transposed dx product) and K6 (int8 matmul) at M=8192 rows and each
 projection shape of tinyllama-1.1b, in bf16 and f32, and K10 (fused LoRA
@@ -338,6 +343,8 @@ def check_k8(torch, timer, gen, quant=False):
 
     B, T, H, KV, d, bs, nbps = 1, 256, 32, 4, 64, 16, 64
     lens = [768]  # the third 256-token chunk of a prompt, post-write
+    if not quant:
+        log_k8_resources(H // KV, d, cpa.multitoken_tile(T, H // KV))
     k, v, tables, pos = make_pool(torch, B, nbps, bs, KV, d, lens, gen)
     q32 = torch.randn((B, T, H, d), generator=gen).cuda()
     qpos = torch.arange(lens[0] - T, lens[0], dtype=torch.int32,
@@ -583,6 +590,9 @@ def check_flash(torch, timer, gen):
                     f"{n} {ms[n]:.3f} ms (err {errs[n]:.3g}, bound "
                     f"{bounds[n][0]:.4f})" for n in ms))
         log(line)
+        lib_fwd = sdpa_fwd_ms(torch, timer, q, k, v, seg)
+        log(f"  flash {case}: K1 {ms['K1']:.4f} ms vs SDPA forward "
+            f"{lib_fwd:.4f} ms: {ms['K1'] / lib_fwd:.2f}x")
         lib_bwd = sdpa_bwd_ms(torch, timer, q, k, v, do, seg)
         pair = ms["K2"] + ms["K3"]
         log(f"  flash {case}: K2+K3 {pair:.4f} ms vs SDPA backward (dQ, dK, dV "
@@ -601,7 +611,6 @@ def check_flash(torch, timer, gen):
                 warmup=1),
         }
         qs, ks, vs, dos = (t.transpose(1, 2) for t in (q, k, v, do))
-        lib_fwd = timer.ms(lambda: sdpa(torch, qs, ks, vs, causal=True))
         leaf = [t.detach().requires_grad_() for t in (qs, ks, vs)]
 
         def fwd_bwd():
@@ -645,21 +654,64 @@ def check_flash(torch, timer, gen):
     return entries
 
 
+def _resources(r, names):
+    return "; ".join(f"{n} {r[i]} registers, {r[i + 1]} spill bytes, "
+                     f"{r[i + 2]} shared bytes, {r[i + 3]} blocks/SM"
+                     for n, i in names)
+
+
 def log_flash_resources():
-    """What the bf16 K2 and K3 take of an SM, as built (the compiler's
+    """What the bf16 K1, K2 and K3 take of an SM, as built (the compiler's
     registers and spills, as ``nvcc -Xptxas -v`` reports them)."""
     import ctypes
 
     from datatunerx_tpu_torch.ops import _build
 
+    lib = _build.library()
     for d in (64, 128):
-        r = (ctypes.c_int * 8)()
-        _build.check(_build.library().dtx_flash_bwd_resources(
-            d, ctypes.addressof(r)), "flash backward resources")
-        log(f"  bf16 K2/K3 at d={d}: " + "; ".join(
-            f"{n} {r[i]} registers, {r[i + 1]} spill bytes, {r[i + 2]} "
-            f"shared bytes, {r[i + 3]} blocks/SM"
-            for n, i in (("K2", 0), ("K3", 4))))
+        r = (ctypes.c_int * 12)()
+        _build.check(lib.dtx_flash_fwd_resources(d, ctypes.addressof(r)),
+                     "flash forward resources")
+        _build.check(lib.dtx_flash_bwd_resources(
+            d, ctypes.addressof(r) + 16), "flash backward resources")
+        log(f"  bf16 K1/K2/K3 at d={d}: "
+            + _resources(r, (("K1", 0), ("K2", 4), ("K3", 8))))
+
+
+def log_k8_resources(G, d, tq):
+    """What the bf16 K8 (over bf16 and over int8 pools) takes of an SM at
+    the smoke shape's G, d and row tile, as built."""
+    import ctypes
+
+    from datatunerx_tpu_torch.ops import _build
+
+    r = (ctypes.c_int * 8)()
+    _build.check(_build.library().dtx_paged_multitoken_resources(
+        d, G, tq, ctypes.addressof(r)), "paged multi-token resources")
+    log(f"  bf16 K8 at G={G} d={d} tq={tq} ({-(-G * tq // 16)} row groups "
+        f"of 16, each over {4 if d <= 64 else 2} key splits): "
+        + _resources(r, (("bf16 pools", 0), ("int8 pools", 4))))
+
+
+def segment_mask(torch, q, k, seg):
+    """The causal same-segment mask [B, 1, T, T] of a packed batch, and the
+    GQA group size to repeat K and V by (a masked SDPA may not take GQA)."""
+    T = q.shape[1]
+    causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    mask = (seg[:, None, :, None] == seg[:, None, None, :]) & causal
+    return mask, q.shape[2] // k.shape[2]
+
+
+def sdpa_fwd_ms(torch, timer, q, k, v, seg):
+    """SDPA forward's device time on the inputs of a flash case: causal,
+    and with ``seg`` the same-segment mask."""
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    if seg is None:
+        return timer.ms(lambda: sdpa(torch, qs, ks, vs, causal=True))
+    mask, G = segment_mask(torch, q, k, seg)
+    ks, vs = ks.repeat_interleave(G, 1), vs.repeat_interleave(G, 1)
+    return timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask))
 
 
 def sdpa_bwd_ms(torch, timer, q, k, v, do, seg):
@@ -669,10 +721,7 @@ def sdpa_bwd_ms(torch, timer, q, k, v, do, seg):
     qs, ks, vs, dos = (t.transpose(1, 2) for t in (q, k, v, do))
     mask = None
     if seg is not None:
-        T = q.shape[1]
-        causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
-        mask = (seg[:, None, :, None] == seg[:, None, None, :]) & causal
-        G = q.shape[2] // k.shape[2]
+        mask, G = segment_mask(torch, q, k, seg)
         ks, vs = ks.repeat_interleave(G, 1), vs.repeat_interleave(G, 1)
     leaf = [t.detach().requires_grad_() for t in (qs, ks, vs)]
     if mask is None:

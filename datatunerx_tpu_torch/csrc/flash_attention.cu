@@ -31,27 +31,41 @@
 // - Masked lanes give p = 0 explicitly, and rows keep the reference's finite
 //   NEG_INF and the l >= 1e-30 clamp, so packed pad rows never produce NaN.
 //
-// Design 1, K1 (both dtypes) and the f32 K2/K3: CUDA cores, f32. Tiles are
-// staged synchronously in shared memory as f32 with an odd row pitch
-// (d + 1), so column walks are free of bank conflicts; 256 threads each own
-// a 4 x 4 register tile of the 64 x 64 score block and the matching rows of
-// the output, so row statistics stay in registers and row reductions are
+// Design 1, the f32 K1-K3: CUDA cores, f32. Tiles are staged
+// synchronously in shared memory as f32 with an odd row pitch (d + 1), so
+// column walks are free of bank conflicts; 256 threads each own a 4 x 4
+// register tile of the 64 x 64 score block and the matching rows of the
+// output, so row statistics stay in registers and row reductions are
 // 16-lane shuffles. Bound by the 67 TFLOP/s f32 rate (in practice by the 8
 // shared loads per 16 FMAs of a 4 x 4 tile), not the 989 TFLOP/s bf16
 // tensor-core rate the bound is stated against. The f32 instantiations stay
 // here because TF32 would not hold their 1e-4 tolerance; they serve tests
-// and f32 training.
+// and f32 training. Dispatch is by dtype.
 //
-// Design 2, the bf16 K2/K3: tensor cores (mma.sync.m16n8k16, bf16 in, f32
-// accumulate) fed by cp.async, FlashAttention-2's backward split in two.
-// - 128 threads, 4 warps of 16 rows (K2: query rows, K3: key rows). Tiles
+// Design 2, the bf16 K1-K3: tensor cores (mma.sync.m16n8k16, bf16 in, f32
+// accumulate) fed by cp.async, FlashAttention-2's forward and its backward
+// split in two. The fragment helpers live in mma_sm90.cuh, shared with the
+// paged K8.
+// - 128 threads, 4 warps of 16 rows (K1, K2: query rows; K3: key rows). Tiles
 //   stay bf16 in shared memory with a row pitch of d + 8 elements: rows stay
 //   16-byte aligned for 16-byte cp.async, and the 8 rows an ldmatrix phase
 //   reads fall into 8 distinct 16-byte bank groups.
-// - The streamed operand arrives in a two-stage ring (K2: K, V and the key
-//   tile's segment ids; K3: Q, dO and the query tile's lse, D and segment
+// - The streamed operand arrives in a two-stage ring (K1, K2: K, V and the
+//   key tile's segment ids; K3: Q, dO and the query tile's lse, D and segment
 //   ids), tile i + 1 loading while tile i computes; rows past the end are
 //   zero-filled by cp.async's source size, so the products stay finite.
+// - K1: Q is staged once and held as A fragments (D/16 x 4 registers) for
+//   the whole key loop; S = Q K^T with B = K [key][d] (plain ldmatrix). The
+//   masks, the online softmax (max and sum over the quad of lanes sharing a
+//   fragment row, 2^x of scores scaled by scale * log2 e) and the rescale
+//   of O run on the f32 C fragments; tiles off the warp's causal diagonal,
+//   not ragged and of the warp's own single segment test no lane, so each p
+//   there is one FFMA on the raw score and one ex2. On a packed batch a
+//   block visits only the key tiles that hold a segment id of its rows, and
+//   a warp skips those none of whose ids its own rows hold (their p would
+//   all be 0). l sums the f32 p before any rounding, so the lse means what
+//   the reference's means. P packed to bf16 is the A
+//   operand of O += P V, V [key][d] read as [k][n] through ldmatrix.trans.
 // - K2: S = Q K^T and dP = dO V^T with A = Q / dO rows (ldmatrix) and B = K /
 //   V stored [key][d], which is the B operand's col layout (plain ldmatrix).
 //   dS is formed on the f32 C fragments; two adjacent n8 tiles, packed to
@@ -62,14 +76,15 @@
 //   B = dO / Q through ldmatrix.trans. Nothing passes through shared memory
 //   but the staged inputs. At d = 128 its query tile is 32 rows, so the two
 //   f32 score fragments fit beside the 128 accumulator registers.
-// - P = exp2(s * scale * log2 e - lse * log2 e) and dS = P (dP - D) scale in
-//   f32 on the fragments; the masks use the fragment's own (row, column).
+// - K2/K3: P = exp2(s * scale * log2 e - lse * log2 e) and
+//   dS = P (dP - D) scale in f32 on the fragments; the masks use the
+//   fragment's own (row, column).
 // - Numerics: S and dP are as in design 1 (bf16 inputs are exact in f32,
-//   sums are f32). One rounding point is new: P (K3) and dS (K2, K3) round
-//   to bf16 as operands of the second products, where the reference keeps
-//   f32; relative error 2^-9 per term, random in sign, well inside the
-//   2^-6 bf16 tolerance the outputs are held to. dQ, dK and dV accumulate
-//   in f32 and round once.
+//   sums are f32). One rounding point is new: P (K1, K3) and dS (K2, K3)
+//   round to bf16 as operands of the second products, where the reference
+//   keeps f32; relative error 2^-9 per term, random in sign, well inside the
+//   2^-6 bf16 tolerance the outputs are held to. O, dQ, dK and dV
+//   accumulate in f32 and round once.
 // - What a wgmma/TMA version would add: 64-row warpgroup products with B
 //   (and A for S/dP) read straight from swizzled shared memory, so the
 //   ldmatrix traffic and most of the issue slots go; TMA loads issued by one
@@ -79,11 +94,16 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "mma_sm90.cuh"
+
 namespace {
+
+using namespace dtx_mma;
 
 constexpr int BQ = 64;   // query rows per tile
 constexpr int BK = 64;   // key rows per tile
@@ -539,34 +559,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(
   }
 }
 
-// ------------------------------------------------- bf16 K2/K3: mma.sync
-using bf16 = __nv_bfloat16;
+// ------------------------------------------- bf16 K1-K3: mma.sync
 constexpr int MT = 128;  // threads per block: 4 warps of 16 rows
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-// 16 (or 4) bytes global -> shared, asynchronous; zero-filled if !ok
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // ROWS rows of D bf16 (row r at src + r*ld) into s[r*(D+8) + c]; rows >=
 // nvalid are zero
@@ -593,104 +588,10 @@ __device__ __forceinline__ void async_vec(E* s, const E* src, int n,
   }
 }
 
-// Fragments of mma.m16n8k16 (lane = 4 g + t). The x4 loads give an A
-// fragment (rows r0.., k c0..) of a [row][k] tile, or, with .trans, the B
-// fragments of n tiles c0 and c0 + 8 (k rows r0..) of a [k][n] tile; the
-// lane address pattern is the same.
-__device__ __forceinline__ void ldsm_x4(const bf16* tile, int pitch, int r0,
-                                        int c0, uint32_t* f) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t a =
-      smem_u32(tile + (r0 + (lane & 15)) * pitch + c0 + (lane >> 4) * 8);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(f[0]), "=r"(f[1]), "=r"(f[2]), "=r"(f[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_t(const bf16* tile, int pitch, int r0,
-                                          int c0, uint32_t* f) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t a =
-      smem_u32(tile + (r0 + (lane & 15)) * pitch + c0 + (lane >> 4) * 8);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(f[0]), "=r"(f[1]), "=r"(f[2]), "=r"(f[3])
-      : "r"(a));
-}
-// The B fragments of n tiles n0 and n0 + 8 (k columns k0..) of an [n][k]
-// tile: f[0], f[1] for n0, f[2], f[3] for n0 + 8.
-__device__ __forceinline__ void ldsm_b_x4(const bf16* tile, int pitch, int n0,
-                                          int k0, uint32_t* f) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t a = smem_u32(tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) *
-                                         pitch +
-                              k0 + ((lane >> 3) & 1) * 8);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(f[0]), "=r"(f[1]), "=r"(f[2]), "=r"(f[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The C fragments of n8 tiles 2kk and 2kk + 1 (16 rows x 16 columns) as
-// the bf16 A fragment of k step kk.
-__device__ __forceinline__ void c_to_a(const float (*c)[4], int kk,
-                                       uint32_t* a) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// acc[16 rows, D] += A-fragments a[N/16] [16, N] @ tile[N][D] (row-major
-// [k][n], read through ldmatrix.trans), for one (acc, a, tile) set or two
-// interleaved. Each k step loads its B fragments (up to 64 columns of d at
-// a time) before its products, which then issue back to back.
-template <int D, int N, int SETS>
-__device__ __forceinline__ void mma_rows_t(float (*acc0)[4],
-                                           const uint32_t (*a0)[4],
-                                           const bf16* tile0,
-                                           float (*acc1)[4],
-                                           const uint32_t (*a1)[4],
-                                           const bf16* tile1) {
-  constexpr int DC = D / 16 < 4 ? D / 16 : 4;  // 16-column pairs per batch
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk)
-#pragma unroll
-    for (int d0 = 0; d0 < D / 16; d0 += DC) {
-      uint32_t f0[DC][4], f1[DC][4];
-#pragma unroll
-      for (int dn = 0; dn < DC; ++dn) {
-        ldsm_x4_t(tile0, D + 8, kk * 16, (d0 + dn) * 16, f0[dn]);
-        if constexpr (SETS == 2)
-          ldsm_x4_t(tile1, D + 8, kk * 16, (d0 + dn) * 16, f1[dn]);
-      }
-#pragma unroll
-      for (int dn = 0; dn < DC; ++dn) {
-        mma_bf16(acc0[2 * (d0 + dn)], a0[kk], f0[dn][0], f0[dn][1]);
-        mma_bf16(acc0[2 * (d0 + dn) + 1], a0[kk], f0[dn][2], f0[dn][3]);
-        if constexpr (SETS == 2) {
-          mma_bf16(acc1[2 * (d0 + dn)], a1[kk], f1[dn][0], f1[dn][1]);
-          mma_bf16(acc1[2 * (d0 + dn) + 1], a1[kk], f1[dn][2], f1[dn][3]);
-        }
-      }
-    }
-}
-
 // x[16, N] = A[16 rows at r0 of ta] @ tb[N][D]^T and y likewise from
-// (ua, ub): the two score-shaped products of a tile, sharing the k loop
-// and its fragment loads, as above.
+// (ua, ub): the two score-shaped products of K2's and K3's tiles, sharing
+// the k loop and its fragment loads (mma_sm90.cuh's mma_scores_a is the
+// one-set product, with A in registers).
 template <int D, int N>
 __device__ __forceinline__ void mma_scores(float (*x)[4], float (*y)[4],
                                            const bf16* ta, const bf16* tb,
@@ -738,6 +639,236 @@ __device__ __forceinline__ void store_rows(bf16* out, long ld, int row0,
   }
 }
 
+// 2^x in one MUFU instruction; results below 2^-126 flush to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One key tile's step of the online softmax, on the f32 C fragments s of a
+// warp's 16 rows (raw scores in, p out): m (raw-score max), l (the lane's
+// share of the normaliser, from the f32 p) and corr (the factor O rescales
+// by) for the thread's rows g and g + 8. With MASK, lanes ok(i, column)
+// rejects score NEG_INF and give p = 0 explicitly; without it no lane is
+// tested, and each p is one FFMA and one ex2.
+template <bool MASK, int NB, typename Ok>
+__device__ __forceinline__ void online_softmax(float (*s)[4], float* m,
+                                               float* l, float* corr,
+                                               float sl2, Ok ok) {
+  const int t = threadIdx.x & 3;
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (MASK && !ok(e >> 1, 8 * j + 2 * t + (e & 1))) s[j][e] = NEG_INF;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  float nm[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m[i], quad_max(mx[i]));
+    corr[i] = ex2((m[i] - m_new) * sl2);
+    m[i] = m_new;
+    l[i] *= corr[i];
+    nm[i] = -m_new * sl2;
+  }
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = ex2(fmaf(s[j][e], sl2, nm[e >> 1]));
+      // a masked lane is 0, also while its row has seen no key (m = NEG_INF)
+      if (MASK && s[j][e] == NEG_INF) p = 0.f;
+      l[e >> 1] += p;  // the f32 p, before P rounds to bf16
+      s[j][e] = p;
+    }
+}
+
+// K1: a block owns 64 query rows of one (batch, head); warp w rows
+// 16w..16w+15, held as A fragments for the whole key loop. K, V and the key
+// tile's segment ids stream through the ring. S, the masks, the online
+// softmax and the rescale of O run on the f32 C fragments; P, packed to
+// bf16, is the A operand of O += P V.
+template <int D>
+struct Fwd {
+  // sQ, the K/V ring, the ring's segment ids, and on a packed batch the
+  // list of key tiles the block visits (at most ceil(S / BK)) with its
+  // count and the warps' id ranges
+  static constexpr size_t smem(int S) {
+    return (size_t)(BQ + 4 * BK) * (D + 8) * 2 + 2 * BK * 4 +
+           ((S + BK - 1) / BK + 1 + 2 * (MT / 32)) * 4;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(MT) flash_fwd_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ qseg,
+    const int* __restrict__ kseg, bf16* __restrict__ out,
+    float* __restrict__ lse, int Tq, int S, int H, int KV, float scale,
+    int causal) {
+  constexpr int P = D + 8, NB = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + BQ * P;      // [2][BK][P]
+  bf16* sV = sK + 2 * BK * P;  // [2][BK][P]
+  int* sKs = reinterpret_cast<int*>(sV + 2 * BK * P);  // [2][BK]
+  int* sRange = sKs + 2 * BK;                           // [MT / 32][2]
+  int* sTiles = sRange + 2 * (MT / 32);                 // [count, tiles...]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // x fastest: every head's last query tile (the most key tiles) first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int w0 = q0 + warp * 16;  // the warp's first row
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const long qld = (long)H * D, kld = (long)KV * D;
+  const bf16* kb = k + ((long)b * S * KV + kvh) * D;
+  const bf16* vb = v + ((long)b * S * KV + kvh) * D;
+  const int* ksb = kseg == nullptr ? nullptr : kseg + (long)b * S;
+
+  async_rows<D, BQ>(sQ, q + ((long)b * Tq * H + h) * D + (long)q0 * qld,
+                    qld, min(BQ, Tq - q0));
+  auto load_kv = [&](int k0, int st) {
+    const int nk = min(BK, S - k0);
+    async_rows<D, BK>(sK + st * BK * P, kb + (long)k0 * kld, kld, nk);
+    async_rows<D, BK>(sV + st * BK * P, vb + (long)k0 * kld, kld, nk);
+    async_vec<int>(sKs + st * BK, ksb == nullptr ? nullptr : ksb + k0, BK,
+                   nk);
+  };
+
+  // the thread's two rows (g, g + 8 of the warp's 16) and their segment
+  // ids; m is the running max of the raw scores (q . k), l the lane's share
+  // of the row's normaliser, summed over the quad at the end (the rescales
+  // are uniform over a row, so the shares rescale alike)
+  int row[2], qs[2];
+  float m[2], l[2];
+  // the range of the warp's query segment ids (empty past Tq)
+  int qmn = INT_MAX, qmx = INT_MIN;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = w0 + g + 8 * i;
+    qs[i] = (row[i] < Tq && qseg != nullptr) ? qseg[(long)b * Tq + row[i]]
+                                             : 0;
+    if (row[i] < Tq) qmn = min(qmn, qs[i]), qmx = max(qmx, qs[i]);
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+  }
+  for (int o = 1; o < 32; o <<= 1) {
+    qmn = min(qmn, __shfl_xor_sync(0xffffffffu, qmn, o));
+    qmx = max(qmx, __shfl_xor_sync(0xffffffffu, qmx, o));
+  }
+  const float sl2 = scale * LOG2E;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  uint32_t qa[D / 16][4];
+
+  const int kend = causal ? min(S, q0 + BQ) : S;
+  int ntiles = (kend + BK - 1) / BK;
+  const bool packed = qseg != nullptr && kseg != nullptr;
+  if (packed) {
+    // the key tiles holding an id of the block's rows, in order: the rest
+    // would give every row p = 0, so the loop never stages them
+    if (lane == 0) sRange[2 * warp] = qmn, sRange[2 * warp + 1] = qmx;
+    __syncthreads();
+    int bmn = INT_MAX, bmx = INT_MIN;
+    for (int w = 0; w < MT / 32; ++w)
+      bmn = min(bmn, sRange[2 * w]), bmx = max(bmx, sRange[2 * w + 1]);
+    for (int i = warp; i < ntiles; i += MT / 32) {
+      const int c0 = i * BK + lane, c1 = c0 + 32;
+      int mn = c0 < S ? ksb[c0] : INT_MAX, mx = c0 < S ? ksb[c0] : INT_MIN;
+      if (c1 < S) mn = min(mn, ksb[c1]), mx = max(mx, ksb[c1]);
+      for (int o = 1; o < 32; o <<= 1) {
+        mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+        mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      }
+      if (lane == 0) sTiles[1 + i] = !(mx < bmn || mn > bmx);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int n = 0;
+      for (int i = 0; i < ntiles; ++i)
+        if (sTiles[1 + i]) sTiles[1 + n++] = i;
+      sTiles[0] = n;
+    }
+    __syncthreads();
+    ntiles = sTiles[0];
+  }
+  auto tile_k0 = [&](int it) { return (packed ? sTiles[1 + it] : it) * BK; };
+
+  if (ntiles > 0) load_kv(tile_k0(0), 0);
+  cp_commit();  // Q and the first K/V tile
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1, k0 = tile_k0(it);
+    cp_wait<0>();  // tile it has landed
+    __syncthreads();  // as in K2: one barrier a tile
+    if (it + 1 < ntiles) load_kv(tile_k0(it + 1), st ^ 1);
+    cp_commit();
+    if (it == 0) load_a_rows<D>(sQ, warp * 16, qa);
+    const int* tks = sKs + st * BK;
+
+    // a warp skips a tile wholly after its last row (causal) and, on a
+    // packed batch, one none of whose key ids its rows hold (every p would
+    // be 0: nothing would change); where its rows and keys all hold one id
+    // it needs no segment test
+    if (causal && k0 > w0 + 15) continue;
+    bool same = qseg == nullptr;
+    if (qseg != nullptr) {
+      int kmn = min(tks[lane], tks[lane + 32]);
+      int kmx = max(tks[lane], tks[lane + 32]);
+      for (int o = 1; o < 32; o <<= 1) {
+        kmn = min(kmn, __shfl_xor_sync(0xffffffffu, kmn, o));
+        kmx = max(kmx, __shfl_xor_sync(0xffffffffu, kmx, o));
+      }
+      if (kmx < qmn || kmn > qmx) continue;
+      same = kmn == kmx && qmn == qmx && kmn == qmn;
+    }
+
+    float s[NB][4];
+    mma_scores_a<D, BK>(s, qa, sK + st * BK * P);
+
+    // lanes are masked one by one only where one may be: the causal
+    // diagonal, a ragged last key tile, mixed segments
+    float corr[2];
+    if ((causal && k0 + BK - 1 > w0) || k0 + BK > S || !same) {
+      online_softmax<true, NB>(s, m, l, corr, sl2, [&](int i, int c) {
+        const int col = k0 + c;
+        return col < S && (!causal || col <= row[i]) && qs[i] == tks[c];
+      });
+    } else {
+      online_softmax<false, NB>(s, m, l, corr, sl2,
+                                [](int, int) { return true; });
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+    mma_pv<D, BK>(acc, s, sV + st * BK * P);
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lv = fmaxf(quad_sum(l[i]), 1e-30f);
+    const float inv = 1.f / lv;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][2 * i] *= inv;
+      acc[j][2 * i + 1] *= inv;
+    }
+    if (t == 0 && row[i] < Tq)
+      lse[(long)bh * Tq + row[i]] = m[i] * scale + logf(lv);
+  }
+  store_rows<D>(out + ((long)b * Tq * H + h) * D, qld, w0, Tq, acc);
+}
+
 template <int D>
 struct Dq {
   static constexpr size_t smem() {
@@ -764,6 +895,8 @@ __global__ void __launch_bounds__(MT, D <= 64 ? 3 : 1) flash_bwd_dq_mma_kernel(
   bf16* sK = sO + BQ * P;      // [2][BK][P]
   bf16* sV = sK + 2 * BK * P;  // [2][BK][P]
   int* sKs = reinterpret_cast<int*>(sV + 2 * BK * P);  // [2][BK]
+  int* sRange = sKs + 2 * BK;                           // [MT / 32][2]
+  int* sTiles = sRange + 2 * (MT / 32);                 // [count, tiles...]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -987,15 +1120,26 @@ template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const int* qs,
                const int* ks, void* out, float* lse, int B, int Tq, int S,
                int H, int KV, int causal, float scale, cudaStream_t st) {
-  const size_t smem = ((BQ + 2 * BK) * (D + 1) + BQ * (BK + 1)) * 4 +
-                      (BQ + BK) * 4;
-  auto kern = flash_fwd_kernel<T, D>;
-  if (int e = set_smem(kern, smem)) return e;
-  dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  kern<<<grid, NT, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, qs, ks, (T*)out, lse, Tq, S, H,
-      KV, scale, causal);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = Fwd<D>::smem(S);
+    auto kern = flash_fwd_mma_kernel<D>;
+    if (int e = set_smem(kern, smem)) return e;
+    dim3 grid(B * H, (Tq + BQ - 1) / BQ);
+    kern<<<grid, MT, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, qs, ks, (T*)out, lse, Tq, S,
+        H, KV, scale, causal);
+    return (int)cudaGetLastError();
+  } else {
+    const size_t smem = ((BQ + 2 * BK) * (D + 1) + BQ * (BK + 1)) * 4 +
+                        (BQ + BK) * 4;
+    auto kern = flash_fwd_kernel<T, D>;
+    if (int e = set_smem(kern, smem)) return e;
+    dim3 grid((Tq + BQ - 1) / BQ, B * H);
+    kern<<<grid, NT, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, qs, ks, (T*)out, lse, Tq, S,
+        H, KV, scale, causal);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -1099,7 +1243,7 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
   DTX_FLASH_DISPATCH(d, DKV)
 }
 
-// What the bf16 K2 and K3 take of an SM at head dim D, as the compiler
+// What the bf16 K1, K2 and K3 take of an SM at head dim D, as the compiler
 // built them: per kernel registers per thread, local (spill) bytes per
 // thread, dynamic shared bytes per block and resident blocks per SM.
 template <typename K>
@@ -1125,10 +1269,18 @@ int bwd_resources_d(int* out) {
   return resources(flash_bwd_dkv_mma_kernel<D>, Dkv<D>::smem(), out + 4);
 }
 
+template <int D>
+int fwd_resources_d(int* out) {
+  return resources(flash_fwd_mma_kernel<D>, Fwd<D>::smem(1024), out);
+}
+
 #define RES(D) bwd_resources_d<D>(out)
+#define RESF(D) fwd_resources_d<D>(out)
 int bwd_resources(int d, int* out) { DTX_FLASH_DISPATCH(d, RES) }
+int fwd_resources(int d, int* out) { DTX_FLASH_DISPATCH(d, RESF) }
 
 #undef RES
+#undef RESF
 #undef FWD
 #undef DQ
 #undef DKV
@@ -1169,4 +1321,10 @@ DTX_FLASH_ENTRIES(f32, float)
 // per SM at head dim d; out[4..7]: K3's.
 extern "C" int dtx_flash_bwd_resources(int d, int* out) {
   return bwd_resources(d, out);
+}
+
+// out[0..3]: the bf16 K1's registers, spill bytes, shared bytes and blocks
+// per SM at head dim d.
+extern "C" int dtx_flash_fwd_resources(int d, int* out) {
+  return fwd_resources(d, out);
 }

@@ -34,20 +34,38 @@
 // rounding point of the gather path's probs.astype(v.dtype), which a
 // one-pass online accumulator cannot reproduce. Staging several blocks per
 // iteration changes no arithmetic: stats and partials are still folded in
-// block order. Still simple: CUDA-core f32 FMAs, no wgmma/TMA, no split
-// over table entries.
+// block order.
+//
+// Two designs. K7, and K8 in f32 (or at a head dim outside 16/32/64/128,
+// or over pools that are not 16-byte aligned):
+// CUDA-core f32 FMAs over f32 tiles in shared memory (chunk_rows). The bf16
+// K8, over bf16 or int8 pools, runs on tensor cores (mma.sync.m16n8k16,
+// bf16 in, f32 accumulate; the skeleton of mma_sm90.cuh, shared with flash
+// K1-K3): the block's rows held as A fragments, chunks of K and V staged
+// as bf16 with a d + 8 pitch through a two-stage cp.async ring, S
+// recomputed in pass 1, and p formed on the f32 C fragments and rounded to
+// bf16 as the A operand of P V, which is exactly the gather path's rounding
+// point, at no extra cost. A block has only ~4 warps of rows at the
+// prefill shapes, so one chain of staged chunks set its time; the keys are
+// split over 4 warps a row group (2 at d = 128), each taking 64 lanes of
+// every chunk, and the splits' (m, l) and partial outputs merge through
+// shared memory. Its results differ from the plain version's only by the
+// order of the f32 sums. Still simple: no wgmma/TMA, no split across
+// blocks.
 //
 // int8 pools (the int8 KV cache; reference :89-108 and :312-323) are further
 // instantiations of the same two kernels, not another algorithm: the staging
 // step loads 16 int8 values per 16-byte load, multiplies each by the f32
 // scale of its (token, KV head) from the scale pools [NB, bs, KV], rounds
 // the product through the compute dtype (kv_dequantize's one rounding;
-// identity for f32) and stores f32 in shared memory. The multiply is an
-// explicit __fmul_rn whose result is rounded and stored before any score
-// product reads it, so no FMA contraction can change a bit and bf16 results
-// equal the gather path's dequantized read. Tiles are staged as f32 either
-// way, so the shared-memory budget per chunk is unchanged; the bytes read
-// per cached token halve (d int8 + one f32 scale per head vector against 2*d).
+// identity for f32) and stores it in shared memory: as f32 in the CUDA-core
+// kernels, as bf16 (exact, since the value was rounded to bf16) in the
+// tensor-core K8, whose int8 staging is synchronous (loads, multiply, store)
+// rather than cp.async. The multiply is an explicit __fmul_rn whose result
+// is rounded and stored before any score product reads it, so no FMA
+// contraction can change a bit and bf16 results equal the gather path's
+// dequantized read up to the order of the sums. The bytes read per cached
+// token halve (d int8 + one f32 scale per head vector against 2*d).
 // A head dim that is not a multiple of 16 takes the element-wise loop.
 //
 // Masking: K7 compares the pos pool (POS_SENTINEL on unwritten lanes) with
@@ -61,6 +79,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "mma_sm90.cuh"
 
 #define DTX_NEG_INF (-1e30f)
 #define DTX_MAX_CHUNK 8
@@ -477,6 +497,300 @@ __global__ void paged_multitoken_kernel(const T* __restrict__ q,
   }
 }
 
+// ------------------------------------------------- bf16 K8: mma.sync
+// grid (KV, B, ceil(T / tq)) as above. The block's R = G*tq rows (r = g*tq
+// + tt; rows past R or past T are zero queries, never stored) fall into
+// nwr = ceil(R / 16) row groups of 16, and the keys into KS splits: warp w
+// takes row group w % nwr and split w / nwr, so a block runs nwr * KS warps
+// and KS of them share each row group. The keys walk the flat [nbps*bs]
+// lane view of the slot's table in chunks of KS * 64 lanes, split s taking
+// lanes [64 s, 64 s + 64) of each chunk; lane w is pool row
+// (tables[w / bs], w % bs). A chunk none of whose table entries is live is
+// skipped without touching memory. Pass 0 folds each split's running max m
+// and normaliser l over the live chunks, and the splits' (m, l) then merge
+// through shared memory; pass 1 walks the chunks again, forms
+// p = exp(s - m) / max(l, 1e-30) on the f32 C fragments, rounds it to bf16
+// as the A operand of O += P V (the gather path's probs.astype rounding)
+// and accumulates in f32; the splits' partial outputs are summed through
+// shared memory at the end. Both passes are one sequence of (pass, chunk)
+// items through a two-stage ring. The splits only reorder f32 sums.
+constexpr int KT = 64;  // key lanes per split and chunk
+
+template <int D, int KS>
+struct Mt {
+  static constexpr int P = D + 8, KC = KS * KT;
+  // the K/V ring, whose memory takes the splits' partial outputs
+  // [KS - 1][nwr][D/2][32 lanes] at the end
+  __host__ __device__ static size_t ring(int nwr) {
+    const size_t st = 4 * (size_t)KC * P * 2;
+    const size_t red = (size_t)(KS - 1) * nwr * 16 * D * 4;
+    return st > red ? st : red;
+  }
+  static size_t smem(int nwr, int tq) {
+    return (size_t)nwr * 16 * P * 2 + ring(nwr)  // sQ, the ring
+           + 2 * KC * 4                          // sLive [2][KC]
+           + (size_t)KS * nwr * 16 * 2 * 4       // sML [KS][nwr*16][2]
+           + 2 * (size_t)tq * KC;                // sA [2][tq][KC]
+  }
+};
+
+// The first chunk >= c with a live table entry (nc if none). Every thread
+// of the block reads the same entries, so all agree without a barrier.
+__device__ __forceinline__ int next_live(const int* trow, int bs, int W,
+                                         int kc, int c, int nc) {
+  for (; c < nc; ++c) {
+    const int j1 = min(c * kc + kc - 1, W - 1) / bs;
+    for (int j = c * kc / bs; j <= j1; ++j)
+      if (trow[j] >= 0) return c;
+  }
+  return nc;
+}
+
+template <typename P, int D, int KS>
+__global__ void __launch_bounds__(KS * 128) paged_multitoken_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const P* __restrict__ kp,
+    const P* __restrict__ vp, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const int* __restrict__ tables,
+    const uint8_t* __restrict__ allow, __nv_bfloat16* __restrict__ out,
+    int Tq, int H, int KV, int bs, int nbps, int tq, float scale,
+    bool allow_vec) {
+  using namespace dtx_mma;
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
+  constexpr int PT = D + 8, NB = KT / 8, KC = KS * KT;
+  const int kv = blockIdx.x, b = blockIdx.y, t0 = blockIdx.z * tq;
+  const int G = H / KV, R = G * tq, nwr = (R + 15) / 16;
+  const int W = nbps * bs, nchunks = (W + KC - 1) / KC;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rw = warp % nwr, ks = warp / nwr;
+  const int g = lane >> 2, t = lane & 3;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [nwr*16][PT]
+  bf16* sK = sQ + nwr * 16 * PT;                  // [2][KC][PT]
+  bf16* sV = sK + 2 * KC * PT;                    // [2][KC][PT]
+  float* sRed = reinterpret_cast<float*>(sK);     // at the end
+  int* sLive = reinterpret_cast<int*>(smem_raw + (size_t)nwr * 16 * PT * 2 +
+                                      Mt<D, KS>::ring(nwr));  // [2][KC]
+  float* sML = reinterpret_cast<float*>(sLive + 2 * KC);  // [KS][nwr*16][2]
+  uint8_t* sA = reinterpret_cast<uint8_t*>(sML + KS * nwr * 16 * 2);
+  const int* trow = tables + (size_t)b * nbps;
+  const uint8_t* arow = allow + (size_t)b * Tq * W;
+
+  // the query rows: zero past R or past T
+  for (int u = threadIdx.x; u < nwr * 16 * (D / 8); u += blockDim.x) {
+    const int r = u / (D / 8), col = (u % (D / 8)) * 8;
+    const int gq = r / tq, tt = r - gq * tq;
+    const bool ok = r < R && t0 + tt < Tq;
+    cp16(sQ + r * PT + col,
+         ok ? q + (((size_t)b * Tq + t0 + tt) * H + (size_t)kv * G + gq) * D +
+                  col
+            : q,
+         ok);
+  }
+
+  // Stage chunk c into stage st: its K rows, V rows in pass 1, which lanes
+  // are live, and the allow bytes [tq][KC] of the block's query rows. Dead
+  // lanes are zero rows.
+  auto fill = [&](int c, int st, bool with_v) {
+    const int k0 = c * KC;
+    bf16* tK = sK + st * KC * PT;
+    bf16* tV = sV + st * KC * PT;
+    if constexpr (!kQuant) {
+      for (int u = threadIdx.x; u < KC * (D / 8); u += blockDim.x) {
+        const int r = u / (D / 8), col = (u % (D / 8)) * 8, w = k0 + r;
+        const int blk = w < W ? trow[w / bs] : -1;
+        const size_t off =
+            blk >= 0 ? (((size_t)blk * bs + w % bs) * KV + kv) * D + col : 0;
+        cp16(tK + r * PT + col, kp + off, blk >= 0);
+        if (with_v) cp16(tV + r * PT + col, vp + off, blk >= 0);
+      }
+    } else {
+      // int8 pools: f32(x) * scale, rounded once to bf16 (kv_dequantize's
+      // arithmetic; an explicit multiply, so no contraction changes a bit)
+      for (int u = threadIdx.x; u < KC * (D / 16); u += blockDim.x) {
+        const int r = u / (D / 16), col = (u % (D / 16)) * 16, w = k0 + r;
+        const int blk = w < W ? trow[w / bs] : -1;
+        const size_t sc = blk >= 0 ? ((size_t)blk * bs + w % bs) * KV + kv : 0;
+        for (int x = 0; x < (with_v ? 2 : 1); ++x) {
+          uint4 o[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+          if (blk >= 0) {
+            const uint4 raw =
+                *reinterpret_cast<const uint4*>((x ? vp : kp) + sc * D + col);
+            const float s = (x ? vsc : ksc)[sc];
+            const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+            uint32_t* ow = reinterpret_cast<uint32_t*>(o);
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              ow[i] = pack_bf16(__fmul_rn((float)e[2 * i], s),
+                                __fmul_rn((float)e[2 * i + 1], s));
+          }
+          uint4* dst =
+              reinterpret_cast<uint4*>((x ? tV : tK) + r * PT + col);
+          dst[0] = o[0];
+          dst[1] = o[1];
+        }
+      }
+    }
+    for (int r = threadIdx.x; r < KC; r += blockDim.x) {
+      const int w = k0 + r;
+      sLive[st * KC + r] = w < W && trow[w / bs] >= 0;
+    }
+    uint8_t* tA = sA + st * tq * KC;
+    if (allow_vec) {  // W % 4 == 0 and allow 4-byte aligned
+      for (int u = threadIdx.x; u < tq * (KC / 4); u += blockDim.x) {
+        const int tt = u / (KC / 4), cc = (u % (KC / 4)) * 4;
+        const bool ok = t0 + tt < Tq && k0 + cc < W;
+        cp4(tA + tt * KC + cc,
+            ok ? arow + (size_t)(t0 + tt) * W + k0 + cc : arow, ok);
+      }
+    } else {
+      for (int u = threadIdx.x; u < tq * KC; u += blockDim.x) {
+        const int tt = u / KC, cc = u - tt * KC;
+        tA[u] = (t0 + tt < Tq && k0 + cc < W)
+                    ? arow[(size_t)(t0 + tt) * W + k0 + cc]
+                    : 0;
+      }
+    }
+  };
+
+  // the thread's two rows (g, g + 8 of its row group)
+  int row[2], tt_[2];
+  bool vr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = rw * 16 + g + 8 * i;
+    const int gq = row[i] / tq;
+    tt_[i] = row[i] - gq * tq;
+    vr[i] = row[i] < R && t0 + tt_[i] < Tq;
+    if (!vr[i]) tt_[i] = 0;
+  }
+  const float sl2 = scale * 1.4426950408889634f;
+  const float kDead = __int_as_float(0xff800000);  // -inf
+  float m[2] = {DTX_NEG_INF, DTX_NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  uint32_t qa[D / 16][4];
+
+  const int first = next_live(trow, bs, W, KC, 0, nchunks);
+  int cur = first, pass = 0;
+  if (cur < nchunks) fill(cur, 0, false);
+  cp_commit();  // Q and the first chunk
+  for (int it = 0; cur < nchunks; ++it) {
+    const int st = it & 1;
+    cp_wait<0>();
+    __syncthreads();  // one barrier an item, as in flash K2
+    int nx = next_live(trow, bs, W, KC, cur + 1, nchunks), nx_pass = pass;
+    if (nx == nchunks && pass == 0) nx = first, nx_pass = 1;
+    if (nx < nchunks) fill(nx, st ^ 1, nx_pass == 1);
+    cp_commit();
+    if (it == 0) load_a_rows<D>(sQ, rw * 16, qa);
+    if (pass == 1 && cur == first) {
+      // pass 0 is over: merge the splits' (m, l) of each row; l becomes
+      // 1 / max(l, 1e-30)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float lq = quad_sum(l[i]);
+        if (t == 0) {
+          sML[((ks * nwr) * 16 + row[i]) * 2] = m[i];
+          sML[((ks * nwr) * 16 + row[i]) * 2 + 1] = lq;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mm = DTX_NEG_INF, ll = 0.f;
+        for (int k = 0; k < KS; ++k)
+          mm = fmaxf(mm, sML[((k * nwr) * 16 + row[i]) * 2]);
+        for (int k = 0; k < KS; ++k) {
+          const float* e = sML + ((k * nwr) * 16 + row[i]) * 2;
+          ll += e[1] * exp2f(e[0] - mm);
+        }
+        m[i] = mm;
+        l[i] = 1.f / fmaxf(ll, 1e-30f);
+      }
+    }
+
+    float s[NB][4];
+    mma_scores_a<D, KT>(s, qa, sK + (st * KC + ks * KT) * PT);
+    const int* tl = sLive + st * KC + ks * KT;
+    const uint8_t* tA = sA + st * tq * KC + ks * KT;
+    // masked live lanes score NEG_INF, as in the plain version (a row with
+    // no allowed lane gets uniform weights); dead lanes score -inf, so they
+    // add nothing to the max or the sums
+    float mx[2] = {DTX_NEG_INF, DTX_NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int c = 8 * j + 2 * t;
+      const int2 live = *reinterpret_cast<const int2*>(tl + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, odd = e & 1;
+        const bool on = odd ? live.y : live.x;
+        const bool ok = vr[i] && tA[tt_[i] * KC + c + odd] != 0;
+        s[j][e] = !on ? kDead : ok ? s[j][e] * sl2 : DTX_NEG_INF;
+        mx[i] = fmaxf(mx[i], s[j][e]);
+      }
+    }
+    if (pass == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], quad_max(mx[i]));
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+          sum += exp2f(s[j][2 * i] - m_new) + exp2f(s[j][2 * i + 1] - m_new);
+        l[i] = l[i] * exp2f(m[i] - m_new) + sum;
+        m[i] = m_new;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = exp2f(s[j][e] - m[e >> 1]) * l[e >> 1];
+      // p rounded to bf16 as the A operand
+      mma_pv<D, KT>(acc, s, sV + (st * KC + ks * KT) * PT);
+    }
+    if (nx == nchunks) break;
+    cur = nx;
+    pass = nx_pass;
+  }
+  cp_wait<0>();
+
+  if constexpr (KS > 1) {
+    // the splits' partial outputs, summed in split order into split 0's
+    __syncthreads();  // every warp is done with the ring, whose memory
+                      // takes them
+    if (ks > 0)
+#pragma unroll
+      for (int je = 0; je < D / 2; ++je)
+        sRed[(((ks - 1) * nwr + rw) * (D / 2) + je) * 32 + lane] =
+            acc[je >> 2][je & 3];
+    __syncthreads();
+    if (ks == 0)
+      for (int k = 1; k < KS; ++k)
+#pragma unroll
+        for (int je = 0; je < D / 2; ++je)
+          acc[je >> 2][je & 3] +=
+              sRed[(((k - 1) * nwr + rw) * (D / 2) + je) * 32 + lane];
+  }
+  if (ks != 0) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!vr[i]) continue;
+    const int gq = row[i] / tq;
+    __nv_bfloat16* o =
+        out + (((size_t)b * Tq + t0 + tt_[i]) * H + (size_t)kv * G + gq) * D +
+        2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+          __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1]);
+  }
+}
+
 constexpr size_t kSmemCap = 200 * 1024;  // of the 227 KB a block may use
 
 template <typename K>
@@ -530,12 +844,80 @@ int launch_decode(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
+// The bf16 K8 on tensor cores: KS key splits (4 at d <= 64; 2 at d = 128,
+// whose accumulators need the registers), ceil(R / 16) <= 4 row groups.
+template <int D>
+constexpr int mma_splits() {
+  return D <= 64 ? 4 : 2;
+}
+
+template <typename P, int D>
+int launch_multitoken_mma(const void* q, const void* k_pool,
+                          const void* v_pool, const float* k_scale,
+                          const float* v_scale, const int* tables,
+                          const uint8_t* allow, void* out, int B, int Tq,
+                          int H, int KV, int bs, int nbps, int tq,
+                          float scale, cudaStream_t stream) {
+  constexpr int KS = mma_splits<D>();
+  const int nwr = ((H / KV) * tq + 15) / 16;
+  const size_t smem = Mt<D, KS>::smem(nwr, tq);
+  auto kern = paged_multitoken_mma_kernel<P, D, KS>;
+  if (int err = set_smem(kern, smem)) return err;
+  const bool allow_vec = (nbps * bs) % 4 == 0 && (uintptr_t)allow % 4 == 0;
+  dim3 grid(KV, B, (Tq + tq - 1) / tq);
+  kern<<<grid, 32 * nwr * KS, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const P*)k_pool, (const P*)v_pool, k_scale,
+      v_scale, tables, allow, (__nv_bfloat16*)out, Tq, H, KV, bs, nbps, tq,
+      scale, allow_vec);
+  return (int)cudaGetLastError();
+}
+
+// Whether the tensor-core K8 takes G heads a KV head and tq rows a block
+// at head dim D: at most 4 row groups, shared memory within the cap
+template <int D>
+bool mma_fits(int G, int tq) {
+  const int nwr = (G * tq + 15) / 16;
+  return nwr <= 4 && Mt<D, mma_splits<D>()>::smem(nwr, tq) <= kSmemCap;
+}
+
+// The tensor-core K8's launch code if it takes the call, else -1
+template <typename P>
+int multitoken_mma(const void* q, const void* k_pool, const void* v_pool,
+                   const float* k_scale, const float* v_scale,
+                   const int* tables, const uint8_t* allow, void* out, int B,
+                   int Tq, int H, int KV, int d, int bs, int nbps, int tq,
+                   float scale, cudaStream_t stream) {
+#define MMA(D)                                                           \
+  case D:                                                                \
+    return mma_fits<D>(H / KV, tq)                                       \
+               ? launch_multitoken_mma<P, D>(q, k_pool, v_pool, k_scale, \
+                                             v_scale, tables, allow, out, \
+                                             B, Tq, H, KV, bs, nbps, tq,  \
+                                             scale, stream)               \
+               : -1;
+  switch (d) { MMA(16) MMA(32) MMA(64) MMA(128) }
+#undef MMA
+  return -1;
+}
+
 template <typename T, typename P>
 int launch_multitoken(const void* q, const void* k_pool, const void* v_pool,
                       const float* k_scale, const float* v_scale,
                       const int* tables, const uint8_t* allow, void* out,
                       int B, int Tq, int H, int KV, int d, int bs, int nbps,
                       int tq, float scale, cudaStream_t stream) {
+  // bf16 over pools read 16 bytes at a time, where the tensor-core kernel
+  // takes the shape (tinyllama's always); f32, and the rest, take the
+  // CUDA-core kernel below
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (vec_ok<P>(k_pool, v_pool, d)) {
+      const int code =
+          multitoken_mma<P>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                            allow, out, B, Tq, H, KV, d, bs, nbps, tq, scale,
+                            stream);
+      if (code >= 0) return code;
+    }
+  }
   const int R = (H / KV) * tq;
   int ch = DTX_MAX_CHUNK;
   while (ch > 1 && multitoken_smem(R, tq, ch, bs, d) > kSmemCap) ch /= 2;
@@ -550,7 +932,52 @@ int launch_multitoken(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
+// What the bf16 K8 takes of an SM at head dim D for G heads a KV head and
+// tq query rows a block: registers, local (spill) bytes per thread, dynamic
+// shared bytes per block and resident blocks per SM, over bf16 pools
+// (out[0..3]) and int8 pools (out[4..7]).
+template <typename P, int D>
+int mma_resources(int nwr, int tq, int* out) {
+  constexpr int KS = mma_splits<D>();
+  auto kern = paged_multitoken_mma_kernel<P, D, KS>;
+  const size_t smem = Mt<D, KS>::smem(nwr, tq);
+  cudaFuncAttributes a;
+  if (int e = (int)cudaFuncGetAttributes(&a, kern)) return e;
+  if (int e = set_smem(kern, smem)) return e;
+  int blocks = 0;
+  if (int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kern, 32 * nwr * KS, smem))
+    return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  return 0;
+}
+
+template <int D>
+int multitoken_resources_d(int nwr, int tq, int* out) {
+  if (int e = mma_resources<__nv_bfloat16, D>(nwr, tq, out)) return e;
+  return mma_resources<int8_t, D>(nwr, tq, out + 4);
+}
+
+int multitoken_resources(int d, int G, int tq, int* out) {
+  const int nwr = (G * tq + 15) / 16;
+  switch (d) {
+    case 16: return multitoken_resources_d<16>(nwr, tq, out);
+    case 32: return multitoken_resources_d<32>(nwr, tq, out);
+    case 64: return multitoken_resources_d<64>(nwr, tq, out);
+    case 128: return multitoken_resources_d<128>(nwr, tq, out);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+extern "C" int dtx_paged_multitoken_resources(int d, int G, int tq,
+                                              int* out) {
+  return multitoken_resources(d, G, tq, out);
+}
 
 // Pools in the compute dtype (SUFFIX bf16/f32) and int8 pools with their
 // scale pools (i8_bf16/i8_f32).

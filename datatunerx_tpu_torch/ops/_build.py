@@ -186,6 +186,12 @@ def _declare(lib: ctypes.CDLL):
     fn = lib.dtx_flash_bwd_resources  # d, int out[8]
     fn.argtypes = [_I, _P]
     fn.restype = _I
+    fn = lib.dtx_flash_fwd_resources  # d, int out[4]
+    fn.argtypes = [_I, _P]
+    fn.restype = _I
+    fn = lib.dtx_paged_multitoken_resources  # d, G, tq, int out[8]
+    fn.argtypes = [_I] * 3 + [_P]
+    fn.restype = _I
     fn = lib.dtx_fused_sample
     # x, temps, us, out, S, Vp, greedy, stream
     fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]

@@ -2,8 +2,9 @@
 ``datatunerx_tpu/ops/pallas_paged_attention.py``.
 
 K7 (one-token decode) and K8 (multi-token chunks) are hand-written CUDA in
-``csrc/paged_attention.cu``; the design note there says what bounds them and
-why they keep the reference's two passes. Pools are q's dtype (bf16/f32), or
+``csrc/paged_attention.cu`` (the bf16 K8 on tensor cores, the rest on CUDA
+cores); the design note there says what bounds them and why they keep the
+reference's two passes. Pools are q's dtype (bf16/f32), or
 int8 with f32 scale pools ``[NB+1, bs, KV]``: the int8 instantiations
 dequantize each staged tile as ``kv_dequantize`` does (f32 product, rounded
 through q's dtype), so they read what the gather path reads. Head dims that

@@ -7,9 +7,9 @@ the probabilities tile by tile (FlashAttention-2: K2 accumulates dQ over key
 tiles, K3 accumulates dK/dV over query tiles, with D = rowsum(dO * O)
 computed outside the kernels, as the reference does).
 
-K1, K2 and K3 are hand-written CUDA in ``csrc/flash_attention.cu`` (K1
-and the f32 K2/K3 on CUDA cores, the bf16 K2/K3 on tensor cores); the
-design note there says what bounds them. Each wrapper launches its kernel
+K1, K2 and K3 are hand-written CUDA in ``csrc/flash_attention.cu`` (bf16
+on tensor cores, f32 on CUDA cores); the design note there says what bounds
+them. Each wrapper launches its kernel
 for CUDA tensors (or raises) and runs the kernel's plain PyTorch version,
 which repeats the reference's tile walk (``block_q`` x ``block_k`` tiles,
 online softmax, causal tile skip), only for CPU tensors. The CUDA kernels

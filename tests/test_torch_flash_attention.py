@@ -183,3 +183,63 @@ def test_launch_counters_do_not_move_on_the_cpu():
     tfa.flash_attention(tq, _t(k), _t(v)).sum().backward()
     assert (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
             tfa.flash_bwd_dkv.launches) == before
+
+
+def _k1_numerics(q, k, v, seg, causal, block_k=64):
+    """A test-local emulation of the bf16 K1's arithmetic on the tensor
+    cores: f32 scores of the bf16 inputs, the online softmax over 64-key
+    tiles with masked lanes 0 and l summed from the f32 p, p rounded to bf16
+    as the operand of P·V with f32 accumulation, and O rounded once.
+    Returns (out [B, T, H, d] bf16, lse [B*H, T] f32)."""
+    B, T, H, d = q.shape
+    S = k.shape[1]
+    scale = d ** -0.5
+    qf, kf, vf = tfa._fold(q, k, v)
+    m = torch.full(qf.shape[:-1], tfa.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for j0, j1 in tfa._tiles(S, block_k):
+        s = torch.einsum("bkgtd,bksd->bkgts", qf, kf[:, :, j0:j1]) * scale
+        ok = tfa._tile_mask(seg, causal, 0, T, j0, j1, q.device)
+        s = torch.where(ok, s, torch.full_like(s, tfa.NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(ok, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgts,bksd->bkgtd", p.to(torch.bfloat16).float(),
+            vf[:, :, j0:j1])
+        m = m_new
+    lc = l.clamp(min=1e-30)
+    out = (acc / lc[..., None]).permute(0, 3, 1, 2, 4).reshape(B, T, H, d)
+    return out.to(torch.bfloat16), (m + torch.log(lc)).reshape(B * H, T)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_k1_bf16_rounding_point_matches_reference(packed):
+    """The bf16 K1 rounds P to bf16 as the operand of P·V, where the
+    reference's _fwd keeps p in f32. This emulation of the kernel's
+    arithmetic, on the same bf16 inputs as the reference in interpret mode,
+    stays within the bound the card holds K1 to: atol = rtol = 2^-6 for the
+    output (one bf16 rounding of each p, 2^-9 relative and random in sign,
+    plus the output's own rounding) and 1e-4 for the lse, which both take
+    from the f32 p."""
+    B, T, H, KV, d, blk = 2, 256, 4, 2, 64, 64
+    q, k, v, _, seg = _inputs(21 + packed, B=B, T=T, H=H, KV=KV, d=d,
+                              packed=packed)
+    G = H // KV
+    fold = lambda x, n: jnp.asarray(x, jnp.bfloat16).transpose(  # noqa
+        0, 2, 1, 3).reshape(B * n, T, d)
+    jseg = jnp.asarray(np.zeros((B, T), np.int32) if seg is None else seg)
+    jout, jlse = jfa._fwd(fold(q, H), fold(k, KV), fold(v, KV), jseg, jseg,
+                          block_q=blk, block_k=blk, interpret=True, H=H, G=G,
+                          causal=True)
+    want = np.array(jout.astype(jnp.float32)).reshape(B, H, T, d) \
+        .transpose(0, 2, 1, 3)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    out, lse = _k1_numerics(tq, tk, tv, _t(seg), causal=True)
+    np.testing.assert_allclose(out.float().numpy(), want, **BF16_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.array(jlse), atol=1e-4,
+                               rtol=1e-4)
+    assert np.isfinite(out.float().numpy()).all()

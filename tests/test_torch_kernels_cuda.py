@@ -8,7 +8,7 @@ kernels' f32 sums run in another order than the plain versions'); token ids
 exact for greedy sampling. Flash attention (K1-K3): float32 1e-4 (sums over
 up to 1024 keys in another order, gradients of unit-scale inputs), bf16
 2^-6 (outputs and gradients round once to bf16 from f32 sums taken in
-another order, and a bf16 ulp at |x| ~ 2-4 is 2^-6; besides, the bf16 K2/K3
+another order, and a bf16 ulp at |x| ~ 2-4 is 2^-6; besides, the bf16 K1-K3
 run their second products on tensor cores with P and dS rounded to bf16 as
 operands, where the plain versions keep them in f32: a relative error of
 2^-9 per term, random in sign, so about 1e-3 of a gradient's scale after
@@ -17,7 +17,9 @@ the sums over keys, queries and the G heads of a KV group). Quantized matmuls
 another order), bf16 atol 2^-8 / rtol 2^-7 (the staged weights are
 bit-equal to the plain version's; the f32 sums round once to bf16). The
 int8-pool instantiations of K7/K8 hold K7/K8's tolerances (their staged
-tiles equal the plain version's dequantized blocks bit for bit). The fused
+tiles equal the plain version's dequantized blocks bit for bit); the bf16
+K8 runs on tensor cores and rounds p to bf16 where the plain version does,
+so it too differs only by the order of its f32 sums. The fused
 LoRA matmul (K10): float32 atol=rtol=1e-4, bf16 atol 2^-8 / rtol 2^-7 (the
 kernel and its plain version round at the same points and differ only in
 the order of their f32 sums)."""
@@ -144,6 +146,61 @@ def test_multitoken_kernel_int8_pools_match_plain(cuda, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def _multitoken_case(lens, T, bs, nbps, KV, G, d, gen, dev):
+    """Pools holding ``lens`` tokens per slot and a chunk of the last T of
+    them as queries, with the gather path's allow operand."""
+    tables, pos, k, v = _pool(lens, nbps, bs, KV, d, torch.float32, dev, gen)
+    q = torch.randn((len(lens), T, KV * G, d), generator=gen).to(dev)
+    qpos = torch.stack([torch.arange(n - T, n) for n in lens]).to(dev)
+    tbl = torch.where(tables >= 0, tables, torch.zeros_like(tables)).long()
+    view = torch.where((tables >= 0)[:, :, None], pos[tbl],
+                       torch.full_like(pos[tbl], SENT)).reshape(len(lens), -1)
+    return q, k, v, tables, attention_allow(qpos, view)
+
+
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+@pytest.mark.parametrize("T", [256, 200])  # 200: a ragged last row tile
+def test_multitoken_kernel_at_tinyllama_heads(cuda, pools, T):
+    """The bf16 K8 (tensor cores) at tinyllama-1.1b's heads: G = 8 query
+    heads per KV head, d = 64, 16-token blocks, a prefill chunk of T rows
+    over 768 and 300 cached tokens (a dead block between live ones)."""
+    gen = torch.Generator().manual_seed(T)
+    q, k, v, tables, allow = _multitoken_case([768, 300], T, 16, 64, 4, 8,
+                                              64, gen, cuda)
+    tables[1, 5] = -1  # a hole in the table: skipped, never read
+    allow[1, :, 5 * 16:6 * 16] = False
+    q = q.to(torch.bfloat16)
+    pools_ = ((k.to(torch.bfloat16), v.to(torch.bfloat16), None, None)
+              if pools == "bf16" else _int8_pools(k, v))
+    got = cpa.paged_multitoken_attention(q, *pools_, tables, allow)
+    want = cpa._plain_multitoken(q, pools_[0], pools_[1], tables, allow,
+                                 pools_[2], pools_[3])
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+def test_bf16_attention_kernels_do_not_spill(cuda):
+    """The bf16 K1 and K8 (tensor cores) as the compiler built them keep
+    every value in registers: 0 spill bytes at each head dim."""
+    import ctypes
+
+    from datatunerx_tpu_torch.ops import _build
+
+    lib = _build.library()
+    for d in (16, 32, 64, 128):
+        r = (ctypes.c_int * 4)()
+        _build.check(lib.dtx_flash_fwd_resources(d, ctypes.addressof(r)),
+                     "flash forward resources")
+        assert r[1] == 0 and r[3] >= 1, (d, list(r))
+        r = (ctypes.c_int * 8)()
+        _build.check(lib.dtx_paged_multitoken_resources(
+            d, 8, cpa.multitoken_tile(256, 8), ctypes.addressof(r)),
+            "paged multi-token resources")
+        assert r[1] == 0 and r[5] == 0 and r[3] >= 1 and r[7] >= 1, \
+            (d, list(r))
+
+
 LORA_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
             torch.bfloat16: dict(atol=2**-8, rtol=2**-7)}
 
@@ -230,6 +287,30 @@ def test_flash_kernels_match_plain(cuda, dtype, d, causal, packed, shape):
         assert torch.isfinite(got.float()).all()
         torch.testing.assert_close(got.float(), want.float(),
                                    **FLASH_TOL[dtype])
+
+
+def test_flash_forward_pad_rows_stay_finite(cuda):
+    """The bf16 K1 on a packed batch whose rows end in pad (id 0), one row
+    whose first tiles hold no key of its own segment: finite, and equal to
+    the plain version."""
+    from datatunerx_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(9)
+    B, T, H, KV, d = 2, 320, 8, 2, 64
+    q, k, v, _, _ = _flash_inputs(B, T, H, KV, d, torch.bfloat16, cuda, gen,
+                                  False)
+    seg = torch.zeros((B, T), dtype=torch.int32)
+    seg[0, :250] = 1
+    seg[0, 250:] = 0  # pad tail
+    seg[1, :130] = 3
+    seg[1, 130:300] = 4
+    seg = seg.to(cuda)
+    out, lse = fa.flash_fwd(q, k, v, seg)
+    pout, plse = fa._plain_fwd(q, k, v, seg, True, 64, 64)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(out.float(), pout.float(),
+                               **FLASH_TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("mode", ["greedy", "simple"])
