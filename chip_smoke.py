@@ -49,7 +49,8 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
    embedding and need no gradient), K1-K3 as in phase 5; prints step time,
    tokens/s, peak memory and device ms by kernel group (flash K1 and flash
    K2/K3 apart, as in phase 5);
-8. QLoRA int8: 4 steps with ``--quantization int8``: K6 = 308 per step;
+8. QLoRA int8: 6 steps with ``--quantization int8``, steps 2-3 profiled
+   as in phase 7: K6 = 308 per step, device ms by kernel group;
 9. QLoRA parity: one train step (int4, then int8) at tinyllama width and
    4 layers with ``quant_impl="pallas"`` against ``"xla"`` (dequantize,
    then a plain matmul): the bounds of phase 6;
@@ -61,8 +62,10 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
     the output each round once to bf16), its launch counter zeroed just
     before;
 11. prints one JSON ``{"kernels": [...]}`` line (K7, K8, K7-int8, K8-int8,
-    K9, K10, K1-K6) and, last, one JSON line ``{"ok": true, "device":
-    {...}}``.
+    K9, K10, K1-K6; K7's entries add the splits its wrapper launched, the
+    CUDA kernels one call launched as torch.profiler traced them, and its
+    resources; K6's its resources) and, last, one JSON line ``{"ok": true,
+    "device": {...}}``.
 
 Three more serving phases run right after phase 4, before any training
 phase (a decode step is bound by the host's launch rate, and the serving
@@ -81,9 +84,13 @@ have run in the process):
 
 The bf16 K1-K3 and the bf16 K8 (over bf16 and over int8 pools) are
 tensor-core kernels (``mma.sync`` bf16 -> f32, fed by ``cp.async``; the
-skeleton of ``csrc/mma_sm90.cuh``); the f32 instantiations and the rest run
-on CUDA cores. Phase 2 prints K8's registers, spill bytes, shared bytes
-and blocks per SM at the smoke shape, and also holds K1 (flash forward), K2
+skeleton of ``csrc/mma_sm90.cuh``); the bf16 K6 runs on ``wgmma`` fed by
+TMA (``csrc/int8_gemm.cu``); K7 is a split-table decode on CUDA cores (one
+launch a call: a thread-block cluster per head group); the f32
+instantiations and the rest run on CUDA cores. Phase 2 prints K8's
+registers, spill bytes, shared bytes and blocks per SM at the smoke shape,
+the same for K7 (with its splits) and K6, requires two K7 calls on the
+same inputs to agree bit for bit, and also holds K1 (flash forward), K2
 (dQ) and K3 (dK/dV) against their plain versions at the training shapes
 (B=8 H=32 KV=4 T=1024 d=64, causal, bf16), on a packed batch and at d=128,
 printing for each case K1 against one SDPA forward and the pair K2+K3
@@ -312,6 +319,21 @@ def check_k7(torch, timer, gen, quant=False):
         return cpa._plain_decode(q, pools[0], pools[1], tables, pos, qpos,
                                  pools[2], pools[3])
 
+    res = resources("dtx_paged_decode_resources", 8, d,
+                    H // KV)[4 if quant else 0:][:4]
+    ms = timer.ms(kern)
+    again = kern()
+    if not torch.equal(kern(), again):
+        fail(f"{name}: two calls on the same inputs differ")
+    launched = cuda_kernels(torch, kern)
+    if not launched:
+        fail(f"{name}: the profiler traced no CUDA kernel of a call")
+    splits, per = cpa.paged_decode_attention.last_split
+    log(f"  {name} ran {splits} splits of {per} table blocks a (slot, KV "
+        f"head), one cluster of {splits} blocks each; a call launched "
+        f"{len(launched)} CUDA kernel(s) ("
+        + ", ".join(kernel_name(n) for n in launched) + "); bf16 "
+        + describe_resources(res, (("", 0),)))
     return {
         "name": f"{name} paged_decode_attention"
                 + (" (int8 pools)" if quant else ""), "route": "cuda",
@@ -323,12 +345,16 @@ def check_k7(torch, timer, gen, quant=False):
         "tolerance": "atol 2^-8 + rtol 2^-7" + (
             " (bf16 and f32; vs plain and vs the gather path)" if quant
             else " (bf16)"),
-        "ms": timer.ms(kern), "plain_ms": timer.ms(plain, reps=5),
+        "ms": ms, "plain_ms": timer.ms(plain, reps=5),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: sdpa(torch, qs, ks, vs, mask)),
         "shape": f"B={B} H={H} KV={KV} d={d} bs={bs} nbps={nbps} lens={lens}"
                  + ("; library: SDPA on the dequantized view" if quant
                     else ""),
+        "extra": {"splits": splits, "entries_per_split": per,
+                  "cuda_launches_per_call": len(launched),
+                  "registers": res[0], "spill_bytes": res[1],
+                  "shared_bytes": res[2], "blocks_per_sm": res[3]},
     }
 
 
@@ -654,43 +680,63 @@ def check_flash(torch, timer, gen):
     return entries
 
 
-def _resources(r, names):
+def describe_resources(r, names):
     return "; ".join(f"{n} {r[i]} registers, {r[i + 1]} spill bytes, "
                      f"{r[i + 2]} shared bytes, {r[i + 3]} blocks/SM"
                      for n, i in names)
 
 
-def log_flash_resources():
-    """What the bf16 K1, K2 and K3 take of an SM, as built (the compiler's
-    registers and spills, as ``nvcc -Xptxas -v`` reports them)."""
+def resources(entry, n, *args):
+    """What a kernel takes of an SM, as built: the ``n`` ints the C entry
+    ``entry`` (a ``dtx_*_resources``) writes, four a variant: registers,
+    spill bytes, shared bytes, blocks/SM (the compiler's registers and
+    spills, as ``nvcc -Xptxas -v`` reports them)."""
     import ctypes
 
     from datatunerx_tpu_torch.ops import _build
 
-    lib = _build.library()
+    r = (ctypes.c_int * n)()
+    _build.check(getattr(_build.library(), entry)(*args,
+                                                  ctypes.addressof(r)), entry)
+    return list(r)
+
+
+def log_flash_resources():
+    """What the bf16 K1, K2 and K3 take of an SM, as built."""
     for d in (64, 128):
-        r = (ctypes.c_int * 12)()
-        _build.check(lib.dtx_flash_fwd_resources(d, ctypes.addressof(r)),
-                     "flash forward resources")
-        _build.check(lib.dtx_flash_bwd_resources(
-            d, ctypes.addressof(r) + 16), "flash backward resources")
+        r = (resources("dtx_flash_fwd_resources", 4, d)
+             + resources("dtx_flash_bwd_resources", 8, d))
         log(f"  bf16 K1/K2/K3 at d={d}: "
-            + _resources(r, (("K1", 0), ("K2", 4), ("K3", 8))))
+            + describe_resources(r, (("K1", 0), ("K2", 4), ("K3", 8))))
 
 
 def log_k8_resources(G, d, tq):
     """What the bf16 K8 (over bf16 and over int8 pools) takes of an SM at
     the smoke shape's G, d and row tile, as built."""
-    import ctypes
-
-    from datatunerx_tpu_torch.ops import _build
-
-    r = (ctypes.c_int * 8)()
-    _build.check(_build.library().dtx_paged_multitoken_resources(
-        d, G, tq, ctypes.addressof(r)), "paged multi-token resources")
+    r = resources("dtx_paged_multitoken_resources", 8, d, G, tq)
     log(f"  bf16 K8 at G={G} d={d} tq={tq} ({-(-G * tq // 16)} row groups "
         f"of 16, each over {4 if d <= 64 else 2} key splits): "
-        + _resources(r, (("bf16 pools", 0), ("int8 pools", 4))))
+        + describe_resources(r, (("bf16 pools", 0), ("int8 pools", 4))))
+
+
+def kernel_name(traced):
+    """A traced kernel's name without its return type, namespace, template
+    and parameter lists."""
+    name = traced.replace("(anonymous namespace)::", "").split("<")[0]
+    return name.split("(")[0].split()[-1] if name.split() else traced
+
+
+def cuda_kernels(torch, fn):
+    """The names of the CUDA kernels one call of ``fn`` launched, as
+    torch.profiler traced them on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def segment_mask(torch, q, k, seg):
@@ -819,13 +865,22 @@ def check_quant(torch):
                 + ", ".join(parts))
             del wd, w8
         del qw, q8, x, g
+    k6 = resources("dtx_int8_matmul_resources", 4)
+    log("  bf16 K6 (wgmma, 128 x 256 tiles, 384 threads): "
+        + describe_resources(k6, (("", 0),)))
     entries = []
     for key, (name, replaces, counter) in meta.items():
         t = tot[key]
         entries.append({
             "name": name, "route": "cuda",
-            "source": "datatunerx_tpu_torch/csrc/quant.cu",
+            "source": ("datatunerx_tpu_torch/csrc/int8_gemm.cu (bf16), "
+                       "datatunerx_tpu_torch/csrc/quant.cu (f32)"
+                       if key == "K6" else
+                       "datatunerx_tpu_torch/csrc/quant.cu"),
             "replaces": replaces, "counter": counter,
+            **({"extra": {"registers": k6[0], "spill_bytes": k6[1],
+                          "shared_bytes": k6[2], "blocks_per_sm": k6[3]}}
+               if key == "K6" else {}),
             "max_abs_err": t["err"],
             "tolerance": "atol 2^-8 + rtol 2^-7 (bf16), 1e-4 + 1e-4 (f32), "
                          "all four shapes",
@@ -1186,12 +1241,12 @@ def parity_phase(torch, eng, kv_quant=None):
 TRAIN_STEPS = 8
 PROFILE_STEPS = 2  # steps 2-3 run under torch.profiler; 4-8 are timed
 QLORA_STEPS = 6  # steps 2-3 profiled; 4-6 timed
-INT8_STEPS = 4  # step 1 warms up; 2-4 timed
+INT8_STEPS = 6  # steps 2-3 profiled; 4-6 timed
 TRAIN_SHAPE = dict(batch=8, block=1024)
 LAYERS = 22
 # the quant kernels first: their (mangled) names also hold "gemm"
 KERNEL_GROUPS = (("K4 nf4", ("nf4fwd",)), ("K5 nf4 dx", ("nf4t",)),
-                 ("K6 int8", ("int8src",)),
+                 ("K6 int8", ("int8src", "int8_gemm")),
                  ("flash K1", ("flash_fwd",)),
                  ("flash K2/K3", ("flash_bwd",)),
                  ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")))
@@ -1581,8 +1636,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             log("[8] QLoRA train --quantization int8 (int8 base on K6)")
             trained, _ = train_phase(torch, tmp, quant="int8",
-                                     steps=INT8_STEPS, profile=0,
-                                     export=False)
+                                     steps=INT8_STEPS, export=False)
             launches["int8_matmul"] = trained["int8_matmul"]
             torch.cuda.empty_cache()
         for mode in ("int4", "int8"):
@@ -1613,7 +1667,8 @@ def main(argv=None) -> int:
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
-            **({"library": e["library"]} if "library" in e else {})})
+            **({"library": e["library"]} if "library" in e else {}),
+            **e.get("extra", {})})
     log(card)  # name and power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

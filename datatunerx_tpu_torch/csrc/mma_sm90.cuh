@@ -23,7 +23,7 @@ using bf16 = __nv_bfloat16;
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
-// 16 (or 4) bytes global -> shared, asynchronous; zero-filled if !ok
+// 16, 8 or 4 bytes global -> shared, asynchronous; zero-filled if !ok
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
@@ -34,6 +34,12 @@ __device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 8 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_commit() {

@@ -8,37 +8,40 @@
 //       (entered via paged_multitoken_attention /
 //        paged_attention_multitoken_step)
 //
-// What bounds it on an H100: bytes. Decode reads each live K block twice and
-// each live V block once and does ~2*G flops per K element (G = H/KV query
-// heads per KV head, 8 for tinyllama) — far below the ~295 flop/byte ridge.
+// What bounds it on an H100: bytes, and for decode latency. Decode (K7)
+// reads each live K and V block once and does ~2*G flops per K element
+// (G = H/KV query heads per KV head, 8 for tinyllama) — far below the ~295
+// flop/byte ridge; at a few slots its time is a chain of memory latencies.
 // A chunk of T query rows reuses every K/V block T*G times, so K8 leans
 // towards the operation bound as T grows.
 //
-// What the design does about it: the gathered [B, W, KV, d] view of the
-// gather path never exists — each thread block walks ONE slot's table for
-// ONE KV head and stages the live [bs, d] K (then V) tiles in shared memory
-// with 16-byte loads, skipping table entries < 0 without touching memory, so
-// traffic scales with the slot's live blocks rather than the table width.
-// A loop iteration stages up to `ch` table blocks at once (8 where shared
-// memory allows), so the sequential walk takes few, wide steps instead of
-// one 16-token step per block. Decode launches one thread block per (slot,
-// group of `gs` query heads of one KV head) — gs is shrunk until there are
-// enough blocks to fill the card; the K/V re-reads of sibling groups come
-// from L2. K8 launches one per (slot, KV head, tile of query rows), all G
-// heads of the group sharing each staged tile.
+// What the designs do about it: the gathered [B, W, KV, d] view of the
+// gather path never exists — thread blocks walk the slot's table and stage
+// the live [bs, d] K (then V) tiles in shared memory with 16-byte loads,
+// skipping table entries < 0 without touching memory, so traffic scales
+// with the slot's live blocks rather than the table width.
+//
+// K7 splits the table ("flash-decoding"): one block per (slot, KV head,
+// split of the table) holds all G query heads of the KV head, so each
+// cached byte is read once, and B * KV * splits blocks fill the card even
+// at 4 slots; the splits' statistics and partial outputs merge in split
+// order in two more launches (the K7 section below). K8 launches one block
+// per (slot, KV head, tile of query rows), all G heads of the group sharing
+// each staged tile; a loop iteration stages up to `ch` table blocks at once
+// (8 where shared memory allows), so the sequential walk takes few, wide
+// steps.
 //
 // The two passes of the reference are kept on purpose: pass 0 computes the
-// f32 running max m and normaliser l block by block in table order; pass 1
-// forms p = exp(s - m) / max(l, 1e-30), rounds p to the compute dtype, and
-// only then accumulates each block's p*V partial into the f32 output — the
-// rounding point of the gather path's probs.astype(v.dtype), which a
-// one-pass online accumulator cannot reproduce. Staging several blocks per
-// iteration changes no arithmetic: stats and partials are still folded in
-// block order.
+// f32 running max m and normaliser l; pass 1 forms p = exp(s - m) /
+// max(l, 1e-30), rounds p to the compute dtype, and only then accumulates
+// p*V into the f32 output — the rounding point of the gather path's
+// probs.astype(v.dtype), which a one-pass online accumulator cannot
+// reproduce. Staging several blocks per iteration, or splitting the table,
+// changes no rounding: only the order of the f32 sums.
 //
-// Two designs. K7, and K8 in f32 (or at a head dim outside 16/32/64/128,
-// or over pools that are not 16-byte aligned):
-// CUDA-core f32 FMAs over f32 tiles in shared memory (chunk_rows). The bf16
+// Two designs for K8. In f32 (or at a head dim outside 16/32/64/128, or
+// over pools that are not 16-byte aligned): CUDA-core f32 FMAs over f32
+// tiles in shared memory (chunk_rows). The bf16
 // K8, over bf16 or int8 pools, runs on tensor cores (mma.sync.m16n8k16,
 // bf16 in, f32 accumulate; the skeleton of mma_sm90.cuh, shared with flash
 // K1-K3): the block's rows held as A fragments, chunks of K and V staged
@@ -51,33 +54,38 @@
 // every chunk, and the splits' (m, l) and partial outputs merge through
 // shared memory. Its results differ from the plain version's only by the
 // order of the f32 sums. Still simple: no wgmma/TMA, no split across
-// blocks.
+// blocks. K7 does ~2 G flops a cached byte, so it stays on CUDA-core FMAs
+// in every dtype.
 //
 // int8 pools (the int8 KV cache; reference :89-108 and :312-323) are further
-// instantiations of the same two kernels, not another algorithm: the staging
-// step loads 16 int8 values per 16-byte load, multiplies each by the f32
-// scale of its (token, KV head) from the scale pools [NB, bs, KV], rounds
-// the product through the compute dtype (kv_dequantize's one rounding;
-// identity for f32) and stores it in shared memory: as f32 in the CUDA-core
-// kernels, as bf16 (exact, since the value was rounded to bf16) in the
-// tensor-core K8, whose int8 staging is synchronous (loads, multiply, store)
-// rather than cp.async. The multiply is an explicit __fmul_rn whose result
-// is rounded and stored before any score product reads it, so no FMA
-// contraction can change a bit and bf16 results equal the gather path's
-// dequantized read up to the order of the sums. The bytes read per cached
-// token halve (d int8 + one f32 scale per head vector against 2*d).
-// A head dim that is not a multiple of 16 takes the element-wise loop.
+// instantiations of the same kernels, not another algorithm: the staging
+// step multiplies each int8 value by the f32 scale of its (token, KV head)
+// from the scale pools [NB, bs, KV], rounds the product through the compute
+// dtype (kv_dequantize's one rounding; identity for f32) and stores it in
+// shared memory: as f32 in the CUDA-core K8, as the compute dtype in K7
+// (which copies the int8 rows and their scales with cp.async and
+// dequantizes them out of the ring), as bf16 (exact, since the value was
+// rounded to bf16) in the tensor-core K8, whose int8 staging is synchronous
+// (loads, multiply, store) rather than cp.async. The multiply is an
+// explicit __fmul_rn whose result is rounded and stored before any score
+// product reads it, so no FMA contraction can change a bit and bf16 results
+// equal the gather path's dequantized read up to the order of the sums.
+// The bytes read per cached token halve (d int8 + one f32 scale per head
+// vector against 2*d).
+// In K8 a head dim that is not a multiple of 16 takes the element-wise
+// loop; K7 takes head dims 8..128 in steps of 8.
 //
 // Masking: K7 compares the pos pool (POS_SENTINEL on unwritten lanes) with
 // the query's rope position; K8 reads the [B, T, nbps*bs] allow operand,
 // the same boolean the gather path turns into its bias. A slot with no live
-// block writes zeros; a fully masked K8 row writes finite junk (uniform
-// weights), as in the reference's garbage contract.
+// block writes zeros; a fully masked slot (K7) or row (K8) writes finite
+// junk (uniform weights), as in the reference's garbage contract.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
 #include <type_traits>
 
 #include "mma_sm90.cuh"
@@ -366,64 +374,490 @@ __device__ __forceinline__ void chunk_rows(int pass, int R, int ch, int bs,
 }
 
 // ---------------------------------------------------------------- K7
-// grid (KV * G/gs, B); one block per (slot, group of gs query heads).
-template <typename T, typename P>
-__global__ void paged_decode_kernel(const T* __restrict__ q,
-                                    const P* __restrict__ kp,
-                                    const P* __restrict__ vp,
-                                    const float* __restrict__ ksc,
-                                    const float* __restrict__ vsc,
-                                    const int* __restrict__ tables,
-                                    const int* __restrict__ pos_pool,
-                                    const int* __restrict__ q_pos,
-                                    T* __restrict__ out, int H, int KV, int d,
-                                    int bs, int nbps, int gs, int ch,
-                                    float scale, bool vec) {
-  const int G = H / KV, ngrp = G / gs;
-  const int kv = blockIdx.x / ngrp, b = blockIdx.y;
-  const int h0 = kv * G + (blockIdx.x - kv * ngrp) * gs;
-  const int cb = ch * bs;
-  extern __shared__ float smem[];
-  float* q_s = smem;                  // [gs, d]
-  float* acc = q_s + gs * d;          // [gs, d]
-  float* k_s = acc + gs * d;          // [ch*bs, d+1]
-  float* v_s = k_s + cb * (d + 1);    // [ch*bs, d]
-  float* s_s = v_s + cb * d;          // [gs, ch*bs]
-  float* m_s = s_s + gs * cb;         // [gs]
-  float* l_s = m_s + gs;              // [gs]
-  int* ok_s = (int*)(l_s + gs);       // [ch*bs]
-  int* blk_s = ok_s + cb;             // [ch]
-  int* any_s = blk_s + ch;            // [1]
+// Split-table decode. The slot's table is cut into S splits of E entries
+// (decode_splits in ops/cuda_paged_attention.py): split s takes entries
+// [s E, min(s E + E, nbps)). One block per (split, group of R query heads of
+// one KV head, slot): grid (S, KV * G / R, B) of DEC_NT threads; R = G at
+// tinyllama's heads, so every cached K/V byte is read once from device
+// memory. The S blocks of a (slot, head group) form one thread-block
+// cluster (S <= 16), and the reference's two passes run in one launch as
+// two phases that meet through distributed shared memory:
+//   phase 0  each split's masked scores, kept in its shared memory, and
+//            its f32 max m and normaliser l per head, written with its live
+//            flag into every block of the cluster; cluster barrier;
+//   phase 1  every block merges the S splits' (m, l) in split order into
+//            the slot's (m, l) (all compute the same values), forms
+//            p = exp(s - m) / max(l, 1e-30) rounded to T over its stored
+//            scores, and its split's f32 p.V partial, each output of which
+//            it writes into the block that sums it; cluster barrier;
+//   sum      block s sums its share of the group's outputs over the live
+//            splits' partials in split order, from its own shared memory,
+//            rounds once to T, and writes them.
+// A block writes into the others' shared memory and reads only its own, so
+// none is read after the last barrier. Nothing goes through device memory
+// but the pools and the output, and the result does not depend on the
+// blocks' timing. A split with no live
+// table entry has (NEG_INF, 0) and no partial; the sum skips every split
+// whose l is 0 (a live split has l >= 1), so an empty slot writes zeros.
+//
+// Inside a split, stages of TK lanes (lane w is pool row (tables[w / bs],
+// w % bs)) come through a two-stage cp.async ring: the K rows (phase 0) or
+// the V rows (phase 1), the lanes' positions and, for int8 pools, the
+// rows' scales. A stage none of whose table entries is live is skipped
+// unread; dead lanes of a live stage are zero rows scoring -inf. Phase 0
+// prefetches the V rows into L2, and phase 1's first V stage is in flight
+// while the blocks wait at the barrier. An int8 stage is dequantized into
+// a T tile (f32(x) * scale rounded through T, an explicit multiply, as
+// kv_dequantize). Scores: a thread owns one lane and two heads at a time,
+// so each K element loaded feeds both, each score two fmaf chains over the
+// halves of d; (m, l): a warp per head, shuffle max and sum; P.V: a thread
+// owns two columns and up to 8 heads, p read 4 lanes at a time into two
+// chains a column.
+constexpr int DEC_NT = 256;
+constexpr int DEC_MAX_SPLITS = 16;  // blocks a cluster (above 8: non-portable)
 
-  const size_t q_base = ((size_t)b * H + h0) * d;
-  for (int i = threadIdx.x; i < gs * d; i += blockDim.x) {
-    q_s[i] = to_f<T>(q[q_base + i]);
-    acc[i] = 0.f;
+struct DecArgs {
+  int H, KV, d, bs, nbps, S, E;
+  int R;      // query heads a block
+  int TK;     // lanes a stage
+  int pitch;  // T elements a tile row
+  int rowb;   // bytes a staged row of the ring
+  int chunk;  // bytes a cp.async of a pool row
+  float scale;
+};
+
+// Byte offsets of a K7 block's shared memory (each 16-byte aligned): q; the
+// scores, then p, of the split's NL lanes [R][NL + 4]; m and l; what the
+// cluster's blocks write into this one (every split's (m, l) per head, its
+// live flag, its partial of the outputs this block sums); the ring of two
+// stages (K or V rows,
+// positions, live flags, int8 scales) and, for int8 pools, the dequantized
+// tile.
+struct DecSmem {
+  size_t q, s, m, l, st, flag, part, ring, stage, raw, pos, live, sc, t,
+      total;
+};
+
+__host__ __device__ inline size_t up16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+
+// outputs of a head group each block sums: block j takes outputs
+// [j n / S, (j + 1) n / S) of n = R d, at most this many
+__host__ __device__ inline int dec_share(const DecArgs& a) {
+  return (a.R * a.d + a.S - 1) / a.S;
+}
+
+// lanes of a split's score rows: its E blocks, rounded up to whole stages
+__host__ __device__ inline int dec_lanes(const DecArgs& a) {
+  return (a.E * a.bs + a.TK - 1) / a.TK * a.TK;
+}
+
+template <typename T, typename P>
+__host__ __device__ inline DecSmem dec_smem(const DecArgs& a) {
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
+  DecSmem o;
+  size_t at = 0, st = 0;
+  o.q = at;
+  at += up16((size_t)a.R * a.d * 4);
+  o.s = at;
+  at += up16((size_t)a.R * (dec_lanes(a) + 4) * 4);
+  o.m = at;
+  at += up16((size_t)a.R * 4);
+  o.l = at;
+  at += up16((size_t)a.R * 4);
+  o.st = at;  // every split's (m, l) per head [S][R][2]
+  at += up16((size_t)a.S * a.R * 8);
+  o.flag = at;  // every split's live flag [S]
+  at += up16((size_t)a.S * 4);
+  o.part = at;  // every split's partial of this block's outputs [S][CH]
+  at += up16((size_t)a.S * dec_share(a) * 4);
+  o.raw = st;
+  st += (size_t)a.TK * a.rowb;
+  o.pos = st;
+  st += up16((size_t)a.TK * 4);
+  o.live = st;
+  st += up16((size_t)a.TK * 4);
+  o.sc = st;
+  if (kQuant) st += up16((size_t)a.TK * 4);
+  o.ring = at;
+  o.stage = st;
+  at += 2 * st;
+  o.t = at;
+  if (kQuant) at += up16((size_t)a.TK * a.pitch * sizeof(T));
+  o.total = at;
+  return o;
+}
+
+// The heads a block, lanes a stage and row layouts for G heads a KV head at
+// head dim d (d % 8 == 0, d <= 128).
+template <typename T, typename P>
+DecArgs dec_plan(int G, int d) {
+  DecArgs a{};
+  a.d = d;
+  const int ng = DEC_NT / (d / 2);  // P.V row groups
+  a.R = G;  // the largest divisor of G that leaves a thread <= 8 P.V rows
+  while ((a.R + ng - 1) / ng > 8 || G % a.R) --a.R;
+  a.TK = d * (int)sizeof(T) <= 128 ? 64 : 32;
+  a.pitch = d + 16 / (int)sizeof(T);
+  a.rowb = std::is_same<P, int8_t>::value ? (int)up16(d)
+                                          : a.pitch * (int)sizeof(T);
+  a.chunk = 16;
+  return a;
+}
+
+__device__ __forceinline__ void cp_n(void* dst, const void* src, bool ok,
+                                     int n) {
+  if (n == 16)
+    dtx_mma::cp16(dst, src, ok);
+  else if (n == 8)
+    dtx_mma::cp8(dst, src, ok);
+  else
+    dtx_mma::cp4(dst, src, ok);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The first stage start >= w (stages TK lanes apart, from the split's first
+// lane) holding a live table entry in [w, min(w + TK, hi)); hi if none.
+// Every thread reads the same entries, so all agree without a barrier.
+__device__ __forceinline__ int next_live_lane(const int* trow, int bs, int hi,
+                                              int TK, int w) {
+  for (; w < hi; w += TK) {
+    const int j1 = (min(w + TK, hi) - 1) / bs;
+    for (int j = w / bs; j <= j1; ++j)
+      if (trow[j] >= 0) return w;
   }
-  for (int g = threadIdx.x; g < gs; g += blockDim.x) {
-    m_s[g] = DTX_NEG_INF;
-    l_s[g] = 0.f;
-  }
-  const int qp = q_pos[b];
-  const int* trow = tables + (size_t)b * nbps;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int j0 = 0; j0 < nbps; j0 += ch) {
-      if (!load_chunk(trow, j0, nbps, ch, blk_s, any_s)) continue;
-      stage_chunk<T, P>(kp, vp, ksc, vsc, blk_s, ch, kv, KV, d, bs,
-                        pass == 1, vec, k_s, v_s);
-      for (int i = threadIdx.x; i < cb; i += blockDim.x) {
-        const int blk = blk_s[i / bs];
-        ok_s[i] = blk >= 0 && pos_pool[(size_t)blk * bs + i % bs] <= qp;
-      }
-      __syncthreads();
-      chunk_rows<T, 1, 1, 1>(pass, gs, ch, bs, d, scale, blk_s, q_s, k_s,
-                             v_s, s_s, m_s, l_s, acc,
-                             [&](int, int ct) { return ok_s[ct] != 0; });
-      __syncthreads();
+  return hi;
+}
+
+// An int8 stage [TK][rowb] with its row scales -> the T tile [TK][pitch]:
+// round_T(f32(x) * scale), 8 values a thread at a time.
+template <typename T>
+__device__ __forceinline__ void dequant_stage(const unsigned char* raw,
+                                              const float* sc, T* tile,
+                                              const DecArgs& a) {
+  const int per = a.d / 8;
+  for (int u = threadIdx.x; u < a.TK * per; u += DEC_NT) {
+    const int r = u / per, c = (u - r * per) * 8;
+    const uint2 v = *reinterpret_cast<const uint2*>(raw + r * a.rowb + c);
+    const float s = sc[r];
+    float f[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // byte i of each word, sign-extended
+      f[i] = __fmul_rn((float)((int)(v.x << (24 - 8 * i)) >> 24), s);
+      f[4 + i] = __fmul_rn((float)((int)(v.y << (24 - 8 * i)) >> 24), s);
+    }
+    T* dst = tile + r * a.pitch + c;
+    if constexpr (std::is_same<T, float>::value) {
+      float4* o = reinterpret_cast<float4*>(dst);
+      o[0] = make_float4(f[0], f[1], f[2], f[3]);
+      o[1] = make_float4(f[4], f[5], f[6], f[7]);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(
+          dtx_mma::pack_bf16(f[0], f[1]), dtx_mma::pack_bf16(f[2], f[3]),
+          dtx_mma::pack_bf16(f[4], f[5]), dtx_mma::pack_bf16(f[6], f[7]));
     }
   }
-  for (int i = threadIdx.x; i < gs * d; i += blockDim.x)
-    out[q_base + i] = from_f<T>(acc[i]);
+}
+
+// Two consecutive T values as floats.
+template <typename T>
+struct Vec2;
+template <>
+struct Vec2<__nv_bfloat16> {
+  __device__ __forceinline__ static float2 ld(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+};
+template <>
+struct Vec2<float> {
+  __device__ __forceinline__ static float2 ld(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+};
+
+template <typename T, typename P>
+__global__ void __launch_bounds__(DEC_NT, 2) paged_decode_split_kernel(
+    const T* __restrict__ q, const P* __restrict__ kp,
+    const P* __restrict__ vp, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const int* __restrict__ tables,
+    const int* __restrict__ pos_pool, const int* __restrict__ q_pos,
+    T* __restrict__ out, const DecArgs a) {
+  namespace cg = cooperative_groups;
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
+  constexpr int W = Vec16<T>::W;  // T values in 16 bytes
+  const float kDead = __int_as_float(0xff800000);  // -inf
+  cg::cluster_group cluster = cg::this_cluster();
+  const int sp = blockIdx.x, b = blockIdx.z;  // split = rank in the cluster
+  const int G = a.H / a.KV, ngrp = G / a.R;
+  const int kv = blockIdx.y / ngrp;
+  const int h0 = kv * G + (blockIdx.y - kv * ngrp) * a.R;
+  const int R = a.R, d = a.d, TK = a.TK, bs = a.bs, S = a.S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const DecSmem L = dec_smem<T, P>(a);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw + L.q);
+  float* s_s = reinterpret_cast<float*>(smem_raw + L.s);  // [R][TK + 4]
+  float* m_s = reinterpret_cast<float*>(smem_raw + L.m);
+  float* l_s = reinterpret_cast<float*>(smem_raw + L.l);
+  float* st_s = reinterpret_cast<float*>(smem_raw + L.st);  // [S][R][2]
+  int* flag_s = reinterpret_cast<int*>(smem_raw + L.flag);  // [S]
+  float* part_s = reinterpret_cast<float*>(smem_raw + L.part);  // [S][CH]
+  const int* trow = tables + (size_t)b * a.nbps;
+  const int lo = sp * a.E * bs, hi = min(sp * a.E + a.E, a.nbps) * bs;
+  const int first = next_live_lane(trow, bs, hi, TK, lo);
+  const bool live = first < hi;
+
+  // Stage the TK lanes from ws into ring stage st: the K rows (and a
+  // prefetch of the V rows into L2), or the V rows; their positions, live
+  // flags and int8 scales.
+  auto fill = [&](int ws, int st, bool v_rows) {
+    unsigned char* base = smem_raw + L.ring + st * L.stage;
+    const P* pool = v_rows ? vp : kp;
+    const float* scp = v_rows ? vsc : ksc;
+    const int cpr = d * (int)sizeof(P) / a.chunk;  // copies a row
+    for (int u = tid; u < TK * cpr; u += DEC_NT) {
+      const int r = u / cpr, cc = (u - r * cpr) * a.chunk, w = ws + r;
+      const int blk = w < hi ? trow[w / bs] : -1;
+      const size_t off =
+          blk >= 0 ? (((size_t)blk * bs + w % bs) * a.KV + kv) * d : 0;
+      cp_n(base + L.raw + r * a.rowb + cc,
+           reinterpret_cast<const unsigned char*>(pool + off) + cc, blk >= 0,
+           a.chunk);
+      if (!v_rows && blk >= 0 && cc % 128 == 0)
+        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+            reinterpret_cast<const unsigned char*>(vp + off) + cc));
+    }
+    for (int r = tid; r < TK; r += DEC_NT) {
+      const int w = ws + r;
+      const int blk = w < hi ? trow[w / bs] : -1;
+      const size_t t = blk >= 0 ? (size_t)blk * bs + w % bs : 0;
+      reinterpret_cast<int*>(base + L.live)[r] = blk >= 0;
+      dtx_mma::cp4(base + L.pos + 4 * r, pos_pool + t, blk >= 0);
+      if (kQuant)
+        dtx_mma::cp4(base + L.sc + 4 * r, scp + t * a.KV + kv, blk >= 0);
+    }
+  };
+  // The T tile of ring stage st (int8 rows dequantized into L.t first).
+  auto tile = [&](int st) -> const T* {
+    unsigned char* base = smem_raw + L.ring + st * L.stage;
+    if constexpr (kQuant) {
+      dequant_stage<T>(base + L.raw,
+                       reinterpret_cast<const float*>(base + L.sc),
+                       reinterpret_cast<T*>(smem_raw + L.t), a);
+      __syncthreads();
+      return reinterpret_cast<const T*>(smem_raw + L.t);
+    }
+    return reinterpret_cast<const T*>(base + L.raw);
+  };
+
+  const int NL = dec_lanes(a), SP = NL + 4;  // score rows' lanes and pitch
+  const int qp = q_pos[b];
+  const int sw = tid % TK, srg = tid / TK, sstep = DEC_NT / TK;  // scores
+  // P.V: a thread owns columns c, c + 1 and heads rg, rg + ng, ...
+  const int hd = d / 2, ng = DEC_NT / hd, c = 2 * (tid % hd), rg = tid / hd;
+  const int rpt = (R + ng - 1) / ng;
+
+  // phase 0: the split's masked scores (masked live lanes NEG_INF — a fully
+  // masked slot gets uniform weights, as in the plain version — dead lanes
+  // and skipped stages -inf), then its (m, l) per head
+  if (live) {
+    fill(first, 0, false);
+    dtx_mma::cp_commit();
+    const size_t qb = ((size_t)b * a.H + h0) * d;
+    for (int i = tid; i < R * d; i += DEC_NT) q_s[i] = to_f<T>(q[qb + i]);
+    for (int i = tid; i < R * SP; i += DEC_NT) s_s[i] = kDead;
+    for (int it = 0, w0 = first;; ++it) {
+      const int st = it & 1;
+      dtx_mma::cp_wait<0>();
+      __syncthreads();  // stage it has landed; stage it - 1 is consumed
+      const int nx = next_live_lane(trow, bs, hi, TK, w0 + TK);
+      if (nx < hi) fill(nx, st ^ 1, false);
+      dtx_mma::cp_commit();
+      const unsigned char* base = smem_raw + L.ring + st * L.stage;
+      const bool on = reinterpret_cast<const int*>(base + L.live)[sw] != 0;
+      const bool ok =
+          on && reinterpret_cast<const int*>(base + L.pos)[sw] <= qp;
+      const T* krow = tile(st) + sw * a.pitch;
+      for (int r0 = srg; r0 < R; r0 += 2 * sstep) {
+        // heads r0 and r0 + sstep, each as two fmaf chains (the even and
+        // the odd 16-byte chunks of d), added at the end
+        float dot[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+        const float* qr[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+          qr[k] = q_s + min(r0 + k * sstep, R - 1) * d;
+        for (int c2 = 0; c2 < d; c2 += 2 * W)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c0 = c2 + h * W;
+            if (c0 >= d) break;
+            float kf[W];
+            Vec16<T>::cvt(*reinterpret_cast<const uint4*>(krow + c0), kf);
+#pragma unroll
+            for (int k = 0; k < 2; ++k)
+#pragma unroll
+              for (int i = 0; i < W / 4; ++i) {
+                const float4 x =
+                    reinterpret_cast<const float4*>(qr[k] + c0)[i];
+                float& t = dot[k][h];
+                t = fmaf(x.x, kf[4 * i], t);
+                t = fmaf(x.y, kf[4 * i + 1], t);
+                t = fmaf(x.z, kf[4 * i + 2], t);
+                t = fmaf(x.w, kf[4 * i + 3], t);
+              }
+          }
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int r = r0 + k * sstep;
+          if (r < R)
+            s_s[r * SP + w0 - lo + sw] =
+                !on ? kDead
+                    : ok ? (dot[k][0] + dot[k][1]) * a.scale : DTX_NEG_INF;
+        }
+      }
+      if (nx >= hi) break;
+      w0 = nx;
+    }
+    __syncthreads();  // the scores are all in; the ring is free
+    fill(first, 0, true);  // phase 1's first V stage flies over the barrier
+    dtx_mma::cp_commit();
+    for (int r = warp; r < R; r += DEC_NT / 32) {
+      const float* sr = s_s + r * SP;
+      float mx = kDead;
+      for (int w = lane; w < NL; w += 32) mx = fmaxf(mx, sr[w]);
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int w = lane; w < NL; w += 32) sum += expf(sr[w] - mx);
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        m_s[r] = mx;
+        l_s[r] = sum;
+      }
+    }
+  } else {
+    for (int r = tid; r < R; r += DEC_NT) {
+      m_s[r] = DTX_NEG_INF;
+      l_s[r] = 0.f;
+    }
+  }
+  __syncthreads();
+  // into every block of the cluster: this split's (m, l) and live flag
+  for (int i = tid; i < S * R; i += DEC_NT) {
+    const int j = i / R, r = i - j * R;
+    *reinterpret_cast<float2*>(cluster.map_shared_rank(st_s, j) +
+                               (sp * R + r) * 2) = make_float2(m_s[r], l_s[r]);
+  }
+  if (tid < S) cluster.map_shared_rank(flag_s, tid)[sp] = live;
+  cluster.sync();
+
+  // phase 1: the merge, in split order (a warp a head: the max over the
+  // splits, exact in any order; then l in split order), p rounded to T
+  // over the stored scores, then the split's partial over its V stages
+  if (live) {
+    for (int r = warp; r < R; r += DEC_NT / 32) {
+      // lane s takes split s's (m, l); S <= 32
+      const float2 e = lane < S ? *reinterpret_cast<const float2*>(
+                                      st_s + (lane * R + r) * 2)
+                                : make_float2(DTX_NEG_INF, 0.f);
+      const float mx = warp_max(e.x);
+      // each split's l * exp(m_s - m), summed in split order (scratch: the
+      // head's score row, rewritten only after this merge)
+      float* tm = s_s + r * SP;
+      const float own = tm[lane];
+      tm[lane] = e.y * expf(e.x - mx);
+      __syncwarp();
+      if (lane == 0) {
+        float ll = 0.f;
+        for (int s = 0; s < S; ++s) ll += tm[s];
+        m_s[r] = mx;
+        l_s[r] = fmaxf(ll, 1e-30f);
+      }
+      __syncwarp();
+      tm[lane] = own;
+    }
+    __syncthreads();
+    for (int i = tid; i < R * NL; i += DEC_NT) {
+      const int r = i / NL, w = i - r * NL;
+      float* e = s_s + r * SP + w;
+      *e = round_to<T>(expf(*e - m_s[r]) / l_s[r]);
+    }
+    float acc[8][2][2];  // [head][column][lanes w % 4 < 2, >= 2]
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      acc[k][0][0] = acc[k][0][1] = acc[k][1][0] = acc[k][1][1] = 0.f;
+    for (int it = 0, w0 = first;; ++it) {
+      const int st = it & 1;
+      dtx_mma::cp_wait<0>();
+      __syncthreads();  // stage it has landed; stage it - 1 is consumed
+      const int nx = next_live_lane(trow, bs, hi, TK, w0 + TK);
+      if (nx < hi) fill(nx, st ^ 1, true);
+      dtx_mma::cp_commit();
+      const T* vt = tile(st);
+      if (rg < ng) {
+        const float* ps = s_s + w0 - lo;
+        for (int w = 0; w < TK; w += 4) {
+          float2 v[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            v[i] = Vec2<T>::ld(vt + (w + i) * a.pitch + c);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            if (k >= rpt) break;
+            const float4 p = *reinterpret_cast<const float4*>(
+                ps + min(rg + k * ng, R - 1) * SP + w);
+            acc[k][0][0] = fmaf(p.x, v[0].x, acc[k][0][0]);
+            acc[k][1][0] = fmaf(p.x, v[0].y, acc[k][1][0]);
+            acc[k][0][1] = fmaf(p.z, v[2].x, acc[k][0][1]);
+            acc[k][1][1] = fmaf(p.z, v[2].y, acc[k][1][1]);
+            acc[k][0][0] = fmaf(p.y, v[1].x, acc[k][0][0]);
+            acc[k][1][0] = fmaf(p.y, v[1].y, acc[k][1][0]);
+            acc[k][0][1] = fmaf(p.w, v[3].x, acc[k][0][1]);
+            acc[k][1][1] = fmaf(p.w, v[3].y, acc[k][1][1]);
+          }
+        }
+      }
+      if (nx >= hi) break;
+      w0 = nx;
+    }
+    // each output of the partial into the block that sums it
+    const int n = R * d, ch = dec_share(a);
+    if (rg < ng)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int r = rg + k * ng;
+        if (k >= rpt || r >= R) continue;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = r * d + c + e, j = ((i + 1) * S - 1) / n;
+          cluster.map_shared_rank(part_s, j)[sp * ch + i - j * n / S] =
+              acc[k][e][0] + acc[k][e][1];
+        }
+      }
+  }
+  cluster.sync();  // the pushes have landed; nothing reads another block
+
+  // the sum: this block's outputs [sp n / S, (sp + 1) n / S) of the
+  // group's n = R d, each over the live splits in split order
+  const int n = R * d, ch = dec_share(a), i0 = sp * n / S;
+  const int i1 = (sp + 1) * n / S;
+  const size_t ob = ((size_t)b * a.H + h0) * d;
+  for (int i = i0 + tid; i < i1; i += DEC_NT) {
+    float sum = 0.f;
+    for (int s = 0; s < S; ++s)
+      if (flag_s[s]) sum += part_s[s * ch + i - i0];
+    out[ob + i] = from_f<T>(sum);
+  }
 }
 
 // ---------------------------------------------------------------- K8
@@ -800,13 +1234,6 @@ int set_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-size_t decode_smem(int gs, int ch, int bs, int d) {
-  const size_t cb = (size_t)ch * bs;
-  return sizeof(float) * (2 * (size_t)gs * d + cb * (d + 1) + cb * d +
-                          (size_t)gs * cb + 2 * (size_t)gs) +
-         sizeof(int) * (cb + ch + 1);
-}
-
 size_t multitoken_smem(int R, int tq, int ch, int bs, int d) {
   const size_t cb = (size_t)ch * bs;
   return sizeof(float) * (2 * (size_t)R * d + cb * (d + 1) + cb * d +
@@ -821,27 +1248,75 @@ bool vec_ok(const void* a, const void* b, int d) {
          (uintptr_t)b % 16 == 0;
 }
 
+// K7: one launch, a cluster of the S split blocks of each (slot, head
+// group).
 template <typename T, typename P>
 int launch_decode(const void* q, const void* k_pool, const void* v_pool,
                   const float* k_scale, const float* v_scale,
                   const int* tables, const int* pos_pool, const int* q_pos,
                   void* out, int B, int H, int KV, int d, int bs, int nbps,
-                  float scale, cudaStream_t stream) {
-  const int G = H / KV;
-  // fewer heads per block until the grid fills the card
-  int gs = G;
-  while (gs % 2 == 0 && (long)B * KV * (G / gs) < 256) gs /= 2;
-  int ch = DTX_MAX_CHUNK;
-  while (ch > 1 && decode_smem(gs, ch, bs, d) > kSmemCap) ch /= 2;
-  const size_t smem = decode_smem(gs, ch, bs, d);
-  int err = set_smem(paged_decode_kernel<T, P>, smem);
-  if (err) return err;
-  dim3 grid(KV * (G / gs), B);
-  paged_decode_kernel<T, P><<<grid, 128, smem, stream>>>(
-      (const T*)q, (const P*)k_pool, (const P*)v_pool, k_scale, v_scale,
-      tables, pos_pool, q_pos, (T*)out, H, KV, d, bs, nbps, gs, ch, scale,
-      vec_ok<P>(k_pool, v_pool, d));
+                  int S, int E, float scale, cudaStream_t stream) {
+  if (d % 8 || d > DEC_NT || KV <= 0 || H % KV || S < 1 ||
+      S > DEC_MAX_SPLITS || E < 1)
+    return (int)cudaErrorInvalidValue;
+  DecArgs a = dec_plan<T, P>(H / KV, d);
+  a.H = H, a.KV = KV, a.bs = bs, a.nbps = nbps, a.S = S, a.E = E;
+  a.scale = scale;
+  // the widest copy that a pool row and the pools' alignment allow
+  const int rb = d * (int)sizeof(P);
+  while (a.chunk > 4 && (rb % a.chunk || (uintptr_t)k_pool % a.chunk ||
+                         (uintptr_t)v_pool % a.chunk))
+    a.chunk /= 2;
+  if (rb % a.chunk || (uintptr_t)k_pool % a.chunk ||
+      (uintptr_t)v_pool % a.chunk)
+    return (int)cudaErrorMisalignedAddress;
+  auto kern = paged_decode_split_kernel<T, P>;
+  const size_t smem = dec_smem<T, P>(a).total;
+  if (int e = set_smem(kern, smem)) return e;
+  if (S > 8)
+    if (int e = (int)cudaFuncSetAttribute(
+            kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1))
+      return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, KV * (H / KV / a.R), B);
+  cfg.blockDim = dim3(DEC_NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (int e = (int)cudaLaunchKernelEx(
+          &cfg, kern, (const T*)q, (const P*)k_pool, (const P*)v_pool,
+          k_scale, v_scale, tables, pos_pool, q_pos, (T*)out, a))
+    return e;
   return (int)cudaGetLastError();
+}
+
+// What the bf16 K7 takes of an SM for G heads a KV head at head dim d:
+// registers, local (spill) bytes per thread, dynamic shared bytes per block
+// and resident blocks per SM (out[0..3] over bf16 pools, out[4..7] over
+// int8 pools).
+template <typename P>
+int decode_resources_p(int G, int d, int* out) {
+  const DecArgs a = dec_plan<__nv_bfloat16, P>(G, d);
+  auto kern = paged_decode_split_kernel<__nv_bfloat16, P>;
+  const size_t smem = dec_smem<__nv_bfloat16, P>(a).total;
+  cudaFuncAttributes fa;
+  if (int e = (int)cudaFuncGetAttributes(&fa, kern)) return e;
+  if (int e = set_smem(kern, smem)) return e;
+  int blocks = 0;
+  if (int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kern, DEC_NT, smem))
+    return e;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  return 0;
 }
 
 // The bf16 K8 on tensor cores: KS key splits (4 at d <= 64; 2 at d = 128,
@@ -979,28 +1454,35 @@ extern "C" int dtx_paged_multitoken_resources(int d, int G, int tq,
   return multitoken_resources(d, G, tq, out);
 }
 
+extern "C" int dtx_paged_decode_resources(int d, int G, int* out) {
+  if (d % 8 || d > DEC_NT || G < 1) return (int)cudaErrorInvalidValue;
+  if (int e = decode_resources_p<__nv_bfloat16>(G, d, out)) return e;
+  return decode_resources_p<int8_t>(G, d, out + 4);
+}
+
 // Pools in the compute dtype (SUFFIX bf16/f32) and int8 pools with their
 // scale pools (i8_bf16/i8_f32).
 #define DTX_PAGED_ENTRIES(SUFFIX, T)                                          \
   extern "C" int dtx_paged_decode_##SUFFIX(                                   \
       const void* q, const void* k_pool, const void* v_pool,                  \
       const void* tables, const void* pos_pool, const void* q_pos,            \
-      void* out, int B, int H, int KV, int d, int bs, int nbps, float scale,  \
-      void* stream) {                                                         \
+      void* out, int B, int H, int KV, int d, int bs, int nbps, int S, int E, \
+      float scale, void* stream) {                                            \
     return launch_decode<T, T>(                                               \
         q, k_pool, v_pool, nullptr, nullptr, (const int*)tables,              \
         (const int*)pos_pool, (const int*)q_pos, out, B, H, KV, d, bs, nbps,  \
-        scale, (cudaStream_t)stream);                                         \
+        S, E, scale, (cudaStream_t)stream);                                   \
   }                                                                           \
   extern "C" int dtx_paged_decode_i8_##SUFFIX(                                \
       const void* q, const void* k_pool, const void* v_pool,                  \
       const void* k_scale, const void* v_scale, const void* tables,           \
       const void* pos_pool, const void* q_pos, void* out, int B, int H,       \
-      int KV, int d, int bs, int nbps, float scale, void* stream) {           \
+      int KV, int d, int bs, int nbps, int S, int E, float scale,             \
+      void* stream) {                                                         \
     return launch_decode<T, int8_t>(                                          \
         q, k_pool, v_pool, (const float*)k_scale, (const float*)v_scale,      \
         (const int*)tables, (const int*)pos_pool, (const int*)q_pos, out, B,  \
-        H, KV, d, bs, nbps, scale, (cudaStream_t)stream);                     \
+        H, KV, d, bs, nbps, S, E, scale, (cudaStream_t)stream);               \
   }                                                                           \
   extern "C" int dtx_paged_multitoken_##SUFFIX(                               \
       const void* q, const void* k_pool, const void* v_pool,                  \

@@ -1,5 +1,6 @@
 // Quantized matmuls for QLoRA: the nf4 product (K4), its transposed
-// backward (K5) and the int8 w8a16 product (K6).
+// backward (K5) and the int8 w8a16 product (K6) in f32. The bf16 K6, the
+// one training runs, is int8_gemm.cu's wgmma kernel.
 //
 // Replaces (TPU kernels):
 //   K4  datatunerx_tpu/ops/pallas_quant.py::_nf4_kernel    y  = x @ W
@@ -37,18 +38,19 @@
 //   layout the tensor cores' B operand reads. K4 reads it straight from the
 //   packed bytes (the packed rows ARE W^T); K5 reads the same bytes with the
 //   roles of the axes swapped (its output columns are W's input dimension)
-//   and transposes while staging; K6 transposes q's [K, N] rows. The Pallas
-//   kernels' chunk-major host transposes and 16-way select-sum codebook
-//   are TPU workarounds: here the codebook is a 16-entry table in shared
-//   memory and no operand is rearranged on the host.
-// - bf16: each of 8 warps computes a 64 x 32 sub-tile with
+//   and transposes while staging; the f32 K6 transposes q's [K, N] rows.
+//   The Pallas kernels' chunk-major host transposes and 16-way select-sum
+//   codebook are TPU workarounds: here the codebook is a 16-entry table in
+//   shared memory and no operand is rearranged on the host.
+// - bf16 (K4, K5): each of 8 warps computes a 64 x 32 sub-tile with
 //   mma.sync.m16n8k16 (bf16 in, f32 accumulate); the shared-memory row
 //   pitch of 72 elements makes the fragment loads bank-conflict free.
-//   f32: CUDA-core FMAs, 8 x 8 outputs per thread (the f32 variant serves
-//   tests; training runs bf16).
+//   f32 (K4, K5 and K6): CUDA-core FMAs, 8 x 8 outputs per thread (the f32
+//   variant serves tests; training runs bf16).
 // - Rows past M, channels past N and contraction past K load as zeros and
 //   are never stored, so no operand needs padding.
-// wgmma, TMA and a deeper pipeline are later work.
+// wgmma, TMA and a deeper pipeline for K4/K5 are later work (the bf16 K6
+// has them).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -416,13 +418,15 @@ int launch(const void* a, const Src& src, void* out, const float* colscale,
       const float* meta, void* dx, int M, int K, int N, cudaStream_t st) {    \
     Nf4T src{packed, scale_q, meta, N, K / BK};                               \
     return launch<T>(g, src, dx, nullptr, M, K, N, st);                       \
-  }                                                                           \
-  extern "C" int dtx_int8_matmul_##SUFFIX(                                    \
-      const void* x, const int8_t* q, const float* scale, void* out, int M,   \
-      int K, int N, cudaStream_t st) {                                        \
-    Int8Src src{q, N, K};                                                     \
-    return launch<T>(x, src, out, scale, M, N, K, st);                        \
   }
 
 DTX_QUANT_ENTRIES(bf16, __nv_bfloat16)
 DTX_QUANT_ENTRIES(f32, float)
+
+// K6 in f32 (the bf16 K6 is int8_gemm.cu's wgmma kernel)
+extern "C" int dtx_int8_matmul_f32(const void* x, const int8_t* q,
+                                   const float* scale, void* out, int M,
+                                   int K, int N, cudaStream_t st) {
+  Int8Src src{q, N, K};
+  return launch<float>(x, src, out, scale, M, N, K, st);
+}

@@ -140,8 +140,8 @@ def _declare(lib: ctypes.CDLL):
     for dt in ("bf16", "f32"):
         fn = getattr(lib, f"dtx_paged_decode_{dt}")
         # q, k_pool, v_pool, tables, pos_pool, q_pos, out,
-        # B, H, KV, d, bs, nbps, scale, stream
-        fn.argtypes = [_P] * 7 + [_I] * 6 + [_F, _P]
+        # B, H, KV, d, bs, nbps, splits, entries per split, scale, stream
+        fn.argtypes = [_P] * 7 + [_I] * 8 + [_F, _P]
         fn.restype = _I
         fn = getattr(lib, f"dtx_paged_multitoken_{dt}")
         # q, k_pool, v_pool, tables, allow, out,
@@ -150,7 +150,7 @@ def _declare(lib: ctypes.CDLL):
         fn.restype = _I
         # the int8-pool instantiations: k_scale, v_scale after v_pool
         fn = getattr(lib, f"dtx_paged_decode_i8_{dt}")
-        fn.argtypes = [_P] * 9 + [_I] * 6 + [_F, _P]
+        fn.argtypes = [_P] * 9 + [_I] * 8 + [_F, _P]
         fn.restype = _I
         fn = getattr(lib, f"dtx_paged_multitoken_i8_{dt}")
         fn.argtypes = [_P] * 8 + [_I] * 8 + [_F, _P]
@@ -191,6 +191,12 @@ def _declare(lib: ctypes.CDLL):
     fn.restype = _I
     fn = lib.dtx_paged_multitoken_resources  # d, G, tq, int out[8]
     fn.argtypes = [_I] * 3 + [_P]
+    fn.restype = _I
+    fn = lib.dtx_paged_decode_resources  # d, G, int out[8]
+    fn.argtypes = [_I] * 2 + [_P]
+    fn.restype = _I
+    fn = lib.dtx_int8_matmul_resources  # int out[4]
+    fn.argtypes = [_P]
     fn.restype = _I
     fn = lib.dtx_fused_sample
     # x, temps, us, out, S, Vp, greedy, stream

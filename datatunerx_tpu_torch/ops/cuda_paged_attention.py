@@ -4,13 +4,17 @@
 K7 (one-token decode) and K8 (multi-token chunks) are hand-written CUDA in
 ``csrc/paged_attention.cu`` (the bf16 K8 on tensor cores, the rest on CUDA
 cores); the design note there says what bounds them and why they keep the
-reference's two passes. Pools are q's dtype (bf16/f32), or
+reference's two passes. K7 splits each slot's table (``decode_splits``)
+into the blocks of one thread-block cluster per head group, which exchange
+the splits' (m, l), merged in split order, and their partial outputs,
+summed in split order, through distributed shared memory: one launch a
+call, no workspace. Pools are q's dtype (bf16/f32), or
 int8 with f32 scale pools ``[NB+1, bs, KV]``: the int8 instantiations
 dequantize each staged tile as ``kv_dequantize`` does (f32 product, rounded
-through q's dtype), so they read what the gather path reads. Head dims that
-are not a multiple of 16 (int8), 8 (bf16) or 4 (f32) take the kernels'
-element-wise staging loop instead of 16-byte loads. Each wrapper below
-launches its
+through q's dtype), so they read what the gather path reads. K7 takes
+head dims 8..128 in steps of 8; in K8 head dims that are not a multiple
+of 16 (int8), 8 (bf16) or 4 (f32) take an element-wise staging loop
+instead of 16-byte loads. Each wrapper below launches its
 kernel for CUDA tensors (or raises) and runs the kernel's plain PyTorch
 version, which repeats the kernel's arithmetic block by block, only for CPU
 tensors — the port's counterpart of Pallas interpret mode. Both read the
@@ -18,8 +22,10 @@ pools through the tables in place; the gathered view of the gather path
 (``ops/attention.kv_cache_update`` + ``xla_attention``) never exists.
 
 ``paged_decode_attention.launches`` and ``paged_multitoken_attention.launches``
-count kernel launches (plain-version calls are not counted);
-``.int8_launches`` counts those of them that ran the int8 instantiation.
+count the wrapper calls that launched their kernels (plain-version calls
+are not counted); ``.int8_launches`` counts those of them that ran the
+int8 instantiation, and ``paged_decode_attention.last_split`` holds the
+``(splits, entries per split)`` of K7's last launch.
 """
 
 from __future__ import annotations
@@ -217,23 +223,50 @@ def paged_decode_attention(
     _require(tuple(q_positions.shape) == (B,)
              and q_positions.device == q.device,
              f"q_positions must be [B={B}] on {q.device}")
+    _require(d % 8 == 0 and 8 <= d <= DECODE_MAX_HEAD_DIM,
+             f"the paged decode kernel takes head dims 8..."
+             f"{DECODE_MAX_HEAD_DIM} in steps of 8, got {d}")
     q = q.contiguous()
     qpos = q_positions.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    nbps = tables.shape[1]
+    splits, per_split = decode_splits(
+        B, KV, nbps, bs,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
     code = _kernel("decode", q, quant)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         *_scale_ptrs(quant, k_scale, v_scale), tables.data_ptr(),
-        pos_pool.data_ptr(), qpos.data_ptr(), out.data_ptr(), B, H, KV, d, bs,
-        tables.shape[1], softmax_scale(d),
+        pos_pool.data_ptr(), qpos.data_ptr(), out.data_ptr(), B, H, KV, d,
+        bs, nbps, splits, per_split, softmax_scale(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "paged decode kernel (K7)")
     paged_decode_attention.launches += 1
     paged_decode_attention.int8_launches += quant
+    paged_decode_attention.last_split = (splits, per_split)
     return out
 
 
 paged_decode_attention.launches = 0
 paged_decode_attention.int8_launches = 0
+paged_decode_attention.last_split = None  # (splits, entries), last launch
+
+DECODE_MAX_HEAD_DIM = 128
+DECODE_MAX_SPLITS = 16  # blocks a thread-block cluster
+_MIN_SPLIT_LANES = 16
+
+
+def decode_splits(B: int, KV: int, nbps: int, bs: int, sms: int):
+    """K7's split of a slot's table on a card of ``sms`` streaming
+    multiprocessors: ``(splits, entries per split)``. Split s takes table
+    entries ``[s * E, min((s + 1) * E, nbps))``, so the splits cover every
+    entry once, in order, each at least one table block and
+    ``_MIN_SPLIT_LANES`` lanes. The count aims at two thread blocks an SM
+    over the ``B * KV * splits`` blocks, at most ``DECODE_MAX_SPLITS`` (the
+    splits of a head group form one cluster)."""
+    want = min(DECODE_MAX_SPLITS, max(1, -(-2 * sms // max(1, B * KV))))
+    per = max(1, -(-nbps // want), -(-_MIN_SPLIT_LANES // max(1, bs)))
+    per = min(per, max(1, nbps))
+    return max(1, -(-nbps // per)), per
 
 
 def multitoken_tile(T: int, G: int) -> int:

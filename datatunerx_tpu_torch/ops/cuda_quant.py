@@ -4,7 +4,9 @@
 K4 (``nf4_matmul``: ``x @ dequant_nf4(W)``), K5 (``nf4_matmul_t``:
 ``g @ dequant_nf4(W)ᵀ``, the dx product of the backward, with W kept packed)
 and K6 (``int8_matmul``: ``(x @ q) * scale``) are hand-written CUDA in
-``csrc/quant.cu``; the design note there says what bounds them. Each
+``csrc/quant.cu``, the bf16 K6 in ``csrc/int8_gemm.cu`` (TMA and ``wgmma``;
+its TMA descriptors are encoded per call); the design notes there say what
+bounds them. Each
 wrapper launches its kernel for CUDA tensors (or raises) and runs the
 kernel's plain PyTorch version — dequantize, then one f32-accumulated
 ``torch.matmul``, in the reference's rounding order — only for CPU tensors.

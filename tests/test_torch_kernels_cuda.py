@@ -22,7 +22,10 @@ K8 runs on tensor cores and rounds p to bf16 where the plain version does,
 so it too differs only by the order of its f32 sums. The fused
 LoRA matmul (K10): float32 atol=rtol=1e-4, bf16 atol 2^-8 / rtol 2^-7 (the
 kernel and its plain version round at the same points and differ only in
-the order of their f32 sums)."""
+the order of their f32 sums). The split-table K7 holds K7's tolerances in
+both dtypes (its splits merge (m, l) and sum the partials in split order,
+rounding p and the output where the plain version does), and two calls on
+the same inputs agree bit for bit; the bf16 K6 on ``wgmma`` holds K6's."""
 
 import pytest
 import torch
@@ -180,25 +183,83 @@ def test_multitoken_kernel_at_tinyllama_heads(cuda, pools, T):
                                **TOL[torch.bfloat16])
 
 
-def test_bf16_attention_kernels_do_not_spill(cuda):
-    """The bf16 K1 and K8 (tensor cores) as the compiler built them keep
-    every value in registers: 0 spill bytes at each head dim."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pools", ["native", "int8"])
+@pytest.mark.parametrize("ctx", [1, 16, 17, 1000, 4096])
+def test_decode_kernel_at_tinyllama_heads(cuda, ctx, pools, dtype):
+    """The split-table K7 at tinyllama-1.1b's heads (G = 8, d = 64, 16-token
+    blocks): a slot of ``ctx`` cached tokens with a hole in its table (a -1
+    between live entries) where it spans three blocks or more, an empty
+    slot and a short one, over pools in q's dtype and int8 pools. Two calls
+    agree bit for bit (the splits merge in a fixed order, no atomics)."""
+    gen = torch.Generator().manual_seed(ctx)
+    lens = [ctx, 0, max(1, ctx // 3)]
+    tables, pos, k, v = _pool(lens, 256, 16, 4, 64, torch.float32, cuda, gen)
+    if ctx > 32:
+        tables[0, 1] = -1  # skipped, never read
+    q = torch.randn((3, 32, 64), generator=gen).to(dtype).to(cuda)
+    qpos = torch.tensor([n - 1 if n else 0 for n in lens], dtype=torch.int32,
+                        device=cuda)
+    pools_ = ((k.to(dtype), v.to(dtype), None, None) if pools == "native"
+              else _int8_pools(k, v))
+    before = cpa.paged_decode_attention.launches
+    got = cpa.paged_decode_attention(q, *pools_, tables, pos, qpos)
+    again = cpa.paged_decode_attention(q, *pools_, tables, pos, qpos)
+    assert cpa.paged_decode_attention.launches == before + 2
+    want = cpa._plain_decode(q, pools_[0], pools_[1], tables, pos, qpos,
+                             pools_[2], pools_[3])
+    assert torch.equal(got, again)
+    assert torch.isfinite(got.float()).all()
+    assert not got[1].any()  # the empty slot writes zeros
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def _resources(fn, n, *args):
     import ctypes
 
     from datatunerx_tpu_torch.ops import _build
 
-    lib = _build.library()
+    r = (ctypes.c_int * n)()
+    _build.check(getattr(_build.library(), fn)(*args, ctypes.addressof(r)),
+                 fn)
+    return list(r)
+
+
+def test_bf16_attention_kernels_do_not_spill(cuda):
+    """The bf16 K1 and K8 (tensor cores), the split K7 (over bf16 and int8
+    pools) and the wgmma K6 as the compiler built them keep
+    every value in registers: 0 spill bytes (at each head dim for K1/K8)."""
     for d in (16, 32, 64, 128):
-        r = (ctypes.c_int * 4)()
-        _build.check(lib.dtx_flash_fwd_resources(d, ctypes.addressof(r)),
-                     "flash forward resources")
-        assert r[1] == 0 and r[3] >= 1, (d, list(r))
-        r = (ctypes.c_int * 8)()
-        _build.check(lib.dtx_paged_multitoken_resources(
-            d, 8, cpa.multitoken_tile(256, 8), ctypes.addressof(r)),
-            "paged multi-token resources")
-        assert r[1] == 0 and r[5] == 0 and r[3] >= 1 and r[7] >= 1, \
-            (d, list(r))
+        r = _resources("dtx_flash_fwd_resources", 4, d)
+        assert r[1] == 0 and r[3] >= 1, (d, r)
+        r = _resources("dtx_paged_multitoken_resources", 8, d, 8,
+                       cpa.multitoken_tile(256, 8))
+        assert r[1] == 0 and r[5] == 0 and r[3] >= 1 and r[7] >= 1, (d, r)
+    r = _resources("dtx_paged_decode_resources", 8, 64, 8)
+    assert r[1] == 0 and r[5] == 0 and r[3] >= 1 and r[7] >= 1, r
+    r = _resources("dtx_int8_matmul_resources", 4)
+    assert r[1] == 0 and r[3] >= 1, r
+
+
+def test_int8_matmul_runs_on_wgmma(cuda):
+    """The bf16 K6 as built holds warpgroup tensor-core instructions
+    (``HGMMA`` in its SASS), read with the toolkit's cuobjdump."""
+    import os
+    import shutil
+    import subprocess
+
+    from datatunerx_tpu_torch.ops import _build
+
+    _build.library()
+    lib = next(_build.BUILD_DIR.glob(
+        f"libdtx_kernels-{_build._digest(_build._sources())}.so"))
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = sass.split("Function : ")
+    k6 = [f for f in funcs if "int8_gemm_wgmma" in f.splitlines()[0]]
+    assert k6 and all("HGMMA" in f for f in k6)
 
 
 LORA_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
@@ -331,6 +392,26 @@ def test_sampling_kernel_matches_plain(cuda, mode):
 
 QUANT_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
              torch.bfloat16: dict(atol=2**-8, rtol=2**-7)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 200, 8191])
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 256), (2048, 5632),
+                                 (5632, 2048)])
+def test_int8_kernel_at_projection_shapes(cuda, dtype, M, K, N):
+    """K6 at every projection shape of tinyllama-1.1b, with ragged row
+    counts (the bf16 K6's TMA zero-fills the rows past M)."""
+    from datatunerx_tpu_torch.ops import cuda_quant as cq
+    from datatunerx_tpu_torch.ops import quant as tq
+
+    gen = torch.Generator().manual_seed(M + K + N)
+    q8 = tq.quantize_int8((torch.randn((K, N), generator=gen) * 0.02).to(cuda))
+    x = torch.randn((M, K), generator=gen).to(dtype).to(cuda)
+    got = cq.int8_matmul(x, q8["q"], q8["scale"])
+    want = tq.matmul_int8(x, q8["q"], q8["scale"])
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **QUANT_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
