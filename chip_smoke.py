@@ -64,8 +64,8 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
 11. prints one JSON ``{"kernels": [...]}`` line (K7, K8, K7-int8, K8-int8,
     K9, K10, K1-K6; K7's entries add the splits its wrapper launched, the
     CUDA kernels one call launched as torch.profiler traced them, and its
-    resources; K6's its resources) and, last, one JSON line ``{"ok": true,
-    "device": {...}}``.
+    resources; K4's, K5's and K6's their resources) and, last, one JSON
+    line ``{"ok": true, "device": {...}}``.
 
 Three more serving phases run right after phase 4, before any training
 phase (a decode step is bound by the host's launch rate, and the serving
@@ -84,12 +84,13 @@ have run in the process):
 
 The bf16 K1-K3 and the bf16 K8 (over bf16 and over int8 pools) are
 tensor-core kernels (``mma.sync`` bf16 -> f32, fed by ``cp.async``; the
-skeleton of ``csrc/mma_sm90.cuh``); the bf16 K6 runs on ``wgmma`` fed by
-TMA (``csrc/int8_gemm.cu``); K7 is a split-table decode on CUDA cores (one
+skeleton of ``csrc/mma_sm90.cuh``); the bf16 K4/K5 (``csrc/nf4_gemm.cu``)
+and K6 (``csrc/int8_gemm.cu``) run on ``wgmma`` fed by TMA (the skeleton of
+``csrc/wgmma_sm90.cuh``); K7 is a split-table decode on CUDA cores (one
 launch a call: a thread-block cluster per head group); the f32
 instantiations and the rest run on CUDA cores. Phase 2 prints K8's
 registers, spill bytes, shared bytes and blocks per SM at the smoke shape,
-the same for K7 (with its splits) and K6, requires two K7 calls on the
+the same for K7 (with its splits) and K4-K6, requires two K7 calls on the
 same inputs to agree bit for bit, and also holds K1 (flash forward), K2
 (dQ) and K3 (dK/dV) against their plain versions at the training shapes
 (B=8 H=32 KV=4 T=1024 d=64, causal, bf16), on a packed batch and at d=128,
@@ -798,13 +799,14 @@ def check_quant(torch):
     from datatunerx_tpu_torch.ops import cuda_quant as cq
     from datatunerx_tpu_torch.ops import quant as tq
 
+    # name, TPU kernel, launch counter, bf16 source, its resources' offset
     meta = {
         "K4": ("K4 nf4_matmul", "datatunerx_tpu/ops/pallas_quant.py:109",
-               cq.nf4_matmul),
+               cq.nf4_matmul, "nf4_gemm.cu", 0),
         "K5": ("K5 nf4_matmul_t", "datatunerx_tpu/ops/pallas_quant.py:210",
-               cq.nf4_matmul_t),
+               cq.nf4_matmul_t, "nf4_gemm.cu", 4),
         "K6": ("K6 int8_matmul", "datatunerx_tpu/ops/pallas_quant.py:40",
-               cq.int8_matmul),
+               cq.int8_matmul, "int8_gemm.cu", 8),
     }
     timer = Timer(torch)
     M = QUANT_M
@@ -865,22 +867,20 @@ def check_quant(torch):
                 + ", ".join(parts))
             del wd, w8
         del qw, q8, x, g
-    k6 = resources("dtx_int8_matmul_resources", 4)
-    log("  bf16 K6 (wgmma, 128 x 256 tiles, 384 threads): "
-        + describe_resources(k6, (("", 0),)))
+    r = (resources("dtx_nf4_matmul_resources", 8)
+         + resources("dtx_int8_matmul_resources", 4))
+    log("  bf16 K4/K5/K6 (TMA + wgmma, 128 x 256 tiles, 384 threads): "
+        + describe_resources(r, (("K4", 0), ("K5", 4), ("K6", 8))))
     entries = []
-    for key, (name, replaces, counter) in meta.items():
+    for key, (name, replaces, counter, source, i) in meta.items():
         t = tot[key]
         entries.append({
             "name": name, "route": "cuda",
-            "source": ("datatunerx_tpu_torch/csrc/int8_gemm.cu (bf16), "
-                       "datatunerx_tpu_torch/csrc/quant.cu (f32)"
-                       if key == "K6" else
-                       "datatunerx_tpu_torch/csrc/quant.cu"),
+            "source": (f"datatunerx_tpu_torch/csrc/{source} (bf16), "
+                       "datatunerx_tpu_torch/csrc/quant.cu (f32)"),
             "replaces": replaces, "counter": counter,
-            **({"extra": {"registers": k6[0], "spill_bytes": k6[1],
-                          "shared_bytes": k6[2], "blocks_per_sm": k6[3]}}
-               if key == "K6" else {}),
+            "extra": {"registers": r[i], "spill_bytes": r[i + 1],
+                      "shared_bytes": r[i + 2], "blocks_per_sm": r[i + 3]},
             "max_abs_err": t["err"],
             "tolerance": "atol 2^-8 + rtol 2^-7 (bf16), 1e-4 + 1e-4 (f32), "
                          "all four shapes",
@@ -1244,7 +1244,9 @@ QLORA_STEPS = 6  # steps 2-3 profiled; 4-6 timed
 INT8_STEPS = 6  # steps 2-3 profiled; 4-6 timed
 TRAIN_SHAPE = dict(batch=8, block=1024)
 LAYERS = 22
-# the quant kernels first: their (mangled) names also hold "gemm"
+# the quant kernels first: their (mangled) names also hold "gemm"; K4 and K5
+# are told apart by their role template argument (Nf4Fwd, Nf4T), in the bf16
+# nf4_gemm_wgmma and the f32 qgemm alike
 KERNEL_GROUPS = (("K4 nf4", ("nf4fwd",)), ("K5 nf4 dx", ("nf4t",)),
                  ("K6 int8", ("int8src", "int8_gemm")),
                  ("flash K1", ("flash_fwd",)),

@@ -1,6 +1,7 @@
-// Quantized matmuls for QLoRA: the nf4 product (K4), its transposed
-// backward (K5) and the int8 w8a16 product (K6) in f32. The bf16 K6, the
-// one training runs, is int8_gemm.cu's wgmma kernel.
+// Quantized matmuls for QLoRA in f32 only: the nf4 product (K4), its
+// transposed backward (K5) and the int8 w8a16 product (K6). The f32
+// instantiations serve tests; the bf16 ones, which training runs, are
+// wgmma kernels: K4/K5 in nf4_gemm.cu, K6 in int8_gemm.cu.
 //
 // Replaces (TPU kernels):
 //   K4  datatunerx_tpu/ops/pallas_quant.py::_nf4_kernel    y  = x @ W
@@ -8,16 +9,15 @@
 //   K6  datatunerx_tpu/ops/pallas_quant.py::_int8_kernel   y  = (x @ q) * s
 //
 // Operands (ops/quant.py layouts, read in place): x [M, K] and g [M, N]
-// row-major in bf16 or f32; nf4 W [K, N] as packed [N * K/64, 32] uint8
+// row-major in f32; nf4 W [K, N] as packed [N * K/64, 32] uint8
 // (block = one output channel's 64 consecutive input weights; byte j holds
 // element j in its low nibble and element j + 32 in its high nibble),
 // scale_q [N * K/64] int8 and meta[0] f32; int8 q [K, N] with scale [N] f32.
 //
 // Rounding points are the reference's: an nf4 weight is
-// code[idx] * (f32(scale_q) * meta[0]) in f32, rounded to the input dtype
-// before the product; an int8 weight converts exactly; the product
-// accumulates in f32; K6's scale multiplies the f32 accumulator; the output
-// rounds once. So a staged weight tile is bit-equal to the plain version's
+// code[idx] * (f32(scale_q) * meta[0]) in f32; an int8 weight converts
+// exactly; the product accumulates in f32; K6's scale multiplies the f32
+// accumulator. So a staged weight tile is bit-equal to the plain version's
 // dequantized W, and kernel and plain version differ only in summation
 // order.
 //
@@ -31,29 +31,23 @@
 // - One GEMM skeleton serves all three: a 256-thread block owns a
 //   128 x 128 output tile and walks the contraction in 64-wide steps (one
 //   nf4 block per output channel). Each step stages the activation tile
-//   (16-byte loads) and the dequantized weight tile in shared memory as the
-//   compute dtype; the next step's global loads are issued into registers
-//   before the current step's products (a register double buffer).
+//   (16-byte loads) and the dequantized weight tile in shared memory; the
+//   next step's global loads are issued into registers before the current
+//   step's products (a register double buffer).
 // - The weight tile is always staged as [output column][contraction], the
-//   layout the tensor cores' B operand reads. K4 reads it straight from the
+//   layout the products read. K4 reads it straight from the
 //   packed bytes (the packed rows ARE W^T); K5 reads the same bytes with the
 //   roles of the axes swapped (its output columns are W's input dimension)
 //   and transposes while staging; the f32 K6 transposes q's [K, N] rows.
 //   The Pallas kernels' chunk-major host transposes and 16-way select-sum
 //   codebook are TPU workarounds: here the codebook is a 16-entry table in
 //   shared memory and no operand is rearranged on the host.
-// - bf16 (K4, K5): each of 8 warps computes a 64 x 32 sub-tile with
-//   mma.sync.m16n8k16 (bf16 in, f32 accumulate); the shared-memory row
-//   pitch of 72 elements makes the fragment loads bank-conflict free.
-//   f32 (K4, K5 and K6): CUDA-core FMAs, 8 x 8 outputs per thread (the f32
-//   variant serves tests; training runs bf16).
+// - CUDA-core FMAs, 8 x 8 outputs per thread; the shared-memory row pitch
+//   of 68 floats keeps rows 16-byte aligned.
 // - Rows past M, channels past N and contraction past K load as zeros and
 //   are never stored, so no operand needs padding.
-// wgmma, TMA and a deeper pipeline for K4/K5 are later work (the bf16 K6
-// has them).
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -62,6 +56,7 @@ constexpr int BM = 128;  // rows per block
 constexpr int BN = 128;  // output columns per block
 constexpr int BK = 64;   // contraction per step: one nf4 block
 constexpr int NT = 256;  // threads per block
+constexpr int P = BK + 4;  // shared-memory row pitch in floats
 
 // The reference's NF4_CODE, as double literals rounded to float (the same
 // conversion numpy makes).
@@ -72,35 +67,16 @@ __constant__ float kNf4Code[16] = {
     0.33791524171829224, 0.44070982933044434, 0.5626170039176941,
     0.7229568362236023, 1.0};
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Shared-memory row pitch in elements: rows stay 16-byte aligned, and the
-// bf16 fragment loads (rows g, 32-bit words t) hit 32 distinct banks.
-template <typename T>
-struct Pitch;
-template <>
-struct Pitch<__nv_bfloat16> { static constexpr int P = BK + 8; };
-template <>
-struct Pitch<float> { static constexpr int P = BK + 4; };
-
 // ----------------------------------------------------------- operand A
-// x or g [M, Kc] row-major; Kc % (16 / sizeof(T)) == 0.
-template <typename T>
+// x or g [M, Kc] row-major; Kc % 4 == 0.
 struct ALoad {
-  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int VEC = 4;
   static constexpr int PER_ROW = BK / VEC;
   static constexpr int N = BM * PER_ROW / NT;
   uint4 r[N];
 
-  __device__ __forceinline__ void load(const T* __restrict__ a, int M, int Kc,
-                                       int m0, int k0) {
+  __device__ __forceinline__ void load(const float* __restrict__ a, int M,
+                                       int Kc, int m0, int k0) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int u = threadIdx.x + i * NT;
@@ -110,11 +86,11 @@ struct ALoad {
                  : make_uint4(0, 0, 0, 0);
     }
   }
-  __device__ __forceinline__ void store(T* As) const {
+  __device__ __forceinline__ void store(float* As) const {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int u = threadIdx.x + i * NT;
-      *reinterpret_cast<uint4*>(As + (u / PER_ROW) * Pitch<T>::P +
+      *reinterpret_cast<uint4*>(As + (u / PER_ROW) * P +
                                 (u % PER_ROW) * VEC) = r[i];
     }
   }
@@ -143,16 +119,15 @@ struct Nf4Fwd {
       r.s = 0.f;
     }
   }
-  template <typename T>
-  __device__ __forceinline__ void store(const Regs& r, T* Bs,
+  __device__ __forceinline__ void store(const Regs& r, float* Bs,
                                         const float* code) const {
     const int h = threadIdx.x & 1;
-    T* dst = Bs + (threadIdx.x >> 1) * Pitch<T>::P + 16 * h;
+    float* dst = Bs + (threadIdx.x >> 1) * P + 16 * h;
     const uint8_t* b = reinterpret_cast<const uint8_t*>(&r.bytes);
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
-      dst[i] = from_f<T>(__fmul_rn(code[b[i] & 15], r.s));
-      dst[32 + i] = from_f<T>(__fmul_rn(code[b[i] >> 4], r.s));
+      dst[i] = __fmul_rn(code[b[i] & 15], r.s);
+      dst[32 + i] = __fmul_rn(code[b[i] >> 4], r.s);
     }
   }
 };
@@ -178,23 +153,21 @@ struct Nf4T {
       r.s = 0.f;
     }
   }
-  template <typename T>
-  __device__ __forceinline__ void store(const Regs& r, T* Bs,
+  __device__ __forceinline__ void store(const Regs& r, float* Bs,
                                         const float* code) const {
-    constexpr int P = Pitch<T>::P;
     const int cl = threadIdx.x >> 2;
     const int j = ((threadIdx.x >> 1) & 1) * BK + (threadIdx.x & 1) * 16;
     const uint8_t* b = reinterpret_cast<const uint8_t*>(&r.bytes);
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
-      Bs[(j + i) * P + cl] = from_f<T>(__fmul_rn(code[b[i] & 15], r.s));
-      Bs[(j + 32 + i) * P + cl] = from_f<T>(__fmul_rn(code[b[i] >> 4], r.s));
+      Bs[(j + i) * P + cl] = __fmul_rn(code[b[i] & 15], r.s);
+      Bs[(j + 32 + i) * P + cl] = __fmul_rn(code[b[i] >> 4], r.s);
     }
   }
 };
 
 // K6: q [K, N] int8 rows; a tile is 64 rows x 128 bytes, two uint4 per
-// thread, staged transposed (int8 -> T is exact).
+// thread, staged transposed (int8 -> f32 is exact).
 struct Int8Src {
   const int8_t* q;
   int N, K;
@@ -210,10 +183,8 @@ struct Int8Src {
                        : make_uint4(0, 0, 0, 0);
     }
   }
-  template <typename T>
-  __device__ __forceinline__ void store(const Regs& r, T* Bs,
+  __device__ __forceinline__ void store(const Regs& r, float* Bs,
                                         const float*) const {
-    constexpr int P = Pitch<T>::P;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int u = threadIdx.x + i * NT;
@@ -221,94 +192,19 @@ struct Int8Src {
       const int8_t* b = reinterpret_cast<const int8_t*>(&r.bytes[i]);
 #pragma unroll
       for (int e = 0; e < 16; ++e)
-        Bs[(nl + e) * P + kl] = from_f<T>((float)b[e]);
+        Bs[(nl + e) * P + kl] = (float)b[e];
     }
   }
 };
 
 // ------------------------------------------------------------- products
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <typename T>
-__device__ __forceinline__ void put(T* out, const float* colscale, int M,
+__device__ __forceinline__ void put(float* out, const float* colscale, int M,
                                     int N, int row, int col, float v) {
-  if (row < M && col < N) {
-    if (colscale) v = __fmul_rn(v, colscale[col]);
-    out[(size_t)row * N + col] = from_f<T>(v);
-  }
+  if (row < M && col < N)
+    out[(size_t)row * N + col] = colscale ? __fmul_rn(v, colscale[col]) : v;
 }
 
-// bf16: 8 warps as 2 (rows) x 4 (columns), each 64 x 32 with
-// mma.sync.m16n8k16.
-struct MmaAcc {
-  float c[4][4][4];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
-  }
-  __device__ __forceinline__ void step(const __nv_bfloat16* As,
-                                       const __nv_bfloat16* Bs) {
-    constexpr int P = Pitch<__nv_bfloat16>::P;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const __nv_bfloat16* p = As + (wm + i * 16 + g) * P + ks + 2 * t;
-        a[i][0] = ld32(p);
-        a[i][1] = ld32(p + 8 * P);
-        a[i][2] = ld32(p + 8);
-        a[i][3] = ld32(p + 8 * P + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const __nv_bfloat16* p = Bs + (wn + j * 8 + g) * P + ks + 2 * t;
-        b[j][0] = ld32(p);
-        b[j][1] = ld32(p + 8);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          asm volatile(
-              "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-              "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-              : "+f"(c[i][j][0]), "+f"(c[i][j][1]), "+f"(c[i][j][2]),
-                "+f"(c[i][j][3])
-              : "r"(a[i][0]), "r"(a[i][1]), "r"(a[i][2]), "r"(a[i][3]),
-                "r"(b[j][0]), "r"(b[j][1]));
-    }
-  }
-  __device__ __forceinline__ void store(__nv_bfloat16* out,
-                                        const float* colscale, int M, int N,
-                                        int m0, int n0) const {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wm = m0 + (warp >> 2) * 64, wn = n0 + (warp & 3) * 32;
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = wm + i * 16 + g, col = wn + j * 8 + 2 * t;
-        put(out, colscale, M, N, row, col, c[i][j][0]);
-        put(out, colscale, M, N, row, col + 1, c[i][j][1]);
-        put(out, colscale, M, N, row + 8, col, c[i][j][2]);
-        put(out, colscale, M, N, row + 8, col + 1, c[i][j][3]);
-      }
-  }
-};
-
-// f32: 16 x 16 threads, each rows ty + 16 i and columns tx + 16 j.
+// 16 x 16 threads, each rows ty + 16 i and columns tx + 16 j.
 struct FmaAcc {
   float c[8][8];
 
@@ -319,7 +215,6 @@ struct FmaAcc {
       for (int j = 0; j < 8; ++j) c[i][j] = 0.f;
   }
   __device__ __forceinline__ void step(const float* As, const float* Bs) {
-    constexpr int P = Pitch<float>::P;
     const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
@@ -346,34 +241,29 @@ struct FmaAcc {
   }
 };
 
-template <typename T>
-struct AccOf { using type = MmaAcc; };
-template <>
-struct AccOf<float> { using type = FmaAcc; };
-
 // out [M, Nout] = a [M, Kc] @ B, B staged tile by tile by Src.
-template <typename T, class Src>
+template <class Src>
 __global__ void __launch_bounds__(NT)
-    qgemm(const T* __restrict__ a, Src src, T* __restrict__ out,
+    qgemm(const float* __restrict__ a, Src src, float* __restrict__ out,
           const float* __restrict__ colscale, int M, int Nout, int Kc) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + BM * Pitch<T>::P;
-  float* code = reinterpret_cast<float*>(Bs + BN * Pitch<T>::P);
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = As + BM * P;
+  float* code = Bs + BN * P;
   if (threadIdx.x < 16) code[threadIdx.x] = kNf4Code[threadIdx.x];
 
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  ALoad<T> al;
+  ALoad al;
   typename Src::Regs br;
   al.load(a, M, Kc, m0, 0);
   src.load(br, n0, 0);
-  typename AccOf<T>::type acc;
+  FmaAcc acc;
   acc.zero();
   __syncthreads();  // the code table
   const int steps = (Kc + BK - 1) / BK;
   for (int s = 0; s < steps; ++s) {
     al.store(As);
-    src.template store<T>(br, Bs, code);
+    src.store(br, Bs, code);
     __syncthreads();
     if (s + 1 < steps) {  // next step's loads fly during this step's math
       al.load(a, M, Kc, m0, (s + 1) * BK);
@@ -385,48 +275,49 @@ __global__ void __launch_bounds__(NT)
   acc.store(out, colscale, M, Nout, m0, n0);
 }
 
-template <typename T, class Src>
+template <class Src>
 int launch(const void* a, const Src& src, void* out, const float* colscale,
            int M, int Nout, int Kc, cudaStream_t st) {
   if (M == 0 || Nout == 0) return 0;
-  const int smem = (BM + BN) * Pitch<T>::P * (int)sizeof(T) + 16 * 4;
+  const int smem = (BM + BN) * P * (int)sizeof(float) + 16 * 4;
   static bool attr_set = false;  // once per instantiation
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        qgemm<T, Src>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        qgemm<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   dim3 grid((Nout + BN - 1) / BN, (M + BM - 1) / BM);
-  qgemm<T, Src><<<grid, NT, smem, st>>>(static_cast<const T*>(a), src,
-                                         static_cast<T*>(out), colscale, M,
-                                         Nout, Kc);
+  qgemm<Src><<<grid, NT, smem, st>>>(static_cast<const float*>(a), src,
+                                      static_cast<float*>(out), colscale, M,
+                                      Nout, Kc);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define DTX_QUANT_ENTRIES(SUFFIX, T)                                          \
-  extern "C" int dtx_nf4_matmul_##SUFFIX(                                     \
-      const void* x, const uint8_t* packed, const int8_t* scale_q,            \
-      const float* meta, void* out, int M, int K, int N, cudaStream_t st) {   \
-    Nf4Fwd src{packed, scale_q, meta, N, K / BK};                             \
-    return launch<T>(x, src, out, nullptr, M, N, K, st);                      \
-  }                                                                           \
-  extern "C" int dtx_nf4_matmul_t_##SUFFIX(                                   \
-      const void* g, const uint8_t* packed, const int8_t* scale_q,            \
-      const float* meta, void* dx, int M, int K, int N, cudaStream_t st) {    \
-    Nf4T src{packed, scale_q, meta, N, K / BK};                               \
-    return launch<T>(g, src, dx, nullptr, M, K, N, st);                       \
-  }
+// K4 in f32 (the bf16 K4 is nf4_gemm.cu's wgmma kernel)
+extern "C" int dtx_nf4_matmul_f32(const void* x, const uint8_t* packed,
+                                  const int8_t* scale_q, const float* meta,
+                                  void* out, int M, int K, int N,
+                                  cudaStream_t st) {
+  Nf4Fwd src{packed, scale_q, meta, N, K / BK};
+  return launch(x, src, out, nullptr, M, N, K, st);
+}
 
-DTX_QUANT_ENTRIES(bf16, __nv_bfloat16)
-DTX_QUANT_ENTRIES(f32, float)
+// K5 in f32 (the bf16 K5 is nf4_gemm.cu's wgmma kernel)
+extern "C" int dtx_nf4_matmul_t_f32(const void* g, const uint8_t* packed,
+                                    const int8_t* scale_q, const float* meta,
+                                    void* dx, int M, int K, int N,
+                                    cudaStream_t st) {
+  Nf4T src{packed, scale_q, meta, N, K / BK};
+  return launch(g, src, dx, nullptr, M, K, N, st);
+}
 
 // K6 in f32 (the bf16 K6 is int8_gemm.cu's wgmma kernel)
 extern "C" int dtx_int8_matmul_f32(const void* x, const int8_t* q,
                                    const float* scale, void* out, int M,
                                    int K, int N, cudaStream_t st) {
   Int8Src src{q, N, K};
-  return launch<float>(x, src, out, scale, M, N, K, st);
+  return launch(x, src, out, scale, M, N, K, st);
 }

@@ -198,6 +198,9 @@ def _declare(lib: ctypes.CDLL):
     fn = lib.dtx_int8_matmul_resources  # int out[4]
     fn.argtypes = [_P]
     fn.restype = _I
+    fn = lib.dtx_nf4_matmul_resources  # int out[8]: K4, then K5
+    fn.argtypes = [_P]
+    fn.restype = _I
     fn = lib.dtx_fused_sample
     # x, temps, us, out, S, Vp, greedy, stream
     fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]

@@ -3,9 +3,10 @@
 
 K4 (``nf4_matmul``: ``x @ dequant_nf4(W)``), K5 (``nf4_matmul_t``:
 ``g @ dequant_nf4(W)ᵀ``, the dx product of the backward, with W kept packed)
-and K6 (``int8_matmul``: ``(x @ q) * scale``) are hand-written CUDA in
-``csrc/quant.cu``, the bf16 K6 in ``csrc/int8_gemm.cu`` (TMA and ``wgmma``;
-its TMA descriptors are encoded per call); the design notes there say what
+and K6 (``int8_matmul``: ``(x @ q) * scale``) are hand-written CUDA: in bf16
+TMA + ``wgmma`` kernels (K4/K5 in ``csrc/nf4_gemm.cu``, K6 in
+``csrc/int8_gemm.cu``; their TMA descriptors are encoded per call), in f32
+``csrc/quant.cu``'s CUDA-core skeleton. The design notes there say what
 bounds them. Each
 wrapper launches its kernel for CUDA tensors (or raises) and runs the
 kernel's plain PyTorch version — dequantize, then one f32-accumulated
@@ -86,6 +87,9 @@ def nf4_matmul(x: torch.Tensor, qw: Dict[str, torch.Tensor],
         return matmul_nf4(x, qw, shape)
     K, N = shape
     x2 = _rows(x, K, "x")
+    _require(x.dtype != torch.bfloat16 or N % 8 == 0,
+             f"bf16 nf4 output width {N} is not a multiple of 8 (16-byte "
+             "rows)")
     packed, scale_q, meta = _nf4_operands(qw, shape, x.device)
     out = torch.empty((x2.shape[0], N), dtype=x.dtype, device=x.device)
     fn = getattr(_build.library(), f"dtx_nf4_matmul_{_KERNEL_DTYPES[x.dtype]}")

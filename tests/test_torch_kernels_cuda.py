@@ -25,7 +25,9 @@ kernel and its plain version round at the same points and differ only in
 the order of their f32 sums). The split-table K7 holds K7's tolerances in
 both dtypes (its splits merge (m, l) and sum the partials in split order,
 rounding p and the output where the plain version does), and two calls on
-the same inputs agree bit for bit; the bf16 K6 on ``wgmma`` holds K6's."""
+the same inputs agree bit for bit; the bf16 K6 on ``wgmma`` holds K6's,
+and the bf16 K4/K5 on ``wgmma`` hold K4/K5's (their staged tiles are
+bit-equal to ``dequant_nf4(..., bf16)``)."""
 
 import pytest
 import torch
@@ -241,9 +243,17 @@ def test_bf16_attention_kernels_do_not_spill(cuda):
     assert r[1] == 0 and r[3] >= 1, r
 
 
+def test_nf4_matmuls_do_not_spill(cuda):
+    """The bf16 K4 and K5 (TMA + wgmma) as the compiler built them keep
+    every value in registers: 0 spill bytes, one block an SM."""
+    r = _resources("dtx_nf4_matmul_resources", 8)
+    assert r[1] == 0 and r[5] == 0 and r[3] >= 1 and r[7] >= 1, r
+
+
 def test_int8_matmul_runs_on_wgmma(cuda):
-    """The bf16 K6 as built holds warpgroup tensor-core instructions
-    (``HGMMA`` in its SASS), read with the toolkit's cuobjdump."""
+    """The bf16 K6, K4 and K5 as built hold warpgroup tensor-core
+    instructions (``HGMMA`` in their SASS), read with the toolkit's
+    cuobjdump."""
     import os
     import shutil
     import subprocess
@@ -258,8 +268,11 @@ def test_int8_matmul_runs_on_wgmma(cuda):
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     funcs = sass.split("Function : ")
-    k6 = [f for f in funcs if "int8_gemm_wgmma" in f.splitlines()[0]]
-    assert k6 and all("HGMMA" in f for f in k6)
+    for names in (("int8_gemm_wgmma",), ("nf4_gemm_wgmma", "Nf4Fwd"),
+                  ("nf4_gemm_wgmma", "Nf4T")):
+        found = [f for f in funcs
+                 if all(n in f.splitlines()[0] for n in names)]
+        assert found and all("HGMMA" in f for f in found), names
 
 
 LORA_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
@@ -415,6 +428,31 @@ def test_int8_kernel_at_projection_shapes(cuda, dtype, M, K, N):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 200, 8191])
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 256), (2048, 5632),
+                                 (5632, 2048)])
+def test_nf4_kernels_at_projection_shapes(cuda, dtype, M, K, N):
+    """K4 and K5 at every projection shape of tinyllama-1.1b, with ragged
+    row counts (the bf16 kernels' TMA zero-fills the rows past M and drops
+    them on the store)."""
+    from datatunerx_tpu_torch.ops import cuda_quant as cq
+    from datatunerx_tpu_torch.ops import quant as tq
+
+    gen = torch.Generator().manual_seed(M + K + N)
+    qw = tq.quantize_nf4((torch.randn((K, N), generator=gen) * 0.02).to(cuda))
+    x = torch.randn((M, K), generator=gen).to(dtype).to(cuda)
+    g = torch.randn((M, N), generator=gen).to(dtype).to(cuda)
+    for got, want, width in (
+            (cq.nf4_matmul(x, qw, (K, N)), tq.matmul_nf4(x, qw, (K, N)), N),
+            (cq.nf4_matmul_t(g, qw, (K, N)), cq._plain_nf4_t(g, qw, (K, N)),
+             K)):
+        assert got.dtype == dtype and got.shape == (M, width)
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **QUANT_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("K,N", [(5632, 256), (192, 384), (2048, 144)])
 def test_quant_kernels_match_plain(cuda, dtype, K, N):
     from datatunerx_tpu_torch.ops import cuda_quant as cq
@@ -454,3 +492,26 @@ def test_quant_autograd_runs_the_kernels(cuda):
     assert cq.nf4_matmul_t.launches == before + 1
     want = tq.dequant_nf4(qw, (K, N)).sum(dim=1).expand(64, K)
     torch.testing.assert_close(got, want, **QUANT_TOL[torch.float32])
+
+
+def test_nf4_backward_runs_k5_at_a_tinyllama_shape_in_bf16(cuda):
+    """dx of ``cuda_matmul_nf4`` in bf16 at gate_proj's shape comes from
+    the bf16 K5 and holds its plain version."""
+    from datatunerx_tpu_torch.ops import cuda_quant as cq
+    from datatunerx_tpu_torch.ops import quant as tq
+
+    gen = torch.Generator().manual_seed(11)
+    K, N = 2048, 5632
+    qw = tq.quantize_nf4((torch.randn((K, N), generator=gen) * 0.02).to(cuda))
+    x = torch.randn((2, 300, K), generator=gen).to(torch.bfloat16).to(cuda)
+    g = torch.randn((2, 300, N), generator=gen).to(torch.bfloat16).to(cuda)
+    x.requires_grad_()
+    before = (cq.nf4_matmul.launches, cq.nf4_matmul_t.launches)
+    y = cq.cuda_matmul_nf4(x, qw, (K, N))
+    (got,) = torch.autograd.grad(y, [x], grad_outputs=g)
+    assert (cq.nf4_matmul.launches, cq.nf4_matmul_t.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    torch.testing.assert_close(got.float(),
+                               cq._plain_nf4_t(g, qw, (K, N)).float(),
+                               **QUANT_TOL[torch.bfloat16])

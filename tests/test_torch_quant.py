@@ -158,17 +158,27 @@ def test_k4_k6_plain_versions_match_the_pallas_kernels(mode, K, N, lead):
                                rtol=2e-3)
 
 
-@pytest.mark.parametrize("K,N,M", [(320, 256, 8), (384, 512, 33),
-                                   (128, 384, 64)])
-def test_k5_plain_version_matches_the_pallas_kernel(K, N, M):
+@pytest.mark.parametrize("K,N,M,dtype", [
+    (320, 256, 8, "float32"), (384, 512, 33, "float32"),
+    (128, 384, 64, "float32"),
+    (2048, 256, 8, "bfloat16"),  # tinyllama's k/v projection, as trained
+], ids=["320-256-8", "384-512-33", "128-384-64", "2048-256-8-bf16"])
+def test_k5_plain_version_matches_the_pallas_kernel(K, N, M, dtype):
+    """bf16: both round W to bf16 and accumulate in f32, so they differ by
+    the order of the f32 sums and the one rounding of the output: atol 2^-8
+    + rtol 2^-7 (a bf16 ulp), the card tests' bf16 tolerance."""
     rng = np.random.default_rng(K * N + M)
     qw = jq.quantize_nf4(jnp.asarray(_w(rng, (K, N))))
     g = rng.standard_normal((M, N)).astype(np.float32)
-    want = jpq._pallas_matmul_nf4_t_impl(jnp.asarray(g), qw, (K, N),
-                                         block_m=32, block_n=128)
-    got = cq.nf4_matmul_t(_t(g), {k: _t(v) for k, v in qw.items()}, (K, N))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3,
-                               rtol=1e-3)
+    want = jpq._pallas_matmul_nf4_t_impl(jnp.asarray(g).astype(dtype), qw,
+                                         (K, N), block_m=32, block_n=128)
+    got = cq.nf4_matmul_t(_t(g).to(getattr(torch, dtype)),
+                          {k: _t(v) for k, v in qw.items()}, (K, N))
+    assert str(got.dtype) == f"torch.{dtype}" and want.dtype == dtype
+    tol = (dict(atol=1e-3, rtol=1e-3) if dtype == "float32"
+           else dict(atol=2**-8, rtol=2**-7))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(np.float32)), **tol)
 
 
 @pytest.mark.parametrize("mode", ["int8", "int4"])
