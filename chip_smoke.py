@@ -64,8 +64,10 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
 11. prints one JSON ``{"kernels": [...]}`` line (K7, K8, K7-int8, K8-int8,
     K9, K10, K1-K6; K7's entries add the splits its wrapper launched, the
     CUDA kernels one call launched as torch.profiler traced them, and its
-    resources; K4's, K5's and K6's their resources) and, last, one JSON
-    line ``{"ok": true, "device": {...}}``.
+    resources; K4's, K5's and K6's their resources; K9's its greedy time
+    beside ``torch.argmax``'s and its resources; K10's every shape/dtype
+    case (ms, library ms, bound, route) and its kernels' resources) and,
+    last, one JSON line ``{"ok": true, "device": {...}}``.
 
 Three more serving phases run right after phase 4, before any training
 phase (a decode step is bound by the host's launch rate, and the serving
@@ -87,8 +89,14 @@ tensor-core kernels (``mma.sync`` bf16 -> f32, fed by ``cp.async``; the
 skeleton of ``csrc/mma_sm90.cuh``); the bf16 K4/K5 (``csrc/nf4_gemm.cu``)
 and K6 (``csrc/int8_gemm.cu``) run on ``wgmma`` fed by TMA (the skeleton of
 ``csrc/wgmma_sm90.cuh``); K7 is a split-table decode on CUDA cores (one
-launch a call: a thread-block cluster per head group); the f32
-instantiations and the rest run on CUDA cores. Phase 2 prints K8's
+launch a call: a thread-block cluster per head group); K9 runs a
+16-block cluster a row, each block holding its slice of the row; K10
+runs many bf16 rows on TMA + ``wgmma`` (``csrc/lora_gemm.cu``) and few rows
+(and f32) as a split over K in a thread-block cluster (``csrc/lora.cu``;
+f32 at many rows on CUDA-core tiles); the f32 instantiations and the rest
+run on CUDA cores. Phase 2 also prints an empty kernel's time under the
+same timer (the floor a small kernel is read against), K9's and K10's
+registers, spill bytes and blocks per SM, and each K10 case's route. Phase 2 prints K8's
 registers, spill bytes, shared bytes and blocks per SM at the smoke shape,
 the same for K7 (with its splits) and K4-K6, requires two K7 calls on the
 same inputs to agree bit for bit, and also holds K1 (flash forward), K2
@@ -490,12 +498,15 @@ def check_k9(torch, timer, gen):
             "plain_ms": timer.ms(lambda: cs._plain_sample(
                 x, t, us, bn=bn, greedy=greedy), reps=5),
             "library_ms": lib, "vp": x.shape[1]}
-    # the entry reports the simple mode (all three passes); greedy is printed
+    # the entry reports the simple mode (all three passes) and adds greedy
     vp = results["simple"]["vp"]
     b_ms, b_by = bound_ms(S * vp * 4 + 3 * S * 4, 4 * S * vp, F32_OPS_PER_S)
     log(f"  K9 greedy: kernel {results['greedy']['ms']:.4f} ms, plain "
         f"{results['greedy']['plain_ms']:.4f} ms, torch.argmax "
         f"{results['greedy']['library_ms']:.4f} ms")
+    r = resources("dtx_sample_resources", 4)
+    log("  K9 (a 16-block cluster a row, 256 threads): "
+        + describe_resources(r, (("K9", 0),)))
     return {
         "name": "K9 fused_sample", "route": "cuda",
         "source": "datatunerx_tpu_torch/csrc/sampling.cu",
@@ -508,8 +519,24 @@ def check_k9(torch, timer, gen):
         "plain_ms": results["simple"]["plain_ms"],
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": results["simple"]["library_ms"],
-        "shape": f"S={S} V={V} (Vp={vp}), simple mode; greedy printed above",
+        "extra": {"greedy_ms": results["greedy"]["ms"],
+                  "argmax_ms": results["greedy"]["library_ms"],
+                  "registers": r[0], "spill_bytes": r[1],
+                  "blocks_per_sm": r[3]},
+        "shape": f"S={S} V={V} (Vp={vp}), simple mode; greedy in greedy_ms "
+                 "(library: torch.argmax, argmax_ms)",
     }
+
+
+def empty_kernel_ms(torch, timer):
+    """An empty kernel's time under the same ``Timer``: the floor that a
+    small kernel's time is read against (printed, not claimed)."""
+    from datatunerx_tpu_torch.ops import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    return timer.ms(lambda: _build.check(lib.dtx_empty_kernel(stream),
+                                         "empty kernel"))
 
 
 # ------------------------------------------------------------ phase 2, K1-K3
@@ -917,14 +944,15 @@ def lora_operands(torch, M, N, dtype, gen):
 
 def check_k10(torch):
     """K10 against its plain version at the four shapes above in bf16 and
-    f32. The entry reports the M=8192, N=2048 bf16 case; the library
-    yardstick is the composite ``x @ w + ((x @ a) @ b) * scale`` on cuBLAS,
-    which writes the [M, N] delta and the [M, r] strip to device memory."""
+    f32, each case timed beside the composite ``x @ w + ((x @ a) @ b) *
+    scale`` on cuBLAS (which writes the [M, N] delta and the [M, r] strip to
+    device memory). The entry's own numbers are the M=8192, N=2048 bf16
+    case's; ``cases`` holds all eight."""
     from datatunerx_tpu_torch.ops import cuda_lora as cl
 
     timer = Timer(torch)
     cgen = torch.Generator(device="cuda").manual_seed(6)
-    err, entry = 0.0, None
+    err, cases = 0.0, []
     K, r, scale = LORA_K, LORA_R, LORA_SCALE
     for label, M, N in LORA_SHAPES:
         for dtype, dt in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
@@ -939,7 +967,9 @@ def check_k10(torch):
             def library():
                 return x @ w + ((x @ a) @ b) * scale
 
-            got, want = kern(), plain()
+            got = kern()
+            route, splits, cv = cl.lora_matmul.last  # as launched
+            want = plain()
             torch.cuda.synchronize()
             if not bool(torch.isfinite(got.float()).all()):
                 fail(f"K10 ({label}, {dt}) wrote non-finite values")
@@ -955,24 +985,43 @@ def check_k10(torch):
                                   else F32_OPS_PER_S)
             ms, lib_ms = timer.ms(kern), timer.ms(library)
             plain_ms = timer.ms(plain, reps=3, warmup=1)
-            log(f"  K10 {label} [M={M} K={K} N={N} r={r} {dt}]: err {e:.3g}, "
-                f"kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s, "
-                f"{nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, "
+            plan = f", S={splits} CV={cv}" if route == "split" else ""
+            log(f"  K10 {label} [M={M} K={K} N={N} r={r} {dt}, {route}"
+                f"{plan}]: err {e:.3g}, kernel {ms:.4f} ms "
+                f"({ops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.0f} "
+                f"GB/s), plain {plain_ms:.4f} ms, "
                 f"composite on cuBLAS {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
                 f"({b_by})")
-            if entry is None:  # the first case: train q_proj, bf16
-                entry = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=b_by)
+            cases.append(dict(case=f"{label} {dt}", M=M, N=N, route=route,
+                              splits=splits, column_vectors=cv, ms=ms,
+                              plain_ms=plain_ms, library_ms=lib_ms,
+                              bound_ms=b_ms, bound_by=b_by))
             del x, w, a, b
-    return [dict(entry, **{
+    r_gemm = resources("dtx_lora_gemm_resources", 8)
+    r_split = resources("dtx_lora_split_resources", 8)
+    log("  K10 many-row bf16 (TMA + wgmma, 384 threads): "
+        + describe_resources(r_gemm, (("128 x 256 tiles", 0),
+                                      ("128 x 128 tiles", 4)))
+        + "; split (a cluster of K splits, 256 threads): "
+        + describe_resources(r_split, (("bf16", 0), ("f32", 4))))
+    first = {k: cases[0][k] for k in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")}
+    return [dict(first, **{
         "name": "K10 lora_matmul", "route": "cuda",
-        "source": "datatunerx_tpu_torch/csrc/lora.cu",
+        "source": ("datatunerx_tpu_torch/csrc/lora_gemm.cu (bf16, many rows), "
+                   "datatunerx_tpu_torch/csrc/lora.cu (few rows; f32)"),
         "replaces": "datatunerx_tpu/ops/pallas_lora.py:27",
         "counter": cl.lora_matmul, "max_abs_err": err,
         "tolerance": "atol 2^-8 + rtol 2^-7 (bf16), 1e-4 + 1e-4 (f32), all "
-                     "four shapes",
-        "shape": f"M=8192 K={K} N=2048 r={r} bf16 (timed; the other seven "
-                 "cases printed above); library: the composite on cuBLAS",
+                     "eight cases",
+        "extra": {"cases": cases,
+                  "registers": [r_gemm[0], r_gemm[4], r_split[0], r_split[4]],
+                  "spill_bytes": [r_gemm[1], r_gemm[5], r_split[1],
+                                  r_split[5]],
+                  "blocks_per_sm": [r_gemm[3], r_gemm[7], r_split[3],
+                                    r_split[7]]},
+        "shape": f"M=8192 K={K} N=2048 r={r} bf16 (its numbers; cases: all "
+                 "eight); library: the composite on cuBLAS",
     })]
 
 
@@ -1556,6 +1605,9 @@ def main(argv=None) -> int:
                          (check_k7, True), (check_k8, True)):
         report(check(torch, timer, gen, quant))
     report(check_k9(torch, timer, gen))
+    log(f"  an empty kernel under the same timer: "
+        f"{empty_kernel_ms(torch, timer):.4f} ms (the floor of a small "
+        "kernel's time)")
     flash = check_flash(torch, timer, gen)
     del timer
     torch.cuda.empty_cache()

@@ -5,32 +5,51 @@
 //       (entered via _kernel_sample / fused_sample / sample_rows)
 //
 // What bounds it on an H100: bytes, and at decode sizes launch latency.
-// Per row it reads the [Vp] f32 logits (128 KB for V = 32000) once per
-// phase and does a handful of flops per element; the whole call moves a few
-// hundred KB, which the card streams in well under a microsecond.
+// Per row it reads the [Vp] f32 logits (128 KB for V = 32000) and does a
+// handful of flops per element; the whole call moves a few hundred KB, which
+// the card streams in well under a microsecond.
 //
-// What the design does about it: one thread block per row, three block-wide
-// passes over the row with no intermediate ever written to device memory
-// (the [S, vocab] distribution never exists): (1) the max with the
-// first-index tie rule — every thread keeps its strictly-greater maximum
-// over its strided lanes, and the block reduction prefers the smaller index
-// on equal values, which is torch.argmax's and jnp.argmax's first-maximum
-// rule; (2) Z = sum exp(x - m); (3) each thread owns a contiguous chunk of
-// the row, a block-wide exclusive scan of the chunk sums gives each chunk's
-// running-CDF offset, and the first lane whose running sum exceeds u*Z wins
-// (block min over the chunks' first crossings). No crossing (u*Z at the
-// float tail) falls back to the argmax; rows with temp <= 0 and greedy mode
-// stop after pass 1. The uniforms u arrive as an operand, exactly as the TPU
-// kernel takes them, so tests feed kernel and plain version the same draws.
+// What the design does about it: a thread-block cluster per row, each
+// element read from device memory once. The grid is C x S blocks (C = 16
+// blocks a row, one cluster, non-portable as the H100 allows); block c loads
+// its contiguous slice of the padded row (Vp / C floats, 8 KB at V = 32000)
+// into shared memory with 16-byte loads and keeps it for every phase:
+// (1) the max with the first-index tie rule: every thread keeps its
+//     strictly-greater maximum over its strided lanes, the block reduction
+//     prefers the smaller index on equal values, and the blocks' (max, first
+//     index) pairs, pushed into every block through distributed shared
+//     memory, merge in block order under the same rule: torch.argmax's and
+//     jnp.argmax's first maximum, exactly. Greedy mode and rows with
+//     temp <= 0 stop here.
+// (2) each thread owns a contiguous chunk of the slice; a block-wide
+//     exclusive scan of the chunks' sums of exp(x - m) gives each chunk's
+//     offset in the block and the block's total; the totals, pushed into
+//     every block, give Z (summed in block order) and each block's
+//     exclusive CDF offset.
+// (3) each thread walks its chunk from its offset; the block's smallest
+//     first crossing of u*Z goes to rank 0, which takes the cluster's
+//     smallest (the blocks hold ascending slices). No crossing (u*Z at the
+//     float tail) falls back to the argmax.
+// The [S, vocab] distribution never exists. The uniforms u arrive as an
+// operand, exactly as the TPU kernel takes them, so tests feed kernel and
+// plain version the same draws. Sampled tokens can differ from the plain
+// version's only where the two sum orders put u*Z on opposite sides of a
+// CDF step.
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <limits.h>
 
+#include <cooperative_groups.h>
+
 #define DTX_NEG_INF (-1e30f)
-#define DTX_SAMPLE_THREADS 1024
 
 namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int NT = 256;  // threads a block
+constexpr int C = 16;    // blocks a row: one cluster
 
 __device__ __forceinline__ void argmax_pair(float& m, int& i, float m2,
                                             int i2) {
@@ -54,9 +73,8 @@ __device__ void block_argmax(float& m, int& idx, float* sm, int* si) {
   }
   __syncthreads();
   if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    m = lane < nw ? sm[lane] : DTX_NEG_INF;
-    idx = lane < nw ? si[lane] : INT_MAX;
+    m = lane < NT / 32 ? sm[lane] : DTX_NEG_INF;
+    idx = lane < NT / 32 ? si[lane] : INT_MAX;
     for (int off = 16; off > 0; off >>= 1) {
       const float m2 = __shfl_down_sync(0xffffffffu, m, off);
       const int i2 = __shfl_down_sync(0xffffffffu, idx, off);
@@ -73,27 +91,8 @@ __device__ void block_argmax(float& m, int& idx, float* sm, int* si) {
   __syncthreads();
 }
 
-__device__ float block_sum(float v, float* sm) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  if (lane == 0) sm[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    v = lane < nw ? sm[lane] : 0.f;
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) sm[0] = v;
-  }
-  __syncthreads();
-  v = sm[0];
-  __syncthreads();
-  return v;
-}
-
-// exclusive prefix sum over threads, in thread order
-__device__ float block_exclusive_scan(float v, float* sm) {
+// exclusive prefix sum over threads, in thread order; *total gets the sum
+__device__ float block_exclusive_scan(float v, float* sm, float* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float inc = v;
   for (int off = 1; off < 32; off <<= 1) {
@@ -103,16 +102,16 @@ __device__ float block_exclusive_scan(float v, float* sm) {
   if (lane == 31) sm[warp] = inc;
   __syncthreads();
   if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    float w = lane < nw ? sm[lane] : 0.f;
+    float w = lane < NT / 32 ? sm[lane] : 0.f;
     for (int off = 1; off < 32; off <<= 1) {
       const float n = __shfl_up_sync(0xffffffffu, w, off);
       if (lane >= off) w += n;
     }
-    if (lane < nw) sm[lane] = w;  // inclusive per-warp totals
+    if (lane < NT / 32) sm[lane] = w;  // inclusive per-warp totals
   }
   __syncthreads();
   const float warp_off = warp > 0 ? sm[warp - 1] : 0.f;
+  *total = sm[NT / 32 - 1];
   __syncthreads();
   return warp_off + inc - v;
 }
@@ -124,8 +123,7 @@ __device__ int block_min(int v, int* si) {
   if (lane == 0) si[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    v = lane < nw ? si[lane] : INT_MAX;
+    v = lane < NT / 32 ? si[lane] : INT_MAX;
     for (int off = 16; off > 0; off >>= 1)
       v = min(v, __shfl_down_sync(0xffffffffu, v, off));
     if (lane == 0) si[0] = v;
@@ -136,64 +134,168 @@ __device__ int block_min(int v, int* si) {
   return v;
 }
 
-__global__ void fused_sample_kernel(const float* __restrict__ x,
-                                    const float* __restrict__ temps,
-                                    const float* __restrict__ us,
-                                    int* __restrict__ out, int Vp,
-                                    int greedy) {
+__global__ void __launch_bounds__(NT)
+    fused_sample_kernel(const float* __restrict__ x,
+                        const float* __restrict__ temps,
+                        const float* __restrict__ us, int* __restrict__ out,
+                        int Vp, int chunk, int greedy) {
+  extern __shared__ __align__(16) float xs[];  // this block's slice
   __shared__ float sm[32];
   __shared__ int si[32];
-  const int row = blockIdx.x;
-  const float* xr = x + (size_t)row * Vp;
+  __shared__ float cm[C], cz[C];  // every block's max and exp sum
+  __shared__ int ci[C], cf[C];    // every block's first index, crossing
+  cg::cluster_group cluster = cg::this_cluster();
+  // every block of the cluster has started before anything is pushed into
+  // it: arrive now, wait before the first push
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int c = (int)cluster.block_rank(), row = blockIdx.y;
+  const int lo = min(Vp, c * chunk), n = min(Vp, lo + chunk) - lo;
+  const float* xr = x + (size_t)row * Vp + lo;
+  // 4 16-byte loads a thread in flight before the first store
+  for (int i0 = threadIdx.x; i0 < n / 4; i0 += 4 * NT) {
+    float4 v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (i0 + j * NT < n / 4)
+        v[j] = __ldg(reinterpret_cast<const float4*>(xr) + i0 + j * NT);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (i0 + j * NT < n / 4)
+        reinterpret_cast<float4*>(xs)[i0 + j * NT] = v[j];
+  }
+  __syncthreads();
 
-  // pass 1: max and its first index
+  // phase 1: the max and its first index
   float m = DTX_NEG_INF;
   int idx = 0;
-  for (int i = threadIdx.x; i < Vp; i += blockDim.x) {
-    const float v = xr[i];
-    if (v > m) {
-      m = v;
-      idx = i;
+  for (int i = threadIdx.x; i < n; i += NT)
+    if (xs[i] > m) {
+      m = xs[i];
+      idx = lo + i;
     }
-  }
   block_argmax(m, idx, sm, si);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (threadIdx.x < C) {
+    cluster.map_shared_rank(cm, (int)threadIdx.x)[c] = m;
+    cluster.map_shared_rank(ci, (int)threadIdx.x)[c] = idx;
+  }
+  cluster.sync();
+  m = cm[0];
+  idx = ci[0];
+  for (int q = 1; q < C; ++q) argmax_pair(m, idx, cm[q], ci[q]);
   if (greedy || temps[row] <= 0.f) {
-    if (threadIdx.x == 0) out[row] = idx;
+    if (c == 0 && threadIdx.x == 0) out[row] = idx;
     return;
   }
 
-  // pass 2: the normaliser
-  float z = 0.f;
-  for (int i = threadIdx.x; i < Vp; i += blockDim.x) z += expf(xr[i] - m);
-  z = block_sum(z, sm);
+  // phase 2: chunk sums, the block's total, Z and the block's offset
+  const int tchunk = (n + NT - 1) / NT;
+  const int tlo = min(n, (int)threadIdx.x * tchunk);
+  const int thi = min(n, tlo + tchunk);
+  float own = 0.f;
+  for (int i = tlo; i < thi; ++i) own += expf(xs[i] - m);
+  float zb;
+  float cum = block_exclusive_scan(own, sm, &zb);
+  if (threadIdx.x < C) cluster.map_shared_rank(cz, (int)threadIdx.x)[c] = zb;
+  cluster.sync();
+  float z = 0.f, off = 0.f;
+  for (int q = 0; q < C; ++q) {
+    if (q == c) off = z;
+    z += cz[q];
+  }
   const float thresh = us[row] * z;
 
-  // pass 3: first crossing of the running CDF over contiguous chunks
-  const int chunk = (Vp + blockDim.x - 1) / blockDim.x;
-  const int lo = min(Vp, (int)threadIdx.x * chunk);
-  const int hi = min(Vp, lo + chunk);
-  float own = 0.f;
-  for (int i = lo; i < hi; ++i) own += expf(xr[i] - m);
-  float cum = block_exclusive_scan(own, sm);
+  // phase 3: the first crossing of the running CDF
+  cum += off;
   int first = INT_MAX;
-  for (int i = lo; i < hi; ++i) {
-    cum += expf(xr[i] - m);
+  for (int i = tlo; i < thi; ++i) {
+    cum += expf(xs[i] - m);
     if (cum > thresh) {
-      first = i;
+      first = lo + i;
       break;
     }
   }
   first = block_min(first, si);
-  if (threadIdx.x == 0) out[row] = first != INT_MAX ? first : idx;
+  if (threadIdx.x == 0) cluster.map_shared_rank(cf, 0)[c] = first;
+  cluster.sync();
+  if (c == 0 && threadIdx.x == 0) {
+    int f = INT_MAX;
+    for (int q = 0; q < C; ++q) f = min(f, cf[q]);
+    out[row] = f != INT_MAX ? f : idx;
+  }
 }
+
+__global__ void empty_kernel() {}
+
+int set_attrs(int smem) {
+  static int done = -1;  // the dynamic shared bytes already allowed
+  if (smem <= done) return 0;
+  if (int e = (int)cudaFuncSetAttribute(
+          fused_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem))
+    return e;
+  if (int e = (int)cudaFuncSetAttribute(
+          fused_sample_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+          1))
+    return e;
+  done = smem;
+  return 0;
+}
+
+// the slice a block holds: Vp / C floats rounded up to whole 16-byte vectors
+int slice(int Vp) { return ((Vp + C - 1) / C + 3) / 4 * 4; }
 
 }  // namespace
 
+// x [S, Vp] f32 (Vp % 4 == 0, 16-byte aligned), temps and us [S] f32,
+// out [S] int32.
 extern "C" int dtx_fused_sample(const void* x, const void* temps,
                                 const void* us, void* out, int S, int Vp,
                                 int greedy, void* stream) {
-  fused_sample_kernel<<<S, DTX_SAMPLE_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)temps, (const float*)us, (int*)out, Vp,
-      greedy);
+  if (S == 0) return 0;
+  if (Vp < 1 || Vp % 4 || (uintptr_t)x % 16) return (int)cudaErrorInvalidValue;
+  const int chunk = slice(Vp);
+  const int smem = chunk * (int)sizeof(float);
+  if (int e = set_attrs(smem)) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, S);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (int e = (int)cudaLaunchKernelEx(
+          &cfg, fused_sample_kernel, (const float*)x, (const float*)temps,
+          (const float*)us, (int*)out, Vp, chunk, greedy))
+    return e;
   return (int)cudaGetLastError();
+}
+
+// An empty kernel: the floor a small kernel's time is read against.
+extern "C" int dtx_empty_kernel(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// What K9 takes of an SM at V = 32000: registers, local (spill) bytes per
+// thread, dynamic shared bytes per block, resident blocks per SM.
+extern "C" int dtx_sample_resources(int* out) {
+  cudaFuncAttributes a;
+  if (int e = (int)cudaFuncGetAttributes(&a, fused_sample_kernel)) return e;
+  const int smem = slice(32000) * (int)sizeof(float);
+  if (int e = set_attrs(smem)) return e;
+  int blocks = 0;
+  if (int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, fused_sample_kernel, NT, smem))
+    return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = smem;
+  out[3] = blocks;
+  return 0;
 }

@@ -179,10 +179,18 @@ def _declare(lib: ctypes.CDLL):
         fn = getattr(lib, f"dtx_int8_matmul_{dt}")
         fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
         fn.restype = _I
-        # x, w, a, b, out, M, K, N, r, scale, stream
-        fn = getattr(lib, f"dtx_lora_matmul_{dt}")
+        # x, w, a, b, out, M, K, N, r, scale, splits, column vectors, stream
+        fn = getattr(lib, f"dtx_lora_split_{dt}")
+        fn.argtypes = [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P]
+        fn.restype = _I
+    # x, w, a (or aᵀ), b, out, M, K, N, r, scale, stream
+    for name in ("dtx_lora_matmul_f32", "dtx_lora_gemm_bf16"):
+        fn = getattr(lib, name)
         fn.argtypes = [_P] * 5 + [_I] * 4 + [_F, _P]
         fn.restype = _I
+    fn = lib.dtx_lora_split_smem  # M, K, r, S, BN, element size
+    fn.argtypes = [_I] * 6
+    fn.restype = _I
     fn = lib.dtx_flash_bwd_resources  # d, int out[8]
     fn.argtypes = [_I, _P]
     fn.restype = _I
@@ -201,9 +209,18 @@ def _declare(lib: ctypes.CDLL):
     fn = lib.dtx_nf4_matmul_resources  # int out[8]: K4, then K5
     fn.argtypes = [_P]
     fn.restype = _I
+    # int out[8]: two variants; int out[4]
+    for name in ("dtx_lora_gemm_resources", "dtx_lora_split_resources",
+                 "dtx_sample_resources"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P]
+        fn.restype = _I
     fn = lib.dtx_fused_sample
     # x, temps, us, out, S, Vp, greedy, stream
     fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+    fn.restype = _I
+    fn = lib.dtx_empty_kernel  # stream
+    fn.argtypes = [_P]
     fn.restype = _I
 
 

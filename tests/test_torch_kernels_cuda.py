@@ -22,7 +22,10 @@ K8 runs on tensor cores and rounds p to bf16 where the plain version does,
 so it too differs only by the order of its f32 sums. The fused
 LoRA matmul (K10): float32 atol=rtol=1e-4, bf16 atol 2^-8 / rtol 2^-7 (the
 kernel and its plain version round at the same points and differ only in
-the order of their f32 sums). The split-table K7 holds K7's tolerances in
+the order of their f32 sums), held against the plain version on every row
+whose xa strip rounds as the plain version's does, and on every row against
+the plain version given the kernel's own strip (which must lie within the
+f32 sums' order error of the exact one). The split-table K7 holds K7's tolerances in
 both dtypes (its splits merge (m, l) and sum the partials in split order,
 rounding p and the output where the plain version does), and two calls on
 the same inputs agree bit for bit; the bf16 K6 on ``wgmma`` holds K6's,
@@ -251,9 +254,9 @@ def test_nf4_matmuls_do_not_spill(cuda):
 
 
 def test_int8_matmul_runs_on_wgmma(cuda):
-    """The bf16 K6, K4 and K5 as built hold warpgroup tensor-core
-    instructions (``HGMMA`` in their SASS), read with the toolkit's
-    cuobjdump."""
+    """The bf16 K6, K4, K5 and the many-row bf16 K10 as built hold
+    warpgroup tensor-core instructions (``HGMMA`` in their SASS), read with
+    the toolkit's cuobjdump."""
     import os
     import shutil
     import subprocess
@@ -269,24 +272,153 @@ def test_int8_matmul_runs_on_wgmma(cuda):
                           text=True, check=True).stdout
     funcs = sass.split("Function : ")
     for names in (("int8_gemm_wgmma",), ("nf4_gemm_wgmma", "Nf4Fwd"),
-                  ("nf4_gemm_wgmma", "Nf4T")):
+                  ("nf4_gemm_wgmma", "Nf4T"), ("lora_gemm_wgmma",)):
         found = [f for f in funcs
                  if all(n in f.splitlines()[0] for n in names)]
         assert found and all("HGMMA" in f for f in found), names
+
+
+def test_new_kernels_do_not_spill(cuda):
+    """The many-row bf16 K10 (TMA + wgmma, 128 x 256 and 128 x 128 tiles),
+    the split K10 (bf16, f32) and the cluster K9 as built keep every value
+    in registers: 0 spill bytes, at least one block an SM."""
+    for fn, n in (("dtx_lora_gemm_resources", 8),
+                  ("dtx_lora_split_resources", 8),
+                  ("dtx_sample_resources", 4)):
+        r = _resources(fn, n)
+        for i in range(0, n, 4):
+            assert r[i + 1] == 0 and r[i + 3] >= 1, (fn, r)
+
+
+def test_split_plan_sizes_its_shared_memory_as_the_kernel(cuda):
+    """The wrapper's ``_split_smem`` (which decides whether a split plan
+    fits) gives the very bytes ``csrc/lora.cu``'s ``SplitSmem`` lays out."""
+    from datatunerx_tpu_torch.ops import _build
+    from datatunerx_tpu_torch.ops import cuda_lora as cl
+
+    lib = _build.library()
+    for M in (1, 3, 4, 16, 32):
+        for K in (200, 2048, 5632):
+            for r in (5, 8, 64):
+                for S in (1, 2, 8, 16):
+                    for bn, size in ((128, 2), (64, 2), (64, 4), (16, 4)):
+                        args = (M, K, r, S, bn, size)
+                        assert lib.dtx_lora_split_smem(*args) == \
+                            cl._split_smem(*args), args
+
+
+def _quant_digests(dev):
+    """sha256 (first 16 hex digits) of the bf16 K4, K5 and K6 outputs at
+    fixed inputs (a CPU generator, quantized on the CPU) at three of
+    tinyllama-1.1b's projection shapes."""
+    import hashlib
+
+    from datatunerx_tpu_torch.ops import cuda_quant as cq
+    from datatunerx_tpu_torch.ops import quant as tq
+
+    gen = torch.Generator().manual_seed(2024)
+    out = {}
+    for K, N in ((2048, 2048), (2048, 256), (5632, 2048)):
+        w = torch.randn((K, N), generator=gen) * 0.02
+        qw = {k: v.to(dev) for k, v in tq.quantize_nf4(w).items()}
+        q8 = {k: v.to(dev) for k, v in tq.quantize_int8(w).items()}
+        x = torch.randn((200, K), generator=gen).to(torch.bfloat16).to(dev)
+        g = torch.randn((200, N), generator=gen).to(torch.bfloat16).to(dev)
+        for name, y in (("K4", cq.nf4_matmul(x, qw, (K, N))),
+                        ("K5", cq.nf4_matmul_t(g, qw, (K, N))),
+                        ("K6", cq.int8_matmul(x, q8["q"], q8["scale"]))):
+            raw = y.contiguous().view(torch.int16).cpu().numpy().tobytes()
+            out[f"{name} {K}x{N}"] = hashlib.sha256(raw).hexdigest()[:16]
+    return out
+
+
+# the bf16 K4-K6's outputs as the kernels computed them before the shared
+# header (csrc/wgmma_sm90.cuh) gained K10's products
+QUANT_DIGESTS = {
+    "K4 2048x2048": "9ba3b1bb905e0568", "K5 2048x2048": "3478a2aae189a045",
+    "K6 2048x2048": "371d85ca5f1ff619", "K4 2048x256": "fa2dff87840ff200",
+    "K5 2048x256": "fc92c8f1a631c739", "K6 2048x256": "26e90c434e5714e7",
+    "K4 5632x2048": "b12065780e7b5c71", "K5 5632x2048": "58e5be9ef46bd1ff",
+    "K6 5632x2048": "dc305c81f9d34c3f",
+}
+
+
+def test_quant_kernels_bit_equal_to_their_recorded_outputs(cuda):
+    """The bf16 K4, K5 and K6 still give the very bits they gave before
+    ``wgmma_sm90.cuh`` was extended for K10."""
+    assert _quant_digests(cuda) == QUANT_DIGESTS
 
 
 LORA_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
             torch.bfloat16: dict(atol=2**-8, rtol=2**-7)}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,K,N,r", [
-    (160, 128, 256, 8),    # the reference test's shape
-    (4, 2048, 256, 8),     # a decode step on v_proj
-    (200, 200, 136, 4),    # M, N, K off every tile; r rows of 8 bytes
-    (37, 150, 99, 20),     # rows that are not whole 16-byte vectors; RP=32
-    (130, 64, 128, 64),    # the largest rank
-])
+def _lora_cases():
+    from datatunerx_tpu_torch.ops.cuda_lora import _split_rows
+
+    small = [
+        (160, 128, 256, 8),    # the reference test's shape
+        (4, 2048, 256, 8),     # a decode step on v_proj
+        (200, 200, 136, 4),    # M, N, K off every tile; r rows of 8 bytes
+        (37, 150, 99, 20),     # rows that are not whole 16-byte vectors
+        (130, 64, 128, 64),    # the largest rank
+        # decode steps whose widest split plan would not fit shared memory
+        (4, 2048, 5632, 8),    # gate/up_proj
+        (4, 5632, 2048, 8),    # down_proj
+        (4, 2048, 5632, 32),   # gate/up_proj at r=32
+        (4, 2048, 5632, 64),   # and at r=64
+        (4, 5632, 2048, 64),   # down_proj at r=64
+        (32, 2048, 2048, 64),  # the most f32 split rows at r=64
+    ]
+    big = [
+        (8192, 2048, 2048, 8),  # a training batch on q_proj
+        (8192, 2048, 256, 8),   # on v_proj (128 x 128 tiles)
+        (8191, 2048, 2048, 8),  # a ragged last row tile
+    ]
+    for N in (2048, 256):  # the last row count on the split kernel, +- 1
+        cross = _split_rows(N, torch.bfloat16)
+        big += [(cross + d, 2048, N, 8) for d in (-1, 0, 1)]
+    return ([(dt, *c) for dt in (torch.float32, torch.bfloat16) for c in small]
+            + [(torch.bfloat16, *c) for c in big])
+
+
+def _assert_lora_close(cl, x, w, a, b, scale, got):
+    """K10's output against its plain version, with the strip's rounding
+    read off the kernel. The kernel's xa (read back through W = 0, B = I,
+    scale 1) must be an f32 sum of x A rounded once: within the sums' order
+    error (2^-20 of sum |x A|) and half an ulp of the dtype of the exact
+    strip. The output must hold the stated tolerance against the plain
+    version given that strip, and against the plain version itself on every
+    row but those whose strip rounds apart from the plain version's only
+    where the exact (f64) strip lies within that order error of the bf16
+    rounding midpoint between the two (there the f32 sums, in two orders,
+    may round to neighbouring values, and the row moves by up to |B| scale
+    ulps)."""
+    dtype, dev = x.dtype, x.device
+    K, r = a.shape
+    xa_k = cl.lora_matmul(x, torch.zeros((K, r), dtype=dtype, device=dev), a,
+                          torch.eye(r, dtype=dtype, device=dev), 1.0)
+    xa64 = x.double() @ a.double()
+    mag = x.double().abs() @ a.double().abs()
+    _, e = torch.frexp(xa_k.double())
+    half_ulp = torch.pow(2.0, e - (9 if dtype == torch.bfloat16 else 25))
+    assert ((xa_k.double() - xa64).abs() <= 2**-20 * mag + half_ulp).all()
+    xf, wf, bf = x.float(), w.float(), b.float()
+    want = (xf @ wf + (xa_k.float() @ bf) * scale).to(dtype)
+    torch.testing.assert_close(got.float(), want.float(), **LORA_TOL[dtype])
+    plain = cl._plain_lora_matmul(x, w, a, b, scale)
+    held = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+    if dtype == torch.bfloat16:  # an f32 strip is not rounded
+        xa_p = (xf @ a.float()).to(dtype)
+        apart = xa_k != xa_p
+        mid = (xa_k.double() + xa_p.double()) / 2
+        tie = (xa64 - mid).abs() <= 2**-20 * mag
+        held = ~(apart.any(dim=1) & (tie | ~apart).all(dim=1))
+    torch.testing.assert_close(got[held].float(), plain[held].float(),
+                               **LORA_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,M,K,N,r", _lora_cases())
 def test_lora_kernel_matches_plain(cuda, dtype, M, K, N, r):
     from datatunerx_tpu_torch.ops import cuda_lora as cl
 
@@ -300,10 +432,11 @@ def test_lora_kernel_matches_plain(cuda, dtype, M, K, N, r):
     before = cl.lora_matmul.launches
     got = cl.lora_matmul(x, w, a, b, 4.0)
     assert cl.lora_matmul.launches == before + 1
-    want = cl._plain_lora_matmul(x, w, a, b, 4.0)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert cl.lora_matmul.last == cl._route(M, K, N, r, dtype, sms)
     assert got.dtype == dtype and got.shape == (M, N)
     assert torch.isfinite(got.float()).all()
-    torch.testing.assert_close(got.float(), want.float(), **LORA_TOL[dtype])
+    _assert_lora_close(cl, x, w, a, b, 4.0, got)
     # the adapter really contributes: far from the base product alone
     base = cl._plain_lora_matmul(x, w, a, torch.zeros_like(b), 4.0)
     assert (got.float() - base.float()).abs().max() > 10 * LORA_TOL[dtype]["atol"]
@@ -401,6 +534,49 @@ def test_sampling_kernel_matches_plain(cuda, mode):
         assert torch.equal(got, want) and int(got[2]) == 5
     else:
         assert torch.equal(got[temps <= 0], want[temps <= 0])
+
+
+def _at_cdf_boundary(x, u, a, b):
+    """Tokens a and b differ only where u*Z sits within 1e-5*Z of a CDF
+    step between them (the kernel and the plain version sum in other
+    orders)."""
+    row = x.double()
+    e = torch.exp(row - row.max())
+    cdf, z = torch.cumsum(e, 0), e.sum()
+    lo, hi = min(a, b), max(a, b)
+    return float((cdf[lo:hi] - float(u) * z).abs().min()) <= 1e-5 * float(z)
+
+
+@pytest.mark.parametrize("mode", ["greedy", "simple"])
+def test_sampling_kernel_at_64_slots_with_ties_across_slices(cuda, mode):
+    """K9 at V=32000 and S=64: equal maxima at the last element of one
+    block's slice and the first of the next, and at two slices' first
+    elements; greedy rows and rows at temperature 0 exact."""
+    gen = torch.Generator().manual_seed(5)
+    S, V = 64, 32000
+    sl = -(-V // 16)  # a block's slice (16 blocks a row)
+    logits = torch.randn((S, V), generator=gen) * 2.0
+    logits[0, sl - 1] = logits[0, sl] = logits[0].max() + 1
+    logits[1, sl] = logits[1, 2 * sl] = logits[1].max() + 1
+    logits[2, 0] = logits[2, V - 1] = logits[2].max() + 1
+    temps = torch.rand((S,), generator=gen) + 0.3
+    temps[::4] = 0.0
+    us = torch.rand((S,), generator=gen)
+    logits, temps, us = logits.to(cuda), temps.to(cuda), us.to(cuda)
+    x, bn = cs._prep(logits, temps, mode=mode)
+    greedy = mode == "greedy"
+    got = cs.kernel_sample(x, temps, us, greedy=greedy).cpu()
+    want = cs._plain_sample(x, temps, us, bn=bn, greedy=greedy).cpu()
+    if greedy:
+        assert torch.equal(got, want)
+        assert (int(got[0]), int(got[1]), int(got[2])) == (sl - 1, sl, 0)
+        return
+    for i in range(S):
+        a, b = int(got[i]), int(want[i])
+        if float(temps[i]) <= 0:
+            assert a == b, i
+        elif a != b:
+            assert _at_cdf_boundary(x[i].cpu(), us[i], a, b), (i, a, b)
 
 
 QUANT_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
