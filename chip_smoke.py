@@ -27,7 +27,10 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
 4. greedy parity: two greedy prompts, 32 tokens each, through the kernel
    engine and through an engine on the gather path with the legacy sampler;
    the streams must agree up to a divergence at a near-tie (top-2 logits of
-   the plain path within 2 bf16 ulps);
+   the plain path within 2 bf16 ulps), and from there every token of both
+   streams, teacher-forced through one plain forward, must lie within
+   ``FORCED_ULPS`` of its top (the check every greedy comparison below
+   shares);
 5. train: ``python -m datatunerx_tpu_torch.tuning.train`` (its ``main``)
    for ``preset:tinyllama-1.1b`` at full width and depth, LoRA r8 on
    q_proj,v_proj, ``--attention flash --remat dots --bf16``, packed to
@@ -84,6 +87,38 @@ have run in the process):
   dense engine's greedy streams equal the paged gather engine's up to a
   near-tie.
 
+Four more run right after 3-dense, each failing the run on any error:
+
+- 3-prefix: an in-process ``BatchedEngine`` with ``prefix_cache=8``,
+  ``kv_overcommit="on"`` and a 64-block pool of 16-token blocks, 4 slots.
+  Request A (a 520-token prompt P, seeded random ids) runs alone, then
+  once more alone (an exact hit), then A again sampled at temperature 0.8
+  (an exact copy-on-write hit) and P plus 48, 64 and 80 other tokens
+  (strict-prefix hits: K8 prefills only the suffix from the cached cursor)
+  run at once, 128 new tokens each; eager reservation would need 175
+  blocks, so tables grow, prefix entries are reclaimed and sessions are
+  preempted and resumed. Requires reuse and extension, an exported and a
+  resumed preemption, no failed request, the K7 and K8 counters (zeroed
+  just before the batch) to have moved, every greedy stream equal to a
+  cold engine's (no prefix cache, overcommit off, the default pool) and
+  the sampled one to the same request's there, each up to a near-tie, and
+  free blocks plus the prefix entries' blocks to fill the pool; prints
+  TTFTs, decode tok/s, peak reserved blocks and ``kv_overcommit_ratio``;
+- 3-prefix-int8: the same over int8 KV pools (int8 K7/K8 counters);
+- 3-perplexity: ``POST /perplexity`` to the paged server (phase 3's
+  flags) for a ~600-token prompt and a 64-token completion, and for a
+  prompt the context cuts from the left; then the single-request engine's
+  ``perplexity`` on both inputs. Each ``nll_sum`` within ``PPL_BOUND``
+  (1e-3) relative, and ``num_tokens`` equal, of an f32 forward of the same
+  params over the unpadded, cut sequence; prints ms per call;
+- 3-single: the server with ``--slots 1`` (``InferenceEngine``) answers two
+  greedy chats in turn; its 64-token streams equal the dense batched
+  engine's up to a near-tie. Then ``--slots 1 --quantization int8`` and
+  ``int4`` (weights quantized on the host, the ``xla`` dequantize-then-
+  matmul path): 32 greedy tokens each, equal to an unquantized engine's
+  over the dequantized weights up to a near-tie, with the K4-K6 counters
+  left at 0; prints each weight tree's bytes beside the bf16 tree's.
+
 The bf16 K1-K3 and the bf16 K8 (over bf16 and over int8 pools) are
 tensor-core kernels (``mma.sync`` bf16 -> f32, fed by ``cp.async``; the
 skeleton of ``csrc/mma_sm90.cuh``); the bf16 K4/K5 (``csrc/nf4_gemm.cu``)
@@ -110,7 +145,7 @@ registers, spills, shared bytes and blocks per SM, and K4 (nf4 matmul), K5
 projection shape of tinyllama-1.1b, in bf16 and f32, and K10 (fused LoRA
 matmul) at M=8192 and M=4 rows, N=2048 and N=256, K=2048, r=8, in bf16 and
 f32. ``--phase kernels`` stops after phase 2; ``--phase serve`` runs phases
-1-4, the three above and 10; ``--phase train`` runs phases 1, 2 and 5-9;
+1-4, the seven above and 10; ``--phase train`` runs phases 1, 2 and 5-9;
 ``--phase qlora`` runs phases 1, 2 and 7-9. The script imports nothing of JAX or of
 the JAX package.
 """
@@ -1109,11 +1144,8 @@ def start_server(torch, flags):
     with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz") as r:
         if r.status != 200:
             fail(f"/healthz answered {r.status} after load")
-    log(f"  engine loaded in {time.perf_counter() - t0:.1f} s: "
-        f"decode_path={eng.decode_path} sampling_epilogue="
-        f"{eng.sampling_epilogue} kv_quant={eng.kv_quant} "
-        f"kv_blocks={eng.total_kv_blocks} kv_cache_bytes="
-        f"{eng.kv_cache_bytes}")
+    log(f"  {type(eng).__name__} loaded in {time.perf_counter() - t0:.1f} "
+        f"s: quantization={eng.cfg.quantization}")
     # warm-up request (first-call allocations), not counted
     post(port, {"messages": [{"role": "user", "content": "warm up"}],
                 "max_tokens": 8})
@@ -1136,6 +1168,10 @@ def serve_phase(torch, counters, flags=("--kv_block_size", "16",
     ``flags``; ``counters`` are ``(wrapper, count attribute)`` pairs, zeroed
     just before the requests and read just after."""
     srv, port, eng = start_server(torch, flags)
+    log(f"  decode_path={eng.decode_path} sampling_epilogue="
+        f"{eng.sampling_epilogue} kv_quant={eng.kv_quant} "
+        f"kv_blocks={eng.total_kv_blocks} kv_cache_bytes="
+        f"{eng.kv_cache_bytes}")
     long_q = " ".join(f"item {i}: the quick brown fox." for i in range(40))
     reqs = [
         ("greedy-long", {"messages": [{"role": "user", "content": long_q}],
@@ -1237,13 +1273,125 @@ def _most_chunks(sched_trace) -> int:
 
 
 # ------------------------------------------------------------------ phase 4
+def plain_step_logits(torch, params, cfg, prompt, stream, max_seq_len,
+                      max_new, eos, kv_quant=None):
+    """Rows of a plain bf16 forward over the bucketed prompt plus
+    ``stream``: row i is the step that emits ``stream[i]`` given the prompt
+    and ``stream[:i]`` (teacher forcing: one causal forward serves every
+    step), and the last row the step after the stream. With ``kv_quant``
+    the forward attends through a dense cache of that quantization, as the
+    engine under check does."""
+    from datatunerx_tpu_torch.models.llama import forward, init_cache
+    from datatunerx_tpu_torch.utils.decoding import prepare_prompt
+
+    ids, mask, positions, plen, n_prompt, _, _ = prepare_prompt(
+        prompt, eos, max_seq_len, max_new)
+    n = len(stream)
+    seq = ids + list(stream)
+    pos = positions + list(range(n_prompt, n_prompt + n))
+    msk = mask + [1] * n
+    with torch.inference_mode():
+        cache = (init_cache(cfg, 1, len(seq), quantize=kv_quant,
+                            device="cuda") if kv_quant else None)
+        logits, _ = forward(
+            params, torch.tensor([seq], device="cuda"), cfg,
+            positions=torch.tensor([pos], device="cuda"),
+            attention_mask=torch.tensor([msk], device="cuda"),
+            cache=cache, compute_dtype=torch.bfloat16)
+        return logits[0, plen - 1:plen + n].double()
+
+
+def gaps_ulps(torch, rows, picks):
+    """For each row, how far the picked token's logit sits below the row's
+    top logit, in bf16 ulps of the top."""
+    top = rows.max(dim=-1).values
+    ulp = 2.0 ** (torch.floor(torch.log2(top.abs())) - 7)
+    picked = rows.gather(-1, torch.tensor(picks, device=rows.device)[:, None])
+    return ((top - picked[:, 0]) / ulp).tolist()
+
+
+NEAR_TIE_ULPS = 2.0
+# the most a token of a teacher-forced stream may sit below the plain
+# forward's top: twice the largest such gap of a correct engine's own
+# stream on the H100 (4 ulps: 3-prefix's cold streams, bf16 and int8, 128
+# tokens each; PERF.md). A wrong token sits tens to hundreds below.
+FORCED_ULPS = 8.0
+
+
+def stream_gaps(torch, eng, prompt, stream, start, max_new, stops,
+                kv_quant):
+    """Teacher-forced gaps of ``stream`` from token ``start`` on: for each
+    step, how far its token sits below the top logit of ``eng``'s plain
+    forward over the prompt and the stream before it, in bf16 ulps (with
+    ``kv_quant`` the forward attends through such a cache). A stream that
+    stops short adds the step after it, scored by its nearest stop id
+    (``stops`` and the end-of-sequence token). Returns (steps, gaps)."""
+    eos = eng.tokenizer.eos_token_id
+    rows = plain_step_logits(torch, eng.params, eng.cfg, prompt, stream,
+                             eng.max_seq_len, max_new, eos, kv_quant)
+    steps = list(range(start, len(stream)))
+    gaps = gaps_ulps(torch, rows[steps], [stream[i] for i in steps])
+    if len(stream) < max_new:
+        ids = sorted({int(t) for t in stops if t >= 0} | {eos})
+        steps.append(len(stream))
+        gaps.append(min(gaps_ulps(torch, rows[[len(stream)] * len(ids)],
+                                  ids)))
+    return steps, gaps
+
+
+def check_greedy(torch, label, got, want, ref, prompt, max_new,
+                 stops=(), kv_quant=None, plain=None):
+    """``got`` equals ``want`` (the stream of ``ref``, an engine whose
+    params and cfg give the plain forward), or the two part at a near-tie:
+    ``ref``'s plain bf16 forward over the prompt and the tokens they share
+    puts its top two logits within 2 bf16 ulps. From there ``got`` is
+    checked step by step, teacher-forced: none of its tokens may sit more
+    than ``FORCED_ULPS`` below the top of the plain forward over the prompt
+    and ``got`` before it, and nor may ``want``'s, scored the same way on
+    ``ref``'s (with ``kv_quant`` the forward attends through such a cache).
+    Where ``got``'s engine computes another model than ``ref`` (quantized
+    weights against their dequantized twin), ``plain`` is that engine and
+    its own forward scores ``got``."""
+    n = min(len(got), len(want))
+    div = next((i for i in range(n) if got[i] != want[i]), None)
+    if div is None and len(got) == len(want):
+        log(f"  {label}: {len(got)} tokens equal")
+        return
+    div = n if div is None else div
+    if div < len(got) and div < len(want):
+        row = plain_step_logits(torch, ref.params, ref.cfg, prompt,
+                                want[:div], ref.max_seq_len, max_new,
+                                ref.tokenizer.eos_token_id)[div]
+        second = int(torch.topk(row, 2).indices[1])
+        tie = gaps_ulps(torch, row[None], [second])[0]
+        if tie > NEAR_TIE_ULPS:
+            fail(f"{label}: the streams part at token {div} without a "
+                 f"near-tie (the top two {tie:.2f} ulps apart)")
+    else:
+        tie = float("nan")  # one stream stopped: scored as a stop step
+    steps, gaps = stream_gaps(torch, plain or ref, prompt, got, div,
+                              max_new, stops, kv_quant)
+    _, own = stream_gaps(torch, ref, prompt, want, 0, max_new, stops,
+                         kv_quant)
+    worst = max(range(len(gaps)), key=gaps.__getitem__)
+    log(f"  {label}: equal for {div} tokens, parting where the top two "
+        f"lie {tie:.2f} bf16 ulps apart; then {len(gaps)} teacher-forced "
+        f"steps, the furthest {gaps[worst]:.2f} ulps below the plain "
+        f"forward's top (token {steps[worst]}), the reference's own stream "
+        f"{max(own):.2f}; bound {FORCED_ULPS:.2f}")
+    if max(own) > FORCED_ULPS:
+        fail(f"{label}: the reference's own stream sits {max(own):.2f} ulps "
+             "below the plain forward's top")
+    if gaps[worst] > FORCED_ULPS:
+        fail(f"{label}: token {steps[worst]} of the stream sits "
+             f"{gaps[worst]:.2f} ulps below the plain forward's top")
+
+
 def parity_phase(torch, eng, kv_quant=None):
     """Greedy streams of ``eng`` against an engine on the paged gather path
     with the legacy sampler (and the same KV quantization): equal, or
     diverging at a near-tie of the gather path's logits."""
-    from datatunerx_tpu_torch.models.llama import forward
     from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
-    from datatunerx_tpu_torch.utils.decoding import prepare_prompt
 
     plain = BatchedEngine("preset:tinyllama-1.1b", template="llama2",
                           max_seq_len=1024, slots=4, kv_block_size=16,
@@ -1254,36 +1402,357 @@ def parity_phase(torch, eng, kv_quant=None):
         prompts = [tok.encode("The capital of France is"),
                    tok.encode("def fibonacci(n):" * 20)]
         for p in prompts:
-            a = eng.generate(p, max_new_tokens=32)
-            b = plain.generate(p, max_new_tokens=32)
-            n = min(len(a), len(b))
-            div = next((i for i in range(n) if a[i] != b[i]), None)
-            if div is None and len(a) == len(b):
-                log(f"  greedy parity: {len(a)} tokens equal")
-                continue
-            div = n if div is None else div
-            ids, mask, positions, plen, n_prompt, _, _ = prepare_prompt(
-                p, tok.eos_token_id, plain.max_seq_len, 32)
-            seq = ids + b[:div]
-            pos = positions + list(range(n_prompt, n_prompt + div))
-            msk = mask + [1] * div
-            with torch.inference_mode():
-                logits, _ = forward(
-                    plain.params, torch.tensor([seq], device="cuda"),
-                    plain.cfg,
-                    positions=torch.tensor([pos], device="cuda"),
-                    attention_mask=torch.tensor([msk], device="cuda"),
-                    compute_dtype=torch.bfloat16)
-            top = torch.topk(logits[0, -1], 2).values.double()
-            ulp = 2.0 ** (torch.floor(torch.log2(top[0].abs())) - 7)
-            gap_ulps = float((top[0] - top[1]) / ulp)
-            log(f"  greedy parity: diverged at token {div}; plain top-2 gap "
-                f"{gap_ulps:.2f} bf16 ulps")
-            if gap_ulps > 2.0:
-                fail(f"greedy streams diverge at token {div} without a "
-                     f"near-tie (gap {gap_ulps:.2f} ulps)")
+            check_greedy(torch, "greedy parity",
+                         eng.generate(p, max_new_tokens=32),
+                         plain.generate(p, max_new_tokens=32), plain, p, 32,
+                         kv_quant=kv_quant)
     finally:
         plain.close()
+
+
+# -------------------------------------------------- phases 3-prefix and on
+PREFIX_NEW = 128
+PREFIX_TEMP, PREFIX_SEED = 0.8, 5
+
+
+def sampled_near_tie(torch, ref, prompt, prefix, step, temperature, seed,
+                     chunk):
+    """Where two sampled streams part at ``step``: the step's uniform (the
+    slot generator's draw, chunk by chunk) lies within 1e-2 of the softmax
+    mass of a CDF step between the two tokens, over ``ref``'s plain
+    logits."""
+    from datatunerx_tpu_torch.models.llama import forward
+    from datatunerx_tpu_torch.utils.decoding import prepare_prompt
+
+    ids, mask, positions, _, n_prompt, _, _ = prepare_prompt(
+        prompt, ref.tokenizer.eos_token_id, ref.max_seq_len, PREFIX_NEW)
+    seq = ids + list(prefix[:step])
+    pos = positions + list(range(n_prompt, n_prompt + step))
+    with torch.inference_mode():
+        logits, _ = forward(
+            ref.params, torch.tensor([seq], device="cuda"), ref.cfg,
+            positions=torch.tensor([pos], device="cuda"),
+            attention_mask=torch.tensor([mask + [1] * step], device="cuda"),
+            compute_dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for _ in range(step // chunk + 1):
+            us = torch.rand(chunk, generator=gen, device="cuda")
+        u = float(us[step % chunk])
+        x = (logits[0, -1].double() / temperature)
+        e = torch.exp(x - x.max())
+        cdf, z = torch.cumsum(e, 0), float(e.sum())
+    return cdf, u, z
+
+
+def prefix_phase(torch, counters, kv_quant=None):
+    """3-prefix: the prefix cache with KV overcommit on a 64-block pool.
+    Request A (a 520-token prompt P) runs alone; then A again (an exact COW
+    hit, sampled) and P plus 48, 64 and 80 other tokens (COW strict-prefix
+    hits: K8 prefills only the suffix, from the cached cursor) run at once,
+    128 new tokens each, so growth, reclamation and preemption all happen.
+    ``counters`` (K7 and K8) are zeroed just before the concurrent batch and
+    read just after. Every greedy stream must equal a cold engine's (no
+    prefix cache, overcommit off, the default pool) and the sampled one the
+    same request's on that engine, each up to a near-tie; afterwards free
+    blocks plus the prefix entries' blocks fill the pool."""
+    import random
+
+    from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
+
+    kw = dict(template="llama2", max_seq_len=1024, slots=4, kv_block_size=16,
+              kv_quant=kv_quant)
+    eng = BatchedEngine("preset:tinyllama-1.1b", prefix_cache=8,
+                        kv_overcommit="on", kv_blocks=64, **kw)
+    rnd = random.Random(0)
+    P = [rnd.randrange(10, 30000) for _ in range(520)]
+    reqs = [("A-exact-sampled", P, PREFIX_TEMP)]
+    for extra in (48, 64, 80):
+        reqs.append((f"P+{extra}", P + [rnd.randrange(10, 30000)
+                                        for _ in range(extra)], 0.0))
+    eng.request_stats.clear()
+    eng.generate(P, max_new_tokens=PREFIX_NEW, trace_id="A-cold",
+                 stop_ids={-1})
+    cold_ttft = eng.request_stats[-1]["ttft_s"]
+    eng.generate(P, max_new_tokens=8, trace_id="A-hit-alone")
+    hit_ttft = eng.request_stats[-1]["ttft_s"]
+    for c, attr in counters:
+        setattr(c, attr, 0)
+    stats0 = dict(eng.prefill_stats)
+    handles = {name: eng.submit(p, max_new_tokens=PREFIX_NEW,
+                                temperature=t, seed=PREFIX_SEED,
+                                stop_ids={-1}, trace_id=name)
+               for name, p, t in reqs}
+    peak_reserved, peak_ratio = 0, 0.0
+    t0 = time.perf_counter()
+    while not all(h.done.is_set() for h in handles.values()):
+        if time.perf_counter() - t0 > 600:
+            fail("3-prefix: requests did not finish within 600 s")
+        peak_reserved = max(peak_reserved, eng.kv_blocks_reserved)
+        peak_ratio = max(peak_ratio, eng.kv_overcommit_ratio)
+        time.sleep(0.002)
+    wall = time.perf_counter() - t0
+    launches = {counter_key(c, attr): getattr(c, attr)
+                for c, attr in counters}
+    for name, h in handles.items():
+        if h.error:
+            fail(f"3-prefix: {name} failed: {h.error}")
+    stats = {s["trace_id"]: s for s in eng.request_stats}
+    for name, _, _ in reqs:
+        st = stats[name]
+        tps = (1.0 / st["tpot_s"]) if st["tpot_s"] else float("nan")
+        log(f"  {name}: {st['tokens']} tokens, TTFT "
+            f"{st['ttft_s'] * 1e3:.1f} ms, decode {tps:.1f} tok/s per "
+            "request")
+    log(f"  A cold TTFT {cold_ttft * 1e3:.1f} ms vs an exact hit's alone "
+        f"{hit_ttft * 1e3:.1f} ms and in the batch (behind the three "
+        f"suffix prefills) {stats['A-exact-sampled']['ttft_s'] * 1e3:.1f} "
+        "ms; batch wall "
+        f"{wall:.2f} s; peak reserved blocks {peak_reserved} of 64, peak "
+        f"kv_overcommit_ratio {peak_ratio}")
+    reuse = eng.prefill_stats["reuse"] - stats0["reuse"]
+    extend = eng.prefill_stats["extend"] - stats0["extend"]
+    log(f"  prefill_stats {eng.prefill_stats} (this batch: reuse {reuse}, "
+        f"extend {extend}); preemptions {eng.preempt_stats}; peak sessions "
+        f"{eng.kv_stats['peak_sessions']}; launches {launches}")
+    if reuse < 1 or extend < 1:
+        fail(f"3-prefix: reuse {reuse}, extend {extend}: a COW path did "
+             "not run")
+    if (eng.preempt_stats.get("exported", 0) < 1
+            or eng.preempt_stats.get("resumed", 0) < 1):
+        fail(f"3-prefix: no preemption was exported and resumed "
+             f"({eng.preempt_stats})")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"3-prefix: kernel {name} was never launched")
+    owned = {b for e in eng._prefix._d.values() for b in e.get("blocks", [])}
+    if eng.free_kv_blocks + len(owned) != 64:
+        fail(f"3-prefix: {eng.free_kv_blocks} free blocks + {len(owned)} "
+             "prefix-entry blocks != 64: blocks leaked")
+    got = {name: handles[name].tokens for name, _, _ in reqs}
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    cold = BatchedEngine("preset:tinyllama-1.1b", **kw)
+    try:
+        want = {}
+        chs = {name: cold.submit(p, max_new_tokens=PREFIX_NEW,
+                                 temperature=t, seed=PREFIX_SEED,
+                                 stop_ids={-1})
+               for name, p, t in reqs}
+        for name, h in chs.items():
+            if not h.done.wait(600) or h.error:
+                fail(f"3-prefix: cold {name}: {h.error or 'timed out'}")
+            want[name] = h.tokens
+        for name, p, t in reqs:
+            if t <= 0.0:
+                check_greedy(torch, f"{name} vs cold", got[name], want[name],
+                             cold, p, PREFIX_NEW, kv_quant=kv_quant)
+                continue
+            g, w = got[name], want[name]
+            div = next((i for i in range(min(len(g), len(w)))
+                        if g[i] != w[i]), None)
+            if div is None and len(g) == len(w):
+                log(f"  {name} vs overcommit off: {len(g)} sampled tokens "
+                    "equal")
+                continue
+            div = min(len(g), len(w)) if div is None else div
+            cdf, u, z = sampled_near_tie(torch, cold, p, w, div, t,
+                                         PREFIX_SEED, cold.chunk)
+            lo, hi = sorted((g[div], w[div]))
+            off = float((cdf[lo:hi] - u * z).abs().min()) / z
+            log(f"  {name} vs overcommit off: diverged at token {div}; "
+                f"u*Z sits {off:.2e} of Z from a CDF step between them")
+            if off > 1e-2:
+                fail(f"{name}: sampled streams diverge at token {div} "
+                     "away from a CDF step")
+    finally:
+        cold.close()
+    torch.cuda.empty_cache()
+    return launches
+def post_perplexity(port, prompt, completion):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/perplexity",
+        data=json.dumps({"prompt": prompt, "completion": completion}).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        if resp.status != 200:
+            raise RuntimeError(f"HTTP {resp.status}")
+        out = json.loads(resp.read())
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+PPL_BOUND = 1e-3  # relative, on nll_sum: ~4x the larger H100 reading (PERF.md)
+
+
+def f32_nll(torch, params32, cfg, p_ids, c_ids, max_seq_len):
+    """The completion's NLL under an f32 forward of prompt + completion, cut
+    from the left to ``max_seq_len``, with no padding and no mask: the
+    targets are the last ``len(c_ids)`` tokens (fewer when the cut reaches
+    into the completion). Returns (nll_sum, num_tokens)."""
+    from datatunerx_tpu_torch.models.llama import forward
+
+    ids = (list(p_ids) + list(c_ids))[-max_seq_len:]
+    n = min(len(c_ids), len(ids) - 1)
+    with torch.inference_mode():
+        logits, _ = forward(params32, torch.tensor([ids], device="cuda"),
+                            cfg, compute_dtype=torch.float32)
+        lp = torch.log_softmax(logits[0, -n - 1:-1].double(), dim=-1)
+        tgt = torch.tensor(ids[-n:], device="cuda")
+        nll = float(-lp.gather(-1, tgt[:, None]).sum())
+    return nll, n
+
+
+def perplexity_phase(torch):
+    """3-perplexity: ``/perplexity`` on the paged server (phase 3's flags)
+    for a ~600-token prompt with a 64-token completion, and for a prompt
+    too long for the context (cut from the left, the completion kept); then
+    the single-request engine's ``perplexity`` on the same inputs. Each
+    ``nll_sum`` within ``PPL_BOUND`` relative of an f32 forward of the same
+    params built without the engines' padding and masking, and
+    ``num_tokens`` equal."""
+    import random
+
+    from datatunerx_tpu_torch.serving.engine import InferenceEngine
+
+    srv, port, eng = start_server(torch, ("--kv_block_size", "16",
+                                          "--slots", "4"))
+    rnd = random.Random(1)
+    words = ["alpha", "beta", "gamma", "delta", "river", "stone", "light"]
+    prompt = " ".join(rnd.choice(words) for _ in range(100))[:600]
+    long_prompt = " ".join(rnd.choice(words) for _ in range(700))
+    completion = " ".join(rnd.choice(words) for _ in range(12))[:64]
+    tok = eng.tokenizer
+    inputs = {"600-token prompt": prompt, "cut prompt": long_prompt}
+    ids = {name: (tok.encode(text),
+                  tok.encode(completion, add_special_tokens=False))
+           for name, text in inputs.items()}
+    p_long, c_ids = ids["cut prompt"]
+    if len(p_long) + len(c_ids) <= eng.max_seq_len:
+        fail(f"3-perplexity: the long input ({len(p_long)} + {len(c_ids)} "
+             "tokens) is not cut")
+
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        return tree.float()
+
+    params32 = f32(eng.params)
+    want = {name: f32_nll(torch, params32, eng.cfg, p, c, eng.max_seq_len)
+            for name, (p, c) in ids.items()}
+
+    def check(engine, name, out):
+        ref, n = want[name]
+        rel = abs(out["nll_sum"] - ref) / abs(ref)
+        log(f"  {engine}, {name} ({len(ids[name][0])} + "
+            f"{len(ids[name][1])} tokens): nll_sum {out['nll_sum']:.6f} over "
+            f"{out['num_tokens']} tokens vs f32 {ref:.6f} over {n} (rel "
+            f"{rel:.2e}, bound {PPL_BOUND:g})")
+        if out["num_tokens"] != n or not rel <= PPL_BOUND:
+            fail(f"3-perplexity: {engine} on the {name} is off the f32 "
+                 "forward")
+
+    for name, text in inputs.items():
+        out, _ = post_perplexity(port, text, completion)
+        check("/perplexity", name, out)
+    times = sorted(post_perplexity(port, prompt, completion)[1]
+                   for _ in range(5))
+    log(f"  /perplexity: {times[len(times) // 2]:.1f} ms per call on the "
+        f"600-token prompt (median of 5, {times[0]:.1f}-{times[-1]:.1f})")
+    stop_server(srv)
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    single = InferenceEngine("preset:tinyllama-1.1b", template="llama2",
+                             max_seq_len=1024)
+    for name, (p, c) in ids.items():
+        check("the single-request engine", name, single.perplexity(p, c))
+    del single, params32
+    torch.cuda.empty_cache()
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def single_phase(torch, quant_counters):
+    """3-single: the server with ``--slots 1`` (the single-request engine)
+    answers two greedy chats in turn, whose streams must equal the dense
+    batched engine's; then ``--slots 1 --quantization int8`` and ``int4``
+    (host-quantized weights, the ``xla`` dequantize-then-matmul path: K4-K6
+    must not launch) generate 32 greedy tokens each, equal to an unquantized
+    engine's over the dequantized weights, each up to a near-tie."""
+    import copy
+    import dataclasses
+
+    from datatunerx_tpu_torch.models.lora import target_dims
+    from datatunerx_tpu_torch.ops.quant import dequantize_model_params
+    from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
+
+    srv, port, eng = start_server(torch, ("--slots", "1"))
+    if type(eng).__name__ != "InferenceEngine":
+        fail(f"--slots 1 served {type(eng).__name__}")
+    chats = [[{"role": "user", "content": "Tell me about the sea."}],
+             [{"role": "user", "content": "List three colours."}]]
+    for i, msgs in enumerate(chats):
+        r = post(port, {"messages": msgs, "max_tokens": 64})
+        log(f"  chat {i}: 200, {len(r['text'])} chars in "
+            f"{r['wall_s'] * 1e3:.0f} ms")
+    stop_server(srv)
+    dense = BatchedEngine("preset:tinyllama-1.1b", template="llama2",
+                          max_seq_len=1024, slots=4)
+    try:
+        for i, msgs in enumerate(chats):
+            ids, stops = eng._encode_chat(msgs)
+            t0 = time.perf_counter()
+            got = eng.generate(ids, max_new_tokens=64, stop_ids=stops)
+            ms = (time.perf_counter() - t0) * 1e3
+            want = dense.generate(ids, max_new_tokens=64, stop_ids=stops)
+            log(f"  chat {i}: {len(got)} tokens in {ms:.0f} ms "
+                f"({len(got) / ms * 1e3:.1f} tok/s)")
+            check_greedy(torch, f"chat {i} vs the dense batched engine", got,
+                         want, dense, ids, 64, stops)
+    finally:
+        dense.close()
+    bf16_bytes = tree_bytes(eng.params)
+    del eng, dense
+    torch.cuda.empty_cache()
+    for mode in ("int8", "int4"):
+        for c, attr in quant_counters:
+            setattr(c, attr, 0)
+        srv, port, qeng = start_server(torch, ("--slots", "1",
+                                               "--quantization", mode))
+        stop_server(srv)
+        ids = qeng.tokenizer.encode("The history of the printing press")
+        t0 = time.perf_counter()
+        got = qeng.generate(ids, max_new_tokens=32, stop_ids={-1})
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = {counter_key(c, attr): getattr(c, attr)
+                    for c, attr in quant_counters}
+        if any(launched.values()):
+            fail(f"--quantization {mode} launched {launched}: the serving "
+                 "path is the xla one")
+        ppl = qeng.perplexity(ids, got)["perplexity"]
+        if len(got) != 32 or not math.isfinite(ppl):
+            fail(f"--quantization {mode}: {len(got)} tokens, perplexity "
+                 f"{ppl}")
+        ref = copy.copy(qeng)
+        ref.params = dequantize_model_params(
+            qeng.params, mode, lambda n: target_dims(qeng.cfg, n))
+        ref.cfg = dataclasses.replace(qeng.cfg, quantization=None)
+        want = ref.generate(ids, max_new_tokens=32, stop_ids={-1})
+        log(f"  --quantization {mode}: weights {tree_bytes(qeng.params)} "
+            f"bytes vs bf16 {bf16_bytes} "
+            f"({tree_bytes(qeng.params) / bf16_bytes:.4f}); 32 tokens in "
+            f"{ms:.0f} ms ({32 / ms * 1e3:.1f} tok/s), perplexity of its "
+            f"own stream {ppl:.3f}; K4-K6 launches "
+            f"{launched}")
+        check_greedy(torch, f"{mode} vs its dequantized weights", got, want,
+                     ref, ids, 32, plain=qeng)
+        del ref, qeng
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1662,6 +2131,21 @@ def main(argv=None) -> int:
             eng.close()
         del eng
         torch.cuda.empty_cache()
+        from datatunerx_tpu_torch.ops import cuda_quant as cq
+
+        log("[3-prefix] prefix cache + KV overcommit (COW blocks, growth, "
+            "preemption and resume) on a 64-block pool, 4 slots")
+        prefix_phase(torch, [by_name["K7"], by_name["K8"]])
+        log("[3-prefix-int8] the same over int8 KV pools")
+        prefix_phase(torch, [by_name["K7-int8"], by_name["K8-int8"]],
+                     kv_quant="int8")
+        log("[3-perplexity] POST /perplexity to the paged server")
+        perplexity_phase(torch)
+        log("[3-single] the single-request engine (--slots 1), then "
+            "serve-time --quantization int8 and int4")
+        single_phase(torch, [(cq.nf4_matmul, "launches"),
+                             (cq.nf4_matmul_t, "launches"),
+                             (cq.int8_matmul, "launches")])
 
     if opts.phase in ("all", "train", "qlora"):
         import tempfile

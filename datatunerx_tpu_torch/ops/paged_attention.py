@@ -16,8 +16,8 @@ causal check masks.
 Two differences from the JAX functions, both deliberate:
 
 - **Writes are in place.** The JAX programs return new pools; here
-  ``paged_record_positions`` and ``paged_kv_write`` update the pool tensors
-  with ``index_put_`` and return them.
+  ``paged_record_positions``, ``paged_kv_write``, ``paged_insert_row`` and
+  ``paged_copy_block`` update the pool tensors and return them.
 - **Invalid targets land in a scratch block.** JAX drops a scatter to the
   out-of-range index ``num_blocks``; in torch that index is a device-side
   assert on CUDA. The pool therefore holds one block more than the allocator
@@ -51,7 +51,11 @@ class BlockAllocator:
     The scheduler thread is the only allocator writer, but gauges read
     ``free_count`` from HTTP threads — hence the lock. Blocks are handed out
     lowest-id-first and returned to the head of the free list, so tests can
-    assert deterministic reuse."""
+    assert deterministic reuse.
+
+    Refcounts are the copy-on-write substrate: ``alloc`` hands blocks out at
+    refcount 1, ``incref`` adds an owner, and ``free`` drops one; a block
+    returns to the free list only when its last owner lets go."""
 
     def __init__(self, num_blocks: int):
         if num_blocks < 1:
@@ -65,6 +69,11 @@ class BlockAllocator:
     def free_count(self) -> int:
         with self._lock:
             return len(self._free)
+
+    def refcount(self, block: int) -> int:
+        """Owners of one block (0 = free)."""
+        with self._lock:
+            return self._ref[int(block)]
 
     def alloc(self, n: int) -> Optional[List[int]]:
         """Reserve ``n`` blocks at refcount 1; None (and no change) when the
@@ -91,6 +100,23 @@ class BlockAllocator:
             raise BlockAllocatorError(
                 f"{op} lists block id(s) {dupes} more than once")
         return ids
+
+    def incref(self, blocks: List[int]):
+        """Add one owner to each LIVE block (copy-on-write sharing: a slot's
+        table or a prefix-cache entry mapping blocks it did not allocate).
+        An incref of a free block is rejected before any mutation, like a
+        double free."""
+        if not blocks:
+            return
+        with self._lock:
+            ids = self._validate(blocks, "incref()")
+            dead = sorted(b for b in ids if self._ref[b] == 0)
+            if dead:
+                raise BlockAllocatorError(
+                    f"incref() of free block id(s) {dead}: a shared "
+                    "mapping must target live blocks")
+            for b in ids:
+                self._ref[b] += 1
 
     def free(self, blocks: List[int]):
         """Drop one owner per block; blocks whose last owner left return to
@@ -255,3 +281,96 @@ def paged_kv_update(ck, cv, cks, cvs, tables, lens, k_w, v_w, ks_w, vs_w,
         ks_all = cks[tbl].reshape(B, -1, cks.shape[-1])
         vs_all = cvs[tbl].reshape(B, -1, cvs.shape[-1])
     return ck, cv, cks, cvs, k_all, v_all, ks_all, vs_all
+
+
+# --------------------------------------------------------- row import/export
+def _row_targets(table_row: torch.Tensor, width: int, block_size: int,
+                 num_blocks: int):
+    """Physical (block, offset) of a slot's first ``width`` linear lanes;
+    lanes past the table or backed by no block get ``num_blocks``, the
+    pool's scratch block."""
+    idx = torch.arange(width, dtype=torch.int64, device=table_row.device)
+    blk, off = idx // block_size, idx % block_size
+    nbps = table_row.shape[0]
+    tbl = table_row.to(torch.int64)[blk.clamp(0, nbps - 1)]
+    phys = torch.where((blk < nbps) & (tbl >= 0), tbl,
+                       torch.full_like(tbl, num_blocks))
+    return phys, off
+
+
+def paged_insert_row(cache: Dict, slot: int, table_row: torch.Tensor,
+                     row_cache: Dict) -> Dict:
+    """Scatter a dense single-row cache (``k [L, 1, W, KV, d]``, a prefill,
+    prefix-cache or parked-session row) into the slot's blocks and install
+    its table, in place. Lanes past the row's cursor are POS_SENTINEL in
+    the row already, so writing the full width doubles as the block scrub;
+    lanes past the slot's allocation land in the scratch block."""
+    pos = cache["pos"]
+    W = row_cache["k"].shape[2]
+    phys, off = _row_targets(table_row, W, pos.shape[1], num_pool_blocks(pos))
+    cache["block_tables"][slot] = table_row.to(cache["block_tables"].dtype)
+    for key in ("k", "v", "k_scale", "v_scale"):
+        if key in cache:
+            cache[key][:, phys, off] = row_cache[key][:, 0].to(
+                cache[key].dtype)
+    pos[phys, off] = row_cache["pos"][0].to(pos.dtype)
+    return cache
+
+
+def row_trim(row: Dict, width: int) -> Dict:
+    """A dense single-row cache's first ``width`` linear lanes (views; the
+    live prefix a parked session keeps)."""
+    width = min(width, row["k"].shape[2])
+    out: Dict = {"len": row.get("len")}
+    for key in ("k", "v", "k_scale", "v_scale"):
+        if key in row:
+            out[key] = row[key][:, :, :width]
+    out["pos"] = row["pos"][:, :width]
+    return out
+
+
+def paged_copy_block(cache: Dict, src: int, dst: int, keep: int) -> Dict:
+    """Copy one physical block (K/V pools, int8 scale pools, pos row) onto
+    another, in place — the copy-on-write primitive. Position lanes at
+    offset >= ``keep`` are scrubbed to POS_SENTINEL in the destination, so
+    a copied partial tail block never shows the source's later tokens to
+    its new owner."""
+    for key in ("k", "v", "k_scale", "v_scale"):
+        if key in cache:
+            cache[key][:, dst] = cache[key][:, src]
+    pos = cache["pos"]
+    lanes = torch.arange(pos.shape[1], device=pos.device)
+    pos[dst] = torch.where(lanes < keep, pos[src],
+                           torch.full_like(pos[src], POS_SENTINEL))
+    return cache
+
+
+def paged_extract_row(cache: Dict, slot: int, cursor: int, *,
+                      width: Optional[int] = None) -> Dict:
+    """Gather a slot's blocks back into a new dense single-row cache (the
+    prefix-cache and parked-session row format), the inverse of
+    ``paged_insert_row``; ``cursor`` becomes the row's write cursor.
+    ``width`` trims the gather to the first ``ceil(width / block_size)``
+    blocks (default: the whole table)."""
+    tables = cache["block_tables"]
+    nbps_total, block_size = tables.shape[1], cache["k"].shape[2]
+    nbps = nbps_total if width is None else max(
+        1, min(nbps_total, -(-int(width) // block_size)))
+    table_row = tables[slot, :nbps]
+    tbl = _gather_tables(table_row)
+    L, KV, d = cache["k"].shape[0], cache["k"].shape[-2], cache["k"].shape[-1]
+    W = nbps * block_size
+    row: Dict = {
+        "k": cache["k"][:, tbl].reshape(L, 1, W, KV, d),
+        "v": cache["v"][:, tbl].reshape(L, 1, W, KV, d),
+        "len": torch.tensor(int(cursor), dtype=torch.int32,
+                            device=tables.device),
+    }
+    if "k_scale" in cache:
+        row["k_scale"] = cache["k_scale"][:, tbl].reshape(L, 1, W, KV)
+        row["v_scale"] = cache["v_scale"][:, tbl].reshape(L, 1, W, KV)
+    pos = cache["pos"][tbl]  # [nbps, bs]
+    pos = torch.where((table_row >= 0)[:, None], pos,
+                      torch.full_like(pos, POS_SENTINEL))
+    row["pos"] = pos.reshape(1, W)
+    return row

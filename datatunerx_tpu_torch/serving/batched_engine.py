@@ -1,5 +1,5 @@
-"""Continuous-batching inference engine: the port of the cold-admission
-paths of ``datatunerx_tpu/serving/batched_engine.py`` over both cache layouts.
+"""Continuous-batching inference engine: the port of
+``datatunerx_tpu/serving/batched_engine.py`` over both cache layouts.
 
 - DENSE KV cache (``kv_block_size == 0``, the default;
   models/llama.init_cache with per-slot cursors): every slot owns a
@@ -15,6 +15,19 @@ paths of ``datatunerx_tpu/serving/batched_engine.py`` over both cache layouts.
 - ``kv_quant="int8"`` stores K/V as int8 with an f32 scale per head vector
   on either layout: about half the cache bytes per token, quantized on
   write and dequantized on read (inside the paged kernels on their path).
+- PREFIX CACHE (``prefix_cache > 0``): an LRU of prefilled prompts keyed by
+  their tokens. An exact hit skips prefill; the longest strict-prefix hit
+  prefills only the suffix. Dense and eager paged engines store dense rows
+  (paged ones trimmed to the cursor, scattered back into a slot's blocks).
+- KV OVERCOMMIT (``kv_overcommit="on"``, paged only): admission reserves
+  the prompt's blocks plus one tick's advance, and ``_grow_tick`` appends
+  blocks ahead of each cursor between ticks. With a prefix cache, entries
+  are refcounted BLOCKS that a hit maps into the new slot's table
+  (copy-on-write: only a partial tail block is copied). When the pool runs
+  dry, growth reclaims prefix entries, then preempts the youngest session:
+  it parks in the dtx-kv-session row format (serving/migration.py) and
+  resumes token for token, generator state included. The oldest live
+  session is never preempted.
 - decode runs in CHUNKS of K tokens: a Python loop of K single-token steps
   with every operand on the device; the one host sync per chunk is the
   transfer of the emitted tokens (and the active mask) that lets
@@ -28,14 +41,15 @@ paths of ``datatunerx_tpu/serving/batched_engine.py`` over both cache layouts.
 The scheduler thread owns every piece of slot state; callers only enqueue
 requests. The caches are updated in place.
 
-The port refuses what it does not carry yet (prefix cache, adapters,
-speculative decoding, overcommit, tenancy): each such argument raises
-``ValueError`` naming its ROADMAP item.
+The port refuses what it does not carry yet (adapters, speculative
+decoding, tenancy): each such argument raises ``ValueError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import queue
 import threading
@@ -53,17 +67,29 @@ from datatunerx_tpu_torch.ops.paged_attention import (
     BlockAllocator,
     blocks_for_depth,
     init_paged_cache,
+    paged_copy_block,
+    paged_extract_row,
+    paged_insert_row,
 )
-from datatunerx_tpu_torch.serving.engine import _sample_jit, encode_chat_messages
+from datatunerx_tpu_torch.serving import migration as mig
+from datatunerx_tpu_torch.serving.engine import (
+    _sample_jit,
+    encode_chat_messages,
+    nll_impl,
+    nll_result,
+    prepare_nll_inputs,
+)
 from datatunerx_tpu_torch.utils.decoding import DECODE_BUCKET, prepare_prompt
 from datatunerx_tpu_torch.utils.model_loader import load_model_and_tokenizer
 
 MAX_STOP = 8  # static per-slot stop-token capacity
 
+# global arrival order: preemption never takes the oldest live request, and
+# parked sessions resume before anything younger is admitted
+_REQ_SEQ = itertools.count()
+
 # what each refused argument waits for (ROADMAP Queue 1)
 _NOT_PORTED = {
-    "prefix_cache": "item 2 (prefix cache and KV overcommit)",
-    "kv_overcommit": "item 2 (prefix cache and KV overcommit)",
     "checkpoint_path": "item 3 (adapters and tenancy)",
     "adapters": "item 3 (adapters and tenancy)",
     "adapter_pool": "item 3 (adapters and tenancy)",
@@ -93,6 +119,139 @@ def _resolve_auto(value, name: str, cuda: bool) -> bool:
     return mode == "on" or (mode == "auto" and cuda)
 
 
+class _PrefixCache:
+    """Host-side LRU of prefilled prompts keyed by (prompt tokens, adapter),
+    with a per-adapter token TRIE so ``longest_prefix`` walks at most
+    ``len(tokens)`` nodes. The OrderedDict keeps recency and the entries;
+    the trie mirrors its key set (terminal nodes point back at the key).
+
+    Entries are dense rows ``{"cache", "logits", "cursor"}`` or, on
+    overcommit engines, refcounted BLOCK entries ``{"blocks", "full",
+    "rem", "cursor", "logits"}``. ``on_evict`` receives every entry that
+    leaves the cache (capacity eviction, same-key replacement), so the
+    engine can return block entries' refs to the allocator."""
+
+    def __init__(self, capacity: int, on_evict=None):
+        self.capacity = capacity
+        self._on_evict = on_evict
+        self._d: "collections.OrderedDict[tuple, dict]" = \
+            collections.OrderedDict()
+        # adapter -> trie root; node = [children {tok: node}, terminal key]
+        self._roots: Dict[int, list] = {}
+        self.evictions = 0
+        self._lock = threading.Lock()
+
+    def __len__(self):
+        with self._lock:
+            return len(self._d)
+
+    def get(self, key):
+        with self._lock:
+            ent = self._d.get(key)
+            if ent is not None:
+                self._d.move_to_end(key)
+            return ent
+
+    def longest_prefix(self, tokens: tuple, adapter: int):
+        """Longest stored STRICT prefix of ``tokens`` for this adapter: one
+        trie descent, the deepest terminal wins."""
+        with self._lock:
+            node = self._roots.get(adapter)
+            if node is None:
+                return None, None
+            best_key = None
+            for i in range(len(tokens) - 1):  # strict: depth < len(tokens)
+                node = node[0].get(tokens[i])
+                if node is None:
+                    break
+                if node[1] is not None:
+                    best_key = node[1]
+            if best_key is None:
+                return None, None
+            self._d.move_to_end(best_key)
+            return best_key, self._d[best_key]
+
+    def put(self, key, ent):
+        dropped = []
+        with self._lock:
+            is_new = key not in self._d
+            if not is_new:
+                dropped.append(self._d[key])  # same-key replacement
+            self._d[key] = ent
+            self._d.move_to_end(key)
+            if is_new:
+                ptoks, adapter = key
+                node = self._roots.setdefault(adapter, [{}, None])
+                for t in ptoks:
+                    node = node[0].setdefault(t, [{}, None])
+                node[1] = key
+            while len(self._d) > self.capacity:
+                old_key, old_ent = self._d.popitem(last=False)
+                self._trie_remove(old_key)
+                self.evictions += 1
+                dropped.append(old_ent)
+        # outside the lock: the hook frees allocator blocks under its own
+        if self._on_evict is not None:
+            for ent in dropped:
+                self._on_evict(ent)
+
+    def pop_lru_block_entry(self):
+        """Evict and return the least-recently-used BLOCK entry (None when
+        there is none): the overcommit scheduler's first reclamation tier.
+        The caller owns the entry's block refs (``on_evict`` is not
+        called)."""
+        with self._lock:
+            for key, ent in self._d.items():
+                if ent.get("blocks"):
+                    del self._d[key]
+                    self._trie_remove(key)
+                    self.evictions += 1
+                    return ent
+        return None
+
+    def _trie_remove(self, key):
+        ptoks, adapter = key
+        root = self._roots.get(adapter)
+        if root is None:
+            return
+        path, node = [root], root
+        for t in ptoks:
+            node = node[0].get(t)
+            if node is None:
+                return
+            path.append(node)
+        node[1] = None
+        # prune now-useless nodes bottom-up
+        for i in range(len(path) - 1, 0, -1):
+            n = path[i]
+            if n[0] or n[1] is not None:
+                break
+            del path[i - 1][0][ptoks[i - 1]]
+        if not root[0] and root[1] is None:
+            del self._roots[adapter]
+
+
+def _copy_row(row: Dict, width: int) -> Dict:
+    """A fresh dense row of ``width`` lanes holding ``row``'s lanes, the
+    rest sentinel-padded. Stored prefix rows stay immutable: the extension
+    forward writes into the copy."""
+    W = row["k"].shape[2]
+    out = {"len": row["len"].clone()}
+    for key in ("k", "v", "k_scale", "v_scale"):
+        if key in row:
+            shape = list(row[key].shape)
+            shape[2] = width
+            buf = torch.zeros(shape, dtype=row[key].dtype,
+                              device=row[key].device)
+            buf[:, :, :W] = row[key]
+            out[key] = buf
+    pos = torch.full((1, width), POS_SENTINEL, dtype=row["pos"].dtype,
+                     device=row["pos"].device)
+    pos[:, :W] = row["pos"]
+    out["pos"] = pos
+    return out
+
+
 class Request:
     def __init__(self, prompt_ids: Sequence[int], max_new_tokens: int,
                  temperature: float, top_p: float, seed: int,
@@ -104,6 +263,7 @@ class Request:
         self.seed = seed
         self.stop_ids = list(stop_ids)[:MAX_STOP]
         self.trace_id = trace_id
+        self.seq = next(_REQ_SEQ)  # arrival order (preemption fairness)
         self.tokens: List[int] = []
         self.stream: "queue.Queue[Optional[int]]" = queue.Queue()
         self.done = threading.Event()
@@ -139,10 +299,10 @@ class BatchedEngine:
         slots: int = 4,
         decode_chunk: int = 8,
         kv_quant: Optional[str] = None,
-        prefix_cache: int = 0,
+        prefix_cache: int = 0,  # LRU entries of reusable prefilled prompts
         kv_block_size: int = 0,
         kv_blocks: Optional[int] = None,
-        kv_overcommit: str = "off",
+        kv_overcommit: str = "off",  # on: lazy growth + COW + preemption
         paged_kernel: str = "auto",  # paged attention kernels: auto|on|off
         spec_draft: Optional[str] = None,
         spec_tree: Optional[str] = None,
@@ -157,8 +317,6 @@ class BatchedEngine:
         for arg, val in (("checkpoint_path", checkpoint_path),
                          ("adapters", adapters),
                          ("adapter_pool", adapter_pool),
-                         ("prefix_cache", prefix_cache),
-                         ("kv_overcommit", (kv_overcommit or "off") != "off"),
                          ("spec_draft", spec_draft),
                          ("spec_tree", spec_tree),
                          ("tenants", tenants),
@@ -169,6 +327,23 @@ class BatchedEngine:
         if self.kv_quant not in (None, "int8"):
             raise ValueError(
                 f"unsupported cache quantization {self.kv_quant!r}")
+        self.paged = kv_block_size > 0
+        self.block_size = int(kv_block_size)
+        oc_mode = (kv_overcommit if isinstance(kv_overcommit, str)
+                   else ("on" if kv_overcommit else "off"))
+        oc_mode = (oc_mode or "off").strip().lower()
+        if oc_mode not in ("on", "off"):
+            raise ValueError(
+                f"kv_overcommit must be on|off, got {kv_overcommit!r}")
+        if oc_mode == "on" and not self.paged:
+            raise ValueError(
+                "--kv_overcommit on requires the paged KV cache "
+                "(--kv_block_size > 0)")
+        self.overcommit = self.paged and oc_mode == "on"
+        if _mode(paged_kernel, "paged_kernel") == "on" and not self.paged:
+            raise ValueError(
+                "--paged_kernel on requires the paged KV cache "
+                "(--kv_block_size > 0)")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -185,12 +360,6 @@ class BatchedEngine:
         self.slots = slots
         self.chunk = max(1, decode_chunk)
 
-        self.paged = kv_block_size > 0
-        self.block_size = int(kv_block_size)
-        if _mode(paged_kernel, "paged_kernel") == "on" and not self.paged:
-            raise ValueError(
-                "--paged_kernel on requires the paged KV cache "
-                "(--kv_block_size > 0)")
         self.paged_kernel = self.paged and _resolve_auto(
             paged_kernel, "paged_kernel", cuda)
         if self.paged_kernel:
@@ -244,9 +413,28 @@ class BatchedEngine:
         self._stops = torch.full((slots, MAX_STOP), -1, dtype=torch.int32,
                                  device=dev)
         # per-slot sampling randomness: one seeded generator per slot, one
-        # uniform per slot per decode step (see ops/cuda_sampling.py)
+        # uniform per slot per decode step (see ops/cuda_sampling.py); a
+        # parked session carries its generator's state to its next slot
         self._gens = [torch.Generator(device=dev).manual_seed(i)
                       for i in range(slots)]
+
+        # ---- overcommit state. _tick_advance: the most cache lanes one
+        # scheduler tick consumes per slot (one decode chunk); the grower
+        # keeps every table that far ahead of its cursor. The speculative
+        # write overshoot is 0 until speculative decoding is ported.
+        self._tick_advance = self.chunk
+        self._spec_overshoot = 0
+        # preempted sessions parked host-side as dtx-kv-session payloads,
+        # oldest first; owned by the scheduler thread
+        self._preempted: List[dict] = []
+        self.preempt_stats: Dict[str, int] = {}
+        # high-water mark of admitted sessions, and each finished session's
+        # physical block count (its peak: tables only grow)
+        self.kv_stats = {"peak_sessions": 0,
+                         "session_blocks": collections.deque(maxlen=4096)}
+        # per-slot eager-equivalent reserve: the kv_overcommit_ratio
+        # numerator
+        self._slot_demand: List[int] = [0] * slots
 
         self._slot_req: List[Optional[Request]] = [None] * slots
         self._slot_blocks: List[List[int]] = [[] for _ in range(slots)]
@@ -262,10 +450,23 @@ class BatchedEngine:
         self._encode_memo: "collections.OrderedDict[str, tuple]" = \
             collections.OrderedDict()
         self._encode_memo_lock = threading.Lock()
+
+        self._prefix = _PrefixCache(
+            prefix_cache, on_evict=self._free_prefix_entry
+        ) if prefix_cache > 0 else None
+        # COW prefix blocks: overcommit engines with a prefix cache store
+        # refcounted BLOCK entries that a hit maps into the new slot's table
+        self.cow = self.overcommit and self._prefix is not None
+        # slot → (prefix-cache key, prompt cursor) of the prompt it holds
+        self._slot_key: List[Optional[tuple]] = [None] * slots
+        # how admissions were served
+        self.prefill_stats = {"full": 0, "reuse": 0, "extend": 0}
         # scheduler-tick trace, for tests and TTFT/TPOT forensics:
-        # ("admit", slot, plen, "chunked" | "dense") /
-        # ("prefill", slot, ntokens) /
-        # ("activate", slot) / ("decode", K) / ("finish", slot)
+        # ("admit", slot, plen, "chunked" | "dense" | "cache" | "cow" |
+        # "cow_extend") / ("prefill", slot, ntokens) / ("activate", slot) /
+        # ("decode", K) / ("finish", slot) / ("grow", slot, nblocks) /
+        # ("preempt", slot, seq) / ("preempt_prefill", slot, seq) /
+        # ("resume", slot, cursor)
         self.sched_trace: "collections.deque[tuple]" = \
             collections.deque(maxlen=4096)
         # one record per completed request: TTFT and per-token decode time
@@ -296,6 +497,28 @@ class BatchedEngine:
         return self._allocator.free_count if self.paged else None
 
     @property
+    def kv_blocks_reserved(self) -> Optional[int]:
+        if self._allocator is None:
+            return None
+        return self._allocator.num_blocks - self._allocator.free_count
+
+    @property
+    def kv_overcommit_ratio(self) -> Optional[float]:
+        """Live sessions' EAGER-equivalent block demand over the physical
+        pool: above 1.0 the engine has admitted more logical reserve than
+        the pool holds. None on the dense layout."""
+        if self._allocator is None:
+            return None
+        demand = sum(self._slot_demand[s] for s in range(self.slots)
+                     if self._slot_req[s] is not None)
+        return round(demand / max(1, self._allocator.num_blocks), 4)
+
+    @property
+    def parked_sessions(self) -> int:
+        """Preempted sessions waiting to resume."""
+        return len(self._preempted)
+
+    @property
     def kv_cache_bytes(self) -> int:
         """Device bytes of the K/V leaves and, for an int8 cache, their
         scales (the position table and cursors are not counted)."""
@@ -303,10 +526,55 @@ class BatchedEngine:
                    for name, t in self._cache.items()
                    if name in ("k", "v", "k_scale", "v_scale"))
 
+    def _free_prefix_entry(self, ent: dict):
+        """Prefix-cache eviction hook: return a block entry's refs to the
+        allocator (dense-row entries hold no pool blocks)."""
+        blocks = ent.get("blocks")
+        if blocks and self._allocator is not None:
+            self._allocator.free(blocks)
+
+    def _count_preempt(self, outcome: str):
+        self.preempt_stats[outcome] = self.preempt_stats.get(outcome, 0) + 1
+
     def _trace(self, *event):
         self.sched_trace.append(event)
 
-    # ------------------------------------------------------------ scheduler
+    def _table_row(self, blocks: List[int]) -> torch.Tensor:
+        row = torch.full((self.blocks_per_slot,), -1, dtype=torch.int32)
+        row[:len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
+        return row.to(self.device)
+
+    def _scrub(self, blocks: List[int]):
+        """Recycled blocks' positions to the sentinel, BEFORE a table shows
+        them to attention."""
+        self._cache["pos"][torch.tensor(blocks, device=self.device)] = \
+            POS_SENTINEL
+
+    def _alloc_blocks(self, depth: int) -> Optional[List[int]]:
+        return self._allocator.alloc(blocks_for_depth(
+            depth, self.block_size, overshoot=self._spec_overshoot,
+            cap_depth=self.max_seq_len))
+
+    def _reserve_depth(self, cursor: int, max_new: int) -> int:
+        """Token depth admission reserves blocks for: the full decode extent
+        eagerly, or the context plus one tick's advance when overcommitted
+        (the grower keeps the table ahead of the cursor from there)."""
+        if self.overcommit:
+            return cursor + min(max_new, self._tick_advance)
+        return cursor + max_new
+
+    def _eager_demand(self, cursor: int, max_new: int) -> int:
+        """Blocks the overcommit-off engine would reserve for a session."""
+        return blocks_for_depth(cursor + max_new, self.block_size,
+                                overshoot=self._spec_overshoot,
+                                cap_depth=self.max_seq_len)
+
+    def _note_admitted(self):
+        live = sum(1 for r in self._slot_req if r is not None)
+        if live > self.kv_stats["peak_sessions"]:
+            self.kv_stats["peak_sessions"] = live
+
+    # ------------------------------------------------------------ admission
     def _take_waiting(self) -> Optional[Request]:
         if self._waiting_front:
             return self._waiting_front.popleft()
@@ -323,6 +591,11 @@ class BatchedEngine:
                 req = self._take_waiting()
                 if req is None:
                     return
+                if self._preempted and self._preempted[0]["req"].seq < req.seq:
+                    # strict FIFO across the park: an older preempted
+                    # session resumes before a younger cold request
+                    self._waiting_front.appendleft(req)
+                    return
                 try:
                     ok = self._admit_slot(req, slot)
                 except Exception as e:  # noqa: BLE001 — fail request, not loop
@@ -334,30 +607,147 @@ class BatchedEngine:
                 self._waiting_front.appendleft(req)
                 return
 
+    def _prefix_key(self, ids, plen: int, n_prompt: int):
+        return (tuple(ids[plen - n_prompt:]), 0)
+
+    def _suffix(self, used, n_pref: int) -> dict:
+        """The left-padded bucket of prompt tokens past a cached prefix:
+        pads carry the sentinel position, real tokens their own."""
+        suffix = list(used[n_pref:])
+        pad = (-len(suffix)) % DECODE_BUCKET
+        eos = self.tokenizer.eos_token_id or 0
+        return {"ids": [eos] * pad + suffix,
+                "mask": [0] * pad + [1] * len(suffix),
+                "positions": [0] * pad + list(range(n_pref, len(used)))}
+
+    def _forward_row(self, row: Dict, ids, mask, positions):
+        """One forward of a prompt (or suffix) bucket onto a dense one-row
+        cache (scalar cursor), in place; returns the last token's logits."""
+        dev = self.device
+        logits, new = forward(
+            self.params, torch.tensor([ids], dtype=torch.int32, device=dev),
+            self.cfg,
+            positions=torch.tensor([positions], dtype=torch.int32, device=dev),
+            attention_mask=torch.tensor([mask], dtype=torch.int32, device=dev),
+            cache=row, compute_dtype=torch.bfloat16)
+        row["len"] = new["len"]
+        return logits[0, -1].clone()
+
+    def _prefill_row_cached(self, ids, plen: int, n_prompt: int,
+                            budget_needed: int):
+        """Prefix-cache paths only: ``(logits, dense row, cursor)`` on an
+        exact hit (no compute) or a strict-prefix hit (suffix extension over
+        a copy of the cached row); None on a miss or with no cache. A cached
+        row that sits deeper than this prompt's own plen is used only when
+        it still leaves the decode room the cold path would give, so reuse
+        never changes the response."""
+        if self._prefix is None:
+            return None
+        used, _ = key = self._prefix_key(ids, plen, n_prompt)
+        need = min(budget_needed, self.max_seq_len - plen)
+        ent = self._prefix.get(key)
+        if ent is not None and self.max_seq_len - ent["cursor"] >= need:
+            self.prefill_stats["reuse"] += 1
+            return ent["logits"], ent["cache"], ent["cursor"]
+        pkey, pent = self._prefix.longest_prefix(used, 0)
+        if pent is not None:
+            sfx = self._suffix(used, len(pkey[0]))
+            cursor = pent["cursor"] + len(sfx["ids"])
+            if self.max_seq_len - cursor >= need:
+                row = _copy_row(pent["cache"], self.max_seq_len)
+                row_logits = self._forward_row(
+                    row, sfx["ids"], sfx["mask"], sfx["positions"])
+                self.prefill_stats["extend"] += 1
+                self._prefix.put(key, {"cache": row, "logits": row_logits,
+                                       "cursor": cursor})
+                return row_logits, row, cursor
+        return None
+
+    def _prefill_row(self, ids, mask, positions, plen: int, n_prompt: int,
+                     budget_needed: int = 1):
+        """``(last-token logits, dense row, cursor)`` for a prompt, through
+        the prefix cache when there is one: exact hit = no compute, prefix
+        hit = suffix extension, miss = full prefill (then stored)."""
+        hit = self._prefill_row_cached(ids, plen, n_prompt, budget_needed)
+        if hit is not None:
+            return hit
+        row = init_cache(self.cfg, 1, self.max_seq_len, dtype=torch.bfloat16,
+                         quantize=self.kv_quant, device=self.device)
+        row_logits = self._forward_row(row, ids, mask, positions)
+        self.prefill_stats["full"] += 1
+        if self._prefix is not None:
+            self._prefix.put(self._prefix_key(ids, plen, n_prompt),
+                             {"cache": row, "logits": row_logits,
+                              "cursor": plen})
+        return row_logits, row, plen
+
     def _admit_slot(self, req: Request, slot: int) -> bool:
-        """Occupy ``slot`` with ``req``. Dense: prefill monolithically and
-        arm the slot at once. Paged: reserve the slot's blocks (False = pool
-        exhausted; the request stays queued), install its table, scrub the
-        blocks' recycled positions to the sentinel (chunked prefill reveals
-        the whole table to attention before every lane is written), rewind
-        the slot's cursor and register the prompt for chunked prefill."""
+        """Occupy ``slot`` with ``req``. Dense: prefill monolithically (or
+        through the prefix cache) and arm the slot at once. Paged: a prefix
+        hit scatters its row into freshly reserved blocks (COW engines map
+        shared blocks instead); a cold prompt reserves its blocks (False =
+        pool exhausted; the request stays queued), installs its table,
+        scrubs the blocks' recycled positions to the sentinel (chunked
+        prefill reveals the whole table to attention before every lane is
+        written), rewinds the cursor and registers for chunked prefill."""
         ids, mask, positions, plen, n_prompt, max_new, _ = prepare_prompt(
             req.prompt_ids, self.tokenizer.eos_token_id,
             self.max_seq_len, req.max_new_tokens)
         if not self.paged:
-            self._admit_dense(req, slot, ids, mask, positions, plen,
-                              n_prompt, max_new)
+            row_logits, row, cursor = self._prefill_row(
+                ids, mask, positions, plen, n_prompt, budget_needed=max_new)
+            # copy the row — K/V, scales and positions, sentinel lanes
+            # included, which scrubs what the slot's last request left
+            for name in ("k", "v", "k_scale", "v_scale"):
+                if name in self._cache:
+                    self._cache[name][:, slot] = row[name][:, 0]
+            self._cache["pos"][slot] = row["pos"][0]
+            # decode continues from the row's real KV depth (a reused row
+            # can sit deeper than this request's plen)
+            self._cache["len"][slot] = cursor
+            self._slot_req[slot] = req
+            self._note_admitted()
+            self._trace("admit", slot, plen, "dense")
+            self._arm_slot(slot, req, row_logits, cursor, n_prompt, max_new)
             return True
-        blocks = self._allocator.alloc(blocks_for_depth(
-            plen + max_new, self.block_size, cap_depth=self.max_seq_len))
+        if self.cow:
+            handled = self._admit_cow(req, slot, ids, plen, n_prompt, max_new)
+            if handled is not None:
+                return handled
+        else:
+            hit = self._prefill_row_cached(ids, plen, n_prompt,
+                                           budget_needed=max_new)
+            if hit is not None:
+                row_logits, row, cursor = hit
+                max_new = max(1, min(max_new, self.max_seq_len - cursor))
+                blocks = self._alloc_blocks(
+                    self._reserve_depth(cursor, max_new))
+                if blocks is None:
+                    return False
+                try:
+                    # scrub first: stored rows are trimmed to their cursor,
+                    # so the insert does not cover the whole table
+                    self._scrub(blocks)
+                    paged_insert_row(self._cache, slot,
+                                     self._table_row(blocks), row)
+                    self._cache["len"][slot] = cursor
+                except Exception:
+                    self._allocator.free(blocks)
+                    raise
+                self._slot_blocks[slot] = blocks
+                self._slot_req[slot] = req
+                self._slot_demand[slot] = self._eager_demand(cursor, max_new)
+                self._note_admitted()
+                self._trace("admit", slot, plen, "cache")
+                self._arm_slot(slot, req, row_logits, cursor, n_prompt,
+                               max_new)
+                return True
+        blocks = self._alloc_blocks(self._reserve_depth(plen, max_new))
         if blocks is None:
             return False
         try:
-            row = torch.full((self.blocks_per_slot,), -1, dtype=torch.int32)
-            row[:len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
-            self._cache["block_tables"][slot] = row.to(self.device)
-            self._cache["pos"][torch.tensor(blocks, device=self.device)] = \
-                POS_SENTINEL
+            self._cache["block_tables"][slot] = self._table_row(blocks)
+            self._scrub(blocks)
             self._cache["len"][slot] = 0
         except Exception:
             self._allocator.free(blocks)
@@ -365,38 +755,123 @@ class BatchedEngine:
         self._slot_blocks[slot] = blocks
         self._slot_req[slot] = req
         self._decode_ready[slot] = False
+        self._slot_demand[slot] = self._eager_demand(plen, max_new)
         self._pending[slot] = {
             "req": req, "ids": ids, "mask": mask, "positions": positions,
             "plen": plen, "n_prompt": n_prompt, "max_new": max_new, "done": 0,
+            "base": 0, "key": self._prefix_key(ids, plen, n_prompt),
         }
+        self._note_admitted()
         self._trace("admit", slot, plen, "chunked")
         return True
 
-    def _admit_dense(self, req: Request, slot: int, ids, mask, positions,
-                     plen: int, n_prompt: int, max_new: int):
-        """Dense admission: prefill the bucketed prompt into a fresh one-row
-        cache (scalar cursor) in one forward, copy the row — K/V, scales and
-        positions, sentinel lanes included, which scrubs what the slot's last
-        request left — into the slot's row, set its cursor and arm it."""
-        dev = self.device
-        row = init_cache(self.cfg, 1, self.max_seq_len, dtype=torch.bfloat16,
-                         quantize=self.kv_quant, device=dev)
-        logits, row = forward(
-            self.params, torch.tensor([ids], dtype=torch.int32, device=dev),
-            self.cfg,
-            positions=torch.tensor([positions], dtype=torch.int32, device=dev),
-            attention_mask=torch.tensor([mask], dtype=torch.int32, device=dev),
-            cache=row, compute_dtype=torch.bfloat16)
-        for name in ("k", "v", "k_scale", "v_scale"):
-            if name in self._cache:
-                self._cache[name][:, slot] = row[name][:, 0]
-        self._cache["pos"][slot] = row["pos"][0]
-        self._cache["len"][slot] = plen
-        self._slot_req[slot] = req
-        self._trace("admit", slot, plen, "dense")
-        self._arm_slot(slot, req, logits[0, plen - 1], plen, n_prompt,
-                       max_new)
+    # ------------------------------------------------- COW prefix blocks
+    def _admit_cow(self, req: Request, slot: int, ids, plen: int,
+                   n_prompt: int, max_new: int) -> Optional[bool]:
+        """Overcommit admission through the prefix cache: an exact hit maps
+        the entry's refcounted blocks into this slot's table and arms decode
+        (no prefill); a strict-prefix hit maps the shared prefix and
+        chunk-prefills only the suffix, in place, from the cached cursor.
+        True = admitted, False = blocks exhausted (the FIFO head waits),
+        None = no usable entry (cold path). The decode-room gates are the
+        dense-row path's."""
+        used, _ = key = self._prefix_key(ids, plen, n_prompt)
+        need = min(max_new, self.max_seq_len - plen)
+        ent = self._prefix.get(key)
+        if (ent is not None and ent.get("blocks") is not None
+                and self.max_seq_len - ent["cursor"] >= need):
+            m = max(1, min(max_new, self.max_seq_len - ent["cursor"]))
+            ok = self._cow_map(req, slot, ent, n_prompt, m, suffix=None,
+                               key=key)
+            if ok:
+                self.prefill_stats["reuse"] += 1
+                self._trace("admit", slot, plen, "cow")
+            return ok
+        pkey, pent = self._prefix.longest_prefix(used, 0)
+        if pent is not None and pent.get("blocks") is not None:
+            sfx = self._suffix(used, len(pkey[0]))
+            cursor = pent["cursor"] + len(sfx["ids"])
+            if self.max_seq_len - cursor >= need:
+                ok = self._cow_map(req, slot, pent, n_prompt, max_new,
+                                   suffix=sfx, key=key)
+                if ok:
+                    self.prefill_stats["extend"] += 1
+                    self._trace("admit", slot, plen, "cow_extend")
+                return ok
+        return None
 
+    def _cow_map(self, req: Request, slot: int, ent: dict, n_prompt: int,
+                 max_new: int, suffix: Optional[dict], key) -> bool:
+        """Install a block entry into ``slot``: incref and map its full
+        blocks, copy its partial tail block (the at-most-once COW event:
+        decode only appends at the cursor, which sits inside that block),
+        allocate fresh blocks for the suffix and decode extent, and arm
+        decode (exact hit) or register the suffix for chunked prefill from
+        the base cursor. False = the pool cannot cover the fresh blocks;
+        nothing is held."""
+        base = ent["cursor"]
+        full, rem = ent["full"], ent["rem"]
+        shared = list(ent["blocks"][:full])
+        final = base + (len(suffix["ids"]) if suffix else 0)
+        target = blocks_for_depth(
+            self._reserve_depth(final, max_new), self.block_size,
+            overshoot=self._spec_overshoot, cap_depth=self.max_seq_len)
+        own = self._allocator.alloc(target - full)  # >= 1: max_new >= 1
+        if own is None:
+            return False
+        self._allocator.incref(shared)
+        blocks = shared + own
+        try:
+            self._scrub(own)
+            if rem:
+                paged_copy_block(self._cache, ent["blocks"][full], own[0],
+                                 rem)
+            self._cache["block_tables"][slot] = self._table_row(blocks)
+            self._cache["len"][slot] = base
+        except Exception:
+            self._allocator.free(blocks)
+            raise
+        self._slot_blocks[slot] = blocks
+        self._slot_req[slot] = req
+        self._slot_demand[slot] = self._eager_demand(final, max_new)
+        self._slot_key[slot] = (key, final)
+        self._note_admitted()
+        if suffix is None:
+            self._arm_slot(slot, req, ent["logits"], base, n_prompt, max_new)
+        else:
+            self._decode_ready[slot] = False
+            self._pending[slot] = {
+                "req": req, "ids": suffix["ids"], "mask": suffix["mask"],
+                "positions": suffix["positions"],
+                "plen": len(suffix["ids"]), "n_prompt": n_prompt,
+                "max_new": max_new, "done": 0, "key": key, "base": base,
+            }
+        return True
+
+    def _cow_store(self, slot: int, key, cursor: int, logits) -> bool:
+        """Publish the slot's first ``cursor`` lanes as a refcounted block
+        entry: full blocks are shared as they are (lanes before the cursor
+        never change again), the partial tail block is copied so the
+        slot's later writes cannot leak into the entry. False when the pool
+        has no block for the tail copy (serving beats caching)."""
+        full, rem = divmod(cursor, self.block_size)
+        blocks = self._slot_blocks[slot]
+        if len(blocks) < full + (1 if rem else 0):
+            return False
+        ent_blocks = list(blocks[:full])
+        if rem:
+            tail = self._allocator.alloc(1)
+            if tail is None:
+                return False
+            paged_copy_block(self._cache, blocks[full], tail[0], rem)
+            ent_blocks.append(tail[0])
+        self._allocator.incref(blocks[:full])
+        ent = {"blocks": ent_blocks, "full": full, "rem": rem,
+               "cursor": cursor, "logits": logits}
+        self._prefix.put(key, ent)
+        return True
+
+    # ------------------------------------------------------ chunked prefill
     def _prefill_chunk_fn(self, slot: int, ids, mask, positions):
         """One chunk of a slot's prompt written straight into its blocks of
         the SHARED pool (a one-row view of the cursor and table). Returns the
@@ -447,17 +922,35 @@ class BatchedEngine:
                 break
 
     def _finish_prefill(self, slot: int, st: dict, row_logits):
-        """Arm a chunk-prefilled slot's decode state."""
+        """Arm a chunk-prefilled slot and publish its prompt to the prefix
+        cache. A COW suffix prefill started at the shared prefix's cursor,
+        so the decode extent is measured from the FINAL cursor."""
         del self._pending[slot]
-        self._arm_slot(slot, st["req"], row_logits, st["plen"],
-                       st["n_prompt"], st["max_new"])
+        cursor = st["base"] + st["plen"]
+        self._arm_slot(slot, st["req"], row_logits, cursor, st["n_prompt"],
+                       st["max_new"])
+        if not st["base"]:
+            self.prefill_stats["full"] += 1  # extensions counted at admission
+        self._slot_key[slot] = (st["key"], cursor)
+        if self._prefix is not None:
+            row_logits = row_logits.clone()
+            if self.cow:
+                self._cow_store(slot, st["key"], cursor, row_logits)
+            else:
+                # the slot's blocks as a dense row trimmed to the cursor
+                row = paged_extract_row(self._cache, slot, cursor,
+                                        width=cursor)
+                self._prefix.put(st["key"], {"cache": row,
+                                             "logits": row_logits,
+                                             "cursor": cursor})
+        self._trace("activate", slot)
 
-    def _arm_slot(self, slot: int, req: Request, row_logits, plen: int,
+    def _arm_slot(self, slot: int, req: Request, row_logits, cursor: int,
                   n_prompt: int, max_new: int):
         """Set a prefilled slot's decode state: its last-token logits, rope
-        position, token budget (clamped to the room left after ``plen``
+        position, token budget (clamped to the room left after ``cursor``
         cache lanes), sampling parameters, stop ids and generator."""
-        max_new = max(1, min(max_new, self.max_seq_len - plen))
+        max_new = max(1, min(max_new, self.max_seq_len - cursor))
         stop_row = torch.full((MAX_STOP,), -1, dtype=torch.int32)
         stop_row[:len(req.stop_ids)] = torch.tensor(req.stop_ids,
                                                     dtype=torch.int32)
@@ -471,8 +964,200 @@ class BatchedEngine:
         self._gens[slot] = torch.Generator(device=self.device).manual_seed(
             int(req.seed))
         self._decode_ready[slot] = True
-        self._trace("activate", slot)
 
+    # --------------------------------------------- overcommit: grow/preempt
+    def _grow_tick(self):
+        """On-demand block growth, between prefill and decode: keep every
+        decode-ready slot's table covering the lanes the next tick can write.
+        A slot the pool cannot serve, even after reclaiming prefix entries
+        and preempting younger sessions, parks ITSELF — unless it is the
+        oldest live session, which is never preempted and claims what
+        reclamation frees (the forward-progress guarantee)."""
+        if not self.overcommit:
+            return
+        ready = [s for s in range(self.slots)
+                 if self._decode_ready[s] and self._slot_req[s] is not None]
+        if not ready:
+            return
+        # the tick's designed sync: the cursors and budgets, one transfer
+        lens, rem = torch.stack(
+            (self._cache["len"], self._remaining)).cpu().tolist()
+        ready.sort(key=lambda s: self._slot_req[s].seq)
+        for slot in ready:
+            req = self._slot_req[slot]
+            if req is None:
+                continue  # preempted by an older slot's reclaim this pass
+            advance = min(self._tick_advance, max(1, rem[slot]))
+            depth = min(lens[slot] + advance + self._spec_overshoot,
+                        self.max_seq_len)
+            need = (blocks_for_depth(depth, self.block_size)
+                    - len(self._slot_blocks[slot]))
+            while need > 0:
+                got = self._allocator.alloc(need)
+                if got is not None:
+                    self._install_growth(slot, got)
+                    break
+                if self._reclaim_for(req):
+                    continue
+                if not self._is_oldest_live(req):
+                    self._preempt_slot(slot)
+                break
+
+    def _is_oldest_live(self, req: Request) -> bool:
+        seqs = [r.seq for r in self._slot_req if r is not None]
+        return bool(seqs) and req.seq == min(seqs)
+
+    def _reclaim_for(self, req: Request) -> bool:
+        """Free blocks for ``req``'s growth, cheapest casualty first: (1) an
+        LRU prefix-cache block entry, (2) the youngest strictly-younger
+        decode session (it parks and resumes token for token), (3) the
+        youngest strictly-younger chunk-prefilling request (incomplete KV
+        cannot park: it re-queues cold). False = nothing younger is left."""
+        if self._prefix is not None:
+            ent = self._prefix.pop_lru_block_entry()
+            if ent is not None:
+                self._allocator.free(ent["blocks"])
+                return True
+        victims = [s for s in range(self.slots)
+                   if self._decode_ready[s]
+                   and self._slot_req[s] is not None
+                   and self._slot_req[s].seq > req.seq]
+        if victims:
+            self._preempt_slot(self._pick_victim(victims, self._slot_req))
+            return True
+        pend = {s: self._pending[s]["req"] for s in self._pending
+                if self._pending[s]["req"].seq > req.seq}
+        if pend:
+            self._unadmit_pending(self._pick_victim(list(pend), pend))
+            return True
+        return False
+
+    @staticmethod
+    def _pick_victim(slots, req_of):
+        """The youngest request pays (the tenancy order is ROADMAP Queue 1
+        item 3)."""
+        return max(slots, key=lambda s: req_of[s].seq)
+
+    def _install_growth(self, slot: int, new_blocks: List[int]):
+        blocks = self._slot_blocks[slot]
+        blocks.extend(new_blocks)
+        # scrub the recycled blocks BEFORE the table reveals them
+        self._scrub(new_blocks)
+        self._cache["block_tables"][slot] = self._table_row(blocks)
+        self._trace("grow", slot, len(new_blocks))
+
+    def _export_slot(self, slot: int, req: Request) -> dict:
+        """The slot's session as an in-process dtx-kv-session payload: its
+        KV prefix (bucket-rounded, trimmed to the cursor; host numpy
+        bodies), its last-token logits, cursor, position, budget and its
+        generator's state."""
+        # the export's designed sync: the slot's scalar decode state
+        cursor, pos, remaining = torch.stack(
+            (self._cache["len"][slot], self._pos[slot],
+             self._remaining[slot])).cpu().tolist()
+        w = min(-(-max(1, cursor) // DECODE_BUCKET) * DECODE_BUCKET,
+                self.max_seq_len)
+        row = paged_extract_row(self._cache, slot, cursor, width=w)
+        wire = "int8" if self.kv_quant == "int8" else "bf16"
+        return {
+            "kind": mig.PAYLOAD_KIND, "version": mig.PAYLOAD_VERSION,
+            "trace_id": req.trace_id, "prompt_ids": list(req.prompt_ids),
+            "tokens": list(req.tokens), "max_new_tokens": req.max_new_tokens,
+            "temperature": req.temperature, "top_p": req.top_p,
+            "seed": req.seed, "stop_ids": list(req.stop_ids),
+            "pos": pos, "remaining": remaining, "cursor": cursor,
+            # the port's stand-in for the reference's live threefry key
+            "rng": self._gens[slot].get_state(),
+            "logits": mig.pack_logits(self._logits[slot], b64=False),
+            "kv": mig.pack_kv_row(row, cursor, wire, b64=False),
+        }
+
+    def _preempt_slot(self, slot: int):
+        """Park a decode session host-side and release everything it held.
+        The Request stays live (same stream, same done event): resume
+        re-installs the KV into a fresh slot and keeps pushing tokens to
+        the same consumer — no re-prefill, nothing dropped."""
+        req = self._slot_req[slot]
+        payload = self._export_slot(slot, req)
+        self._release_slot(slot, note_session=False)
+        # the slot is still ACTIVE on the device: clear its mask and budget
+        # now, or the next chunk would sample it and write through the next
+        # tenant's table
+        self._active[slot] = False
+        self._remaining[slot] = 0
+        self._preempted.append({"payload": payload, "req": req})
+        self._preempted.sort(key=lambda e: e["req"].seq)
+        self._count_preempt("exported")
+        self._trace("preempt", slot, req.seq)
+
+    def _unadmit_pending(self, slot: int):
+        """Roll a chunk-prefilling admission back to the cold queue at its
+        FIFO position: its KV is incomplete, so it cannot park."""
+        req = self._pending[slot]["req"]
+        self._release_slot(slot, note_session=False)
+        self._waiting_front = collections.deque(
+            sorted([*self._waiting_front, req], key=lambda r: r.seq))
+        self._count_preempt("requeued_prefill")
+        self._trace("preempt_prefill", slot, req.seq)
+
+    def _resume_preempted_tick(self):
+        """Re-admit parked sessions, oldest first, ahead of the cold queue;
+        a head that cannot resume yet holds everything behind it."""
+        while self._preempted:
+            entry = self._preempted[0]
+            try:
+                ok = self._resume_one(entry)
+            except Exception as e:  # noqa: BLE001 — fail the session, not the loop
+                self._preempted.pop(0)
+                self._count_preempt("error")
+                self._complete(entry["req"], error=str(e))
+                continue
+            if not ok:
+                return
+            self._preempted.pop(0)
+
+    def _resume_one(self, entry: dict) -> bool:
+        req, payload = entry["req"], entry["payload"]
+        slot = next((i for i in range(self.slots)
+                     if self._slot_req[i] is None), None)
+        if slot is None:
+            return False
+        cursor, remaining = payload["cursor"], payload["remaining"]
+        blocks = self._alloc_blocks(self._reserve_depth(cursor, remaining))
+        if blocks is None and self._prefix is not None:
+            ent = self._prefix.pop_lru_block_entry()
+            if ent is not None:
+                self._allocator.free(ent["blocks"])
+                blocks = self._alloc_blocks(
+                    self._reserve_depth(cursor, remaining))
+        if blocks is None:
+            return False
+        try:
+            row = mig.unpack_kv_row(payload["kv"], self.max_seq_len,
+                                    self.kv_quant, device=self.device)
+            # the full-width row's sentinel lanes scrub the blocks
+            paged_insert_row(self._cache, slot, self._table_row(blocks), row)
+            self._cache["len"][slot] = cursor
+            self._arm_slot(slot, req, mig.unpack_logits(
+                payload, self.cfg.vocab_size, device=self.device), cursor,
+                payload["pos"], remaining)
+            # token-exact resume: the slot's LIVE generator, not the seed's
+            self._gens[slot].set_state(payload["rng"])
+        except Exception:
+            self._cache["block_tables"][slot] = -1
+            self._active[slot] = False
+            self._decode_ready[slot] = False
+            self._allocator.free(blocks)
+            raise
+        self._slot_blocks[slot] = blocks
+        self._slot_req[slot] = req
+        self._slot_demand[slot] = self._eager_demand(cursor, remaining)
+        self._note_admitted()
+        self._count_preempt("resumed")
+        self._trace("resume", slot, cursor)
+        return True
+
+    # --------------------------------------------------------------- decode
     def _batch_sample_mode(self) -> str:
         """Static per-batch sampling mode, from host-side request params."""
         live = [r for r in self._slot_req if r is not None]
@@ -545,14 +1230,17 @@ class BatchedEngine:
             if req is None:
                 break
             req.finish(error=error)
-        for req in self._slot_req:
+        parked, self._preempted = self._preempted, []
+        for req in [e["req"] for e in parked] + self._slot_req:
             if req is not None and not req.done.is_set():
                 req.finish(error=error)
 
     def _scheduler_loop(self):
         while not self._shutdown.is_set():
+            self._resume_preempted_tick()
             self._admit_waiting()
             self._prefill_tick()
+            self._grow_tick()
             if not any(self._decode_ready):
                 if self._pending:
                     continue  # keep prefilling; nothing to decode yet
@@ -590,12 +1278,17 @@ class BatchedEngine:
                     self._complete(req)
                     self._trace("finish", slot)
 
-    def _release_slot(self, slot: int):
+    def _release_slot(self, slot: int, note_session: bool = True):
         self._slot_req[slot] = None
         self._pending.pop(slot, None)
         self._decode_ready[slot] = False
+        self._slot_demand[slot] = 0
+        self._slot_key[slot] = None
         blocks, self._slot_blocks[slot] = self._slot_blocks[slot], []
         if blocks:
+            if note_session:
+                # tables only grow: the count at release is the peak
+                self.kv_stats["session_blocks"].append(len(blocks))
             # clear the table FIRST: a masked decode write from this slot
             # must never land in a block the allocator has already re-issued
             self._cache["block_tables"][slot] = -1
@@ -618,6 +1311,13 @@ class BatchedEngine:
     def adapter_ids(self) -> Dict[str, int]:
         """Known adapter names (the base model only in this slice)."""
         return {"": 0}
+
+    def adapter_for(self, model: str) -> str:
+        """The adapter a request's "model" names: "" for none, KeyError for
+        a name that is no adapter of this engine."""
+        if model and model not in self.adapter_ids:
+            raise KeyError(model)
+        return model
 
     def submit(self, prompt_ids: Sequence[int], max_new_tokens: int = 128,
                temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
@@ -644,6 +1344,24 @@ class BatchedEngine:
         if req.error:
             raise RuntimeError(req.error)
         return req.tokens
+
+    def perplexity(self, prompt_ids: Sequence[int],
+                   completion_ids: Sequence[int], adapter: str = "") -> dict:
+        """Mean completion NLL under the served model. Runs on the caller's
+        thread beside the scheduler (the forward touches no engine state);
+        the [1, P, V] f32 log-probs live only for the call."""
+        if adapter not in self.adapter_ids:
+            raise KeyError(f"unknown adapter {adapter!r}")
+        # grad mode is thread-local: the caller's thread enters it itself
+        with torch.inference_mode():
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            tokens, mask, _ = prepare_nll_inputs(
+                list(prompt_ids), list(completion_ids),
+                self.tokenizer.eos_token_id, self.max_seq_len,
+                device=self.device)
+            nll_sum, n_tok = nll_impl(self.params, self.cfg, tokens, mask)
+            return nll_result(float(nll_sum), int(n_tok))
 
     def _encode_chat(self, messages: List[dict]):
         try:
@@ -700,6 +1418,6 @@ class BatchedEngine:
         self._shutdown.set()
         self._wake.set()
         self._thread.join(timeout=30)
-        # requests the scheduler will never serve: fail them so callers do
-        # not sit out their timeouts
+        # requests the scheduler will never serve, parked sessions
+        # included: fail them so callers do not sit out their timeouts
         self._fail_all("engine shut down")

@@ -1,20 +1,30 @@
-"""Serving HTTP server: OpenAI-ish ``/chat/completions`` + health gating, the
-port of ``datatunerx_tpu/serving/server.py`` (its chat surface).
+"""Serving HTTP server: OpenAI-ish ``/chat/completions``, ``/perplexity`` and
+health gating, the port of ``datatunerx_tpu/serving/server.py`` (its chat and
+scoring surface).
 
 ``/healthz`` answers 503 until the model is loaded, then 200 (500 with the
 error when loading failed). ``/chat/completions`` and
 ``/v1/chat/completions`` answer with the same keys as the JAX server, as JSON
 or, with ``"stream": true``, as SSE ``chat.completion.chunk`` events ending in
-``data: [DONE]``. The engine is the port's ``BatchedEngine`` on CUDA unless
-``--device cpu`` is given: over the dense cache by default
-(``--kv_block_size 0``), over the paged block pool with ``--kv_block_size N``
-(the paged attention kernels), and with ``--kv_quant int8`` over an int8
-cache on either layout.
+``data: [DONE]``. ``/perplexity`` takes ``{"prompt", "completion"[,
+"model"]}`` and answers the completion's NLL and perplexity (dataset
+scoring's perplexity metric POSTs it).
+
+The engine runs on CUDA unless ``--device cpu`` is given. With ``--slots``
+above 1 and no ``--quantization`` it is the port's ``BatchedEngine``: over
+the dense cache by default (``--kv_block_size 0``), over the paged block pool
+with ``--kv_block_size N`` (the paged attention kernels), with ``--kv_quant
+int8`` over an int8 cache on either layout, with ``--prefix_cache N`` reusing
+prefilled prompts and with ``--kv_overcommit on`` (paged) growing block
+tables on demand. ``--slots 1`` or a serve-time ``--quantization
+int8|int4|nf4`` selects the single-request ``InferenceEngine``, as in the
+JAX server; flags only the batched engine carries are then refused.
 
 Run::
 
     python -m datatunerx_tpu_torch.serving.server \\
-        --model_path preset:tinyllama-1.1b --kv_block_size 16 --kv_quant int8
+        --model_path preset:tinyllama-1.1b --kv_block_size 16 \\
+        --prefix_cache 8 --kv_overcommit on
 
 The flag names are the JAX server's. Flags whose feature is not ported yet
 are refused at startup with the ROADMAP item they wait for.
@@ -69,6 +79,9 @@ class Handler(BaseHTTPRequestHandler):
             self._json(404, {"error": "not found"})
 
     def do_POST(self):
+        if self.path == "/perplexity":
+            self._perplexity()
+            return
         if self.path not in ("/chat/completions", "/v1/chat/completions"):
             self._json(404, {"error": "not found"})
             return
@@ -91,16 +104,16 @@ class Handler(BaseHTTPRequestHandler):
                 temperature=float(req.get("temperature", 0.0)),
                 top_p=float(req.get("top_p", 1.0)),
             )
-            adapter = req.get("model") or ""
-            if adapter and adapter != STATE.model_path:
-                if adapter not in STATE.engine.adapter_ids:
-                    self._json(400, {"error":
-                                     f"unknown model/adapter {adapter!r}"})
-                    return
-                kwargs["adapter"] = adapter
-            trace = self.headers.get("X-DTX-Trace-Id") or ""
-            if trace:
-                kwargs["trace_id"] = trace
+            # "model" names an adapter; the served model's own path is
+            # the base model
+            model = req.get("model") or ""
+            try:
+                kwargs["adapter"] = STATE.engine.adapter_for(
+                    "" if model == STATE.model_path else model)
+            except KeyError:
+                self._json(400, {"error": f"unknown model/adapter {model!r}"})
+                return
+            kwargs["trace_id"] = self.headers.get("X-DTX-Trace-Id") or ""
             usage = self._prompt_usage(messages)
             if req.get("stream"):
                 self._stream_chat(messages, kwargs, usage=usage)
@@ -126,6 +139,34 @@ class Handler(BaseHTTPRequestHandler):
         except Exception as e:  # noqa: BLE001 - serving must answer, not die
             self._json(500, {"error": str(e)})
 
+    def _perplexity(self):
+        """POST {"prompt": str, "completion": str[, "model": adapter]} →
+        the completion's NLL and perplexity under the served model."""
+        if STATE.engine is None:
+            self._json(503, {"error": "model not loaded"})
+            return
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            req = json.loads(self.rfile.read(length) or b"{}")
+            prompt = req.get("prompt") or ""
+            completion = req.get("completion") or ""
+            if not completion:
+                self._json(400, {"error": "completion is required"})
+                return
+            tok = STATE.engine.tokenizer
+            p_ids = tok.encode(prompt) if prompt else []
+            c_ids = tok.encode(completion, add_special_tokens=False)
+            model = req.get("model") or ""
+            try:
+                adapter = STATE.engine.adapter_for(model)
+            except KeyError:
+                self._json(400, {"error": f"unknown model/adapter {model!r}"})
+                return
+            self._json(200, STATE.engine.perplexity(p_ids, c_ids,
+                                                    adapter=adapter))
+        except Exception as e:  # noqa: BLE001
+            self._json(500, {"error": str(e)})
+
     @staticmethod
     def _prompt_usage(messages) -> Optional[dict]:
         """Replica-side tokenized prompt length."""
@@ -144,6 +185,7 @@ class Handler(BaseHTTPRequestHandler):
     def _stream_chat(self, messages, kwargs, usage=None):
         """SSE: one ``data: {chat.completion.chunk}`` event per text delta,
         then a terminal chunk (carrying ``usage``) and ``data: [DONE]``."""
+        stream_fn = STATE.engine.chat_stream
         rid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
@@ -159,7 +201,7 @@ class Handler(BaseHTTPRequestHandler):
 
         try:
             try:
-                for delta in STATE.engine.chat_stream(messages, **kwargs):
+                for delta in stream_fn(messages, **kwargs):
                     event({
                         "id": rid, "object": "chat.completion.chunk",
                         "created": int(time.time()), "model": STATE.model_path,
@@ -189,29 +231,57 @@ class Handler(BaseHTTPRequestHandler):
 
 
 def load_engine_async(model_path, template="llama2", max_seq_len=1024,
-                      slots=4, decode_chunk=8, kv_quant="", kv_block_size=0,
-                      kv_blocks=0, prefill_chunk=256, prefill_token_budget=0,
-                      paged_kernel="auto", sampling_epilogue="auto",
-                      device="cuda", seed=0):
+                      quantization="", slots=4, decode_chunk=8, kv_quant="",
+                      prefix_cache=0, kv_block_size=0, kv_blocks=0,
+                      kv_overcommit="off", prefill_chunk=256,
+                      prefill_token_budget=0, paged_kernel="auto",
+                      sampling_epilogue="auto", device="cuda", seed=0):
     """Build the engine on a background thread; ``/healthz`` flips to 200
-    when it is ready (or to 500 with the error)."""
+    when it is ready (or to 500 with the error). ``slots > 1`` without
+    ``quantization`` builds the batched engine, anything else the
+    single-request engine (the JAX server's rule)."""
     def _load():
         try:
-            from datatunerx_tpu_torch.serving.batched_engine import (
-                BatchedEngine,
-            )
-
             STATE.model_path = model_path
-            STATE.engine = BatchedEngine(
-                model_path, template=template, max_seq_len=max_seq_len,
-                slots=slots, decode_chunk=decode_chunk,
-                kv_quant=kv_quant or None,
-                kv_block_size=kv_block_size, kv_blocks=kv_blocks or None,
-                paged_kernel=paged_kernel or "auto",
-                sampling_epilogue=sampling_epilogue or "auto",
-                prefill_chunk=prefill_chunk,
-                prefill_token_budget=prefill_token_budget,
-                device=device, seed=seed)
+            batched = slots > 1 and not quantization
+            for flag, val in (("--prefix_cache", prefix_cache),
+                              ("--kv_quant", kv_quant),
+                              ("--kv_block_size", kv_block_size),
+                              ("--kv_overcommit", kv_overcommit == "on"),
+                              # only "on" demands the batched paged engine
+                              ("--paged_kernel", paged_kernel == "on"),
+                              # the single-request engine samples plainly
+                              ("--sampling_epilogue",
+                               sampling_epilogue == "on")):
+                if val and not batched:
+                    raise ValueError(
+                        f"{flag} requires the batched engine "
+                        "(--slots > 1, no --quantization)")
+            if batched:
+                from datatunerx_tpu_torch.serving.batched_engine import (
+                    BatchedEngine,
+                )
+
+                STATE.engine = BatchedEngine(
+                    model_path, template=template, max_seq_len=max_seq_len,
+                    slots=slots, decode_chunk=decode_chunk,
+                    kv_quant=kv_quant or None, prefix_cache=prefix_cache,
+                    kv_block_size=kv_block_size, kv_blocks=kv_blocks or None,
+                    kv_overcommit=kv_overcommit or "off",
+                    paged_kernel=paged_kernel or "auto",
+                    sampling_epilogue=sampling_epilogue or "auto",
+                    prefill_chunk=prefill_chunk,
+                    prefill_token_budget=prefill_token_budget,
+                    device=device, seed=seed)
+            else:
+                from datatunerx_tpu_torch.serving.engine import (
+                    InferenceEngine,
+                )
+
+                STATE.engine = InferenceEngine(
+                    model_path, template=template, max_seq_len=max_seq_len,
+                    quantization=quantization or None, device=device,
+                    seed=seed)
         except Exception as e:  # noqa: BLE001
             STATE.error = str(e)
 
@@ -223,13 +293,9 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
 # flag → (value that means "feature off", ROADMAP Queue 1 item it waits for)
 _REFUSED = {
     "checkpoint_path": ("", "item 3 (adapters and tenancy)"),
-    "quantization": ("", "item 1 (serve-time quantization rides the "
-                     "single-request engine)"),
     "adapters": ("", "item 3 (adapters and tenancy)"),
     "adapter_pool": (0, "item 3 (adapters and tenancy)"),
     "adapter_targets": ("", "item 3 (adapters and tenancy)"),
-    "prefix_cache": (0, "item 2 (prefix cache and KV overcommit)"),
-    "kv_overcommit": ("off", "item 2 (prefix cache and KV overcommit)"),
     "spec_draft_config": ("", "item 5 (speculative decoding)"),
     "spec_tree": ("", "item 5 (speculative decoding)"),
     "role": ("mixed", "item 6 (migration and the fleet plane)"),
@@ -256,7 +322,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantization", default="",
                    choices=["", "int8", "int4", "nf4"])
     p.add_argument("--slots", type=int, default=4,
-                   help="continuous-batching cache slots (>= 2)")
+                   help="continuous-batching cache slots (1 = the "
+                        "single-request engine)")
     p.add_argument("--decode_chunk", type=int, default=8,
                    help="tokens per decode chunk (admission latency bound)")
     p.add_argument("--adapters", default="")
@@ -267,7 +334,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="KV cache quantization: int8 stores K/V as int8 with "
                         "an f32 scale per head vector (about half the cache "
                         "bytes per token)")
-    p.add_argument("--prefix_cache", type=int, default=0)
+    p.add_argument("--prefix_cache", type=int, default=0,
+                   help="LRU entries of reusable prefilled prompts")
     p.add_argument("--kv_block_size", type=int, default=0,
                    help="paged KV cache block size in tokens (0 = the dense "
                         "per-slot cache)")
@@ -305,17 +373,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def parse_args(argv=None) -> argparse.Namespace:
     """Parse the JAX server's flags; refuse those whose feature the port
-    does not carry yet, and a single-slot server (the single-request engine
-    is not ported)."""
+    does not carry yet."""
     p = build_parser()
     args = p.parse_args(argv)
     for flag, (off, item) in _REFUSED.items():
         if getattr(args, flag) != off:
             p.error(f"--{flag} is not ported to the PyTorch server yet "
                     f"(ROADMAP Queue 1 {item})")
-    if args.slots < 2:
-        p.error("--slots < 2 selects the single-request engine, which is not "
-                "ported yet (ROADMAP Queue 1 item 1 (single-request engine))")
     if args.paged_kernel == "on" and args.kv_block_size <= 0:
         p.error("--paged_kernel on requires the paged KV cache "
                 "(--kv_block_size > 0)")
@@ -327,9 +391,10 @@ def start(args: argparse.Namespace) -> ThreadingHTTPServer:
     server; ``serve_forever`` is the caller's."""
     load_engine_async(
         args.model_path, template=args.template, max_seq_len=args.max_seq_len,
-        slots=args.slots, decode_chunk=args.decode_chunk,
-        kv_quant=args.kv_quant,
-        kv_block_size=args.kv_block_size, kv_blocks=args.kv_blocks,
+        quantization=args.quantization, slots=args.slots,
+        decode_chunk=args.decode_chunk, kv_quant=args.kv_quant,
+        prefix_cache=args.prefix_cache, kv_block_size=args.kv_block_size,
+        kv_blocks=args.kv_blocks, kv_overcommit=args.kv_overcommit,
         prefill_chunk=args.prefill_chunk,
         prefill_token_budget=args.prefill_token_budget,
         paged_kernel=args.paged_kernel,

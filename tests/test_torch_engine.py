@@ -123,8 +123,8 @@ def test_sampled_streams_are_seeded_and_paths_agree(export_dir):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"prefix_cache": 4}, "item 2"),
-    ({"kv_overcommit": "on"}, "item 2"),
+    ({"tenants": {"t": {"tier": "bulk"}}}, "item 3"),
+    ({"spec_tree": "2x2"}, "item 5"),
     ({"adapters": {"a": "/nowhere"}}, "item 3"),
     ({"spec_draft": "take:1"}, "item 5"),
 ])

@@ -58,6 +58,8 @@ REQUIRED = (
     "datatunerx_tpu_torch.ops.quant",
     "datatunerx_tpu_torch.ops.cuda_quant",
     "datatunerx_tpu_torch.ops.cuda_lora",
+    "datatunerx_tpu_torch.serving.engine",
+    "datatunerx_tpu_torch.serving.migration",
 )
 
 
@@ -67,7 +69,7 @@ def test_every_module_imports_without_jax():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 35  # the modules of slices 1 to 4
+    assert n >= 36  # the modules of slices 1 to 4 and 10
 
 
 def test_engine_defaults_to_cuda_and_refuses_without_it():
@@ -78,6 +80,12 @@ def test_engine_defaults_to_cuda_and_refuses_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchedEngine("preset:debug", template="vanilla", max_seq_len=256,
                       slots=2, kv_block_size=16)
+    from datatunerx_tpu_torch.serving.engine import InferenceEngine
+
+    for quant in (None, "int8"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            InferenceEngine("preset:debug", template="vanilla",
+                            max_seq_len=256, quantization=quant)
 
 
 def test_trainer_cli_defaults_to_cuda_and_refuses_without_it(tmp_path):

@@ -691,3 +691,95 @@ def test_nf4_backward_runs_k5_at_a_tinyllama_shape_in_bf16(cuda):
     torch.testing.assert_close(got.float(),
                                cq._plain_nf4_t(g, qw, (K, N)).float(),
                                **QUANT_TOL[torch.bfloat16])
+
+
+# ------------------------------------- prefix sharing: shared block tables
+def _prefix_cache(quant: bool, gen):
+    """A one-layer paged cache at tinyllama-1.1b's heads (KV = 4, d = 64,
+    16-token blocks), on the CPU: slot 0 holds a 40-token prompt in blocks
+    [3, 7, 1] and has decoded 6 tokens more into its tail block; slot 1
+    maps slot 0's two full blocks (shared), a copy of its partial tail
+    block (8 lanes kept, the rest scrubbed) and blocks of its own, and has
+    written a 24-token suffix from base cursor 40."""
+    from datatunerx_tpu_torch.ops.paged_attention import paged_copy_block
+
+    NB, bs, KV, d = 12, 16, 4, 64
+    k = torch.randn((1, NB + 1, bs, KV, d), generator=gen)
+    v = torch.randn((1, NB + 1, bs, KV, d), generator=gen)
+    cache = {"pos": torch.full((NB + 1, bs), SENT, dtype=torch.int32),
+             "block_tables": torch.full((2, 8), -1, dtype=torch.int32),
+             "len": torch.tensor([46, 64], dtype=torch.int32)}
+    if quant:
+        cache["k"], cache["v"], cache["k_scale"], cache["v_scale"] = \
+            _int8_pools(k, v)
+    else:
+        cache["k"], cache["v"] = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    cache["block_tables"][0, :3] = torch.tensor([3, 7, 1])
+    for i in range(46):
+        cache["pos"][[3, 7, 1][i // bs], i % bs] = i
+    paged_copy_block(cache, 1, 5, 8)  # slot 1's copy of the tail
+    cache["block_tables"][1, :4] = torch.tensor([3, 7, 5, 9])
+    for i in range(40, 64):
+        cache["pos"][[3, 7, 5, 9][i // bs], i % bs] = i
+    return cache
+
+
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+def test_row_primitives_on_cuda_pools_bit_equal_to_cpu(cuda, pools):
+    """``paged_copy_block``, ``paged_insert_row`` and ``paged_extract_row``
+    on CUDA pools (the scale pools too) leave the same bits as on the
+    CPU."""
+    from datatunerx_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator().manual_seed(10)
+    host = _prefix_cache(pools == "int8", gen)
+    dev = {n: t.to(cuda) for n, t in host.items()}
+    rows = []
+    for cache in (host, dev):
+        pa.paged_copy_block(cache, 7, 11, 5)
+        row = pa.paged_extract_row(cache, 1, 64, width=64)
+        table = torch.tensor([0, 2, 4, 6, 8, -1, -1, -1], dtype=torch.int32,
+                             device=cache["pos"].device)
+        pa.paged_insert_row(cache, 0, table, row)
+        rows.append(pa.paged_extract_row(cache, 0, 64))
+    for name, t in host.items():
+        assert torch.equal(dev[name].cpu(), t), name
+    for name, t in rows[0].items():
+        assert torch.equal(rows[1][name].cpu(), t), name
+
+
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+def test_paged_kernels_over_a_shared_prefix_and_copied_tail(cuda, pools):
+    """K8 for slot 1's suffix chunk (queries at positions 40-63, from a base
+    cursor of 40, over two blocks slot 0 wrote and still holds and a copied
+    tail block whose lanes past 8 are scrubbed) and K7 for both slots'
+    next token, against their plain versions."""
+    gen = torch.Generator().manual_seed(11)
+    cache = {n: t.to(cuda) for n, t in
+             _prefix_cache(pools == "int8", gen).items()}
+    k, v = cache["k"][0], cache["v"][0]
+    ks = cache["k_scale"][0] if pools == "int8" else None
+    vs = cache["v_scale"][0] if pools == "int8" else None
+    tables, pos = cache["block_tables"], cache["pos"]
+    q = torch.randn((2, 24, 32, 64), generator=gen).to(torch.bfloat16)
+    q = q.to(cuda)
+    tbl = torch.where(tables >= 0, tables, torch.zeros_like(tables)).long()
+    view = torch.where((tables >= 0)[:, :, None], pos[tbl],
+                       torch.full_like(pos[tbl], SENT)).reshape(2, -1)
+    qpos = torch.stack([torch.arange(22, 46), torch.arange(40, 64)]).to(cuda)
+    allow = attention_allow(qpos, view)
+    assert allow[1, 0, :41].all() and not allow[1, 0, 41:].any()
+    before = cpa.paged_multitoken_attention.launches
+    got = cpa.paged_multitoken_attention(q, k, v, ks, vs, tables, allow)
+    assert cpa.paged_multitoken_attention.launches == before + 1
+    want = cpa._plain_multitoken(q, k, v, tables, allow, ks, vs)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    q1 = q[:, -1].contiguous()
+    qp = torch.tensor([45, 63], dtype=torch.int32, device=cuda)
+    before = cpa.paged_decode_attention.launches
+    got = cpa.paged_decode_attention(q1, k, v, ks, vs, tables, pos, qp)
+    assert cpa.paged_decode_attention.launches == before + 1
+    want = cpa._plain_decode(q1, k, v, tables, pos, qp, ks, vs)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])

@@ -125,6 +125,11 @@ class _FakeEngine:
     """Just enough engine for the JAX server's chat surface."""
 
     adapter_ids = {"": 0}
+
+    def adapter_for(self, model):  # the port server's surface
+        if model and model not in self.adapter_ids:
+            raise KeyError(model)
+        return model
     trace_store = None
     tenants = None
 
@@ -176,10 +181,10 @@ def test_response_keys_equal_the_jax_servers():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--adapters", "a=/x"], ["--prefix_cache", "4"],
-    ["--kv_overcommit", "on"], ["--spec_draft_config", "take:1"],
-    ["--quantization", "int8"], ["--tenants_config", "{}"],
-    ["--checkpoint_path", "/x"], ["--slots", "1"],
+    ["--adapters", "a=/x"], ["--role", "prefill"],
+    ["--trace_log", "x"], ["--spec_draft_config", "take:1"],
+    ["--adapter_pool", "2"], ["--tenants_config", "{}"],
+    ["--checkpoint_path", "/x"], ["--spec_tree", "2x2"],
 ])
 def test_flags_outside_the_slice_are_refused(extra, capsys):
     with pytest.raises(SystemExit) as exc:
