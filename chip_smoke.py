@@ -119,6 +119,40 @@ Four more run right after 3-dense, each failing the run on any error:
   over the dequantized weights up to a near-tie, with the K4-K6 counters
   left at 0; prints each weight tree's bytes beside the bf16 tree's.
 
+Then, last of the serving phases:
+
+- 3-adapters: the paged server (phase 3's flags) with ``--adapter_pool 4
+  --adapter_rank_max 8 --host_adapter_cache_mb 64`` and an inline
+  ``--tenants_config``: a pinned tenant owning ``ad0-r2``, a bulk tenant
+  owning the rest. Six random adapters (``make_adapter_sweep``: ranks 2, 4
+  and 8 on q_proj,v_proj) are registered through ``POST /admin/adapters``
+  (not warmed), then three rounds of concurrent greedy chats, 64 new
+  tokens each: the base, ``ad0``, ``ad1`` and ``ad2``; ``ad3``, ``ad4``,
+  ``ad5`` and ``ad0`` again (the pool is full: the two bulk residents
+  evict, the pinned tenant's ``ad0`` stays); ``ad1`` again (an eviction and
+  a reload from the host tier). Requires the registry's loads, evictions,
+  hits, misses and host-tier hits to equal ``ADAPTER_EXPECT``, the K7, K8
+  and K9 counters (zeroed just before) to equal what the scheduler's trace
+  says the rounds ran (22 K7 and one K9 a decode step, 22 K8 a prefill
+  chunk), every stream teacher-forced within ``FORCED_ULPS`` of a plain
+  forward that carries only its own adapter, unpadded (the single-adapter
+  path), ``tenant_usage()``'s tokens in and out to equal the responses'
+  ``prompt_tokens`` and the streams' lengths, and ``DELETE`` of ``ad5`` to
+  answer 200 and a chat naming it then 400; prints TTFT and decode tok/s
+  per request beside phase 3's base-only batch.
+
+After phase 5 (``--phase train`` and ``all``):
+
+- 5-serve: the checkpoint phase 5's trainer CLI wrote (the manifest's
+  ``checkpoint``) served with ``--checkpoint_path``: on the paged server,
+  where it is the adapter ``"default"``, ``/perplexity`` with ``"model":
+  "default"``, and on ``--slots 1``, where the single-request engine merges
+  it, ``/perplexity`` without ``model``: each ``nll_sum`` within
+  ``PPL_BOUND`` of an f32 forward of base + adapter at the manifest's
+  scaling; and a greedy chat with ``"model": "default"`` against the
+  merged engine's stream, checked as in phase 4 with the plain forward
+  carrying the adapter.
+
 The bf16 K1-K3 and the bf16 K8 (over bf16 and over int8 pools) are
 tensor-core kernels (``mma.sync`` bf16 -> f32, fed by ``cp.async``; the
 skeleton of ``csrc/mma_sm90.cuh``); the bf16 K4/K5 (``csrc/nf4_gemm.cu``)
@@ -145,8 +179,8 @@ registers, spills, shared bytes and blocks per SM, and K4 (nf4 matmul), K5
 projection shape of tinyllama-1.1b, in bf16 and f32, and K10 (fused LoRA
 matmul) at M=8192 and M=4 rows, N=2048 and N=256, K=2048, r=8, in bf16 and
 f32. ``--phase kernels`` stops after phase 2; ``--phase serve`` runs phases
-1-4, the seven above and 10; ``--phase train`` runs phases 1, 2 and 5-9;
-``--phase qlora`` runs phases 1, 2 and 7-9. The script imports nothing of JAX or of
+1-4, the eight above and 10; ``--phase train`` runs phases 1, 2, 5,
+5-serve and 6-9; ``--phase qlora`` runs phases 1, 2 and 7-9. The script imports nothing of JAX or of
 the JAX package.
 """
 
@@ -159,8 +193,10 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1104,7 +1140,8 @@ def post(port, body, stream=False, trace=""):
         if not stream:
             out = json.loads(resp.read())
             return {"text": out["choices"][0]["message"]["content"],
-                    "keys": sorted(out), "wall_s": time.perf_counter() - t0}
+                    "keys": sorted(out), "usage": out.get("usage"),
+                    "wall_s": time.perf_counter() - t0}
         text, first = "", None
         for raw in resp:
             line = raw.decode().strip()
@@ -1236,6 +1273,10 @@ def serve_phase(torch, counters, flags=("--kv_block_size", "16",
         fail("no prompt was prefilled in two or more chunks")
     log(f"  {len(reqs)} concurrent requests: {total} tokens in {wall:.2f} s "
         f"wall ({total / wall:.1f} tok/s aggregate), launches {launches}")
+    first = {"ttft_ms": median([s["ttft_s"] * 1e3 for s in stats.values()]),
+             "tok_s": median([1.0 / s["tpot_s"] for s in stats.values()
+                              if s["tpot_s"]]),
+             "aggregate": total / wall}
     for name, n in launches.items():
         if n <= 0:
             fail(f"serve phase: kernel {name} was never launched")
@@ -1251,7 +1292,12 @@ def serve_phase(torch, counters, flags=("--kv_block_size", "16",
             f"{1.0 / tpot[len(tpot) // 2]:.1f} tok/s per request, "
             f"{tokens / wall_n:.1f} tok/s aggregate")
     stop_server(srv)
-    return eng, launches, {"wall_s": wall, "tokens": total}
+    return eng, launches, {"wall_s": wall, "tokens": total, **first}
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
 
 
 def counter_key(counter, attr="launches") -> str:
@@ -1274,13 +1320,14 @@ def _most_chunks(sched_trace) -> int:
 
 # ------------------------------------------------------------------ phase 4
 def plain_step_logits(torch, params, cfg, prompt, stream, max_seq_len,
-                      max_new, eos, kv_quant=None):
+                      max_new, eos, kv_quant=None, lora=None):
     """Rows of a plain bf16 forward over the bucketed prompt plus
     ``stream``: row i is the step that emits ``stream[i]`` given the prompt
     and ``stream[:i]`` (teacher forcing: one causal forward serves every
     step), and the last row the step after the stream. With ``kv_quant``
     the forward attends through a dense cache of that quantization, as the
-    engine under check does."""
+    engine under check does; with ``lora`` (``(adapter tree, scaling)``)
+    it carries that one adapter."""
     from datatunerx_tpu_torch.models.llama import forward, init_cache
     from datatunerx_tpu_torch.utils.decoding import prepare_prompt
 
@@ -1297,7 +1344,7 @@ def plain_step_logits(torch, params, cfg, prompt, stream, max_seq_len,
             params, torch.tensor([seq], device="cuda"), cfg,
             positions=torch.tensor([pos], device="cuda"),
             attention_mask=torch.tensor([msk], device="cuda"),
-            cache=cache, compute_dtype=torch.bfloat16)
+            cache=cache, lora=lora, compute_dtype=torch.bfloat16)
         return logits[0, plen - 1:plen + n].double()
 
 
@@ -1319,7 +1366,7 @@ FORCED_ULPS = 8.0
 
 
 def stream_gaps(torch, eng, prompt, stream, start, max_new, stops,
-                kv_quant):
+                kv_quant, lora=None):
     """Teacher-forced gaps of ``stream`` from token ``start`` on: for each
     step, how far its token sits below the top logit of ``eng``'s plain
     forward over the prompt and the stream before it, in bf16 ulps (with
@@ -1328,7 +1375,7 @@ def stream_gaps(torch, eng, prompt, stream, start, max_new, stops,
     (``stops`` and the end-of-sequence token). Returns (steps, gaps)."""
     eos = eng.tokenizer.eos_token_id
     rows = plain_step_logits(torch, eng.params, eng.cfg, prompt, stream,
-                             eng.max_seq_len, max_new, eos, kv_quant)
+                             eng.max_seq_len, max_new, eos, kv_quant, lora)
     steps = list(range(start, len(stream)))
     gaps = gaps_ulps(torch, rows[steps], [stream[i] for i in steps])
     if len(stream) < max_new:
@@ -1340,7 +1387,7 @@ def stream_gaps(torch, eng, prompt, stream, start, max_new, stops,
 
 
 def check_greedy(torch, label, got, want, ref, prompt, max_new,
-                 stops=(), kv_quant=None, plain=None):
+                 stops=(), kv_quant=None, plain=None, lora=None):
     """``got`` equals ``want`` (the stream of ``ref``, an engine whose
     params and cfg give the plain forward), or the two part at a near-tie:
     ``ref``'s plain bf16 forward over the prompt and the tokens they share
@@ -1351,7 +1398,8 @@ def check_greedy(torch, label, got, want, ref, prompt, max_new,
     ``ref``'s (with ``kv_quant`` the forward attends through such a cache).
     Where ``got``'s engine computes another model than ``ref`` (quantized
     weights against their dequantized twin), ``plain`` is that engine and
-    its own forward scores ``got``."""
+    its own forward scores ``got``. With ``lora`` every plain forward
+    carries that adapter."""
     n = min(len(got), len(want))
     div = next((i for i in range(n) if got[i] != want[i]), None)
     if div is None and len(got) == len(want):
@@ -1361,7 +1409,8 @@ def check_greedy(torch, label, got, want, ref, prompt, max_new,
     if div < len(got) and div < len(want):
         row = plain_step_logits(torch, ref.params, ref.cfg, prompt,
                                 want[:div], ref.max_seq_len, max_new,
-                                ref.tokenizer.eos_token_id)[div]
+                                ref.tokenizer.eos_token_id,
+                                lora=lora)[div]
         second = int(torch.topk(row, 2).indices[1])
         tie = gaps_ulps(torch, row[None], [second])[0]
         if tie > NEAR_TIE_ULPS:
@@ -1370,9 +1419,9 @@ def check_greedy(torch, label, got, want, ref, prompt, max_new,
     else:
         tie = float("nan")  # one stream stopped: scored as a stop step
     steps, gaps = stream_gaps(torch, plain or ref, prompt, got, div,
-                              max_new, stops, kv_quant)
+                              max_new, stops, kv_quant, lora)
     _, own = stream_gaps(torch, ref, prompt, want, 0, max_new, stops,
-                         kv_quant)
+                         kv_quant, lora)
     worst = max(range(len(gaps)), key=gaps.__getitem__)
     log(f"  {label}: equal for {div} tokens, parting where the top two "
         f"lie {tie:.2f} bf16 ulps apart; then {len(gaps)} teacher-forced "
@@ -1569,10 +1618,13 @@ def prefix_phase(torch, counters, kv_quant=None):
         cold.close()
     torch.cuda.empty_cache()
     return launches
-def post_perplexity(port, prompt, completion):
+def post_perplexity(port, prompt, completion, model=""):
+    body = {"prompt": prompt, "completion": completion}
+    if model:
+        body["model"] = model
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/perplexity",
-        data=json.dumps({"prompt": prompt, "completion": completion}).encode(),
+        data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json"})
     t0 = time.perf_counter()
     with urllib.request.urlopen(req, timeout=600) as resp:
@@ -1585,18 +1637,19 @@ def post_perplexity(port, prompt, completion):
 PPL_BOUND = 1e-3  # relative, on nll_sum: ~4x the larger H100 reading (PERF.md)
 
 
-def f32_nll(torch, params32, cfg, p_ids, c_ids, max_seq_len):
+def f32_nll(torch, params32, cfg, p_ids, c_ids, max_seq_len, lora=None):
     """The completion's NLL under an f32 forward of prompt + completion, cut
     from the left to ``max_seq_len``, with no padding and no mask: the
     targets are the last ``len(c_ids)`` tokens (fewer when the cut reaches
-    into the completion). Returns (nll_sum, num_tokens)."""
+    into the completion); ``lora`` (``(adapter tree, scaling)``) adds one
+    adapter. Returns (nll_sum, num_tokens)."""
     from datatunerx_tpu_torch.models.llama import forward
 
     ids = (list(p_ids) + list(c_ids))[-max_seq_len:]
     n = min(len(c_ids), len(ids) - 1)
     with torch.inference_mode():
         logits, _ = forward(params32, torch.tensor([ids], device="cuda"),
-                            cfg, compute_dtype=torch.float32)
+                            cfg, lora=lora, compute_dtype=torch.float32)
         lp = torch.log_softmax(logits[0, -n - 1:-1].double(), dim=-1)
         tgt = torch.tensor(ids[-n:], device="cuda")
         nll = float(-lp.gather(-1, tgt[:, None]).sum())
@@ -1632,12 +1685,7 @@ def perplexity_phase(torch):
         fail(f"3-perplexity: the long input ({len(p_long)} + {len(c_ids)} "
              "tokens) is not cut")
 
-    def f32(tree):
-        if isinstance(tree, dict):
-            return {k: f32(v) for k, v in tree.items()}
-        return tree.float()
-
-    params32 = f32(eng.params)
+    params32 = f32_tree(eng.params)
     want = {name: f32_nll(torch, params32, eng.cfg, p, c, eng.max_seq_len)
             for name, (p, c) in ids.items()}
 
@@ -1669,6 +1717,12 @@ def perplexity_phase(torch):
         check("the single-request engine", name, single.perplexity(p, c))
     del single, params32
     torch.cuda.empty_cache()
+
+
+def f32_tree(tree):
+    if isinstance(tree, dict):
+        return {k: f32_tree(v) for k, v in tree.items()}
+    return tree.float()
 
 
 def tree_bytes(tree) -> int:
@@ -1753,6 +1807,291 @@ def single_phase(torch, quant_counters):
                      ref, ids, 32, plain=qeng)
         del ref, qeng
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------- phase 3-adapters
+ADAPTER_TENANTS = {
+    "plat": {"tier": "pinned", "adapters": ["ad0-r2"]},
+    "batch": {"tier": "bulk", "adapters": ["ad1-r4", "ad2-r8", "ad3-r2",
+                                           "ad4-r4", "ad5-r8"]},
+}
+ADAPTER_ROUNDS = (("", "ad0-r2", "ad1-r4", "ad2-r8"),
+                  ("ad3-r2", "ad4-r4", "ad5-r8", "ad0-r2"),
+                  ("ad1-r4",))
+# the registry after the three rounds, predicted before the first run
+# (PERF.md): round 1 loads ad0-ad2 from their checkpoints into three of the
+# four slots; round 2 finds ad0 resident (a hit) and loads ad3-ad5, into
+# the free slot and over ad1 and ad2 (two evictions: ad0 is the pinned
+# tenant's and never evicts); round 3 reloads ad1 over the coldest of
+# ad3-ad5 (a third eviction), from the host tier
+ADAPTER_EXPECT = {"loads": 7, "evictions": 3, "hits": 1, "misses": 7,
+                  "host_hits": 1, "orbax_loads": 6}
+ADAPTER_NEW = 64
+
+
+def admin(port, method, path, body=None):
+    """(status, JSON body) of one call to the server."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method,
+        data=json.dumps(body).encode() if body is not None else None,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def record_submits(eng):
+    """Keep every Request the engine's ``submit`` makes, by trace id (the
+    HTTP answer carries text only; the checks need the token ids)."""
+    seen, real = {}, eng.submit
+
+    def submit(*a, **kw):
+        req = real(*a, **kw)
+        seen[req.trace_id] = req
+        return req
+
+    eng.submit = submit
+    return seen
+
+
+def adapter_tree(torch, path):
+    """``(adapter tree on the card, scaling)`` of an adapter checkpoint, at
+    the scaling the engines serve it with."""
+    from datatunerx_tpu_torch.models.lora import lora_scaling
+    from datatunerx_tpu_torch.serving.batched_engine import (
+        load_checkpoint_state,
+    )
+    from datatunerx_tpu_torch.serving.engine import tree_to
+
+    state = load_checkpoint_state(path)
+    layers = state["lora"]["layers"]
+    scaling = state["_scaling"]
+    if scaling is None:
+        scaling = lora_scaling(32.0, next(iter(layers.values()))["a"]
+                               .shape[-1])
+    return tree_to(state["lora"], "cuda", torch.float32), scaling
+
+
+def adapter_phase(torch, counters, base):
+    """3-adapters (see the module docstring). ``counters`` are K7, K8 and
+    K9's ``(wrapper, attribute)``; ``base`` phase 3's first-batch stats."""
+    from datatunerx_tpu_torch.serving.adapters import make_adapter_sweep
+
+    with tempfile.TemporaryDirectory(prefix="dtx-adapters-") as tmp:
+        t0 = time.perf_counter()
+        cks = make_adapter_sweep(tmp, "preset:tinyllama-1.1b", 6)
+        log(f"  6 adapters written in {time.perf_counter() - t0:.1f} s")
+        srv, port, eng = start_server(torch, (
+            "--kv_block_size", "16", "--slots", "4", "--adapter_pool", "4",
+            "--adapter_rank_max", "8", "--host_adapter_cache_mb", "64",
+            "--tenants_config", json.dumps(ADAPTER_TENANTS)))
+        for name, path in cks.items():
+            code, doc = admin(port, "POST", "/admin/adapters",
+                              {"name": name, "checkpoint": path,
+                               "load": False})
+            if code != 200 or doc["resident"]:
+                fail(f"3-adapters: registering {name} answered {code} {doc}")
+        log(f"  pool: {eng.adapter_store.nbytes()} bytes on the card (4 "
+            "slots and the base row, r8, q_proj,v_proj, bf16)")
+        seen = record_submits(eng)
+        eng.request_stats.clear()
+        eng.sched_trace.clear()
+        before = eng.tenant_usage()  # the warm-up request's, anonymous
+        for c, attr in counters:
+            setattr(c, attr, 0)
+        answers, errors = {}, []
+
+        def run(trace, name, i):
+            body = {"messages": [{"role": "user", "content":
+                                  f"Tenant {name or 'base'}, request {i}: "
+                                  "tell me about the sea."}],
+                    "max_tokens": ADAPTER_NEW}
+            if name:
+                body["model"] = name
+            try:
+                answers[trace] = post(port, body, trace=trace)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{trace}: {e}")
+
+        t0 = time.perf_counter()
+        i = 0
+        for rnd, names in enumerate(ADAPTER_ROUNDS, start=1):
+            threads = []
+            for name in names:
+                i += 1
+                trace = f"r{rnd}-{name or 'base'}"
+                threads.append(threading.Thread(target=run,
+                                                args=(trace, name, i)))
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launched = {counter_key(c, attr): getattr(c, attr)
+                    for c, attr in counters}
+        if errors or len(answers) != sum(map(len, ADAPTER_ROUNDS)):
+            fail(f"3-adapters: {errors or 'requests did not finish'}")
+        steps = sum(e[1] for e in eng.sched_trace if e[0] == "decode")
+        chunks = sum(1 for e in eng.sched_trace if e[0] == "prefill")
+        L = eng.cfg.num_layers
+        want = dict(zip(launched, (L * steps, L * chunks, steps)))
+        log(f"  {len(answers)} requests in 3 rounds, {wall:.2f} s wall; "
+            f"{steps} decode steps and {chunks} prefill chunks by the "
+            f"trace; launches {launched}, expected {want}")
+        if launched != want or steps <= 0 or chunks <= 0:
+            fail(f"3-adapters: launches {launched}, expected {want}")
+        occ = eng.adapter_occupancy()
+        host = eng.adapter_registry.host_tier_stats()
+        got = {k: occ[k] for k in ("loads", "evictions", "hits", "misses")}
+        got.update(host_hits=host["host_hits"],
+                   orbax_loads=host["orbax_loads"])
+        log(f"  registry {got} (expected {ADAPTER_EXPECT}); resident "
+            f"{occ['resident_adapters']}; host tier {host['entries']} "
+            f"entries, {host['bytes']} bytes; load ms "
+            f"{[round(x, 1) for x in occ['load_ms']]}")
+        if got != ADAPTER_EXPECT:
+            fail(f"3-adapters: registry {got}, expected {ADAPTER_EXPECT}")
+        # each stream teacher-forced through a plain forward that carries
+        # only the request's own adapter, at its own rank
+        stats = {s["trace_id"]: s for s in eng.request_stats}
+        trees = {name: adapter_tree(torch, path)
+                 for name, path in cks.items()}
+        usage_in, usage_out = {}, {}
+        tenant_of = {a: t for t, e in ADAPTER_TENANTS.items()
+                     for a in e["adapters"]}
+        for trace in sorted(answers):
+            req, st = seen[trace], stats.get(trace)
+            if st is None or not req.tokens:
+                fail(f"3-adapters: {trace} emitted no tokens")
+            name = req.adapter_name
+            _, gaps = stream_gaps(torch, eng, req.prompt_ids, req.tokens, 0,
+                                  ADAPTER_NEW, req.stop_ids, None,
+                                  trees.get(name))
+            tps = (1.0 / st["tpot_s"]) if st["tpot_s"] else float("nan")
+            log(f"  {trace}: {len(req.tokens)} tokens, TTFT "
+                f"{st['ttft_s'] * 1e3:.1f} ms, decode {tps:.1f} tok/s; "
+                f"teacher-forced: furthest {max(gaps):.2f} ulps below the "
+                f"plain forward's top (bound {FORCED_ULPS:.2f})")
+            if max(gaps) > FORCED_ULPS:
+                fail(f"3-adapters: {trace} sits {max(gaps):.2f} ulps below "
+                     "its adapter's plain forward")
+            tenant = tenant_of.get(name, "")
+            usage_in[tenant] = (usage_in.get(tenant, 0)
+                                + answers[trace]["usage"]["prompt_tokens"])
+            usage_out[tenant] = usage_out.get(tenant, 0) + len(req.tokens)
+        usage = eng.tenant_usage()
+        for tenant in usage_in:
+            row, old = usage.get(tenant, {}), before.get(tenant, {})
+            used = {k: row.get(k, 0) - old.get(k, 0)
+                    for k in ("tokens_in", "tokens_out")}
+            # tokens out count only for a named tenant (as in the reference)
+            if (used["tokens_in"] != usage_in[tenant]
+                    or (tenant and used["tokens_out"] != usage_out[tenant])):
+                fail(f"3-adapters: tenant {tenant!r} used {used}, the "
+                     f"client counts {usage_in[tenant]} in, "
+                     f"{usage_out[tenant]} out")
+        log(f"  tenant usage {usage}")
+        ttft = median([stats[t]["ttft_s"] * 1e3 for t in answers])
+        tps = median([1.0 / stats[t]["tpot_s"] for t in answers
+                      if stats[t]["tpot_s"]])
+        r1 = [f"r1-{n or 'base'}" for n in ADAPTER_ROUNDS[0]]
+        r1_tokens = sum(len(seen[t].tokens) for t in r1)
+        r1_wall = max(answers[t]["wall_s"] for t in r1)
+        log(f"  median TTFT {ttft:.1f} ms, decode {tps:.1f} tok/s per "
+            f"request; round 1 (the base and 3 adapters) "
+            f"{r1_tokens / r1_wall:.1f} tok/s aggregate; phase 3's "
+            f"base-only batch: TTFT {base['ttft_ms']:.1f} ms, decode "
+            f"{base['tok_s']:.1f} tok/s per request, {base['aggregate']:.1f}"
+            " tok/s aggregate")
+        code, doc = admin(port, "DELETE", "/admin/adapters/ad5-r8")
+        if code != 200 or doc != {"unloaded": "ad5-r8"}:
+            fail(f"3-adapters: DELETE ad5-r8 answered {code} {doc}")
+        code, doc = admin(port, "POST", "/chat/completions",
+                          {"messages": [{"role": "user", "content": "hi"}],
+                           "model": "ad5-r8", "max_tokens": 4})
+        if code != 400:
+            fail(f"3-adapters: a chat naming a deleted adapter answered "
+                 f"{code} {doc}")
+        log("  DELETE /admin/adapters/ad5-r8: 200; a chat naming it: 400")
+        stop_server(srv)
+        eng.close()
+    del eng, trees
+    torch.cuda.empty_cache()
+
+
+def checkpoint_serve_phase(torch, checkpoint, scaling):
+    """5-serve (see the module docstring): ``checkpoint`` is the step
+    directory phase 5's manifest names, ``scaling`` its recorded
+    scaling."""
+    lora = adapter_tree(torch, checkpoint)
+    if lora[1] != scaling:
+        fail(f"5-serve: the checkpoint reads scaling {lora[1]}, the "
+             f"manifest {scaling}")
+    srv, port, eng = start_server(torch, ("--kv_block_size", "16", "--slots",
+                                          "4", "--checkpoint_path",
+                                          checkpoint))
+    if eng.adapter_ids != {"": 0, "default": 1}:
+        fail(f"5-serve: adapters {eng.adapter_ids}")
+    prompt = ("Below is an instruction that describes a task. Write a "
+              "response that appropriately completes the request.\n\n"
+              "### Instruction:\nName three rivers.\n\n### Response:\n")
+    completion = "The Nile, the Amazon and the Yangtze."
+    tok = eng.tokenizer
+    p_ids = tok.encode(prompt)
+    c_ids = tok.encode(completion, add_special_tokens=False)
+    params32 = f32_tree(eng.params)
+    ref, n = f32_nll(torch, params32, eng.cfg, p_ids, c_ids,
+                     eng.max_seq_len, lora=lora)
+    base_ref, _ = f32_nll(torch, params32, eng.cfg, p_ids, c_ids,
+                          eng.max_seq_len)
+    del params32
+
+    def check(label, out):
+        rel = abs(out["nll_sum"] - ref) / abs(ref)
+        log(f"  {label}: nll_sum {out['nll_sum']:.6f} over "
+            f"{out['num_tokens']} tokens vs f32 base + adapter {ref:.6f} "
+            f"over {n} (rel {rel:.2e}, bound {PPL_BOUND:g}; the base alone "
+            f"{base_ref:.6f})")
+        if out["num_tokens"] != n or not rel <= PPL_BOUND:
+            fail(f"5-serve: {label} is off the f32 forward")
+
+    out, _ = post_perplexity(port, prompt, completion, model="default")
+    check('/perplexity "model": "default" (paged server)', out)
+    # the same server without "model" serves the base (the reference's
+    # rule): the adapter must have moved the number
+    plain, _ = post_perplexity(port, prompt, completion)
+    log(f"  /perplexity without model on the paged server (the base): "
+        f"nll_sum {plain['nll_sum']:.6f}")
+    if plain["nll_sum"] == out["nll_sum"]:
+        fail('5-serve: "default" scored as the base model')
+    times = sorted(post_perplexity(port, prompt, completion,
+                                   model="default")[1] for _ in range(5))
+    log(f"  /perplexity with the adapter: {median(times):.1f} ms per call "
+        f"(median of 5, {times[0]:.1f}-{times[-1]:.1f})")
+    seen = record_submits(eng)
+    msgs = [{"role": "user", "content": "Name three rivers."}]
+    post(port, {"messages": msgs, "model": "default", "max_tokens": 64},
+         trace="5-serve")
+    req = seen["5-serve"]
+    stop_server(srv)
+    srv, port, single = start_server(torch, ("--slots", "1",
+                                             "--checkpoint_path",
+                                             checkpoint))
+    if type(single).__name__ != "InferenceEngine":
+        fail(f"5-serve: --slots 1 served {type(single).__name__}")
+    out, _ = post_perplexity(port, prompt, completion)
+    check("/perplexity, no model (the single-request engine, merged)", out)
+    stop_server(srv)
+    want = single.generate(req.prompt_ids, max_new_tokens=64,
+                           stop_ids=set(req.stop_ids))
+    check_greedy(torch, '"default" on the paged engine vs the merged '
+                 "single-request engine", req.tokens, want, eng,
+                 req.prompt_ids, 64, req.stop_ids, lora=lora)
+    eng.close()
+    del eng, single, lora
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1924,6 +2263,8 @@ def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
         fail("a LoRA B leaf is still all zeros after the first step")
     with open(os.path.join(store, "out", "manifest.json")) as f:
         manifest = json.load(f)
+    trained = {"checkpoint": manifest["checkpoint"],
+               "scaling": manifest["lora_scaling"]}
     ckpt = os.path.join(manifest["checkpoint"], "state.pt")
     npz = os.path.join(export_dir, "model.npz")
     written = [ckpt] + ([npz, os.path.join(export_dir, "config.json")]
@@ -1961,7 +2302,7 @@ def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
             f"device span per step, busy {busy * 100:.1f} %; device ms per "
             "step " + ", ".join(f"{k} {v:.1f} ({v / gpu_ms * 100:.1f} %)"
                                 for k, v in groups.items()))
-    return launches, {"step_ms": step_s * 1e3, "peak_gib": peak}
+    return launches, {"step_ms": step_s * 1e3, "peak_gib": peak, **trained}
 
 
 # ------------------------------------------------------------------ phase 6
@@ -2091,7 +2432,7 @@ def main(argv=None) -> int:
     serving = opts.phase in ("all", "serve")
     if serving:
         log("[3] serve preset:tinyllama-1.1b (4 concurrent /chat/completions)")
-        eng, served, _ = serve_phase(
+        eng, served, base_batch = serve_phase(
             torch, [by_name[k] for k in ("K7", "K8", "K9")])
         launches.update(served)
         bf16_pool_bytes = eng.kv_cache_bytes
@@ -2146,6 +2487,10 @@ def main(argv=None) -> int:
         single_phase(torch, [(cq.nf4_matmul, "launches"),
                              (cq.nf4_matmul_t, "launches"),
                              (cq.int8_matmul, "launches")])
+        log("[3-adapters] pooled adapters and tenancy: 6 adapters through "
+            "/admin/adapters, 3 rounds of concurrent requests")
+        adapter_phase(torch, [by_name[k] for k in ("K7", "K8", "K9")],
+                      base_batch)
 
     if opts.phase in ("all", "train", "qlora"):
         import tempfile
@@ -2156,9 +2501,14 @@ def main(argv=None) -> int:
             if opts.phase != "qlora":
                 log("[5] train preset:tinyllama-1.1b: LoRA SFT through the "
                     "trainer CLI (flash, remat dots, bf16, packed 8x1024)")
-                trained, _ = train_phase(torch, tmp)
+                trained, run = train_phase(torch, tmp)
                 launches.update({k: trained[k] for k in flash_keys})
                 torch.cuda.empty_cache()
+                log("[5-serve] serve phase 5's checkpoint with "
+                    "--checkpoint_path: the paged server (adapter "
+                    '"default") and --slots 1 (merged)')
+                checkpoint_serve_phase(torch, run["checkpoint"],
+                                       run["scaling"])
                 log("[6] train parity: one step with the flash kernels vs "
                     "plain attention (tinyllama width, 4 layers)")
                 train_parity_phase(torch, [

@@ -182,17 +182,24 @@ def _uniform(shape, seed: int, device) -> torch.Tensor:
 
 
 def _proj(h: torch.Tensor, p: dict, lora_p: Optional[dict] = None,
-          lora_scale: float = 0.0, drop_seed: Optional[int] = None,
+          lora_scale=0.0, drop_seed: Optional[int] = None,
           drop_rate: float = 0.0, quant_mode: Optional[str] = None,
-          dims: Optional[tuple] = None,
-          use_pallas: bool = False) -> torch.Tensor:
+          dims: Optional[tuple] = None, use_pallas: bool = False,
+          lora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense projection with optional LoRA delta: ``h W (+ b) +
     (drop(h) A) B * scale`` in h's dtype. The base weight is a
     full-precision ``kernel`` or a frozen ``quant`` collection
     (``ops/quant.py``; QLoRA = quantized base + full-precision adapters),
     multiplied by ``quantized_matmul`` with W's ``dims`` (in, out).
     Dropout applies to the adapter branch input only (peft's
-    ``lora_dropout``): kept lanes scale by 1/(1-p)."""
+    ``lora_dropout``): kept lanes scale by 1/(1-p).
+
+    Multi-adapter serving: with ``lora_idx`` ([B] integer), the adapter
+    leaves are STACKED over adapters (``[E, d_in, r]`` / ``[E, r, d_out]``)
+    and ``lora_scale`` is an ``[E]`` tensor; each batch row gathers its own
+    adapter, so one decode step serves a mixed-adapter batch. Row 0 of a
+    stack is the all-zero base adapter. The scale is rounded to h's dtype
+    before the product on both branches, as the reference does."""
     if "quant" in p:
         out = quantized_matmul(h, p["quant"], quant_mode, dims,
                                use_pallas=use_pallas)
@@ -201,14 +208,24 @@ def _proj(h: torch.Tensor, p: dict, lora_p: Optional[dict] = None,
     if "bias" in p:
         out = out + p["bias"].to(h.dtype)
     if lora_p is not None:
-        a = lora_p["a"].to(h.dtype)
-        b = lora_p["b"].to(h.dtype)
         hl = h
         if drop_seed is not None and drop_rate > 0.0:
             keep = _uniform(h.shape, drop_seed, h.device) < 1.0 - drop_rate
             hl = torch.where(keep, h / (1.0 - drop_rate),
                              torch.zeros_like(h)).to(h.dtype)
-        out = out + ((hl @ a) @ b) * lora_scale
+        if lora_idx is not None:
+            # gather first, then cast: the same values as casting the whole
+            # stack, at a row's cost
+            a_sel = lora_p["a"][lora_idx].to(h.dtype)  # [B, d_in, r]
+            b_sel = lora_p["b"][lora_idx].to(h.dtype)  # [B, r, d_out]
+            scale = lora_scale.to(h.dtype)[lora_idx][:, None, None]
+            out = out + torch.bmm(torch.bmm(hl, a_sel), b_sel) * scale
+        else:
+            # a host-side rounding: a device scalar would cost a copy a call
+            scale = float(torch.tensor(float(lora_scale), dtype=h.dtype))
+            a = lora_p["a"].to(h.dtype)
+            b = lora_p["b"].to(h.dtype)
+            out = out + ((hl @ a) @ b) * scale
     return out
 
 
@@ -256,6 +273,7 @@ def forward(
     segment_ids: Optional[torch.Tensor] = None,  # [B, T] packed sequences
     cache: Optional[dict] = None,
     lora: Optional[tuple] = None,  # (lora_params, scaling)
+    lora_adapter_idx: Optional[torch.Tensor] = None,  # [B]: stacked adapters
     compute_dtype=None,
     lora_dropout: float = 0.0,
     dropout_seed: Optional[int] = None,
@@ -271,7 +289,10 @@ def forward(
     oracle). An int8 cache hands its scale leaves along. Without a cache,
     ``attention_impl="flash"`` takes the flash kernels when ``T % 128 == 0
     or T < 128`` (the reference's ``_flash_ok``), else the biased path.
-    ``dropout_seed`` (training only) turns on LoRA dropout and NEFTune."""
+    ``dropout_seed`` (training only) turns on LoRA dropout and NEFTune.
+    With ``lora_adapter_idx``, ``lora``'s leaves are stacked over adapters
+    (``[L, E, ...]``, scales ``[E]``) and row b applies adapter
+    ``lora_adapter_idx[b]`` (``_proj``)."""
     if cfg.sliding_window is not None:
         raise NotImplementedError(
             "sliding-window attention is not ported yet (ROADMAP Queue 1, "
@@ -345,6 +366,8 @@ def forward(
         lora_layers = lora_params.get("layers", lora_params)
     drop = lora_dropout if (dropout_seed is not None
                             and lora is not None) else 0.0
+    lora_idx = (lora_adapter_idx.long() if lora_adapter_idx is not None
+                else None)
 
     H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     use_pallas = cfg.quant_impl == "pallas"
@@ -359,7 +382,7 @@ def forward(
         def proj(h, name, j):
             return _proj(h, lp[name], ll.get(name), lora_scale, seeds[j],
                          drop, cfg.quantization, target_dims(cfg, name),
-                         use_pallas)
+                         use_pallas, lora_idx)
 
         h = rms_norm(x, lp["input_layernorm"]["scale"], cfg.rms_norm_eps)
         q = proj(h, "q_proj", 0).reshape(B, T, H, d)

@@ -37,13 +37,28 @@
   with ``sampling_epilogue`` on, each step samples through the fused
   sampling kernel (K9). ``auto`` means on under CUDA. Off gives the gather
   path and the legacy sampler.
+- ADAPTERS: every forward carries the adapter tree and a per-row adapter
+  index (``models/llama.forward(..., lora_adapter_idx=...)``; row 0 of the
+  tree is the all-zero base adapter), so one decode step serves a
+  mixed-adapter batch. Static mode (``adapters``, ``checkpoint_path``)
+  stacks the named checkpoints once, zero-padded to the largest rank over
+  the union of targets; ``--checkpoint_path`` becomes the adapter named
+  ``"default"`` (a full-parameter checkpoint swaps the base instead).
+  Pooled mode (``adapter_pool > 0``, ``adapters/``) loads adapters into a
+  fixed-geometry device pool at runtime: load on miss at admission, pinned
+  while a slot decodes, LRU-evicted when full, with an optional host-RAM
+  tier (``host_adapter_cache_mb``).
+- TENANCY (``tenants``, ``tenancy/``): requests carry a tenant and its
+  tier; overcommit preemption takes the lowest tier first (bulk, then
+  standard, then pinned), youngest within a tier, and a bulk requester
+  never preempts a pinned tenant; pinned tenants' adapters never evict.
+  With no directory the victim is the youngest, as without the plane.
 
 The scheduler thread owns every piece of slot state; callers only enqueue
 requests. The caches are updated in place.
 
-The port refuses what it does not carry yet (adapters, speculative
-decoding, tenancy): each such argument raises ``ValueError`` naming its
-ROADMAP item.
+The port refuses what it does not carry yet (speculative decoding): each
+such argument raises ``ValueError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,6 +66,7 @@ from __future__ import annotations
 import collections
 import itertools
 import json
+import os
 import queue
 import threading
 import time
@@ -61,6 +77,12 @@ import torch
 
 from datatunerx_tpu_torch.data.templates import Template, get_template
 from datatunerx_tpu_torch.models.llama import forward, init_cache
+from datatunerx_tpu_torch.models.lora import (
+    DEFAULT_TARGETS,
+    LORA_TARGETS,
+    lora_scaling,
+    target_dims,
+)
 from datatunerx_tpu_torch.ops.cuda_sampling import sample_rows
 from datatunerx_tpu_torch.ops.paged_attention import (
     POS_SENTINEL,
@@ -78,6 +100,13 @@ from datatunerx_tpu_torch.serving.engine import (
     nll_impl,
     nll_result,
     prepare_nll_inputs,
+    tree_to,
+)
+from datatunerx_tpu_torch.tenancy.directory import TIER_RANK, load_tenants
+from datatunerx_tpu_torch.training.checkpoint import (
+    load_raw_state,
+    read_manifest,
+    saved_steps,
 )
 from datatunerx_tpu_torch.utils.decoding import DECODE_BUCKET, prepare_prompt
 from datatunerx_tpu_torch.utils.model_loader import load_model_and_tokenizer
@@ -90,11 +119,6 @@ _REQ_SEQ = itertools.count()
 
 # what each refused argument waits for (ROADMAP Queue 1)
 _NOT_PORTED = {
-    "checkpoint_path": "item 3 (adapters and tenancy)",
-    "adapters": "item 3 (adapters and tenancy)",
-    "adapter_pool": "item 3 (adapters and tenancy)",
-    "tenants": "item 3 (adapters and tenancy)",
-    "host_adapter_cache_mb": "item 3 (adapters and tenancy)",
     "spec_draft": "item 5 (speculative decoding)",
     "spec_tree": "item 5 (speculative decoding)",
 }
@@ -104,6 +128,59 @@ def _refuse(arg: str):
     raise ValueError(
         f"{arg} is not ported to the PyTorch engine yet: ROADMAP Queue 1 "
         f"{_NOT_PORTED[arg]}")
+
+
+def manifest_lora_scaling(ckpt_root: str) -> Optional[float]:
+    """The adapter's alpha / rank scaling that the trainer recorded in the
+    run's completion manifest (``<storage>/<run>/manifest.json``, next to
+    ``<storage>/<run>/checkpoints``); None when there is no manifest or it
+    holds none. Serving with any other value serves another model."""
+    run_dir = os.path.dirname(ckpt_root.rstrip("/"))
+    try:
+        manifest = read_manifest(os.path.dirname(run_dir),
+                                 os.path.basename(run_dir))
+        val = (manifest or {}).get("lora_scaling")
+        return float(val) if val is not None else None
+    except (OSError, ValueError, TypeError):
+        return None
+
+
+def load_checkpoint_state(checkpoint_path: str, cfg=None) -> dict:
+    """The raw state of one of the port trainer's checkpoints: a step
+    directory (``.../checkpoints/<step>``) or the ``checkpoints`` root (its
+    newest step), read from ``state.pt`` on the CPU; ``{"lora": ...}`` or
+    ``{"params": ...}``, plus the manifest's scaling under ``"_scaling"``.
+    A directory holding a ``model.npz`` export gives ``{"params": ...}`` in
+    ``cfg``'s layout (f32). The JAX package's Orbax checkpoints are not
+    read: the packages cross-load through the export."""
+    root = checkpoint_path.rstrip("/")
+    if os.path.exists(os.path.join(root, "model.npz")):
+        if cfg is None:
+            raise ValueError(f"{checkpoint_path} is a model.npz export: "
+                             "the model's config is needed to read it")
+        import numpy as np
+
+        from datatunerx_tpu_torch.models.convert import params_from_jax
+        from datatunerx_tpu_torch.utils.hf_convert import (
+            convert_hf_state_dict,
+        )
+
+        with np.load(os.path.join(root, "model.npz")) as data:
+            sd = dict(data)
+        return {"params": params_from_jax(convert_hf_state_dict(sd, cfg), cfg,
+                                          device="cpu", dtype=torch.float32)}
+    step: Optional[int] = None
+    if os.path.basename(root).isdigit():
+        step = int(os.path.basename(root))
+        root = os.path.dirname(root)
+    if step is None:
+        steps = saved_steps(root)
+        step = steps[-1] if steps else None
+    if step is None or step not in saved_steps(root):
+        raise FileNotFoundError(f"no checkpoint under {checkpoint_path}")
+    state = dict(load_raw_state(root, step))
+    state["_scaling"] = manifest_lora_scaling(root)
+    return state
 
 
 def _mode(value, name: str) -> str:
@@ -120,7 +197,8 @@ def _resolve_auto(value, name: str, cuda: bool) -> bool:
 
 
 class _PrefixCache:
-    """Host-side LRU of prefilled prompts keyed by (prompt tokens, adapter),
+    """Host-side LRU of prefilled prompts keyed by (prompt tokens, adapter
+    identity: the stack index in static mode, the NAME in pooled mode),
     with a per-adapter token TRIE so ``longest_prefix`` walks at most
     ``len(tokens)`` nodes. The OrderedDict keeps recency and the entries;
     the trie mirrors its key set (terminal nodes point back at the key).
@@ -137,8 +215,10 @@ class _PrefixCache:
         self._d: "collections.OrderedDict[tuple, dict]" = \
             collections.OrderedDict()
         # adapter -> trie root; node = [children {tok: node}, terminal key]
-        self._roots: Dict[int, list] = {}
+        self._roots: Dict[object, list] = {}
         self.evictions = 0
+        # the scheduler thread looks up and inserts; the adapter plane's
+        # admin threads invalidate (drop_adapter)
         self._lock = threading.Lock()
 
     def __len__(self):
@@ -152,7 +232,7 @@ class _PrefixCache:
                 self._d.move_to_end(key)
             return ent
 
-    def longest_prefix(self, tokens: tuple, adapter: int):
+    def longest_prefix(self, tokens: tuple, adapter):
         """Longest stored STRICT prefix of ``tokens`` for this adapter: one
         trie descent, the deepest terminal wins."""
         with self._lock:
@@ -209,6 +289,19 @@ class _PrefixCache:
                     return ent
         return None
 
+    def drop_adapter(self, adapter):
+        """Drop every entry cached under one adapter identity: required when
+        an adapter NAME is rebound to other weights (unload, re-register),
+        whose cached rows would serve the old weights."""
+        dropped = []
+        with self._lock:
+            for key in [k for k in self._d if k[1] == adapter]:
+                dropped.append(self._d.pop(key))
+                self._trie_remove(key)
+        if self._on_evict is not None:
+            for ent in dropped:
+                self._on_evict(ent)
+
     def _trie_remove(self, key):
         ptoks, adapter = key
         root = self._roots.get(adapter)
@@ -255,7 +348,9 @@ def _copy_row(row: Dict, width: int) -> Dict:
 class Request:
     def __init__(self, prompt_ids: Sequence[int], max_new_tokens: int,
                  temperature: float, top_p: float, seed: int,
-                 stop_ids: Sequence[int], trace_id: str = ""):
+                 stop_ids: Sequence[int], trace_id: str = "",
+                 adapter: int = 0, adapter_name: str = "",
+                 tenant: str = "", tenant_tier: str = "standard"):
         self.prompt_ids = list(prompt_ids)
         self.max_new_tokens = max_new_tokens
         self.temperature = temperature
@@ -264,6 +359,16 @@ class Request:
         self.stop_ids = list(stop_ids)[:MAX_STOP]
         self.trace_id = trace_id
         self.seq = next(_REQ_SEQ)  # arrival order (preemption fairness)
+        # the adapter's device index (stack or pool slot; pooled mode
+        # resolves and pins the NAME at admission) and its name
+        self.adapter = adapter
+        self.adapter_name = adapter_name
+        # tenancy: "" = anonymous, scheduled as without the plane; the tier
+        # orders overcommit's preemption victims
+        self.tenant = tenant
+        self.tenant_tier = tenant_tier
+        # pooled mode: a re-admission retry does not count its lookup twice
+        self.adapter_stats_counted = False
         self.tokens: List[int] = []
         self.stream: "queue.Queue[Optional[int]]" = queue.Queue()
         self.done = threading.Event()
@@ -292,8 +397,10 @@ class BatchedEngine:
         self,
         model_path: str,
         checkpoint_path: Optional[str] = None,
-        adapters: Optional[Dict[str, str]] = None,
-        adapter_pool: int = 0,
+        adapters: Optional[Dict[str, str]] = None,  # name -> checkpoint
+        adapter_pool: int = 0,  # > 0: pooled adapters, P device slots
+        adapter_rank_max: int = 8,  # pool rank ceiling (lower ranks pad)
+        adapter_targets: Optional[Sequence[str]] = None,  # pool target set
         template: str = "llama2",
         max_seq_len: int = 1024,
         slots: int = 4,
@@ -309,18 +416,13 @@ class BatchedEngine:
         sampling_epilogue: str = "auto",  # fused sampling kernel: auto|on|off
         prefill_chunk: int = 256,
         prefill_token_budget: int = 0,
-        tenants=None,
-        host_adapter_cache_mb: float = 0.0,
+        tenants=None,  # TenantDirectory / dict / path / inline JSON
+        host_adapter_cache_mb: float = 0.0,  # host-RAM adapter tier budget
         seed: int = 0,  # preset weights' random init
         device="cuda",
     ):
-        for arg, val in (("checkpoint_path", checkpoint_path),
-                         ("adapters", adapters),
-                         ("adapter_pool", adapter_pool),
-                         ("spec_draft", spec_draft),
-                         ("spec_tree", spec_tree),
-                         ("tenants", tenants),
-                         ("host_adapter_cache_mb", host_adapter_cache_mb)):
+        for arg, val in (("spec_draft", spec_draft),
+                         ("spec_tree", spec_tree)):
             if val:
                 _refuse(arg)
         self.kv_quant = kv_quant or None
@@ -359,6 +461,63 @@ class BatchedEngine:
         self.max_seq_len = min(max_seq_len, self.cfg.max_seq_len)
         self.slots = slots
         self.chunk = max(1, decode_chunk)
+        self._wake = threading.Event()
+
+        # ---- adapters: checkpoint_path becomes the adapter "default"
+        # (unmerged); a full-parameter checkpoint swaps the base instead
+        named: Dict[str, str] = dict(adapters or {})
+        states: Dict[str, dict] = {}
+        if checkpoint_path:
+            state = load_checkpoint_state(checkpoint_path, self.cfg)
+            if state.get("lora"):
+                named.setdefault("default", checkpoint_path)
+                states[checkpoint_path] = state
+            elif state.get("params"):
+                self.params = tree_to(state["params"], self.device,
+                                      torch.bfloat16)
+        self._static_adapter_ids: Dict[str, int] = {"": 0}  # 0 = base
+        self.lora_stack: Optional[tuple] = None
+        self.tenants = load_tenants(tenants)
+        # per-tenant usage counters, capped: a client-chosen header must not
+        # grow them without bound
+        self._tenant_lock = threading.Lock()
+        self.tenant_stats: Dict[str, Dict[str, int]] = {}
+        self._tenant_stats_cap = 1024
+        self.adapter_registry = None
+        self.adapter_store = None
+        if adapter_pool > 0:
+            from datatunerx_tpu_torch.adapters import (
+                AdapterRegistry,
+                AdapterStore,
+            )
+
+            self.adapter_store = AdapterStore(
+                self.cfg, pool_slots=int(adapter_pool),
+                rank_max=int(adapter_rank_max) or 8,
+                targets=tuple(adapter_targets or DEFAULT_TARGETS),
+                dtype=torch.bfloat16, device=self.device)
+            host_tier = None
+            if host_adapter_cache_mb and host_adapter_cache_mb > 0:
+                from datatunerx_tpu_torch.tenancy import HostAdapterTier
+
+                host_tier = HostAdapterTier(
+                    int(float(host_adapter_cache_mb) * 1024 * 1024))
+            self.adapter_registry = AdapterRegistry(
+                self.adapter_store,
+                # a resolved load wakes the scheduler, so the waiting head
+                # admits at once instead of at the next poll
+                on_load_done=self._wake.set, host_tier=host_tier)
+            for aname, path in named.items():
+                self.adapter_registry.register(aname, path)
+            if self.tenants is not None:
+                self.adapter_registry.set_pinned(
+                    self.tenants.pinned_adapters())
+        elif named:
+            self._build_adapter_stack(named, states)
+        # per-adapter request counts, capped and pruned on unload
+        self._adapter_req_lock = threading.Lock()
+        self.adapter_requests: Dict[str, int] = {}
+        self._adapter_requests_cap = 1024
 
         self.paged_kernel = self.paged and _resolve_auto(
             paged_kernel, "paged_kernel", cuda)
@@ -412,6 +571,9 @@ class BatchedEngine:
         self._top_ps = torch.ones((slots,), dtype=torch.float32, device=dev)
         self._stops = torch.full((slots, MAX_STOP), -1, dtype=torch.int32,
                                  device=dev)
+        # each slot's adapter: its row of the stack or pool (0 = base)
+        self._adapter_idx = torch.zeros((slots,), dtype=torch.int64,
+                                        device=dev)
         # per-slot sampling randomness: one seeded generator per slot, one
         # uniform per slot per decode step (see ops/cuda_sampling.py); a
         # parked session carries its generator's state to its next slot
@@ -438,13 +600,20 @@ class BatchedEngine:
 
         self._slot_req: List[Optional[Request]] = [None] * slots
         self._slot_blocks: List[List[int]] = [[] for _ in range(slots)]
+        # pooled mode: the adapter NAME each slot pins (released with the
+        # slot, so eviction never pulls weights from under a live row)
+        self._slot_adapter: List[Optional[str]] = [None] * slots
         self._decode_ready: List[bool] = [False] * slots
         # slot → in-progress chunked-prefill state, in admission order
         self._pending: "collections.OrderedDict[int, dict]" = \
             collections.OrderedDict()
         self._waiting: "queue.Queue[Request]" = queue.Queue()
+        # requests that admit BEFORE anything in _waiting, in FIFO order:
+        # the pool-starved head, and requests set aside while their adapter
+        # loads
         self._waiting_front: "collections.deque[Request]" = collections.deque()
-        self._wake = threading.Event()
+        self._last_adapter_wait: Optional[str] = None  # wait-trace dedupe
+        self._admit_wait_reason = ""  # why the last _admit returned False
         self._shutdown = threading.Event()
         self._dead: Optional[str] = None  # set when the scheduler died
         self._encode_memo: "collections.OrderedDict[str, tuple]" = \
@@ -466,7 +635,7 @@ class BatchedEngine:
         # "cow_extend") / ("prefill", slot, ntokens) / ("activate", slot) /
         # ("decode", K) / ("finish", slot) / ("grow", slot, nblocks) /
         # ("preempt", slot, seq) / ("preempt_prefill", slot, seq) /
-        # ("resume", slot, cursor)
+        # ("resume", slot, cursor) / ("adapter_wait", name)
         self.sched_trace: "collections.deque[tuple]" = \
             collections.deque(maxlen=4096)
         # one record per completed request: TTFT and per-token decode time
@@ -583,32 +752,105 @@ class BatchedEngine:
         except queue.Empty:
             return None
 
+    def _requeue_front(self, reqs: List[Request]):
+        """Put requests back at the FRONT of the wait order, keeping their
+        relative (older-first) order."""
+        for req in reversed(reqs):
+            self._waiting_front.appendleft(req)
+
     def _admit_waiting(self):
+        # requests whose adapter is mid-load: set aside this pass so younger
+        # requests can fill other slots while the checkpoint reads (the
+        # load already holds their pool slot, so they cannot starve)
+        parked: List[Request] = []
         for slot in range(self.slots):
             if self._slot_req[slot] is not None:
                 continue
             while True:
                 req = self._take_waiting()
                 if req is None:
+                    self._requeue_front(parked)
                     return
                 if self._preempted and self._preempted[0]["req"].seq < req.seq:
                     # strict FIFO across the park: an older preempted
                     # session resumes before a younger cold request
-                    self._waiting_front.appendleft(req)
+                    self._requeue_front(parked + [req])
                     return
                 try:
-                    ok = self._admit_slot(req, slot)
+                    ok = self._admit(req, slot)
                 except Exception as e:  # noqa: BLE001 — fail request, not loop
                     self._complete(req, error=str(e))
                     continue
                 if ok:
                     break
-                # KV blocks exhausted: the FIFO head waits for freed blocks
-                self._waiting_front.appendleft(req)
+                if self._admit_wait_reason == "adapter":
+                    parked.append(req)
+                    continue
+                # KV blocks or adapter slots exhausted: the FIFO head waits
+                # (younger requests would take what it waits for)
+                self._requeue_front(parked + [req])
                 return
+        self._requeue_front(parked)
 
-    def _prefix_key(self, ids, plen: int, n_prompt: int):
-        return (tuple(ids[plen - n_prompt:]), 0)
+    def _admit(self, req: Request, slot: int) -> bool:
+        """Occupy ``slot`` with ``req``, resolving and PINNING its adapter
+        first in pooled mode: a miss starts an asynchronous load, and a
+        fully pinned pool waits like an exhausted block pool. False = a pool
+        (adapter slots or KV blocks) is exhausted; nothing is held."""
+        pinned = False
+        self._admit_wait_reason = "blocks"
+        if self.adapter_registry is not None and req.adapter_name:
+            idx = self.adapter_registry.acquire(
+                req.adapter_name, count_hit=not req.adapter_stats_counted)
+            if idx is not None:
+                req.adapter_stats_counted = True
+            if idx is None:
+                loading = self.adapter_registry.describe(
+                    req.adapter_name).get("loading", False)
+                # mid-load: younger requests may pass (the load holds the
+                # head's slot); a fully pinned pool: strict FIFO, or passers
+                # could re-pin residents forever and starve the head
+                self._admit_wait_reason = ("adapter" if loading
+                                           else "adapter_pool")
+                if self._last_adapter_wait != req.adapter_name:
+                    self._trace("adapter_wait", req.adapter_name)
+                    self._last_adapter_wait = req.adapter_name
+                return False
+            self._last_adapter_wait = None
+            pinned = True
+            req.adapter = idx
+        try:
+            ok = self._admit_slot(req, slot)
+        except Exception:
+            if pinned:
+                self.adapter_registry.release(req.adapter_name)
+            raise
+        if ok:
+            if pinned:
+                self._slot_adapter[slot] = req.adapter_name
+        elif pinned:
+            self.adapter_registry.release(req.adapter_name)
+        return ok
+
+    def _prefix_key(self, ids, plen: int, n_prompt: int, akey):
+        return (tuple(ids[plen - n_prompt:]), akey)
+
+    def _adapter_cache_key(self, req: Request):
+        """The prefix cache's adapter identity: the NAME in pooled mode (a
+        pool slot is recycled across evict and reload; cached rows depend
+        only on the weights the name binds), the stack index in static
+        mode."""
+        if self.adapter_registry is not None:
+            return req.adapter_name
+        return req.adapter
+
+    def _lora_arg(self):
+        """The forwards' ``lora`` argument: None (base only), the static
+        stack, or the pool's published snapshot (one attribute read, no
+        lock on the decode path)."""
+        if self.adapter_store is not None:
+            return self.adapter_store.tree
+        return self.lora_stack
 
     def _suffix(self, used, n_pref: int) -> dict:
         """The left-padded bucket of prompt tokens past a cached prefix:
@@ -620,21 +862,26 @@ class BatchedEngine:
                 "mask": [0] * pad + [1] * len(suffix),
                 "positions": [0] * pad + list(range(n_pref, len(used)))}
 
-    def _forward_row(self, row: Dict, ids, mask, positions):
+    def _forward_row(self, row: Dict, ids, mask, positions, adapter: int):
         """One forward of a prompt (or suffix) bucket onto a dense one-row
-        cache (scalar cursor), in place; returns the last token's logits."""
+        cache (scalar cursor), in place, under ``adapter``; returns the
+        last token's logits."""
         dev = self.device
+        lora = self._lora_arg()
         logits, new = forward(
             self.params, torch.tensor([ids], dtype=torch.int32, device=dev),
             self.cfg,
             positions=torch.tensor([positions], dtype=torch.int32, device=dev),
             attention_mask=torch.tensor([mask], dtype=torch.int32, device=dev),
-            cache=row, compute_dtype=torch.bfloat16)
+            cache=row, lora=lora,
+            lora_adapter_idx=(torch.tensor([adapter], device=dev)
+                              if lora is not None else None),
+            compute_dtype=torch.bfloat16)
         row["len"] = new["len"]
         return logits[0, -1].clone()
 
     def _prefill_row_cached(self, ids, plen: int, n_prompt: int,
-                            budget_needed: int):
+                            adapter: int, akey, budget_needed: int):
         """Prefix-cache paths only: ``(logits, dense row, cursor)`` on an
         exact hit (no compute) or a strict-prefix hit (suffix extension over
         a copy of the cached row); None on a miss or with no cache. A cached
@@ -643,20 +890,20 @@ class BatchedEngine:
         never changes the response."""
         if self._prefix is None:
             return None
-        used, _ = key = self._prefix_key(ids, plen, n_prompt)
+        used, _ = key = self._prefix_key(ids, plen, n_prompt, akey)
         need = min(budget_needed, self.max_seq_len - plen)
         ent = self._prefix.get(key)
         if ent is not None and self.max_seq_len - ent["cursor"] >= need:
             self.prefill_stats["reuse"] += 1
             return ent["logits"], ent["cache"], ent["cursor"]
-        pkey, pent = self._prefix.longest_prefix(used, 0)
+        pkey, pent = self._prefix.longest_prefix(used, akey)
         if pent is not None:
             sfx = self._suffix(used, len(pkey[0]))
             cursor = pent["cursor"] + len(sfx["ids"])
             if self.max_seq_len - cursor >= need:
                 row = _copy_row(pent["cache"], self.max_seq_len)
                 row_logits = self._forward_row(
-                    row, sfx["ids"], sfx["mask"], sfx["positions"])
+                    row, sfx["ids"], sfx["mask"], sfx["positions"], adapter)
                 self.prefill_stats["extend"] += 1
                 self._prefix.put(key, {"cache": row, "logits": row_logits,
                                        "cursor": cursor})
@@ -664,19 +911,20 @@ class BatchedEngine:
         return None
 
     def _prefill_row(self, ids, mask, positions, plen: int, n_prompt: int,
-                     budget_needed: int = 1):
+                     adapter: int, akey, budget_needed: int = 1):
         """``(last-token logits, dense row, cursor)`` for a prompt, through
         the prefix cache when there is one: exact hit = no compute, prefix
         hit = suffix extension, miss = full prefill (then stored)."""
-        hit = self._prefill_row_cached(ids, plen, n_prompt, budget_needed)
+        hit = self._prefill_row_cached(ids, plen, n_prompt, adapter, akey,
+                                       budget_needed)
         if hit is not None:
             return hit
         row = init_cache(self.cfg, 1, self.max_seq_len, dtype=torch.bfloat16,
                          quantize=self.kv_quant, device=self.device)
-        row_logits = self._forward_row(row, ids, mask, positions)
+        row_logits = self._forward_row(row, ids, mask, positions, adapter)
         self.prefill_stats["full"] += 1
         if self._prefix is not None:
-            self._prefix.put(self._prefix_key(ids, plen, n_prompt),
+            self._prefix.put(self._prefix_key(ids, plen, n_prompt, akey),
                              {"cache": row, "logits": row_logits,
                               "cursor": plen})
         return row_logits, row, plen
@@ -693,9 +941,13 @@ class BatchedEngine:
         ids, mask, positions, plen, n_prompt, max_new, _ = prepare_prompt(
             req.prompt_ids, self.tokenizer.eos_token_id,
             self.max_seq_len, req.max_new_tokens)
+        akey = self._adapter_cache_key(req)
+        # chunked prefill (cold, or a COW suffix) reads the slot's index
+        self._adapter_idx[slot] = req.adapter
         if not self.paged:
             row_logits, row, cursor = self._prefill_row(
-                ids, mask, positions, plen, n_prompt, budget_needed=max_new)
+                ids, mask, positions, plen, n_prompt, req.adapter, akey,
+                budget_needed=max_new)
             # copy the row — K/V, scales and positions, sentinel lanes
             # included, which scrubs what the slot's last request left
             for name in ("k", "v", "k_scale", "v_scale"):
@@ -711,12 +963,13 @@ class BatchedEngine:
             self._arm_slot(slot, req, row_logits, cursor, n_prompt, max_new)
             return True
         if self.cow:
-            handled = self._admit_cow(req, slot, ids, plen, n_prompt, max_new)
+            handled = self._admit_cow(req, slot, ids, plen, n_prompt, max_new,
+                                      akey)
             if handled is not None:
                 return handled
         else:
-            hit = self._prefill_row_cached(ids, plen, n_prompt,
-                                           budget_needed=max_new)
+            hit = self._prefill_row_cached(ids, plen, n_prompt, req.adapter,
+                                           akey, budget_needed=max_new)
             if hit is not None:
                 row_logits, row, cursor = hit
                 max_new = max(1, min(max_new, self.max_seq_len - cursor))
@@ -759,7 +1012,7 @@ class BatchedEngine:
         self._pending[slot] = {
             "req": req, "ids": ids, "mask": mask, "positions": positions,
             "plen": plen, "n_prompt": n_prompt, "max_new": max_new, "done": 0,
-            "base": 0, "key": self._prefix_key(ids, plen, n_prompt),
+            "base": 0, "key": self._prefix_key(ids, plen, n_prompt, akey),
         }
         self._note_admitted()
         self._trace("admit", slot, plen, "chunked")
@@ -767,7 +1020,7 @@ class BatchedEngine:
 
     # ------------------------------------------------- COW prefix blocks
     def _admit_cow(self, req: Request, slot: int, ids, plen: int,
-                   n_prompt: int, max_new: int) -> Optional[bool]:
+                   n_prompt: int, max_new: int, akey) -> Optional[bool]:
         """Overcommit admission through the prefix cache: an exact hit maps
         the entry's refcounted blocks into this slot's table and arms decode
         (no prefill); a strict-prefix hit maps the shared prefix and
@@ -775,7 +1028,7 @@ class BatchedEngine:
         True = admitted, False = blocks exhausted (the FIFO head waits),
         None = no usable entry (cold path). The decode-room gates are the
         dense-row path's."""
-        used, _ = key = self._prefix_key(ids, plen, n_prompt)
+        used, _ = key = self._prefix_key(ids, plen, n_prompt, akey)
         need = min(max_new, self.max_seq_len - plen)
         ent = self._prefix.get(key)
         if (ent is not None and ent.get("blocks") is not None
@@ -787,7 +1040,7 @@ class BatchedEngine:
                 self.prefill_stats["reuse"] += 1
                 self._trace("admit", slot, plen, "cow")
             return ok
-        pkey, pent = self._prefix.longest_prefix(used, 0)
+        pkey, pent = self._prefix.longest_prefix(used, akey)
         if pent is not None and pent.get("blocks") is not None:
             sfx = self._suffix(used, len(pkey[0]))
             cursor = pent["cursor"] + len(sfx["ids"])
@@ -880,12 +1133,16 @@ class BatchedEngine:
         view = dict(self._cache)
         view["len"] = self._cache["len"][slot:slot + 1]
         view["block_tables"] = self._cache["block_tables"][slot:slot + 1]
+        lora = self._lora_arg()
         logits, new = forward(
             self.params, torch.tensor([ids], dtype=torch.int32, device=dev),
             self.cfg,
             positions=torch.tensor([positions], dtype=torch.int32, device=dev),
             attention_mask=torch.tensor([mask], dtype=torch.int32, device=dev),
-            cache=view, compute_dtype=torch.bfloat16)
+            cache=view, lora=lora,
+            lora_adapter_idx=(self._adapter_idx[slot:slot + 1]
+                              if lora is not None else None),
+            compute_dtype=torch.bfloat16)
         self._cache["len"][slot:slot + 1] = new["len"]
         return logits[0, -1]
 
@@ -961,6 +1218,7 @@ class BatchedEngine:
         self._temps[slot] = float(req.temperature)
         self._top_ps[slot] = float(req.top_p)
         self._stops[slot] = stop_row.to(self.device)
+        self._adapter_idx[slot] = req.adapter
         self._gens[slot] = torch.Generator(device=self.device).manual_seed(
             int(req.seed))
         self._decode_ready[slot] = True
@@ -1022,21 +1280,34 @@ class BatchedEngine:
                    if self._decode_ready[s]
                    and self._slot_req[s] is not None
                    and self._slot_req[s].seq > req.seq]
+        victims = self._tenant_filter_victims(req, victims, self._slot_req)
         if victims:
             self._preempt_slot(self._pick_victim(victims, self._slot_req))
             return True
         pend = {s: self._pending[s]["req"] for s in self._pending
                 if self._pending[s]["req"].seq > req.seq}
-        if pend:
-            self._unadmit_pending(self._pick_victim(list(pend), pend))
+        pend_slots = self._tenant_filter_victims(req, list(pend), pend)
+        if pend_slots:
+            self._unadmit_pending(self._pick_victim(pend_slots, pend))
             return True
         return False
 
-    @staticmethod
-    def _pick_victim(slots, req_of):
-        """The youngest request pays (the tenancy order is ROADMAP Queue 1
-        item 3)."""
-        return max(slots, key=lambda s: req_of[s].seq)
+    def _tenant_filter_victims(self, req: Request, slots, req_of):
+        """A BULK-tier requester never preempts a pinned tenant's session.
+        No directory, or a requester of another tier, passes the victims
+        through as they are."""
+        if self.tenants is None or req.tenant_tier != "bulk":
+            return slots
+        return [s for s in slots if req_of[s].tenant_tier != "pinned"]
+
+    def _pick_victim(self, slots, req_of):
+        """Which victim pays: with no directory the youngest; with one the
+        lowest tier first (bulk before standard before pinned), youngest
+        within the tier."""
+        if self.tenants is None:
+            return max(slots, key=lambda s: req_of[s].seq)
+        return min(slots, key=lambda s: (
+            TIER_RANK.get(req_of[s].tenant_tier, 1), -req_of[s].seq))
 
     def _install_growth(self, slot: int, new_blocks: List[int]):
         blocks = self._slot_blocks[slot]
@@ -1122,6 +1393,14 @@ class BatchedEngine:
                      if self._slot_req[i] is None), None)
         if slot is None:
             return False
+        name = req.adapter_name
+        pinned = False
+        if name and self.adapter_registry is not None:
+            # the pool slot may have changed while the session was parked
+            idx = self.adapter_registry.acquire(name, count_hit=False)
+            if idx is None:
+                return False  # mid-load or pool pinned: retry next tick
+            req.adapter, pinned = idx, True
         cursor, remaining = payload["cursor"], payload["remaining"]
         blocks = self._alloc_blocks(self._reserve_depth(cursor, remaining))
         if blocks is None and self._prefix is not None:
@@ -1131,6 +1410,8 @@ class BatchedEngine:
                 blocks = self._alloc_blocks(
                     self._reserve_depth(cursor, remaining))
         if blocks is None:
+            if pinned:
+                self.adapter_registry.release(name)
             return False
         try:
             row = mig.unpack_kv_row(payload["kv"], self.max_seq_len,
@@ -1148,7 +1429,11 @@ class BatchedEngine:
             self._active[slot] = False
             self._decode_ready[slot] = False
             self._allocator.free(blocks)
+            if pinned:
+                self.adapter_registry.release(name)
             raise
+        if pinned:
+            self._slot_adapter[slot] = name
         self._slot_blocks[slot] = blocks
         self._slot_req[slot] = req
         self._slot_demand[slot] = self._eager_demand(cursor, remaining)
@@ -1181,6 +1466,9 @@ class BatchedEngine:
         Returns ``[K + 1, S]`` int32: the emitted tokens (-1 = none) and, in
         the last row, the post-chunk active mask."""
         us = self._draw_uniforms(K)
+        # one snapshot of the adapters for the whole chunk
+        lora = self._lora_arg()
+        aidx = self._adapter_idx if lora is not None else None
         logits, cache = self._logits, self._cache
         pos, remaining, active = self._pos, self._remaining, self._active
         temps, top_ps, stops = self._temps, self._top_ps, self._stops
@@ -1200,8 +1488,8 @@ class BatchedEngine:
             tok = torch.where(emit, nxt, torch.zeros_like(nxt))[:, None]
             logits2, cache = forward(
                 self.params, tok, self.cfg, positions=pos[:, None],
-                attention_mask=emit_i[:, None], cache=cache,
-                compute_dtype=torch.bfloat16)
+                attention_mask=emit_i[:, None], cache=cache, lora=lora,
+                lora_adapter_idx=aidx, compute_dtype=torch.bfloat16)
             # forward advances every cursor; only emitting slots really moved
             cache["len"] = prev_len + emit_i
             pos = pos + emit_i
@@ -1284,6 +1572,9 @@ class BatchedEngine:
         self._decode_ready[slot] = False
         self._slot_demand[slot] = 0
         self._slot_key[slot] = None
+        name, self._slot_adapter[slot] = self._slot_adapter[slot], None
+        if name is not None and self.adapter_registry is not None:
+            self.adapter_registry.release(name)
         blocks, self._slot_blocks[slot] = self._slot_blocks[slot], []
         if blocks:
             if note_session:
@@ -1296,6 +1587,8 @@ class BatchedEngine:
 
     def _complete(self, req: Request, error: Optional[str] = None):
         n = len(req.tokens)
+        if self.tenants is not None and req.tenant:
+            self._tenant_count(req.tenant, "tokens_out", n)
         if req.first_token_ts is not None:
             tpot = None
             if req.last_token_ts is not None and n > 1:
@@ -1306,11 +1599,58 @@ class BatchedEngine:
                 "tpot_s": tpot, "tokens": n})
         req.finish(error=error)
 
-    # ---------------------------------------------------------------- API
+    # ------------------------------------------------------------- adapters
+    def _build_adapter_stack(self, named: Dict[str, str],
+                             states: Dict[str, dict]):
+        """Stack the named adapter checkpoints into ``[L, E, ...]`` leaves
+        (entry 0 is the all-zero base adapter), in bf16 on the device, with
+        f32 scales ``[E]``. Mixed ranks are zero-padded to the largest
+        (zero columns and rows leave the delta as it is); mixed target sets
+        take the union, with zeros where an adapter lacks a target."""
+        loaded = []
+        for name, path in named.items():
+            state = states.get(path) or load_checkpoint_state(path)
+            lora = state.get("lora")
+            if not lora:
+                raise ValueError(f"adapter {name!r}: no lora tree in {path}")
+            layers = lora["layers"]
+            rank = next(iter(layers.values()))["a"].shape[-1]
+            scaling = state.get("_scaling")
+            if scaling is None:
+                scaling = lora_scaling(32.0, rank)
+            loaded.append((name, layers, float(scaling)))
+        targets = sorted({t for _, layers, _ in loaded for t in layers}
+                         & set(LORA_TARGETS))
+        max_rank = max(layers[t]["a"].shape[-1]
+                       for _, layers, _ in loaded for t in layers)
+        L, E = self.cfg.num_layers, len(loaded) + 1
+        stack: Dict[str, dict] = {}
+        for t in targets:
+            d_in, d_out = target_dims(self.cfg, t)
+            a = torch.zeros((L, E, d_in, max_rank), dtype=torch.float32)
+            b = torch.zeros((L, E, max_rank, d_out), dtype=torch.float32)
+            for e, (_, layers, _) in enumerate(loaded, start=1):
+                if t not in layers:
+                    continue
+                r = layers[t]["a"].shape[-1]
+                a[:, e, :, :r] = layers[t]["a"].float()
+                b[:, e, :r, :] = layers[t]["b"].float()
+            stack[t] = {"a": a.to(torch.bfloat16).to(self.device),
+                        "b": b.to(torch.bfloat16).to(self.device)}
+        scales = torch.tensor([0.0] + [s for _, _, s in loaded],
+                              dtype=torch.float32, device=self.device)
+        self.lora_stack = ({"layers": stack}, scales)
+        for e, (name, _, _) in enumerate(loaded, start=1):
+            self._static_adapter_ids[name] = e
+
     @property
     def adapter_ids(self) -> Dict[str, int]:
-        """Known adapter names (the base model only in this slice)."""
-        return {"": 0}
+        """Known adapter names → device index. Static mode: the stack's
+        binding. Pooled mode: every REGISTERED name (resident → its pool
+        slot, loadable on a miss → -1)."""
+        if self.adapter_registry is not None:
+            return self.adapter_registry.id_map()
+        return self._static_adapter_ids
 
     def adapter_for(self, model: str) -> str:
         """The adapter a request's "model" names: "" for none, KeyError for
@@ -1319,20 +1659,150 @@ class BatchedEngine:
             raise KeyError(model)
         return model
 
+    def load_adapter(self, name: str, checkpoint_path: str,
+                     preload: bool = True) -> dict:
+        """Register (and by default warm) an adapter at runtime. Raises
+        NotImplementedError on a static stack, ValueError /
+        AdapterRankError for a checkpoint the pool's geometry refuses,
+        RuntimeError when every pool slot is pinned, and AdapterPinnedError
+        when re-registering a live name."""
+        if self.adapter_registry is None:
+            raise NotImplementedError(
+                "engine runs a static adapter stack; restart with "
+                "--adapter_pool to load adapters at runtime")
+        existed = name in self.adapter_registry.names()
+        rebound = existed and (self.adapter_registry.describe(name)
+                               ["checkpoint"] != checkpoint_path)
+        self.adapter_registry.register(name, checkpoint_path)
+        if rebound and self._prefix is not None:
+            self._prefix.drop_adapter(name)  # rows of the old weights
+        if preload:
+            try:
+                self.adapter_registry.preload(name)
+            except (ValueError, FileNotFoundError):
+                # a bad CHECKPOINT does not stay registered, but only a
+                # registration THIS call made is rolled back; a transient
+                # failure (pool exhausted) never unregisters
+                if not existed:
+                    self.adapter_registry.unregister(name)
+                raise
+        return self.adapter_registry.describe(name)
+
+    def unload_adapter(self, name: str) -> bool:
+        """Evict and unregister. AdapterPinnedError while in-flight
+        requests still decode with it."""
+        if self.adapter_registry is None:
+            raise NotImplementedError("engine runs a static adapter stack")
+        gone = self.adapter_registry.unregister(name)
+        if gone:
+            if self._prefix is not None:
+                self._prefix.drop_adapter(name)
+            with self._adapter_req_lock:
+                self.adapter_requests.pop(name, None)
+        return gone
+
+    def adapter_occupancy(self) -> Optional[dict]:
+        """Pool occupancy and registry stats; None on a static or base
+        engine."""
+        if self.adapter_registry is None:
+            return None
+        occ = self.adapter_registry.occupancy()
+        occ["resident_adapters"] = sorted(self.adapter_registry.resident())
+        occ["registered_adapters"] = self.adapter_registry.names()
+        occ["load_ms"] = list(self.adapter_registry.load_ms)
+        with self._adapter_req_lock:
+            occ["requests"] = dict(self.adapter_requests)
+        return occ
+
+    @property
+    def resident_adapters(self) -> Optional[Dict[str, int]]:
+        if self.adapter_registry is None:
+            return None
+        return self.adapter_registry.resident()
+
+    # -------------------------------------------------------------- tenancy
+    def _tenant_count(self, tenant: str, key: str, n: int):
+        """Bump a per-tenant usage counter: known tenants always count, new
+        names stop landing once 1024 exist."""
+        with self._tenant_lock:
+            row = self.tenant_stats.get(tenant)
+            if row is None:
+                if len(self.tenant_stats) >= self._tenant_stats_cap:
+                    return
+                row = self.tenant_stats[tenant] = {
+                    "requests": 0, "tokens_in": 0, "tokens_out": 0}
+            row[key] = row.get(key, 0) + n
+
+    def tenant_usage(self) -> Optional[dict]:
+        """Per-tenant usage, live KV blocks, tier and resident adapters, or
+        None when the tenancy plane is off."""
+        if self.tenants is None:
+            return None
+        with self._tenant_lock:
+            usage = {t: dict(row) for t, row in self.tenant_stats.items()}
+        # racy slot-list reads, as every stats read here
+        for s in range(self.slots):
+            req = self._slot_req[s]
+            if req is None or not req.tenant:
+                continue
+            row = usage.setdefault(
+                req.tenant, {"requests": 0, "tokens_in": 0, "tokens_out": 0})
+            row["kv_blocks"] = (row.get("kv_blocks", 0)
+                                + len(self._slot_blocks[s]))
+        resident = (set(self.adapter_registry.resident())
+                    if self.adapter_registry is not None else set())
+        for name in self.tenants.names():
+            spec = self.tenants.get(name)
+            if spec is None:
+                continue
+            row = usage.setdefault(
+                name, {"requests": 0, "tokens_in": 0, "tokens_out": 0})
+            row["tier"] = spec.tier
+            row["adapters_resident"] = len(resident & set(spec.adapters))
+        return usage
+
+    def refresh_tenant_pins(self):
+        """Re-sync the registry's pinned set after a directory change."""
+        if self.tenants is not None and self.adapter_registry is not None:
+            self.adapter_registry.set_pinned(self.tenants.pinned_adapters())
+
+    # ---------------------------------------------------------------- API
     def submit(self, prompt_ids: Sequence[int], max_new_tokens: int = 128,
                temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
                stop_ids: Optional[set] = None, adapter: str = "",
-               trace_id: str = "") -> Request:
+               trace_id: str = "", tenant: str = "") -> Request:
         if self._dead:
             raise RuntimeError(self._dead)
-        if adapter:
-            raise KeyError(f"unknown adapter {adapter!r}; adapters are not "
-                           "ported yet (ROADMAP Queue 1 item 3)")
+        known = self.adapter_ids
+        if adapter not in known:
+            raise KeyError(f"unknown adapter {adapter!r}; loaded: "
+                           f"{sorted(n for n in known if n)}")
+        # the device index is fixed now for the static stack; pooled names
+        # resolve (and pin) at admission
+        idx = known[adapter] if self.adapter_registry is None else 0
+        with self._adapter_req_lock:
+            if (adapter in self.adapter_requests
+                    or len(self.adapter_requests)
+                    < self._adapter_requests_cap):
+                self.adapter_requests[adapter] = \
+                    self.adapter_requests.get(adapter, 0) + 1
+        # tenancy: an explicit tenant wins, else the adapter maps through
+        # the directory; unknown stays anonymous
+        tenant_name, tier = "", "standard"
+        if self.tenants is not None:
+            spec = self.tenants.resolve(tenant=tenant, adapter=adapter)
+            if spec is not None:
+                tenant_name, tier = spec.name, spec.tier
+            self._tenant_count(tenant_name or tenant, "requests", 1)
+            self._tenant_count(tenant_name or tenant, "tokens_in",
+                               len(prompt_ids))
         stops = {int(s) for s in (stop_ids or set())}
         stops.add(int(self.tokenizer.eos_token_id))
         req = Request(prompt_ids, max_new_tokens, temperature, top_p, seed,
                       sorted(stops),
-                      trace_id=trace_id or f"dtx-{uuid.uuid4().hex[:16]}")
+                      trace_id=trace_id or f"dtx-{uuid.uuid4().hex[:16]}",
+                      adapter=idx, adapter_name=adapter,
+                      tenant=tenant_name or tenant, tenant_tier=tier)
         self._waiting.put(req)
         self._wake.set()
         return req
@@ -1347,21 +1817,42 @@ class BatchedEngine:
 
     def perplexity(self, prompt_ids: Sequence[int],
                    completion_ids: Sequence[int], adapter: str = "") -> dict:
-        """Mean completion NLL under the served model. Runs on the caller's
-        thread beside the scheduler (the forward touches no engine state);
-        the [1, P, V] f32 log-probs live only for the call."""
+        """Mean completion NLL under the served model, or under ``adapter``
+        through the same per-row adapter path decode uses. Runs on the
+        caller's thread beside the scheduler (the forward touches no engine
+        state); the [1, P, V] f32 log-probs live only for the call."""
         if adapter not in self.adapter_ids:
             raise KeyError(f"unknown adapter {adapter!r}")
-        # grad mode is thread-local: the caller's thread enters it itself
-        with torch.inference_mode():
-            if self.device.type == "cuda":
-                torch.cuda.set_device(self.device)
-            tokens, mask, _ = prepare_nll_inputs(
-                list(prompt_ids), list(completion_ids),
-                self.tokenizer.eos_token_id, self.max_seq_len,
-                device=self.device)
-            nll_sum, n_tok = nll_impl(self.params, self.cfg, tokens, mask)
-            return nll_result(float(nll_sum), int(n_tok))
+        # pooled mode: pin the adapter across the forward, so eviction
+        # cannot swap its weights out mid-read (a cold one loads here, and
+        # is warm for serving after)
+        pinned = False
+        if self.adapter_registry is not None and adapter:
+            idx = self.adapter_registry.acquire(adapter, wait=True)
+            if idx is None:
+                raise RuntimeError(
+                    "adapter pool exhausted (all slots pinned); retry")
+            pinned = True
+        else:
+            idx = self.adapter_ids[adapter]
+        try:
+            # grad mode is thread-local: the caller's thread enters it
+            with torch.inference_mode():
+                if self.device.type == "cuda":
+                    torch.cuda.set_device(self.device)
+                tokens, mask, _ = prepare_nll_inputs(
+                    list(prompt_ids), list(completion_ids),
+                    self.tokenizer.eos_token_id, self.max_seq_len,
+                    device=self.device)
+                lora = self._lora_arg()
+                nll_sum, n_tok = nll_impl(
+                    self.params, self.cfg, tokens, mask, lora=lora,
+                    lora_adapter_idx=(torch.tensor([idx], device=self.device)
+                                      if lora is not None else None))
+                return nll_result(float(nll_sum), int(n_tok))
+        finally:
+            if pinned:
+                self.adapter_registry.release(adapter)
 
     def _encode_chat(self, messages: List[dict]):
         try:
@@ -1383,23 +1874,24 @@ class BatchedEngine:
 
     def chat(self, messages: List[dict], max_new_tokens: int = 128,
              temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
-             adapter: str = "", trace_id: str = "") -> str:
+             adapter: str = "", trace_id: str = "", tenant: str = "") -> str:
         prompt_ids, stop_ids = self._encode_chat(messages)
         out = self.generate(prompt_ids, max_new_tokens=max_new_tokens,
                             temperature=temperature, top_p=top_p, seed=seed,
                             stop_ids=stop_ids, adapter=adapter,
-                            trace_id=trace_id)
+                            trace_id=trace_id, tenant=tenant)
         return self.tokenizer.decode(out, skip_special_tokens=True)
 
     def chat_stream(self, messages: List[dict], max_new_tokens: int = 128,
                     temperature: float = 0.0, top_p: float = 1.0,
-                    seed: int = 0, adapter: str = "", trace_id: str = ""):
+                    seed: int = 0, adapter: str = "", trace_id: str = "",
+                    tenant: str = ""):
         """Yields text deltas as tokens stream off the decode chunks."""
         prompt_ids, stop_ids = self._encode_chat(messages)
         req = self.submit(prompt_ids, max_new_tokens=max_new_tokens,
                           temperature=temperature, top_p=top_p, seed=seed,
                           stop_ids=stop_ids, adapter=adapter,
-                          trace_id=trace_id)
+                          trace_id=trace_id, tenant=tenant)
         sent = ""
         acc: List[int] = []
         while True:
@@ -1421,3 +1913,5 @@ class BatchedEngine:
         # requests the scheduler will never serve, parked sessions
         # included: fail them so callers do not sit out their timeouts
         self._fail_all("engine shut down")
+        if self.adapter_registry is not None:
+            self.adapter_registry.close()  # no loader outlives the engine

@@ -2,10 +2,14 @@
 ``datatunerx_tpu/serving/engine.py``.
 
 ``InferenceEngine`` serves one request at a time (``--slots 1``, and every
-serve-time ``--quantization``): the prompt prefills into a one-row dense
-cache of width ``plen + buf`` (``utils/decoding.prepare_prompt``), then a
-decode loop samples with the plain sampler ``_sample_jit`` (the reference's
-single-request engine has no fused epilogue). The loop keeps every operand
+serve-time ``--quantization``). ``checkpoint_path`` (a trained run's
+``checkpoints`` directory or one of its steps, or a ``model.npz`` export)
+MERGES the adapter into the base at the manifest's scaling, or swaps in a
+full-parameter checkpoint, before any quantization. The prompt prefills
+into a one-row dense cache of width ``plen + buf``
+(``utils/decoding.prepare_prompt``), then a decode loop samples with the
+plain sampler ``_sample_jit`` (the reference's single-request engine has no
+fused epilogue). The loop keeps every operand
 on the device and reads a stopped flag back every ``STOP_CHECK`` tokens;
 the tokens cross to the host in one fetch at the end.
 
@@ -28,10 +32,13 @@ from datatunerx_tpu_torch.utils.model_loader import load_model_and_tokenizer
 STOP_CHECK = 16  # decode steps between reads of the device-side stop flag
 
 
-def _to_device(tree, device):
+def tree_to(tree, device, dtype=None):
+    """A tensor tree on ``device``, its floating leaves in ``dtype`` (when
+    given)."""
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device=device, dtype=(dtype if tree.is_floating_point()
+                                         else None))
 
 
 class InferenceEngine:
@@ -47,10 +54,6 @@ class InferenceEngine:
                  template: str = "llama2", max_seq_len: int = 1024,
                  dtype=torch.bfloat16, quantization: Optional[str] = None,
                  seed: int = 0, device="cuda"):
-        if checkpoint_path:
-            raise ValueError(
-                "checkpoint_path is not ported to the PyTorch engine yet: "
-                "ROADMAP Queue 1 item 3 (adapters and tenancy)")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -69,16 +72,46 @@ class InferenceEngine:
 
             self.cfg, host, self.tokenizer = load_model_and_tokenizer(
                 model_path, dtype=dtype, seed=seed, device="cpu")
+            if checkpoint_path:
+                host = self._apply_checkpoint(host, checkpoint_path)
             with torch.inference_mode():
                 qparams = quantize_model_params(host, quantization)
             del host
-            self.params = _to_device(qparams, self.device)
+            self.params = tree_to(qparams, self.device)
             self.cfg = dataclasses.replace(self.cfg, quantization=quantization)
         else:
             self.cfg, self.params, self.tokenizer = load_model_and_tokenizer(
                 model_path, dtype=dtype, seed=seed, device=self.device)
+            if checkpoint_path:
+                self.params = self._apply_checkpoint(self.params,
+                                                     checkpoint_path)
         self.template: Template = get_template(template, self.tokenizer)
         self.max_seq_len = min(max_seq_len, self.cfg.max_seq_len)
+
+    def _apply_checkpoint(self, params, checkpoint_path: str):
+        """``params`` with a trained adapter merged in (at the manifest's
+        scaling, else alpha 32 / rank, as the reference falls back), or
+        replaced by a full-parameter checkpoint or a ``model.npz`` export,
+        on ``params``' device and in its dtype."""
+        from datatunerx_tpu_torch.models.lora import lora_scaling, merge_lora
+        from datatunerx_tpu_torch.serving.batched_engine import (
+            load_checkpoint_state,
+        )
+
+        state = load_checkpoint_state(checkpoint_path, self.cfg)
+        leaf = params["embed_tokens"]["embedding"]
+        lora = state.get("lora")
+        if lora:
+            rank = next(iter(lora["layers"].values()))["a"].shape[-1]
+            scaling = state.get("_scaling")
+            if scaling is None:
+                scaling = lora_scaling(32.0, rank)
+            with torch.inference_mode():
+                return merge_lora(params, tree_to(lora, leaf.device,
+                                                  torch.float32), scaling)
+        if state.get("params"):
+            return tree_to(state["params"], leaf.device, leaf.dtype)
+        raise ValueError(f"{checkpoint_path}: no lora or params tree")
 
     @torch.inference_mode()
     def generate(self, prompt_ids: List[int], max_new_tokens: int = 128,

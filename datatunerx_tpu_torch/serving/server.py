@@ -20,6 +20,18 @@ tables on demand. ``--slots 1`` or a serve-time ``--quantization
 int8|int4|nf4`` selects the single-request ``InferenceEngine``, as in the
 JAX server; flags only the batched engine carries are then refused.
 
+Tuned models: ``--checkpoint_path`` serves a trained run (its
+``checkpoints`` directory or a step of it): the batched engine serves the
+adapter under the name ``"default"`` (requests name it in ``"model"``; a
+request without one gets the base model, as in the reference), the
+single-request engine merges it. ``--adapters name=ckpt[,name=ckpt...]``
+stacks several adapters on one base; ``--adapter_pool N`` loads them into N
+device slots at runtime instead (``--adapter_rank_max``,
+``--adapter_targets``, ``--host_adapter_cache_mb``), managed through
+``GET``/``POST /admin/adapters`` and ``DELETE /admin/adapters/<name>``.
+``--tenants_config`` (a JSON file or inline JSON) turns on the tenancy
+plane; the ``X-DTX-Tenant`` header names a request's tenant.
+
 Run::
 
     python -m datatunerx_tpu_torch.serving.server \\
@@ -75,12 +87,111 @@ class Handler(BaseHTTPRequestHandler):
         elif self.path == "/v1/models":
             self._json(200, {"object": "list", "data": [
                 {"id": STATE.model_path, "object": "model"}]})
+        elif self.path == "/admin/adapters":
+            self._adapters_get()
+        else:
+            self._json(404, {"error": "not found"})
+
+    # ------------------------------------------------- dynamic adapter plane
+    def _adapters_get(self):
+        """The replica's adapters: registered names, the resident set and
+        pool occupancy with load/evict/hit/miss stats. An engine without a
+        pool reports its fixed names."""
+        eng = STATE.engine
+        if eng is None:
+            self._json(503, {"error": "model not loaded"})
+            return
+        occ_fn = getattr(eng, "adapter_occupancy", None)
+        occ = occ_fn() if callable(occ_fn) else None
+        if occ is None:
+            ids = getattr(eng, "adapter_ids", None)
+            names = sorted(n for n in (ids or {}) if n)
+            self._json(200, {"dynamic": False, "registered": names,
+                             "resident": names})
+            return
+        self._json(200, {
+            "dynamic": True,
+            "registered": occ.pop("registered_adapters", []),
+            "resident": occ.pop("resident_adapters", []),
+            "pool": occ,
+        })
+
+    def _adapters_post(self, req: dict):
+        """POST /admin/adapters {"name", "checkpoint"[, "load": bool]}:
+        register an adapter at runtime, warmed into a pool slot unless
+        ``load`` is false. 400 on a geometry violation or a bad checkpoint,
+        409 on a live-name conflict or an exhausted pool, 501 on an engine
+        without a pool."""
+        from datatunerx_tpu_torch.adapters import AdapterPinnedError
+
+        eng = STATE.engine
+        if eng is None:
+            self._json(503, {"error": "model not loaded"})
+            return
+        name = str(req.get("name") or "")
+        ckpt = str(req.get("checkpoint") or "")
+        if not name or not ckpt:
+            self._json(400, {"error": "name and checkpoint are required"})
+            return
+        loader = getattr(eng, "load_adapter", None)
+        if not callable(loader):
+            self._json(501, {"error": "engine has no dynamic adapter pool"})
+            return
+        try:
+            self._json(200, loader(name, ckpt,
+                                   preload=bool(req.get("load", True))))
+        except NotImplementedError as e:  # a static stack
+            self._json(501, {"error": str(e)})
+        except (AdapterPinnedError, RuntimeError) as e:  # retryable
+            self._json(409, {"error": str(e)})
+        except (ValueError, FileNotFoundError) as e:
+            self._json(400, {"error": str(e)})
+        except Exception as e:  # noqa: BLE001 — serving must answer
+            self._json(500, {"error": str(e)})
+
+    def _adapters_delete(self, name: str):
+        """DELETE /admin/adapters/<name>: evict and unregister; 404 for an
+        unknown name, 409 while in-flight requests pin it."""
+        from datatunerx_tpu_torch.adapters import AdapterPinnedError
+
+        eng = STATE.engine
+        if eng is None:
+            self._json(503, {"error": "model not loaded"})
+            return
+        unloader = getattr(eng, "unload_adapter", None)
+        if not callable(unloader):
+            self._json(501, {"error": "engine has no dynamic adapter pool"})
+            return
+        try:
+            if unloader(name):
+                self._json(200, {"unloaded": name})
+            else:
+                self._json(404, {"error": f"no adapter {name!r}"})
+        except NotImplementedError as e:
+            self._json(501, {"error": str(e)})
+        except AdapterPinnedError as e:
+            self._json(409, {"error": str(e)})
+        except Exception as e:  # noqa: BLE001
+            self._json(500, {"error": str(e)})
+
+    def do_DELETE(self):
+        if self.path.startswith("/admin/adapters/"):
+            self._adapters_delete(self.path[len("/admin/adapters/"):])
         else:
             self._json(404, {"error": "not found"})
 
     def do_POST(self):
         if self.path == "/perplexity":
             self._perplexity()
+            return
+        if self.path == "/admin/adapters":
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(length) or b"{}")
+            except (ValueError, json.JSONDecodeError) as e:
+                self._json(400, {"error": f"invalid JSON body: {e}"})
+                return
+            self._adapters_post(req)
             return
         if self.path not in ("/chat/completions", "/v1/chat/completions"):
             self._json(404, {"error": "not found"})
@@ -114,6 +225,10 @@ class Handler(BaseHTTPRequestHandler):
                 self._json(400, {"error": f"unknown model/adapter {model!r}"})
                 return
             kwargs["trace_id"] = self.headers.get("X-DTX-Trace-Id") or ""
+            # the tenant goes only to engines running a directory
+            tenant = self.headers.get("X-DTX-Tenant") or ""
+            if tenant and getattr(STATE.engine, "tenants", None) is not None:
+                kwargs["tenant"] = tenant
             usage = self._prompt_usage(messages)
             if req.get("stream"):
                 self._stream_chat(messages, kwargs, usage=usage)
@@ -235,7 +350,10 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
                       prefix_cache=0, kv_block_size=0, kv_blocks=0,
                       kv_overcommit="off", prefill_chunk=256,
                       prefill_token_budget=0, paged_kernel="auto",
-                      sampling_epilogue="auto", device="cuda", seed=0):
+                      sampling_epilogue="auto", device="cuda", seed=0,
+                      checkpoint_path="", adapters=None, adapter_pool=0,
+                      adapter_rank_max=8, adapter_targets=None,
+                      tenants_config="", host_adapter_cache_mb=0.0):
     """Build the engine on a background thread; ``/healthz`` flips to 200
     when it is ready (or to 500 with the error). ``slots > 1`` without
     ``quantization`` builds the batched engine, anything else the
@@ -244,7 +362,10 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
         try:
             STATE.model_path = model_path
             batched = slots > 1 and not quantization
-            for flag, val in (("--prefix_cache", prefix_cache),
+            # refusing beats serving the base model under an adapter's name
+            for flag, val in (("--adapters", adapters),
+                              ("--adapter_pool", adapter_pool),
+                              ("--prefix_cache", prefix_cache),
                               ("--kv_quant", kv_quant),
                               ("--kv_block_size", kv_block_size),
                               ("--kv_overcommit", kv_overcommit == "on"),
@@ -252,7 +373,10 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
                               ("--paged_kernel", paged_kernel == "on"),
                               # the single-request engine samples plainly
                               ("--sampling_epilogue",
-                               sampling_epilogue == "on")):
+                               sampling_epilogue == "on"),
+                              ("--tenants_config", tenants_config),
+                              ("--host_adapter_cache_mb",
+                               host_adapter_cache_mb)):
                 if val and not batched:
                     raise ValueError(
                         f"{flag} requires the batched engine "
@@ -263,7 +387,13 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
                 )
 
                 STATE.engine = BatchedEngine(
-                    model_path, template=template, max_seq_len=max_seq_len,
+                    model_path, checkpoint_path or None, adapters=adapters,
+                    adapter_pool=adapter_pool,
+                    adapter_rank_max=adapter_rank_max,
+                    adapter_targets=adapter_targets or None,
+                    tenants=tenants_config or None,
+                    host_adapter_cache_mb=host_adapter_cache_mb or 0.0,
+                    template=template, max_seq_len=max_seq_len,
                     slots=slots, decode_chunk=decode_chunk,
                     kv_quant=kv_quant or None, prefix_cache=prefix_cache,
                     kv_block_size=kv_block_size, kv_blocks=kv_blocks or None,
@@ -279,7 +409,8 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
                 )
 
                 STATE.engine = InferenceEngine(
-                    model_path, template=template, max_seq_len=max_seq_len,
+                    model_path, checkpoint_path or None, template=template,
+                    max_seq_len=max_seq_len,
                     quantization=quantization or None, device=device,
                     seed=seed)
         except Exception as e:  # noqa: BLE001
@@ -292,18 +423,26 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
 
 # flag → (value that means "feature off", ROADMAP Queue 1 item it waits for)
 _REFUSED = {
-    "checkpoint_path": ("", "item 3 (adapters and tenancy)"),
-    "adapters": ("", "item 3 (adapters and tenancy)"),
-    "adapter_pool": (0, "item 3 (adapters and tenancy)"),
-    "adapter_targets": ("", "item 3 (adapters and tenancy)"),
     "spec_draft_config": ("", "item 5 (speculative decoding)"),
     "spec_tree": ("", "item 5 (speculative decoding)"),
     "role": ("mixed", "item 6 (migration and the fleet plane)"),
-    "tenants_config": ("", "item 3 (adapters and tenancy)"),
-    "host_adapter_cache_mb": (0.0, "item 3 (adapters and tenancy)"),
     "trace_log": ("", "item 12 (tooling)"),
     "slo_config": ("", "item 12 (tooling)"),
 }
+
+
+def parse_adapters(spec: str) -> dict:
+    """``--adapters name=ckpt_path[,name=path...]`` → {name: path}."""
+    out = {}
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, path = part.partition("=")
+        if not name or not path:
+            raise ValueError(f"bad adapter spec {part!r}; want name=path")
+        out[name] = path
+    return out
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -326,10 +465,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "single-request engine)")
     p.add_argument("--decode_chunk", type=int, default=8,
                    help="tokens per decode chunk (admission latency bound)")
-    p.add_argument("--adapters", default="")
-    p.add_argument("--adapter_pool", type=int, default=0)
-    p.add_argument("--adapter_rank_max", type=int, default=8)
-    p.add_argument("--adapter_targets", default="")
+    p.add_argument("--adapters", default="",
+                   help="named LoRA adapters: name=ckpt[,name=ckpt...]; a "
+                        "request selects one in its 'model' field")
+    p.add_argument("--adapter_pool", type=int, default=0,
+                   help="pooled adapters: N device slots that adapters load "
+                        "into at runtime (load on miss, LRU eviction, "
+                        "/admin/adapters); 0 = the static --adapters stack")
+    p.add_argument("--adapter_rank_max", type=int, default=8,
+                   help="pool rank ceiling; lower ranks are zero-padded, "
+                        "higher ones refused")
+    p.add_argument("--adapter_targets", default="",
+                   help="pool LoRA targets, comma-separated (default "
+                        "q_proj,v_proj)")
     p.add_argument("--kv_quant", default="", choices=["", "int8"],
                    help="KV cache quantization: int8 stores K/V as int8 with "
                         "an f32 scale per head vector (about half the cache "
@@ -362,8 +510,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefill_token_budget", type=int, default=0)
     p.add_argument("--role", default="mixed",
                    choices=["prefill", "decode", "mixed"])
-    p.add_argument("--tenants_config", default="")
-    p.add_argument("--host_adapter_cache_mb", type=float, default=0.0)
+    p.add_argument("--tenants_config", default="",
+                   help="tenant directory: a JSON file or inline JSON "
+                        "{tenant: {tier: pinned|standard|bulk, adapters, "
+                        "share, kv_block_quota, ttft_p95_ms}}; empty = off")
+    p.add_argument("--host_adapter_cache_mb", type=float, default=0.0,
+                   help="host-RAM budget for evicted pool adapters (MB); 0 "
+                        "= off")
     p.add_argument("--trace_ring", type=int, default=256)
     p.add_argument("--trace_log", default="")
     p.add_argument("--slo_config", default="")
@@ -383,6 +536,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.paged_kernel == "on" and args.kv_block_size <= 0:
         p.error("--paged_kernel on requires the paged KV cache "
                 "(--kv_block_size > 0)")
+    try:
+        args.adapters = parse_adapters(args.adapters)
+    except ValueError as e:
+        p.error(str(e))
+    args.adapter_targets = [t.strip() for t in args.adapter_targets.split(",")
+                            if t.strip()]
     return args
 
 
@@ -399,7 +558,13 @@ def start(args: argparse.Namespace) -> ThreadingHTTPServer:
         prefill_token_budget=args.prefill_token_budget,
         paged_kernel=args.paged_kernel,
         sampling_epilogue=args.sampling_epilogue,
-        device=args.device, seed=args.seed)
+        device=args.device, seed=args.seed,
+        checkpoint_path=args.checkpoint_path, adapters=args.adapters,
+        adapter_pool=args.adapter_pool,
+        adapter_rank_max=args.adapter_rank_max,
+        adapter_targets=args.adapter_targets,
+        tenants_config=args.tenants_config,
+        host_adapter_cache_mb=args.host_adapter_cache_mb)
     return ThreadingHTTPServer((args.host, args.port), Handler)
 
 

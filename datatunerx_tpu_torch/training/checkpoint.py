@@ -54,13 +54,7 @@ class CheckpointManager:
             payload["lora"] = state.lora
         else:
             payload["params"] = state.params
-        final = os.path.join(self.directory, str(step))
-        tmp = os.path.join(self.directory, f".{step}.tmp-{os.getpid()}")
-        os.makedirs(tmp, exist_ok=True)
-        torch.save(payload, os.path.join(tmp, STATE_FILE))
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.replace(tmp, final)
+        save_raw_state(self.directory, step, payload)
         if self.max_to_keep:
             for old in self.all_steps()[:-self.max_to_keep]:
                 shutil.rmtree(os.path.join(self.directory, str(old)))
@@ -72,9 +66,7 @@ class CheckpointManager:
 
     def all_steps(self) -> list:
         """Every saved step, ascending."""
-        return sorted(int(n) for n in os.listdir(self.directory)
-                      if n.isdigit() and os.path.exists(
-                          os.path.join(self.directory, n, STATE_FILE)))
+        return saved_steps(self.directory)
 
     def restore(self, state_template, step: Optional[int] = None):
         """(state, step) with the saved tensors on the template's device;
@@ -85,13 +77,44 @@ class CheckpointManager:
         leaf = (state_template.lora if state_template.lora is not None
                 else state_template.params)
         device = next(iter(_leaves(leaf))).device
-        saved = torch.load(os.path.join(self.directory, str(step), STATE_FILE),
-                           map_location=device, weights_only=True)
+        saved = load_raw_state(self.directory, step, map_location=device)
         return dataclasses.replace(
             state_template, step=saved["step"], seed=saved["seed"],
             opt_state=saved["opt_state"],
             lora=saved.get("lora", state_template.lora),
             params=saved.get("params", state_template.params)), step
+
+
+def saved_steps(directory: str) -> list:
+    """Every step saved under ``directory``, ascending ([] when it holds
+    none or does not exist)."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(n) for n in os.listdir(directory)
+                  if n.isdigit() and os.path.exists(
+                      os.path.join(directory, n, STATE_FILE)))
+
+
+def save_raw_state(directory: str, step: int, payload: dict) -> str:
+    """Write ``payload`` as ``<directory>/<step>/state.pt``: into a
+    temporary directory first, then renamed, so a reader never sees half a
+    checkpoint. Returns the step directory."""
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, str(step))
+    tmp = os.path.join(directory, f".{step}.tmp-{os.getpid()}")
+    os.makedirs(tmp, exist_ok=True)
+    torch.save(payload, os.path.join(tmp, STATE_FILE))
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    return final
+
+
+def load_raw_state(directory: str, step: int, map_location="cpu") -> dict:
+    """The saved dict of ``<directory>/<step>/state.pt`` (tensors only:
+    ``weights_only``)."""
+    return torch.load(os.path.join(directory, str(step), STATE_FILE),
+                      map_location=map_location, weights_only=True)
 
 
 def _leaves(tree):

@@ -123,9 +123,7 @@ def test_sampled_streams_are_seeded_and_paths_agree(export_dir):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"tenants": {"t": {"tier": "bulk"}}}, "item 3"),
     ({"spec_tree": "2x2"}, "item 5"),
-    ({"adapters": {"a": "/nowhere"}}, "item 3"),
     ({"spec_draft": "take:1"}, "item 5"),
 ])
 def test_flags_outside_the_slice_are_refused(kwargs, item):

@@ -783,3 +783,106 @@ def test_paged_kernels_over_a_shared_prefix_and_copied_tail(cuda, pools):
     want = cpa._plain_decode(q1, k, v, tables, pos, qp, ks, vs)
     torch.testing.assert_close(got.float(), want.float(),
                                **TOL[torch.bfloat16])
+
+
+def _mixed_adapter_engine(cuda, tmp_path, **kw):
+    from datatunerx_tpu_torch.serving.adapters import make_adapter_sweep
+    from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
+
+    cks = make_adapter_sweep(str(tmp_path), "preset:debug", 3)
+    eng = BatchedEngine("preset:debug", adapters=cks, template="vanilla",
+                        max_seq_len=256, slots=4, decode_chunk=4,
+                        kv_block_size=16, prefill_chunk=64,
+                        paged_kernel="on", device=cuda, **kw)
+    return eng, ["", *sorted(cks)]
+
+
+def test_paged_kernels_through_a_mixed_adapter_batch(cuda, tmp_path,
+                                                     monkeypatch):
+    """Every K7 and K8 launch that a four-row mixed-adapter batch makes
+    (the base and three adapters of ranks 2, 4 and 8, one decode step over
+    all four rows' tables, chunked prefills through one-row views) equals
+    its plain version on the same operands."""
+    from datatunerx_tpu_torch.models import llama
+
+    checked = {"decode": 0, "multitoken": 0}
+    real_dec = llama.paged_attention_decode_step
+    real_mt = llama.paged_attention_multitoken_step
+
+    def dec(q, ck, cv, cks, cvs, cache, pos_pool, positions):
+        before = cpa.paged_decode_attention.launches
+        out = real_dec(q, ck, cv, cks, cvs, cache, pos_pool, positions)
+        assert cpa.paged_decode_attention.launches == before + 1
+        want = cpa._plain_decode(q[:, 0], ck, cv, cache["block_tables"],
+                                 pos_pool, positions[:, 0], cks, cvs)
+        torch.testing.assert_close(out[:, 0].float(), want.float(),
+                                   **TOL[torch.bfloat16])
+        checked["decode"] += 1
+        return out
+
+    def mt(q, ck, cv, cks, cvs, cache, allow):
+        before = cpa.paged_multitoken_attention.launches
+        out = real_mt(q, ck, cv, cks, cvs, cache, allow)
+        assert cpa.paged_multitoken_attention.launches == before + 1
+        want = cpa._plain_multitoken(q, ck, cv, cache["block_tables"], allow,
+                                     cks, cvs)
+        torch.testing.assert_close(out.float(), want.float(),
+                                   **TOL[torch.bfloat16])
+        checked["multitoken"] += 1
+        return out
+
+    monkeypatch.setattr(llama, "paged_attention_decode_step", dec)
+    monkeypatch.setattr(llama, "paged_attention_multitoken_step", mt)
+    eng, names = _mixed_adapter_engine(cuda, tmp_path)
+    try:
+        tok = eng.tokenizer
+        prompts = [tok.encode(f"row {i} " * (8 + 10 * i)) for i in range(4)]
+        reqs = [eng.submit(p, max_new_tokens=12, adapter=n)
+                for p, n in zip(prompts, names)]
+        outs = []
+        for r in reqs:
+            assert r.done.wait(300) and r.error is None, r.error
+            outs.append(r.tokens)
+    finally:
+        eng.close()
+    assert checked["decode"] > 0 and checked["multitoken"] > 0, checked
+    assert len({tuple(o) for o in outs}) > 1  # the adapters differ
+
+
+def test_pool_republish_during_decode_leaves_live_rows_unchanged(cuda,
+                                                                 tmp_path):
+    """While a pooled engine decodes a long adapter row and a base row, the
+    admin side loads and unloads other adapters into the pool's free slots
+    (each a clone, a write and a republish on another thread): both live
+    streams equal the ones decoded with no such traffic."""
+    from datatunerx_tpu_torch.serving.adapters import make_adapter_sweep
+    from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
+
+    cks = make_adapter_sweep(str(tmp_path), "preset:debug", 4)
+    live, *others = sorted(cks)
+    kw = dict(adapters={live: cks[live]}, adapter_pool=3, template="vanilla",
+              max_seq_len=256, slots=2, decode_chunk=4, kv_block_size=16,
+              device=cuda)
+    tok_src = BatchedEngine("preset:debug", **kw)
+    try:
+        p = tok_src.tokenizer.encode("republish probe")
+        want = [tok_src.generate(p, max_new_tokens=160, adapter=live),
+                tok_src.generate(p, max_new_tokens=160)]
+    finally:
+        tok_src.close()
+    eng = BatchedEngine("preset:debug", **kw)
+    try:
+        reqs = [eng.submit(p, max_new_tokens=160, adapter=live),
+                eng.submit(p, max_new_tokens=160)]
+        swaps = 0
+        while not reqs[0].done.is_set():
+            for name in others:
+                eng.load_adapter(name, cks[name])
+                swaps += 1
+                eng.unload_adapter(name)
+        for r in reqs:
+            assert r.done.wait(300) and r.error is None, r.error
+        assert swaps > 0
+        assert [r.tokens for r in reqs] == want
+    finally:
+        eng.close()

@@ -181,10 +181,9 @@ def test_response_keys_equal_the_jax_servers():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--adapters", "a=/x"], ["--role", "prefill"],
+    ["--role", "prefill"],
     ["--trace_log", "x"], ["--spec_draft_config", "take:1"],
-    ["--adapter_pool", "2"], ["--tenants_config", "{}"],
-    ["--checkpoint_path", "/x"], ["--spec_tree", "2x2"],
+    ["--spec_tree", "2x2"],
 ])
 def test_flags_outside_the_slice_are_refused(extra, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -262,10 +262,12 @@ def test_concurrent_generate_and_perplexity_stress(engine):
         assert results[i] == (ppl if i % 3 == 2 else alone[i % 4]), i
 
 
-def test_checkpoint_path_and_cuda_default_refused():
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3"):
-        InferenceEngine("preset:debug", checkpoint_path="/x", device="cpu",
-                        **KW)
+def test_checkpoint_path_and_cuda_default_refused(tmp_path):
+    """A checkpoint_path that holds no checkpoint fails the engine (no
+    fallback to the base model); the CUDA default fails without a card."""
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        InferenceEngine("preset:debug", checkpoint_path=str(tmp_path),
+                        device="cpu", **KW)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             InferenceEngine("preset:debug", **KW)
