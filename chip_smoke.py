@@ -153,6 +153,44 @@ After phase 5 (``--phase train`` and ``all``):
   merged engine's stream, checked as in phase 4 with the plain forward
   carrying the adapter.
 
+After the training phases (``--phase hf`` and ``all``), before phase 10,
+three phases serve and train HF checkpoint directories that the script
+writes under a temporary directory: ``config.json`` with a published
+configuration's fields, seeded random weights (safetensors written by a
+few lines below, one tensor at a time, or ``torch.save``), and the
+tokenizer fixtures of ``tests/fixtures/torch_hf``. Each directory is first
+loaded as the engines load it (bf16, on the card): the read and the
+placement are timed apart and the weight tree's parameters must equal the
+configuration's count.
+
+- hf-llama2: Llama-2-7b-hf's configuration (V 32000, D 4096, F 11008,
+  H = KV = 32, d 128) at full depth when the disk holds it (else 16, 8
+  or 4 layers), F16 safetensors in shards of at most 10 GB with an index. The
+  server (``--kv_block_size 16 --slots 4``) answers four ~600-token
+  prompts at once, two greedy and two sampled at 0.8, 64 new tokens each:
+  K7, K8 and K9 must have launched exactly as the scheduler's trace says
+  (L each a decode step and a prefill chunk, K9 once a decode step), and
+  each greedy stream, teacher-forced, must lie within ``FORCED_ULPS`` of a
+  plain forward's top. Then the trainer CLI on the same directory (LoRA r8
+  on q_proj,v_proj, bf16, flash, remat dots, packed 8x1024, 3 steps, K1-K3
+  counted exactly) and one step with flash against plain attention on its
+  first 4 layers (phase 6's bounds);
+- hf-mistral: Mistral-7B-v0.1's configuration (sliding window 4096, KV 8)
+  cut to 4 layers, BF16 safetensors, ``--max_seq_len 8192``: one ~4600-
+  token prompt, 64 greedy tokens. K7 and K8 must not launch (a window
+  model takes the gather path, as in the reference), K9 once a decode
+  step; the stream is checked against a plain forward carrying the window,
+  and the plain forward without the window must read the last prompt
+  position more than 4 x ``FORCED_ULPS`` apart (the window binds);
+- hf-qwen: Qwen1.5-7B's configuration (V 151936, q/k/v biases, rope theta
+  1e6) cut to 4 layers, one ``pytorch_model.bin``, byte-level BPE, the
+  chatml template: two greedy ~600-token prompts, checked as hf-llama2's.
+
+Phase 2 also holds K7 and K8 at llama2-7b's heads (H = KV = 32, d = 128),
+K1-K3 at its training shape (B=8 T=1024 H=KV=32 d=128) and K9 at
+V = 151936; the kernels line reports those entries (``@hf-llama2``,
+``@hf-qwen``) with the launches of the HF phase that runs that shape.
+
 The bf16 K1-K3 and the bf16 K8 (over bf16 and over int8 pools) are
 tensor-core kernels (``mma.sync`` bf16 -> f32, fed by ``cp.async``; the
 skeleton of ``csrc/mma_sm90.cuh``); the bf16 K4/K5 (``csrc/nf4_gemm.cu``)
@@ -180,8 +218,9 @@ projection shape of tinyllama-1.1b, in bf16 and f32, and K10 (fused LoRA
 matmul) at M=8192 and M=4 rows, N=2048 and N=256, K=2048, r=8, in bf16 and
 f32. ``--phase kernels`` stops after phase 2; ``--phase serve`` runs phases
 1-4, the eight above and 10; ``--phase train`` runs phases 1, 2, 5,
-5-serve and 6-9; ``--phase qlora`` runs phases 1, 2 and 7-9. The script imports nothing of JAX or of
-the JAX package.
+5-serve and 6-9; ``--phase qlora`` runs phases 1, 2 and 7-9; ``--phase
+hf`` runs phases 1, 2 and the three HF phases. The script imports nothing
+of JAX, of the JAX package or of the HF libraries.
 """
 
 from __future__ import annotations
@@ -334,17 +373,24 @@ def close_enough(torch, got, want, atol, rtol):
 PAGED_TOL = (2**-8, 2**-7)  # f32 sums in another order, one bf16 rounding
 
 
-def check_k7(torch, timer, gen, quant=False):
+# the llama2-7b / qwen1.5-7b serving shape: 32 heads, G = 1, d = 128
+K7_LLAMA2 = (4, 32, 32, 128, 16, 64)
+K8_LLAMA2 = (1, 256, 32, 32, 128, 16, 64)
+
+
+def check_k7(torch, timer, gen, quant=False, shape=None, path=""):
     """K7 against its plain version. ``quant``: the int8 instantiation, over
     pools quantized as the cache writes them, in bf16 and f32 and also
-    against the gather path's dequantized read; timed in bf16."""
+    against the gather path's dequantized read; timed in bf16. ``shape``
+    (B, H, KV, d, bs, nbps) replaces tinyllama's; ``path`` names the phase
+    whose launches the entry reports."""
     from datatunerx_tpu_torch.ops import cuda_paged_attention as cpa
     from datatunerx_tpu_torch.ops.attention import (
         make_causal_bias,
         xla_attention,
     )
 
-    B, H, KV, d, bs, nbps = 4, 32, 4, 64, 16, 64
+    B, H, KV, d, bs, nbps = shape or (4, 32, 4, 64, 16, 64)
     lens = [1000, 517, 77, 0]  # ragged, one empty slot
     k, v, tables, pos = make_pool(torch, B, nbps, bs, KV, d, lens, gen)
     q32 = torch.randn((B, H, d), generator=gen).cuda()
@@ -352,7 +398,7 @@ def check_k7(torch, timer, gen, quant=False):
                         device="cuda")
     kv_pos = kv_positions(torch, pos, tables)
     pools = int8_pools(k, v) if quant else (k, v, None, None)
-    name = "K7-int8" if quant else "K7"
+    name = ("K7-int8" if quant else "K7") + path
     err = 0.0
     for dtype in ((torch.bfloat16, torch.float32) if quant
                   else (torch.bfloat16,)):
@@ -417,6 +463,7 @@ def check_k7(torch, timer, gen, quant=False):
     return {
         "name": f"{name} paged_decode_attention"
                 + (" (int8 pools)" if quant else ""), "route": "cuda",
+        "path": path,
         "source": "datatunerx_tpu_torch/csrc/paged_attention.cu",
         "replaces": "datatunerx_tpu/ops/pallas_paged_attention.py:65",
         "counter": cpa.paged_decode_attention,
@@ -438,8 +485,9 @@ def check_k7(torch, timer, gen, quant=False):
     }
 
 
-def check_k8(torch, timer, gen, quant=False):
-    """K8 against its plain version; ``quant`` as in ``check_k7``."""
+def check_k8(torch, timer, gen, quant=False, shape=None, path=""):
+    """K8 against its plain version; ``quant``, ``path`` as in
+    ``check_k7``, ``shape`` (B, T, H, KV, d, bs, nbps)."""
     from datatunerx_tpu_torch.ops import cuda_paged_attention as cpa
     from datatunerx_tpu_torch.ops.attention import (
         attention_allow,
@@ -447,7 +495,7 @@ def check_k8(torch, timer, gen, quant=False):
         xla_attention,
     )
 
-    B, T, H, KV, d, bs, nbps = 1, 256, 32, 4, 64, 16, 64
+    B, T, H, KV, d, bs, nbps = shape or (1, 256, 32, 4, 64, 16, 64)
     lens = [768]  # the third 256-token chunk of a prompt, post-write
     if not quant:
         log_k8_resources(H // KV, d, cpa.multitoken_tile(T, H // KV))
@@ -458,7 +506,7 @@ def check_k8(torch, timer, gen, quant=False):
     kv_pos = kv_positions(torch, pos, tables)
     allow = attention_allow(qpos, kv_pos)
     pools = int8_pools(k, v) if quant else (k, v, None, None)
-    name = "K8-int8" if quant else "K8"
+    name = ("K8-int8" if quant else "K8") + path
     err = 0.0
     for dtype in ((torch.bfloat16, torch.float32) if quant
                   else (torch.bfloat16,)):
@@ -505,6 +553,7 @@ def check_k8(torch, timer, gen, quant=False):
     return {
         "name": f"{name} paged_multitoken_attention"
                 + (" (int8 pools)" if quant else ""), "route": "cuda",
+        "path": path,
         "source": "datatunerx_tpu_torch/csrc/paged_attention.cu",
         "replaces": "datatunerx_tpu/ops/pallas_paged_attention.py:294",
         "counter": cpa.paged_multitoken_attention,
@@ -523,10 +572,12 @@ def check_k8(torch, timer, gen, quant=False):
     }
 
 
-def check_k9(torch, timer, gen):
+def check_k9(torch, timer, gen, V=32000, path=""):
+    """K9 against its plain version at vocabulary ``V``; ``path`` as in
+    ``check_k7``."""
     from datatunerx_tpu_torch.ops import cuda_sampling as cs
 
-    S, V = 4, 32000
+    S = 4
     logits = (torch.randn((S, V), generator=gen) * 2.0).cuda()
     logits[1, 7] = logits[1, 31000] = logits[1].max() + 1.0  # exact tie
     us = torch.rand((S,), generator=gen).cuda()
@@ -572,14 +623,14 @@ def check_k9(torch, timer, gen):
     # the entry reports the simple mode (all three passes) and adds greedy
     vp = results["simple"]["vp"]
     b_ms, b_by = bound_ms(S * vp * 4 + 3 * S * 4, 4 * S * vp, F32_OPS_PER_S)
-    log(f"  K9 greedy: kernel {results['greedy']['ms']:.4f} ms, plain "
+    log(f"  K9{path} (V={V}) greedy: kernel {results['greedy']['ms']:.4f} ms, plain "
         f"{results['greedy']['plain_ms']:.4f} ms, torch.argmax "
         f"{results['greedy']['library_ms']:.4f} ms")
     r = resources("dtx_sample_resources", 4)
     log("  K9 (a 16-block cluster a row, 256 threads): "
         + describe_resources(r, (("K9", 0),)))
     return {
-        "name": "K9 fused_sample", "route": "cuda",
+        "name": f"K9{path} fused_sample", "route": "cuda", "path": path,
         "source": "datatunerx_tpu_torch/csrc/sampling.cu",
         "replaces": "datatunerx_tpu/ops/pallas_sampling.py:97",
         "counter": cs.kernel_sample,
@@ -651,12 +702,19 @@ def flash_cases(torch, gen):
         ("causal", flash_inputs(torch, 8, 1024, 32, 4, 64, gen)),
         ("packed", flash_inputs(torch, 8, 1024, 32, 4, 64, gen, segments=3)),
         ("d128", flash_inputs(torch, 2, 1024, 32, 32, 128, gen)),
+        # llama2-7b's heads at the hf-llama2 trainer's batch
+        ("llama2", flash_inputs(torch, 8, 1024, 32, 32, 128, gen)),
     ]
 
 
+TIMED_FLASH = {"causal": ("", "B=8 T=1024 H=32 KV=4 d=64"),
+               "llama2": ("@hf-llama2", "B=8 T=1024 H=32 KV=32 d=128")}
+
+
 def check_flash(torch, timer, gen):
-    """K1, K2 and K3 against their plain versions on three inputs; the
-    timed entries are the causal case at the training shapes."""
+    """K1, K2 and K3 against their plain versions on four inputs; the
+    timed entries are the causal cases at the training shapes of
+    tinyllama-1.1b and llama2-7b (``TIMED_FLASH``)."""
     from datatunerx_tpu_torch.ops import flash_attention as fa
 
     out = {}
@@ -723,7 +781,7 @@ def check_flash(torch, timer, gen):
         log(f"  flash {case}: K2+K3 {pair:.4f} ms vs SDPA backward (dQ, dK, dV "
             f"together) {lib_bwd:.4f} ms: {pair / lib_bwd:.2f}x")
         out[case] = (errs, ms, bounds)
-        if case != "causal":
+        if case not in TIMED_FLASH:
             continue
         plain = {
             "K1": timer.ms(lambda: fa._plain_fwd(q, k, v, seg, True, 512,
@@ -747,10 +805,8 @@ def check_flash(torch, timer, gen):
             f"{lib_fwd:.3f} ms, backward {lib_bwd:.3f} ms, forward+backward "
             f"{lib_fb:.3f} ms; kernels K1+K2+K3 "
             f"{ms['K1'] + ms['K2'] + ms['K3']:.3f} ms")
-        out["plain"], out["lib"] = plain, {"K1": lib_fwd, "K2": lib_bwd,
-                                           "K3": lib_bwd}
+        out[case] += (plain, {"K1": lib_fwd, "K2": lib_bwd, "K3": lib_bwd})
     log_flash_resources()
-    errs, ms, bounds = out["causal"]
     meta = {
         "K1": ("K1 flash_fwd", "datatunerx_tpu/ops/flash_attention.py:85",
                fa.flash_fwd),
@@ -760,22 +816,26 @@ def check_flash(torch, timer, gen):
                "datatunerx_tpu/ops/flash_attention.py:233", fa.flash_bwd_dkv),
     }
     entries = []
-    for key, (name, replaces, counter) in meta.items():
-        library = ("SDPA forward" if key == "K1" else
-                   "SDPA backward (dQ, dK, dV together), compare with K2+K3")
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "datatunerx_tpu_torch/csrc/flash_attention.cu",
-            "replaces": replaces, "counter": counter,
-            "max_abs_err": max(out[c][0][key] for c in
-                               ("causal", "packed", "d128")),
-            "tolerance": "atol 2^-6 + rtol 2^-6 (bf16), causal/packed/d128",
-            "ms": ms[key], "plain_ms": out["plain"][key],
-            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
-            "library_ms": out["lib"][key], "library": library,
-            "shape": "B=8 T=1024 H=32 KV=4 d=64 causal bf16 (timed); "
-                     "library: " + library,
-        })
+    for case, (path, shape) in TIMED_FLASH.items():
+        errs, ms, bounds, plain, lib = out[case]
+        for key, (name, replaces, counter) in meta.items():
+            library = ("SDPA forward" if key == "K1" else "SDPA backward "
+                       "(dQ, dK, dV together), compare with K2+K3")
+            first, rest = name.split(" ", 1)
+            entries.append({
+                "name": f"{first}{path} {rest}", "route": "cuda",
+                "path": path,
+                "source": "datatunerx_tpu_torch/csrc/flash_attention.cu",
+                "replaces": replaces, "counter": counter,
+                "max_abs_err": max(out[c][0][key] for c in
+                                   ("causal", "packed", "d128", "llama2")),
+                "tolerance": "atol 2^-6 + rtol 2^-6 (bf16), "
+                             "causal/packed/d128/llama2",
+                "ms": ms[key], "plain_ms": plain[key],
+                "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                "library_ms": lib[key], "library": library,
+                "shape": f"{shape} causal bf16 (timed); library: " + library,
+            })
     return entries
 
 
@@ -825,17 +885,23 @@ def kernel_name(traced):
     return name.split("(")[0].split()[-1] if name.split() else traced
 
 
-def cuda_kernels(torch, fn):
+def cuda_kernels(torch, fn, windows=3):
     """The names of the CUDA kernels one call of ``fn`` launched, as
-    torch.profiler traced them on the card."""
+    torch.profiler traced them on the card. A window that recorded no
+    device event at all is opened again, up to ``windows`` times: CUPTI
+    has been seen to hand back an empty window for a single short call."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(windows):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return []
 
 
 def segment_mask(torch, q, k, seg):
@@ -1158,13 +1224,13 @@ def post(port, body, stream=False, trace=""):
                 "wall_s": time.perf_counter() - t0}
 
 
-def start_server(torch, flags):
-    """The port's server, in-process, for tinyllama-1.1b with ``flags``;
+def start_server(torch, flags, model="preset:tinyllama-1.1b"):
+    """The port's server, in-process, for ``model`` with ``flags``;
     returns (srv, port, engine) once ``/healthz`` answers 200."""
     from datatunerx_tpu_torch.serving import server
 
     args = server.parse_args([
-        "--model_path", "preset:tinyllama-1.1b", *flags,
+        "--model_path", model, *flags,
         "--host", "127.0.0.1", "--port", "0"])
     srv = server.start(args)
     port = srv.server_address[1]
@@ -2165,25 +2231,26 @@ def write_train_csv(path, seed=0, n=1500):
             w.writerow([f"#{i}: {q}?", a])
 
 
-def expected_launches(quant, steps):
+def expected_launches(quant, steps, layers=LAYERS):
     """Kernel launches the CLI run must make, derived from the model: per
     step and layer, K1 twice (forward + remat recompute), K2 and K3 once;
     with an nf4 base K4 on each of the 7 projections twice (forward +
     recompute: ``dots`` saves only matmuls) and K5 once per projection
     whose input needs a gradient (all but layer 0's q/k/v, whose input is
     the frozen embedding's); with int8, K6 as K4."""
-    per = {"flash_fwd": 2 * LAYERS, "flash_bwd_dq": LAYERS,
-           "flash_bwd_dkv": LAYERS, "nf4_matmul": 0, "nf4_matmul_t": 0,
+    per = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+           "flash_bwd_dkv": layers, "nf4_matmul": 0, "nf4_matmul_t": 0,
            "int8_matmul": 0}
     if quant == "int4":
-        per.update(nf4_matmul=2 * 7 * LAYERS, nf4_matmul_t=7 * LAYERS - 3)
+        per.update(nf4_matmul=2 * 7 * layers, nf4_matmul_t=7 * layers - 3)
     elif quant == "int8":
-        per["int8_matmul"] = 2 * 7 * LAYERS
+        per["int8_matmul"] = 2 * 7 * layers
     return {k: v * steps for k, v in per.items()}
 
 
 def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
-                profile=PROFILE_STEPS, export=True):
+                profile=PROFILE_STEPS, export=True,
+                model="preset:tinyllama-1.1b", layers=LAYERS):
     from datatunerx_tpu_torch.ops import cuda_quant as cq
     from datatunerx_tpu_torch.ops import flash_attention as fa
     from datatunerx_tpu_torch.training import train_lib
@@ -2195,7 +2262,7 @@ def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
     tmp = os.path.join(tmp, quant or "lora")
     out, store, export_dir = (os.path.join(tmp, n) for n in
                               ("out", "store", "export"))
-    argv = ["--model_name_or_path", "preset:tinyllama-1.1b",
+    argv = ["--model_name_or_path", model,
             "--train_path", csv_path, "--template", "alpaca",
             "--finetuning_type", "lora", "--lora_target", "q_proj,v_proj",
             "--attention", "flash", "--remat", "dots", "--bf16",
@@ -2244,7 +2311,7 @@ def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
     if rc != 0:
         fail(f"train CLI returned {rc}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = expected_launches(quant, steps)
+    want = expected_launches(quant, steps, layers)
     for name, n in launches.items():
         if n <= 0 and want[name] > 0:
             fail(f"train phase: kernel {name} was never launched")
@@ -2306,11 +2373,12 @@ def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
 
 
 # ------------------------------------------------------------------ phase 6
-def train_parity_phase(torch, variants, quant=None):
+def train_parity_phase(torch, variants, quant=None, model=None):
     """One train step (and one LoRA gradient) under each of two config
     variants — ``(label, overrides)``: the kernels' path first, its plain
     counterpart second — from the same params (quantized with ``quant``),
-    adapters and packed batch."""
+    adapters and packed batch: tinyllama-1.1b's random params, or the first
+    4 layers of the HF directory ``model``."""
     import dataclasses
 
     from datatunerx_tpu_torch.data.preprocess import pack_to_block
@@ -2318,6 +2386,9 @@ def train_parity_phase(torch, variants, quant=None):
     from datatunerx_tpu_torch.models.llama import init_params
     from datatunerx_tpu_torch.ops.quant import quantize_model_params
     from datatunerx_tpu_torch.training.train_lib import TrainConfig, Trainer
+    from datatunerx_tpu_torch.utils.model_loader import (
+        load_model_and_tokenizer,
+    )
 
     gen = torch.Generator().manual_seed(5)
     exs = []
@@ -2330,13 +2401,19 @@ def train_parity_phase(torch, variants, quant=None):
     results = {}
     params = None
     for label, overrides in variants:
-        cfg = get_config("tinyllama-1.1b", num_layers=4, remat="dots",
-                         **overrides)
-        if params is None:
-            params = init_params(cfg, seed=0, dtype=torch.bfloat16,
-                                 device="cuda")
+        if params is None:  # the first variant's, shared by both
+            if model is None:
+                base = get_config("tinyllama-1.1b", num_layers=4,
+                                  remat="dots")
+                params = init_params(base, seed=0, dtype=torch.bfloat16,
+                                     device="cuda")
+            else:
+                base, params, _ = load_model_and_tokenizer(
+                    model, dtype=torch.bfloat16, device="cuda",
+                    config_overrides=dict(num_layers=4, remat="dots"))
             if quant:
                 params = quantize_model_params(params, quant)
+        cfg = dataclasses.replace(base, **overrides)
         tr = Trainer(cfg, TrainConfig(lora_dropout=0.0, total_steps=10),
                      device="cuda")
         state = tr.init_state(params, 1)
@@ -2367,11 +2444,388 @@ def train_parity_phase(torch, variants, quant=None):
              f"(grad_norm {nf} vs {nx})")
 
 
+# ------------------------------------------------------------- HF phases
+HF_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_hf")
+# the published configurations' config.json fields (Llama-2-7b-hf,
+# Mistral-7B-v0.1, Qwen1.5-7B); the weights are random, from a seed
+LLAMA2_7B = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 11008,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 32, "max_position_embeddings": 4096,
+    "rms_norm_eps": 1e-05, "rope_scaling": None, "tie_word_embeddings": False,
+    "bos_token_id": 1, "eos_token_id": 2, "hidden_act": "silu",
+    "torch_dtype": "float16"}
+MISTRAL_7B = {
+    "architectures": ["MistralForCausalLM"], "model_type": "mistral",
+    "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "max_position_embeddings": 32768,
+    "rms_norm_eps": 1e-05, "rope_theta": 10000.0, "sliding_window": 4096,
+    "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2,
+    "hidden_act": "silu", "torch_dtype": "bfloat16"}
+QWEN15_7B = {
+    "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+    "vocab_size": 151936, "hidden_size": 4096, "intermediate_size": 11008,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 32, "max_position_embeddings": 32768,
+    "rms_norm_eps": 1e-06, "rope_theta": 1000000.0, "sliding_window": 32768,
+    "use_sliding_window": False, "max_window_layers": 28,
+    "tie_word_embeddings": False, "bos_token_id": 151643,
+    "eos_token_id": 151643, "hidden_act": "silu", "torch_dtype": "bfloat16"}
+HF_DTYPES = {"F16": "float16", "BF16": "bfloat16", "F32": "float32"}
+SHARD_BYTES = 10 * 10**9  # save_pretrained's default largest shard
+HF_NEW = 64
+HF_LIVE_ULPS = 4 * FORCED_ULPS  # the window's effect must exceed this
+
+
+def hf_tensors(config):
+    """(name, shape, init) of a llama-family HF checkpoint, in the order
+    ``save_pretrained`` writes them: matrices random (init "normal"), norm
+    scales ones, qwen2's q/k/v biases random."""
+    D, F, V = (config["hidden_size"], config["intermediate_size"],
+               config["vocab_size"])
+    H, KV = config["num_attention_heads"], config["num_key_value_heads"]
+    d = D // H
+    out = [("model.embed_tokens.weight", (V, D), "normal")]
+    for i in range(config["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        for name, shape in (("self_attn.q_proj", (H * d, D)),
+                            ("self_attn.k_proj", (KV * d, D)),
+                            ("self_attn.v_proj", (KV * d, D))):
+            out.append((p + name + ".weight", shape, "normal"))
+            if config["model_type"] == "qwen2":
+                out.append((p + name + ".bias", shape[:1], "normal"))
+        out += [(p + "self_attn.o_proj.weight", (D, H * d), "normal"),
+                (p + "mlp.gate_proj.weight", (F, D), "normal"),
+                (p + "mlp.up_proj.weight", (F, D), "normal"),
+                (p + "mlp.down_proj.weight", (D, F), "normal"),
+                (p + "input_layernorm.weight", (D,), "ones"),
+                (p + "post_attention_layernorm.weight", (D,), "ones")]
+    return out + [("model.norm.weight", (D,), "ones"),
+                  ("lm_head.weight", (V, D), "normal")]
+
+
+def write_hf_checkpoint(torch, path, config, layers, stored, fmt, seed,
+                        tokenizer):
+    """An HF checkpoint directory as ``save_pretrained`` lays one out:
+    ``config.json`` (``config`` with ``layers`` layers), the weights in
+    ``stored`` dtype as safetensors (shards of at most ``SHARD_BYTES``
+    with an index, written by the few lines below, one tensor at a time)
+    or as one ``pytorch_model.bin`` (``torch.save``), made on the card from
+    a seeded generator, and the ``tokenizer`` fixture's three files.
+    Returns (bytes of weights, seconds)."""
+    import shutil
+    import struct
+
+    t0 = time.perf_counter()
+    os.makedirs(path)
+    config = dict(config, num_hidden_layers=layers)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    dtype = getattr(torch, HF_DTYPES[stored])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(shape, init):
+        if init == "ones":
+            return torch.ones(shape, dtype=dtype, device="cuda")
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * 0.02).to(dtype)
+
+    items = hf_tensors(config)
+    total = sum(math.prod(shape) for _, shape, _ in items) * dtype.itemsize
+    if fmt == "bin":
+        torch.save({name: make(shape, init).cpu()
+                    for name, shape, init in items},
+                   os.path.join(path, "pytorch_model.bin"))
+    else:
+        shards, size = [[]], 0
+        for item in items:
+            nbytes = math.prod(item[1]) * dtype.itemsize
+            if shards[-1] and size + nbytes > SHARD_BYTES:
+                shards.append([])
+                size = 0
+            shards[-1].append(item)
+            size += nbytes
+        weight_map = {}
+        for k, shard in enumerate(shards):
+            file = (f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+                    if len(shards) > 1 else "model.safetensors")
+            header, offset = {"__metadata__": {"format": "pt"}}, 0
+            for name, shape, _ in shard:
+                end = offset + math.prod(shape) * dtype.itemsize
+                header[name] = {"dtype": stored, "shape": list(shape),
+                                "data_offsets": [offset, end]}
+                offset = end
+                weight_map[name] = file
+            raw = json.dumps(header).encode()
+            raw += b" " * (-len(raw) % 8)
+            with open(os.path.join(path, file), "wb") as f:
+                f.write(struct.pack("<Q", len(raw)) + raw)
+                for name, shape, init in shard:
+                    f.write(make(shape, init).cpu().view(torch.uint8)
+                            .numpy().data)
+        if len(shards) > 1:
+            with open(os.path.join(path, "model.safetensors.index.json"),
+                      "w") as f:
+                json.dump({"metadata": {"total_size": total},
+                           "weight_map": weight_map}, f, indent=2)
+    src = os.path.join(HF_FIXTURES, tokenizer)
+    for name in os.listdir(src):
+        shutil.copy(os.path.join(src, name), path)
+    return total, time.perf_counter() - t0
+
+
+def hf_load_check(torch, path):
+    """Load the directory as the engines do (bf16, on the card), print the
+    read and placement times apart, and hold the weight tree to the
+    configuration's parameter count. Returns the tokenizer."""
+    from datatunerx_tpu_torch.utils.hf_weights import param_count
+    from datatunerx_tpu_torch.utils.model_loader import (
+        load_model_and_tokenizer,
+    )
+
+    t = {}
+    t0 = time.perf_counter()
+    cfg, params, tok = load_model_and_tokenizer(
+        path, dtype=torch.bfloat16, device="cuda", timings=t)
+    wall = time.perf_counter() - t0
+    leaves, stack = [], [params]
+    while stack:
+        node = stack.pop()
+        for v in node.values():
+            (stack if isinstance(v, dict) else leaves).append(v)
+    n = sum(x.numel() for x in leaves)
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    want = param_count(cfg)
+    log(f"  load (bf16, on the card): read {t['read_s']:.2f} s, placement "
+        f"{t['place_s']:.2f} s, {wall:.2f} s in all, {t['bytes']} bytes "
+        f"from disk; the weight tree {nbytes} bytes, {n} parameters (the "
+        f"configuration's count: {want}); tokenizer {type(tok).__name__}, "
+        f"{len(tok)} tokens")
+    if n != want or nbytes != 2 * want:
+        fail(f"{path}: the weight tree holds {n} parameters ({nbytes} "
+             f"bytes), the configuration {want}")
+    if any(not bool(torch.isfinite(x).all()) for x in leaves):
+        fail(f"{path}: a loaded weight is not finite")
+    del params, leaves
+    torch.cuda.empty_cache()
+    return tok
+
+
+def hf_prompt(tok, template, n_tokens, seed):
+    """A user message of words drawn from a seed whose chat prompt under
+    ``template`` (the server's) is about ``n_tokens`` tokens long."""
+    import random
+
+    from datatunerx_tpu_torch.data.templates import get_template
+
+    chat = get_template(template, tok)
+    rnd = random.Random(seed)
+    words = ["the", "model", "reads", "a", "checkpoint", "directory",
+             "tokens", "window", "attention", "layer", "weights", "served",
+             "trained", "sliding", "of", "and", "kernel", "cache"]
+    text = ""
+    while len(chat.encode_oneturn(tok, text, "")[0]) < n_tokens:
+        text += " ".join(rnd.choice(words) for _ in range(12)) + ". "
+    return text
+
+
+def hf_serve_phase(torch, label, path, flags, reqs, counters,
+                   window=None):
+    """Serve the HF directory ``path`` with ``flags``, send ``reqs`` —
+    ``(name, content, temperature)`` — at once, and check: K7, K8 and K9's
+    launches (``counters``, zeroed just before) equal what the scheduler's
+    trace ran (L each a decode step and a prefill chunk; K9 once a decode
+    step; K7 and K8 none with a sliding window), and every greedy stream
+    teacher-forced within ``FORCED_ULPS`` of a plain forward. With
+    ``window`` (a sliding-window model) the plain forward without the
+    window must read the longest prompt's last position more than
+    ``HF_LIVE_ULPS`` apart. Returns the launches."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    srv, port, eng = start_server(torch, flags, model=path)
+    log(f"  {label}: server up in {time.perf_counter() - t0:.1f} s; "
+        f"decode_path={eng.decode_path} kv_blocks={eng.total_kv_blocks} "
+        f"kv_cache_bytes={eng.kv_cache_bytes}")
+    seen = record_submits(eng)
+    eng.request_stats.clear()
+    eng.sched_trace.clear()
+    for c, attr in counters:
+        setattr(c, attr, 0)
+    answers, errors = {}, []
+
+    def run(name, content, temperature):
+        body = {"messages": [{"role": "user", "content": content}],
+                "max_tokens": HF_NEW, "temperature": temperature}
+        try:
+            answers[name] = post(port, body, trace=name)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"{name}: {e}")
+
+    threads = [threading.Thread(target=run, args=r) for r in reqs]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.perf_counter() - t0
+    launched = {counter_key(c, attr): getattr(c, attr)
+                for c, attr in counters}
+    if errors or len(answers) != len(reqs):
+        fail(f"{label}: {errors or 'requests did not finish'}")
+    steps = sum(e[1] for e in eng.sched_trace if e[0] == "decode")
+    chunks = sum(1 for e in eng.sched_trace if e[0] == "prefill")
+    L = eng.cfg.num_layers
+    paged = 0 if window else L
+    want = dict(zip(launched, (paged * steps, paged * chunks, steps)))
+    log(f"  {label}: {len(reqs)} requests in {wall:.2f} s wall; {steps} "
+        f"decode steps and {chunks} prefill chunks by the trace; launches "
+        f"{launched}, expected {want}")
+    if launched != want or steps <= 0 or chunks <= 0:
+        fail(f"{label}: launches {launched}, expected {want}")
+    stats = {s["trace_id"]: s for s in eng.request_stats}
+    tokens = 0
+    for name, _, temperature in reqs:
+        req, st = seen[name], stats.get(name)
+        if st is None or not req.tokens:
+            fail(f"{label}: {name} emitted no tokens")
+        tokens += len(req.tokens)
+        tps = (1.0 / st["tpot_s"]) if st["tpot_s"] else float("nan")
+        line = (f"  {name}: {len(req.prompt_ids)} prompt tokens, "
+                f"{len(req.tokens)} new, TTFT {st['ttft_s'] * 1e3:.1f} ms, "
+                f"decode {tps:.1f} tok/s")
+        if temperature == 0.0:
+            _, gaps = stream_gaps(torch, eng, req.prompt_ids, req.tokens, 0,
+                                  HF_NEW, req.stop_ids, None)
+            line += (f"; teacher-forced: furthest {max(gaps):.2f} ulps "
+                     f"below the plain forward's top (bound "
+                     f"{FORCED_ULPS:.2f})")
+            if max(gaps) > FORCED_ULPS:
+                fail(f"{label}: {name} sits {max(gaps):.2f} ulps below the "
+                     "plain forward's top")
+        log(line)
+    log(f"  {label}: {tokens / wall:.1f} tok/s aggregate; median TTFT "
+        f"{median([s['ttft_s'] * 1e3 for s in stats.values()]):.1f} ms, "
+        f"decode {median([1 / s['tpot_s'] for s in stats.values() if s['tpot_s']]):.1f}"
+        " tok/s per request")
+    if window:
+        name = max(reqs, key=lambda r: len(seen[r[0]].prompt_ids))[0]
+        req = seen[name]
+        args = (req.prompt_ids, req.tokens, eng.max_seq_len, HF_NEW,
+                eng.tokenizer.eos_token_id)
+        rows = plain_step_logits(torch, eng.params, eng.cfg, *args)
+        flat = plain_step_logits(torch, eng.params, dataclasses.replace(
+            eng.cfg, sliding_window=None), *args)
+        top = rows[0].max()
+        ulp = 2.0 ** (torch.floor(torch.log2(top.abs())) - 7)
+        live = float((rows[0] - flat[0]).abs().max() / ulp)
+        served = gaps_ulps(torch, rows[:1], req.tokens[:1])[0]
+        unwindowed = gaps_ulps(torch, flat[:1], req.tokens[:1])[0]
+        log(f"  {name} ({len(req.prompt_ids)} prompt tokens, window "
+            f"{window}): at the last prompt position the plain forward "
+            f"with the window and without it differ by up to {live:.2f} "
+            f"bf16 ulps of the top (bound > {HF_LIVE_ULPS:.2f}); the served "
+            f"first token sits {served:.2f} ulps below the windowed top, "
+            f"{unwindowed:.2f} below the unwindowed one")
+        if len(req.prompt_ids) <= window:
+            fail(f"{label}: the prompt ({len(req.prompt_ids)} tokens) does "
+                 "not pass the window")
+        if live <= HF_LIVE_ULPS:
+            fail(f"{label}: the window changes the last prompt position by "
+                 f"only {live:.2f} ulps")
+        del rows, flat
+    stop_server(srv)
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
+
+
+def hf_phases(torch, tmp, by_name):
+    """hf-llama2 (serve and train), hf-mistral and hf-qwen (see the
+    module docstring). ``by_name``: each kernel's ``(wrapper, attribute)``.
+    Returns the launches by entry key (``path`` suffixed)."""
+    import shutil
+
+    launches = {}
+    kernels = [by_name[k] for k in ("K7", "K8", "K9")]
+    free = shutil.disk_usage(tmp).free
+    full = 2 * sum(math.prod(s) for _, s, _ in hf_tensors(LLAMA2_7B))
+    # full depth when the disk holds it with a margin, else cut the depth
+    layers = next((n for n in (32, 16, 8) if free > 1.25 * full * n / 32),
+                  4)
+    log(f"[hf-llama2] Llama-2-7b-hf's configuration, F16 safetensors in "
+        f"shards with an index, {layers} of 32 layers ({free / 1e9:.1f} GB "
+        f"free for {full / 1e9:.2f} GB at full depth)")
+    path = os.path.join(tmp, "llama2-7b")
+    nbytes, secs = write_hf_checkpoint(torch, path, LLAMA2_7B, layers, "F16",
+                                       "safetensors", 0, "llama")
+    log(f"  written: {nbytes} bytes of weights in {secs:.1f} s: "
+        + ", ".join(sorted(os.listdir(path))))
+    tok = hf_load_check(torch, path)
+    reqs = [(f"{kind}-{i}", hf_prompt(tok, "llama2", 600, i), temp)
+            for i, (kind, temp) in enumerate((("greedy", 0.0),
+                                              ("greedy", 0.0),
+                                              ("sampled", 0.8),
+                                              ("sampled", 0.8)))]
+    served = hf_serve_phase(torch, "hf-llama2", path,
+                            ("--kv_block_size", "16", "--slots", "4"),
+                            reqs, kernels)
+    launches.update({k + "@hf-llama2": v for k, v in served.items()})
+    log("[hf-llama2 train] the trainer CLI on the same directory: LoRA r8 "
+        "on q_proj,v_proj, bf16, flash, remat dots, packed 8x1024, 3 steps")
+    trained, _ = train_phase(torch, tmp, steps=3, profile=0, export=False,
+                             model=path, layers=layers)
+    launches.update({k + "@hf-llama2": trained[k] for k in
+                     ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+    torch.cuda.empty_cache()
+    log("[hf-llama2 parity] one step with the flash kernels vs plain "
+        "attention on the directory's first 4 layers")
+    train_parity_phase(torch, [("flash", dict(attention_impl="flash")),
+                               ("xla", dict(attention_impl="xla"))],
+                       model=path)
+    shutil.rmtree(path)
+    torch.cuda.empty_cache()
+
+    log("[hf-mistral] Mistral-7B-v0.1's configuration (sliding window "
+        "4096), 4 of 32 layers, BF16 safetensors; one ~4600-token prompt")
+    path = os.path.join(tmp, "mistral-7b")
+    nbytes, secs = write_hf_checkpoint(torch, path, MISTRAL_7B, 4, "BF16",
+                                       "safetensors", 1, "llama")
+    log(f"  written: {nbytes} bytes of weights in {secs:.1f} s")
+    tok = hf_load_check(torch, path)
+    hf_serve_phase(torch, "hf-mistral", path,
+                   ("--kv_block_size", "16", "--max_seq_len", "8192"),
+                   [("greedy-long", hf_prompt(tok, "llama2", 4600, 7), 0.0)],
+                   kernels, window=MISTRAL_7B["sliding_window"])
+    shutil.rmtree(path)
+
+    log("[hf-qwen] Qwen1.5-7B's configuration (V=151936, q/k/v biases), 4 "
+        "of 32 layers, pytorch_model.bin, the chatml template")
+    path = os.path.join(tmp, "qwen1.5-7b")
+    nbytes, secs = write_hf_checkpoint(torch, path, QWEN15_7B, 4, "BF16",
+                                       "bin", 2, "qwen2")
+    log(f"  written: {nbytes} bytes of weights in {secs:.1f} s")
+    tok = hf_load_check(torch, path)
+    served = hf_serve_phase(
+        torch, "hf-qwen", path,
+        ("--kv_block_size", "16", "--slots", "4", "--template", "chatml"),
+        [(f"greedy-{i}", hf_prompt(tok, "chatml", 600, 10 + i), 0.0)
+         for i in range(2)], kernels)
+    launches.update({k + "@hf-qwen": v for k, v in served.items()})
+    shutil.rmtree(path)
+    return launches
+
+
 # ------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", default="all",
-                    choices=["all", "kernels", "serve", "train", "qlora"])
+                    choices=["all", "kernels", "serve", "train", "qlora",
+                             "hf"])
     opts = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "datatunerx_tpu_torch", "csrc")):
         fail("datatunerx_tpu_torch/ is missing: run from a repository "
@@ -2415,6 +2869,14 @@ def main(argv=None) -> int:
                          (check_k7, True), (check_k8, True)):
         report(check(torch, timer, gen, quant))
     report(check_k9(torch, timer, gen))
+    # the HF phases' shapes, from a generator of their own: the inputs of
+    # the checks before and after them stay what they were
+    gen_hf = torch.Generator().manual_seed(12)
+    report(check_k7(torch, timer, gen_hf, shape=K7_LLAMA2,
+                    path="@hf-llama2"))
+    report(check_k8(torch, timer, gen_hf, shape=K8_LLAMA2,
+                    path="@hf-llama2"))
+    report(check_k9(torch, timer, gen_hf, V=151936, path="@hf-qwen"))
     log(f"  an empty kernel under the same timer: "
         f"{empty_kernel_ms(torch, timer):.4f} ms (the floor of a small "
         "kernel's time)")
@@ -2424,8 +2886,9 @@ def main(argv=None) -> int:
     for e in check_k10(torch) + flash + check_quant(torch):
         report(e)
     torch.cuda.empty_cache()
-    for e in entries:
-        e["key"] = counter_key(e["counter"], e.get("count", "launches"))
+    for e in entries:  # an entry of another path counts that path's runs
+        e["key"] = (counter_key(e["counter"], e.get("count", "launches"))
+                    + e.get("path", ""))
     by_name = {e["name"].split()[0]: (e["counter"], e.get("count", "launches"))
                for e in entries}
     launches = {e["key"]: 0 for e in entries}
@@ -2493,8 +2956,6 @@ def main(argv=None) -> int:
                       base_batch)
 
     if opts.phase in ("all", "train", "qlora"):
-        import tempfile
-
         # each kernel's launches come from the run of its own path
         flash_keys = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
         with tempfile.TemporaryDirectory(prefix="dtx-smoke-") as tmp:
@@ -2537,6 +2998,12 @@ def main(argv=None) -> int:
                 ("xla", dict(attention_impl="flash", quantization=mode,
                              quant_impl="xla"))], quant=mode)
             torch.cuda.empty_cache()
+
+    if opts.phase in ("all", "hf"):
+        # HF checkpoint directories at the published configurations
+        with tempfile.TemporaryDirectory(prefix="dtx-hf-") as tmp:
+            launches.update(hf_phases(torch, tmp, by_name))
+        torch.cuda.empty_cache()
 
     if serving:
         log("[10] fused LoRA matmul (K10) at tinyllama-1.1b's adapted "

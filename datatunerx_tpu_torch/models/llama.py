@@ -288,15 +288,13 @@ def forward(
     a dense cache, they take the biased full-width read (the kernels'
     oracle). An int8 cache hands its scale leaves along. Without a cache,
     ``attention_impl="flash"`` takes the flash kernels when ``T % 128 == 0
-    or T < 128`` (the reference's ``_flash_ok``), else the biased path.
+    or T < 128`` (the reference's ``_flash_ok``), else the biased path. A
+    ``cfg.sliding_window`` model takes the biased path everywhere (no
+    paged kernel, no flash), with the window in the bias.
     ``dropout_seed`` (training only) turns on LoRA dropout and NEFTune.
     With ``lora_adapter_idx``, ``lora``'s leaves are stacked over adapters
     (``[L, E, ...]``, scales ``[E]``) and row b applies adapter
     ``lora_adapter_idx[b]`` (``_proj``)."""
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (ROADMAP Queue 1, "
-            "forward pass)")
     if cfg.attention_impl == "ring":
         raise NotImplementedError(
             "ring attention is not ported yet (ROADMAP Queue 1 item 10, "
@@ -326,8 +324,11 @@ def forward(
     # built once, used by every layer (the per-layer op count bounds decode)
     rope_cc, rope_ss = rope_tables(cos, sin, x.dtype)
 
+    # a sliding window keeps the paged kernels and flash off: the window
+    # rides the gather path's bias, as in the reference
     paged = (cache is not None and "block_tables" in cache
-             and getattr(cfg, "paged_kernel", False))
+             and getattr(cfg, "paged_kernel", False)
+             and cfg.sliding_window is None)
     paged_kernel = paged and T == 1
     paged_kernel_mt = paged and not paged_kernel
     targets = None
@@ -351,12 +352,14 @@ def forward(
     # flash handles causal + packed segments in-kernel and skips the
     # [B, T, S] bias entirely; cache decode keeps the biased path
     flash = (cfg.attention_impl == "flash" and cache is None
+             and cfg.sliding_window is None
              and (T % 128 == 0 or T < 128))
     bias = allow = None
     if paged_kernel_mt:
         allow = attention_allow(positions, kv_positions, kv_valid)
     elif not paged_kernel and not flash:
         bias = make_causal_bias(positions, kv_positions, kv_valid,
+                                sliding_window=cfg.sliding_window,
                                 q_segment_ids=segment_ids,
                                 kv_segment_ids=kv_seg)
 

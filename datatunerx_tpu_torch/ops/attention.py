@@ -46,14 +46,19 @@ def attention_allow(
     kv_positions: torch.Tensor,  # [B, S] absolute positions of keys
     kv_valid: Optional[torch.Tensor] = None,  # [B, S] bool — False for padding
     *,
+    sliding_window: Optional[int] = None,
     q_segment_ids: Optional[torch.Tensor] = None,  # [B, T] packed sequences
     kv_segment_ids: Optional[torch.Tensor] = None,  # [B, S]
 ) -> torch.Tensor:
     """The boolean attendability tensor [B, T, S] behind the causal bias.
     The paged multi-token kernel consumes this same tensor the gather path
     biases with, so mask parity between the two holds by construction.
-    Segment ids confine packed sequences to themselves."""
+    ``sliding_window`` keeps a key only when ``kv > q - window`` (Mistral);
+    segment ids confine packed sequences to themselves."""
     ok = kv_positions[:, None, :] <= q_positions[:, :, None]  # causal
+    if sliding_window is not None:
+        ok = ok & (kv_positions[:, None, :]
+                   > q_positions[:, :, None] - sliding_window)
     if kv_valid is not None:
         ok = ok & kv_valid[:, None, :]
     if q_segment_ids is not None and kv_segment_ids is not None:
@@ -66,12 +71,14 @@ def make_causal_bias(
     kv_positions: torch.Tensor,
     kv_valid: Optional[torch.Tensor] = None,
     *,
+    sliding_window: Optional[int] = None,
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
     dtype=torch.float32,
 ) -> torch.Tensor:
     """Additive bias [B, 1, T, S]: 0 where attendable, finfo.min otherwise."""
     ok = attention_allow(q_positions, kv_positions, kv_valid,
+                         sliding_window=sliding_window,
                          q_segment_ids=q_segment_ids,
                          kv_segment_ids=kv_segment_ids)
     neg = torch.tensor(torch.finfo(dtype).min, dtype=dtype, device=ok.device)

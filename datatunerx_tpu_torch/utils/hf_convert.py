@@ -1,17 +1,19 @@
-"""HF-layout state dict → stacked param tree (numpy).
+"""HF-layout state dict ⇄ stacked param tree (numpy), and HF configs.
 
-A copy of ``convert_hf_state_dict`` from ``datatunerx_tpu/utils/hf_convert.py``.
-It is what reads the ``model.npz`` that the JAX package's
+Copies of ``convert_hf_state_dict``, ``export_hf_state_dict`` and
+``config_from_hf`` from ``datatunerx_tpu/utils/hf_convert.py``.
+``convert_hf_state_dict`` reads the ``model.npz`` that the JAX package's
 ``training/checkpoint.export_merged_model`` writes: per-layer tensors are
 stacked along a leading layer axis and torch ``Linear`` ``[out, in]`` weights
 are transposed to ``[in, out]``. The result is a nested dict of numpy arrays
 with the reference's leaf names; ``models/convert.params_from_jax`` moves it
-onto a device.
+onto a device. HF checkpoint directories stream through
+``utils/hf_weights.py`` into the same tree.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 
@@ -102,3 +104,48 @@ def export_hf_state_dict(params, cfg: ModelConfig) -> dict:
     if "lm_head" in params:
         out["lm_head.weight"] = _host(params["lm_head"]["kernel"]).T
     return out
+
+
+_REQUIRED = object()
+
+
+def _hf_field(hf_cfg, name: str, default: Any = _REQUIRED):
+    """``hf_cfg.name`` of a transformers config, or ``hf_cfg[name]`` of a
+    ``config.json`` dict; ``default`` when absent (required without one)."""
+    if isinstance(hf_cfg, Mapping):
+        if name in hf_cfg:
+            return hf_cfg[name]
+    elif hasattr(hf_cfg, name):
+        return getattr(hf_cfg, name)
+    if default is _REQUIRED:
+        raise KeyError(f"HF config has no {name!r}")
+    return default
+
+
+def config_from_hf(hf_cfg) -> ModelConfig:
+    """Build a ModelConfig from an HF config (llama/mistral/qwen2): a
+    ``PretrainedConfig`` or the plain dict of its ``config.json``. The
+    reference's field rules: q/k/v biases for ``qwen2`` or an explicit
+    ``attention_bias``; the sliding window only for ``mistral``;
+    ``rope_scaling`` is not mapped."""
+    model_type = _hf_field(hf_cfg, "model_type", "llama")
+    heads = _hf_field(hf_cfg, "num_attention_heads")
+    kv_heads = _hf_field(hf_cfg, "num_key_value_heads", heads)
+    return ModelConfig(
+        name=model_type,
+        vocab_size=_hf_field(hf_cfg, "vocab_size"),
+        hidden_size=_hf_field(hf_cfg, "hidden_size"),
+        intermediate_size=_hf_field(hf_cfg, "intermediate_size"),
+        num_layers=_hf_field(hf_cfg, "num_hidden_layers"),
+        num_heads=heads,
+        num_kv_heads=heads if kv_heads is None else kv_heads,
+        max_seq_len=_hf_field(hf_cfg, "max_position_embeddings"),
+        rope_theta=_hf_field(hf_cfg, "rope_theta", 10000.0),
+        rms_norm_eps=_hf_field(hf_cfg, "rms_norm_eps"),
+        tie_word_embeddings=_hf_field(hf_cfg, "tie_word_embeddings", False),
+        attention_bias=model_type == "qwen2"
+        or _hf_field(hf_cfg, "attention_bias", False),
+        sliding_window=_hf_field(hf_cfg, "sliding_window", None)
+        if model_type == "mistral"
+        else None,
+    )

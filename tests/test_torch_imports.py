@@ -1,8 +1,10 @@
 """The port stands alone: every module of ``datatunerx_tpu_torch`` and
-``chip_smoke.py`` import with ``jax``, ``jaxlib`` and ``datatunerx_tpu``
-blocked, its entry points default to CUDA and refuse to carry on without
-it, and ``chip_smoke.py`` fails (printing no result) without a card or
-outside a checkout."""
+``chip_smoke.py`` import with ``jax``, ``jaxlib``, ``datatunerx_tpu`` and
+the HF libraries (``transformers``, ``tokenizers``, ``safetensors``,
+``regex``, ``sentencepiece``) blocked, and HF checkpoint directories load
+and tokenize under the same blocker; its entry points default to CUDA and
+refuse to carry on without it, and ``chip_smoke.py`` fails (printing no
+result) without a card or outside a checkout."""
 
 import os
 import shutil
@@ -19,7 +21,8 @@ _BLOCKER = textwrap.dedent("""
     import importlib, pkgutil, sys
 
     class Block:
-        BLOCKED = ("jax", "jaxlib", "datatunerx_tpu")
+        BLOCKED = ("jax", "jaxlib", "datatunerx_tpu", "transformers",
+                   "tokenizers", "safetensors", "regex", "sentencepiece")
 
         def find_spec(self, name, path=None, target=None):
             top = name.split(".")[0]
@@ -40,6 +43,14 @@ _BLOCKER = textwrap.dedent("""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", ROOT + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    from datatunerx_tpu_torch.utils.model_loader import (
+        load_model_and_tokenizer)
+
+    for path in HF_DIRS:  # weights and tokenizer, read by the port alone
+        cfg, params, tok = load_model_and_tokenizer(path)
+        text = "HF directories, read by the port → 日本"
+        assert tok.decode(tok.encode(text), skip_special_tokens=True) == text
+        assert params["embed_tokens"]["embedding"].shape[0] == cfg.vocab_size
     assert not any(m.split(".")[0] in Block.BLOCKED for m in sys.modules)
     print("IMPORTED", len(names))
 """)
@@ -65,16 +76,23 @@ REQUIRED = (
     "datatunerx_tpu_torch.adapters.registry",
     "datatunerx_tpu_torch.tenancy.directory",
     "datatunerx_tpu_torch.tenancy.host_tier",
+    "datatunerx_tpu_torch.utils.hf_tokenizer",
+    "datatunerx_tpu_torch.utils.hf_weights",
 )
 
 
-def test_every_module_imports_without_jax():
-    code = f"ROOT = {ROOT!r}\nREQUIRED = {REQUIRED!r}\n" + _BLOCKER
+def test_every_module_imports_without_jax(tmp_path):
+    from torch_hf_dirs import write_hf_dir
+
+    hf_dirs = (write_hf_dir(tmp_path / "llama", "llama", "F16", shard_kb=40),
+               write_hf_dir(tmp_path / "qwen2", "qwen2", "BF16", fmt="bin"))
+    code = (f"ROOT = {ROOT!r}\nREQUIRED = {REQUIRED!r}\n"
+            f"HF_DIRS = {hf_dirs!r}\n" + _BLOCKER)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 43  # the modules of slices 1 to 4, 10 and 11
+    assert n >= 45  # the modules of slices 1 to 4 and 10 to 12
 
 
 def test_engine_defaults_to_cuda_and_refuses_without_it():
