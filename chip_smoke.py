@@ -572,6 +572,156 @@ def check_k8(torch, timer, gen, quant=False, shape=None, path=""):
     }
 
 
+# --------------------------------------------- phase 2, the threefry twin
+def check_twin(torch, gen):
+    """The device twin of ``jax.random`` (``ops/prng.py``, torch int64 words
+    on the card) bit-equal to the host twin (numpy) for ``split``,
+    ``fold_in``, ``uniform`` at [4] and ``random_bits``/``categorical`` at
+    [4, 32000], and the Random123 known answer on the card. Returns the
+    kernels one [4, 32000] ``categorical`` draw launches (a profiler
+    window), the spec verify step's residual draw."""
+    import numpy as np
+
+    from datatunerx_tpu_torch.ops import prng
+
+    seed = int(torch.randint(0, 2**31, (1,), generator=gen))
+    hk = prng.PRNGKey(seed)
+    dk = prng.to_device(hk, "cuda")
+    checks = {
+        "split": (prng.split(hk, 5), prng.split(dk, 5)),
+        "fold_in": (prng.fold_in(hk, 12345), prng.fold_in(dk, 12345)),
+        "uniform[4]": (prng.uniform(hk, (4,)), prng.uniform(dk, (4,))),
+        "random_bits[4,32000]": (prng.random_bits(hk, (4, 32000)),
+                                 prng.random_bits(dk, (4, 32000))),
+    }
+    keys = prng.split(hk, 4)
+    logits = (torch.randn((4, 32000), generator=gen) * 2.0)
+    checks["categorical[4,32000]"] = (
+        prng.categorical(keys, logits.numpy()),
+        prng.categorical(prng.to_device(keys, "cuda"), logits.cuda()))
+    for name, (host, dev) in checks.items():
+        got = dev.cpu().numpy()
+        host = np.asarray(host)
+        same = (got.view(np.uint32) == host.view(np.uint32)).all() \
+            if host.dtype == np.float32 else (got.astype(np.int64)
+                                              == host.astype(np.int64)).all()
+        if not same:
+            fail(f"threefry twin: {name} differs between the card and the "
+                 "host")
+    ka = prng.threefry2x32(*(torch.tensor(x, dtype=torch.int64,
+                                          device="cuda") for x in (
+        0x13198A2E, 0x03707344, 0x243F6A88, 0x85A308D3)))
+    if (int(ka[0]), int(ka[1])) != (0xC4923A9C, 0x483DF7A0):
+        fail("threefry twin: the Random123 known answer differs on the card")
+    dkeys = prng.to_device(keys, "cuda")
+    lg = logits.cuda()
+    launches = profile_launches(torch, lambda: prng.categorical(
+        dkeys, prng.xla_log(torch.softmax(lg, -1).clamp(min=1e-30))))
+    log(f"  threefry twin: card == host for {', '.join(checks)}; Random123 "
+        f"known answer on the card; one [4, 32000] residual draw (log + "
+        f"categorical) launches {launches} kernels")
+    return launches
+
+
+def profile_launches(torch, fn) -> int:
+    """CUDA kernels one call of ``fn`` launches (after a warm-up call),
+    copies and memsets not counted (``cuda_kernels``' profiler window)."""
+    fn()
+    return sum(1 for n in cuda_kernels(torch, fn)
+               if "memcpy" not in n.lower() and "memset" not in n.lower())
+
+
+# --------------------------------------------- phase 2, K8 at spec shapes
+SPEC_K = 4
+SPEC_TREE = (2, 3)
+TWIN_LAUNCHES = [0]  # one residual draw's kernels, set by check_twin
+
+
+def check_k8_spec(torch, timer, gen, quant=False, tree=False):
+    """K8 at the verify shapes of the spec phases, against its plain
+    version: a 4-slot batch over tinyllama's heads, each slot's window the
+    last T written lanes of its table. Chain: T = k + 1 = 5, causal. Tree:
+    the 2x3 tree's T = 7 columns at a non-zero ``window_start`` under the
+    branch ancestry mask (``tree_verify_mask``), siblings sharing a rope
+    position, as ``SpecPrograms.tree_step`` writes them."""
+    import numpy as np
+
+    from datatunerx_tpu_torch.ops import cuda_paged_attention as cpa
+    from datatunerx_tpu_torch.ops.attention import attention_allow
+    from datatunerx_tpu_torch.serving.speculative import tree_verify_mask
+
+    B, H, KV, d, bs, nbps = 4, 32, 4, 64, 16, 64
+    lens = [700, 301, 513, 64]
+    k, v, tables, pos = make_pool(torch, B, nbps, bs, KV, d, lens, gen)
+    if tree:
+        W, D = SPEC_TREE
+        T = 1 + W * D
+        depth = np.concatenate([[0]] + [[j] * W for j in range(1, D + 1)])
+        wmask = torch.from_numpy(tree_verify_mask(W, D)).cuda()
+    else:
+        T = SPEC_K + 1
+        depth = np.arange(T)
+        wmask = None
+    start = torch.tensor([n - T for n in lens], dtype=torch.int32,
+                         device="cuda")
+    # the window's lanes carry the step's rope positions: the pending
+    # token's position plus each column's depth
+    tab = tables.cpu()
+    for b, n in enumerate(lens):
+        for c in range(T):
+            lane = n - T + c
+            pos[int(tab[b, lane // bs]), lane % bs] = n - T + int(depth[c])
+    qpos = start[:, None] + torch.from_numpy(depth.astype(np.int32)).cuda()
+    kv_pos = kv_positions(torch, pos, tables)
+    allow = attention_allow(
+        qpos, kv_pos, window_mask=(None if wmask is None else
+                                   wmask[None].expand(B, T, T)),
+        window_start=start)
+    q = torch.randn((B, T, H, d), generator=gen).to(torch.bfloat16).cuda()
+    pools = int8_pools(k, v) if quant else (k, v, None, None)
+    got = cpa.paged_multitoken_attention(q, *pools, tables, allow)
+    want = cpa._plain_multitoken(q, pools[0], pools[1], tables, allow,
+                                 pools[2], pools[3])
+    torch.cuda.synchronize()
+    ok, err = close_enough(torch, got, want, *PAGED_TOL)
+    path = "@spec-tree" if tree else "@spec-chain"
+    name = ("K8-int8" if quant else "K8") + path
+    if not ok:
+        fail(f"{name} disagrees with its plain version: max abs err {err}")
+    if quant:
+        k_all, v_all = dequantized_view(torch, pools, tables, torch.bfloat16)
+    else:
+        k_all, v_all = gathered(torch, k, tables), gathered(torch, v, tables)
+    qs, ks, vs = q.transpose(1, 2), k_all.transpose(1, 2), \
+        v_all.transpose(1, 2)
+    valid_pairs = int(allow.sum().item())
+    token_bytes = 2 * KV * ((d + 4) if quant else 2 * d)
+    nbytes = (2 * q.numel() * 2 + allow.numel() + tables.numel() * 4
+              + sum(lens) * token_bytes)
+    b_ms, b_by = bound_ms(nbytes, 4 * H * d * valid_pairs, BF16_OPS_PER_S)
+    return {
+        "name": f"{name} paged_multitoken_attention"
+                + (" (int8 pools)" if quant else ""), "route": "cuda",
+        "path": path,
+        "source": "datatunerx_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "datatunerx_tpu/ops/pallas_paged_attention.py:294",
+        "counter": cpa.paged_multitoken_attention,
+        "count": "int8_launches" if quant else "launches",
+        "max_abs_err": err,
+        "tolerance": "atol 2^-8 + rtol 2^-7 (bf16)",
+        "ms": timer.ms(lambda: cpa.paged_multitoken_attention(
+            q, *pools, tables, allow)),
+        "plain_ms": timer.ms(lambda: cpa._plain_multitoken(
+            q, pools[0], pools[1], tables, allow, pools[2], pools[3]),
+            reps=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer.ms(lambda: sdpa(torch, qs, ks, vs,
+                                            allow[:, None])),
+        "shape": f"B={B} T={T} H={H} KV={KV} d={d} bs={bs} lens={lens}"
+                 + (" 2x3 tree ancestry mask" if tree else " causal"),
+    }
+
+
 def check_k9(torch, timer, gen, V=32000, path=""):
     """K9 against its plain version at vocabulary ``V``; ``path`` as in
     ``check_k7``."""
@@ -837,6 +987,47 @@ def check_flash(torch, timer, gen):
                 "shape": f"{shape} causal bf16 (timed); library: " + library,
             })
     return entries
+
+
+K3_SWEEP_SEEDS = tuple(range(8))
+
+
+def check_k3_sweep(torch):
+    """K3 against its plain version over ``K3_SWEEP_SEEDS`` draws of the
+    packed and llama2 cases (untimed), each draw from a generator of its
+    own; every draw holds ``FLASH_TOL``. Prints, per output, the largest
+    error as a share of its element's bound and that element's |want|."""
+    from datatunerx_tpu_torch.ops import flash_attention as fa
+
+    worst = 0.0
+    for seed in K3_SWEEP_SEEDS:
+        gen = torch.Generator().manual_seed(1000 + seed)
+        for case, shape, segs in (("packed", (8, 1024, 32, 4, 64), 3),
+                                  ("llama2", (8, 1024, 32, 32, 128), 0)):
+            q, k, v, do, seg = flash_inputs(torch, *shape, gen,
+                                            segments=segs)
+            o, lse = fa._plain_fwd(q, k, v, seg, True, 512, 512)
+            dsum = fa.row_dot(do, o)
+            got = fa.flash_bwd_dkv(q, k, v, do, lse, dsum, seg)
+            want = fa._plain_bwd_dkv(q, k, v, do, lse, dsum, seg, True, 512,
+                                     512)
+            parts = []
+            for name, g, w in zip(("dK", "dV"), got, want):
+                g, w = g.float(), w.float()
+                share = (g - w).abs() / (FLASH_TOL[0] + FLASH_TOL[1] * w.abs())
+                i = int(share.argmax())
+                r = float(share.flatten()[i])
+                worst = max(worst, r)
+                parts.append(f"{name} {r:.3f} of its bound (err "
+                             f"{float((g - w).abs().flatten()[i]):.4g}, "
+                             f"|want| {float(w.abs().flatten()[i]):.4g})")
+                if r > 1.0 or not bool(torch.isfinite(g).all()):
+                    fail(f"K3 sweep seed {seed} {case}: {parts[-1]}")
+            log(f"  K3 sweep seed {seed} {case}: " + "; ".join(parts))
+            del q, k, v, do, seg, o, lse, dsum, got, want
+    log(f"  K3 sweep: {len(K3_SWEEP_SEEDS)} seeds x 2 cases, worst "
+        f"{worst:.3f} of the bound")
+    return worst
 
 
 def describe_resources(r, names):
@@ -1453,7 +1644,8 @@ def stream_gaps(torch, eng, prompt, stream, start, max_new, stops,
 
 
 def check_greedy(torch, label, got, want, ref, prompt, max_new,
-                 stops=(), kv_quant=None, plain=None, lora=None):
+                 stops=(), kv_quant=None, plain=None, lora=None,
+                 tie_ulps=NEAR_TIE_ULPS):
     """``got`` equals ``want`` (the stream of ``ref``, an engine whose
     params and cfg give the plain forward), or the two part at a near-tie:
     ``ref``'s plain bf16 forward over the prompt and the tokens they share
@@ -1465,7 +1657,11 @@ def check_greedy(torch, label, got, want, ref, prompt, max_new,
     Where ``got``'s engine computes another model than ``ref`` (quantized
     weights against their dequantized twin), ``plain`` is that engine and
     its own forward scores ``got``. With ``lora`` every plain forward
-    carries that adapter."""
+    carries that adapter. ``tie_ulps`` is the parting rule's gap: a
+    speculative engine picks its tokens from a verify forward (K8 over
+    k + 1 columns), not from the decode step the reference engine runs,
+    so its parting token is held only to ``FORCED_ULPS``, like every
+    token after it."""
     n = min(len(got), len(want))
     div = next((i for i in range(n) if got[i] != want[i]), None)
     if div is None and len(got) == len(want):
@@ -1479,7 +1675,7 @@ def check_greedy(torch, label, got, want, ref, prompt, max_new,
                                 lora=lora)[div]
         second = int(torch.topk(row, 2).indices[1])
         tie = gaps_ulps(torch, row[None], [second])[0]
-        if tie > NEAR_TIE_ULPS:
+        if tie > tie_ulps:
             fail(f"{label}: the streams part at token {div} without a "
                  f"near-tie (the top two {tie:.2f} ulps apart)")
     else:
@@ -1720,6 +1916,244 @@ def f32_nll(torch, params32, cfg, p_ids, c_ids, max_seq_len, lora=None):
         tgt = torch.tensor(ids[-n:], device="cuda")
         nll = float(-lp.gather(-1, tgt[:, None]).sum())
     return nll, n
+
+
+# ------------------------------------------------------- phase 3-spec
+SPEC_FLAGS = ("--kv_block_size", "16", "--slots", "4",
+              "--spec_draft_config", "take:4", "--spec_k", str(SPEC_K),
+              "--spec_mode", "on")
+SPEC_REQS = [
+    ("greedy-a", {"messages": [{"role": "user", "content":
+                                "Write a haiku about the sea."}],
+                  "max_tokens": 64}),
+    ("greedy-b", {"messages": [{"role": "user", "content": " ".join(
+        f"item {i}: the quick brown fox." for i in range(30))}],
+                  "max_tokens": 64}),
+    ("sampled", {"messages": [{"role": "user", "content": "Say hi."}],
+                 "max_tokens": 64, "temperature": 0.8, "top_p": 1.0}),
+    ("sampled-topp", {"messages": [{"role": "user",
+                                    "content": "Count to ten."}],
+                      "max_tokens": 64, "temperature": 0.8, "top_p": 0.9}),
+]
+
+
+def spec_expected(trace, layers):
+    """K7, K8 and K9 launches a spec engine's scheduler trace implies: K8
+    once a layer per prefill chunk and per verify step (chain or tree), K7
+    once a layer per pending-form decode step and per settle, K9 once per
+    fresh-row draw and per draft draw of a "simple" batch (k a chain step,
+    the tree's node count a tree step) and once per pending-form decode
+    step, except in "topp" batches (the nucleus path is plain)."""
+    k7 = k8 = k9 = 0
+    fused = ("greedy", "simple")
+    for ev in trace:
+        if ev[0] == "prefill":
+            k8 += layers
+        elif ev[0] == "spec":
+            k8 += layers
+            if ev[3] == "simple":
+                k9 += sum(ev[4]) if ev[4] else ev[1]
+        elif ev[0] == "spec_settle":
+            k7 += layers
+        elif ev[0] == "decode":
+            k7 += layers * ev[1]
+            k9 += ev[1] if ev[2] in fused else 0
+        elif ev[0] == "spec_enter":
+            k9 += 1 if ev[2] in fused else 0
+    return k7, k8, k9
+
+
+def run_requests(eng, reqs, submit):
+    """``reqs`` at once through ``submit(name, body)`` (HTTP or the engine);
+    returns ({name: result}, {name: request stats})."""
+    eng.request_stats.clear()
+    results, errors = {}, []
+
+    def run(name, body):
+        try:
+            results[name] = submit(name, body)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"{name}: {e}")
+
+    threads = [threading.Thread(target=run, args=r) for r in reqs]
+    for th_ in threads:
+        th_.start()
+    for th_ in threads:
+        th_.join(timeout=900)
+    if errors or len(results) != len(reqs):
+        fail(f"requests failed: {errors or 'did not finish'}")
+    return results, {s["trace_id"]: s for s in eng.request_stats}
+
+
+def describe_stats(stats):
+    ttft = median([s["ttft_s"] * 1e3 for s in stats.values()])
+    tps = median([1.0 / s["tpot_s"] for s in stats.values() if s["tpot_s"]])
+    return ttft, tps
+
+
+def spec_phase(torch, label, flags, reqs, path):
+    """The paged server with a draft (``flags``): ``reqs`` at once over
+    HTTP with K7/K8/K9 counted against the scheduler trace, the same batch
+    again (equal text: seeded draws), greedy streams against an engine
+    without a draft (``check_greedy``), and the same prompts through that
+    engine for its TTFT and tok/s. Returns the K8 launches keyed by
+    ``path``."""
+    from datatunerx_tpu_torch.ops import cuda_paged_attention as cpa
+    from datatunerx_tpu_torch.ops import cuda_sampling as cs
+    from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
+
+    srv, port, eng = start_server(torch, flags)
+    quant = eng.kv_quant == "int8"
+    attr = "int8_launches" if quant else "launches"
+    counters = ((cpa.paged_decode_attention, attr),
+                (cpa.paged_multitoken_attention, attr),
+                (cs.kernel_sample, "launches"))
+    if eng.spec is None or eng.decode_path != "kernel":
+        fail(f"{label}: spec {eng.spec is not None}, decode path "
+             f"{eng.decode_path}")
+
+    def http(name, body):
+        return post(port, body, trace=name)
+
+    before = dict(eng.spec_info())
+    for c, a in counters:
+        setattr(c, a, 0)
+    eng.sched_trace.clear()
+    results, stats = run_requests(eng, reqs, http)
+    got = tuple(getattr(c, a) for c, a in counters)
+    trace = list(eng.sched_trace)
+    want = spec_expected(trace, eng.cfg.num_layers)
+    log(f"  launches K7/K8/K9 {got}, from the trace {want} "
+        f"({sum(1 for e in trace if e[0] == 'spec')} verify steps, "
+        f"{sum(1 for e in trace if e[0] == 'decode')} pending-form chunks, "
+        f"{sum(1 for e in trace if e[0] == 'prefill')} prefill chunks)")
+    if got != want:
+        fail(f"{label}: launches {got} differ from the trace's {want}")
+    if got[1] <= 0:
+        fail(f"{label}: no verify step launched K8")
+    info = eng.spec_info()
+    prop = info["proposed"] - before["proposed"]
+    acc = info["accepted"] - before["accepted"]
+    rows = info["row_steps"] - before["row_steps"]
+    for name, body in reqs:
+        st = stats.get(name)
+        if st is None or st["tokens"] <= 0:
+            fail(f"{label} {name}: no tokens")
+        if st["tokens"] > body["max_tokens"]:
+            fail(f"{label} {name}: {st['tokens']} tokens over its budget")
+    ttft, tps = describe_stats(stats)
+    log(f"  {label}: acceptance {acc}/{prop} = "
+        f"{acc / max(prop, 1):.4f}, mean accepted length "
+        f"{acc / max(rows, 1):.3f} a verify row; TTFT median {ttft:.1f} ms, "
+        f"decode {tps:.1f} tok/s per request (median)")
+    if "tree" in info:
+        log(f"  {label}: tree widths {info['tree']['widths']} "
+            f"(depth EMA {info['tree'].get('depth_ema')}, decisive EMA "
+            f"{info['tree'].get('decisive_ema')})")
+    if path == "@spec-chain" and not quant:
+        n = spec_step_launches(torch, eng)
+        log(f"  {label}: host launches a chain verify step (k {SPEC_K}, 4 "
+            f"slots): greedy {n['greedy']}, sampled {n['simple']} (of "
+            f"which the residual draw's bits ~{TWIN_LAUNCHES[0]}); a "
+            f"pending-form decode step {n['decode']}")
+    again, _ = run_requests(eng, reqs, http)
+    for name, _ in reqs:
+        if again[name]["text"] != results[name]["text"]:
+            fail(f"{label} {name}: a second run of the same seed differs")
+    plain = BatchedEngine("preset:tinyllama-1.1b", template="llama2",
+                          max_seq_len=eng.max_seq_len, slots=4,
+                          kv_block_size=16, kv_quant=eng.kv_quant)
+    try:
+        def local(engine):
+            def submit(name, body):
+                ids, stops = engine._encode_chat(body["messages"])
+                r = engine.submit(ids, max_new_tokens=body["max_tokens"],
+                                  temperature=body.get("temperature", 0.0),
+                                  top_p=body.get("top_p", 1.0),
+                                  stop_ids=stops, trace_id=name)
+                if not r.done.wait(600) or r.error:
+                    raise RuntimeError(r.error or "timed out")
+                return {"ids": ids, "stops": stops, "tokens": r.tokens}
+            return submit
+
+        base, base_stats = run_requests(plain, reqs, local(plain))
+        b_ttft, b_tps = describe_stats(base_stats)
+        log(f"  the same prompts without a draft (phase 3's engine, "
+            f"in-process): TTFT median {b_ttft:.1f} ms, decode "
+            f"{b_tps:.1f} tok/s per request; spec / plain decode "
+            f"{tps / b_tps:.3f}")
+        greedy = [r for r in reqs if not r[1].get("temperature")]
+        spec_own, _ = run_requests(eng, greedy, local(eng))
+        for name, body in greedy:
+            g, w = spec_own[name], base[name]
+            check_greedy(torch, f"{label} {name}", g["tokens"], w["tokens"],
+                         plain, g["ids"], body["max_tokens"], g["stops"],
+                         kv_quant=eng.kv_quant, tie_ulps=FORCED_ULPS)
+    finally:
+        plain.close()
+    stop_server(srv)
+    eng.close()
+    return {counter_key(cpa.paged_multitoken_attention, attr) + path: got[1]}
+
+
+def spec_step_launches(torch, eng):
+    """CUDA kernels one chain verify step launches (k = ``SPEC_K`` over the
+    engine's 4 slots) in a greedy and in a sampled ("simple") batch, and
+    one pending-form decode step, each in a profiler window around a call
+    on the idle engine's own state (no row active: the same launches, no
+    row moves)."""
+    sp = eng.spec
+    progs = sp["programs"]
+    off = torch.zeros_like(eng._active)
+
+    def step(mode):
+        return lambda: progs.step(
+            eng.params, sp["dparams"], eng._lora_arg(), eng._cache,
+            dict(sp["dcache"]), eng._spec_pending, eng._pos, eng._remaining,
+            off, eng._keys, eng._temps, eng._top_ps, eng._stops,
+            eng._adapter_idx, ~off, k=SPEC_K, mode=mode)
+
+    def decode():
+        return progs.decode(eng.params, eng._lora_arg(), eng._cache,
+                            eng._spec_pending, eng._pos, eng._remaining, off,
+                            eng._keys, eng._temps, eng._top_ps, eng._stops,
+                            eng._adapter_idx, K=1, mode="simple",
+                            batch="simple")
+
+    with torch.inference_mode():
+        counts = {"greedy": profile_launches(torch, step("greedy")),
+                  "simple": profile_launches(torch, step("simple")),
+                  "decode": profile_launches(torch, decode)}
+    return counts
+
+
+def spec_full_draft_phase(torch):
+    """take:22 (the draft is the whole target): greedy proposals must be
+    accepted at 0.9 or more, which a broken rollback cannot reach."""
+    from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
+
+    eng = BatchedEngine("preset:tinyllama-1.1b", template="llama2",
+                        max_seq_len=1024, slots=4, kv_block_size=16,
+                        spec_draft=f"take:{LAYERS}", spec_k=SPEC_K,
+                        spec_mode="on")
+    try:
+        tok = eng.tokenizer
+        reqs = [eng.submit(tok.encode(t), max_new_tokens=48)
+                for t in ("The history of the printing press",
+                          "def quicksort(xs):")]
+        for r in reqs:
+            if not r.done.wait(600) or r.error:
+                fail(f"take:{LAYERS}: {r.error or 'timed out'}")
+        info = eng.spec_info()
+        rate = info["accepted"] / max(info["proposed"], 1)
+        log(f"  take:{LAYERS} greedy: {info['accepted']}/{info['proposed']} "
+            f"proposals accepted ({rate:.4f}), {info['spec_steps']} verify "
+            "steps")
+        if rate < 0.9:
+            fail(f"take:{LAYERS} accepted {rate:.4f} of its proposals "
+                 "(want >= 0.9)")
+    finally:
+        eng.close()
 
 
 def perplexity_phase(torch):
@@ -2877,10 +3311,19 @@ def main(argv=None) -> int:
     report(check_k8(torch, timer, gen_hf, shape=K8_LLAMA2,
                     path="@hf-llama2"))
     report(check_k9(torch, timer, gen_hf, V=151936, path="@hf-qwen"))
+    # the spec phases' shapes and the twin, each from a generator of its
+    # own (the inputs of every other check stay what they were)
+    TWIN_LAUNCHES[0] = check_twin(torch, torch.Generator().manual_seed(13))
+    for i, (quant, tree) in enumerate(((False, False), (True, False),
+                                       (False, True))):
+        report(check_k8_spec(torch, timer,
+                             torch.Generator().manual_seed(14 + i),
+                             quant=quant, tree=tree))
     log(f"  an empty kernel under the same timer: "
         f"{empty_kernel_ms(torch, timer):.4f} ms (the floor of a small "
         "kernel's time)")
     flash = check_flash(torch, timer, gen)
+    check_k3_sweep(torch)
     del timer
     torch.cuda.empty_cache()
     for e in check_k10(torch) + flash + check_quant(torch):
@@ -2943,6 +3386,22 @@ def main(argv=None) -> int:
         log("[3-prefix-int8] the same over int8 KV pools")
         prefix_phase(torch, [by_name["K7-int8"], by_name["K8-int8"]],
                      kv_quant="int8")
+        log("[3-spec] the paged server with a draft (take:4, k 4, spec on): "
+            "2 greedy, 1 sampled and 1 top-p request at once")
+        launches.update(spec_phase(torch, "3-spec", SPEC_FLAGS, SPEC_REQS,
+                                   "@spec-chain"))
+        spec_full_draft_phase(torch)
+        torch.cuda.empty_cache()
+        log("[3-spec-tree] the same server with --spec_tree 2x3")
+        launches.update(spec_phase(
+            torch, "3-spec-tree", SPEC_FLAGS + ("--spec_tree", "2x3"),
+            SPEC_REQS[:3], "@spec-tree"))
+        torch.cuda.empty_cache()
+        log("[3-spec-int8] 3-spec over --kv_quant int8, 2 greedy requests")
+        launches.update(spec_phase(
+            torch, "3-spec-int8", SPEC_FLAGS + ("--kv_quant", "int8"),
+            SPEC_REQS[:2], "@spec-chain"))
+        torch.cuda.empty_cache()
         log("[3-perplexity] POST /perplexity to the paged server")
         perplexity_phase(torch)
         log("[3-single] the single-request engine (--slots 1), then "

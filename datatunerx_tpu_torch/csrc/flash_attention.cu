@@ -80,11 +80,18 @@
 //   dS = P (dP - D) scale in f32 on the fragments; the masks use the
 //   fragment's own (row, column).
 // - Numerics: S and dP are as in design 1 (bf16 inputs are exact in f32,
-//   sums are f32). One rounding point is new: P (K1, K3) and dS (K2, K3)
-//   round to bf16 as operands of the second products, where the reference
-//   keeps f32; relative error 2^-9 per term, random in sign, well inside the
-//   2^-6 bf16 tolerance the outputs are held to. O, dQ, dK and dV
-//   accumulate in f32 and round once.
+//   sums are f32). One rounding point is new: P (K1) and dS (K2) round to
+//   bf16 as operands of the second products, where the reference keeps
+//   f32; relative error 2^-9 per term, random in sign, inside the 2^-6
+//   bf16 tolerance the outputs are held to (K2's sum runs over one head's
+//   keys). K3 sums over the G heads of a group as well, 8 x 1024 terms a
+//   key row at the training shapes, and a single rounding of P and dS
+//   there reaches the bound's edge (0.8 of it at one packed batch in an
+//   emulation, past it on the card at another draw). So K3 splits each of
+//   P^T and dS^T into a bf16 hi/lo pair (mma_sm90.cuh, c_to_a_split) and
+//   issues two products into the same f32 accumulator: 16 significant
+//   bits per operand, at four products a fragment instead of two. O, dQ,
+//   dK and dV accumulate in f32 and round once.
 // - What a wgmma/TMA version would add: 64-row warpgroup products with B
 //   (and A for S/dP) read straight from swizzled shared memory, so the
 //   ldmatrix traffic and most of the issue slots go; TMA loads issued by one
@@ -1095,13 +1102,16 @@ __global__ void __launch_bounds__(MT) flash_bwd_dkv_mma_kernel(
         dpT[j][e] = p * (dpT[j][e] - (odd ? dd.y : dd.x)) * scale;  // dS^T
       }
     }
-    uint32_t pa[QT / 16][4], da[QT / 16][4];
+    // P^T and dS^T as hi/lo bf16 pairs: rounded once to bf16 they leave
+    // the 2^-6 bound on long GQA sums (ROADMAP, found at a packed 8 x 1024
+    // batch with G = 8), held to 2^-16 they stay far inside it
+    uint32_t pa[QT / 16][4], pl[QT / 16][4], da[QT / 16][4], dl[QT / 16][4];
 #pragma unroll
     for (int kk = 0; kk < QT / 16; ++kk) {
-      c_to_a(sT, kk, pa[kk]);
-      c_to_a(dpT, kk, da[kk]);
+      c_to_a_split(sT, kk, pa[kk], pl[kk]);
+      c_to_a_split(dpT, kk, da[kk], dl[kk]);
     }
-    mma_rows_t<D, QT, 2>(dva, pa, tO, dka, da, tQ);
+    mma_rows_t_split<D, QT>(dva, pa, pl, tO, dka, da, dl, tQ);
   }
   cp_wait<0>();
 

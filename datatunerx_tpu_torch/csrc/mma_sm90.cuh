@@ -109,6 +109,24 @@ __device__ __forceinline__ void c_to_a(const float (*c)[4], int kk,
   a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
+// c_to_a's fragment split in two: hi = the bf16 rounding of each f32 value
+// and lo = the bf16 rounding of what hi left (x - hi is exact in f32), so
+// hi + lo carries 16 of the value's 24 significant bits. Two products into
+// one f32 accumulator then take the operand at that precision (flash K3).
+__device__ __forceinline__ void split_pack(float x0, float x1, uint32_t* hi,
+                                           uint32_t* lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  *hi = *reinterpret_cast<const uint32_t*>(&h);
+  *lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+__device__ __forceinline__ void c_to_a_split(const float (*c)[4], int kk,
+                                             uint32_t* hi, uint32_t* lo) {
+  split_pack(c[2 * kk][0], c[2 * kk][1], hi, lo);
+  split_pack(c[2 * kk][2], c[2 * kk][3], hi + 1, lo + 1);
+  split_pack(c[2 * kk + 1][0], c[2 * kk + 1][1], hi + 2, lo + 2);
+  split_pack(c[2 * kk + 1][2], c[2 * kk + 1][3], hi + 3, lo + 3);
+}
+
 // The A fragments of 16 rows (r0..) x D of a [row][D + 8] tile, for every
 // k step of a product over D: what a kernel holds in registers for the
 // whole of its key loop.
@@ -203,6 +221,43 @@ __device__ __forceinline__ void mma_rows_t(float (*acc0)[4],
           mma_bf16(acc1[2 * (d0 + dn)], a1[kk], f1[dn][0], f1[dn][1]);
           mma_bf16(acc1[2 * (d0 + dn) + 1], a1[kk], f1[dn][2], f1[dn][3]);
         }
+      }
+    }
+}
+
+// mma_rows_t with SETS == 2 and each A operand given as a hi/lo pair
+// (c_to_a_split): four products per B fragment, the lo term first, into
+// the same accumulators (flash K3's dV += P^T dO and dK += dS^T Q).
+template <int D, int N>
+__device__ __forceinline__ void mma_rows_t_split(
+    float (*acc0)[4], const uint32_t (*a0)[4], const uint32_t (*l0)[4],
+    const bf16* tile0, float (*acc1)[4], const uint32_t (*a1)[4],
+    const uint32_t (*l1)[4], const bf16* tile1) {
+  constexpr int DC = D / 16 < 4 ? D / 16 : 4;
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int d0 = 0; d0 < D / 16; d0 += DC) {
+      uint32_t f0[DC][4], f1[DC][4];
+#pragma unroll
+      for (int dn = 0; dn < DC; ++dn) {
+        ldsm_x4_t(tile0, D + 8, kk * 16, (d0 + dn) * 16, f0[dn]);
+        ldsm_x4_t(tile1, D + 8, kk * 16, (d0 + dn) * 16, f1[dn]);
+      }
+#pragma unroll
+      for (int dn = 0; dn < DC; ++dn) {
+        float* c0 = acc0[2 * (d0 + dn)];
+        float* c1 = acc0[2 * (d0 + dn) + 1];
+        float* c2 = acc1[2 * (d0 + dn)];
+        float* c3 = acc1[2 * (d0 + dn) + 1];
+        mma_bf16(c0, l0[kk], f0[dn][0], f0[dn][1]);
+        mma_bf16(c1, l0[kk], f0[dn][2], f0[dn][3]);
+        mma_bf16(c2, l1[kk], f1[dn][0], f1[dn][1]);
+        mma_bf16(c3, l1[kk], f1[dn][2], f1[dn][3]);
+        mma_bf16(c0, a0[kk], f0[dn][0], f0[dn][1]);
+        mma_bf16(c1, a0[kk], f0[dn][2], f0[dn][3]);
+        mma_bf16(c2, a1[kk], f1[dn][0], f1[dn][1]);
+        mma_bf16(c3, a1[kk], f1[dn][2], f1[dn][3]);
       }
     }
 }

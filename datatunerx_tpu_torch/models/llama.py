@@ -278,6 +278,8 @@ def forward(
     lora_dropout: float = 0.0,
     dropout_seed: Optional[int] = None,
     neftune_alpha: float = 0.0,
+    window_mask: Optional[torch.Tensor] = None,  # [B, T, WN] bool
+    window_start: Optional[torch.Tensor] = None,  # [B]
 ):
     """Returns (logits [B, T, V] float32, new_cache | None).
 
@@ -294,7 +296,11 @@ def forward(
     ``dropout_seed`` (training only) turns on LoRA dropout and NEFTune.
     With ``lora_adapter_idx``, ``lora``'s leaves are stacked over adapters
     (``[L, E, ...]``, scales ``[E]``) and row b applies adapter
-    ``lora_adapter_idx[b]`` (``_proj``)."""
+    ``lora_adapter_idx[b]`` (``_proj``). ``window_mask``/``window_start``
+    (a speculative tree step; the start defaults to the cache cursors)
+    restrict the step's own lanes (``ops/attention.attention_allow``) in
+    the ``allow`` tensor K8 takes and in the gather path's bias; such a
+    step never takes K7."""
     if cfg.attention_impl == "ring":
         raise NotImplementedError(
             "ring attention is not ported yet (ROADMAP Queue 1 item 10, "
@@ -329,7 +335,7 @@ def forward(
     paged = (cache is not None and "block_tables" in cache
              and getattr(cfg, "paged_kernel", False)
              and cfg.sliding_window is None)
-    paged_kernel = paged and T == 1
+    paged_kernel = paged and T == 1 and window_mask is None
     paged_kernel_mt = paged and not paged_kernel
     targets = None
     if cache is None:
@@ -355,13 +361,21 @@ def forward(
              and cfg.sliding_window is None
              and (T % 128 == 0 or T < 128))
     bias = allow = None
+    if window_mask is not None and window_start is None:
+        if cache is None:
+            raise ValueError("window_mask without a cache needs window_start")
+        window_start = cache["len"].expand(B)
     if paged_kernel_mt:
-        allow = attention_allow(positions, kv_positions, kv_valid)
+        allow = attention_allow(positions, kv_positions, kv_valid,
+                                window_mask=window_mask,
+                                window_start=window_start)
     elif not paged_kernel and not flash:
         bias = make_causal_bias(positions, kv_positions, kv_valid,
                                 sliding_window=cfg.sliding_window,
                                 q_segment_ids=segment_ids,
-                                kv_segment_ids=kv_seg)
+                                kv_segment_ids=kv_seg,
+                                window_mask=window_mask,
+                                window_start=window_start)
 
     lora_layers, lora_scale = None, 0.0
     if lora is not None:

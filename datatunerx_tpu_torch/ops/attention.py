@@ -27,6 +27,7 @@ import torch
 
 from datatunerx_tpu_torch.ops.paged_attention import (
     POS_SENTINEL,
+    linear_targets,
     paged_kv_update,
     paged_kv_write,
     paged_record_positions,
@@ -49,12 +50,22 @@ def attention_allow(
     sliding_window: Optional[int] = None,
     q_segment_ids: Optional[torch.Tensor] = None,  # [B, T] packed sequences
     kv_segment_ids: Optional[torch.Tensor] = None,  # [B, S]
+    window_mask: Optional[torch.Tensor] = None,  # [B, T, WN] bool
+    window_start: Optional[torch.Tensor] = None,  # [B] window's first lane
 ) -> torch.Tensor:
     """The boolean attendability tensor [B, T, S] behind the causal bias.
     The paged multi-token kernel consumes this same tensor the gather path
     biases with, so mask parity between the two holds by construction.
     ``sliding_window`` keeps a key only when ``kv > q - window`` (Mistral);
-    segment ids confine packed sequences to themselves."""
+    segment ids confine packed sequences to themselves.
+
+    ``window_mask``/``window_start`` carve a WINDOW out of the key lanes:
+    the ``WN`` linear lanes from ``window_start`` (a speculative verify or
+    draft step's own writes). Inside it a lane must pass its mask column
+    AND the causal check (tree siblings share a rope position, so
+    causality alone cannot separate branches, and the causal check still
+    masks unwritten sentinel lanes); outside it plain causal masking
+    holds."""
     ok = kv_positions[:, None, :] <= q_positions[:, :, None]  # causal
     if sliding_window is not None:
         ok = ok & (kv_positions[:, None, :]
@@ -63,6 +74,17 @@ def attention_allow(
         ok = ok & kv_valid[:, None, :]
     if q_segment_ids is not None and kv_segment_ids is not None:
         ok = ok & (q_segment_ids[:, :, None] == kv_segment_ids[:, None, :])
+    if window_mask is not None:
+        B, T, WN = window_mask.shape
+        S = kv_positions.shape[1]
+        lane = torch.arange(S, dtype=torch.int64,
+                            device=kv_positions.device)[None, :]
+        w = lane - window_start.to(torch.int64)[:, None]  # [B, S]
+        inside = (w >= 0) & (w < WN)
+        wc = w.clamp(0, WN - 1)
+        allowed = torch.gather(window_mask.to(torch.bool), 2,
+                               wc[:, None, :].expand(B, T, S))
+        ok = ok & (~inside[:, None, :] | allowed)
     return ok
 
 
@@ -74,13 +96,16 @@ def make_causal_bias(
     sliding_window: Optional[int] = None,
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
+    window_mask: Optional[torch.Tensor] = None,
+    window_start: Optional[torch.Tensor] = None,
     dtype=torch.float32,
 ) -> torch.Tensor:
     """Additive bias [B, 1, T, S]: 0 where attendable, finfo.min otherwise."""
     ok = attention_allow(q_positions, kv_positions, kv_valid,
                          sliding_window=sliding_window,
                          q_segment_ids=q_segment_ids,
-                         kv_segment_ids=kv_segment_ids)
+                         kv_segment_ids=kv_segment_ids,
+                         window_mask=window_mask, window_start=window_start)
     neg = torch.tensor(torch.finfo(dtype).min, dtype=dtype, device=ok.device)
     zero = torch.zeros((), dtype=dtype, device=ok.device)
     return torch.where(ok, zero, neg)[:, None, :, :]
@@ -256,3 +281,78 @@ def kv_cache_update(cache: dict, ck, cv, cks, cvs, k, v, targets=None):
         return (ck, cv, cks, cvs, kv_dequantize(k_all, ks_all, k.dtype),
                 kv_dequantize(v_all, vs_all, v.dtype))
     return ck, cv, cks, cvs, k_all.to(k.dtype), v_all.to(v.dtype)
+
+
+def compact_window(cache: dict, participate: torch.Tensor,
+                   len0: torch.Tensor, src_cols: torch.Tensor,
+                   keep: torch.Tensor, pos0: torch.Tensor, width: int):
+    """Collapse a tree-verify window back into chain-invariant lanes, in
+    place, on either cache layout (the reference's ``compact_window``).
+
+    A tree step writes ``width`` lanes a row from the pre-step cursor
+    ``len0``: column 0 the pending token, then the flattened tree nodes,
+    siblings sharing a rope position. Only the accepted root-to-leaf path
+    may survive (a stale sibling would pass any later read's causal
+    check): its K/V (and int8 scales) move to the contiguous lanes
+    ``len0+1 … len0+keep``, and every window lane's position becomes
+    ``pos0+i`` where kept, POS_SENTINEL elsewhere. ``src_cols [B, D]`` is
+    the window column of the path's depth-(i+1) node, ``keep [B]`` the
+    accepted length, ``pos0 [B]`` the pending token's position; rows with
+    ``participate`` False are untouched. ``len`` is not advanced here.
+
+    Depths move in increasing order: depth i's destination lane
+    ``len0+i+1`` lies below every later depth's source column (a column
+    of depth j sits at ``len0+j`` or beyond), so no source is overwritten
+    before it is read."""
+    B, D = src_cols.shape
+    dev = len0.device
+    len0 = len0.to(torch.int64)
+    keep = keep.to(torch.int64)
+    src_cols = src_cols.to(torch.int64)
+    part = participate.to(torch.bool)
+    rows = torch.arange(B, dtype=torch.int64, device=dev)
+    kv_keys = [k for k in ("k", "v", "k_scale", "v_scale") if k in cache]
+    paged = "block_tables" in cache
+    if paged:
+        num_blocks = cache["pos"].shape[0] - 1
+        bs = cache["pos"].shape[1]
+        tables = cache["block_tables"]
+
+        def phys(lin, valid):
+            return linear_targets(tables, lin, bs, num_blocks, valid)
+    W = None if paged else cache["pos"].shape[1]
+    for i in range(D):
+        move = part & (keep >= i + 1)
+        src = len0 + src_cols[:, i]
+        dst = len0 + i + 1
+        if paged:
+            sp, so = phys(src[:, None], move[:, None])
+            dp, do = phys(dst[:, None], move[:, None])
+            sp = sp.clamp(max=num_blocks)
+            for key in kv_keys:
+                leaf = cache[key]
+                leaf[:, dp[:, 0], do[:, 0]] = leaf[:, sp[:, 0], so[:, 0]]
+        else:
+            src_c, dst_c = src.clamp(0, W - 1), dst.clamp(0, W - 1)
+            for key in kv_keys:
+                leaf = cache[key]
+                vals = leaf[:, rows, src_c]
+                cur = leaf[:, rows, dst_c]
+                m = move.view((1, B) + (1,) * (vals.dim() - 2))
+                leaf[:, rows, dst_c] = torch.where(m, vals, cur)
+    lane = torch.arange(width, dtype=torch.int64, device=dev)[None, :]
+    lane_lin = len0[:, None] + lane
+    vals = torch.where(lane <= keep[:, None], pos0.to(torch.int64)[:, None]
+                       + lane, torch.full_like(lane_lin, POS_SENTINEL))
+    pos = cache["pos"]
+    if paged:
+        lp, lo = phys(lane_lin, part[:, None].expand(B, width))
+        pos[lp, lo] = vals.to(pos.dtype)
+    else:
+        for j in range(width):
+            lin = lane_lin[:, j]
+            ok = part & (lin < W)
+            lin_c = lin.clamp(0, W - 1)
+            pos[rows, lin_c] = torch.where(ok, vals[:, j].to(pos.dtype),
+                                           pos[rows, lin_c])
+    return cache

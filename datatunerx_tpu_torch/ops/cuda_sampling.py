@@ -16,18 +16,20 @@ plain version ``_plain_sample`` — the twin of the reference's
 ``_xla_sample``, the same tile walk — only for CPU tensors.
 ``kernel_sample.launches`` counts kernel launches.
 
-Randomness: the reference splits JAX threefry keys per slot; the port cannot
-reproduce those bits. Every mode takes the per-row uniforms ``us [S]`` as an
-operand instead (the engine draws them from each slot's own seeded
-``torch.Generator``), so tests hand both implementations the same numbers.
-Sampled streams therefore differ from the JAX engine's; greedy ones match.
+Randomness: the reference splits each row's threefry key and draws one
+uniform from the second half. ``sample_rows`` does the same with the port's
+twin of ``jax.random`` (``ops/prng.py``) on the host, where the keys live
+(they never depend on a sampled value), and hands ``fused_sample`` the
+uniforms ``us [S]``; the engine's decode chunk draws a whole chunk's
+uniforms at once (``row_uniforms``). A seed gives the JAX engine's bits.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from datatunerx_tpu_torch.ops import _build
+from datatunerx_tpu_torch.ops import _build, prng
 from datatunerx_tpu_torch.ops._build import pick_block_n
 
 NEG_INF = -1e30
@@ -165,8 +167,20 @@ def fused_sample(logits, temps, top_ps, us, *, mode):
     return kernel_sample(x, temps, us, greedy=False)
 
 
-def sample_rows(logits, temps, top_ps, us, *, mode):
-    """The decode step's sampling call. The reference's ``sample_rows``
-    splits one JAX key per row here; the port's engine draws each row's
-    uniform from that slot's seeded generator instead and passes ``us``."""
-    return fused_sample(logits, temps, top_ps, us, mode=mode)
+def row_uniforms(keys: np.ndarray):
+    """The reference ``sample_rows``' key step on host keys ``[S, 2]``:
+    split each row's key (half 0 kept, half 1 consumed) and draw one
+    uniform from half 1. Returns ``(new keys [S, 2], us [S] float32)``."""
+    halves = prng.split(keys)
+    return halves[:, 0], prng.uniform(halves[:, 1])
+
+
+def sample_rows(logits, temps, top_ps, keys: np.ndarray, *, mode):
+    """The reference's ``sample_rows``: split each row's key, draw its
+    uniform from the consumed half, sample through ``fused_sample``.
+    Returns ``(tokens [S] int32, new keys [S, 2])``; the keys stay on the
+    host."""
+    keys, us = row_uniforms(keys)
+    us_dev = (None if mode == "greedy"
+              else torch.from_numpy(us).to(logits.device))
+    return fused_sample(logits, temps, top_ps, us_dev, mode=mode), keys

@@ -206,6 +206,20 @@ def _write_targets(tables: torch.Tensor, lens: torch.Tensor, T: int,
     return phys, off
 
 
+def linear_targets(tables: torch.Tensor, lin: torch.Tensor, block_size: int,
+                   num_blocks: int, valid: torch.Tensor):
+    """Physical (block, offset) of ARBITRARY linear lanes ``lin [B, N]``
+    (the reference's ``paged_linear_targets``: tree-window compaction moves
+    lanes that are not one cursor-contiguous run). Lanes with ``valid``
+    False, past the table or backed by no block get ``num_blocks``, the
+    pool's scratch block."""
+    blk, off = lin // block_size, lin % block_size
+    nbps = tables.shape[1]
+    tbl = torch.gather(tables.to(torch.int64), 1, blk.clamp(0, nbps - 1))
+    ok = valid & (blk >= 0) & (blk < nbps) & (tbl >= 0)
+    return torch.where(ok, tbl, torch.full_like(tbl, num_blocks)), off
+
+
 def write_targets(cache: Dict, T: int):
     """Physical ``(block, offset)`` of each slot's next ``T`` cache lanes —
     the same for the pos pool and every layer's K/V pools, so a forward

@@ -26,7 +26,7 @@
   (copy-on-write: only a partial tail block is copied). When the pool runs
   dry, growth reclaims prefix entries, then preempts the youngest session:
   it parks in the dtx-kv-session row format (serving/migration.py) and
-  resumes token for token, generator state included. The oldest live
+  resumes token for token, its threefry key included. The oldest live
   session is never preempted.
 - decode runs in CHUNKS of K tokens: a Python loop of K single-token steps
   with every operand on the device; the one host sync per chunk is the
@@ -53,12 +53,17 @@
   standard, then pinned), youngest within a tier, and a bulk requester
   never preempts a pinned tenant; pinned tenants' adapters never evict.
   With no directory the victim is the youngest, as without the plane.
+- SPECULATIVE DECODING (``spec_draft``, serving/speculative.py): a draft
+  (``take:N``, the target's first N layers, or a model path) proposes
+  ``spec_k`` tokens (a ``spec_tree`` WxD tree), one target forward over the
+  paged or dense cache verifies them, and the acceptance rule keeps a prefix
+  plus one token: greedy streams are token-exact, sampled ones
+  distribution-exact from the slot's key. Slots run in pending-token form
+  and settle before they park. ``spec_mode`` auto backs off to the plain
+  pending-form decode when acceptance collapses; off is the plain engine.
 
 The scheduler thread owns every piece of slot state; callers only enqueue
 requests. The caches are updated in place.
-
-The port refuses what it does not carry yet (speculative decoding): each
-such argument raises ``ValueError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -73,6 +78,7 @@ import time
 import uuid
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from datatunerx_tpu_torch.data.templates import Template, get_template
@@ -83,7 +89,8 @@ from datatunerx_tpu_torch.models.lora import (
     lora_scaling,
     target_dims,
 )
-from datatunerx_tpu_torch.ops.cuda_sampling import sample_rows
+from datatunerx_tpu_torch.ops import prng
+from datatunerx_tpu_torch.ops.cuda_sampling import fused_sample
 from datatunerx_tpu_torch.ops.paged_attention import (
     POS_SENTINEL,
     BlockAllocator,
@@ -94,6 +101,7 @@ from datatunerx_tpu_torch.ops.paged_attention import (
     paged_insert_row,
 )
 from datatunerx_tpu_torch.serving import migration as mig
+from datatunerx_tpu_torch.serving import speculative as spec_mod
 from datatunerx_tpu_torch.serving.engine import (
     _sample_jit,
     encode_chat_messages,
@@ -116,19 +124,6 @@ MAX_STOP = 8  # static per-slot stop-token capacity
 # global arrival order: preemption never takes the oldest live request, and
 # parked sessions resume before anything younger is admitted
 _REQ_SEQ = itertools.count()
-
-# what each refused argument waits for (ROADMAP Queue 1)
-_NOT_PORTED = {
-    "spec_draft": "item 5 (speculative decoding)",
-    "spec_tree": "item 5 (speculative decoding)",
-}
-
-
-def _refuse(arg: str):
-    raise ValueError(
-        f"{arg} is not ported to the PyTorch engine yet: ROADMAP Queue 1 "
-        f"{_NOT_PORTED[arg]}")
-
 
 def manifest_lora_scaling(ckpt_root: str) -> Optional[float]:
     """The adapter's alpha / rank scaling that the trainer recorded in the
@@ -411,8 +406,11 @@ class BatchedEngine:
         kv_blocks: Optional[int] = None,
         kv_overcommit: str = "off",  # on: lazy growth + COW + preemption
         paged_kernel: str = "auto",  # paged attention kernels: auto|on|off
-        spec_draft: Optional[str] = None,
-        spec_tree: Optional[str] = None,
+        spec_draft: Optional[str] = None,  # draft: take:N | path | preset:
+        spec_k: int = 4,  # proposals per verify step (adaptive ceiling)
+        spec_mode: str = "auto",  # auto (adaptive) | on (pinned) | off
+        spec_tree: Optional[str] = None,  # "WxD" tree drafts (None = chain)
+        spec_tree_learned: bool = True,  # learned widths + early exit
         sampling_epilogue: str = "auto",  # fused sampling kernel: auto|on|off
         prefill_chunk: int = 256,
         prefill_token_budget: int = 0,
@@ -421,10 +419,6 @@ class BatchedEngine:
         seed: int = 0,  # preset weights' random init
         device="cuda",
     ):
-        for arg, val in (("spec_draft", spec_draft),
-                         ("spec_tree", spec_tree)):
-            if val:
-                _refuse(arg)
         self.kv_quant = kv_quant or None
         if self.kv_quant not in (None, "int8"):
             raise ValueError(
@@ -574,18 +568,20 @@ class BatchedEngine:
         # each slot's adapter: its row of the stack or pool (0 = base)
         self._adapter_idx = torch.zeros((slots,), dtype=torch.int64,
                                         device=dev)
-        # per-slot sampling randomness: one seeded generator per slot, one
-        # uniform per slot per decode step (see ops/cuda_sampling.py); a
-        # parked session carries its generator's state to its next slot
-        self._gens = [torch.Generator(device=dev).manual_seed(i)
-                      for i in range(slots)]
+        # per-slot threefry keys ([S, 2] uint32 on the host, the
+        # reference's ``_rng``): PRNGKey(seed) at admission, split once a
+        # decode step (ops/prng.py); a parked session carries its key
+        self._keys = np.stack([prng.PRNGKey(i) for i in range(slots)])
 
+        self._init_spec(spec_draft, spec_k, spec_mode, spec_tree,
+                        spec_tree_learned)
         # ---- overcommit state. _tick_advance: the most cache lanes one
-        # scheduler tick consumes per slot (one decode chunk); the grower
-        # keeps every table that far ahead of its cursor. The speculative
-        # write overshoot is 0 until speculative decoding is ported.
+        # scheduler tick consumes per slot (a decode chunk or a verify
+        # step); the grower keeps every table that far ahead of its cursor
+        # plus the verify write overshoot (0 without a draft)
         self._tick_advance = self.chunk
-        self._spec_overshoot = 0
+        if self.spec is not None:
+            self._tick_advance = max(self.chunk, self._spec_step_tokens)
         # preempted sessions parked host-side as dtx-kv-session payloads,
         # oldest first; owned by the scheduler thread
         self._preempted: List[dict] = []
@@ -635,7 +631,10 @@ class BatchedEngine:
         # "cow_extend") / ("prefill", slot, ntokens) / ("activate", slot) /
         # ("decode", K) / ("finish", slot) / ("grow", slot, nblocks) /
         # ("preempt", slot, seq) / ("preempt_prefill", slot, seq) /
-        # ("resume", slot, cursor) / ("adapter_wait", name)
+        # ("resume", slot, cursor) / ("adapter_wait", name); spec engines:
+        # ("spec_prime", slot, n) / ("spec_enter", n, epilogue mode) /
+        # ("spec", k, rows, batch mode, tree widths | None) /
+        # ("spec_settle", slot) / ("decode", K, epilogue mode)
         self.sched_trace: "collections.deque[tuple]" = \
             collections.deque(maxlen=4096)
         # one record per completed request: TTFT and per-token decode time
@@ -941,6 +940,9 @@ class BatchedEngine:
         ids, mask, positions, plen, n_prompt, max_new, _ = prepare_prompt(
             req.prompt_ids, self.tokenizer.eos_token_id,
             self.max_seq_len, req.max_new_tokens)
+        # the kept (un-padded) prompt: what the draft prefills when this
+        # slot joins speculative decoding
+        req.spec_prime_ids = ids[plen - n_prompt:]
         akey = self._adapter_cache_key(req)
         # chunked prefill (cold, or a COW suffix) reads the slot's index
         self._adapter_idx[slot] = req.adapter
@@ -1206,7 +1208,7 @@ class BatchedEngine:
                   n_prompt: int, max_new: int):
         """Set a prefilled slot's decode state: its last-token logits, rope
         position, token budget (clamped to the room left after ``cursor``
-        cache lanes), sampling parameters, stop ids and generator."""
+        cache lanes), sampling parameters, stop ids and threefry key."""
         max_new = max(1, min(max_new, self.max_seq_len - cursor))
         stop_row = torch.full((MAX_STOP,), -1, dtype=torch.int32)
         stop_row[:len(req.stop_ids)] = torch.tensor(req.stop_ids,
@@ -1219,8 +1221,7 @@ class BatchedEngine:
         self._top_ps[slot] = float(req.top_p)
         self._stops[slot] = stop_row.to(self.device)
         self._adapter_idx[slot] = req.adapter
-        self._gens[slot] = torch.Generator(device=self.device).manual_seed(
-            int(req.seed))
+        self._keys[slot] = prng.PRNGKey(req.seed)
         self._decode_ready[slot] = True
 
     # --------------------------------------------- overcommit: grow/preempt
@@ -1321,7 +1322,7 @@ class BatchedEngine:
         """The slot's session as an in-process dtx-kv-session payload: its
         KV prefix (bucket-rounded, trimmed to the cursor; host numpy
         bodies), its last-token logits, cursor, position, budget and its
-        generator's state."""
+        threefry key."""
         # the export's designed sync: the slot's scalar decode state
         cursor, pos, remaining = torch.stack(
             (self._cache["len"][slot], self._pos[slot],
@@ -1337,8 +1338,8 @@ class BatchedEngine:
             "temperature": req.temperature, "top_p": req.top_p,
             "seed": req.seed, "stop_ids": list(req.stop_ids),
             "pos": pos, "remaining": remaining, "cursor": cursor,
-            # the port's stand-in for the reference's live threefry key
-            "rng": self._gens[slot].get_state(),
+            # the slot's live threefry key, as the reference's payload
+            "rng": [int(w) for w in self._keys[slot]],
             "logits": mig.pack_logits(self._logits[slot], b64=False),
             "kv": mig.pack_kv_row(row, cursor, wire, b64=False),
         }
@@ -1349,6 +1350,8 @@ class BatchedEngine:
         re-installs the KV into a fresh slot and keeps pushing tokens to
         the same consumer — no re-prefill, nothing dropped."""
         req = self._slot_req[slot]
+        if self.spec is not None and self._spec_form[slot]:
+            self._spec_settle_slot(slot)  # the row format is logits form
         payload = self._export_slot(slot, req)
         self._release_slot(slot, note_session=False)
         # the slot is still ACTIVE on the device: clear its mask and budget
@@ -1422,8 +1425,8 @@ class BatchedEngine:
             self._arm_slot(slot, req, mig.unpack_logits(
                 payload, self.cfg.vocab_size, device=self.device), cursor,
                 payload["pos"], remaining)
-            # token-exact resume: the slot's LIVE generator, not the seed's
-            self._gens[slot].set_state(payload["rng"])
+            # token-exact resume: the slot's LIVE key, not the seed's
+            self._keys[slot] = np.asarray(payload["rng"], dtype=np.uint32)
         except Exception:
             self._cache["block_tables"][slot] = -1
             self._active[slot] = False
@@ -1456,16 +1459,36 @@ class BatchedEngine:
         return ("off" if self.sampling_epilogue != "on"
                 else self._batch_sample_mode())
 
-    def _draw_uniforms(self, K: int) -> torch.Tensor:
-        """[K, S] uniforms: K draws from each slot's own generator."""
-        return torch.stack([torch.rand(K, generator=g, device=self.device)
-                            for g in self._gens], dim=1)
+    def _split_keys(self, K: int) -> np.ndarray:
+        """Advance every slot's key through K decode steps, as the
+        reference's steps split them (half 0 kept, half 1 drawn from);
+        returns the drawn halves ``[K, S, 2]``."""
+        subs = []
+        for _ in range(K):
+            halves = prng.split(self._keys)
+            self._keys = halves[:, 0]
+            subs.append(halves[:, 1])
+        return np.stack(subs)
+
+    def _chunk_draws(self, K: int, mode: str) -> Optional[torch.Tensor]:
+        """The K steps' draw operands in one host-to-device copy: ``[K, S]``
+        uniforms for the fused epilogue, ``[K, S, 2]`` draw keys for the
+        legacy sampler, None where every row is greedy. Keys advance
+        either way."""
+        subs = self._split_keys(K)
+        greedy = (mode == "greedy" or (mode == "off" and
+                                       self._batch_sample_mode() == "greedy"))
+        if greedy:
+            return None
+        if mode == "off":
+            return prng.to_device(subs, self.device)
+        return torch.from_numpy(prng.uniform(subs)).to(self.device)
 
     def _decode_chunk(self, K: int, mode: str) -> torch.Tensor:
         """K single-token decode steps over every slot, all on the device.
         Returns ``[K + 1, S]`` int32: the emitted tokens (-1 = none) and, in
         the last row, the post-chunk active mask."""
-        us = self._draw_uniforms(K)
+        draws = self._chunk_draws(K, mode)
         # one snapshot of the adapters for the whole chunk
         lora = self._lora_arg()
         aidx = self._adapter_idx if lora is not None else None
@@ -1474,10 +1497,11 @@ class BatchedEngine:
         temps, top_ps, stops = self._temps, self._top_ps, self._stops
         rows = []
         for step in range(K):
+            draw = None if draws is None else draws[step]
             if mode == "off":
-                nxt = _sample_jit(logits, temps, top_ps, us[step])
+                nxt = _sample_jit(logits, temps, top_ps, draw)
             else:
-                nxt = sample_rows(logits, temps, top_ps, us[step], mode=mode)
+                nxt = fused_sample(logits, temps, top_ps, draw, mode=mode)
             is_stop = (nxt[:, None] == stops).any(dim=1)
             emit = active & ~is_stop & (remaining > 0)
             emit_i = emit.to(torch.int32)
@@ -1498,6 +1522,282 @@ class BatchedEngine:
         self._pos, self._remaining, self._active = pos, remaining, active
         rows.append(active.to(torch.int32))
         return torch.stack(rows)
+
+    # ------------------------------------------------ speculative decoding
+    def _init_spec(self, spec_draft, spec_k, spec_mode, spec_tree,
+                   spec_tree_learned):
+        """The spec structures (None without a draft, or with
+        ``spec_mode`` off: the engine is then the plain one)."""
+        smode = (spec_mode or "auto").strip().lower()
+        if smode not in ("auto", "on", "off"):
+            raise ValueError(
+                f"spec_mode must be auto|on|off, got {spec_mode!r}")
+        if smode == "on" and not spec_draft:
+            raise ValueError("--spec_mode on requires --spec_draft_config")
+        self.spec_mode = smode
+        self.spec_k = max(1, int(spec_k))
+        self.spec = None
+        self.spec_tree = None
+        if spec_tree and smode != "off":
+            if not spec_draft:
+                raise ValueError("--spec_tree requires --spec_draft_config")
+            self.spec_tree = spec_mod.parse_spec_tree(spec_tree)
+            if self.spec_tree.step_tokens >= self.max_seq_len:
+                raise ValueError(
+                    f"spec_tree {self.spec_tree} writes "
+                    f"{self.spec_tree.step_tokens} tokens per step: does "
+                    f"not fit max_seq_len {self.max_seq_len}")
+        self.spec_tree_learned = (bool(spec_tree_learned)
+                                  and self.spec_tree is not None)
+        # a verify step writes its step's tokens past a row's cursor
+        # (chain: pending + k proposals; tree: pending + every node); paged
+        # reservations and growth keep that overshoot physical
+        self._spec_step_tokens = (self.spec_tree.step_tokens
+                                  if self.spec_tree else self.spec_k + 1)
+        self._spec_overshoot = 0
+        if not spec_draft or smode == "off":
+            return
+        dcfg, dparams = spec_mod.build_draft(spec_draft, self.cfg,
+                                             self.params, device=self.device)
+        self.spec = {
+            "draft": spec_draft, "dcfg": dcfg, "dparams": dparams,
+            # the draft's dense per-slot cache (read through the gather
+            # path, as the reference's)
+            "dcache": init_cache(dcfg, self.slots, self.max_seq_len,
+                                 dtype=torch.bfloat16, per_slot=True,
+                                 device=self.device),
+            "programs": spec_mod.SpecPrograms(
+                self.cfg, dcfg, epilogue=self.sampling_epilogue),
+        }
+        ctrl_cls = (spec_mod.AdaptiveTree if self.spec_tree_learned
+                    else spec_mod.AdaptiveK)
+        self.spec_ctrl = ctrl_cls(self.spec_k, mode=smode,
+                                  tree=self.spec_tree)
+        self._spec_overshoot = self._spec_step_tokens
+        self._spec_pending = torch.zeros((self.slots,), dtype=torch.int32,
+                                         device=self.device)
+        self._spec_form = [False] * self.slots  # slot in pending form
+        self._spec_primed = [False] * self.slots  # draft row holds context
+        self.spec_stats = {"proposed": 0, "accepted": 0, "row_steps": 0,
+                           "spec_steps": 0, "plain_steps": 0,
+                           "tree_steps": 0}
+        self._spec_adapter_ema: Dict[str, float] = {}
+        self._spec_tree_slot_path: Dict[int, float] = {}
+
+    def _spec_prime_slot(self, slot: int):
+        """Prefill the slot's context (kept prompt + emitted tokens) through
+        the draft into its row of the draft cache. Priming feeds only the
+        acceptance rate: verification keeps the output exact."""
+        req = self._slot_req[slot]
+        ids = list(getattr(req, "spec_prime_ids", None) or [])
+        eos = self.tokenizer.eos_token_id or 0
+        if not ids:
+            ids = list(req.prompt_ids)[-self.max_seq_len:] or [eos]
+        toks = ids + list(req.tokens)
+        n, W = len(toks), self.max_seq_len
+        if n > W:
+            # the context does not fit a draft row: this slot takes the
+            # plain path for its lifetime
+            self.spec_ctrl.force_off_slot(slot)
+            self._spec_primed[slot] = True
+            return
+        padded = min(-(-n // DECODE_BUCKET) * DECODE_BUCKET, W)
+        pad = padded - n
+        dev = self.device
+        sp = self.spec
+        sp["dcache"] = sp["programs"].prime(
+            sp["dparams"], sp["dcache"], slot,
+            torch.tensor([[eos] * pad + toks], dtype=torch.int32, device=dev),
+            torch.tensor([[0] * pad + [1] * n], dtype=torch.int32,
+                         device=dev),
+            torch.tensor([[0] * pad + list(range(n))], dtype=torch.int32,
+                         device=dev),
+            padded)
+        self._spec_primed[slot] = True
+        self._trace("spec_prime", slot, n)
+
+    def _spec_settle_slot(self, slot: int):
+        """Write the slot's pending token through the target so the slot is
+        in logits form again (the row format's contract)."""
+        if self.spec is None or not self._spec_form[slot]:
+            return
+        onehot = torch.zeros((self.slots,), dtype=torch.bool,
+                             device=self.device)
+        onehot[slot] = True
+        row_logits, self._cache, self._pos = self.spec["programs"].settle(
+            self.params, self._lora_arg(), self._cache, self._spec_pending,
+            self._pos, self._adapter_idx, onehot)
+        self._logits = torch.where(onehot[:, None], row_logits, self._logits)
+        self._spec_form[slot] = False
+        self._trace("spec_settle", slot)
+
+    def _spec_decode_tick(self):
+        """One speculative tick in place of the plain chunk: fresh slots
+        are primed and enter pending form (their first token drawn as the
+        plain step would); then, if the controller approves, ONE
+        draft/verify step (chain or tree) emits up to ``step`` tokens a
+        drafting row, else the pending-form plain chunk runs. Returns
+        ``(emitted rows [n][S], active [S])`` on the host."""
+        sp = self.spec
+        progs = sp["programs"]
+        dev = self.device
+        bmode, emode = self._batch_sample_mode(), self._epilogue_mode()
+        rows: List[List[int]] = []
+        fresh = [s for s in range(self.slots)
+                 if self._decode_ready[s] and self._slot_req[s] is not None
+                 and not self._spec_form[s]]
+        enter_emitted = None
+        if fresh:
+            for slot in fresh:
+                if not self._spec_primed[slot]:
+                    self._spec_prime_slot(slot)
+            fresh_h = np.zeros((self.slots,), dtype=bool)
+            fresh_h[fresh] = True
+            (enter_emitted, self._spec_pending, self._remaining,
+             self._active, self._keys) = progs.enter(
+                self._logits, self._spec_pending, self._remaining,
+                self._active, self._keys, self._temps, self._top_ps,
+                self._stops, fresh_h, mode=emode, batch=bmode)
+            for slot in fresh:
+                self._spec_form[slot] = True
+            self._trace("spec_enter", len(fresh), emode)
+        # the tick's designed sync: which rows can draft (active, a budget
+        # of 2 or more), with the first tokens of the fresh rows
+        parts = [self._active.to(torch.int32), self._remaining]
+        if enter_emitted is not None:
+            parts.append(enter_emitted.to(torch.int32))
+        host = torch.stack(parts).cpu().tolist()
+        active_prev, rem = host[0], host[1]
+        if enter_emitted is not None:
+            rows.append(host[2])
+        spec_rows = np.array([
+            bool(self._spec_form[s] and self._spec_primed[s]
+                 and active_prev[s] and rem[s] >= 2
+                 and self.spec_ctrl.slot_enabled(s))
+            for s in range(self.slots)])
+        lora = self._lora_arg()
+        if spec_rows.any() and self.spec_ctrl.use_spec():
+            plan = self.spec_ctrl.current_plan()
+            spec_on = torch.from_numpy(spec_rows).to(dev)
+            args = (self.params, sp["dparams"], lora, self._cache,
+                    sp["dcache"], self._spec_pending, self._pos,
+                    self._remaining, self._active, self._keys, self._temps,
+                    self._top_ps, self._stops, self._adapter_idx, spec_on)
+            margin = None
+            if plan[0] == "tree":
+                widths = plan[1]
+                k = len(widths)
+                (emitted, acc, self._cache, sp["dcache"], self._spec_pending,
+                 self._pos, self._remaining, self._active, self._keys,
+                 margin) = progs.tree_step(*args, widths=widths, mode=bmode)
+                self.spec_stats["tree_steps"] += 1
+            else:
+                k = plan[1]
+                (emitted, acc, self._cache, sp["dcache"], self._spec_pending,
+                 self._pos, self._remaining, self._active,
+                 self._keys) = progs.step(*args, k=k, mode=bmode)
+            # the step's one sync: its tokens, acceptances and active mask
+            host = torch.cat([emitted.T.to(torch.int32),
+                              acc[None].to(torch.int32),
+                              self._active[None].to(torch.int32)]).cpu()
+            rows.extend(host[:-2].tolist())
+            acc_h, active = host[-2].tolist(), host[-1].tolist()
+            obs = [(s, acc_h[s], k) for s in range(self.slots)
+                   if spec_rows[s] and active_prev[s]]
+            self._spec_observe(plan, obs, margin)
+            self.sampling_stats["fused_steps" if self.sampling_epilogue
+                                == "on" else "legacy_steps"] += 1
+            self._trace("spec", k, len(obs), bmode,
+                        plan[1] if plan[0] == "tree" else None)
+        else:
+            (emitted, self._cache, self._spec_pending, self._pos,
+             self._remaining, self._active, self._keys) = progs.decode(
+                self.params, lora, self._cache, self._spec_pending,
+                self._pos, self._remaining, self._active, self._keys,
+                self._temps, self._top_ps, self._stops, self._adapter_idx,
+                K=self.chunk, mode=emode, batch=bmode)
+            host = torch.cat([emitted.to(torch.int32),
+                              self._active[None].to(torch.int32)]).cpu()
+            rows.extend(host[:-1].tolist())
+            active = host[-1].tolist()
+            self.spec_stats["plain_steps"] += 1
+            self.sampling_stats["fused_steps" if emode != "off"
+                                else "legacy_steps"] += 1
+            self.spec_ctrl.note_plain_step()
+            self._trace("decode", self.chunk, emode)
+        return rows, active
+
+    def _spec_observe(self, plan, obs, margin):
+        """Feed one verify step's acceptances to the controller and the
+        acceptance counters (host data only, but the tree's root margins)."""
+        self.spec_ctrl.observe(obs)
+        st = self.spec_stats
+        st["spec_steps"] += 1
+        st["row_steps"] += len(obs)
+        alpha = self.spec_ctrl.alpha
+        for s, a, kk in obs:
+            st["proposed"] += kk
+            st["accepted"] += a
+            if plan[0] == "tree":
+                ema_t = self._spec_tree_slot_path.get(s)
+                self._spec_tree_slot_path[s] = (
+                    a * 1.0 if ema_t is None else ema_t + alpha * (a - ema_t))
+            req = self._slot_req[s]
+            name = req.adapter_name if req is not None else ""
+            ema = self._spec_adapter_ema.get(name)
+            rate = a / kk
+            self._spec_adapter_ema[name] = (
+                rate if ema is None else ema + alpha * (rate - ema))
+        if plan[0] == "tree" and self.spec_tree_learned and obs:
+            depth_fracs = [sum(1 for _, a, _ in obs if a >= j + 1) / len(obs)
+                           for j in range(len(plan[1]))]
+            margins = margin.cpu().tolist()
+            decisive = sum(1 for s, _, _ in obs
+                           if margins[s] >= self.spec_ctrl.DECISIVE_MARGIN)
+            self.spec_ctrl.observe_tree(depth_fracs, decisive / len(obs))
+
+    def spec_info(self) -> Optional[dict]:
+        """The speculative decoding document (None without a draft): mode,
+        draft, k, acceptance rates, the tree's widths, the step mix."""
+        if self.spec is None:
+            return None
+        snap = self.spec_ctrl.snapshot()
+        info = {
+            "enabled": True,
+            "mode": self.spec_mode,
+            "draft": self.spec["draft"],
+            "k_max": self.spec_k,
+            "k": snap["k"],
+            "accept_rate": (round(snap["global_ema"], 4)
+                            if snap["global_ema"] is not None else None),
+            "adapter_accept_rate": {n: round(v, 4) for n, v in
+                                    dict(self._spec_adapter_ema).items()},
+            "slot_accept_rate": snap["slots"],
+            "slots_off": snap["slots_off"],
+            "active": self.spec_ctrl.use_spec(),
+            "disabled_events": snap["disabled_events"],
+        }
+        if self.spec_tree is not None:
+            plan = snap.get("plan") or []
+            widths = (list(plan[1]) if len(plan) == 2 and plan[0] == "tree"
+                      else [self.spec_tree.width] * self.spec_tree.depth)
+            info["tree"] = {
+                "spec": str(self.spec_tree),
+                "width": self.spec_tree.width,
+                "depth": self.spec_tree.depth,
+                "learned": self.spec_tree_learned,
+                "widths": widths,
+                "plan_width": widths[0] if widths else self.spec_tree.width,
+                "slot_path_len": {s: round(v, 4) for s, v in
+                                  dict(self._spec_tree_slot_path).items()},
+            }
+            for key in ("depth_ema", "decisive_ema"):
+                if key in snap:
+                    info["tree"][key] = snap[key]
+        info["sampling_epilogue"] = self.sampling_epilogue
+        info.update(self.sampling_stats)
+        info.update(self.spec_stats)
+        return info
 
     def _scheduler(self):
         # grad mode is thread-local: this thread enters inference mode itself
@@ -1536,21 +1836,24 @@ class BatchedEngine:
                 self._wake.clear()
                 continue
             try:
-                mode = self._epilogue_mode()
-                out = self._decode_chunk(self.chunk, mode)
-                self.sampling_stats["fused_steps" if mode != "off"
-                                    else "legacy_steps"] += 1
-                self._trace("decode", self.chunk)
-                # the decode loop's ONE designed sync point: K tokens per
-                # chunk (and the active mask) cross to the host together
-                host = out.cpu()
+                if self.spec is not None:
+                    emitted, active = self._spec_decode_tick()
+                else:
+                    mode = self._epilogue_mode()
+                    out = self._decode_chunk(self.chunk, mode)
+                    self.sampling_stats["fused_steps" if mode != "off"
+                                        else "legacy_steps"] += 1
+                    self._trace("decode", self.chunk)
+                    # the decode loop's ONE designed sync point: K tokens
+                    # per chunk (and the active mask) cross to the host
+                    host = out.cpu()
+                    emitted, active = host[:-1].tolist(), host[-1].tolist()
             except Exception as e:  # noqa: BLE001 — device fault: fail all in-flight
                 for slot, req in enumerate(self._slot_req):
                     if req is not None:
                         self._release_slot(slot)
                         self._complete(req, error=str(e))
                 continue
-            emitted, active = host[:-1].tolist(), host[-1].tolist()
             for row in emitted:
                 for slot, t in enumerate(row):
                     req = self._slot_req[slot]
@@ -1572,6 +1875,11 @@ class BatchedEngine:
         self._decode_ready[slot] = False
         self._slot_demand[slot] = 0
         self._slot_key[slot] = None
+        if self.spec is not None:
+            self._spec_form[slot] = False
+            self._spec_primed[slot] = False
+            self.spec_ctrl.reset_slot(slot)
+            self._spec_tree_slot_path.pop(slot, None)
         name, self._slot_adapter[slot] = self._slot_adapter[slot], None
         if name is not None and self.adapter_registry is not None:
             self.adapter_registry.release(name)

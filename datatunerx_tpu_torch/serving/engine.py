@@ -9,7 +9,8 @@ full-parameter checkpoint, before any quantization. The prompt prefills
 into a one-row dense cache of width ``plen + buf``
 (``utils/decoding.prepare_prompt``), then a decode loop samples with the
 plain sampler ``_sample_jit`` (the reference's single-request engine has no
-fused epilogue). The loop keeps every operand
+fused epilogue) from the reference's own key stream (``ops/prng.py``): a
+seed gives the JAX engine's sampled tokens. The loop keeps every operand
 on the device and reads a stopped flag back every ``STOP_CHECK`` tokens;
 the tokens cross to the host in one fetch at the end.
 
@@ -22,10 +23,12 @@ import math
 import numbers
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from datatunerx_tpu_torch.data.templates import Template, get_template
 from datatunerx_tpu_torch.models.llama import forward, init_cache
+from datatunerx_tpu_torch.ops import prng
 from datatunerx_tpu_torch.utils.decoding import prepare_prompt
 from datatunerx_tpu_torch.utils.model_loader import load_model_and_tokenizer
 
@@ -138,12 +141,21 @@ class InferenceEngine:
                            device=dev)
         top_ps = torch.full((1,), float(top_p), dtype=torch.float32,
                             device=dev)
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
-        us = torch.rand(max_new, generator=gen, device=dev)
+        # the reference's key stream: split the seed's key once a token and
+        # draw from the second half; keys never depend on a sampled value,
+        # so they are made on the host and cross to the device once
+        subs = None
+        if temperature > 0.0:
+            key, host = prng.PRNGKey(seed), []
+            for _ in range(max_new):
+                key, sub = prng.split(key)
+                host.append(sub)
+            subs = prng.to_device(np.stack(host), dev)
         out = torch.full((max_new,), -1, dtype=torch.int32, device=dev)
         stopped = torch.zeros((1,), dtype=torch.bool, device=dev)
         for i in range(max_new):
-            nxt = _sample_jit(logits, temps, top_ps, us[i:i + 1])
+            nxt = _sample_jit(logits, temps, top_ps,
+                              None if subs is None else subs[i:i + 1])
             stopped = stopped | (nxt[:, None] == stop_arr).any(dim=1)
             out[i:i + 1] = torch.where(stopped, torch.full_like(nxt, -1), nxt)
             if i + 1 == max_new:
@@ -227,13 +239,17 @@ def encode_chat_messages(template: Template, tokenizer, messages: List[dict]):
 
 
 def _sample_jit(logits: torch.Tensor, temperature: torch.Tensor,
-                top_p: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
+                top_p: torch.Tensor, keys: Optional[torch.Tensor]
+                ) -> torch.Tensor:
     """The legacy sampler (``--sampling_epilogue off``), batched over rows:
-    greedy argmax where temperature <= 0, else top-p sampling over the sorted
-    distribution. The reference draws with ``jax.random.categorical``; the
-    port inverts the filtered CDF at the row's uniform ``us`` instead (same
-    distribution, different bits). Returns ``[S]`` int32."""
+    greedy argmax where temperature <= 0, else ``jax.random.categorical``
+    (the port's twin, ``ops/prng.py``) over the top-p filtered, sorted
+    logits, as the reference draws. ``keys [S, 2]`` are the rows' draw keys
+    (int64 words on the logits' device); None when the caller knows every
+    row is greedy, which skips the draw. Returns ``[S]`` int32."""
     greedy = torch.argmax(logits, dim=-1)
+    if keys is None:
+        return greedy.to(torch.int32)
     t = temperature.to(torch.float32).clamp(min=1e-6)
     scaled = logits.to(torch.float32) / t[:, None]
     sorted_logits, sorted_idx = torch.sort(scaled, dim=-1, descending=True,
@@ -242,10 +258,9 @@ def _sample_jit(logits: torch.Tensor, temperature: torch.Tensor,
     cum = torch.cumsum(probs, dim=-1)
     tp = top_p.to(torch.float32)[:, None]
     cut = (cum - probs > tp) & (tp < 1.0)
-    probs = torch.where(cut, torch.zeros_like(probs), probs)
-    cdf = torch.cumsum(probs, dim=-1)
-    hit = cdf > (us.to(torch.float32) * probs.sum(dim=-1))[:, None]
-    choice = torch.argmax(hit.to(torch.int8), dim=-1)
+    filtered = torch.where(cut, torch.full_like(sorted_logits, -math.inf),
+                           sorted_logits)
+    choice = prng.categorical(keys, filtered)
     sampled = torch.gather(sorted_idx, -1, choice[:, None])[:, 0]
     return torch.where(temperature <= 0.0, greedy, sampled).to(torch.int32)
 

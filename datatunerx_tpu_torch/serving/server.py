@@ -351,6 +351,8 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
                       kv_overcommit="off", prefill_chunk=256,
                       prefill_token_budget=0, paged_kernel="auto",
                       sampling_epilogue="auto", device="cuda", seed=0,
+                      spec_draft="", spec_k=4, spec_mode="auto",
+                      spec_tree="",
                       checkpoint_path="", adapters=None, adapter_pool=0,
                       adapter_rank_max=8, adapter_targets=None,
                       tenants_config="", host_adapter_cache_mb=0.0):
@@ -371,6 +373,8 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
                               ("--kv_overcommit", kv_overcommit == "on"),
                               # only "on" demands the batched paged engine
                               ("--paged_kernel", paged_kernel == "on"),
+                              ("--spec_draft_config", spec_draft),
+                              ("--spec_tree", spec_tree),
                               # the single-request engine samples plainly
                               ("--sampling_epilogue",
                                sampling_epilogue == "on"),
@@ -400,6 +404,9 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
                     kv_overcommit=kv_overcommit or "off",
                     paged_kernel=paged_kernel or "auto",
                     sampling_epilogue=sampling_epilogue or "auto",
+                    spec_draft=spec_draft or None, spec_k=spec_k,
+                    spec_mode=spec_mode or "auto",
+                    spec_tree=spec_tree or None,
                     prefill_chunk=prefill_chunk,
                     prefill_token_budget=prefill_token_budget,
                     device=device, seed=seed)
@@ -423,8 +430,6 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
 
 # flag → (value that means "feature off", ROADMAP Queue 1 item it waits for)
 _REFUSED = {
-    "spec_draft_config": ("", "item 5 (speculative decoding)"),
-    "spec_tree": ("", "item 5 (speculative decoding)"),
     "role": ("mixed", "item 6 (migration and the fleet plane)"),
     "trace_log": ("", "item 12 (tooling)"),
     "slo_config": ("", "item 12 (tooling)"),
@@ -496,11 +501,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="paged attention CUDA kernels: auto = on under CUDA, "
                         "on = force (their plain versions on the CPU), off = "
                         "the gather path")
-    p.add_argument("--spec_draft_config", default="")
-    p.add_argument("--spec_k", type=int, default=4)
+    p.add_argument("--spec_draft_config", default="",
+                   help="speculative decoding draft: a model path, "
+                        "preset:<name> (the target's vocabulary), or take:N "
+                        "(the target's first N layers); empty = off")
+    p.add_argument("--spec_k", type=int, default=4,
+                   help="draft proposals per verify step (the adaptive "
+                        "controller's ceiling)")
     p.add_argument("--spec_mode", default="auto",
-                   choices=["auto", "on", "off"])
-    p.add_argument("--spec_tree", default="")
+                   choices=["auto", "on", "off"],
+                   help="auto = adaptive (shrink k, fall back to plain "
+                        "decode when acceptance collapses), on = always "
+                        "draft, off = the plain decode path")
+    p.add_argument("--spec_tree", default="",
+                   help="tree drafts 'WxD' (branch width x depth, e.g. 2x3) "
+                        "verified in one forward; needs "
+                        "--spec_draft_config")
     p.add_argument("--sampling_epilogue", default="auto",
                    choices=["auto", "on", "off"],
                    help="fused sampling CUDA kernel: auto = on under CUDA, "
@@ -558,6 +574,8 @@ def start(args: argparse.Namespace) -> ThreadingHTTPServer:
         prefill_token_budget=args.prefill_token_budget,
         paged_kernel=args.paged_kernel,
         sampling_epilogue=args.sampling_epilogue,
+        spec_draft=args.spec_draft_config, spec_k=args.spec_k,
+        spec_mode=args.spec_mode, spec_tree=args.spec_tree,
         device=args.device, seed=args.seed,
         checkpoint_path=args.checkpoint_path, adapters=args.adapters,
         adapter_pool=args.adapter_pool,

@@ -311,6 +311,24 @@ def _token_content(value) -> Optional[str]:
     return value
 
 
+
+# Pairs that Python's Unicode tables compose and ``tokenizers``' NFC leaves
+# apart (its tables predate the composition): Dives Akuru U+11935 U+11930,
+# which Python 3.12 (Unicode 15) composes to U+11938.
+_NFC_APART = ("\U00011935\U00011930",)
+
+
+def nfc(text: str) -> str:
+    """NFC as ``tokenizers`` computes it: ``unicodedata``'s, except that a
+    pair of ``_NFC_APART`` stays apart. Both of its code points are
+    starters that compose with nothing else, so normalizing the text
+    between the pairs and joining it back around them is the whole rule."""
+    for pair in _NFC_APART:
+        if pair in text:
+            return pair.join(nfc(part) for part in text.split(pair))
+    return unicodedata.normalize("NFC", text)
+
+
 class HFTokenizer:
     """An HF tokenizer directory, read without ``transformers``."""
 
@@ -548,7 +566,7 @@ class HFTokenizer:
             elif kind == "Replace":
                 text = text.replace(_string_pattern(step), step["content"])
             else:  # NFC
-                text = unicodedata.normalize("NFC", text)
+                text = nfc(text)
         return text
 
     def _pre_tokenize(self, text: str, first: bool) -> List[str]:

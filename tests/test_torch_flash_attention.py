@@ -243,3 +243,138 @@ def test_k1_bf16_rounding_point_matches_reference(packed):
     np.testing.assert_allclose(lse.numpy(), np.array(jlse), atol=1e-4,
                                rtol=1e-4)
     assert np.isfinite(out.float().numpy()).all()
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _hilo(x):
+    """K3's hi/lo operand: the bf16 rounding plus the bf16 rounding of the
+    remainder (``mma_sm90.cuh``'s ``c_to_a_split``)."""
+    hi = _bf16(x)
+    return hi + _bf16(x - hi)
+
+
+def _k3_numerics(q, k, v, do, lse, dsum, seg, causal, rounds, block=256):
+    """A test-local emulation of the bf16 K3's arithmetic: f32 scores and
+    P, dS from the bf16 inputs, each operand of dV += P^T dO and
+    dK += dS^T Q passed through ``rounds[name]`` (``_bf16``: one rounding;
+    ``_hilo``: the kernel's split pair) with f32 accumulation, the G heads
+    of a group summed in f32 and rounded once. Returns {name: (dK, dV)}
+    (bf16) for every entry of ``rounds``, computed in one pass."""
+    T, S = q.shape[1], k.shape[1]
+    scale = tfa.softmax_scale(q.shape[-1])
+    qf, kf, vf, dof, lse4, ds4 = tfa._bwd_views(q, k, v, do, lse, dsum)
+    acc = {n: (torch.zeros_like(kf), torch.zeros_like(vf)) for n in rounds}
+    for j0, j1 in tfa._tiles(S, block):
+        for i0, i1 in tfa._tiles(T, block):
+            if tfa._skip(causal, i0, i1, j0):
+                continue
+            qt, dot = qf[..., i0:i1, :], dof[..., i0:i1, :]
+            p = tfa._plain_probs(qt, kf[:, :, j0:j1], lse4[..., i0:i1], seg,
+                                 causal, i0, i1, j0, j1, scale)
+            dp = torch.einsum("bkgtd,bksd->bkgts", dot, vf[:, :, j0:j1])
+            ds = p * (dp - ds4[..., i0:i1, None]) * scale
+            for name, (fp, fds) in rounds.items():
+                dk, dv = acc[name]
+                dv[:, :, j0:j1] += torch.einsum("bkgts,bkgtd->bksd", fp(p),
+                                                dot)
+                dk[:, :, j0:j1] += torch.einsum("bkgts,bkgtd->bksd", fds(ds),
+                                                qt)
+    return {n: (dk.permute(0, 2, 1, 3).to(k.dtype),
+                dv.permute(0, 2, 1, 3).to(v.dtype))
+            for n, (dk, dv) in acc.items()}
+
+
+def _share_of_bound(got, want):
+    """The largest error as a share of its element's bound (atol 2^-6 +
+    rtol 2^-6 × |want|)."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / (2**-6 + 2**-6 * w.abs())).max())
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_k3_bf16_rounding_point_matches_reference(packed):
+    """The bf16 K3 passes P^T and dS^T to its second products as bf16
+    hi/lo pairs (16 significant bits), where the reference keeps f32. The
+    emulation of that arithmetic, on the same bf16 inputs as the
+    reference's ``_bwd`` in interpret mode (out and lse shared), holds
+    the bound the card holds K3 to: atol = rtol = 2^-6."""
+    B, T, H, KV, d, blk = 2, 256, 4, 2, 64, 64
+    q, k, v, do, seg = _inputs(31 + packed, B=B, T=T, H=H, KV=KV, d=d,
+                               packed=packed)
+    G = H // KV
+    fold = lambda x, n: jnp.asarray(x, jnp.bfloat16).transpose(  # noqa
+        0, 2, 1, 3).reshape(B * n, T, d)
+    jq, jk, jv, jdo = fold(q, H), fold(k, KV), fold(v, KV), fold(do, H)
+    jseg = jnp.asarray(np.zeros((B, T), np.int32) if seg is None else seg)
+    jout, jlse = jfa._fwd(jq, jk, jv, jseg, jseg, block_q=blk, block_k=blk,
+                          interpret=True, H=H, G=G, causal=True)
+    _, jdk, jdv = jfa._bwd(blk, blk, True, G,
+                           (jq, jk, jv, jseg, jseg, jout, jlse), jdo,
+                           causal=True)
+
+    def unfold(x, n):
+        return np.array(x.astype(jnp.float32)).reshape(B, n, T, d) \
+            .transpose(0, 2, 1, 3)
+
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    tout = torch.from_numpy(unfold(jout, H)).to(torch.bfloat16)
+    lse = torch.from_numpy(np.array(jlse))
+    dsum = tfa.row_dot(tdo, tout)
+    dk, dv = _k3_numerics(tq, tk, tv, tdo, lse, dsum, _t(seg), True,
+                          {"hilo": (_hilo, _hilo)})["hilo"]
+    np.testing.assert_allclose(dk.float().numpy(), unfold(jdk, KV),
+                               **BF16_TOL)
+    np.testing.assert_allclose(dv.float().numpy(), unfold(jdv, KV),
+                               **BF16_TOL)
+
+
+def test_k3_single_rounding_uses_the_bound_and_the_split_does_not():
+    """Where the rounding point bites: at the training geometry (T = 1024,
+    H = 32, KV = 4, d = 64, a packed row: 8 x 1024 terms a key row), one
+    bf16 rounding of P takes dV to more than half its bound against the
+    plain f32-operand version (0.87 here; over it on the card at other
+    draws of eight rows), and of dS dK to more than 0.4 (0.47); the pair
+    keeps both under 0.35, what the outputs' own rounding leaves. K2's one
+    rounding of dS (a sum over one head's keys) stays under 0.45."""
+    T, H, KV, d = 1024, 32, 4, 64
+    q, k, v, do, seg = _inputs(5, B=1, T=T, H=H, KV=KV, d=d, packed=True)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    tseg = _t(seg)
+    out, lse = tfa._plain_fwd(tq, tk, tv, tseg, True, 256, 256)
+    dsum = tfa.row_dot(tdo, out)
+    want_dk, want_dv = tfa._plain_bwd_dkv(tq, tk, tv, tdo, lse, dsum, tseg,
+                                          True, 256, 256)
+    ident = lambda x: x  # noqa: E731
+    got = _k3_numerics(tq, tk, tv, tdo, lse, dsum, tseg, True, {
+        "P": (_bf16, ident), "dS": (ident, _bf16), "hilo": (_hilo, _hilo)})
+    share_dv = _share_of_bound(got["P"][1], want_dv)
+    share_dk = _share_of_bound(got["dS"][0], want_dk)
+    split = max(_share_of_bound(got["hilo"][0], want_dk),
+                _share_of_bound(got["hilo"][1], want_dv))
+    assert share_dv > 0.5 and share_dk > 0.4, (share_dv, share_dk)
+    assert split < 0.35, split
+    # K2: dQ += dS K with dS rounded once, as the kernel does
+    scale = tfa.softmax_scale(d)
+    qf, kf, vf, dof, lse4, ds4 = tfa._bwd_views(tq, tk, tv, tdo, lse, dsum)
+    dq = torch.zeros_like(qf)
+    for i0, i1 in tfa._tiles(T, 256):
+        for j0, j1 in tfa._tiles(T, 256):
+            if tfa._skip(True, i0, i1, j0):
+                continue
+            kt = kf[:, :, j0:j1]
+            p = tfa._plain_probs(qf[..., i0:i1, :], kt, lse4[..., i0:i1],
+                                 tseg, True, i0, i1, j0, j1, scale)
+            dp = torch.einsum("bkgtd,bksd->bkgts", dof[..., i0:i1, :],
+                              vf[:, :, j0:j1])
+            ds = p * (dp - ds4[..., i0:i1, None]) * scale
+            dq[..., i0:i1, :] += torch.einsum("bkgts,bksd->bkgtd",
+                                              _bf16(ds), kt)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(1, T, H, d).to(torch.bfloat16)
+    want_dq = tfa._plain_bwd_dq(tq, tk, tv, tdo, lse, dsum, tseg, True, 256,
+                                256)
+    assert _share_of_bound(dq, want_dq) < 0.45

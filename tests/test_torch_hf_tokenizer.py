@@ -24,6 +24,7 @@ from datatunerx_tpu_torch.utils.hf_tokenizer import (
     QWEN2_PATTERN,
     HFTokenizer,
     load_hf_tokenizer,
+    nfc,
     qwen2_split,
 )
 
@@ -225,3 +226,33 @@ def test_sentencepiece_model_only_is_refused(tmp_path):
         load_hf_tokenizer(str(tmp_path))
     (tmp_path / "tokenizer.model").unlink()
     assert load_hf_tokenizer(str(tmp_path)) is None
+
+
+def _chunks(items, n=4096):
+    for i in range(0, len(items), n):
+        yield items[i:i + n]
+
+
+def test_nfc_matches_tokenizers_on_every_code_point_and_pair():
+    """The port's NFC against ``tokenizers``' on every code point alone and
+    on every canonical pair (each code point's two-character NFD, the
+    inputs that composition acts on), the Dives Akuru pair U+11935 U+11930
+    among them: ``tokenizers`` leaves it apart where Python's tables
+    compose it to U+11938. Texts are checked in newline-joined chunks (a
+    newline is a starter that composes with nothing)."""
+    import unicodedata
+
+    from tokenizers import normalizers
+
+    ref = normalizers.NFC()
+    points = [chr(c) for c in range(0x110000)
+              if not 0xD800 <= c <= 0xDFFF]
+    pairs = [unicodedata.normalize("NFD", c) for c in points]
+    pairs = [p for p in pairs if len(p) == 2]
+    assert "\U00011935\U00011930" in pairs
+    for texts in (points, pairs):
+        for chunk in _chunks(texts):
+            text = "\n".join(chunk)
+            assert nfc(text) == ref.normalize_str(text), chunk[:3]
+    assert nfc("a\U00011935\U00011930b") == "a\U00011935\U00011930b"
+    assert nfc("\U00011938") == "\U00011938"

@@ -8,11 +8,13 @@ kernels' f32 sums run in another order than the plain versions'); token ids
 exact for greedy sampling. Flash attention (K1-K3): float32 1e-4 (sums over
 up to 1024 keys in another order, gradients of unit-scale inputs), bf16
 2^-6 (outputs and gradients round once to bf16 from f32 sums taken in
-another order, and a bf16 ulp at |x| ~ 2-4 is 2^-6; besides, the bf16 K1-K3
-run their second products on tensor cores with P and dS rounded to bf16 as
-operands, where the plain versions keep them in f32: a relative error of
-2^-9 per term, random in sign, so about 1e-3 of a gradient's scale after
-the sums over keys, queries and the G heads of a KV group). Quantized matmuls
+another order, and a bf16 ulp at |x| ~ 2-4 is 2^-6; besides, the bf16 K1
+and K2 run their second products on tensor cores with P and dS rounded to
+bf16 as operands, where the plain versions keep them in f32: a relative
+error of 2^-9 per term, random in sign, so about 1e-3 of a gradient's scale
+after the sums over keys; K3, whose sums also run over the G heads of a KV
+group, passes P and dS as bf16 hi/lo pairs, 2^-17 a term, and is held over
+a sweep of eight draws at the training shapes). Quantized matmuls
 (K4-K6): float32 atol=rtol=1e-4 (f32 sums over up to 5632 products in
 another order), bf16 atol 2^-8 / rtol 2^-7 (the staged weights are
 bit-equal to the plain version's; the f32 sums round once to bf16). The
@@ -886,3 +888,114 @@ def test_pool_republish_during_decode_leaves_live_rows_unchanged(cuda,
         assert [r.tokens for r in reqs] == want
     finally:
         eng.close()
+
+
+# ---------------------------------------------------------- PR-13 shapes
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("case", ["packed", "llama2"])
+def test_flash_k3_holds_its_bound_over_a_seed_sweep(cuda, seed, case):
+    """The bf16 K3 (P^T and dS^T as bf16 hi/lo pairs) against its plain
+    version at the training shapes, eight draws each: tinyllama's heads
+    on a packed 8 x 1024 batch, llama2-7b's at d = 128."""
+    from datatunerx_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(1000 + seed)
+    B, T, H, KV, d = ((8, 1024, 32, 4, 64) if case == "packed"
+                      else (8, 1024, 32, 32, 128))
+    q, k, v, do, seg = _flash_inputs(B, T, H, KV, d, torch.bfloat16, cuda,
+                                     gen, case == "packed")
+    out, lse = fa._plain_fwd(q, k, v, seg, True, 512, 512)
+    dsum = fa.row_dot(do, out)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, dsum, seg)
+    pdk, pdv = fa._plain_bwd_dkv(q, k, v, do, lse, dsum, seg, True, 512, 512)
+    for got, want in ((dk, pdk), (dv, pdv)):
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **FLASH_TOL[torch.bfloat16])
+
+
+def test_threefry_twin_on_the_card_equals_the_host(cuda):
+    """``ops/prng.py`` on int64 words on the card, bit for bit against the
+    host twin (numpy), and the Random123 known answer."""
+    import numpy as np
+
+    from datatunerx_tpu_torch.ops import prng
+
+    hk = prng.PRNGKey(2**31 + 7)
+    dk = prng.to_device(hk, cuda)
+    keys = prng.split(hk, 4)
+    logits = np.random.default_rng(0).normal(size=(4, 32000)).astype(
+        np.float32)
+    logits[:, 500:] = -np.inf
+    pairs = [(prng.split(hk, 5), prng.split(dk, 5)),
+             (prng.fold_in(hk, 99), prng.fold_in(dk, 99)),
+             (prng.uniform(hk, (4,)), prng.uniform(dk, (4,))),
+             (prng.random_bits(hk, (4, 32000)),
+              prng.random_bits(dk, (4, 32000))),
+             (prng.gumbel(hk, (4, 32000)), prng.gumbel(dk, (4, 32000))),
+             (prng.categorical(keys, logits),
+              prng.categorical(prng.to_device(keys, cuda),
+                               torch.from_numpy(logits).to(cuda)))]
+    for host, dev in pairs:
+        got = dev.cpu().numpy()
+        if host.dtype == np.float32:
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          host.view(np.uint32))
+        else:
+            np.testing.assert_array_equal(got.astype(np.int64),
+                                          host.astype(np.int64))
+    x = prng.threefry2x32(*(torch.tensor(w, dtype=torch.int64, device=cuda)
+                            for w in (0x13198A2E, 0x03707344, 0x243F6A88,
+                                      0x85A308D3)))
+    assert (int(x[0]), int(x[1])) == (0xC4923A9C, 0x483DF7A0)
+
+
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+@pytest.mark.parametrize("tree", [False, True])
+def test_multitoken_kernel_at_spec_verify_shapes(cuda, pools, tree):
+    """K8 at the spec verify shapes over tinyllama's heads: the chain's
+    T = k + 1 = 5 causal window, and the 2x3 tree's T = 7 columns under
+    the branch ancestry mask at a non-zero window start (siblings share a
+    rope position), four slots of ragged lengths."""
+    import numpy as np
+
+    from datatunerx_tpu_torch.ops.attention import kv_quantize
+    from datatunerx_tpu_torch.serving.speculative import tree_verify_mask
+
+    gen = torch.Generator().manual_seed(5 + tree)
+    lens, bs, KV, d, H = [700, 301, 513, 64], 16, 4, 64, 32
+    tables, pos, k, v = _pool(lens, 64, bs, KV, d, torch.bfloat16, cuda, gen)
+    if tree:
+        T = 7
+        depth = np.array([0, 1, 1, 2, 2, 3, 3])
+        wmask = torch.from_numpy(tree_verify_mask(2, 3)).to(cuda)
+    else:
+        T, depth, wmask = 5, np.arange(5), None
+    tab = tables.cpu()
+    for b, n in enumerate(lens):
+        for c in range(T):
+            lane = n - T + c
+            pos[int(tab[b, lane // bs]), lane % bs] = n - T + int(depth[c])
+    start = torch.tensor([n - T for n in lens], dtype=torch.int32,
+                         device=cuda)
+    qpos = start[:, None] + torch.from_numpy(depth.astype(np.int32)).to(cuda)
+    gtab = torch.where(tables >= 0, tables, 0).long()
+    kv_pos = pos[gtab].reshape(len(lens), -1)
+    kv_pos = torch.where((tables >= 0).repeat_interleave(bs, 1), kv_pos,
+                         torch.full_like(kv_pos, SENT))
+    allow = attention_allow(qpos, kv_pos, window_mask=(
+        None if wmask is None else wmask[None].expand(len(lens), T, T)),
+        window_start=start)
+    q = torch.randn((len(lens), T, H, d), generator=gen).to(
+        torch.bfloat16).to(cuda)
+    if pools == "int8":
+        kq, ks = kv_quantize(k)
+        vq, vs = kv_quantize(v)
+        args = (kq, vq, ks, vs)
+    else:
+        args = (k, v, None, None)
+    got = cpa.paged_multitoken_attention(q, *args, tables, allow)
+    want = cpa._plain_multitoken(q, args[0], args[1], tables, allow,
+                                 args[2], args[3])
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])

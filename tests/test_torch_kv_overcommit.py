@@ -4,7 +4,7 @@ ROADMAP Queue 1 items 3, 6 and 11): refcounted copy-on-write prefix blocks,
 on-demand table growth, youngest-first preemption and token-exact resume.
 Overcommit must be invisible in the tokens: growth, COW mapping and
 preempt/resume all equal the eager engine's streams, greedy and sampled
-(a parked session carries its generator's state)."""
+(a parked session carries its threefry key)."""
 
 import threading
 import time

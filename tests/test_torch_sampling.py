@@ -1,7 +1,11 @@
 """The port's sampling epilogue held against the JAX package on the CPU:
 K9's plain version ``_plain_sample`` against the reference's ``_xla_sample``
 (the twin of its Pallas kernel), fed the same prepped logits and the same
-uniforms; the nucleus path ``_topp_sample``; and the legacy sampler.
+uniforms; the nucleus path ``_topp_sample``; the legacy sampler; and, on
+the threefry twin (``ops/prng.py``), the draws themselves: ``sample_rows``
+and ``_sample_jit`` bit for bit against the reference's on the same logits
+and keys, and the batched engines' sampled streams against the JAX
+engine's for the same seeds.
 
 Tolerances: greedy token ids are exact (max and compare are order-exact).
 Sampled ids are exact except where ``u*Z`` lies within 1e-5*Z of a CDF
@@ -15,7 +19,9 @@ import pytest
 import torch
 
 from datatunerx_tpu.ops import pallas_sampling as jps
+from datatunerx_tpu.serving.engine import _sample_jit as j_sample_jit
 from datatunerx_tpu_torch.ops import cuda_sampling as tcs
+from datatunerx_tpu_torch.ops import prng
 from datatunerx_tpu_torch.serving.engine import _sample_jit
 
 
@@ -141,8 +147,9 @@ def test_legacy_sampler_greedy_rows_and_support():
     logits = torch.from_numpy(_logits(6, S, V))
     temps = torch.tensor([0.0, 0.7, 0.7, 0.0])
     top_p = torch.tensor([1.0, 0.5, 1.0, 0.2])
-    us = torch.tensor([0.3, 0.6, 0.99, 0.5])
-    got = _sample_jit(logits, temps, top_p, us)
+    keys = prng.to_device(np.stack([prng.PRNGKey(i) for i in range(S)]),
+                          "cpu")
+    got = _sample_jit(logits, temps, top_p, keys)
     assert got.dtype == torch.int32
     am = torch.argmax(logits, -1)
     assert got[0] == am[0] and got[3] == am[3]
@@ -151,3 +158,160 @@ def test_legacy_sampler_greedy_rows_and_support():
     srt, idx = torch.sort(probs, descending=True)
     keep = idx[(torch.cumsum(srt, 0) - srt) <= 0.5]
     assert int(got[1]) in keep.tolist()
+
+
+def _rows(seed=0, S=4, V=3000):
+    logits = _logits(seed, S, V)
+    temps = np.array([0.8, 0.8, 1.2, 0.0], np.float32)[:S]
+    top_ps = np.array([1.0, 0.9, 1.0, 1.0], np.float32)[:S]
+    keys = np.stack([prng.PRNGKey(100 + i) for i in range(S)])
+    return logits, temps, top_ps, keys
+
+
+@pytest.mark.parametrize("mode", ["greedy", "simple", "topp"])
+def test_sample_rows_draws_the_reference_bits(mode):
+    """The same logits and keys: equal tokens and equal new keys (exact)."""
+    logits, temps, top_ps, keys = _rows()
+    jt, jk = jps.sample_rows(jnp.asarray(logits), jnp.asarray(temps),
+                             jnp.asarray(top_ps), jnp.asarray(keys),
+                             mode=mode, impl="xla")
+    tt, tk = tcs.sample_rows(torch.from_numpy(logits),
+                             torch.from_numpy(temps),
+                             torch.from_numpy(top_ps), keys, mode=mode)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(tk, np.asarray(jk))
+
+
+def test_legacy_sampler_draws_the_reference_bits():
+    """``_sample_jit`` (categorical over the filtered sorted logits) on the
+    same logits and draw keys as the reference's, row by row (exact)."""
+    import jax
+
+    logits, temps, top_ps, keys = _rows(1)
+    want = jax.vmap(j_sample_jit)(jnp.asarray(logits), jnp.asarray(temps),
+                                  jnp.asarray(top_ps), jnp.asarray(keys))
+    got = _sample_jit(torch.from_numpy(logits), torch.from_numpy(temps),
+                      torch.from_numpy(top_ps), prng.to_device(keys, "cpu"))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # an all-greedy batch skips the draw and gives the argmax
+    greedy = _sample_jit(torch.from_numpy(logits), torch.zeros(4),
+                         torch.ones(4), None)
+    np.testing.assert_array_equal(greedy.numpy(), logits.argmax(-1))
+
+
+# ------------------------------------------------ the engines' sampled streams
+# The preset:debug weights with the final norm scaled by 64: random weights
+# give near-flat next-token distributions, where a bf16 rounding that the
+# two frameworks place differently moves any sampled token; at this scale a
+# step's distribution has a head, as a trained model's has.
+LOGIT_SCALE = 64.0
+SAMPLED = [(0.8, 1.0, 100), (0.8, 0.9, 101), (1.2, 1.0, 102), (0.0, 1.0, 103)]
+NEW = 12
+
+
+@pytest.fixture(scope="module")
+def peaked_export(tmp_path_factory):
+    import jax
+
+    from datatunerx_tpu.training.checkpoint import export_merged_model
+    from datatunerx_tpu.utils.model_loader import load_model_and_tokenizer
+
+    cfg, params, _ = load_model_and_tokenizer("preset:debug")
+    params = dict(params)
+    params["norm"] = {"scale": params["norm"]["scale"] * LOGIT_SCALE}
+    d = tmp_path_factory.mktemp("peaked_export")
+    export_merged_model(jax.device_get(params), cfg, str(d))
+    return str(d)
+
+
+def _sampled_run(engine):
+    tok = engine.tokenizer
+    reqs = [engine.submit(tok.encode(f"prompt number {i} " * (i + 1)),
+                          max_new_tokens=NEW, temperature=t, top_p=p,
+                          seed=seed)
+            for i, (t, p, seed) in enumerate(SAMPLED)]
+    for r in reqs:
+        assert r.done.wait(300) and r.error is None, r.error
+    return [r.tokens for r in reqs]
+
+
+def _parting_explained(export, prompt, prefix, token, temp, top_p, seed):
+    """A sampled stream's parting step is explained by the logits alone:
+    the step's draw key (the seed's key split once a token) drawn by the
+    REFERENCE's legacy sampler over the PORT's logits for the step (a
+    bf16 forward over the prompt plus the agreed prefix) gives the port's
+    token, and the two frameworks' logits there lie within 4 bf16 ulps of
+    each other. So the random bits are the reference's; a bf16 rounding
+    that the frameworks place differently moved the draw."""
+    import jax
+
+    from datatunerx_tpu.models.llama import forward as jforward
+    from datatunerx_tpu.utils.decoding import prepare_prompt
+    from datatunerx_tpu.utils.model_loader import load_model_and_tokenizer
+    from datatunerx_tpu_torch.models.llama import forward as tforward
+    from datatunerx_tpu_torch.utils.model_loader import (
+        load_model_and_tokenizer as tload,
+    )
+
+    cfg, params, tok = load_model_and_tokenizer(export, dtype=jnp.bfloat16)
+    ids, mask, positions, _, n, _, _ = prepare_prompt(
+        prompt, tok.eos_token_id, 256, NEW)
+    k = len(prefix)
+    seq, pos = ids + list(prefix), positions + list(range(n, n + k))
+    msk = mask + [1] * k
+    jrow = np.asarray(jforward(
+        params, jnp.asarray([seq]), cfg, positions=jnp.asarray([pos]),
+        attention_mask=jnp.asarray([msk]),
+        compute_dtype=jnp.bfloat16)[0][0, -1])
+    tcfg, tparams, _ = tload(export, dtype=torch.bfloat16, device="cpu")
+    with torch.inference_mode():
+        trow = tforward(tparams, torch.tensor([seq]), tcfg,
+                        positions=torch.tensor([pos]),
+                        attention_mask=torch.tensor([msk]),
+                        compute_dtype=torch.bfloat16)[0][0, -1].numpy()
+    key = jax.random.PRNGKey(seed)
+    for _ in range(k + 1):
+        key, sub = jax.random.split(key)
+    drawn = int(j_sample_jit(jnp.asarray(trow), temp, top_p, sub))
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(jrow).max())) - 7)
+    return drawn == token and np.abs(trow - jrow).max() <= 4 * ulp
+
+
+@pytest.mark.parametrize("layout", [
+    dict(kv_block_size=16, paged_kernel="on", sampling_epilogue="on"),
+    dict(kv_block_size=16, paged_kernel="on", sampling_epilogue="off"),
+    dict(kv_block_size=0, sampling_epilogue="off"),
+], ids=["paged-epilogue", "paged-legacy", "dense-legacy"])
+def test_batched_sampled_streams_match_jax_engine(peaked_export, layout):
+    """Four concurrent requests (sampled, sampled top-p, hot, greedy) with
+    the same seeds through the port's and the JAX package's engines on the
+    same weights: the streams are equal token for token. A stream may part
+    only where the logits explain it (``_parting_explained``),
+    which is reported; the epilogue's streams must be equal throughout."""
+    from datatunerx_tpu.serving.batched_engine import BatchedEngine as JEngine
+    from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
+
+    kw = dict(template="vanilla", max_seq_len=256, slots=4, decode_chunk=4,
+              prefill_chunk=64, **layout)
+    jeng = JEngine(peaked_export, **kw)
+    try:
+        want = _sampled_run(jeng)
+    finally:
+        jeng.close()
+    eng = BatchedEngine(peaked_export, device="cpu", **kw)
+    try:
+        got = _sampled_run(eng)
+        tok = eng.tokenizer
+    finally:
+        eng.close()
+    assert len({tuple(w) for w in want}) > 1  # the draws really sample
+    for i, (w, g) in enumerate(zip(want, got)):
+        if w == g:
+            continue
+        n = next(j for j in range(min(len(w), len(g))) if w[j] != g[j])
+        temp, top_p, seed = SAMPLED[i]
+        assert layout["sampling_epilogue"] == "off" and temp > 0, (i, n)
+        prompt = tok.encode(f"prompt number {i} " * (i + 1))
+        assert _parting_explained(peaked_export, prompt, w[:n], g[n], temp,
+                                  top_p, seed), f"request {i} parts at {n}"
+        print(f"request {i} parts at step {n} (explained by the logits)")

@@ -180,10 +180,12 @@ def test_response_keys_equal_the_jax_servers():
          tserver.STATE.error) = saved
 
 
+# the spec flags (item 5) are ported; --role, --trace_log and --slo_config
+# stay refused with their items
 @pytest.mark.parametrize("extra", [
     ["--role", "prefill"],
-    ["--trace_log", "x"], ["--spec_draft_config", "take:1"],
-    ["--spec_tree", "2x2"],
+    ["--trace_log", "x"], ["--slo_config", "x"],
+    ["--role", "decode"],
 ])
 def test_flags_outside_the_slice_are_refused(extra, capsys):
     with pytest.raises(SystemExit) as exc:

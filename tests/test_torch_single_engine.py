@@ -371,3 +371,44 @@ def test_single_engine_serves_chat_and_stream():
         if tserver.STATE.engine is not None:
             tserver.STATE.engine.close()
         tserver.STATE.engine, tserver.STATE.error = saved
+
+
+@pytest.fixture(scope="module")
+def peaked_export(tmp_path_factory):
+    """preset:debug with its final norm scaled by 64, so sampled steps have
+    a head (random weights give near-flat distributions, where a bf16
+    rounding placed differently by the two frameworks moves any draw)."""
+    cfg, params, _ = jload("preset:debug")
+    params = dict(params)
+    params["norm"] = {"scale": params["norm"]["scale"] * 64.0}
+    d = tmp_path_factory.mktemp("peaked_export")
+    export_merged_model(jax.device_get(params), cfg, str(d))
+    return str(d)
+
+
+@pytest.mark.parametrize("temp,top_p,seed", [(0.8, 1.0, 7), (0.8, 0.9, 8),
+                                             (1.3, 1.0, 2**31 + 3)])
+def test_sampled_stream_matches_jax_engine(peaked_export, temp, top_p, seed):
+    """The same seed draws the same tokens as the JAX engine: the port
+    splits the reference's threefry key once a token (``ops/prng.py``) and
+    draws ``jax.random.categorical`` over the filtered sorted logits. A
+    stream may part only where the logits explain it
+    (``test_torch_sampling._parting_explained``), reported."""
+    jeng = JEngine(peaked_export, **KW)
+    eng = InferenceEngine(peaked_export, device="cpu", **KW)
+    prompt = eng.tokenizer.encode("single engine prompt")
+    want = jeng.generate(prompt, max_new_tokens=NEW, temperature=temp,
+                         top_p=top_p, seed=seed)
+    got = eng.generate(prompt, max_new_tokens=NEW, temperature=temp,
+                       top_p=top_p, seed=seed)
+    if got != want:
+        # a stream parts only at a near-tie of the step's draw
+        from test_torch_sampling import _parting_explained
+
+        n = next(j for j in range(min(len(got), len(want)))
+                 if got[j] != want[j])
+        assert _parting_explained(peaked_export, prompt, want[:n], got[n],
+                                  temp, top_p, seed), f"parts at step {n}"
+        print(f"parts at step {n} (explained by the logits)")
+    greedy = eng.generate(prompt, max_new_tokens=NEW)
+    assert got != greedy  # the draw really samples

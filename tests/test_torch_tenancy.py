@@ -271,7 +271,7 @@ def test_tier_aware_preemption_token_exact(export_dir):
     youngest-first would take) survives the bulk sessions' storm: with the
     directory the same bulk sessions are preempted as in the JAX engine,
     the pinned one never is, and every stream equals the eager engine's
-    (the sampled one too: a parked session keeps its generator); without
+    (the sampled one too: a parked session keeps its threefry key); without
     the directory the same engine preempts the pinned session. Greedy
     streams are held against the JAX engine's with the near-tie rule of
     ``tests/test_torch_kv_overcommit.py``."""
