@@ -141,6 +141,47 @@ Then, last of the serving phases:
   answer 200 and a chat naming it then 400; prints TTFT and decode tok/s
   per request beside phase 3's base-only batch.
 
+And after it:
+
+- 3-migrate: session migration and the fleet plane between port servers
+  in this process, each on its own ``ServingState`` (``--kv_block_size 16
+  --slots 4``, tinyllama-1.1b at full width and depth, random weights from
+  seed 0). A source (``--prefix_cache 8 --role prefill``) decodes four
+  ~600-token prompts, 64 new tokens each (three greedy, one sampled at
+  0.8 with a seed); once each has 8 tokens, ``POST /admin/sessions/export``
+  takes all four and ``/admin/sessions/import`` (SSE) resumes them on a
+  destination (``--prefix_cache 8``): the destination's K7, K8 and K9
+  counters, zeroed just before, must equal its scheduler trace's (22 K7
+  and one K9 a decode step, no K8), the receipt's text must be the tail's
+  and the SSE deltas exactly what ``resume_stream``'s hold-back rule gives
+  the destination's tokens (with random weights most ids decode to no
+  text under the byte-level tokenizer, so the continuation's text is
+  often empty; the CPU tests compare non-empty text), and each stream
+  must equal the same request's unmoved run on the source (the sampled
+  one exactly, the greedy ones by ``check_greedy``). The source's
+  ``/metrics`` must show its role. The host's split of the export and the
+  imports is timed: the scheduler's commands, the device-host copies, the
+  base64 coding and the JSON coding. A source with
+  ``--prefill_token_budget 64`` is caught between two prefill chunks of
+  an ~880-token prompt and exports it with ``"prefill": true``: the
+  destination prefills only the tail (its prefill
+  tokens equal the ``pending`` ids), on K8 as its trace says. An int8
+  destination (``--kv_quant int8``) takes such a bf16 mid-prefill payload
+  (int8 K7/K8 and K9 equal its trace) and an int8 source's two sessions
+  (the int8 wire), which must equal that source's unmoved streams. A
+  ~520-token prefix served on the source moves through
+  ``/admin/prefix/export`` and ``/admin/prefix/import``: the destination's
+  first request on it runs no prefill chunk (its TTFT beside a cold
+  prompt's). Last, an overcommitted source (``--kv_overcommit on
+  --kv_blocks 64``) decodes four ~400-token prompts: a parked session held
+  and released over HTTP resumes there, then the port's
+  ``SpillCoordinator`` (over HTTP, its peers' stats scraped from
+  ``/metrics``) holds, imports on the destination and drops parked
+  sessions; every request completes once, as the reference
+  run's stream, and the source's spilled count equals the coordinator's.
+  Prints payload bytes (bf16 and int8 wire), export and import ms, the
+  client's gap, TTFTs and each engine's ``session_stats``.
+
 After phase 5 (``--phase train`` and ``all``):
 
 - 5-serve: the checkpoint phase 5's trainer CLI wrote (the manifest's
@@ -217,7 +258,8 @@ registers, spills, shared bytes and blocks per SM, and K4 (nf4 matmul), K5
 projection shape of tinyllama-1.1b, in bf16 and f32, and K10 (fused LoRA
 matmul) at M=8192 and M=4 rows, N=2048 and N=256, K=2048, r=8, in bf16 and
 f32. ``--phase kernels`` stops after phase 2; ``--phase serve`` runs phases
-1-4, the eight above and 10; ``--phase train`` runs phases 1, 2, 5,
+1-4, the eight above, the spec phases, 3-adapters, 3-migrate and 10;
+``--phase train`` runs phases 1, 2, 5,
 5-serve and 6-9; ``--phase qlora`` runs phases 1, 2 and 7-9; ``--phase
 hf`` runs phases 1, 2 and the three HF phases. The script imports nothing
 of JAX, of the JAX package or of the HF libraries.
@@ -226,6 +268,7 @@ of JAX, of the JAX package or of the HF libraries.
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import math
@@ -1415,26 +1458,29 @@ def post(port, body, stream=False, trace=""):
                 "wall_s": time.perf_counter() - t0}
 
 
-def start_server(torch, flags, model="preset:tinyllama-1.1b"):
+def start_server(torch, flags, model="preset:tinyllama-1.1b", state=None):
     """The port's server, in-process, for ``model`` with ``flags``;
-    returns (srv, port, engine) once ``/healthz`` answers 200."""
+    returns (srv, port, engine) once ``/healthz`` answers 200. ``state``
+    (a ``ServingState``; default the module's) holds the engine, so that
+    two servers can run side by side."""
     from datatunerx_tpu_torch.serving import server
 
+    state = state or server.STATE
     args = server.parse_args([
         "--model_path", model, *flags,
         "--host", "127.0.0.1", "--port", "0"])
-    srv = server.start(args)
+    srv = server.start(args, state=state)
     port = srv.server_address[1]
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     t0 = time.perf_counter()
-    while server.STATE.engine is None:
-        if server.STATE.error:
-            fail(f"engine failed to load: {server.STATE.error}")
+    while state.engine is None:
+        if state.error:
+            fail(f"engine failed to load: {state.error}")
         if time.perf_counter() - t0 > 600:
             fail("engine did not load within 600 s")
         time.sleep(0.2)
-    eng = server.STATE.engine
+    eng = state.engine
     with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz") as r:
         if r.status != 200:
             fail(f"/healthz answered {r.status} after load")
@@ -1446,14 +1492,14 @@ def start_server(torch, flags, model="preset:tinyllama-1.1b"):
     return srv, port, eng
 
 
-def stop_server(srv):
+def stop_server(srv, state=None):
     from datatunerx_tpu_torch.serving import server
 
     srv.shutdown()
     srv.server_close()
     # the server's module state would keep the engine's weights and cache on
     # the card after the caller closes it, inside the train phases' peaks
-    server.STATE.engine = None
+    (state or server.STATE).engine = None
 
 
 def serve_phase(torch, counters, flags=("--kv_block_size", "16",
@@ -2056,10 +2102,26 @@ def spec_phase(torch, label, flags, reqs, path):
             f"slots): greedy {n['greedy']}, sampled {n['simple']} (of "
             f"which the residual draw's bits ~{TWIN_LAUNCHES[0]}); a "
             f"pending-form decode step {n['decode']}")
+    first = list(eng.sched_trace)
     again, _ = run_requests(eng, reqs, http)
     for name, _ in reqs:
-        if again[name]["text"] != results[name]["text"]:
-            fail(f"{label} {name}: a second run of the same seed differs")
+        a, b = results[name]["text"], again[name]["text"]
+        if a != b:
+            j = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]),
+                     min(len(a), len(b)))
+            second = list(eng.sched_trace)[len(first):]
+
+            def sched(trace):
+                steps = collections.Counter(
+                    f"{e[0]} {e[3] if e[0] == 'spec' else e[2]}"
+                    for e in trace if e[0] in ("spec", "decode"))
+                return ([(e[1], e[2]) for e in trace if e[0] == "admit"],
+                        dict(steps))
+
+            fail(f"{label} {name}: a second run of the same seed differs at "
+                 f"character {j} ({len(a)} and {len(b)} characters); "
+                 "admissions (slot, prompt lanes) and steps by batch mode "
+                 f"{sched(first)}, then {sched(second)}")
     plain = BatchedEngine("preset:tinyllama-1.1b", template="llama2",
                           max_seq_len=eng.max_seq_len, slots=4,
                           kv_block_size=16, kv_quant=eng.kv_quant)
@@ -2519,6 +2581,645 @@ def adapter_phase(torch, counters, base):
         eng.close()
     del eng, trees
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------- phase 3-migrate
+MIGRATE_NEW = 64
+SPILL_NEW = 160  # two ~400-token sessions outgrow a 64-block pool
+MIGRATE_TEMP, MIGRATE_SEED = 0.8, 7
+MIGRATE_FLAGS = ("--kv_block_size", "16", "--slots", "4")
+
+
+def capture_imports(eng):
+    """Keep the Request of every session the engine imports, by trace id
+    (the SSE answer carries text only; the checks need the token ids)."""
+    seen, real = {}, eng.import_session
+
+    def import_session(payload, *a, **kw):
+        meta = real(payload, *a, **kw)
+        seen[meta["session"]] = meta["_request"]
+        return meta
+
+    eng.import_session = import_session
+    return seen
+
+
+def sse_events(resp):
+    """The JSON events of an SSE response, up to ``[DONE]``."""
+    for raw in resp:
+        line = raw.decode().strip()
+        if not line.startswith("data: "):
+            continue
+        if line == "data: [DONE]":
+            return
+        yield json.loads(line[len("data: "):])
+
+
+def import_stream(port, payload):
+    """``POST /admin/sessions/import`` (SSE): ``(receipt meta, iterator of
+    (delta, perf_counter stamp)))``; raises on a refusal."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/admin/sessions/import",
+        data=json.dumps(dict(payload, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    resp = urllib.request.urlopen(req, timeout=600)
+    events = sse_events(resp)
+    first = next(events, None)
+    if not first or "imported" not in first:
+        resp.close()
+        raise RuntimeError(f"import answered {first}")
+
+    def deltas():
+        with resp:
+            for ev in events:
+                if "error" in ev:
+                    raise RuntimeError(ev["error"])
+                yield ev["delta"], time.perf_counter()
+
+    return first["imported"], deltas()
+
+
+def drain_import(port, payload, out, key):
+    """Import ``payload`` and read its stream to the end into ``out[key]``:
+    the receipt, the text, the first delta's stamp and the post's start."""
+    t0 = time.perf_counter()
+    try:
+        meta, deltas = import_stream(port, payload)
+        t_receipt = time.perf_counter()
+        text, first = "", None
+        for delta, ts in deltas:
+            first = ts if first is None else first
+            text += delta
+        out[key] = {"meta": meta, "text": text, "t0": t0,
+                    "t_receipt": t_receipt, "t_first": first}
+    except Exception as e:  # noqa: BLE001 — reported by the caller
+        out[key] = {"error": str(e)}
+
+
+class HttpPeer:
+    """A port server as the fleet coordinators' replica: the session and
+    fleet routes over HTTP, the stats and the role from its ``/metrics``
+    fleet gauges, as a gateway scrapes them."""
+
+    def __init__(self, name, port):
+        self.name, self.port, self.role = name, port, "mixed"
+
+    def stats_snapshot(self):
+        m = scrape_metrics(self.port)
+        self.role = next(k.split('"')[1] for k, v in m.items()
+                         if k.startswith("dtx_serving_role{") and v == 1)
+        return {"slots_busy": int(m["dtx_serving_slots_busy"]),
+                "kv_blocks_free": int(m["dtx_serving_kv_blocks_free"]),
+                "sessions_parked": int(m["dtx_serving_sessions_parked"])}
+
+    def _post(self, path, body):
+        code, doc = admin(self.port, "POST", path, body)
+        if code != 200:
+            raise RuntimeError(f"{self.name} {path}: {code} {doc}")
+        return doc
+
+    def hold_parked(self, max_sessions=4, hold_s=10.0):
+        return self._post("/admin/sessions/hold",
+                          {"max_sessions": max_sessions, "hold_s": hold_s})
+
+    def drop_parked(self, trace_ids):
+        return self._post("/admin/sessions/drop",
+                          {"trace_ids": list(trace_ids)})
+
+    def release_parked(self, trace_ids):
+        return self._post("/admin/sessions/release",
+                          {"trace_ids": list(trace_ids)})
+
+    def import_session(self, payload):
+        return import_stream(self.port, payload)
+
+
+class PeerPool:
+    def __init__(self, peers):
+        self.peers = list(peers)
+
+    def available(self):
+        return list(self.peers)
+
+
+def rand_ids(rnd, n):
+    return [rnd.randrange(10, 30000) for _ in range(n)]
+
+
+def trace_counts(eng, mark):
+    """(decode steps, prefill chunks, prefill tokens) in the engine's
+    scheduler trace since index ``mark``."""
+    trace = list(eng.sched_trace)[mark:]
+    return (sum(e[1] for e in trace if e[0] == "decode"),
+            sum(1 for e in trace if e[0] == "prefill"),
+            sum(e[2] for e in trace if e[0] == "prefill"))
+
+
+def sse_text(tok, tokens, base):
+    """The text an import's SSE stream carries past its first ``base``
+    tokens, by ``resume_stream``'s rule: a delta each time the decoded text
+    grows and does not end inside a character (U+FFFD)."""
+    acc = list(tokens[:base])
+    sent = tok.decode(acc, skip_special_tokens=True) if acc else ""
+    out = []
+    for t in tokens[base:]:
+        acc.append(t)
+        text = tok.decode(acc, skip_special_tokens=True)
+        if len(text) > len(sent) and not text.endswith("\ufffd"):
+            out.append(text[len(sent):])
+            sent = text
+    return "".join(out)
+
+
+def spliced(tok, tail, text_so_far, deltas, tokens) -> bool:
+    """The destination's stream continues the tail: its tokens start with
+    the tail, the receipt's text is the tail's, and the SSE deltas are
+    exactly the text ``sse_text`` gives its tokens past the tail (empty
+    when they decode to none, as most of a random-weight model's ids do
+    under the byte-level tokenizer)."""
+    tail_text = tok.decode(tail, skip_special_tokens=True) if tail else ""
+    return (tokens[:len(tail)] == tail and text_so_far == tail_text
+            and deltas == sse_text(tok, tokens, len(tail)))
+
+
+def clocked(obj, attr, sink):
+    """Append the host ms of each call of ``obj.attr`` to ``sink``;
+    returns the restore callable."""
+    real = getattr(obj, attr)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            sink.append((time.perf_counter() - t0) * 1e3)
+
+    setattr(obj, attr, timed)
+    return lambda: setattr(obj, attr, real)
+
+
+def scrape_metrics(port):
+    """The samples of a server's ``GET /metrics``: series → value."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as resp:
+        text = resp.read().decode()
+    return {ln.rsplit(None, 1)[0]: float(ln.rsplit(None, 1)[1])
+            for ln in text.splitlines() if ln and not ln.startswith("#")}
+
+
+def check_launches(label, counters, eng, mark, prefill=True):
+    """The counters (K7, K8, K9 wrappers and attributes) against what the
+    engine's trace since ``mark`` ran: L K7 a decode step, L K8 a prefill
+    chunk, one K9 a decode step. Returns the launch table."""
+    steps, chunks, _ = trace_counts(eng, mark)
+    L = eng.cfg.num_layers
+    got = {counter_key(c, a): getattr(c, a) for c, a in counters}
+    want = dict(zip(got, (L * steps, L * chunks, steps)))
+    log(f"  {label}: {steps} decode steps and {chunks} prefill chunks by "
+        f"the destination's trace; launches {got}, expected {want}")
+    if got != want or steps <= 0 or (prefill and chunks <= 0):
+        fail(f"3-migrate {label}: launches {got}, expected {want}")
+    return got
+
+
+def zero(counters):
+    for c, attr in counters:
+        setattr(c, attr, 0)
+
+
+def wait_tokens(label, handles, n, timeout=300):
+    t0 = time.perf_counter()
+    while not all(len(h.tokens) >= n for h in handles):
+        if any(h.done.is_set() for h in handles):
+            fail(f"3-migrate {label}: a request finished before {n} tokens")
+        if time.perf_counter() - t0 > timeout:
+            fail(f"3-migrate {label}: requests never reached {n} tokens")
+        time.sleep(0.001)
+
+
+def finished(label, handles, timeout=600):
+    for h in handles:
+        if not h.done.wait(timeout):
+            fail(f"3-migrate {label}: {h.trace_id} did not finish")
+
+
+def check_moved(torch, label, got, want, ref, prompt, sampled,
+                kv_quant=None, max_new=MIGRATE_NEW):
+    """A moved stream against the unmoved one: equal for a sampled stream,
+    ``check_greedy``'s rule for a greedy one."""
+    if sampled:
+        if got != want:
+            n = next((i for i in range(min(len(got), len(want)))
+                      if got[i] != want[i]), min(len(got), len(want)))
+            fail(f"{label}: the sampled stream parts from the unmoved one "
+                 f"at token {n} ({len(got)} vs {len(want)} tokens)")
+        log(f"  {label}: {len(got)} sampled tokens equal")
+        return
+    check_greedy(torch, label, got, want, ref, prompt, max_new,
+                 kv_quant=kv_quant)
+
+
+def export_http(label, port, body):
+    t0 = time.perf_counter()
+    code, doc = admin(port, "POST", "/admin/sessions/export", body)
+    ms = (time.perf_counter() - t0) * 1e3
+    if code != 200:
+        fail(f"3-migrate {label}: export answered {code} {doc}")
+    return doc, ms
+
+
+def slowed(eng, attr, delay):
+    """Slow ``eng.attr`` by ``delay`` s a call (to catch a prefill between
+    its chunks); returns the restore callable."""
+    real = getattr(eng, attr)
+
+    def slow(*a, **kw):
+        time.sleep(delay)
+        return real(*a, **kw)
+
+    setattr(eng, attr, slow)
+    return lambda: setattr(eng, attr, real)
+
+
+def export_mid_prefill_http(label, port, eng, prompt, **kw):
+    """Submit ``prompt``, catch it between two prefill chunks and export it
+    with ``"prefill": true``; returns (request, payload)."""
+    restore = slowed(eng, "_prefill_chunk_fn", 0.02)
+    try:
+        h = eng.submit(prompt, max_new_tokens=MIGRATE_NEW, **kw)
+        t0 = time.perf_counter()
+        while not any(0 < st["done"] < st["plen"]
+                      for st in list(eng._pending.values())):
+            if h.done.is_set() or time.perf_counter() - t0 > 120:
+                fail(f"3-migrate {label}: never caught mid-prefill")
+            time.sleep(0.001)
+        doc, _ = export_http(label, port, {"prefill": True})
+    finally:
+        restore()
+    if len(doc["sessions"]) != 1 or "pending" not in doc["sessions"][0]:
+        fail(f"3-migrate {label}: export gave {len(doc['sessions'])} "
+             f"sessions, skipped {doc['skipped']}")
+    return h, doc["sessions"][0]
+
+
+def migrate_phase(torch, counters, int8_counters):
+    """3-migrate (see the module docstring). ``counters`` are K7, K8 and
+    K9's ``(wrapper, attribute)``, ``int8_counters`` the int8 K7/K8's."""
+    import random
+
+    from datatunerx_tpu_torch.fleet import SpillCoordinator
+    from datatunerx_tpu_torch.serving import migration as mig
+    from datatunerx_tpu_torch.serving import server
+
+    rnd = random.Random(14)
+    t_phase = time.perf_counter()
+    servers = {}
+
+    def up(name, flags):
+        state = server.ServingState()
+        srv, port, eng = start_server(torch, MIGRATE_FLAGS + flags,
+                                      state=state)
+        servers[name] = (srv, state)
+        return port, eng
+
+    def down(name):
+        srv, state = servers.pop(name)
+        eng = state.engine
+        stop_server(srv, state)
+        eng.close()
+
+    try:
+        # ---- 1. session handoff: 3 greedy + 1 sampled, moved mid-decode
+        sport, src = up("A", ("--prefix_cache", "8", "--role", "prefill"))
+        dport, dst = up("B", ("--prefix_cache", "8"))
+        imported = capture_imports(dst)
+        roles = [k for k, v in scrape_metrics(sport).items()
+                 if k.startswith("dtx_serving_role{") and v == 1]
+        if roles != ['dtx_serving_role{role="prefill"}']:
+            fail(f"3-migrate: the source's /metrics shows the roles {roles}")
+        prompts = [rand_ids(rnd, 600) for _ in range(4)]
+        temps = [0.0, 0.0, 0.0, MIGRATE_TEMP]
+        names = [f"mig-{i}" for i in range(4)]
+
+        def submit_all(eng, tag):
+            return [eng.submit(p, max_new_tokens=MIGRATE_NEW, temperature=t,
+                               seed=MIGRATE_SEED, trace_id=f"{tag}{n}")
+                    for p, t, n in zip(prompts, temps, names)]
+
+        moving = submit_all(src, "")
+        wait_tokens("handoff", moving, 8)
+        # the host's split of the export: the scheduler's command, and in
+        # it the device-to-host copies and the base64 encoding
+        split = {k: [] for k in ("export", "host", "b64", "import",
+                                 "unpack", "unb64")}
+        restores = [clocked(src, "_do_export", split["export"]),
+                    clocked(mig, "_host", split["host"]),
+                    clocked(mig, "_b64", split["b64"])]
+        try:
+            doc, export_ms = export_http("handoff", sport, {})
+        finally:
+            for r in restores:
+                r()
+        finished("handoff", moving, 60)
+        if len(doc["sessions"]) != 4 or any(
+                "session migrated" not in (h.error or "") for h in moving):
+            fail(f"3-migrate handoff: exported {len(doc['sessions'])} "
+                 f"sessions, skipped {doc['skipped']}")
+        payloads = {p["trace_id"]: p for p in doc["sessions"]}
+        zero(counters)
+        mark = len(dst.sched_trace)
+        out, threads = {}, []
+        for n in names:
+            threads.append(threading.Thread(
+                target=drain_import, args=(dport, payloads[n], out, n)))
+        # the import's: the scheduler's command, and in it the row's
+        # unpacking onto the card and, in that, the base64 decoding
+        restores = [clocked(dst, "_do_import", split["import"]),
+                    clocked(mig, "unpack_kv_row", split["unpack"]),
+                    clocked(mig, "_unb64", split["unb64"])]
+        try:
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+        finally:
+            for r in restores:
+                r()
+        bad = {n: o.get("error") for n, o in out.items() if "error" in o}
+        if bad or len(out) != 4:
+            fail(f"3-migrate handoff: imports failed {bad}")
+        check_launches("handoff", counters, dst, mark, prefill=False)
+        unmoved = submit_all(src, "unmoved-")
+        finished("handoff unmoved", unmoved)
+        tok = src.tokenizer
+        cfg = src.cfg
+        lane_bytes = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
+        for i, n in enumerate(names):
+            got = imported[n].tokens
+            if not spliced(tok, payloads[n]["tokens"],
+                           out[n]["meta"]["text_so_far"], out[n]["text"],
+                           got):
+                fail(f"3-migrate {n}: the SSE text is not the tail's and "
+                     "its continuation's")
+            check_moved(torch, f"3-migrate {n}", got, unmoved[i].tokens, src,
+                        prompts[i], sampled=temps[i] > 0)
+        for i, n in enumerate(names):
+            p, o = payloads[n], out[n]
+            first = imported[n].first_token_ts
+            log(f"  {n}: cursor {p['cursor']}, tail {len(p['tokens'])} "
+                f"tokens, KV {p['cursor'] * lane_bytes} B raw (bf16), payload "
+                f"{len(json.dumps(p))} B of JSON (bf16 wire); import POST to "
+                f"receipt {(o['t_receipt'] - o['t0']) * 1e3:.1f} ms, to the "
+                f"destination's first token {(first - o['t0']) * 1e3:.1f} ms"
+                f", to the first text delta "
+                + (f"{(o['t_first'] - o['t0']) * 1e3:.1f} ms" if o["t_first"]
+                   else "(none: the tokens decode to no text)")
+                + f" ({len(o['text'])} characters of SSE text, as expected)"
+                + "; the client's gap (the source's last token to the "
+                f"destination's first) "
+                f"{(first - moving[i].last_token_ts) * 1e3:.1f} ms")
+        log(f"  export of 4 sessions: {export_ms:.1f} ms (one POST)")
+        jt = []
+        for n in names:
+            t0 = time.perf_counter()
+            body = json.dumps(dict(payloads[n], stream=True))
+            t1 = time.perf_counter()
+            json.loads(body)
+            jt.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+        t0 = time.perf_counter()
+        body = json.dumps(doc)
+        t1 = time.perf_counter()
+        json.loads(body)
+        t2 = time.perf_counter()
+
+        def ms(xs):
+            return "[" + ", ".join(f"{x:.1f}" for x in xs) + "] ms"
+
+        log("  host split (host clock; the four imports ran at once, so "
+            "each includes waits for the interpreter lock): export: the "
+            f"scheduler's command {ms(split['export'])}, in it the device-"
+            f"to-host copies {sum(split['host']):.1f} ms and base64 "
+            f"{sum(split['b64']):.1f} ms; the answer's json.dumps "
+            f"{(t1 - t0) * 1e3:.1f} ms and json.loads {(t2 - t1) * 1e3:.1f}"
+            f" ms, again alone. Import, a session: json.dumps "
+            f"{ms(a for a, _ in jt)} and json.loads {ms(b for _, b in jt)} "
+            f"again alone; the scheduler's command {ms(split['import'])}, "
+            f"in it unpack_kv_row {ms(split['unpack'])}, in that base64 "
+            f"{sum(split['unb64']):.1f} ms over {len(split['unb64'])} "
+            "calls")
+
+        # ---- 2. mid-prefill handoff: a ~880-token prompt, 64 a tick
+        pport, psrc = up("A2", ("--prefill_token_budget", "64"))
+        p_mid = rand_ids(rnd, 880)
+        _, payload = export_mid_prefill_http("mid-prefill", pport, psrc,
+                                             p_mid, trace_id="mid-0")
+        tail = len(payload["pending"]["ids"])
+        zero(counters)
+        mark = len(dst.sched_trace)
+        drain_import(dport, payload, out, "mid-0")
+        if "error" in out["mid-0"]:
+            fail(f"3-migrate mid-prefill: {out['mid-0']['error']}")
+        _, _, ptoks = trace_counts(dst, mark)
+        log(f"  mid-prefill: exported after {payload['pending']['done']} of "
+            f"{tail + payload['pending']['done']} prompt lanes; the "
+            f"destination prefilled {ptoks} (the tail: {tail}); payload "
+            f"{len(json.dumps(payload))} B")
+        if ptoks != tail:
+            fail(f"3-migrate mid-prefill: the destination prefilled {ptoks} "
+                 f"tokens, the tail is {tail}")
+        check_launches("mid-prefill", counters, dst, mark)
+        want = psrc.generate(p_mid, max_new_tokens=MIGRATE_NEW)
+        check_moved(torch, "3-migrate mid-prefill", imported["mid-0"].tokens,
+                    want, psrc, p_mid, sampled=False)
+
+        # ---- 3. int8: a bf16 wire into int8 pools, an int8 wire between
+        # int8 engines
+        qport, qdst = up("C", ("--kv_quant", "int8"))
+        q_imported = capture_imports(qdst)
+        _, payload = export_mid_prefill_http(
+            "int8 from bf16", pport, psrc, rand_ids(rnd, 880),
+            trace_id="int8-from-bf16")
+        q_all = int8_counters + [counters[2]]
+        zero(q_all)
+        mark = len(qdst.sched_trace)
+        drain_import(qport, payload, out, "int8-from-bf16")
+        if "error" in out["int8-from-bf16"]:
+            fail(f"3-migrate int8: {out['int8-from-bf16']['error']}")
+        check_launches("bf16 wire into int8 pools (mid-prefill)", q_all,
+                       qdst, mark)
+        got = q_imported["int8-from-bf16"].tokens
+        if len(got) <= len(payload["tokens"]) or \
+                q_imported["int8-from-bf16"].error:
+            fail("3-migrate int8: the bf16-wire session did not complete")
+        log(f"  bf16 wire into int8 pools: {len(got)} tokens")
+        down("A2")
+        iport, isrc = up("D", ("--kv_quant", "int8"))
+        i_prompts = [rand_ids(rnd, 600) for _ in range(2)]
+        i_temps = [0.0, MIGRATE_TEMP]
+
+        def i_submit(tag):
+            return [isrc.submit(p, max_new_tokens=MIGRATE_NEW, temperature=t,
+                                seed=MIGRATE_SEED, trace_id=f"{tag}int8-{i}")
+                    for i, (p, t) in enumerate(zip(i_prompts, i_temps))]
+
+        i_unmoved = i_submit("unmoved-")
+        finished("int8 unmoved", i_unmoved)
+        i_moving = i_submit("")
+        wait_tokens("int8", i_moving, 8)
+        doc, i_export_ms = export_http("int8", iport, {})
+        finished("int8", i_moving, 60)
+        zero(q_all)
+        mark = len(qdst.sched_trace)
+        for p in doc["sessions"]:
+            if p["kv"]["wire"] != "int8":
+                fail("3-migrate int8: an int8 engine exported another wire")
+            drain_import(qport, p, out, p["trace_id"])
+        check_launches("int8 wire into int8 pools", q_all, qdst, mark,
+                       prefill=False)
+        for i, (p, t) in enumerate(zip(i_prompts, i_temps)):
+            n = f"int8-{i}"
+            check_moved(torch, f"3-migrate {n}", q_imported[n].tokens,
+                        i_unmoved[i].tokens, isrc, p, sampled=t > 0,
+                        kv_quant="int8")
+            pl = next(x for x in doc["sessions"] if x["trace_id"] == n)
+            log(f"  {n}: cursor {pl['cursor']}, payload "
+                f"{len(json.dumps(pl))} B of JSON (int8 wire)")
+        log(f"  int8 export of 2 sessions: {i_export_ms:.1f} ms")
+        for name in ("C", "D"):
+            log(f"  session_stats {name}: "
+                f"{servers[name][1].engine.session_stats}")
+            down(name)
+
+        # ---- 4. the prefix tier: a ~520-token prefix moves A -> B
+        shared = rand_ids(rnd, 520)
+        src.generate(shared, max_new_tokens=8)
+        fp = mig.prefix_fingerprint("", shared)
+        code, doc = admin(sport, "POST", "/admin/prefix/export",
+                          {"max_entries": 8})
+        entry = next((e for e in doc.get("entries", [])
+                      if e["fingerprint"] == fp), None)
+        if code != 200 or entry is None:
+            fail(f"3-migrate prefix: export answered {code}, no entry {fp}")
+        code, res = admin(dport, "POST", "/admin/prefix/import", entry)
+        if code != 200 or not res.get("imported"):
+            fail(f"3-migrate prefix: import answered {code} {res}")
+        # in turns, each a request alone on the destination: cold, the
+        # imported prefix (its first request), cold, the prefix again
+        ttft = {"hit": [], "cold": []}
+        for label, prompt in (("cold", rand_ids(rnd, 520)), ("hit", shared),
+                              ("cold", rand_ids(rnd, 520)), ("hit", shared)):
+            mark = len(dst.sched_trace)
+            dst.request_stats.clear()
+            got = dst.generate(prompt, max_new_tokens=MIGRATE_NEW,
+                               trace_id=f"prefix-{label}")
+            _, chunks, _ = trace_counts(dst, mark)
+            ttft[label].append((dst.request_stats[-1]["ttft_s"] * 1e3,
+                                chunks))
+            if label == "hit" and chunks != 0:
+                fail(f"3-migrate prefix: the imported prefix ran {chunks} "
+                     "prefill chunks")
+            if label == "hit" and len(ttft["hit"]) == 1:
+                check_greedy(torch, "3-migrate prefix hit", got,
+                             src.generate(shared, max_new_tokens=MIGRATE_NEW),
+                             src, shared, MIGRATE_NEW)
+
+        def show(xs):
+            return ", ".join(f"{t:.1f} ms ({c} prefill chunks)" for t, c in xs)
+
+        log(f"  prefix: payload {len(json.dumps(entry))} B; TTFT (a decode "
+            f"chunk of 8 steps included) on the imported prefix "
+            f"{show(ttft['hit'])}; cold 520-token prompts "
+            f"{show(ttft['cold'])}")
+        log(f"  session_stats A: {src.session_stats}")
+        down("A")
+
+        # ---- 5. spill: a tight overcommit pool, hold/release, then the
+        # port's SpillCoordinator over HTTP (hold -> import -> drop)
+        eport, esrc = up("E", ("--kv_overcommit", "on", "--kv_blocks", "64"))
+        s_prompts = [rand_ids(rnd, 400) for _ in range(4)]
+        s_temps = [0.0, 0.0, 0.0, MIGRATE_TEMP]
+
+        def s_submit(eng, tag):
+            return [eng.submit(p, max_new_tokens=SPILL_NEW, temperature=t,
+                               seed=MIGRATE_SEED, trace_id=f"{tag}spill-{i}")
+                    for i, (p, t) in enumerate(zip(s_prompts, s_temps))]
+
+        s_ref = s_submit(dst, "ref-")
+        finished("spill reference", s_ref)
+        # round 1: a leased head released at once resumes here
+        round1 = s_submit(esrc, "r1-")
+        t0 = time.perf_counter()
+        while not esrc.parked_sessions:
+            if all(h.done.is_set() for h in round1) or \
+                    time.perf_counter() - t0 > 300:
+                fail("3-migrate spill: nothing was parked")
+            time.sleep(0.001)
+        code, held = admin(eport, "POST", "/admin/sessions/hold",
+                           {"max_sessions": 1, "hold_s": 60})
+        tids = [s["trace_id"] for s in held.get("sessions", [])]
+        code2, rel = admin(eport, "POST", "/admin/sessions/release",
+                           {"trace_ids": tids})
+        if code != 200 or code2 != 200 or rel != {"released": 1}:
+            fail(f"3-migrate spill: hold {code} {held.get('sessions')}, "
+                 f"release {code2} {rel}")
+        finished("spill round 1", round1)
+        for i, h in enumerate(round1):
+            if h.error:
+                fail(f"3-migrate spill: {h.trace_id}: {h.error}")
+            check_moved(torch, f"3-migrate {h.trace_id}", h.tokens,
+                        s_ref[i].tokens, dst, s_prompts[i],
+                        sampled=s_temps[i] > 0, max_new=SPILL_NEW)
+        log(f"  spill round 1: {tids[0]} held and released, resumed here; "
+            f"preemptions {esrc.preempt_stats}")
+        # round 2: the coordinator re-homes parked sessions onto B
+        box = {}
+        coord = SpillCoordinator(
+            PeerPool([HttpPeer("E", eport), HttpPeer("B", dport)]),
+            park=box.__setitem__, max_sessions=2, hold_s=60)
+        spilled0 = esrc.preempt_stats.get("spilled", 0)
+        round2 = s_submit(esrc, "r2-")
+        t0 = time.perf_counter()
+        while not all(h.done.is_set() for h in round2):
+            if esrc.parked_sessions:
+                coord.tick()
+            if time.perf_counter() - t0 > 600:
+                fail("3-migrate spill: round 2 did not finish")
+            time.sleep(0.002)
+        if coord.counters["ok"] < 1:
+            fail(f"3-migrate spill: nothing spilled {coord.counters}")
+        for i, h in enumerate(round2):
+            if h.error is None:
+                got = h.tokens
+            elif "session migrated" in h.error:
+                ent = box[h.trace_id]
+                deltas = "".join(d for d, _ in ent["stream"])
+                got = imported[h.trace_id].tokens
+                if not spliced(dst.tokenizer, h.tokens, ent["text_so_far"],
+                               deltas, got):
+                    fail(f"3-migrate {h.trace_id}: the spilled stream is "
+                         "not the tail plus the continuation")
+            else:
+                fail(f"3-migrate spill: {h.trace_id}: {h.error}")
+            check_moved(torch, f"3-migrate {h.trace_id}", got,
+                        s_ref[i].tokens, dst, s_prompts[i],
+                        sampled=s_temps[i] > 0, max_new=SPILL_NEW)
+        spilled = esrc.preempt_stats.get("spilled", 0) - spilled0
+        if spilled != coord.counters["ok"]:
+            fail(f"3-migrate spill: the source spilled {spilled}, the "
+                 f"coordinator moved {coord.counters['ok']}")
+        log(f"  spill round 2: coordinator {coord.counters}; the source "
+            f"{esrc.preempt_stats}, its pool whole: "
+            f"{esrc.free_kv_blocks == esrc.total_kv_blocks}")
+        log(f"  session_stats E: {esrc.session_stats}, B: "
+            f"{dst.session_stats}")
+        if esrc.free_kv_blocks != esrc.total_kv_blocks:
+            fail("3-migrate spill: the source's pool is not whole")
+        down("E")
+        down("B")
+    finally:
+        for name in list(servers):
+            down(name)
+    log(f"  3-migrate took {time.perf_counter() - t_phase:.1f} s")
 
 
 def checkpoint_serve_phase(torch, checkpoint, scaling):
@@ -3413,6 +4114,11 @@ def main(argv=None) -> int:
             "/admin/adapters, 3 rounds of concurrent requests")
         adapter_phase(torch, [by_name[k] for k in ("K7", "K8", "K9")],
                       base_batch)
+        log("[3-migrate] session migration and the fleet plane: two port "
+            "servers, sessions moved mid-decode and mid-prefill, int8, the "
+            "prefix tier, peer spill")
+        migrate_phase(torch, [by_name[k] for k in ("K7", "K8", "K9")],
+                      [by_name[k] for k in ("K7-int8", "K8-int8")])
 
     if opts.phase in ("all", "train", "qlora"):
         # each kernel's launches come from the run of its own path

@@ -28,6 +28,16 @@
   it parks in the dtx-kv-session row format (serving/migration.py) and
   resumes token for token, its threefry key included. The oldest live
   session is never preempted.
+- SESSION MIGRATION (serving/migration.py): ``export_sessions`` serializes
+  live sessions (mid-decode, or mid-chunked-prefill with a ``pending``
+  tail) into dtx-kv-session payloads and finishes the source requests with
+  the "session migrated" marker; ``import_session`` admits a payload from
+  either package and resumes it token for token. ``hold_parked``,
+  ``drop_parked`` and ``release_parked`` lease preempted sessions to a
+  peer-spill coordinator; ``export_prefix_entries`` and
+  ``import_prefix_entry`` move prefix-cache entries between replicas
+  (fleet/). The commands queue to the scheduler thread, which serves them
+  first each tick.
 - decode runs in CHUNKS of K tokens: a Python loop of K single-token steps
   with every operand on the device; the one host sync per chunk is the
   transfer of the emitted tokens (and the active mask) that lets
@@ -99,6 +109,7 @@ from datatunerx_tpu_torch.ops.paged_attention import (
     paged_copy_block,
     paged_extract_row,
     paged_insert_row,
+    row_trim,
 )
 from datatunerx_tpu_torch.serving import migration as mig
 from datatunerx_tpu_torch.serving import speculative as spec_mod
@@ -124,6 +135,13 @@ MAX_STOP = 8  # static per-slot stop-token capacity
 # global arrival order: preemption never takes the oldest live request, and
 # parked sessions resume before anything younger is admitted
 _REQ_SEQ = itertools.count()
+
+
+class _RetryLater(Exception):
+    """A session command that cannot complete this tick but may a later one
+    (no free slot, KV blocks exhausted, adapter mid-load): the scheduler
+    retries it each tick until its deadline."""
+
 
 def manifest_lora_scaling(ckpt_root: str) -> Optional[float]:
     """The adapter's alpha / rank scaling that the trainer recorded in the
@@ -269,6 +287,12 @@ class _PrefixCache:
         if self._on_evict is not None:
             for ent in dropped:
                 self._on_evict(ent)
+
+    def snapshot_entries(self):
+        """MRU-first (key, entry) pairs, recency untouched: the prefix
+        tier's publish scan (a point-in-time copy)."""
+        with self._lock:
+            return list(reversed(list(self._d.items())))
 
     def pop_lru_block_entry(self):
         """Evict and return the least-recently-used BLOCK entry (None when
@@ -612,6 +636,14 @@ class BatchedEngine:
         self._admit_wait_reason = ""  # why the last _admit returned False
         self._shutdown = threading.Event()
         self._dead: Optional[str] = None  # set when the scheduler died
+        # session commands from admin threads, served by the scheduler
+        # first each tick; transient refusals wait in _mig_retry until
+        # their deadline
+        self._mig_q: "queue.Queue[dict]" = queue.Queue()
+        self._mig_retry: List[dict] = []
+        # command outcome counts, by command kind
+        self.session_stats: Dict[str, Dict[str, int]] = {
+            "export": {}, "import": {}}
         self._encode_memo: "collections.OrderedDict[str, tuple]" = \
             collections.OrderedDict()
         self._encode_memo_lock = threading.Lock()
@@ -892,7 +924,10 @@ class BatchedEngine:
         used, _ = key = self._prefix_key(ids, plen, n_prompt, akey)
         need = min(budget_needed, self.max_seq_len - plen)
         ent = self._prefix.get(key)
-        if ent is not None and self.max_seq_len - ent["cursor"] >= need:
+        # no_reuse entries (logits-free prefix imports) carry no logits:
+        # they serve strict-prefix extension only
+        if (ent is not None and not ent.get("no_reuse")
+                and self.max_seq_len - ent["cursor"] >= need):
             self.prefill_stats["reuse"] += 1
             return ent["logits"], ent["cache"], ent["cursor"]
         pkey, pent = self._prefix.longest_prefix(used, akey)
@@ -1034,6 +1069,7 @@ class BatchedEngine:
         need = min(max_new, self.max_seq_len - plen)
         ent = self._prefix.get(key)
         if (ent is not None and ent.get("blocks") is not None
+                and not ent.get("no_reuse")
                 and self.max_seq_len - ent["cursor"] >= need):
             m = max(1, min(max_new, self.max_seq_len - ent["cursor"]))
             ok = self._cow_map(req, slot, ent, n_prompt, m, suffix=None,
@@ -1188,6 +1224,10 @@ class BatchedEngine:
         cursor = st["base"] + st["plen"]
         self._arm_slot(slot, st["req"], row_logits, cursor, st["n_prompt"],
                        st["max_new"])
+        if st["key"] is None:
+            # an imported mid-prefill tail: no cold prefill, no entry
+            self._trace("activate", slot)
+            return
         if not st["base"]:
             self.prefill_stats["full"] += 1  # extensions counted at admission
         self._slot_key[slot] = (st["key"], cursor)
@@ -1318,31 +1358,76 @@ class BatchedEngine:
         self._cache["block_tables"][slot] = self._table_row(blocks)
         self._trace("grow", slot, len(new_blocks))
 
-    def _export_slot(self, slot: int, req: Request) -> dict:
-        """The slot's session as an in-process dtx-kv-session payload: its
-        KV prefix (bucket-rounded, trimmed to the cursor; host numpy
-        bodies), its last-token logits, cursor, position, budget and its
-        threefry key."""
+    @staticmethod
+    def _session_fields(req: Request) -> dict:
+        """A request's host fields as a session payload carries them."""
+        return {"trace_id": req.trace_id, "adapter": req.adapter_name,
+                "prompt_ids": list(req.prompt_ids),
+                "tokens": list(req.tokens),
+                "max_new_tokens": req.max_new_tokens,
+                "temperature": req.temperature, "top_p": req.top_p,
+                "seed": req.seed, "stop_ids": list(req.stop_ids)}
+
+    def _slot_row(self, slot: int, cursor: int) -> Dict:
+        """The slot's KV as a dense row: on the paged layout its live blocks
+        gathered (bucket-rounded width), on the dense layout its row."""
+        if self.paged:
+            w = min(-(-max(1, cursor) // DECODE_BUCKET) * DECODE_BUCKET,
+                    self.max_seq_len)
+            return paged_extract_row(self._cache, slot, cursor, width=w)
+        return {name: (t[slot:slot + 1] if name == "pos"
+                       else t[:, slot:slot + 1])
+                for name, t in self._cache.items()
+                if name in ("k", "v", "k_scale", "v_scale", "pos")}
+
+    def _export_slot(self, slot: int, req: Request, wire: Optional[str],
+                     b64: bool = True) -> dict:
+        """The slot's decode session as a dtx-kv-session payload: its KV
+        prefix, last-token logits, cursor, position, budget and threefry
+        key (``b64=False``: host numpy bodies, for preemption parking), plus
+        the spec controller's learned state on a spec engine."""
         # the export's designed sync: the slot's scalar decode state
         cursor, pos, remaining = torch.stack(
             (self._cache["len"][slot], self._pos[slot],
              self._remaining[slot])).cpu().tolist()
-        w = min(-(-max(1, cursor) // DECODE_BUCKET) * DECODE_BUCKET,
-                self.max_seq_len)
-        row = paged_extract_row(self._cache, slot, cursor, width=w)
-        wire = "int8" if self.kv_quant == "int8" else "bf16"
-        return {
-            "kind": mig.PAYLOAD_KIND, "version": mig.PAYLOAD_VERSION,
-            "trace_id": req.trace_id, "prompt_ids": list(req.prompt_ids),
-            "tokens": list(req.tokens), "max_new_tokens": req.max_new_tokens,
-            "temperature": req.temperature, "top_p": req.top_p,
-            "seed": req.seed, "stop_ids": list(req.stop_ids),
-            "pos": pos, "remaining": remaining, "cursor": cursor,
-            # the slot's live threefry key, as the reference's payload
-            "rng": [int(w) for w in self._keys[slot]],
-            "logits": mig.pack_logits(self._logits[slot], b64=False),
-            "kv": mig.pack_kv_row(row, cursor, wire, b64=False),
+        payload = mig.build_payload(
+            self.cfg, self.kv_quant, self._session_fields(req),
+            self._slot_row(slot, cursor), cursor, pos, remaining,
+            self._keys[slot], self._logits[slot], wire=wire, b64=b64)
+        if self.spec is not None:
+            payload["spec"] = self.spec_ctrl.export_slot_state(slot)
+        return payload
+
+    def _export_prefill_slot(self, slot: int, st: dict,
+                             wire: Optional[str]) -> dict:
+        """A mid-chunked-prefill slot's payload: the KV written so far
+        (``base + done`` lanes) and a ``pending`` document holding the
+        prompt tail. Its rng and logits are placeholders: the importer arms
+        decode from the seed when the tail is done, as this engine would."""
+        req = st["req"]
+        done = int(st["done"])
+        cursor = int(st["base"]) + done
+        payload = mig.build_payload(
+            self.cfg, self.kv_quant, self._session_fields(req),
+            self._slot_row(slot, cursor), cursor, st["n_prompt"],
+            st["max_new"], np.zeros(2, np.uint32),
+            np.zeros((self.cfg.vocab_size,), np.float32), wire=wire)
+        payload["pending"] = {
+            "ids": [int(t) for t in st["ids"][done:]],
+            "mask": [int(m) for m in st["mask"][done:]],
+            "positions": [int(p) for p in st["positions"][done:]],
+            "n_prompt": int(st["n_prompt"]), "max_new": int(st["max_new"]),
+            "base": int(st["base"]), "done": done,
         }
+        return payload
+
+    def _deactivate(self, slot: int, note_session: bool = True):
+        """Release a slot whose session left while still ACTIVE on the
+        device: clear its mask and budget too, or the next chunk would
+        sample it and write through the next tenant's table."""
+        self._release_slot(slot, note_session=note_session)
+        self._active[slot] = False
+        self._remaining[slot] = 0
 
     def _preempt_slot(self, slot: int):
         """Park a decode session host-side and release everything it held.
@@ -1352,13 +1437,8 @@ class BatchedEngine:
         req = self._slot_req[slot]
         if self.spec is not None and self._spec_form[slot]:
             self._spec_settle_slot(slot)  # the row format is logits form
-        payload = self._export_slot(slot, req)
-        self._release_slot(slot, note_session=False)
-        # the slot is still ACTIVE on the device: clear its mask and budget
-        # now, or the next chunk would sample it and write through the next
-        # tenant's table
-        self._active[slot] = False
-        self._remaining[slot] = 0
+        payload = self._export_slot(slot, req, None, b64=False)
+        self._deactivate(slot, note_session=False)
         self._preempted.append({"payload": payload, "req": req})
         self._preempted.sort(key=lambda e: e["req"].seq)
         self._count_preempt("exported")
@@ -1376,9 +1456,13 @@ class BatchedEngine:
 
     def _resume_preempted_tick(self):
         """Re-admit parked sessions, oldest first, ahead of the cold queue;
-        a head that cannot resume yet holds everything behind it."""
+        a head that cannot resume yet holds everything behind it, and so
+        does a head leased to a peer-spill coordinator until its hold is
+        dropped, released or expires."""
         while self._preempted:
             entry = self._preempted[0]
+            if entry.get("hold_until", 0.0) > time.monotonic():
+                return
             try:
                 ok = self._resume_one(entry)
             except Exception as e:  # noqa: BLE001 — fail the session, not the loop
@@ -1390,10 +1474,45 @@ class BatchedEngine:
                 return
             self._preempted.pop(0)
 
+    def _free_slot(self) -> Optional[int]:
+        return next((i for i in range(self.slots)
+                     if self._slot_req[i] is None), None)
+
+    def _install_session(self, slot: int, blocks: Optional[List[int]],
+                         payload: dict, req: Request, cursor: int, pos: int,
+                         remaining: int):
+        """Scatter a payload's KV row into ``slot`` (its fresh ``blocks``
+        on the paged layout: the row's sentinel lanes scrub them) and arm
+        decode from its logits, position, budget and LIVE threefry key.
+        On a failure the slot's table and mask are cleared again; the
+        caller frees what it allocated."""
+        try:
+            row = mig.unpack_kv_row(payload["kv"], self.max_seq_len,
+                                    self.kv_quant, device=self.device)
+            if self.paged:
+                paged_insert_row(self._cache, slot, self._table_row(blocks),
+                                 row)
+            else:
+                for name in ("k", "v", "k_scale", "v_scale"):
+                    if name in self._cache:
+                        self._cache[name][:, slot] = row[name][:, 0]
+                self._cache["pos"][slot] = row["pos"][0]
+            self._cache["len"][slot] = cursor
+            self._arm_slot(slot, req, mig.unpack_logits(
+                payload, self.cfg.vocab_size, device=self.device), cursor,
+                pos, remaining)
+            # token-exact resume: the slot's LIVE key, not the seed's
+            self._keys[slot] = np.asarray(payload["rng"], dtype=np.uint32)
+        except Exception:
+            if self.paged:
+                self._cache["block_tables"][slot] = -1
+            self._active[slot] = False
+            self._decode_ready[slot] = False
+            raise
+
     def _resume_one(self, entry: dict) -> bool:
         req, payload = entry["req"], entry["payload"]
-        slot = next((i for i in range(self.slots)
-                     if self._slot_req[i] is None), None)
+        slot = self._free_slot()
         if slot is None:
             return False
         name = req.adapter_name
@@ -1417,20 +1536,9 @@ class BatchedEngine:
                 self.adapter_registry.release(name)
             return False
         try:
-            row = mig.unpack_kv_row(payload["kv"], self.max_seq_len,
-                                    self.kv_quant, device=self.device)
-            # the full-width row's sentinel lanes scrub the blocks
-            paged_insert_row(self._cache, slot, self._table_row(blocks), row)
-            self._cache["len"][slot] = cursor
-            self._arm_slot(slot, req, mig.unpack_logits(
-                payload, self.cfg.vocab_size, device=self.device), cursor,
-                payload["pos"], remaining)
-            # token-exact resume: the slot's LIVE key, not the seed's
-            self._keys[slot] = np.asarray(payload["rng"], dtype=np.uint32)
+            self._install_session(slot, blocks, payload, req, cursor,
+                                  payload["pos"], remaining)
         except Exception:
-            self._cache["block_tables"][slot] = -1
-            self._active[slot] = False
-            self._decode_ready[slot] = False
             self._allocator.free(blocks)
             if pinned:
                 self.adapter_registry.release(name)
@@ -1444,6 +1552,583 @@ class BatchedEngine:
         self._count_preempt("resumed")
         self._trace("resume", slot, cursor)
         return True
+
+    # ------------------------------------------------- session migration
+    def export_sessions(self, slots: Optional[Sequence[int]] = None,
+                        wire_quant: Optional[str] = None,
+                        timeout_s: float = 30.0,
+                        include_prefill: bool = False) -> dict:
+        """Serialize every in-flight decode session (or just ``slots``) into
+        dtx-kv-session payloads and finish the source requests with the
+        migrated marker. Slots mid-chunked-prefill are skipped (they finish
+        in place), unless ``include_prefill``: then their payload carries
+        the KV written so far and a ``pending`` prompt tail. A full export
+        also takes the parked sessions no spill coordinator holds. Returns
+        ``{"sessions": [...], "skipped": [{"slot", "reason"}]}``."""
+        return self._mig_call({"kind": "export",
+                               "slots": (None if slots is None
+                                         else [int(s) for s in slots]),
+                               "wire": wire_quant,
+                               "prefill": bool(include_prefill)}, timeout_s)
+
+    def import_session(self, payload: dict, timeout_s: float = 30.0,
+                       wait_s: float = 10.0) -> dict:
+        """Admit an exported session (from either package) and resume it:
+        KV scattered into fresh blocks (or the slot's dense row), decode
+        state and threefry key restored, so greedy and seeded streams go on
+        token for token. No free slot, no blocks or an adapter mid-load is
+        retried each tick until ``wait_s``; every refusal raises
+        ValueError. The meta holds ``"_request"`` (for ``resume_stream``)
+        and ``text_so_far``, the detokenized tail."""
+        return self._mig_call(
+            {"kind": "import", "payload": payload,
+             "deadline": time.monotonic() + wait_s}, timeout_s)
+
+    def hold_parked(self, max_sessions: int = 4, hold_s: float = 10.0,
+                    timeout_s: float = 30.0) -> dict:
+        """Phase 1 of a peer spill: lease up to ``max_sessions`` parked
+        payloads for ``hold_s`` seconds. A held head resumes nowhere and
+        still keeps younger cold requests waiting. Returns ``{"sessions":
+        [{"trace_id", "seq", "cursor", "remaining", "payload"}], "parked":
+        n}``."""
+        return self._mig_call({"kind": "hold_parked",
+                               "max_sessions": int(max_sessions),
+                               "hold_s": float(hold_s)}, timeout_s)
+
+    def drop_parked(self, trace_ids: Sequence[str],
+                    timeout_s: float = 30.0) -> dict:
+        """Phase 2, success: a peer imported these parked sessions; drop
+        them and finish their requests with the migrated marker."""
+        return self._mig_call({"kind": "drop_parked",
+                               "trace_ids": [str(t) for t in trace_ids]},
+                              timeout_s)
+
+    def release_parked(self, trace_ids: Sequence[str],
+                       timeout_s: float = 30.0) -> dict:
+        """Phase 2, failure: clear the holds so the sessions resume here."""
+        return self._mig_call({"kind": "release_parked",
+                               "trace_ids": [str(t) for t in trace_ids]},
+                              timeout_s)
+
+    def export_prefix_entries(self, exclude: Optional[Sequence[str]] = None,
+                              max_entries: int = 4,
+                              wire_quant: Optional[str] = None,
+                              timeout_s: float = 30.0) -> dict:
+        """Up to ``max_entries`` prefix-cache entries, most recent first, as
+        dtx-kv-prefix payloads, skipping the fingerprints in ``exclude``.
+        The entries stay cached. Returns ``{"entries": [...]}``."""
+        return self._mig_call({"kind": "export_prefix",
+                               "exclude": set(exclude or ()),
+                               "max_entries": int(max_entries),
+                               "wire": wire_quant}, timeout_s)
+
+    def import_prefix_entry(self, payload: dict, timeout_s: float = 30.0,
+                            wait_s: float = 5.0) -> dict:
+        """Install a dtx-kv-prefix payload as a local prefix-cache entry,
+        so the next prompt on that prefix admits with no prefill chunk.
+        A block shortage is retried until ``wait_s``; a signature mismatch,
+        an unknown adapter or a disabled prefix cache raises ValueError."""
+        return self._mig_call(
+            {"kind": "import_prefix", "payload": payload,
+             "deadline": time.monotonic() + wait_s}, timeout_s)
+
+    def resume_stream(self, req: Request):
+        """An imported session's text deltas past its migrated tail, as
+        decode produces them."""
+        acc = list(req.tokens[:getattr(req, "resume_base", 0)])
+        sent = (self.tokenizer.decode(acc, skip_special_tokens=True)
+                if acc else "")
+        while True:
+            t = req.stream.get()
+            if t is None:
+                break
+            acc.append(t)
+            text = self.tokenizer.decode(acc, skip_special_tokens=True)
+            if len(text) > len(sent) and not text.endswith("�"):
+                yield text[len(sent):]
+                sent = text
+        if req.error:
+            raise RuntimeError(req.error)
+
+    def adapter_catalog(self) -> Dict[str, str]:
+        """Registered adapter name → checkpoint path (pooled mode only)."""
+        if self.adapter_registry is None:
+            return {}
+        return {n: self.adapter_registry.describe(n)["checkpoint"]
+                for n in self.adapter_registry.names()}
+
+    def _mig_call(self, cmd: dict, timeout_s: float):
+        if self._shutdown.is_set() or self._dead:
+            raise RuntimeError(self._dead or "engine is shut down")
+        cmd["_done"] = threading.Event()
+        self._mig_q.put(cmd)
+        self._wake.set()
+        if not cmd["_done"].wait(timeout_s):
+            raise TimeoutError(
+                f"engine did not service session {cmd['kind']} within "
+                f"{timeout_s}s")
+        if cmd.get("_error"):
+            if cmd.get("_refused"):
+                raise ValueError(cmd["_error"])
+            raise RuntimeError(cmd["_error"])
+        return cmd["_result"]
+
+    def _count_mig(self, kind: str, outcome: str):
+        d = self.session_stats.setdefault(kind, {})
+        d[outcome] = d.get(outcome, 0) + 1
+
+    def _service_migrations(self):
+        """Serve the queued session commands on the scheduler thread; a
+        transient refusal waits for the next tick until its deadline. An
+        empty queue costs nothing (no device work)."""
+        if not self._mig_retry and self._mig_q.empty():
+            return
+        pending, self._mig_retry = self._mig_retry, []
+        while True:
+            try:
+                pending.append(self._mig_q.get_nowait())
+            except queue.Empty:
+                break
+        handlers = {"export": self._do_export, "import": self._do_import,
+                    "hold_parked": self._do_hold_parked,
+                    "drop_parked": self._do_drop_parked,
+                    "release_parked": self._do_release_parked,
+                    "export_prefix": self._do_export_prefix,
+                    "import_prefix": self._do_import_prefix}
+        for cmd in pending:
+            try:
+                handler = handlers.get(cmd["kind"])
+                if handler is None:
+                    raise ValueError(
+                        f"unknown session command {cmd['kind']!r}")
+                cmd["_result"] = handler(cmd)
+            except _RetryLater as retry:
+                if time.monotonic() < cmd.get("deadline", 0.0):
+                    self._mig_retry.append(cmd)
+                    continue
+                self._refuse(cmd, str(retry), True)
+            except (ValueError, KeyError) as e:
+                self._refuse(cmd, str(e), True)
+            except Exception as e:  # noqa: BLE001 — fail the command, not the loop
+                self._refuse(cmd, str(e), False)
+            cmd["_done"].set()
+
+    def _refuse(self, cmd: dict, error: str, refused: bool):
+        cmd["_error"], cmd["_refused"] = error, refused
+        self._count_mig(cmd["kind"], "refused" if refused else "error")
+
+    def _fail_commands(self, error: str):
+        """Fail every queued session command (the scheduler is gone)."""
+        pending, self._mig_retry = self._mig_retry, []
+        while True:
+            try:
+                pending.append(self._mig_q.get_nowait())
+            except queue.Empty:
+                break
+        for cmd in pending:
+            cmd["_error"], cmd["_refused"] = error, False
+            cmd["_done"].set()
+
+    def _do_export(self, cmd: dict) -> dict:
+        want = cmd.get("slots")
+        sessions: List[dict] = []
+        skipped: List[dict] = []
+        for slot in range(self.slots):
+            if want is not None and slot not in want:
+                continue
+            req = self._slot_req[slot]
+            if req is None:
+                if want is not None:
+                    skipped.append({"slot": slot, "reason": "empty"})
+                continue
+            if not self._decode_ready[slot]:
+                st = self._pending.get(slot)
+                if not (cmd.get("prefill") and st is not None
+                        and self.paged):
+                    skipped.append({"slot": slot,
+                                    "reason": "prefill_in_progress"})
+                    self._count_mig("export", "skipped_prefill")
+                    continue
+                # the blocks written so far plus the prompt tail: the
+                # importer resumes chunked prefill where this one stopped
+                try:
+                    payload = self._export_prefill_slot(slot, st,
+                                                        cmd.get("wire"))
+                except Exception as e:  # noqa: BLE001 — skip the slot, keep the rest
+                    skipped.append({"slot": slot, "reason": str(e)})
+                    self._count_mig("export", "error")
+                    continue
+                sessions.append(payload)
+                self._count_mig("export", "ok_prefill")
+                self._trace("export_prefill", slot)
+                self._deactivate(slot)
+                self._complete(req, error=f"{mig.MIGRATED_SESSION}: "
+                                          "prefill slot exported")
+                continue
+            try:
+                # a spec-form slot settles first: the payload is the plain
+                # logits form any replica imports (it re-primes its draft)
+                if self.spec is not None and self._spec_form[slot]:
+                    self._spec_settle_slot(slot)
+                payload = self._export_slot(slot, req, cmd.get("wire"))
+            except Exception as e:  # noqa: BLE001 — skip the slot, keep the rest
+                skipped.append({"slot": slot, "reason": str(e)})
+                self._count_mig("export", "error")
+                continue
+            sessions.append(payload)
+            self._count_mig("export", "ok")
+            self._trace("export", slot)
+            self._deactivate(slot)
+            self._complete(req, error=f"{mig.MIGRATED_SESSION}: "
+                                      "slot exported")
+        if want is None and self._preempted:
+            # parked sessions are in flight too; a held one stays with its
+            # spill coordinator (exporting it too would fork the session)
+            now = time.monotonic()
+            parked = [e for e in self._preempted
+                      if e.get("hold_until", 0.0) <= now]
+            self._preempted = [e for e in self._preempted
+                               if e.get("hold_until", 0.0) > now]
+            for entry in parked:
+                req = entry["req"]
+                sessions.append(mig.encode_payload(entry["payload"]))
+                self._count_mig("export", "ok")
+                self._trace("export_parked", req.seq)
+                self._complete(req, error=f"{mig.MIGRATED_SESSION}: "
+                                          "parked session exported")
+        return {"sessions": sessions, "skipped": skipped}
+
+    def _import_adapter(self, cmd: dict, name: str):
+        """The adapter index an imported session decodes with, and whether
+        it pins a pool slot: the base for "", else the NAME resolved here
+        (pooled: load on miss, retried until the deadline)."""
+        if not name:
+            return 0, False
+        if self.adapter_registry is not None:
+            # hit/miss stats count the first lookup only, across retries
+            first = not cmd.get("_adapter_seen", False)
+            cmd["_adapter_seen"] = True
+            try:
+                idx = self.adapter_registry.acquire(name, count_hit=first)
+            except KeyError:
+                raise ValueError(f"unknown adapter {name!r} on this replica")
+            if idx is None:
+                loading = self.adapter_registry.describe(name).get(
+                    "loading", False)
+                raise _RetryLater(
+                    f"adapter {name!r} " + ("still loading" if loading else
+                                            "pool exhausted (all slots "
+                                            "pinned)"))
+            return idx, True
+        if name in self._static_adapter_ids:
+            return self._static_adapter_ids[name], False
+        raise ValueError(f"unknown adapter {name!r} on this replica")
+
+    def _imported_request(self, payload: dict, idx: int, slot: int):
+        """The Request an imported session continues under; on a spec
+        engine its draft re-prime ids and the source's controller state."""
+        req = Request(payload["prompt_ids"], payload["max_new_tokens"],
+                      payload["temperature"], payload["top_p"],
+                      payload["seed"], payload["stop_ids"],
+                      trace_id=(payload["trace_id"]
+                                or f"dtx-{uuid.uuid4().hex[:16]}"),
+                      adapter=idx, adapter_name=payload["adapter"])
+        req.tokens = list(payload["tokens"])
+        req.resume_base = len(req.tokens)
+        if self.spec is not None:
+            ids, _, _, plen, n_prompt, _, _ = prepare_prompt(
+                payload["prompt_ids"], self.tokenizer.eos_token_id,
+                self.max_seq_len, payload["max_new_tokens"])
+            req.spec_prime_ids = ids[plen - n_prompt:]
+            self.spec_ctrl.import_slot_state(slot, payload.get("spec"))
+        return req
+
+    def _import_meta(self, req: Request, slot: int, cursor: int,
+                     remaining: int, **extra) -> dict:
+        text = (self.tokenizer.decode(req.tokens, skip_special_tokens=True)
+                if req.tokens else "")
+        return {"session": req.trace_id, "slot": slot,
+                "tokens": req.resume_base, "cursor": cursor,
+                "remaining": remaining, "adapter": req.adapter_name,
+                "text_so_far": text, "_request": req, **extra}
+
+    def _do_import(self, cmd: dict) -> dict:
+        payload = mig.normalize_payload(cmd["payload"], self.cfg)
+        cursor = payload["cursor"]
+        W = self.max_seq_len
+        if cursor >= W:
+            raise ValueError(
+                f"session depth {cursor} exceeds this replica's context {W}")
+        remaining = max(1, min(payload["remaining"], W - cursor))
+        slot = self._free_slot()
+        if slot is None:
+            raise _RetryLater(
+                f"no free cache slot to import into ({self.slots} busy)")
+        name = payload["adapter"]
+        idx, pinned = self._import_adapter(cmd, name)
+        blocks: Optional[List[int]] = None
+        try:
+            if payload.get("pending") is not None:
+                return self._import_prefill_tail(payload, slot, idx, pinned)
+            if self.paged:
+                # an overcommit engine imports lazily: growth follows decode
+                depth = self._reserve_depth(cursor, remaining)
+                blocks = self._alloc_blocks(depth)
+                if blocks is None:
+                    raise _RetryLater(
+                        "kv blocks exhausted "
+                        f"(need {-(-depth // self.block_size)}"
+                        f", free {self._allocator.free_count})")
+            req = self._imported_request(payload, idx, slot)
+            self._install_session(slot, blocks, payload, req, cursor,
+                                  payload["pos"], remaining)
+        except Exception:
+            if blocks:
+                self._allocator.free(blocks)
+            if pinned:
+                self.adapter_registry.release(name)
+            raise
+        if pinned:
+            self._slot_adapter[slot] = name
+        self._slot_blocks[slot] = blocks or []
+        self._slot_req[slot] = req
+        if self.paged:
+            self._slot_demand[slot] = self._eager_demand(cursor, remaining)
+        self._note_admitted()
+        self._count_mig("import", "ok")
+        self._trace("import", slot, cursor)
+        return self._import_meta(req, slot, cursor, remaining)
+
+    def _import_prefill_tail(self, payload: dict, slot: int, idx: int,
+                             pinned: bool) -> dict:
+        """Admit a mid-chunked-prefill export: scatter the KV written so far
+        into fresh blocks and register the prompt tail as a chunked prefill
+        with no prefix key (an imported tail publishes no entry). The
+        finished prefill arms decode from the seed, as the source would
+        have. The caller releases the adapter pin on a failure."""
+        if not self.paged:
+            raise ValueError("mid-prefill import requires a paged engine")
+        pending, cursor = payload["pending"], payload["cursor"]
+        ids = [int(t) for t in pending["ids"]]
+        final = cursor + len(ids)
+        if final >= self.max_seq_len:
+            raise ValueError(f"prefill depth {final} exceeds this replica's "
+                             f"context {self.max_seq_len}")
+        max_new = max(1, int(pending["max_new"]))
+        blocks = self._alloc_blocks(self._reserve_depth(final, max_new))
+        if blocks is None:
+            raise _RetryLater(
+                "kv blocks exhausted for mid-prefill import "
+                f"(free {self._allocator.free_count})")
+        try:
+            row = mig.unpack_kv_row(payload["kv"], self.max_seq_len,
+                                    self.kv_quant, device=self.device)
+            req = self._imported_request(payload, idx, slot)
+            # the row's unwritten lanes are sentinel-padded to full width,
+            # so the scatter scrubs the recycled blocks too
+            paged_insert_row(self._cache, slot, self._table_row(blocks), row)
+            self._cache["len"][slot] = cursor
+            self._adapter_idx[slot] = idx  # the chunks' adapter row
+        except Exception:
+            self._cache["block_tables"][slot] = -1
+            self._allocator.free(blocks)
+            raise
+        if pinned:
+            self._slot_adapter[slot] = payload["adapter"]
+        self._slot_blocks[slot] = blocks
+        self._slot_req[slot] = req
+        self._decode_ready[slot] = False
+        self._slot_demand[slot] = self._eager_demand(final, max_new)
+        self._pending[slot] = {
+            "req": req, "ids": ids,
+            "mask": [int(m) for m in pending["mask"]],
+            "positions": [int(p) for p in pending["positions"]],
+            "plen": len(ids), "n_prompt": int(pending["n_prompt"]),
+            "max_new": max_new, "done": 0, "base": cursor, "key": None,
+        }
+        self._note_admitted()
+        self._count_mig("import", "ok_prefill")
+        self._trace("import_prefill", slot, cursor)
+        return self._import_meta(req, slot, cursor, max_new, prefill=True)
+
+    # ------------------------------------------- peer spill of parked sessions
+    def _do_hold_parked(self, cmd: dict) -> dict:
+        now = time.monotonic()
+        hold_until = now + float(cmd.get("hold_s", 10.0))
+        limit = int(cmd.get("max_sessions", 4))
+        out = []
+        for entry in self._preempted:
+            if len(out) >= limit:
+                break
+            if entry.get("hold_until", 0.0) > now:
+                continue  # already leased
+            entry["hold_until"] = hold_until
+            payload = entry["payload"]
+            out.append({"trace_id": entry["req"].trace_id,
+                        "seq": entry["req"].seq,
+                        "cursor": int(payload["cursor"]),
+                        "remaining": int(payload["remaining"]),
+                        "payload": mig.encode_payload(payload)})
+        return {"sessions": out, "parked": len(self._preempted)}
+
+    def _do_drop_parked(self, cmd: dict) -> dict:
+        want = set(cmd.get("trace_ids") or [])
+        keep, dropped = [], 0
+        for entry in self._preempted:
+            req = entry["req"]
+            if req.trace_id not in want:
+                keep.append(entry)
+                continue
+            dropped += 1
+            self._count_preempt("spilled")
+            self._trace("spill", req.seq)
+            self._complete(req, error=f"{mig.MIGRATED_SESSION}: "
+                                      "parked session spilled")
+        self._preempted = keep
+        return {"dropped": dropped}
+
+    def _do_release_parked(self, cmd: dict) -> dict:
+        want = set(cmd.get("trace_ids") or [])
+        released = 0
+        for entry in self._preempted:
+            if entry["req"].trace_id in want and entry.pop(
+                    "hold_until", None) is not None:
+                released += 1
+        return {"released": released}
+
+    # ------------------------------------------------ fleet prefix tier
+    def _adapter_akey_name(self, akey) -> Optional[str]:
+        """A prefix-cache adapter identity → its fleet-wide NAME (pooled
+        mode keys by name; a static stack by index). None: unmappable."""
+        if isinstance(akey, str):
+            return akey
+        if akey == 0:
+            return ""
+        return next((n for n, i in self._static_adapter_ids.items()
+                     if i == akey), None)
+
+    def _mount_entry_row(self, ent: dict, cursor: int) -> Dict:
+        """Gather a COW block entry into a dense row by installing its
+        blocks on a FREE slot's table for the gather (nothing reads an
+        unoccupied slot's table), restored before returning."""
+        slot = self._free_slot()
+        if slot is None:
+            raise _RetryLater("no free slot to stage a prefix export")
+        w = min(-(-max(1, cursor) // DECODE_BUCKET) * DECODE_BUCKET,
+                self.max_seq_len)
+        saved = self._cache["block_tables"][slot].clone()
+        try:
+            self._cache["block_tables"][slot] = self._table_row(ent["blocks"])
+            return paged_extract_row(self._cache, slot, cursor, width=w)
+        finally:
+            self._cache["block_tables"][slot] = saved
+
+    def _do_export_prefix(self, cmd: dict) -> dict:
+        if self._prefix is None:
+            return {"entries": []}
+        exclude = cmd.get("exclude") or set()
+        limit = int(cmd.get("max_entries", 4))
+        entries: List[dict] = []
+        for (ptoks, akey), ent in self._prefix.snapshot_entries():
+            if len(entries) >= limit:
+                break
+            name = self._adapter_akey_name(akey)
+            if name is None:
+                continue
+            fp = mig.prefix_fingerprint(name, ptoks)
+            if fp in exclude:
+                continue
+            cursor = int(ent["cursor"])
+            try:
+                row = (self._mount_entry_row(ent, cursor)
+                       if ent.get("blocks") is not None else ent["cache"])
+                entries.append({
+                    "kind": mig.PREFIX_KIND,
+                    "version": mig.PAYLOAD_VERSION,
+                    "fingerprint": fp, "adapter": name,
+                    "prompt_ids": [int(t) for t in ptoks],
+                    "cursor": cursor,
+                    "no_reuse": bool(ent.get("no_reuse", False)),
+                    "logits": (None if ent.get("logits") is None
+                               else mig.pack_logits(ent["logits"])),
+                    "kv": mig.pack_kv_row(row, cursor, cmd.get("wire")),
+                    "model_sig": mig.model_signature(self.cfg,
+                                                     self.kv_quant),
+                })
+                self._count_mig("export_prefix", "ok")
+            except Exception:  # noqa: BLE001 — publishing is best effort
+                self._count_mig("export_prefix", "error")
+        return {"entries": entries}
+
+    def _do_import_prefix(self, cmd: dict) -> dict:
+        if self._prefix is None:
+            raise ValueError("prefix cache disabled on this replica")
+        payload = cmd["payload"]
+        mig.check_prefix_signature(payload, self.cfg)
+        name = payload.get("adapter") or ""
+        if not name:
+            akey = "" if self.adapter_registry is not None else 0
+        elif self.adapter_registry is not None:
+            if name not in self.adapter_registry.names():
+                raise ValueError(f"unknown adapter {name!r} on this replica")
+            akey = name
+        elif name in self._static_adapter_ids:
+            akey = self._static_adapter_ids[name]
+        else:
+            raise ValueError(f"unknown adapter {name!r} on this replica")
+        key = (tuple(int(t) for t in payload["prompt_ids"]), akey)
+        if self._prefix.get(key) is not None:
+            return {"imported": False, "reason": "present"}
+        cursor = int(payload["cursor"])
+        if not 0 < cursor < self.max_seq_len:
+            raise ValueError(f"prefix depth {cursor} unusable in context "
+                             f"{self.max_seq_len}")
+        row = mig.unpack_kv_row(payload["kv"], self.max_seq_len,
+                                self.kv_quant, device=self.device)
+        row["len"] = torch.tensor(cursor, dtype=torch.int32,
+                                  device=self.device)
+        logits = (None if payload.get("logits") is None
+                  else mig.unpack_logits(payload, self.cfg.vocab_size,
+                                         device=self.device))
+        if self.cow:
+            full, rem = divmod(cursor, self.block_size)
+            n_blocks = full + (1 if rem else 0)
+            slot = self._free_slot()
+            if slot is None:
+                raise _RetryLater("no free slot to stage a prefix import")
+            blocks = self._allocator.alloc(n_blocks)
+            if blocks is None:
+                raise _RetryLater(
+                    f"kv blocks exhausted for prefix import "
+                    f"(need {n_blocks}, free {self._allocator.free_count})")
+            # the scatter goes through a free slot's table, restored after:
+            # the ENTRY owns these blocks, not a slot
+            saved = self._cache["block_tables"][slot].clone()
+            try:
+                paged_insert_row(self._cache, slot, self._table_row(blocks),
+                                 row)
+            except Exception:
+                self._allocator.free(blocks)
+                raise
+            finally:
+                self._cache["block_tables"][slot] = saved
+            ent = {"blocks": blocks, "full": full, "rem": rem,
+                   "cursor": cursor, "logits": logits}
+        elif self.paged:
+            w = min(-(-cursor // DECODE_BUCKET) * DECODE_BUCKET,
+                    self.max_seq_len)
+            ent = {"cache": row_trim(row, w), "logits": logits,
+                   "cursor": cursor}
+        else:
+            # the dense layout copies whole rows at admission
+            ent = {"cache": row, "logits": logits, "cursor": cursor}
+        if bool(payload.get("no_reuse")) or logits is None:
+            ent["no_reuse"] = True
+        self._prefix.put(key, ent)
+        self._count_mig("import_prefix", "ok")
+        self._trace("import_prefix", cursor)
+        return {"imported": True, "cursor": cursor,
+                "fingerprint": payload.get("fingerprint")}
 
     # --------------------------------------------------------------- decode
     def _batch_sample_mode(self) -> str:
@@ -1813,6 +2498,7 @@ class BatchedEngine:
             raise
 
     def _fail_all(self, error: str):
+        self._fail_commands(error)
         while True:
             req = self._take_waiting()
             if req is None:
@@ -1825,6 +2511,9 @@ class BatchedEngine:
 
     def _scheduler_loop(self):
         while not self._shutdown.is_set():
+            # session commands first: an imported session is mid-decode (the
+            # source paid its prefill), so it outranks cold admissions
+            self._service_migrations()
             self._resume_preempted_tick()
             self._admit_waiting()
             self._prefill_tick()

@@ -1,27 +1,31 @@
-"""The dtx-kv-session row format: the part of
-``datatunerx_tpu/serving/migration.py`` the engine's preemption parking uses.
+"""The dtx-kv-session wire format, the port of
+``datatunerx_tpu/serving/migration.py``: a live decode session serialized
+so that it moves between replicas without a new prefill.
 
-A parked session keeps its KV prefix as a dense row trimmed to its live
-cursor, plus the decode state that makes resumption token-exact. Array
-bodies are base64 text for the JSON wire, or host numpy arrays for payloads
-that never leave the process (``b64=False``, the engine's parking). Bodies
-hold the same bytes as the reference's, so a base64 doc packed by either
-package unpacks in the other. bf16 bodies travel as their raw 16-bit words
-(numpy has no bf16 type).
+A payload holds the session's KV prefix as a dense row trimmed to its live
+cursor, the decode state that makes resumption token-exact (next-token
+logits, the slot's threefry key as two uint32 words, position, cursor and
+budget), the generated tail, the sampling parameters, the adapter NAME
+(pool indices are replica-local) and the model signature. Array bodies are
+base64 text for the JSON wire, or host numpy arrays for payloads that never
+leave the process (``b64=False``, the engine's preemption parking;
+``encode_payload`` makes them wire-safe). Bodies hold the same bytes as the
+reference's, so a payload that either package builds and ``json.dumps``
+loads in the other. bf16 bodies travel as their raw 16-bit words (numpy has
+no bf16 type). A ``dtx-kv-prefix`` payload carries a prefix-cache entry the
+same way, with no decode state.
 
 Wire encodings: ``bf16`` (the cache's own bytes, lossless) and ``int8``
 (the ``kv_quant`` representation: int8 values plus an f32 scale per head
 vector; exact for an int8 cache, a rounding of a bf16 one). Either imports
 into either cache type.
-
-The session signatures, the ``/admin/sessions/*`` routes and the fleet plane
-come with a later slice (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
 
 import base64
-from typing import Dict, Optional
+import hashlib
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,7 +34,14 @@ from datatunerx_tpu_torch.ops.attention import kv_quantize
 from datatunerx_tpu_torch.ops.paged_attention import POS_SENTINEL, row_trim
 
 PAYLOAD_KIND = "dtx-kv-session"
+# a prefix-cache entry for the fleet prefix tier: the same KV row encoding,
+# no decode state (the importer builds a prefix-cache entry, not a slot)
+PREFIX_KIND = "dtx-kv-prefix"
 PAYLOAD_VERSION = 1
+
+# the error a migrated-away request finishes with; a gateway matches the
+# literal to splice the imported continuation into the client's stream
+MIGRATED_SESSION = "session migrated"
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -157,3 +168,114 @@ def pack_logits(logits, b64: bool = True):
 
 def unpack_logits(payload: dict, vocab: int, device="cpu") -> torch.Tensor:
     return _unb64(payload["logits"], torch.float32, (vocab,)).to(device)
+
+
+def encode_payload(payload: dict) -> dict:
+    """A payload with every raw numpy body (an in-process ``b64=False``
+    export) base64-encoded for the wire; encoded payloads pass through."""
+    out = dict(payload)
+    if isinstance(out.get("logits"), np.ndarray):
+        out["logits"] = _b64(np.asarray(out["logits"], np.float32))
+    kv = out.get("kv")
+    if isinstance(kv, dict):
+        kv = dict(kv)
+        for key in ("k", "v", "pos", "k_scale", "v_scale"):
+            if isinstance(kv.get(key), np.ndarray):
+                kv[key] = _b64(kv[key])
+        out["kv"] = kv
+    return out
+
+
+def model_signature(cfg, kv_quant: Optional[str]) -> dict:
+    """What must match (or be convertible) for an import to be correct."""
+    return {"layers": cfg.num_layers, "kv_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
+            "kv_quant": kv_quant or ""}
+
+
+def _check_model_sig(payload: dict, cfg) -> None:
+    sig = payload.get("model_sig") or {}
+    for key, want in (("layers", cfg.num_layers),
+                      ("kv_heads", cfg.num_kv_heads),
+                      ("head_dim", cfg.head_dim),
+                      ("vocab", cfg.vocab_size)):
+        if sig.get(key) != want:
+            raise ValueError(
+                f"session payload is from an incompatible model: "
+                f"{key}={sig.get(key)} here {want}")
+
+
+def _check_kind(payload: dict, kind: str, what: str) -> None:
+    if payload.get("kind") != kind:
+        raise ValueError(
+            f"not a {kind} payload (kind={payload.get('kind')!r})")
+    if payload.get("version") != PAYLOAD_VERSION:
+        raise ValueError(
+            f"unsupported {what} payload version {payload.get('version')!r}")
+
+
+def check_signature(payload: dict, cfg) -> None:
+    _check_model_sig(payload, cfg)
+    _check_kind(payload, PAYLOAD_KIND, "session")
+
+
+def check_prefix_signature(payload: dict, cfg) -> None:
+    _check_model_sig(payload, cfg)
+    _check_kind(payload, PREFIX_KIND, "prefix")
+
+
+def prefix_fingerprint(adapter: str, prompt_ids: Sequence[int]) -> str:
+    """The fleet-wide identity of a prefix entry: sha1 over the adapter
+    NAME, a zero byte and the prompt ids as int64 (the reference's bytes)."""
+    h = hashlib.sha1()
+    h.update(str(adapter or "").encode("utf-8", "replace"))
+    h.update(b"\x00")
+    h.update(np.asarray(list(prompt_ids), np.int64).tobytes())
+    return h.hexdigest()
+
+
+def build_payload(cfg, kv_quant: Optional[str], request: dict, row: Dict,
+                  cursor: int, pos: int, remaining: int, rng, logits,
+                  wire: Optional[str] = None, b64: bool = True) -> dict:
+    """One exported session's payload. ``request`` holds the request's host
+    fields (trace id, adapter name, prompt and tokens, sampling
+    parameters); ``cursor``/``pos``/``remaining`` are host ints, ``rng`` the
+    slot's threefry key and ``logits`` its next-token row; ``row`` is the
+    dense KV row, trimmed and encoded here (``wire`` defaults to the cache's
+    own encoding)."""
+    cursor = int(cursor)
+    default_wire = "int8" if kv_quant == "int8" else "bf16"
+    return {
+        "kind": PAYLOAD_KIND, "version": PAYLOAD_VERSION,
+        **request,
+        "pos": int(pos), "remaining": int(remaining), "cursor": cursor,
+        "rng": [int(x) for x in np.asarray(rng, np.uint32)],
+        "logits": pack_logits(logits, b64=b64),
+        "kv": pack_kv_row(row, cursor, wire or default_wire, b64=b64),
+        "model_sig": model_signature(cfg, kv_quant),
+    }
+
+
+def normalize_payload(payload: dict, cfg) -> dict:
+    """Check an incoming payload against this engine's model and cast every
+    field the import reads to its host type."""
+    check_signature(payload, cfg)
+    out = dict(payload)
+    out["cursor"] = int(payload["cursor"])
+    out["pos"] = int(payload["pos"])
+    out["remaining"] = int(payload["remaining"])
+    out["max_new_tokens"] = int(payload.get("max_new_tokens",
+                                            out["remaining"]))
+    out["temperature"] = float(payload.get("temperature", 0.0))
+    out["top_p"] = float(payload.get("top_p", 1.0))
+    out["seed"] = int(payload.get("seed", 0))
+    out["stop_ids"] = [int(s) for s in (payload.get("stop_ids") or [])]
+    out["prompt_ids"] = [int(t) for t in (payload.get("prompt_ids") or [])]
+    out["tokens"] = [int(t) for t in (payload.get("tokens") or [])]
+    out["adapter"] = str(payload.get("adapter") or "")
+    out["trace_id"] = str(payload.get("trace_id") or "")
+    rng = payload.get("rng") or []
+    if len(rng) != 2:
+        raise ValueError("session payload rng must be a 2-word PRNG key")
+    out["rng"] = [int(x) for x in rng]
+    return out

@@ -32,6 +32,19 @@ device slots at runtime instead (``--adapter_rank_max``,
 ``--tenants_config`` (a JSON file or inline JSON) turns on the tenancy
 plane; the ``X-DTX-Tenant`` header names a request's tenant.
 
+Session migration and the fleet plane (``serving/migration.py``,
+``fleet/``): ``POST /admin/sessions/export`` serializes live sessions
+(``{"slots", "wire", "prefill"}``) and ``/admin/sessions/import`` admits
+one and answers with SSE (``{"imported": meta}``, ``{"delta": text}``
+events, ``[DONE]``) or, with ``"stream": false``, one JSON body;
+``/admin/sessions/{hold,drop,release}`` lease preempted sessions to a
+peer-spill coordinator; ``/admin/prefix/{export,import}`` move prefix-cache
+entries. A refusal answers 409, an engine without the surface (the
+single-request engine) 501, a timeout or an unloaded model 503.
+``--role`` declares the replica's disaggregation role. ``GET /metrics``
+carries the fleet gauges a gateway scrapes (busy slots, free KV blocks,
+parked sessions, the role), under the JAX server's names.
+
 Run::
 
     python -m datatunerx_tpu_torch.serving.server \\
@@ -58,12 +71,18 @@ class ServingState:
         self.engine = None
         self.error: Optional[str] = None
         self.model_path = ""
+        # the disaggregation role this replica declares to the fleet
+        self.role = "mixed"
 
 
 STATE = ServingState()
 
 
 class Handler(BaseHTTPRequestHandler):
+    # the served state; ``start(args, state=...)`` binds a handler class to
+    # another, so that one process can serve two engines
+    state = STATE
+
     def _json(self, code: int, payload: dict):
         body = json.dumps(payload).encode()
         self.send_response(code)
@@ -77,27 +96,201 @@ class Handler(BaseHTTPRequestHandler):
 
     def do_GET(self):
         if self.path == "/healthz":
-            if STATE.engine is not None:
+            if self.state.engine is not None:
                 self._json(200, {"status": "HEALTHY",
-                                 "model": STATE.model_path})
-            elif STATE.error:
-                self._json(500, {"status": "FAILED", "error": STATE.error})
+                                 "model": self.state.model_path})
+            elif self.state.error:
+                self._json(500, {"status": "FAILED", "error": self.state.error})
             else:
                 self._json(503, {"status": "LOADING"})
         elif self.path == "/v1/models":
             self._json(200, {"object": "list", "data": [
-                {"id": STATE.model_path, "object": "model"}]})
+                {"id": self.state.model_path, "object": "model"}]})
         elif self.path == "/admin/adapters":
             self._adapters_get()
+        elif self.path.split("?")[0] == "/metrics":
+            self._metrics()
         else:
             self._json(404, {"error": "not found"})
+
+    def _metrics(self):
+        """The fleet gauges of ``/metrics``, under the JAX server's names:
+        what a gateway's ``HTTPReplica`` scrapes to place sessions (busy
+        slots, free KV blocks, parked sessions and the declared role). The
+        rest of the JAX server's exposition waits for ROADMAP Queue 1 item
+        12."""
+        eng = self.state.engine
+        gauges = []
+        if eng is not None and hasattr(eng, "_slot_req"):
+            gauges += [
+                ("slots_busy", "Cache slots holding an in-flight request.",
+                 sum(1 for r in eng._slot_req if r is not None)),
+                ("slots_capacity", "Configured cache slots.", eng.slots)]
+        if eng is not None and getattr(eng, "total_kv_blocks", None):
+            gauges += [
+                ("kv_blocks_free", "Free paged KV-cache blocks.",
+                 eng.free_kv_blocks),
+                ("kv_blocks_capacity", "Total paged KV-cache blocks.",
+                 eng.total_kv_blocks),
+                ("kv_block_size", "Tokens per paged KV block.",
+                 getattr(eng, "block_size", 0) or 0)]
+        gauges.append(("sessions_parked", "Preemption-parked sessions "
+                       "awaiting resume.",
+                       int(getattr(eng, "parked_sessions", 0) or 0)))
+        lines = []
+        for name, doc, value in gauges:
+            lines += [f"# HELP dtx_serving_{name} {doc}",
+                      f"# TYPE dtx_serving_{name} gauge",
+                      f"dtx_serving_{name} {value}"]
+        lines += ["# HELP dtx_serving_role Replica disaggregation role, "
+                  "one-hot by label (prefill / decode / mixed).",
+                  "# TYPE dtx_serving_role gauge",
+                  f'dtx_serving_role{{role="{self.state.role}"}} 1']
+        body = ("\n".join(lines) + "\n").encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "text/plain; version=0.0.4")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    # ---------------------------------------- session migration, fleet plane
+    def _read_json(self) -> Optional[dict]:
+        """The request's JSON body, or None after answering 400."""
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            return json.loads(self.rfile.read(length) or b"{}")
+        except (ValueError, json.JSONDecodeError) as e:
+            self._json(400, {"error": f"invalid JSON body: {e}"})
+            return None
+
+    def _engine_fn(self, attr: str):
+        """The engine's ``attr`` method, or None after answering 503 (no
+        model) or 501 (an engine without the surface)."""
+        eng = self.state.engine
+        if eng is None:
+            self._json(503, {"error": "model not loaded"})
+            return None
+        fn = getattr(eng, attr, None)
+        if not callable(fn):
+            self._json(501, {"error": f"engine has no {attr}"})
+            return None
+        return fn
+
+    def _fleet_admin(self, attr: str, kwargs: dict, refusals=True):
+        """One engine call of the session/fleet surface: a refusal
+        (ValueError, KeyError) answers 409 where ``refusals`` (else 500, as
+        the reference's export route), a timeout 503."""
+        fn = self._engine_fn(attr)
+        if fn is None:
+            return
+        try:
+            self._json(200, fn(**kwargs))
+        except (ValueError, KeyError) as e:
+            self._json(409 if refusals else 500, {"error": str(e)})
+        except TimeoutError as e:
+            self._json(503, {"error": str(e)})
+        except Exception as e:  # noqa: BLE001 — serving must answer
+            self._json(500, {"error": str(e)})
+
+    def _sessions_export(self, req: dict):
+        """``{"slots": [..]?, "wire": "bf16"|"int8"?, "prefill": bool?}``:
+        serialize (and finish) in-flight sessions; ``prefill`` ships
+        mid-chunked-prefill slots too."""
+        kw = {"slots": req.get("slots"),
+              "wire_quant": req.get("wire") or None}
+        if req.get("prefill"):
+            kw["include_prefill"] = True
+        self._fleet_admin("export_sessions", kw, refusals=False)
+
+    def _sessions_hold(self, req: dict):
+        """``{"max_sessions", "hold_s"}``: lease parked sessions for a peer
+        spill (phase 1)."""
+        self._fleet_admin("hold_parked", {
+            "max_sessions": int(req.get("max_sessions", 4)),
+            "hold_s": float(req.get("hold_s", 10.0))})
+
+    def _sessions_drop(self, req: dict):
+        """``{"trace_ids"}``: the spilled sessions landed on a peer."""
+        self._fleet_admin("drop_parked", {
+            "trace_ids": list(req.get("trace_ids") or [])})
+
+    def _sessions_release(self, req: dict):
+        """``{"trace_ids"}``: the spill failed; resume them here."""
+        self._fleet_admin("release_parked", {
+            "trace_ids": list(req.get("trace_ids") or [])})
+
+    def _prefix_export(self, req: dict):
+        """``{"max_entries", "exclude": [fingerprint..], "wire"?}``: the
+        prefix-cache entries to publish to the fleet's prefix tier."""
+        self._fleet_admin("export_prefix_entries", {
+            "exclude": req.get("exclude") or None,
+            "max_entries": int(req.get("max_entries", 4)),
+            "wire_quant": req.get("wire") or None})
+
+    def _prefix_import(self, req: dict):
+        """A dtx-kv-prefix payload: install it in the prefix cache."""
+        self._fleet_admin("import_prefix_entry", {"payload": dict(req)})
+
+    def _sessions_import(self, req: dict):
+        """A dtx-kv-session payload: admit it and resume its decode. SSE by
+        default (``{"imported": meta}``, then ``{"delta": text}`` past the
+        migrated tail, then ``[DONE]``); ``"stream": false`` waits for the
+        session and answers ``{"imported": meta}`` with its ``text`` and
+        ``error``."""
+        fn = self._engine_fn("import_session")
+        if fn is None:
+            return
+        stream = bool(req.pop("stream", True))
+        try:
+            meta = dict(fn(req))
+        except (ValueError, KeyError) as e:
+            self._json(409, {"error": str(e)})
+            return
+        except TimeoutError as e:
+            self._json(503, {"error": str(e)})
+            return
+        except Exception as e:  # noqa: BLE001 — serving must answer
+            self._json(500, {"error": str(e)})
+            return
+        eng = self.state.engine
+        handle = meta.pop("_request", None)
+        if not stream:
+            if handle is not None:
+                handle.done.wait(300)
+                meta["error"] = handle.error
+                meta["text"] = eng.tokenizer.decode(
+                    handle.tokens, skip_special_tokens=True)
+            self._json(200, {"imported": meta})
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.end_headers()
+
+        def event(payload: dict):
+            self.wfile.write(b"data: " + json.dumps(payload).encode()
+                             + b"\n\n")
+            self.wfile.flush()
+
+        try:
+            event({"imported": meta})
+            try:
+                if handle is not None:
+                    for delta in eng.resume_stream(handle):
+                        event({"delta": delta})
+            except Exception as e:  # noqa: BLE001 — headers already sent
+                event({"error": {"message": str(e)}})
+            self.wfile.write(b"data: [DONE]\n\n")
+            self.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError):
+            pass
 
     # ------------------------------------------------- dynamic adapter plane
     def _adapters_get(self):
         """The replica's adapters: registered names, the resident set and
         pool occupancy with load/evict/hit/miss stats. An engine without a
         pool reports its fixed names."""
-        eng = STATE.engine
+        eng = self.state.engine
         if eng is None:
             self._json(503, {"error": "model not loaded"})
             return
@@ -124,7 +317,7 @@ class Handler(BaseHTTPRequestHandler):
         without a pool."""
         from datatunerx_tpu_torch.adapters import AdapterPinnedError
 
-        eng = STATE.engine
+        eng = self.state.engine
         if eng is None:
             self._json(503, {"error": "model not loaded"})
             return
@@ -154,7 +347,7 @@ class Handler(BaseHTTPRequestHandler):
         unknown name, 409 while in-flight requests pin it."""
         from datatunerx_tpu_torch.adapters import AdapterPinnedError
 
-        eng = STATE.engine
+        eng = self.state.engine
         if eng is None:
             self._json(503, {"error": "model not loaded"})
             return
@@ -184,19 +377,31 @@ class Handler(BaseHTTPRequestHandler):
         if self.path == "/perplexity":
             self._perplexity()
             return
-        if self.path == "/admin/adapters":
-            try:
-                length = int(self.headers.get("Content-Length", 0))
-                req = json.loads(self.rfile.read(length) or b"{}")
-            except (ValueError, json.JSONDecodeError) as e:
-                self._json(400, {"error": f"invalid JSON body: {e}"})
+        admin = {
+            "/admin/sessions/export": self._sessions_export,
+            "/admin/sessions/import": self._sessions_import,
+            "/admin/sessions/hold": self._sessions_hold,
+            "/admin/sessions/drop": self._sessions_drop,
+            "/admin/sessions/release": self._sessions_release,
+            "/admin/prefix/export": self._prefix_export,
+            "/admin/prefix/import": self._prefix_import,
+            "/admin/adapters": self._adapters_post,
+        }
+        if self.path in admin:
+            req = self._read_json()
+            if req is None:
                 return
-            self._adapters_post(req)
+            try:
+                admin[self.path](req)
+            except (AttributeError, TypeError, ValueError) as e:
+                # a body that is no object, or a field of the wrong type,
+                # fails before the route answers
+                self._json(400, {"error": f"malformed request: {e}"})
             return
         if self.path not in ("/chat/completions", "/v1/chat/completions"):
             self._json(404, {"error": "not found"})
             return
-        if STATE.engine is None:
+        if self.state.engine is None:
             self._json(503, {"error": "model not loaded"})
             return
         try:
@@ -219,26 +424,26 @@ class Handler(BaseHTTPRequestHandler):
             # the base model
             model = req.get("model") or ""
             try:
-                kwargs["adapter"] = STATE.engine.adapter_for(
-                    "" if model == STATE.model_path else model)
+                kwargs["adapter"] = self.state.engine.adapter_for(
+                    "" if model == self.state.model_path else model)
             except KeyError:
                 self._json(400, {"error": f"unknown model/adapter {model!r}"})
                 return
             kwargs["trace_id"] = self.headers.get("X-DTX-Trace-Id") or ""
             # the tenant goes only to engines running a directory
             tenant = self.headers.get("X-DTX-Tenant") or ""
-            if tenant and getattr(STATE.engine, "tenants", None) is not None:
+            if tenant and getattr(self.state.engine, "tenants", None) is not None:
                 kwargs["tenant"] = tenant
             usage = self._prompt_usage(messages)
             if req.get("stream"):
                 self._stream_chat(messages, kwargs, usage=usage)
                 return
-            text = STATE.engine.chat(messages, **kwargs)
+            text = self.state.engine.chat(messages, **kwargs)
             body = {
                 "id": f"chatcmpl-{uuid.uuid4().hex[:12]}",
                 "object": "chat.completion",
                 "created": int(time.time()),
-                "model": STATE.model_path,
+                "model": self.state.model_path,
                 "choices": [{
                     "index": 0,
                     "message": {"role": "assistant", "content": text},
@@ -257,7 +462,7 @@ class Handler(BaseHTTPRequestHandler):
     def _perplexity(self):
         """POST {"prompt": str, "completion": str[, "model": adapter]} →
         the completion's NLL and perplexity under the served model."""
-        if STATE.engine is None:
+        if self.state.engine is None:
             self._json(503, {"error": "model not loaded"})
             return
         try:
@@ -268,39 +473,37 @@ class Handler(BaseHTTPRequestHandler):
             if not completion:
                 self._json(400, {"error": "completion is required"})
                 return
-            tok = STATE.engine.tokenizer
+            tok = self.state.engine.tokenizer
             p_ids = tok.encode(prompt) if prompt else []
             c_ids = tok.encode(completion, add_special_tokens=False)
             model = req.get("model") or ""
             try:
-                adapter = STATE.engine.adapter_for(model)
+                adapter = self.state.engine.adapter_for(model)
             except KeyError:
                 self._json(400, {"error": f"unknown model/adapter {model!r}"})
                 return
-            self._json(200, STATE.engine.perplexity(p_ids, c_ids,
+            self._json(200, self.state.engine.perplexity(p_ids, c_ids,
                                                     adapter=adapter))
         except Exception as e:  # noqa: BLE001
             self._json(500, {"error": str(e)})
 
-    @staticmethod
-    def _prompt_usage(messages) -> Optional[dict]:
+    def _prompt_usage(self, messages) -> Optional[dict]:
         """Replica-side tokenized prompt length."""
         try:
-            return {"prompt_tokens": len(STATE.engine._encode_chat(messages)[0])}
+            return {"prompt_tokens": len(self.state.engine._encode_chat(messages)[0])}
         except Exception:  # noqa: BLE001 — usage is advisory
             return None
 
-    @staticmethod
-    def _count_tokens(text: str) -> int:
+    def _count_tokens(self, text: str) -> int:
         if not text:
             return 0
-        return len(STATE.engine.tokenizer.encode(text,
+        return len(self.state.engine.tokenizer.encode(text,
                                                  add_special_tokens=False))
 
     def _stream_chat(self, messages, kwargs, usage=None):
         """SSE: one ``data: {chat.completion.chunk}`` event per text delta,
         then a terminal chunk (carrying ``usage``) and ``data: [DONE]``."""
-        stream_fn = STATE.engine.chat_stream
+        stream_fn = self.state.engine.chat_stream
         rid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
@@ -319,14 +522,14 @@ class Handler(BaseHTTPRequestHandler):
                 for delta in stream_fn(messages, **kwargs):
                     event({
                         "id": rid, "object": "chat.completion.chunk",
-                        "created": int(time.time()), "model": STATE.model_path,
+                        "created": int(time.time()), "model": self.state.model_path,
                         "choices": [{"index": 0,
                                      "delta": {"content": delta},
                                      "finish_reason": None}],
                     })
                 terminal = {
                     "id": rid, "object": "chat.completion.chunk",
-                    "created": int(time.time()), "model": STATE.model_path,
+                    "created": int(time.time()), "model": self.state.model_path,
                     "choices": [{"index": 0, "delta": {},
                                  "finish_reason": "stop"}],
                 }
@@ -355,14 +558,18 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
                       spec_tree="",
                       checkpoint_path="", adapters=None, adapter_pool=0,
                       adapter_rank_max=8, adapter_targets=None,
-                      tenants_config="", host_adapter_cache_mb=0.0):
-    """Build the engine on a background thread; ``/healthz`` flips to 200
-    when it is ready (or to 500 with the error). ``slots > 1`` without
-    ``quantization`` builds the batched engine, anything else the
-    single-request engine (the JAX server's rule)."""
+                      tenants_config="", host_adapter_cache_mb=0.0,
+                      state=None):
+    """Build the engine on a background thread into ``state`` (default: the
+    module's ``STATE``); ``/healthz`` flips to 200 when it is ready (or to
+    500 with the error). ``slots > 1`` without ``quantization`` builds the
+    batched engine, anything else the single-request engine (the JAX
+    server's rule)."""
+    state = state or STATE
+
     def _load():
         try:
-            STATE.model_path = model_path
+            state.model_path = model_path
             batched = slots > 1 and not quantization
             # refusing beats serving the base model under an adapter's name
             for flag, val in (("--adapters", adapters),
@@ -390,7 +597,7 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
                     BatchedEngine,
                 )
 
-                STATE.engine = BatchedEngine(
+                state.engine = BatchedEngine(
                     model_path, checkpoint_path or None, adapters=adapters,
                     adapter_pool=adapter_pool,
                     adapter_rank_max=adapter_rank_max,
@@ -415,13 +622,13 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
                     InferenceEngine,
                 )
 
-                STATE.engine = InferenceEngine(
+                state.engine = InferenceEngine(
                     model_path, checkpoint_path or None, template=template,
                     max_seq_len=max_seq_len,
                     quantization=quantization or None, device=device,
                     seed=seed)
         except Exception as e:  # noqa: BLE001
-            STATE.error = str(e)
+            state.error = str(e)
 
     t = threading.Thread(target=_load, daemon=True)
     t.start()
@@ -430,7 +637,6 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
 
 # flag → (value that means "feature off", ROADMAP Queue 1 item it waits for)
 _REFUSED = {
-    "role": ("mixed", "item 6 (migration and the fleet plane)"),
     "trace_log": ("", "item 12 (tooling)"),
     "slo_config": ("", "item 12 (tooling)"),
 }
@@ -525,7 +731,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefill_chunk", type=int, default=256)
     p.add_argument("--prefill_token_budget", type=int, default=0)
     p.add_argument("--role", default="mixed",
-                   choices=["prefill", "decode", "mixed"])
+                   choices=["prefill", "decode", "mixed"],
+                   help="disaggregation role declared to the fleet: prefill "
+                        "(a long-prompt specialist whose finished prefills a "
+                        "handoff coordinator moves to decode replicas), "
+                        "decode, or mixed (role-less). Shown on /metrics as "
+                        "the dtx_serving_role gauge, which a gateway's "
+                        "role-aware routing scrapes")
     p.add_argument("--tenants_config", default="",
                    help="tenant directory: a JSON file or inline JSON "
                         "{tenant: {tier: pinned|standard|bulk, adapters, "
@@ -561,9 +773,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def start(args: argparse.Namespace) -> ThreadingHTTPServer:
+def start(args: argparse.Namespace,
+          state: Optional[ServingState] = None) -> ThreadingHTTPServer:
     """Start loading the engine and return the bound (not yet serving) HTTP
-    server; ``serve_forever`` is the caller's."""
+    server; ``serve_forever`` is the caller's. ``state`` (default: the
+    module's ``STATE``) holds the engine; a fresh one lets a process serve
+    a second engine on another port."""
+    state = state or STATE
+    state.role = args.role
     load_engine_async(
         args.model_path, template=args.template, max_seq_len=args.max_seq_len,
         quantization=args.quantization, slots=args.slots,
@@ -582,8 +799,10 @@ def start(args: argparse.Namespace) -> ThreadingHTTPServer:
         adapter_rank_max=args.adapter_rank_max,
         adapter_targets=args.adapter_targets,
         tenants_config=args.tenants_config,
-        host_adapter_cache_mb=args.host_adapter_cache_mb)
-    return ThreadingHTTPServer((args.host, args.port), Handler)
+        host_adapter_cache_mb=args.host_adapter_cache_mb, state=state)
+    handler = (Handler if state is STATE else
+               type("BoundHandler", (Handler,), {"state": state}))
+    return ThreadingHTTPServer((args.host, args.port), handler)
 
 
 def main(argv=None):

@@ -80,6 +80,10 @@ REQUIRED = (
     "datatunerx_tpu_torch.utils.hf_weights",
     "datatunerx_tpu_torch.ops.prng",
     "datatunerx_tpu_torch.serving.speculative",
+    "datatunerx_tpu_torch.fleet",
+    "datatunerx_tpu_torch.fleet.handoff",
+    "datatunerx_tpu_torch.fleet.prefix_tier",
+    "datatunerx_tpu_torch.fleet.spill",
 )
 
 
@@ -94,7 +98,7 @@ def test_every_module_imports_without_jax(tmp_path):
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 47  # the modules of slices 1 to 4 and 10 to 13
+    assert n >= 51  # the modules of slices 1 to 4 and 10 to 14
 
 
 def test_engine_defaults_to_cuda_and_refuses_without_it():

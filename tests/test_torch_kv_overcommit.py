@@ -64,7 +64,13 @@ def test_cow_reuse_and_extend_match_dense_copy_path(dense, over_cow):
 def test_cow_block_accounting_shares_then_releases(over_cow):
     """Slots decref on release while cache entries keep their shares: the
     only blocks still out are the entries', each at a refcount equal to its
-    owner count, and dropping the cache returns the pool to full."""
+    owner count, and dropping the cache returns the pool to full. The test
+    makes its own entries (a cold prompt, a hit, an extension), so it does
+    not lean on what another test left in the module's engine."""
+    tok = over_cow.tokenizer
+    p1 = tok.encode("shared system prompt for every request here")
+    for prompt in (p1, p1, p1 + tok.encode(" plus")):
+        over_cow.generate(prompt, max_new_tokens=10)
     ents = [e for e in over_cow._prefix._d.values() if e.get("blocks")]
     assert ents, "COW cache holds no block entries"
     alloc = over_cow._allocator

@@ -8,7 +8,7 @@ rule.
 
 The reference's ``/metrics`` prefix counters
 (``test_metrics_endpoint_exposes_prefix_counters``) come with ROADMAP Queue 1
-item 12; the port's server has no ``/metrics`` yet."""
+item 12; the port's ``/metrics`` carries only the fleet gauges so far."""
 
 import jax
 import jax.numpy as jnp

@@ -15,6 +15,8 @@ and the port's spec engine equals the JAX spec engine on the same weights
 and seeds, sampled and greedy, chain and tree, with the epilogue off and
 on (token for token, and equal acceptance counts)."""
 
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -559,10 +561,24 @@ def peaked_export(tmp_path_factory):
 
 
 def _sampled(eng):
+    """The SAMPLED requests' streams. The scheduler waits at its admission
+    gate until all four are queued, so both packages' engines decode the
+    same batch from the first step (a row's sampling mode depends on the
+    rows beside it; under load a request could otherwise join a tick
+    late)."""
     tok = eng.tokenizer
+    gate = threading.Event()
+    admit = eng._admit_waiting
+
+    def gated():
+        gate.wait()
+        admit()
+
+    eng._admit_waiting = gated
     reqs = [eng.submit(tok.encode(f"prompt number {i} " * (i + 1)),
                        max_new_tokens=12, temperature=t, top_p=p, seed=s)
             for i, (t, p, s) in enumerate(SAMPLED)]
+    gate.set()
     for r in reqs:
         assert r.done.wait(300) and r.error is None, r.error
     return [r.tokens for r in reqs]
