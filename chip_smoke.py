@@ -34,15 +34,22 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
 5. train: ``python -m datatunerx_tpu_torch.tuning.train`` (its ``main``)
    for ``preset:tinyllama-1.1b`` at full width and depth, LoRA r8 on
    q_proj,v_proj, ``--attention flash --remat dots --bf16``, packed to
-   1024, batch 8, 8 steps, on a CSV written from a seed; requires the K1,
-   K2 and K3 launch counters (zeroed just before) to have moved, finite
+   1024, batch 8, 8 steps, on a CSV written from a seed, with the default
+   LoRA dropout 0.1 (its masks drawn by the threefry kernel, once for each
+   adapted projection in the forward and again in the recompute: 88 a
+   step); requires the K1, K2, K3 and threefry launch counts (zeroed just
+   before) to equal ``expected_launches``, finite
    loss and grad norm, non-zero LoRA B leaves after the first step, and the
    manifest, a checkpoint and ``model.npz`` written; prints step time,
-   tokens/s over the steady steps and the peak memory;
+   tokens/s over the steady steps, the peak memory, ``pipe_step_wait_ms``
+   from ``trainer_log.jsonl`` and, for the profiled steps, the busy share
+   and device ms by kernel group (threefry apart);
 6. train parity: one ``Trainer.train_step`` (and one gradient) at
    tinyllama width and 4 layers on one packed batch, with
    ``attention_impl="flash"`` and with ``"xla"``: losses within 1e-2
-   relative, LoRA gradients within 3e-2 relative (bf16 compute);
+   relative, LoRA gradients within 3e-2 relative (bf16 compute); once
+   with LoRA dropout 0 and once with 0.1 (both variants draw the same
+   masks from the same key);
 7. QLoRA train: the same CLI run with ``--quantization int4`` (nf4 base,
    ``quant_impl`` pallas: every projection on K4, its dx on K5), 6 steps
    with steps 2-3 profiled; the same checks as phase 5, plus exact launch
@@ -64,8 +71,21 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
     composite ``x W + (x A) B scale`` (atol 2^-5 + rtol 2^-6: the strip and
     the output each round once to bf16), its launch counter zeroed just
     before;
-11. prints one JSON ``{"kernels": [...]}`` line (K7, K8, K7-int8, K8-int8,
-    K9, K10, K1-K6; K7's entries add the splits its wrapper launched, the
+11. trainer paths (``--phase train`` and ``all``): the trainer CLI at
+    tinyllama-1.1b's full width and depth (flash, remat dots, bf16, block
+    1024, LoRA r8 on q_proj,v_proj, dropout 0.1), 4 steps each: ``--stage
+    dpo`` (4 pairs a step; the first loss ln 2 within 1e-3, K1 three times
+    a layer a step with the reference forward), ``--stage rm`` (4 pairs;
+    the merged export holds a finite ``v_head.weight`` [2048]), ``--optim
+    adafactor`` and ``--optim lion`` (SFT, packed 8x1024), ``--streaming``
+    (SFT, 8 padded rows a step, a 64-record shuffle buffer) and
+    ``--predict_with_generate`` (2 steps; 4 examples, 32 new tokens:
+    ``generated_predictions.jsonl`` and rouge/bleu in the eval log); K1-K3
+    and threefry launch counts exact in every run; prints each run's step
+    ms and peak GiB;
+12. prints one JSON ``{"kernels": [...]}`` line (K7, K8, K7-int8,
+    K8-int8, K9, threefry, K10, K1-K6; K7's entries add the splits its
+    wrapper launched, the
     CUDA kernels one call launched as torch.profiler traced them, and its
     resources; K4's, K5's and K6's their resources; K9's its greedy time
     beside ``torch.argmax``'s and its resources; K10's every shape/dtype
@@ -257,10 +277,12 @@ registers, spills, shared bytes and blocks per SM, and K4 (nf4 matmul), K5
 (its transposed dx product) and K6 (int8 matmul) at M=8192 rows and each
 projection shape of tinyllama-1.1b, in bf16 and f32, and K10 (fused LoRA
 matmul) at M=8192 and M=4 rows, N=2048 and N=256, K=2048, r=8, in bf16 and
-f32. ``--phase kernels`` stops after phase 2; ``--phase serve`` runs phases
-1-4, the eight above, the spec phases, 3-adapters, 3-migrate and 10;
-``--phase train`` runs phases 1, 2, 5,
-5-serve and 6-9; ``--phase qlora`` runs phases 1, 2 and 7-9; ``--phase
+f32, and the threefry kernel against its plain version, bit for bit, at
+8 x 1024 x 2048 (the keep mask at p = 0.9 and the uniform draw over
+[-1, 1)) and at odd lengths. ``--phase kernels`` stops after phase 2;
+``--phase serve`` runs phases 1-4, the eight above, the spec phases,
+3-adapters, 3-migrate and 10; ``--phase train`` runs phases 1, 2, 5,
+5-serve, 6-9 and 11; ``--phase qlora`` runs phases 1, 2 and 7-9; ``--phase
 hf`` runs phases 1, 2 and the three HF phases. The script imports nothing
 of JAX, of the JAX package or of the HF libraries.
 """
@@ -285,6 +307,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12        # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
+# 32-bit integer instructions: each of an SM's 4 sub-partitions issues one
+# warp instruction (32 lanes) a clock, 132 SMs at the 1.98 GHz boost clock.
+# The integer ALU pipe alone (LOP3, SHF, IADD3) takes 64 lanes a clock, half
+# of this; nvcc also issues adds on the FMA pipe (IMAD), so the issue rate
+# is the ceiling of any mix.
+I32_OPS_PER_S = 4 * 32 * 132 * 1.98e9
 SENTINEL = 2**30
 
 
@@ -664,6 +692,77 @@ def check_twin(torch, gen):
         f"known answer on the card; one [4, 32000] residual draw (log + "
         f"categorical) launches {launches} kernels")
     return launches
+
+
+THREEFRY_SHAPE = (8, 1024, 2048)  # phase 5's [B, T, D] at the q/v inputs
+THREEFRY_OPS = 76  # 32-bit integer instructions an element (csrc/threefry.cu)
+
+
+def check_threefry(torch, timer, gen):
+    """The threefry kernel (``ops/cuda_prng.threefry_bits``) against its
+    plain version (the twin's int64 ops on the card), exactly: the dropout
+    keep mask at p = 0.9 and the NEFTune draw over [-1, 1) at phase 5's
+    8 x 1024 x 2048, then odd lengths (not a multiple of the 4 elements a
+    thread writes) in both modes. Times the mask, its bound the larger of
+    the bytes written (1 an element) over the HBM rate and its 32-bit
+    integer instructions over the issue rate ``I32_OPS_PER_S`` (no PyTorch
+    call draws jax.random's bits: library null)."""
+    import numpy as np
+
+    from datatunerx_tpu_torch.ops import cuda_prng, prng
+
+    seed = int(torch.randint(0, 2**31, (1,), generator=gen))
+    key = prng.fold_in(prng.PRNGKey(seed), 7)
+    cases = [THREEFRY_SHAPE, (3, 1001), (7,), (1,), (5, 13, 17)]
+    for shape in cases:
+        got = cuda_prng.threefry_bits(key, shape, "cuda", p=0.9)
+        want = cuda_prng.plain_bernoulli(key, 0.9, shape, "cuda")
+        if not torch.equal(got, want):
+            fail(f"threefry kernel: the keep mask at {shape} differs from "
+                 "its plain version")
+        got = cuda_prng.threefry_bits(key, shape, "cuda", lo=-1.0, hi=1.0)
+        want = cuda_prng.plain_uniform(key, shape, -1.0, 1.0, "cuda")
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"threefry kernel: the uniform draw at {shape} differs "
+                 "from its plain version")
+    host = np.asarray(prng.bernoulli(key, 0.9, (3, 1001)))
+    if not (cuda_prng.threefry_bits(key, (3, 1001), "cuda", p=0.9).cpu()
+            .numpy() == host).all():
+        fail("threefry kernel: the keep mask differs from the host twin")
+    torch.cuda.synchronize()
+    n = int(np.prod(THREEFRY_SHAPE))
+    ms = timer.ms(lambda: cuda_prng.threefry_bits(key, THREEFRY_SHAPE, "cuda",
+                                                  p=0.9))
+    plain = timer.ms(lambda: cuda_prng.plain_bernoulli(
+        key, 0.9, THREEFRY_SHAPE, "cuda"), reps=3, warmup=1)
+    u_ms = timer.ms(lambda: cuda_prng.threefry_bits(
+        key, THREEFRY_SHAPE, "cuda", lo=-1.0, hi=1.0))
+    u_plain = timer.ms(lambda: cuda_prng.plain_uniform(
+        key, THREEFRY_SHAPE, -1.0, 1.0, "cuda"), reps=3, warmup=1)
+    b_ms, b_by = bound_ms(n, THREEFRY_OPS * n, I32_OPS_PER_S)
+    u_bound, u_by = bound_ms(4 * n, THREEFRY_OPS * n, I32_OPS_PER_S)
+    plain_launches = profile_launches(torch, lambda: cuda_prng.plain_bernoulli(
+        key, 0.9, THREEFRY_SHAPE, "cuda"))
+    log(f"  threefry uniform [-1, 1) at {THREEFRY_SHAPE}: kernel "
+        f"{u_ms:.4f} ms, plain {u_plain:.4f} ms, bound {u_bound:.5f} ms "
+        f"({u_by}; bytes alone {4 * n / HBM_BYTES_PER_S * 1e3:.5f} ms); "
+        f"the plain mask is {plain_launches} kernels; exact at "
+        f"{', '.join(str(c) for c in cases)}")
+    return {
+        "name": "threefry bits", "route": "cuda",
+        "source": "datatunerx_tpu_torch/csrc/threefry.cu",
+        "replaces": "none: XLA fuses jax.random.bernoulli/uniform "
+                    "(datatunerx_tpu/models/llama.py:120-122, :226-233)",
+        "counter": cuda_prng.threefry_bits,
+        "max_abs_err": 0, "tolerance": "bit-exact",
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "extra": {"uniform_ms": u_ms, "uniform_plain_ms": u_plain,
+                  "uniform_bound_ms": u_bound,
+                  "bytes_bound_ms": n / HBM_BYTES_PER_S * 1e3,
+                  "plain_kernels": plain_launches},
+        "shape": f"keep mask p=0.9 at {THREEFRY_SHAPE}",
+    }
 
 
 def profile_launches(torch, fn) -> int:
@@ -2009,9 +2108,12 @@ def spec_expected(trace, layers):
     return k7, k8, k9
 
 
-def run_requests(eng, reqs, submit):
+def run_requests(eng, reqs, submit, in_order=False):
     """``reqs`` at once through ``submit(name, body)`` (HTTP or the engine);
-    returns ({name: result}, {name: request stats})."""
+    returns ({name: result}, {name: request stats}). ``in_order`` (with
+    ``hold_admission``) starts each request only once the one before it
+    waits in the engine's queue, so the batch takes slots in the order of
+    ``reqs``."""
     eng.request_stats.clear()
     results, errors = {}, []
 
@@ -2022,13 +2124,47 @@ def run_requests(eng, reqs, submit):
             errors.append(f"{name}: {e}")
 
     threads = [threading.Thread(target=run, args=r) for r in reqs]
-    for th_ in threads:
+    for i, th_ in enumerate(threads):
         th_.start()
+        # the gate holds the queue until the last one is in, which it admits
+        wait = in_order and i < len(threads) - 1
+        deadline = time.time() + 60
+        while (wait and eng._waiting.qsize() <= i and not errors
+               and time.time() < deadline):
+            time.sleep(0.002)
+        if wait and eng._waiting.qsize() <= i:
+            fail(f"request {reqs[i][0]} did not reach the engine's queue: "
+                 f"{errors or 'timed out'}")
     for th_ in threads:
         th_.join(timeout=900)
     if errors or len(results) != len(reqs):
         fail(f"requests failed: {errors or 'did not finish'}")
     return results, {s["trace_id"]: s for s in eng.request_stats}
+
+
+def hold_admission(eng, n):
+    """Make the engine's next admission pass wait (60 s at most) until
+    ``n`` requests are queued, so a batch sent over HTTP from ``n``
+    threads is admitted in one tick. A seeded sampled stream on a spec
+    engine depends on when its neighbours join the batch and on which slot
+    each row holds (the controller folds the rows' acceptances into its k
+    in slot order), in the reference as in the port
+    (tests/test_torch_speculative.py), so a repeat check holds the schedule
+    fixed: this gate, and ``run_requests(in_order=True)``. One pass only:
+    the wrapper removes itself. Returns the list that receives the queued
+    requests' trace ids in admission order."""
+    admit, order = eng._admit_waiting, []
+
+    def gated():
+        deadline = time.time() + 60
+        while eng._waiting.qsize() < n and time.time() < deadline:
+            time.sleep(0.002)
+        order.extend(r.trace_id for r in list(eng._waiting.queue))
+        del eng._admit_waiting
+        admit()
+
+    eng._admit_waiting = gated
+    return order
 
 
 def describe_stats(stats):
@@ -2040,10 +2176,13 @@ def describe_stats(stats):
 def spec_phase(torch, label, flags, reqs, path):
     """The paged server with a draft (``flags``): ``reqs`` at once over
     HTTP with K7/K8/K9 counted against the scheduler trace, the same batch
-    again (equal text: seeded draws), greedy streams against an engine
-    without a draft (``check_greedy``), and the same prompts through that
-    engine for its TTFT and tok/s. Returns the K8 launches keyed by
-    ``path``."""
+    on a second server with the same flags (equal text: seeded draws; each
+    batch queued in the order of ``reqs`` and admitted in one tick,
+    ``hold_admission``, and from a fresh engine, since a seeded spec stream
+    depends on the schedule, the slots and the controllers' state, in the
+    reference too), greedy streams against an engine without a draft
+    (``check_greedy``), and the same prompts through that engine for its
+    TTFT and tok/s. Returns the K8 launches keyed by ``path``."""
     from datatunerx_tpu_torch.ops import cuda_paged_attention as cpa
     from datatunerx_tpu_torch.ops import cuda_sampling as cs
     from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
@@ -2065,7 +2204,8 @@ def spec_phase(torch, label, flags, reqs, path):
     for c, a in counters:
         setattr(c, a, 0)
     eng.sched_trace.clear()
-    results, stats = run_requests(eng, reqs, http)
+    order = hold_admission(eng, len(reqs))
+    results, stats = run_requests(eng, reqs, http, in_order=True)
     got = tuple(getattr(c, a) for c, a in counters)
     trace = list(eng.sched_trace)
     want = spec_expected(trace, eng.cfg.num_layers)
@@ -2102,14 +2242,29 @@ def spec_phase(torch, label, flags, reqs, path):
             f"slots): greedy {n['greedy']}, sampled {n['simple']} (of "
             f"which the residual draw's bits ~{TWIN_LAUNCHES[0]}); a "
             f"pending-form decode step {n['decode']}")
+    # the repeat runs on a second server with the same flags: the spec
+    # controllers (k, tree widths) carry what the first run taught them,
+    # so a rerun on the same engine draws in other steps, in the
+    # reference too (tests/test_torch_speculative.py)
+    from datatunerx_tpu_torch.serving.server import ServingState
+
     first = list(eng.sched_trace)
-    again, _ = run_requests(eng, reqs, http)
+    state2 = ServingState()
+    srv2, port2, eng2 = start_server(torch, flags, state=state2)
+    try:
+        order2 = hold_admission(eng2, len(reqs))
+        again, _ = run_requests(
+            eng2, reqs, lambda name, body: post(port2, body, trace=name),
+            in_order=True)
+        second = list(eng2.sched_trace)
+    finally:
+        stop_server(srv2, state2)
+        eng2.close()
     for name, _ in reqs:
         a, b = results[name]["text"], again[name]["text"]
         if a != b:
             j = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]),
                      min(len(a), len(b)))
-            second = list(eng.sched_trace)[len(first):]
 
             def sched(trace):
                 steps = collections.Counter(
@@ -2118,10 +2273,12 @@ def spec_phase(torch, label, flags, reqs, path):
                 return ([(e[1], e[2]) for e in trace if e[0] == "admit"],
                         dict(steps))
 
-            fail(f"{label} {name}: a second run of the same seed differs at "
-                 f"character {j} ({len(a)} and {len(b)} characters); "
-                 "admissions (slot, prompt lanes) and steps by batch mode "
-                 f"{sched(first)}, then {sched(second)}")
+            fail(f"{label} {name}: the same seeded batch on a second server "
+                 f"differs at character {j} ({len(a)} and {len(b)} "
+                 "characters); "
+                 "queue orders, admissions (slot, prompt lanes) and steps "
+                 f"by batch mode {order}, {sched(first)}, then {order2}, "
+                 f"{sched(second)}")
     plain = BatchedEngine("preset:tinyllama-1.1b", template="llama2",
                           max_seq_len=eng.max_seq_len, slots=4,
                           kv_block_size=16, kv_quant=eng.kv_quant)
@@ -3309,6 +3466,7 @@ KERNEL_GROUPS = (("K4 nf4", ("nf4fwd",)), ("K5 nf4 dx", ("nf4t",)),
                  ("K6 int8", ("int8src", "int8_gemm")),
                  ("flash K1", ("flash_fwd",)),
                  ("flash K2/K3", ("flash_bwd",)),
+                 ("threefry", ("threefry",)),
                  ("GEMM", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")))
 
 
@@ -3366,16 +3524,19 @@ def write_train_csv(path, seed=0, n=1500):
             w.writerow([f"#{i}: {q}?", a])
 
 
-def expected_launches(quant, steps, layers=LAYERS):
+def expected_launches(quant, steps, layers=LAYERS, forwards=2, dropped=2):
     """Kernel launches the CLI run must make, derived from the model: per
-    step and layer, K1 twice (forward + remat recompute), K2 and K3 once;
+    step and layer, K1 twice (forward + remat recompute; ``forwards`` 3
+    for DPO, whose reference forward runs without grad), K2 and K3 once,
+    and the threefry kernel once per LoRA-dropout draw: each of the
+    ``dropped`` adapted projections in the forward and in its recompute;
     with an nf4 base K4 on each of the 7 projections twice (forward +
     recompute: ``dots`` saves only matmuls) and K5 once per projection
     whose input needs a gradient (all but layer 0's q/k/v, whose input is
     the frozen embedding's); with int8, K6 as K4."""
-    per = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+    per = {"flash_fwd": forwards * layers, "flash_bwd_dq": layers,
            "flash_bwd_dkv": layers, "nf4_matmul": 0, "nf4_matmul_t": 0,
-           "int8_matmul": 0}
+           "int8_matmul": 0, "threefry_bits": 2 * dropped * layers}
     if quant == "int4":
         per.update(nf4_matmul=2 * 7 * layers, nf4_matmul_t=7 * layers - 3)
     elif quant == "int8":
@@ -3386,6 +3547,7 @@ def expected_launches(quant, steps, layers=LAYERS):
 def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
                 profile=PROFILE_STEPS, export=True,
                 model="preset:tinyllama-1.1b", layers=LAYERS):
+    from datatunerx_tpu_torch.ops import cuda_prng
     from datatunerx_tpu_torch.ops import cuda_quant as cq
     from datatunerx_tpu_torch.ops import flash_attention as fa
     from datatunerx_tpu_torch.training import train_lib
@@ -3429,7 +3591,8 @@ def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
         return new, metrics
 
     counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
-                cq.nf4_matmul, cq.nf4_matmul_t, cq.int8_matmul)
+                cq.nf4_matmul, cq.nf4_matmul_t, cq.int8_matmul,
+                cuda_prng.threefry_bits)
     train_lib.Trainer.train_step = timed_step
     try:
         gc.collect()
@@ -3497,24 +3660,37 @@ def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
     log(f"  launches {launches}"
         + (f"; model.npz {os.path.getsize(npz) / 2**30:.2f} GiB"
            if export else ""))
+    waits = [r["pipe_step_wait_ms"] for r in recs[first:]
+             if "pipe_step_wait_ms" in r]
+    log(f"  input pipeline: pipe_step_wait_ms (trainer_log.jsonl, steps "
+        f"{first + 1}-{steps}) "
+        + (f"mean {sum(waits) / len(waits):.3f}, max {max(waits):.3f}"
+           if waits else "not logged"))
+    busy = None
     if profile:
         groups, busy, window_ms, gpu_ms = device_breakdown(
             os.path.join(out, "trace", "trace.json"), profile)
         log(f"  profiled steps 2-{1 + profile}: {window_ms:.1f} ms of "
             f"device span per step, busy {busy * 100:.1f} %; device ms per "
-            "step " + ", ".join(f"{k} {v:.1f} ({v / gpu_ms * 100:.1f} %)"
+            "step " + ", ".join(f"{k} {v:.1f} ({v / gpu_ms * 100:.4g} %)"
                                 for k, v in groups.items()))
-    return launches, {"step_ms": step_s * 1e3, "peak_gib": peak, **trained}
+    return launches, {"step_ms": step_s * 1e3, "peak_gib": peak,
+                      "busy": busy, **trained}
 
 
 # ------------------------------------------------------------------ phase 6
-def train_parity_phase(torch, variants, quant=None, model=None):
+def train_parity_phase(torch, variants, quant=None, model=None,
+                       dropout=0.0):
     """One train step (and one LoRA gradient) under each of two config
     variants — ``(label, overrides)``: the kernels' path first, its plain
     counterpart second — from the same params (quantized with ``quant``),
     adapters and packed batch: tinyllama-1.1b's random params, or the first
-    4 layers of the HF directory ``model``."""
+    4 layers of the HF directory ``model``. With ``dropout`` the gradient
+    and the step draw LoRA-dropout masks (the threefry kernel) from the
+    same key in both variants."""
     import dataclasses
+
+    from datatunerx_tpu_torch.ops import prng
 
     from datatunerx_tpu_torch.data.preprocess import pack_to_block
     from datatunerx_tpu_torch.models.config import get_config
@@ -3549,7 +3725,7 @@ def train_parity_phase(torch, variants, quant=None, model=None):
             if quant:
                 params = quantize_model_params(params, quant)
         cfg = dataclasses.replace(base, **overrides)
-        tr = Trainer(cfg, TrainConfig(lora_dropout=0.0, total_steps=10),
+        tr = Trainer(cfg, TrainConfig(lora_dropout=dropout, total_steps=10),
                      device="cuda")
         state = tr.init_state(params, 1)
         lgen = torch.Generator(device="cuda").manual_seed(9)
@@ -3561,7 +3737,8 @@ def train_parity_phase(torch, variants, quant=None, model=None):
         dev = tr.put_batch(batch)
         leaves = [ab[x].requires_grad_() for ab in lora["layers"].values()
                   for x in ("a", "b")]
-        s, n = tr._forward_loss(params, lora, dev, None, train=False)
+        s, n = tr._forward_loss(params, lora, dev, prng.PRNGKey(3),
+                                train=dropout > 0)
         grads = torch.autograd.grad(s / n, leaves)
         for leaf in leaves:
             leaf.requires_grad_(False)
@@ -3570,13 +3747,158 @@ def train_parity_phase(torch, variants, quant=None, model=None):
                           torch.cat([g.flatten().float() for g in grads]))
     (a, (lf, nf, gf)), (b, (lx, nx, gx)) = results.items()
     rel_g = float((gf - gx).norm() / gx.norm())
-    log(f"  loss {a} {lf:.6f} vs {b} {lx:.6f}; grad_norm {nf:.6f} vs "
+    log(f"  lora_dropout {dropout}: loss {a} {lf:.6f} vs {b} {lx:.6f}; "
+        f"grad_norm {nf:.6f} vs "
         f"{nx:.6f}; LoRA grads relative error {rel_g:.3e}")
     if abs(lf - lx) > 1e-2 * abs(lx):
         fail(f"train parity: loss {lf} ({a}) vs {lx} ({b})")
     if rel_g > 3e-2 or abs(nf - nx) > 3e-2 * nx:
         fail(f"train parity: LoRA grads differ by {rel_g:.3e} relative "
              f"(grad_norm {nf} vs {nx})")
+
+
+# ----------------------------------------------------------------- phase 11
+PATH_STEPS = 4
+GEN_EXAMPLES, GEN_NEW = 4, 32
+
+
+def write_pref_csv(path, seed=1, n=64):
+    """Preference rows (instruction, chosen, rejected) made from a seed."""
+    import csv
+    import random
+
+    rnd = random.Random(seed)
+    words = ["alpha", "beta", "gamma", "delta", "tensor", "kernel", "train",
+             "model", "token", "layer", "adapter", "rank"]
+
+    def text(lo, hi):
+        return " ".join(rnd.choice(words) for _ in range(rnd.randint(lo, hi)))
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["instruction", "chosen", "rejected"])
+        for i in range(n):
+            w.writerow([f"#{i}: {text(2, 16)}?", text(4, 30), text(4, 30)])
+
+
+def cli_path(torch, tmp, label, flags, steps=PATH_STEPS, forwards=2,
+             batch=TRAIN_SHAPE["batch"], eval_batches=0):
+    """One trainer CLI run of tinyllama-1.1b at full width and depth (flash,
+    remat dots, bf16, block 1024, LoRA r8 on q_proj,v_proj with the default
+    dropout 0.1) with ``flags`` added: K1-K3 and threefry launches held to
+    ``expected_launches`` exactly (plus K1 once a layer for each of
+    ``eval_batches`` eval-loss batches), finite losses, each step timed to its
+    end on the device. Returns (records, output dir, storage dir, step
+    ms, peak GiB)."""
+    from datatunerx_tpu_torch.ops import cuda_prng
+    from datatunerx_tpu_torch.ops import flash_attention as fa
+    from datatunerx_tpu_torch.training import train_lib
+    from datatunerx_tpu_torch.tuning import train
+
+    out, store = (os.path.join(tmp, label, n) for n in ("out", "store"))
+    argv = ["--model_name_or_path", "preset:tinyllama-1.1b",
+            "--template", "alpaca", "--finetuning_type", "lora",
+            "--lora_target", "q_proj,v_proj", "--attention", "flash",
+            "--remat", "dots", "--bf16", "--block_size",
+            str(TRAIN_SHAPE["block"]), "--per_device_train_batch_size",
+            str(batch), "--max_steps", str(steps), "--logging_steps", "1",
+            "--output_dir", out, "--storage_path", store, "--uid", label,
+            "--device", "cuda", *flags]
+    real_step = train_lib.Trainer.train_step
+    times = []
+
+    def timed_step(self, state, b):
+        t0 = time.perf_counter()
+        new, metrics = real_step(self, state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return new, metrics
+
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                cuda_prng.threefry_bits)
+    train_lib.Trainer.train_step = timed_step
+    try:
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc = train.main(argv)
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+    finally:
+        train_lib.Trainer.train_step = real_step
+    if rc != 0:
+        fail(f"[11] {label}: the trainer CLI returned {rc}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = expected_launches(None, steps, forwards=forwards)
+    want = {k: want[k] for k in launches}
+    want["flash_fwd"] += eval_batches * LAYERS
+    if launches != want:
+        fail(f"[11] {label}: launches {launches}, expected {want}")
+    with open(os.path.join(out, "watch", "trainer_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if len(recs) != steps or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+            for r in recs):
+        fail(f"[11] {label}: train records {recs}")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"  {label}: {steps} steps in {wall:.1f} s wall; step (steps 2-"
+        f"{steps}, median) {step_s * 1e3:.1f} ms, all "
+        f"{[round(t * 1e3, 1) for t in times]} ms; peak {peak:.2f} GiB; "
+        f"losses {[round(r['loss'], 5) for r in recs]}; launches "
+        f"{launches}")
+    return recs, out, os.path.join(store, label), step_s * 1e3, peak
+
+
+def trainer_paths_phase(torch, tmp):
+    """The trainer's item-8 paths through the CLI at tinyllama-1.1b's full
+    width and depth: DPO (4 pairs a step: K1 three times a layer, the
+    reference forward included), RM (4 pairs; ``v_head.weight`` in the
+    merged export), adafactor and lion (SFT, packed 8 x 1024), streaming
+    (SFT, 8 padded rows a step) and generative eval (4 examples, 32 new
+    tokens; ``generated_predictions.jsonl``)."""
+    import numpy as np
+
+    sft = os.path.join(tmp, "train.csv")
+    if not os.path.exists(sft):
+        write_train_csv(sft)
+    pref = os.path.join(tmp, "pref.csv")
+    write_pref_csv(pref)
+    recs, *_ = cli_path(torch, tmp, "dpo",
+                        ["--stage", "dpo", "--train_path", pref], forwards=3,
+                        batch=4)
+    if abs(recs[0]["loss"] - math.log(2)) > 1e-3:
+        fail(f"[11] dpo: first-step loss {recs[0]['loss']}, expected ln 2 "
+             "(the policy starts equal to the reference)")
+    export = os.path.join(tmp, "rm", "export")
+    cli_path(torch, tmp, "rm", ["--stage", "rm", "--train_path", pref,
+                                "--export_dir", export], batch=4)
+    with np.load(os.path.join(export, "model.npz")) as z:
+        if "v_head.weight" not in z.files or z["v_head.weight"].shape != (
+                2048,) or not np.isfinite(z["v_head.weight"]).all():
+            fail("[11] rm: the export holds no finite v_head.weight [2048]")
+    for optim in ("adafactor", "lion"):
+        cli_path(torch, tmp, optim, ["--optim", optim, "--train_path", sft,
+                                     "--pack_sequences"])
+    cli_path(torch, tmp, "streaming", ["--streaming", "--train_path", sft,
+                                       "--shuffle_buffer", "64"])
+    held_out = os.path.join(tmp, "eval.csv")
+    write_train_csv(held_out, seed=3, n=8)  # one eval-loss batch
+    _, out, *_ = cli_path(torch, tmp, "generate", [
+        "--train_path", sft, "--pack_sequences", "--evaluation_path",
+        held_out, "--predict_with_generate", "--generate_examples",
+        str(GEN_EXAMPLES), "--max_new_tokens", str(GEN_NEW),
+        "--per_device_eval_batch_size", "8"], steps=2, eval_batches=1)
+    with open(os.path.join(out, "generated_predictions.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(out, "watch", "eval_log.jsonl")) as f:
+        scores = [r for r in map(json.loads, f) if "rouge-1" in r]
+    if len(rows) != GEN_EXAMPLES or not scores:
+        fail(f"[11] generate: {len(rows)} predictions, scores {scores}")
+    log(f"  generate: {len(rows)} predictions; "
+        + ", ".join(f"{k} {scores[-1][k]:.4f}"
+                    for k in ("rouge-1", "rouge-2", "rouge-l", "bleu-4")))
 
 
 # ------------------------------------------------------------- HF phases
@@ -3995,9 +4317,11 @@ def main(argv=None) -> int:
 
     def report(e):
         entries.append(e)
+        lib = ("none" if e["library_ms"] is None
+               else f"{e['library_ms']:.4f} ms")
         log(f"  {e['name']} [{e['shape']}]: max abs err {e['max_abs_err']:.3g}"
             f" ({e['tolerance']}); kernel {e['ms']:.4f} ms, plain "
-            f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, bound "
+            f"{e['plain_ms']:.4f} ms, library {lib}, bound "
             f"{e['bound_ms']:.5f} ms ({e['bound_by']})")
 
     for check, quant in ((check_k7, False), (check_k8, False),
@@ -4020,6 +4344,7 @@ def main(argv=None) -> int:
         report(check_k8_spec(torch, timer,
                              torch.Generator().manual_seed(14 + i),
                              quant=quant, tree=tree))
+    report(check_threefry(torch, timer, torch.Generator().manual_seed(17)))
     log(f"  an empty kernel under the same timer: "
         f"{empty_kernel_ms(torch, timer):.4f} ms (the floor of a small "
         "kernel's time)")
@@ -4129,6 +4454,11 @@ def main(argv=None) -> int:
                     "trainer CLI (flash, remat dots, bf16, packed 8x1024)")
                 trained, run = train_phase(torch, tmp)
                 launches.update({k: trained[k] for k in flash_keys})
+                launches["threefry_bits"] = trained["threefry_bits"]
+                log(f"  with the twin's dropout masks: step "
+                    f"{run['step_ms']:.1f} ms, busy "
+                    f"{run['busy'] * 100:.1f} % (PR 12, torch-generator "
+                    "masks: 281.3 ms, 67.8 %)")
                 torch.cuda.empty_cache()
                 log("[5-serve] serve phase 5's checkpoint with "
                     "--checkpoint_path: the paged server (adapter "
@@ -4137,10 +4467,12 @@ def main(argv=None) -> int:
                                        run["scaling"])
                 log("[6] train parity: one step with the flash kernels vs "
                     "plain attention (tinyllama width, 4 layers)")
-                train_parity_phase(torch, [
-                    ("flash", dict(attention_impl="flash")),
-                    ("xla", dict(attention_impl="xla"))])
-                torch.cuda.empty_cache()
+                for dropout in (0.0, 0.1):
+                    train_parity_phase(torch, [
+                        ("flash", dict(attention_impl="flash")),
+                        ("xla", dict(attention_impl="xla"))],
+                        dropout=dropout)
+                    torch.cuda.empty_cache()
             log("[7] QLoRA train preset:tinyllama-1.1b --quantization int4 "
                 "(nf4 base on K4/K5, flash, remat dots, bf16, packed 8x1024)")
             trained, _ = train_phase(torch, tmp, quant="int4",
@@ -4162,6 +4494,13 @@ def main(argv=None) -> int:
                                 quant_impl="pallas")),
                 ("xla", dict(attention_impl="flash", quantization=mode,
                              quant_impl="xla"))], quant=mode)
+            torch.cuda.empty_cache()
+
+        if opts.phase != "qlora":
+            with tempfile.TemporaryDirectory(prefix="dtx-paths-") as tmp:
+                log("[11] the trainer's paths at tinyllama-1.1b: DPO, RM, "
+                    "adafactor, lion, streaming, generative eval")
+                trainer_paths_phase(torch, tmp)
             torch.cuda.empty_cache()
 
     if opts.phase in ("all", "hf"):

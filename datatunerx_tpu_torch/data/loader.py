@@ -1,28 +1,41 @@
 """Dataset ingest and deterministic batch iteration (the port of
-``datatunerx_tpu/data/loader.py``: ``CsvDataset`` and ``BatchIterator``).
+``datatunerx_tpu/data/loader.py``).
 
-A plain CSV/JSONL reader (local paths; object stores and ``--streaming``
-are not ported yet, ROADMAP Queue 1 item 11) and a seedable iterator whose
-per-epoch permutation is numpy's ``default_rng(seed + epoch)``, so it yields
-the reference's batches array for array.
+- ``CsvDataset``: a plain CSV/JSONL reader (local paths; object stores are
+  ROADMAP Queue 1 item 11).
+- ``BatchIterator``: a seedable iterator whose per-epoch permutation is
+  numpy's ``default_rng(seed + epoch)``, so it yields the reference's
+  batches array for array; ``PreferenceBatchIterator`` runs two of them
+  with one seed over chosen and rejected sides (DPO/RM).
+- ``StreamingCsvDataset`` / ``StreamingBatchIterator`` (``--streaming``):
+  records read line by line (a raw-record read-ahead thread,
+  ``data/prefetch.ReadAheadIterator``), encoded on the fly and shuffled
+  through a bounded reservoir with the reference's draws, so a seed gives
+  its batches too.
 """
 
 from __future__ import annotations
 
+import copy
 import csv
 import json
+import threading
 from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from datatunerx_tpu_torch.data.prefetch import ReadAheadIterator
 from datatunerx_tpu_torch.data.preprocess import (
     pack_to_block,
     pad_to_block,
+    preprocess_pretrain_records,
     preprocess_records,
 )
 from datatunerx_tpu_torch.data.templates import Template, get_template
 from datatunerx_tpu_torch.training.loss import IGNORE_INDEX
 from datatunerx_tpu_torch.utils import storage
+
+READ_AHEAD = 64  # raw records a streaming epoch's reader thread fetches ahead
 
 
 class CsvDataset:
@@ -56,6 +69,152 @@ class CsvDataset:
         return preprocess_records(self.records, template, tokenizer,
                                   cutoff_len=cutoff_len,
                                   columns=self.columns)
+
+
+class StreamingCsvDataset:
+    """Record stream over a .csv/.jsonl file without reading it whole. A
+    JSON array cannot stream: it falls back to one parse."""
+
+    def __init__(self, path: str, columns: Optional[Dict[str, str]] = None):
+        if not storage.exists(path):
+            raise FileNotFoundError(path)
+        self.path = path
+        self.columns = columns
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        if self.path.endswith((".jsonl", ".json")):
+            with open(self.path, "r") as f:
+                # blank lines before the first record are skipped, as
+                # CsvDataset strips the whole text
+                first = f.readline()
+                while first and not first.strip():
+                    first = f.readline()
+                if first.lstrip().startswith("["):
+                    yield from json.loads(first + f.read())
+                    return
+                line = first
+                while line:
+                    if line.strip():
+                        yield json.loads(line.strip())
+                    line = f.readline()
+        else:
+            with open(self.path, "r", newline="") as f:
+                yield from csv.DictReader(f)
+
+
+class StreamingBatchIterator:
+    """Shuffle-buffered streaming batches (tf.data ``shuffle(buffer)``
+    semantics): records are encoded on the fly, held in a reservoir of
+    ``buffer_size``, and emitted as fixed-shape [global_batch, block]
+    batches; the trailing partial batch is dropped. Deterministic per
+    (seed, epoch): the reservoir's draws are the reference's. SFT and pt
+    only."""
+
+    def __init__(
+        self,
+        dataset: StreamingCsvDataset,
+        template: Template,
+        tokenizer,
+        *,
+        global_batch: int,
+        block_size: int,
+        cutoff_len: Optional[int] = None,
+        pad_id: int = 0,
+        grad_accum: int = 1,
+        buffer_size: int = 2048,
+        seed: int = 0,
+        stage: str = "sft",  # sft = templated pairs; pt = plain LM
+    ):
+        if global_batch % max(grad_accum, 1) != 0:
+            raise ValueError("global_batch must be divisible by grad_accum")
+        self.dataset = dataset
+        self.template = template
+        self.tokenizer = tokenizer
+        self.global_batch = global_batch
+        self.block_size = block_size
+        self.cutoff_len = cutoff_len or block_size
+        self.pad_id = pad_id
+        self.grad_accum = max(grad_accum, 1)
+        self.buffer_size = max(buffer_size, global_batch)
+        self.seed = seed
+        self.stage = stage
+        self._tls = threading.local()
+        self._clone_encoders = False
+
+    def steps_per_epoch(self) -> int:
+        return -1  # unknown without a full pass: callers use max_steps
+
+    def ensure_thread_safe_encoding(self) -> bool:
+        """Give each encoding thread its own copy of the tokenizer, so this
+        iterator can encode in a prefetch worker while another thread
+        (in-training generative eval) encodes with the original. False,
+        with encoding unchanged, when the tokenizer cannot be copied: the
+        caller then keeps the pipeline synchronous."""
+        if self._clone_encoders:
+            return True
+        try:
+            copy.deepcopy(self.tokenizer)
+        except Exception:  # noqa: BLE001 — not copyable: caller stays sync
+            return False
+        self._clone_encoders = True
+        return True
+
+    def _thread_tokenizer(self):
+        if not self._clone_encoders:
+            return self.tokenizer
+        tok = getattr(self._tls, "tokenizer", None)
+        if tok is None:
+            tok = self._tls.tokenizer = copy.deepcopy(self.tokenizer)
+        return tok
+
+    def _encoded(self) -> Iterator[Dict[str, List[int]]]:
+        tokenizer = self._thread_tokenizer()  # one epoch runs on one thread
+        reader = ReadAheadIterator(self.dataset, depth=READ_AHEAD)
+        try:
+            for rec in reader:
+                if self.stage == "pt":
+                    out = preprocess_pretrain_records(
+                        [rec], tokenizer, cutoff_len=self.cutoff_len,
+                        columns=self.dataset.columns)
+                else:
+                    out = preprocess_records(
+                        [rec], self.template, tokenizer,
+                        cutoff_len=self.cutoff_len,
+                        columns=self.dataset.columns)
+                if out:
+                    yield out[0]
+        finally:
+            # an early exit (max_steps) stops the reader thread
+            reader.close()
+
+    def _emit(self, exs):
+        batch = pad_to_block(exs, self.block_size, self.pad_id)
+        if self.grad_accum > 1:
+            batch = {k: v.reshape(self.grad_accum, -1, *v.shape[1:])
+                     for k, v in batch.items()}
+        return batch
+
+    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng(self.seed + epoch)
+        buf: List[Dict[str, List[int]]] = []
+        pending: List[Dict[str, List[int]]] = []
+        for ex in self._encoded():
+            buf.append(ex)
+            if len(buf) < self.buffer_size:
+                continue
+            pending.append(buf.pop(int(rng.integers(len(buf)))))
+            if len(pending) == self.global_batch:
+                yield self._emit(pending)
+                pending = []
+        # drain the reservoir down to full batches only
+        rng.shuffle(buf)
+        tail = pending + buf
+        for s in range(len(tail) // self.global_batch):
+            yield self._emit(tail[s * self.global_batch:
+                                  (s + 1) * self.global_batch])
+
+    def __iter__(self):
+        return self.epoch(0)
 
 
 class BatchIterator:
@@ -122,6 +281,35 @@ class BatchIterator:
                 batch = {k: v.reshape(self.grad_accum, -1, *v.shape[1:])
                          for k, v in batch.items()}
             yield batch
+
+    def __iter__(self):
+        return self.epoch(0)
+
+
+class PreferenceBatchIterator:
+    """Preference-pair batches (DPO/RM): two ``BatchIterator``s with the
+    same seed over equal-length chosen and rejected lists, so their
+    permutations agree and pairs stay aligned. Packing would cross pair
+    boundaries, so it is ignored."""
+
+    def __init__(self, examples: Sequence[Dict[str, List[int]]], **kw):
+        kw.pop("pack", None)
+        chosen = [{"input_ids": e["chosen_ids"], "labels": e["chosen_labels"]}
+                  for e in examples]
+        rejected = [{"input_ids": e["rejected_ids"],
+                     "labels": e["rejected_labels"]} for e in examples]
+        self._c = BatchIterator(chosen, **kw)
+        self._r = BatchIterator(rejected, **kw)
+
+    def steps_per_epoch(self) -> int:
+        return self._c.steps_per_epoch()
+
+    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        for bc, br in zip(self._c.epoch(epoch), self._r.epoch(epoch)):
+            yield {"chosen_ids": bc["input_ids"],
+                   "chosen_labels": bc["labels"],
+                   "rejected_ids": br["input_ids"],
+                   "rejected_labels": br["labels"]}
 
     def __iter__(self):
         return self.epoch(0)

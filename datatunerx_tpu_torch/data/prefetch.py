@@ -1,6 +1,10 @@
 """Pipelined training input path (the port of
 ``datatunerx_tpu/data/prefetch.py``).
 
+  ReadAheadIterator — a reader thread pulls raw records into a bounded
+                     queue while the consumer encodes them (the streaming
+                     path's fetch half); order is kept, source errors
+                     re-raise at the consumer, and ``close()`` stops it.
   HostPrefetcher   — runs a batch iterator in a background thread behind a
                      bounded queue (backpressure, exception propagation,
                      clean shutdown), so step N's host build overlaps step
@@ -57,6 +61,76 @@ class PipelineStats:
                    for k, v in self._acc.items() if v}
             self._acc.clear()
         return out
+
+
+class ReadAheadIterator:
+    """Bounded background read-ahead over a record iterable: one reader
+    thread and a FIFO queue, so the records (and the batches built from
+    them) come in the synchronous order. A source exception re-raises where
+    its record would have arrived; ``close()`` (or an early exit of the
+    consumer's generator) stops the reader even when the queue is full."""
+
+    _DONE = object()
+
+    def __init__(self, records: Iterable, depth: int = 64):
+        if depth < 1:
+            raise ValueError(f"read-ahead depth must be >= 1, got {depth}")
+        self._records = records
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._exc: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name="dtx-readahead")
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _worker(self):
+        try:
+            for rec in self._records:
+                if not self._put(rec):
+                    return
+        except BaseException as e:  # noqa: BLE001 — re-raised at consumer
+            self._exc = e
+        self._put(self._DONE)
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self):
+        while True:
+            if self._stop.is_set():
+                raise StopIteration
+            try:
+                item = self._q.get(timeout=0.1)
+            except queue.Empty:
+                if not self._thread.is_alive() and self._q.empty():
+                    if self._exc is not None:
+                        raise self._exc
+                    raise StopIteration
+                continue
+            if item is self._DONE:
+                if self._exc is not None:
+                    raise self._exc
+                raise StopIteration
+            return item
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 class HostPrefetcher:

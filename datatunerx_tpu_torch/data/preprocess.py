@@ -1,7 +1,8 @@
-"""Supervised SFT preprocessing: encode, prompt-mask, fixed-shape padding
-and greedy packing (the port of ``datatunerx_tpu/data/preprocess.py``,
-without its native C++ fill: the loops below are the reference's own
-fallback, and the tests hold the batches equal).
+"""Supervised preprocessing (SFT, pt and DPO/RM preference pairs): encode,
+prompt-mask, fixed-shape padding and greedy packing (the port of
+``datatunerx_tpu/data/preprocess.py``, without its native C++ fill: the
+loops below are the reference's own fallback, and the tests hold the
+batches equal).
 
 - column-mapped records with ``instruction``/``response`` (+ optional
   ``query`` appended to the instruction with a newline, ``history``,
@@ -93,6 +94,39 @@ def preprocess_records(
         )
         out.append({"input_ids": ids, "labels": labels,
                     "attention_mask": [1] * len(ids)})
+    return out
+
+
+def preprocess_preference_records(
+    records: Iterable[Dict[str, Any]],
+    template: Template,
+    tokenizer,
+    cutoff_len: int = 1024,
+    columns: Optional[Dict[str, str]] = None,
+) -> List[Dict[str, List[int]]]:
+    """DPO/RM preference pairs: records carry ``instruction``, ``chosen``
+    and ``rejected`` (column-mapped as for SFT). Each side is encoded as an
+    SFT example (prompt masked, response labelled), so a sequence's
+    log-prob covers its response tokens only."""
+    out = []
+    for rec in records:
+        rec = map_columns(rec, columns)
+        query = rec.get("instruction")
+        chosen, rejected = rec.get("chosen"), rec.get("rejected")
+        if not all(isinstance(v, str) and v != ""
+                   for v in (query, chosen, rejected)):
+            continue
+        if rec.get("query"):
+            query = query + "\n" + rec["query"]
+        pair = {}
+        for side, response in (("chosen", chosen), ("rejected", rejected)):
+            ids, labels = encode_supervised_example(
+                template, tokenizer, query, response,
+                history=rec.get("history"), system=rec.get("system"),
+                cutoff_len=cutoff_len)
+            pair[f"{side}_ids"] = ids
+            pair[f"{side}_labels"] = labels
+        out.append(pair)
     return out
 
 

@@ -30,9 +30,12 @@ selective checkpoint that saves only the 2-D projection matmuls (``dots``,
 the counterpart of ``checkpoint_dots_with_no_batch_dims``: the flash
 forward and the quantized-matmul kernels are recomputed in the backward
 pass, as the Pallas calls are).
-LoRA dropout and NEFTune noise draw from ``torch.Generator``s seeded by
-(``dropout_seed``, layer, projection), so a checkpoint's recompute draws
-the same masks; the bits differ from jax.random's. Projections with a
+LoRA dropout masks and NEFTune noise come from the threefry twin
+(``ops/cuda_prng.py``, one kernel launch a draw on the card) over the
+reference's key chain: ``fold_in(dropout_rng, layer)``, then
+``fold_in(·, projection)``, and ``fold_in(dropout_rng, 0x4EF)`` for the
+noise. The keys evolve on the host; a checkpoint's recompute draws the
+same bits, and they are ``jax.random``'s. Projections with a
 ``quant`` collection multiply through ``ops/quant.quantized_matmul``:
 ``cfg.quant_impl == "pallas"`` takes the K4/K5 (nf4) and K6 (int8)
 kernels, ``"xla"`` dequantizes and runs a plain matmul. Dispatch keys on the
@@ -43,9 +46,9 @@ records ``quantization`` in its ``config.json`` and holds full kernels.
 from __future__ import annotations
 
 import functools
-import math
 from typing import Any, Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -65,6 +68,7 @@ from datatunerx_tpu_torch.ops.attention import (
     kv_cache_write_paged,
     make_causal_bias,
 )
+from datatunerx_tpu_torch.ops import cuda_prng, prng
 from datatunerx_tpu_torch.ops.cuda_paged_attention import (
     paged_attention_decode_step,
     paged_attention_multitoken_step,
@@ -163,26 +167,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def mix_seed(*parts: int) -> int:
-    """A 63-bit generator seed from integers (splitmix64 steps): distinct
-    (seed, step, layer, projection) tuples give unrelated streams."""
-    x = 0
-    for part in parts:
-        x = (x ^ (int(part) & 0xFFFFFFFFFFFFFFFF)) + 0x9E3779B97F4A7C15
-        x &= 0xFFFFFFFFFFFFFFFF
-        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-        x ^= x >> 31
-    return x >> 1
+_KEEP_RATES: dict = {}
 
 
-def _uniform(shape, seed: int, device) -> torch.Tensor:
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+def _keep_rate(drop_rate: float, h: torch.Tensor) -> torch.Tensor:
+    """``1 - drop_rate`` as a 0-d tensor of h's dtype on h's device, made
+    once: a true division by it rounds as the reference's weakly typed
+    scalar does (CUDA turns a host scalar divisor into a product with its
+    reciprocal)."""
+    key = (drop_rate, h.dtype, h.device)
+    if key not in _KEEP_RATES:
+        _KEEP_RATES[key] = torch.full((), 1.0 - drop_rate, dtype=h.dtype,
+                                      device=h.device)
+    return _KEEP_RATES[key]
 
 
 def _proj(h: torch.Tensor, p: dict, lora_p: Optional[dict] = None,
-          lora_scale=0.0, drop_seed: Optional[int] = None,
+          lora_scale=0.0, drop_key=None,
           drop_rate: float = 0.0, quant_mode: Optional[str] = None,
           dims: Optional[tuple] = None, use_pallas: bool = False,
           lora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -192,7 +193,9 @@ def _proj(h: torch.Tensor, p: dict, lora_p: Optional[dict] = None,
     (``ops/quant.py``; QLoRA = quantized base + full-precision adapters),
     multiplied by ``quantized_matmul`` with W's ``dims`` (in, out).
     Dropout applies to the adapter branch input only (peft's
-    ``lora_dropout``): kept lanes scale by 1/(1-p).
+    ``lora_dropout``): ``drop_key`` (a host threefry key) draws
+    ``bernoulli(1-p)`` over h's shape, and kept lanes divide by ``1-p``
+    rounded to h's dtype, as the reference's weakly typed scalar is.
 
     Multi-adapter serving: with ``lora_idx`` ([B] integer), the adapter
     leaves are STACKED over adapters (``[E, d_in, r]`` / ``[E, r, d_out]``)
@@ -209,10 +212,10 @@ def _proj(h: torch.Tensor, p: dict, lora_p: Optional[dict] = None,
         out = out + p["bias"].to(h.dtype)
     if lora_p is not None:
         hl = h
-        if drop_seed is not None and drop_rate > 0.0:
-            keep = _uniform(h.shape, drop_seed, h.device) < 1.0 - drop_rate
-            hl = torch.where(keep, h / (1.0 - drop_rate),
-                             torch.zeros_like(h)).to(h.dtype)
+        if drop_key is not None and drop_rate > 0.0:
+            keep = cuda_prng.bernoulli(drop_key, 1.0 - drop_rate, h.shape,
+                                       h.device)
+            hl = torch.where(keep, h / _keep_rate(drop_rate, h), 0.0)
         if lora_idx is not None:
             # gather first, then cast: the same values as casting the whole
             # stack, at a row's cost
@@ -246,6 +249,10 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+# a projection's index in the dropout key chain (ref models/llama.py:343-402)
+_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                "up_proj", "down_proj")
+
 _SAVED_BY_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
 
 
@@ -276,12 +283,17 @@ def forward(
     lora_adapter_idx: Optional[torch.Tensor] = None,  # [B]: stacked adapters
     compute_dtype=None,
     lora_dropout: float = 0.0,
-    dropout_seed: Optional[int] = None,
+    dropout_rng=None,  # host threefry key ([2] uint32), training only
     neftune_alpha: float = 0.0,
+    return_hidden: bool = False,
+    skip_logits: bool = False,
     window_mask: Optional[torch.Tensor] = None,  # [B, T, WN] bool
     window_start: Optional[torch.Tensor] = None,  # [B]
 ):
-    """Returns (logits [B, T, V] float32, new_cache | None).
+    """Returns (logits [B, T, V] float32, new_cache | None); with
+    ``return_hidden`` also the final-norm hidden states [B, T, D], and
+    with ``skip_logits`` (which needs ``return_hidden``) logits None, so a
+    value head (rm) pays no vocabulary projection.
 
     Dispatch follows the reference: over a paged cache with
     ``cfg.paged_kernel``, single-token steps take the paged decode kernel
@@ -293,7 +305,7 @@ def forward(
     or T < 128`` (the reference's ``_flash_ok``), else the biased path. A
     ``cfg.sliding_window`` model takes the biased path everywhere (no
     paged kernel, no flash), with the window in the bias.
-    ``dropout_seed`` (training only) turns on LoRA dropout and NEFTune.
+    ``dropout_rng`` (training only) turns on LoRA dropout and NEFTune.
     With ``lora_adapter_idx``, ``lora``'s leaves are stacked over adapters
     (``[L, E, ...]``, scales ``[E]``) and row b applies adapter
     ``lora_adapter_idx[b]`` (``_proj``). ``window_mask``/``window_start``
@@ -305,6 +317,8 @@ def forward(
         raise NotImplementedError(
             "ring attention is not ported yet (ROADMAP Queue 1 item 10, "
             "multi-GPU)")
+    if skip_logits and not return_hidden:
+        raise ValueError("skip_logits without return_hidden returns nothing")
     B, T = tokens.shape
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32,
@@ -313,12 +327,14 @@ def forward(
     x = params["embed_tokens"]["embedding"][tokens.long()]
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    if neftune_alpha > 0.0 and dropout_seed is not None:
+    if neftune_alpha > 0.0 and dropout_rng is not None:
         # NEFTune (reference cmd/tuning/parser.py:190-193): uniform noise on
-        # the embedding output, magnitude alpha / sqrt(T * D), training only
-        mag = neftune_alpha / math.sqrt(T * x.shape[-1])
-        noise = _uniform(x.shape, mix_seed(dropout_seed, 0x4EF),
-                         x.device) * 2.0 - 1.0
+        # the embedding output, magnitude alpha / sqrt(T * D) in f32,
+        # training only
+        mag = float(np.float32(neftune_alpha)
+                    / np.sqrt(np.float32(T * x.shape[-1])))
+        noise = cuda_prng.uniform(prng.fold_in(dropout_rng, 0x4EF), x.shape,
+                                  -1.0, 1.0, x.device)
         x = x + (noise * mag).to(x.dtype)
 
     seq_len = T if cache is None else kv_cache_width(cache)
@@ -381,7 +397,7 @@ def forward(
     if lora is not None:
         lora_params, lora_scale = lora
         lora_layers = lora_params.get("layers", lora_params)
-    drop = lora_dropout if (dropout_seed is not None
+    drop = lora_dropout if (dropout_rng is not None
                             and lora is not None) else 0.0
     lora_idx = (lora_adapter_idx.long() if lora_adapter_idx is not None
                 else None)
@@ -389,15 +405,23 @@ def forward(
     H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     use_pallas = cfg.quant_impl == "pallas"
     quant_kv = cache is not None and "k_scale" in cache
+    # the dropout keys of the adapted projections, once a forward (a remat
+    # recompute reuses them): fold_in(fold_in(rng, layer), projection)
+    drop_keys = [{} for _ in range(cfg.num_layers)]
+    if drop > 0.0:
+        for i in range(cfg.num_layers):
+            lkey = prng.fold_in(dropout_rng, i)
+            drop_keys[i] = {j: prng.fold_in(lkey, j)
+                            for j, name in enumerate(_PROJECTIONS)
+                            if name in lora_layers}
 
     def layer(x, i):
         lp = _layer(params["layers"], i)
         ll = _layer(lora_layers, i) if lora_layers else {}
-        seeds = ([mix_seed(dropout_seed, i, j) for j in range(7)]
-                 if drop > 0.0 else [None] * 7)
+        keys = drop_keys[i]
 
         def proj(h, name, j):
-            return _proj(h, lp[name], ll.get(name), lora_scale, seeds[j],
+            return _proj(h, lp[name], ll.get(name), lora_scale, keys.get(j),
                          drop, cfg.quantization, target_dims(cfg, name),
                          use_pallas, lora_idx)
 
@@ -449,11 +473,13 @@ def forward(
             x = layer(x, i)
 
     x = rms_norm(x, params["norm"]["scale"], cfg.rms_norm_eps)
-    logits = lm_logits(params, x, cfg)
+    logits = None if skip_logits else lm_logits(params, x, cfg)
 
     new_cache = None
     if cache is not None:
         new_cache = dict(cache)
         new_cache["len"] = cache["len"] + T
         new_cache["pos"] = cache_pos
+    if return_hidden:
+        return logits, new_cache, x
     return logits, new_cache

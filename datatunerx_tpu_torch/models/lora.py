@@ -9,9 +9,11 @@ stacked ``[L, ...]`` leaves: ``{"layers": {target: {"a": [L, d_in, r],
 them into the base kernels for export (PEFT ``merge_and_unload``).
 
 Init matches PEFT: A ~ kaiming-uniform(a=sqrt(5)) over fan_in (bound
-1/sqrt(d_in)), B = 0, so the delta starts at zero; the draws come from a
-seeded ``torch.Generator`` and differ from jax.random's
-(``models/convert.lora_from_jax`` carries a JAX adapter tree across).
+1/sqrt(d_in)), B = 0, so the delta starts at zero. A is drawn by the
+threefry twin (``ops/prng.py``) as the reference draws it,
+``uniform(fold_in(key, i), (L, d_in, r), -bound, bound)`` for the i-th
+target in sorted order, so a key gives the reference's adapters bit for
+bit.
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from datatunerx_tpu_torch.models.config import ModelConfig
+from datatunerx_tpu_torch.ops import prng
 
 # Valid llama-family targets (reference cmd/tuning/parser.py:150-160).
 LORA_TARGETS = (
@@ -49,7 +53,7 @@ def lora_scaling(alpha: float, rank: int) -> float:
 
 def init_lora_params(
     cfg: ModelConfig,
-    seed: int = 0,
+    key=0,
     rank: int = 8,
     targets: Sequence[str] = DEFAULT_TARGETS,
     dtype=torch.float32,
@@ -58,15 +62,16 @@ def init_lora_params(
     for t in targets:
         if t not in LORA_TARGETS:
             raise ValueError(f"invalid lora target {t!r}; choices: {LORA_TARGETS}")
-    gen = torch.Generator(device=device).manual_seed(seed)
+    if isinstance(key, (int, np.integer)):
+        key = prng.PRNGKey(int(key))
     L = cfg.num_layers
     layers = {}
-    for t in sorted(set(targets)):
+    for i, t in enumerate(sorted(set(targets))):
         d_in, d_out = target_dims(cfg, t)
         bound = 1.0 / math.sqrt(d_in)
-        a = torch.rand((L, d_in, rank), generator=gen, dtype=torch.float32,
-                       device=device)
-        layers[t] = {"a": (a * (2 * bound) - bound).to(dtype),
+        # drawn on the host (a few hundred thousand values), then moved
+        a = prng.uniform(prng.fold_in(key, i), (L, d_in, rank), -bound, bound)
+        layers[t] = {"a": torch.from_numpy(a).to(device=device, dtype=dtype),
                      "b": torch.zeros((L, rank, d_out), dtype=dtype,
                                       device=device)}
     return {"layers": layers}

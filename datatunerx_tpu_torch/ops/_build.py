@@ -132,6 +132,7 @@ def library() -> ctypes.CDLL:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U32, _LL = ctypes.c_uint32, ctypes.c_longlong
 
 
 def _declare(lib: ctypes.CDLL):
@@ -218,6 +219,13 @@ def _declare(lib: ctypes.CDLL):
     fn = lib.dtx_fused_sample
     # x, temps, us, out, S, Vp, greedy, stream
     fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+    fn.restype = _I
+    # k0, k1, n, p | (lo, span), out, stream
+    fn = lib.dtx_threefry_bernoulli
+    fn.argtypes = [_U32, _U32, _LL, _F, _P, _P]
+    fn.restype = _I
+    fn = lib.dtx_threefry_uniform
+    fn.argtypes = [_U32, _U32, _LL, _F, _F, _P, _P]
     fn.restype = _I
     fn = lib.dtx_empty_kernel  # stream
     fn.argtypes = [_P]

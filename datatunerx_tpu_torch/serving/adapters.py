@@ -24,11 +24,11 @@ def make_adapter_checkpoint(path: str, model: str, seed: int,
                             rank: int = 4,
                             targets=("q_proj", "v_proj")) -> str:
     """Write a random LoRA adapter checkpoint under ``path`` and return it.
-    A is PEFT's init, B is drawn too (init's zero B would make every
-    adapter a no-op); both from a ``torch.Generator`` seeded with
-    ``seed``."""
+    A is PEFT's init (the threefry twin's draw from ``seed``), B is drawn
+    too, from a ``torch.Generator`` (init's zero B would make every adapter
+    a no-op)."""
     cfg = get_config(model.split(":")[-1])
-    lora = init_lora_params(cfg, seed=seed, rank=rank, targets=tuple(targets))
+    lora = init_lora_params(cfg, seed, rank=rank, targets=tuple(targets))
     gen = torch.Generator().manual_seed(1000 + seed)
     layers = {}
     for t, leaf in sorted(lora["layers"].items()):

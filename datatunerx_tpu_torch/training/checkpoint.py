@@ -7,9 +7,9 @@ merged export (the port of ``datatunerx_tpu/training/checkpoint.py``).
   ``max_to_keep``, and restores the newest (or a given) step. It holds what
   a resume needs: the step, the trainable tree (the adapters for LoRA — the
   frozen base is reloaded from the model source — else the params), the
-  optimizer state and the run seed the dropout streams derive from. Orbax
-  checkpoints of the JAX package are not read; the packages cross-load
-  through the export below.
+  optimizer state and the run's threefry key (dropout and NEFTune draw
+  from it). Orbax checkpoints of the JAX package are not read; the
+  packages cross-load through the export below.
 - ``write_manifest``/``read_manifest``: ``<storage_path>/<run>/manifest.json``
   plus the legacy ``checkpoint_path`` file, the reference's keys and paths.
 - ``export_merged_model``: the LoRA-merged weights as an HF-layout
@@ -23,11 +23,13 @@ import json
 import os
 import shutil
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
+from datatunerx_tpu_torch.ops import prng
 from datatunerx_tpu_torch.utils import storage
 
 MANIFEST_NAME = "manifest.json"
@@ -48,7 +50,8 @@ class CheckpointManager:
                         and step % self.save_interval_steps == 0)
         if not due:
             return False
-        payload = {"step": state.step, "seed": state.seed,
+        payload = {"step": state.step,
+                   "rng": torch.from_numpy(state.rng.astype(np.int64)),
                    "opt_state": state.opt_state}
         if state.lora is not None:
             payload["lora"] = state.lora
@@ -78,8 +81,20 @@ class CheckpointManager:
                 else state_template.params)
         device = next(iter(_leaves(leaf))).device
         saved = load_raw_state(self.directory, step, map_location=device)
+        if "rng" in saved:
+            rng = saved["rng"].numpy().astype(np.uint32)
+        else:
+            # written before training drew from the threefry twin: only the
+            # run seed was kept, and the key a fresh run builds from it
+            # carries on with other dropout masks than the saved run drew
+            warnings.warn(
+                f"checkpoint step {step} under {self.directory} holds a run "
+                "seed, not a threefry key: resuming from PRNGKey(seed), so "
+                "the dropout and NEFTune draws differ from those the run "
+                "would have made", stacklevel=2)
+            rng = prng.PRNGKey(int(saved["seed"]))
         return dataclasses.replace(
-            state_template, step=saved["step"], seed=saved["seed"],
+            state_template, step=saved["step"], rng=rng,
             opt_state=saved["opt_state"],
             lora=saved.get("lora", state_template.lora),
             params=saved.get("params", state_template.params)), step
@@ -164,6 +179,10 @@ def export_merged_model(params, cfg, export_dir: str, lora=None,
         params = merge_lora(params, lora, scaling)
     os.makedirs(export_dir, exist_ok=True)
     sd = export_hf_state_dict(params, cfg)
+    if lora is not None and "v_head" in lora:
+        # a reward model's value head has no slot in the HF layout: it is
+        # exported under its own key, as the reference does
+        sd["v_head.weight"] = lora["v_head"].detach().float().cpu().numpy()
     out = os.path.join(export_dir, "model.npz")
     np.savez(out, **sd)
     with open(os.path.join(export_dir, "config.json"), "w") as f:

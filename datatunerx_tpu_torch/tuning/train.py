@@ -1,12 +1,16 @@
 """Trainer entry point: ``python -m datatunerx_tpu_torch.tuning.train
 --model_name_or_path … --train_path … --storage_path …`` (the port of
-``datatunerx_tpu/tuning/train.py``, SFT and pt stages on one device, and
-QLoRA with ``--quantization int4|int8``: the base is quantized on the
-device right after load, the adapters train, and the export dequantizes).
+``datatunerx_tpu/tuning/train.py`` on one device): the sft, pt, dpo and rm
+stages, every optimizer, QLoRA with ``--quantization int4|int8`` (the base
+is quantized on the device right after load, the adapters train, and the
+export dequantizes), ``--streaming`` ingest and ``--predict_with_generate``
+(rouge/bleu over greedy generations at the end of the run, and every
+``--generate_eval_steps`` steps).
 
-  parse → load model + tokenizer → template/encode/pack → Trainer →
-  (resume?) → epoch loop [train_step, log, eval, save] → final eval →
-  final checkpoint → completion manifest → merged export
+  parse → load model + tokenizer → template/encode/pack (or a stream) →
+  Trainer → (resume?) → epoch loop [train_step, log, eval, generative
+  eval, save] → final eval → final checkpoint → generative eval →
+  completion manifest → merged export
 
 Runs on CUDA unless ``--device cpu``; without a GPU it raises. What this
 slice leaves out is refused up front with the ROADMAP item that ports it.
@@ -14,20 +18,31 @@ slice leaves out is refused up front with the ROADMAP item that ports it.
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 import sys
 
 import torch
 
-from datatunerx_tpu_torch.data.loader import BatchIterator, CsvDataset
+from datatunerx_tpu_torch.data.loader import (
+    BatchIterator,
+    CsvDataset,
+    PreferenceBatchIterator,
+    StreamingBatchIterator,
+    StreamingCsvDataset,
+)
 from datatunerx_tpu_torch.data.prefetch import (
     HostPrefetcher,
     MetricsBuffer,
     PipelineStats,
     prefetch_batches,
 )
-from datatunerx_tpu_torch.data.preprocess import preprocess_pretrain_records
+from datatunerx_tpu_torch.data.preprocess import (
+    preprocess_preference_records,
+    preprocess_pretrain_records,
+    preprocess_records,
+)
 from datatunerx_tpu_torch.data.templates import get_template
 from datatunerx_tpu_torch.models.lora import target_dims
 from datatunerx_tpu_torch.ops.quant import (
@@ -39,6 +54,7 @@ from datatunerx_tpu_torch.training.checkpoint import (
     export_merged_model,
     write_manifest,
 )
+from datatunerx_tpu_torch.training.generate import generative_eval
 from datatunerx_tpu_torch.training.metrics_log import MetricsLogger
 from datatunerx_tpu_torch.training.train_lib import (
     TrainConfig,
@@ -53,11 +69,7 @@ from datatunerx_tpu_torch.utils.model_loader import load_model_and_tokenizer
 def refuse_unported(args: TrainArgs):
     """Raise for what this slice does not carry, naming its ROADMAP item."""
     refusals = [
-        (args.stage in ("dpo", "rm"),
-         f"--stage {args.stage} (ROADMAP Queue 1 item 8: DPO/RM)"),
         (args.stage == "ppo", "--stage ppo (ROADMAP Queue 1 item 11)"),
-        (args.streaming,
-         "--streaming (ROADMAP Queue 1 item 8: streaming ingest)"),
         (args.attention == "ring",
          "--attention ring (ROADMAP Queue 1 item 10: multi-GPU)"),
         (args.num_workers > 1 or any(
@@ -66,9 +78,6 @@ def refuse_unported(args: TrainArgs):
          "multi-GPU)"),
         (bool(args.metrics_export_address),
          "--metrics_export_address (ROADMAP Queue 1 item 12)"),
-        (args.predict_with_generate,
-         "--predict_with_generate (ROADMAP Queue 1 item 8: generative "
-         "eval)"),
     ]
     for path in (args.train_path, args.evaluation_path, args.storage_path,
                  args.export_dir, args.output_dir):
@@ -120,33 +129,60 @@ def run(args: TrainArgs) -> dict:
     template = get_template(args.template, tokenizer)
     pad_id = tokenizer.pad_token_id or 0
 
-    def encode(path):
-        ds = CsvDataset(path, columns=args.columns_map)
+    preference = args.stage in ("dpo", "rm")
+
+    def encode(records):
+        if preference:
+            return preprocess_preference_records(
+                records, template, tokenizer, cutoff_len=args.block_size,
+                columns=args.columns_map)
         if args.stage == "pt":
             return preprocess_pretrain_records(
-                ds.records, tokenizer, cutoff_len=args.block_size,
+                records, tokenizer, cutoff_len=args.block_size,
                 columns=args.columns_map)
-        return ds.encode(template, tokenizer, cutoff_len=args.block_size)
+        return preprocess_records(records, template, tokenizer,
+                                  cutoff_len=args.block_size,
+                                  columns=args.columns_map)
 
-    train_examples = encode(args.train_path)
-    if not train_examples:
-        raise RuntimeError("Empty dataset!")
-    eval_examples = encode(args.evaluation_path) if args.evaluation_path \
-        else None
+    train_examples = None
+    if not args.streaming:  # a stream is encoded lazily by its iterator
+        train_examples = encode(
+            CsvDataset(args.train_path, columns=args.columns_map).records)
+        if not train_examples:
+            raise RuntimeError("Empty dataset!")
+    eval_examples = eval_records = None
+    if args.evaluation_path:
+        eval_records = CsvDataset(args.evaluation_path,
+                                  columns=args.columns_map).records
+        eval_examples = encode(eval_records)
+        if args.stage != "sft":  # generation reads instruction/response
+            eval_records = None
 
     grad_accum = args.gradient_accumulation_steps
     global_batch = args.per_device_train_batch_size * grad_accum
-    it = BatchIterator(
-        train_examples, global_batch=global_batch, block_size=args.block_size,
-        pad_id=pad_id, grad_accum=grad_accum, seed=args.seed,
-        pack=args.pack_sequences)
-    steps_per_epoch = it.steps_per_epoch()
-    if steps_per_epoch == 0:
-        raise RuntimeError(
-            f"dataset ({len(train_examples)} examples) smaller than one "
-            f"global batch ({global_batch})")
-    total_steps = (args.max_steps if args.max_steps > 0
-                   else int(math.ceil(steps_per_epoch * args.num_train_epochs)))
+    iterator_cls = PreferenceBatchIterator if preference else BatchIterator
+    if args.streaming:
+        it = StreamingBatchIterator(
+            StreamingCsvDataset(args.train_path, columns=args.columns_map),
+            template, tokenizer, global_batch=global_batch,
+            block_size=args.block_size, pad_id=pad_id, grad_accum=grad_accum,
+            buffer_size=args.shuffle_buffer, seed=args.seed,
+            stage=args.stage)
+        # a stream's length is unknown: the loop re-opens it (a new shuffle
+        # order) until max_steps (required with --streaming) land
+        total_steps = steps_per_epoch = args.max_steps
+    else:
+        it = iterator_cls(
+            train_examples, global_batch=global_batch,
+            block_size=args.block_size, pad_id=pad_id, grad_accum=grad_accum,
+            seed=args.seed, pack=args.pack_sequences)
+        steps_per_epoch = it.steps_per_epoch()
+        if steps_per_epoch == 0:
+            raise RuntimeError(
+                f"dataset ({len(train_examples)} examples) smaller than one "
+                f"global batch ({global_batch})")
+        total_steps = (args.max_steps if args.max_steps > 0 else
+                       int(math.ceil(steps_per_epoch * args.num_train_epochs)))
 
     # ----- trainer -----------------------------------------------------
     tcfg = TrainConfig(
@@ -167,6 +203,8 @@ def run(args: TrainArgs) -> dict:
         grad_accum=grad_accum,
         neftune_alpha=args.neft_alpha,
         compute_dtype=torch.bfloat16 if args.bf16 else None,
+        stage=args.stage if preference else "sft",
+        dpo_beta=args.dpo_beta,
     )
     trainer = Trainer(cfg, tcfg, device=device)
     state = trainer.init_state(params, args.seed)
@@ -190,7 +228,18 @@ def run(args: TrainArgs) -> dict:
     prof = None
     prof_until = None
     profiled = False
+    # a stream tokenizes inside the prefetch worker: with in-training
+    # generative eval encoding on this thread, each thread gets its own
+    # tokenizer copy, or (not copyable) the pipeline stays synchronous
+    gen_in_training = (args.predict_with_generate and eval_records
+                       and args.generate_eval_steps > 0)
     pipelined = args.prefetch_depth > 0
+    if pipelined and args.streaming and gen_in_training \
+            and not it.ensure_thread_safe_encoding():
+        pipelined = False
+        print("[pipeline] disabled: --streaming with in-training generative "
+              "eval shares one tokenizer that cannot be copied", flush=True)
+    lora_run = tcfg.finetuning_type == "lora"
     pipe_stats = PipelineStats() if pipelined else None
     # step outputs stay on the device and resolve one logging interval
     # late, so a logging boundary never drains the stream
@@ -205,10 +254,13 @@ def run(args: TrainArgs) -> dict:
 
     step = 0  # counts up through start_step (skipping those batches)
     done = False
+    epochs = (itertools.count() if args.streaming
+              else range(int(math.ceil(total_steps / steps_per_epoch))))
     try:
-        for epoch in range(int(math.ceil(total_steps / steps_per_epoch))):
+        for epoch in epochs:
             if done:
                 break
+            saw_batch = False
             src = it.epoch(epoch)
             # resumed: fast-forward on host batches before the pipeline
             # starts, so skipped batches never reach the device
@@ -217,6 +269,7 @@ def run(args: TrainArgs) -> dict:
                 if next(src, None) is None:
                     exhausted = True
                     break
+                saw_batch = True
                 step += 1
             if step >= total_steps:
                 break
@@ -231,6 +284,7 @@ def run(args: TrainArgs) -> dict:
                 batches = src
             try:
                 for batch in batches:
+                    saw_batch = True
                     if step >= total_steps:
                         done = True
                         break
@@ -256,6 +310,13 @@ def run(args: TrainArgs) -> dict:
                             and step % args.eval_steps == 0):
                         _run_eval(trainer, state, eval_examples, args,
                                   pad_id, logger, step)
+                    if (gen_in_training and step < total_steps
+                            and step % args.generate_eval_steps == 0):
+                        # a small sample at intervals, so rouge/bleu have
+                        # curves; the final step gets the full pass below
+                        _generate(state, trainer, cfg, tokenizer, template,
+                                  eval_records, args, lora_run, logger, step,
+                                  min(args.generate_examples, 8))
             finally:
                 if host_pf is not None:
                     host_pf.close()
@@ -263,6 +324,10 @@ def run(args: TrainArgs) -> dict:
                     and step < total_steps):
                 _run_eval(trainer, state, eval_examples, args, pad_id,
                           logger, step)
+            if not saw_batch:  # a stream's pass gave no full batch
+                if step == 0:
+                    raise RuntimeError("Empty dataset!")
+                break
     finally:
         # also on a crash: resolve buffered records rather than drop them
         log_resolved(mbuf.drain())
@@ -275,7 +340,10 @@ def run(args: TrainArgs) -> dict:
         final_metrics.update(_run_eval(trainer, state, eval_examples, args,
                                        pad_id, logger, step))
     ckpt.maybe_save(state, step, force=True)
-    lora_run = tcfg.finetuning_type == "lora"
+    if args.predict_with_generate and eval_records:
+        final_metrics.update(_generate(
+            state, trainer, cfg, tokenizer, template, eval_records, args,
+            lora_run, logger, step, args.generate_examples))
     manifest_path = write_manifest(
         args.storage_path, run_name, storage.join(ckpt_dir, str(step)),
         metrics=final_metrics,
@@ -328,12 +396,35 @@ def _stop_profiler(prof, device, trace_dir: str):
 
 
 def _run_eval(trainer, state, eval_examples, args, pad_id, logger, step):
-    eval_it = BatchIterator(
+    iterator_cls = (PreferenceBatchIterator if args.stage in ("dpo", "rm")
+                    else BatchIterator)
+    eval_it = iterator_cls(
         eval_examples, global_batch=args.per_device_eval_batch_size,
         block_size=args.block_size, pad_id=pad_id, shuffle=False,
         drop_remainder=False)  # pad the tail: every eval example counts
     m = trainer.evaluate(state, eval_it.epoch(0))
+    if args.stage in ("dpo", "rm"):
+        # eval_loss is the mean pairwise loss: exp of it is no perplexity
+        m.pop("perplexity", None)
     logger.log_eval(step, m)
+    return m
+
+
+def _generate(state, trainer, cfg, tokenizer, template, records, args,
+              lora_run, logger, step, max_examples) -> dict:
+    """Greedy generations over the eval records, scored and logged; a
+    failure is printed and never ends a run."""
+    try:
+        m = generative_eval(
+            state.params, cfg, tokenizer, template, records, args.output_dir,
+            lora=(state.lora, trainer.scaling) if lora_run else None,
+            max_new_tokens=args.max_new_tokens, max_examples=max_examples,
+            columns=args.columns_map)
+    except Exception as e:  # noqa: BLE001 — never lose a run to an eval
+        print(f"[generate@{step}] failed (run preserved): {e}", flush=True)
+        return {}
+    if m:
+        logger.log_eval(step, m)
     return m
 
 

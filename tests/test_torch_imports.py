@@ -84,6 +84,9 @@ REQUIRED = (
     "datatunerx_tpu_torch.fleet.handoff",
     "datatunerx_tpu_torch.fleet.prefix_tier",
     "datatunerx_tpu_torch.fleet.spill",
+    "datatunerx_tpu_torch.ops.cuda_prng",
+    "datatunerx_tpu_torch.training.generate",
+    "datatunerx_tpu_torch.scoring.metrics",
 )
 
 

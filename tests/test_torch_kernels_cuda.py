@@ -32,7 +32,10 @@ both dtypes (its splits merge (m, l) and sum the partials in split order,
 rounding p and the output where the plain version does), and two calls on
 the same inputs agree bit for bit; the bf16 K6 on ``wgmma`` holds K6's,
 and the bf16 K4/K5 on ``wgmma`` hold K4/K5's (their staged tiles are
-bit-equal to ``dequant_nf4(..., bf16)``)."""
+bit-equal to ``dequant_nf4(..., bf16)``). The threefry kernel is held bit
+for bit: its keep masks and uniforms are integer-exact against the twin's
+int64 ops, and a forward with dropout on gives the CPU's loss (rtol 1e-5,
+f32 sums in another order)."""
 
 import pytest
 import torch
@@ -999,3 +1002,62 @@ def test_multitoken_kernel_at_spec_verify_shapes(cuda, pools, tree):
                                  args[2], args[3])
     torch.testing.assert_close(got.float(), want.float(),
                                **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("p", [0.9, 0.95, 0.5])
+@pytest.mark.parametrize("shape", [(8, 1024, 2048), (8, 1024, 256),
+                                   (3, 1001), (1,), (7,), (5, 13, 17)])
+def test_threefry_kernel_is_bit_equal_to_its_plain_version(cuda, shape, p):
+    """The dropout keep mask (``bernoulli(1 - lora_dropout)`` at the q_proj
+    and v_proj inputs of phase 5's 8 x 1024 batch, and odd lengths) and
+    the NEFTune draw over [-1, 1) equal the twin's int64 ops bit for bit;
+    the mask also equals the host twin's (numpy)."""
+    import numpy as np
+
+    from datatunerx_tpu_torch.ops import cuda_prng, prng
+
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(11), 0x57E9), 3)
+    got = cuda_prng.bernoulli(key, p, shape, cuda)
+    assert got.dtype == torch.bool and tuple(got.shape) == shape
+    assert torch.equal(got, cuda_prng.plain_bernoulli(key, p, shape, cuda))
+    u = cuda_prng.uniform(key, shape, -1.0, 1.0, cuda)
+    want = cuda_prng.plain_uniform(key, shape, -1.0, 1.0, cuda)
+    assert torch.equal(u.view(torch.int32), want.view(torch.int32))
+    if int(np.prod(shape)) <= 1 << 16:
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      prng.bernoulli(key, p, shape))
+
+
+def test_forward_with_dropout_gives_the_cpu_loss_on_the_card(cuda):
+    """One f32 forward of ``preset:debug`` with LoRA dropout 0.1 and
+    NEFTune on, the same key: the card's masks (the threefry kernel) are
+    the CPU's (the plain version), so the losses agree to f32 sums in
+    another order (rtol 1e-5)."""
+    from datatunerx_tpu_torch.models.config import get_config
+    from datatunerx_tpu_torch.models.llama import forward, init_params
+    from datatunerx_tpu_torch.models.lora import init_lora_params
+    from datatunerx_tpu_torch.ops import cuda_prng, prng
+    from datatunerx_tpu_torch.training.loss import causal_lm_loss
+
+    cfg = get_config("debug")
+    gen = torch.Generator().manual_seed(4)
+    tokens = torch.randint(3, cfg.vocab_size, (2, 128), generator=gen)
+    from datatunerx_tpu_torch.training.optimizer import tree_map
+
+    host = init_params(cfg, seed=0)
+    host_lora = init_lora_params(cfg, 5, rank=8)
+    for ab in host_lora["layers"].values():
+        ab["b"] = torch.full_like(ab["b"], 0.02)
+    losses = []
+    before = cuda_prng.threefry_bits.launches
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda x: x.to(dev), host)
+        lora = tree_map(lambda x: x.to(dev), host_lora)
+        logits, _ = forward(params, tokens.to(dev), cfg, lora=(lora, 4.0),
+                            lora_dropout=0.1, dropout_rng=prng.PRNGKey(2),
+                            neftune_alpha=5.0)
+        s, n = causal_lm_loss(logits, tokens.to(dev))
+        losses.append(float(s / n))
+    # one mask a layer for q_proj and v_proj, and the noise
+    assert cuda_prng.threefry_bits.launches - before == 2 * cfg.num_layers + 1
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)

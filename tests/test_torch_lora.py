@@ -34,8 +34,11 @@ TARGETS = ("q_proj", "v_proj", "o_proj", "up_proj")
 
 
 def test_init_shapes_bounds_and_zero_b():
+    """PEFT's init from the threefry twin: bit-equal to the reference's
+    ``init_lora_params`` under the same key (an int seed is
+    ``PRNGKey(seed)``)."""
     cfg = tget_config("debug")
-    lora = init_lora_params(cfg, seed=3, rank=4, targets=TARGETS)
+    lora = init_lora_params(cfg, 3, rank=4, targets=TARGETS)
     assert sorted(lora["layers"]) == sorted(TARGETS)
     for name, ab in lora["layers"].items():
         d_in, d_out = target_dims(cfg, name)
@@ -45,13 +48,24 @@ def test_init_shapes_bounds_and_zero_b():
         bound = 1.0 / math.sqrt(d_in)
         assert ab["a"].abs().max() <= bound
         assert ab["a"].abs().max() > 0.8 * bound  # uniform over the range
-    again = init_lora_params(cfg, seed=3, rank=4, targets=TARGETS)
+    again = init_lora_params(cfg, 3, rank=4, targets=TARGETS)
     assert all(torch.equal(again["layers"][t]["a"], lora["layers"][t]["a"])
                for t in TARGETS)
-    jl = jinit_lora(jget_config("debug"), jax.random.PRNGKey(0), rank=4,
+    jl = jinit_lora(jget_config("debug"), jax.random.PRNGKey(3), rank=4,
                     targets=TARGETS)
     assert num_lora_params(lora) == sum(
         x.size for x in jax.tree_util.tree_leaves(jl))
+    for t in TARGETS:
+        for leaf in ("a", "b"):
+            np.testing.assert_array_equal(lora["layers"][t][leaf].numpy(),
+                                          np.asarray(jl["layers"][t][leaf]))
+    key = jax.random.fold_in(jax.random.PRNGKey(9), 0x10AA)
+    jl = jinit_lora(jget_config("tinyllama-1.1b"), key, rank=8)
+    tl = init_lora_params(tget_config("tinyllama-1.1b"), np.asarray(key),
+                          rank=8)
+    for t in ("q_proj", "v_proj"):
+        np.testing.assert_array_equal(tl["layers"][t]["a"].numpy(),
+                                      np.asarray(jl["layers"][t]["a"]))
     with pytest.raises(ValueError, match="invalid lora target"):
         init_lora_params(cfg, targets=("nope",))
 

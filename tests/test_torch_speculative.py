@@ -584,6 +584,108 @@ def _sampled(eng):
     return [r.tokens for r in reqs]
 
 
+def _sampled_in_two_ticks(eng):
+    """The same four requests as ``_sampled``, but the last two reach the
+    queue only after the scheduler has admitted the first two and run a
+    tick: they join the batch a tick later."""
+    tok = eng.tokenizer
+    calls, first, second, reached = [0], *(threading.Event()
+                                           for _ in range(3))
+    admit = eng._admit_waiting
+
+    def gated():
+        calls[0] += 1
+        if calls[0] == 1:
+            first.wait()
+        elif calls[0] == 2:
+            reached.set()
+            second.wait()
+        admit()
+
+    eng._admit_waiting = gated
+    reqs = []
+    for i, (t, p, s) in enumerate(SAMPLED):
+        if i == 2:
+            first.set()
+            assert reached.wait(120)
+        reqs.append(eng.submit(tok.encode(f"prompt number {i} " * (i + 1)),
+                               max_new_tokens=12, temperature=t, top_p=p,
+                               seed=s))
+    second.set()
+    for r in reqs:
+        assert r.done.wait(300) and r.error is None, r.error
+    return [r.tokens for r in reqs]
+
+
+def test_seeded_spec_streams_depend_on_the_schedule_in_both_packages(
+        peaked_export):
+    """A seeded sampled stream on a spec engine depends on when its
+    neighbours were admitted and on what the engine's spec controllers
+    learned before, in the reference as in the port: a request that joins
+    a tick later changes the batch's sampling mode, and a rerun on the same
+    engine starts from another k, so other steps draw each row's tokens.
+    Both packages give the same streams in each case, and the same rows
+    change: a repeat check holds only on a fresh engine with the schedule
+    held fixed."""
+    from datatunerx_tpu.serving.batched_engine import BatchedEngine as JE
+
+    kw = dict(template="vanilla", max_seq_len=256, slots=4, decode_chunk=4,
+              prefill_chunk=64, kv_block_size=16, paged_kernel="on",
+              sampling_epilogue="off", spec_draft="take:1", spec_k=3,
+              spec_mode="on")
+    runs = {}
+    for pkg, make in (("jax", lambda: JE(peaked_export, **kw)),
+                      ("port", lambda: BatchedEngine(peaked_export,
+                                                     device="cpu", **kw))):
+        eng = make()
+        try:
+            runs[pkg, "fixed"] = _sampled(eng)
+            runs[pkg, "rerun"] = _sampled(eng)
+        finally:
+            eng.close()
+        eng = make()
+        try:
+            runs[pkg, "late"] = _sampled_in_two_ticks(eng)
+        finally:
+            eng.close()
+    for case in ("fixed", "rerun", "late"):
+        assert runs["port", case] == runs["jax", case], case
+        moved = [a != b for a, b in zip(runs["jax", "fixed"],
+                                        runs["jax", case])]
+        # the greedy row never moves; a sampled row does
+        assert not moved[3] and (case == "fixed" or any(moved[:3])), (
+            case, moved)
+
+
+@pytest.mark.parametrize("tree", [None, "2x2"])
+def test_spec_plan_depends_on_the_slot_order_in_both_packages(tree):
+    """Both engines fold a verify step's acceptances into the controller in
+    slot order (``obs`` is built over ``range(slots)``), and the global EMA
+    that picks the next k (or tree width) is not symmetric in its inputs:
+    the same rows in other slots give another plan, in the reference as in
+    the port. So a seeded sampled stream on a spec engine also depends on
+    which slot each request took, i.e. on the order it reached the queue;
+    a repeat check must queue its batch in a fixed order."""
+    spec = jspec.parse_spec_tree(tree) if tree else None
+    tspec_ = tspec.parse_spec_tree(tree) if tree else None
+    rows = [(0, 0, 4), (1, 4, 4), (2, 1, 4), (3, 4, 4)]
+    by_slot = [[(s, a, k) for s, (_, a, k) in enumerate(order)]
+               for order in (rows, rows[::-1])]
+    plans = {}
+    for pkg, ctrl in (("jax", lambda: jspec.AdaptiveK(4, mode="on",
+                                                      tree=spec)),
+                      ("port", lambda: tspec.AdaptiveK(4, mode="on",
+                                                       tree=tspec_))):
+        for i, obs in enumerate(by_slot):
+            c = ctrl()
+            c.observe(obs)
+            plans[pkg, i] = (tuple(c.current_plan()), c.global_ema)
+    assert plans["port", 0] == plans["jax", 0]
+    assert plans["port", 1] == plans["jax", 1]
+    # the same acceptances, reversed over the slots: another plan
+    assert plans["jax", 0][0] != plans["jax", 1][0], plans
+
+
 @pytest.mark.parametrize("tree", [None, "2x2"])
 @pytest.mark.parametrize("epilogue", ["off", "on"])
 def test_spec_engine_matches_jax_spec_engine(peaked_export, tree, epilogue):

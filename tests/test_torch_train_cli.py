@@ -12,6 +12,7 @@ import csv
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,6 +103,31 @@ def test_resume_continues_from_the_saved_step(tmp_path, capsys):
     assert ckpts == ["2", "3", "4"]  # max_to_keep 3
 
 
+def test_resume_reads_a_checkpoint_that_kept_only_the_seed(tmp_path, capsys):
+    """A checkpoint written before training drew from the threefry twin
+    holds the run seed, not a key: resume rebuilds ``PRNGKey(seed)`` and
+    warns that the draws differ."""
+    from datatunerx_tpu_torch.ops import prng
+    from datatunerx_tpu_torch.training.checkpoint import (
+        load_raw_state, save_raw_state)
+
+    argv = _argv(tmp_path, "old", device="cpu", max_steps="2",
+                 save_steps="2", evaluation_path="", seed="7")
+    assert tmain(argv) == 0
+    directory = str(tmp_path / "storage" / "old" / "checkpoints")
+    saved = load_raw_state(directory, 2)
+    np.testing.assert_array_equal(saved.pop("rng").numpy(),
+                                  prng.PRNGKey(7))
+    saved["seed"] = 7
+    save_raw_state(directory, 2, saved)
+    argv = _argv(tmp_path, "old", device="cpu", max_steps="3",
+                 save_steps="2", evaluation_path="", seed="7")
+    with pytest.warns(UserWarning, match="PRNGKey"):
+        assert tmain(argv) == 0
+    assert "[resume] restored step 2" in capsys.readouterr().out
+    assert [r["current_steps"] for r in _log(tmp_path, "old")] == [1, 2, 3]
+
+
 def test_export_loads_into_both_packages(tmp_path):
     export = str(tmp_path / "export")
     args = parse_train_args(_argv(tmp_path, "exp", device="cpu",
@@ -140,7 +166,6 @@ def test_export_loads_into_both_packages(tmp_path):
 def test_unported_options_are_refused_with_their_item(tmp_path):
     nie = NotImplementedError
     for extra, exc, item in (
-            (dict(stage="dpo"), nie, "item 8"),
             (dict(stage="ppo", reward_model="x"), nie, "item 11"),
             # QLoRA's own refusals, as the reference's
             (dict(quantization="int4", quantization_type="fp4"), nie, "fp4"),
@@ -150,8 +175,11 @@ def test_unported_options_are_refused_with_their_item(tmp_path):
             (dict(mesh="dp=2"), nie, "item 10"),
             (dict(metrics_export_address="http://x"), nie, "item 12"),
             (dict(storage_path="gs://bucket/x"), nie, "item 11"),
-            (dict(predict_with_generate="true"), nie, "item 8"),
-            (dict(streaming="true", pack_sequences="false"), nie, "item 8")):
+            (dict(train_path="s3://bucket/t.csv"), nie, "item 11"),
+            # the reference's own argument checks, raised by the port too
+            (dict(streaming="true"), ValueError, "exclusive"),
+            (dict(stage="rm", finetuning_type="full"), ValueError,
+             "requires --finetuning_type lora")):
         argv = _argv(tmp_path, "no", device="cpu", **extra)
         with pytest.raises(exc, match=item):
             tmain(argv)
@@ -221,3 +249,89 @@ def test_quant_impl_flag_parses_as_in_the_reference(tmp_path):
     assert parse_train_args(_argv(tmp_path, "p")).quant_impl == "pallas"
     with pytest.raises(ValueError, match="quant_impl"):
         parse_train_args(_argv(tmp_path, "p", quant_impl="mosaic"))
+
+
+def _pref_csv(path):
+    rows = [(f"add {k}+{k}", f"answer {2 * k}", f"wrong {k + 1}")
+            for k in range(40)]
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["instruction", "chosen", "rejected"])
+        w.writerows(rows)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def debug_export(tmp_path_factory):
+    """``preset:debug``'s JAX weights as an export: both CLIs train from
+    the same base."""
+    from datatunerx_tpu.training.checkpoint import export_merged_model
+
+    cfg, params, _ = jload("preset:debug")
+    d = tmp_path_factory.mktemp("cli_base")
+    export_merged_model(params, cfg, str(d))
+    return str(d)
+
+
+PATHS = {
+    "dpo": dict(stage="dpo", pref=True),
+    "rm": dict(stage="rm", pref=True, export=True),
+    "adafactor": dict(optim="adafactor", neft_alpha="5"),
+    "lion": dict(optim="lion", weight_decay="0.01"),
+    "streaming": dict(streaming="true", pack_sequences="false",
+                      shuffle_buffer="8"),
+    "generate": dict(predict_with_generate="true", generate_examples="2",
+                     max_new_tokens="6", generate_eval_steps="1"),
+}
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_new_paths_match_the_jax_cli(tmp_path, debug_export, path):
+    """Each path of the trainer's item 8 through both CLIs on the same CSV,
+    base weights and seed, LoRA dropout 0.1: the manifest, trainer log and
+    eval log keys are equal, and the first step's loss is equal at f32
+    (rtol 1e-5: the twin's LoRA init and masks, the same batch)."""
+    extra = dict(PATHS[path])
+    if extra.pop("pref", False):
+        data = _pref_csv(tmp_path / "pref.csv")
+        extra.update(train_path=data, evaluation_path=data)
+    export = extra.pop("export", False)
+    # the JAX CLI spreads its batch over every CPU device of the test
+    # process (global batch = per-device batch x devices): the port's one
+    # device takes the whole global batch
+    ndev = len(jax.devices())
+    runs = {}
+    for pkg, main, more in (
+            ("jax", jmain, dict(per_device_train_batch_size="2")),
+            ("port", tmain, dict(device="cpu",
+                                 per_device_train_batch_size=str(2 * ndev)))):
+        flags = dict(extra, model_name_or_path=debug_export,
+                     lora_dropout="0.1", max_steps="2", **more)
+        if export:
+            flags["export_dir"] = str(tmp_path / f"export_{pkg}")
+        assert main(_argv(tmp_path, pkg, **flags)) == 0
+        runs[pkg] = (_manifest(tmp_path, pkg), _log(tmp_path, pkg))
+    (jm, jl), (tm, tl) = runs["jax"], runs["port"]
+    # which pipe_* means a record holds depends on thread timing in both
+    # packages (see test_manifest_and_log_keys_match_the_jax_cli)
+    keys = lambda log: sorted(k for k in set().union(*log)  # noqa: E731
+                              if not k.startswith("pipe_"))
+    assert sorted(tm) == sorted(jm)
+    assert keys([tm["metrics"]]) == keys([jm["metrics"]])
+    assert tm["stage"] == jm["stage"] and tm["optimizer"] == jm["optimizer"]
+    assert keys(tl) == keys(jl) and len(tl) == len(jl) == 2
+    assert keys(_log(tmp_path, "port", "eval_log.jsonl")) == keys(
+        _log(tmp_path, "jax", "eval_log.jsonl"))
+    np.testing.assert_allclose(tl[0]["loss"], jl[0]["loss"], rtol=1e-5)
+    if path == "dpo":
+        assert abs(tl[0]["loss"] - np.log(2.0)) < 1e-5
+    if export:
+        with np.load(tmp_path / "export_port" / "model.npz") as z:
+            head = z["v_head.weight"]
+        with np.load(tmp_path / "export_jax" / "model.npz") as z:
+            np.testing.assert_allclose(head, z["v_head.weight"], atol=1e-5,
+                                       rtol=1e-4)
+    if path == "generate":
+        for pkg in ("jax", "port"):
+            with open(tmp_path / pkg / "generated_predictions.jsonl") as f:
+                assert len(f.readlines()) == 2

@@ -1,8 +1,11 @@
 """The port's training pieces against the JAX package on the CPU at float32:
-the causal-LM loss, every ported optimizer under all six schedules against
-optax over three updates, and one ``Trainer.train_step`` (lora, freeze,
-full; grad_accum 1 and 2; xla and flash attention; padded and packed
-batches) from the same params, adapters and batch, with dropout 0.
+the causal-LM loss, every optimizer under all six schedules against optax
+over three updates (adafactor and lion also with a factored leaf and in
+bf16), and one ``Trainer.train_step`` (lora, freeze, full; grad_accum 1
+and 2; xla and flash attention; padded and packed batches) from the same
+params, adapters and batch, with LoRA dropout 0.1 and NEFTune alpha 5: the
+masks and the noise are the reference's bits (the threefry twin over its
+key chain).
 
 Tolerances (f32 sums in another order): loss rtol 1e-5; optimizer
 trajectories rtol 1e-5 / atol 1e-7 (optax evaluates the schedule in f32,
@@ -11,9 +14,9 @@ the 1e-3 learning rate: Adam's first step maps g to lr*g/(|g| + 1e-8),
 which turns f32 summation noise in a gradient of |g| ~ 1e-8 into a visible
 fraction of lr) + rtol 1e-4. The QLoRA cases quantize the base with the
 reference (nf4 and int8; its Pallas kernels run in interpret mode) and carry
-the bytes across. LoRA dropout and NEFTune draw from
-torch generators, not jax.random, so a separate test checks the dropout
-keep rate and the 1/(1-p) scaling."""
+the bytes across. adafactor and lion in bf16: rtol 1e-2 / atol 2^-8 (a
+bf16 ulp at magnitude 1; a parameter that an update brings near zero keeps
+the absolute error of the ulp it parted by)."""
 
 import dataclasses
 
@@ -87,10 +90,66 @@ def test_optimizer_and_schedule_follow_optax(name, schedule):
                                    rtol=1e-6, atol=1e-9)
 
 
-def test_adafactor_and_lion_are_refused_with_their_item():
-    for name in ("adafactor", "lion"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            topt.make_optimizer(name, lambda s: 1e-3)
+def test_adafactor_and_lion_are_built():
+    for name, kind in (("adafactor", "adafactor"), ("lion", "lion")):
+        opt = topt.make_optimizer(name, lambda s: 1e-3, weight_decay=0.1)
+        assert opt.kind == kind
+        state = opt.init({"w": torch.zeros((3, 4))})
+        assert state["count"] == 0
+    assert topt.factored_dims((2, 160, 130)) == (2, 1)
+    assert topt.factored_dims((4096, 127)) is None
+    assert topt.factored_dims((512,)) is None
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name", ["adafactor", "lion"])
+@pytest.mark.parametrize("schedule", list(topt.SCHEDULERS))
+def test_adafactor_and_lion_follow_optax(name, schedule, dtype):
+    """Three updates from the same params and grads: a factored leaf
+    (160 x 130 over a stacked axis), an unfactored vector and a small
+    matrix whose parameter RMS sits under adafactor's 1e-3 floor; in f32
+    the middle step is clipped by the global norm. State dtypes stay."""
+    rng = np.random.default_rng(len(name) * 7 + len(schedule))
+    params = {"a": rng.normal(size=(2, 160, 130)).astype(np.float32),
+              "b": {"c": rng.normal(size=(5,)).astype(np.float32),
+                    "d": (rng.normal(size=(4, 6)) * 1e-4).astype(
+                        np.float32)}}
+    # bf16: no step reaches the clip. optax sums a bf16 norm in bf16, in
+    # XLA's reduction order; the port sums it in f32, so a clipped bf16
+    # step may part by an ulp, which lion's sign turns into lr
+    scales = (0.001, 0.004, 0.002) if dtype == "bf16" else (0.01, 3.0, 0.05)
+    grads = [{"a": rng.normal(size=(2, 160, 130)).astype(np.float32) * s,
+              "b": {"c": rng.normal(size=(5,)).astype(np.float32) * s,
+                    "d": rng.normal(size=(4, 6)).astype(np.float32) * s}}
+             for s in scales]
+    jd, td = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+              else (jnp.float32, torch.float32))
+    tol = (dict(rtol=1e-2, atol=2 ** -8) if dtype == "bf16"
+           else dict(rtol=1e-5, atol=1e-7))
+    kw = dict(weight_decay=0.01, max_grad_norm=1.0)
+    jo = jopt.make_optimizer(name, jopt.make_schedule(schedule, 1e-2, 10,
+                                                      0.2), **kw)
+    to = topt.make_optimizer(name, topt.make_schedule(schedule, 1e-2, 10,
+                                                      0.2), **kw)
+    jput = lambda t: jax.tree_util.tree_map(  # noqa: E731
+        lambda x: jnp.asarray(x, jd), t)
+    tput = lambda t: topt.tree_map(  # noqa: E731
+        lambda x: torch.from_numpy(x).to(td), t)
+    jp, tp = jput(params), tput(params)
+    js, ts = jo.init(jp), to.init(tp)
+    for g in grads:
+        ju, js = jo.update(jput(g), js, jp)
+        jp = jax.tree_util.tree_map(lambda p, u: (p + u).astype(p.dtype),
+                                    jp, ju)
+        tu, ts = to.update(tput(g), ts, tp)
+        tp = topt.tree_map(lambda p, u: (p + u).to(p.dtype), tp, tu)
+        for a, b in zip(topt.tree_leaves(tp), jax.tree_util.tree_leaves(jp)):
+            assert a.dtype == td
+            np.testing.assert_allclose(a.float().numpy(),
+                                       np.asarray(b, np.float32), **tol)
+    moments = ts["factored"] if name == "adafactor" else ts["mu"]
+    assert all(m.dtype == td for m in topt.tree_leaves(moments))
+    assert ts["count"] == 3
 
 
 def _examples(rng, n, vocab, max_len):
@@ -143,7 +202,8 @@ def test_train_step_matches_reference(kind, impl, packed, accum):
     jparams = jinit(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
     if quant:  # the frozen base, quantized by the reference and carried over
         jparams = jquantize(jparams, quant)
-    common = dict(finetuning_type=kind, lora_dropout=0.0, learning_rate=1e-3,
+    common = dict(finetuning_type=kind, lora_dropout=0.1, neftune_alpha=5.0,
+                  learning_rate=1e-3,
                   total_steps=10, grad_accum=accum, num_layer_trainable=1,
                   weight_decay=0.01)
     jtr = JTrainer(jcfg, JTrainConfig(compute_dtype=jnp.float32,
@@ -204,16 +264,26 @@ def _before(state, kind, path):
 
 
 def test_lora_dropout_keep_rate_and_scaling():
+    """The twin's masks: the keep rate, the 1/(1-p) scaling, the same key
+    giving the same mask (a remat recompute), and the mask equal to
+    jax.random.bernoulli's under the same key."""
+    from datatunerx_tpu_torch.ops import prng
+
     h = torch.ones((4, 64, 256))
-    p = {"kernel": torch.zeros((256, 8))}
-    lora = {"a": torch.eye(256)[:, :8].contiguous(), "b": torch.eye(8)}
-    out = tllama._proj(h, p, lora, 1.0, drop_seed=123, drop_rate=0.25)
-    # out = drop(h)[:, :, :8]: kept lanes are 1/(1-p), dropped ones 0
+    p = {"kernel": torch.zeros((256, 256))}
+    lora = {"a": torch.eye(256), "b": torch.eye(256)}
+    key = prng.fold_in(prng.PRNGKey(123), 5)
+    out = tllama._proj(h, p, lora, 1.0, drop_key=key, drop_rate=0.25)
+    # out = drop(h): kept lanes are 1/(1-p), dropped ones 0
     vals = torch.unique(out)
     assert set(vals.tolist()) <= {0.0, float(torch.tensor(1.0 / 0.75))}
     keep = (out > 0).float().mean().item()
     assert abs(keep - 0.75) < 0.02
-    again = tllama._proj(h, p, lora, 1.0, drop_seed=123, drop_rate=0.25)
-    assert torch.equal(out, again)  # same seed, same mask (remat recompute)
-    other = tllama._proj(h, p, lora, 1.0, drop_seed=124, drop_rate=0.25)
+    again = tllama._proj(h, p, lora, 1.0, drop_key=key, drop_rate=0.25)
+    assert torch.equal(out, again)  # same key, same mask (remat recompute)
+    other = tllama._proj(h, p, lora, 1.0, drop_key=prng.fold_in(key, 1),
+                         drop_rate=0.25)
     assert not torch.equal(out, other)
+    want = np.asarray(jax.random.bernoulli(jnp.asarray(key), 0.75,
+                                           (4, 64, 256)))
+    np.testing.assert_array_equal((out > 0).numpy(), want)
