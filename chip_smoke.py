@@ -40,7 +40,11 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
    step); requires the K1, K2, K3 and threefry launch counts (zeroed just
    before) to equal ``expected_launches``, finite
    loss and grad norm, non-zero LoRA B leaves after the first step, and the
-   manifest, a checkpoint and ``model.npz`` written; prints step time,
+   manifest, a checkpoint and ``model.npz`` written; the CLI runs with
+   ``--metrics_export_address`` pointed at a remote-write receiver the
+   script runs in-process, which must get one snappy-framed WriteRequest a
+   logging step carrying ``dtx_train_loss``, and ``watch/metrics.prom``
+   must exist; prints step time,
    tokens/s over the steady steps, the peak memory, ``pipe_step_wait_ms``
    from ``trainer_log.jsonl`` and, for the profiled steps, the busy share
    and device ms by kernel group (threefry apart);
@@ -105,9 +109,32 @@ have run in the process):
 - 3-dense: the server with its default flags (``--kv_block_size 0``, the
   dense per-slot cache) answers two concurrent greedy requests, and the
   dense engine's greedy streams equal the paged gather engine's up to a
-  near-tie.
+  near-tie;
+- 3-obs: the observability plane. The paged server (``--kv_block_size 16
+  --slots 4 --trace_ring 64 --trace_log <tmp>/spans.jsonl --slo_config
+  <one TTFT objective> --slo_sample_s 0.5``) on a state of its own answers
+  four concurrent requests, each with its own ``X-DTX-Trace-Id`` (two
+  greedy, one of them streamed; two sampled at 0.8). ``/metrics`` must
+  parse (one ``# TYPE`` before each family's samples, no duplicate series)
+  and carry the gateway's families; the TTFT and TPOT histogram counts
+  move by exactly 4, the TTFT sum by the server's own ``request_stats``
+  TTFTs within 1 ms; ``?exemplars=1`` names a trace id, the plain wire
+  none. Each ``/debug/trace/<id>`` span's ``ttft_ms`` and ``tpot_ms``
+  equal ``request_stats`` to 1e-3 ms and its events hold ``admit`` and
+  ``first_token``; ``spans.jsonl`` holds the four; ``/debug/slo`` reports
+  the configured objective. ``POST /debug/profile {"seconds": 3}``
+  answers 202 (the JAX server's code for an armed window) and a second
+  POST inside the window 409; the same four requests run inside the window,
+  and the Chrome trace must hold ``dtx_engine_decode`` and
+  ``dtx_engine_prefill_chunk`` ranges and K7, K8 and K9 kernels under
+  their symbol names, with a K7 launch (its host call, matched by
+  correlation id) inside a decode range. Then the two greedy prompts, one
+  at a time, through the server's engine (tracing on) and an engine with
+  ``tracing=False``: equal streams and equal K7/K8/K9 launches (zeroed
+  before each). Prints decode tok/s a request with tracing on and off,
+  one scrape's ms with 4 slots busy and the trace's size.
 
-Four more run right after 3-dense, each failing the run on any error:
+Four more run right after 3-obs, each failing the run on any error:
 
 - 3-prefix: an in-process ``BatchedEngine`` with ``prefix_cache=8``,
   ``kv_overcommit="on"`` and a 64-block pool of 16-token blocks, 4 slots.
@@ -158,8 +185,10 @@ Then, last of the serving phases:
   forward that carries only its own adapter, unpadded (the single-adapter
   path), ``tenant_usage()``'s tokens in and out to equal the responses'
   ``prompt_tokens`` and the streams' lengths, and ``DELETE`` of ``ad5`` to
-  answer 200 and a chat naming it then 400; prints TTFT and decode tok/s
-  per request beside phase 3's base-only batch.
+  answer 200 and a chat naming it then 400, and ``/metrics``'
+  ``dtx_serving_adapter_resident`` and ``_registered`` series to name the
+  resident and registered sets of ``adapter_occupancy()``; prints TTFT and
+  decode tok/s per request beside phase 3's base-only batch.
 
 And after it:
 
@@ -1596,9 +1625,12 @@ def stop_server(srv, state=None):
 
     srv.shutdown()
     srv.server_close()
+    state = state or server.STATE
+    if state.slo is not None:
+        state.slo.stop()  # the server's SLO sampler thread
     # the server's module state would keep the engine's weights and cache on
     # the card after the caller closes it, inside the train phases' peaks
-    (state or server.STATE).engine = None
+    state.engine = None
 
 
 def serve_phase(torch, counters, flags=("--kv_block_size", "16",
@@ -1718,6 +1750,306 @@ def _most_chunks(sched_trace) -> int:
             cur[ev[1]] = cur.get(ev[1], 0) + 1
             best = max(best, cur[ev[1]])
     return best
+
+
+# ------------------------------------------------------------ phase 3-obs
+OBS_SLO = {"name": "serving-ttft", "objective": 0.95,
+           "sli": {"kind": "latency", "metric": "dtx_serving_ttft_ms",
+                   "threshold_ms": 2500}}
+OBS_REQS = [
+    ("obs-greedy", {"messages": [{"role": "user", "content":
+                                  "Describe the sea in three sentences."}],
+                    "max_tokens": 64}, False),
+    ("obs-greedy-sse", {"messages": [{"role": "user",
+                                      "content": "Stream me a story."}],
+                        "max_tokens": 64}, True),
+    ("obs-sampled-a", {"messages": [{"role": "user", "content": "Say hi."}],
+                       "max_tokens": 64, "temperature": 0.8}, False),
+    ("obs-sampled-b", {"messages": [{"role": "user",
+                                     "content": "Count to ten."}],
+                       "max_tokens": 64, "temperature": 0.8}, False),
+]
+# the gateway's HTTPReplica scrape reads these families off a replica
+GATEWAY_FAMILIES = (
+    "dtx_serving_slots_busy", "dtx_serving_slots_capacity",
+    "dtx_serving_kv_blocks_free", "dtx_serving_kv_blocks_capacity",
+    "dtx_serving_kv_block_size", "dtx_serving_sessions_parked",
+    "dtx_serving_role", "dtx_serving_spec_enabled",
+    "dtx_serving_spec_accept_rate", "dtx_serving_adapter_resident",
+    "dtx_serving_adapter_registered")
+K7_SYMBOL, K9_SYMBOL = "paged_decode_split_kernel", "fused_sample_kernel"
+K8_SYMBOL = "paged_multitoken"  # the mma (bf16) and the f32 instantiation
+
+
+def http_get(port, path):
+    """(status, body text) of a GET on the local server."""
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def parse_metrics(text):
+    """An exposition's samples ({series: value}) and families ({name:
+    type}); fails on a sample before its family's ``# TYPE``, a second
+    ``# TYPE`` for one name or a duplicate series."""
+    from datatunerx_tpu_torch.obs.metrics import annotation_start
+
+    types, samples = {}, {}
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, name, mtype = ln.split(None, 3)
+            if name in types:
+                fail(f"/metrics: a second # TYPE for {name}")
+            types[name] = mtype
+            continue
+        if not ln or ln.startswith("#"):
+            continue
+        cut = annotation_start(ln)
+        series, value = (ln[:cut] if cut >= 0 else ln).rsplit(None, 1)
+        name = series.split("{")[0]
+        family = next((f for f in (name, name.rsplit("_", 1)[0])
+                       if f in types), None)
+        if family is None:
+            fail(f"/metrics: sample {series} before its family's # TYPE")
+        if series in samples:
+            fail(f"/metrics: duplicate series {series}")
+        samples[series] = float(value)
+    return samples, types
+
+
+def annotation_ranges(events, name):
+    """(start, end) in µs of every ``name`` range on the host timeline."""
+    return sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                  if e.get("name") == name and e.get("ph") == "X"
+                  and e.get("cat") == "user_annotation")
+
+
+def read_profile(path):
+    """The engine ranges and the K7/K8/K9 kernels of a Chrome trace, and
+    how many K7 launches (the host call that launched the kernel, found
+    through its correlation id) lie inside a ``dtx_engine_decode`` range."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    decode = annotation_ranges(events, "dtx_engine_decode")
+    prefill = annotation_ranges(events, "dtx_engine_prefill_chunk")
+    kernels = {"K7": [], "K8": [], "K9": []}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        n = e.get("name", "")
+        for key, sym in (("K7", K7_SYMBOL), ("K8", K8_SYMBOL),
+                         ("K9", K9_SYMBOL)):
+            if sym in n:
+                kernels[key].append(e)
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") == "cuda_runtime"
+                 and "correlation" in e.get("args", {})}
+    inside = 0
+    for k in kernels["K7"]:
+        ts = launch_ts.get(k.get("args", {}).get("correlation"))
+        if ts is not None and any(a <= ts <= b for a, b in decode):
+            inside += 1
+    return decode, prefill, kernels, inside
+
+
+def obs_phase(torch, counters, card):
+    """3-obs (see the module docstring). ``counters`` are K7, K8 and K9's
+    ``(wrapper, attribute)``; ``card`` the card's name and power limit, as
+    nvidia-smi prints them, for the summary line."""
+    from datatunerx_tpu_torch.obs.profiling import process_profiler
+    from datatunerx_tpu_torch.serving import server
+    from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
+
+    tmp = tempfile.mkdtemp(prefix="dtx-obs-")
+    os.environ["DTX_PROFILE_DIR"] = tmp
+    spans_path = os.path.join(tmp, "spans.jsonl")
+    state = server.ServingState()
+    srv, port, eng = start_server(torch, (
+        "--kv_block_size", "16", "--slots", "4", "--trace_ring", "64",
+        "--trace_log", spans_path, "--slo_config", json.dumps([OBS_SLO]),
+        "--slo_sample_s", "0.5"), state=state)
+    names = [r[0] for r in OBS_REQS]
+
+    def scrape():
+        code, text = http_get(port, "/metrics")
+        if code != 200:
+            fail(f"3-obs: /metrics answered {code}")
+        return parse_metrics(text)
+
+    def batch(label, watch=None):
+        """The four requests at once; (results, stats by trace id)."""
+        eng.request_stats.clear()
+        results, errors = {}, []
+
+        def run(name, body, stream):
+            try:
+                results[name] = post(port, body, stream=stream, trace=name)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{name}: {e}")
+
+        threads = [threading.Thread(target=run, args=r) for r in OBS_REQS]
+        for th_ in threads:
+            th_.start()
+        if watch is not None:
+            watch()
+        for th_ in threads:
+            th_.join(timeout=900)
+        if errors or len(results) != len(OBS_REQS):
+            fail(f"3-obs {label}: {errors or 'requests did not finish'}")
+        return results, {s["trace_id"]: s for s in eng.request_stats}
+
+    scrape_ms = []
+
+    def time_scrapes():
+        """Once all 4 slots hold a request, time 5 scrapes."""
+        t0 = time.perf_counter()
+        while sum(r is not None for r in eng._slot_req) < 4:
+            if time.perf_counter() - t0 > 120:
+                fail("3-obs: the 4 slots never were busy at once")
+            time.sleep(0.001)
+        for _ in range(5):
+            t1 = time.perf_counter()
+            scrape()
+            scrape_ms.append((time.perf_counter() - t1) * 1e3)
+
+    before, types = scrape()
+    results, stats = batch("batch 1", watch=time_scrapes)
+    after, types = scrape()
+    missing = [f for f in GATEWAY_FAMILIES if f not in types]
+    if missing:
+        fail(f"3-obs: /metrics lacks the gateway's families {missing}")
+    moved = {k: after.get(k, 0) - before.get(k, 0) for k in (
+        "dtx_serving_ttft_ms_count", "dtx_serving_tpot_ms_count",
+        "dtx_serving_ttft_ms_sum", "dtx_serving_tpot_ms_sum")}
+    multi = sum(1 for n in names if stats[n]["tpot_s"] is not None)
+    ttft_sum = sum(stats[n]["ttft_s"] * 1e3 for n in names)
+    log(f"  /metrics: {len(types)} families, {len(after)} series; TTFT "
+        f"count +{moved['dtx_serving_ttft_ms_count']:g}, TPOT count "
+        f"+{moved['dtx_serving_tpot_ms_count']:g}; TTFT sum "
+        f"+{moved['dtx_serving_ttft_ms_sum']:.3f} ms against request_stats' "
+        f"{ttft_sum:.3f} ms")
+    if (moved["dtx_serving_ttft_ms_count"] != 4
+            or moved["dtx_serving_tpot_ms_count"] != multi or multi != 4):
+        fail(f"3-obs: histogram counts moved {moved}, expected 4 and 4 "
+             f"({multi} requests with more than one token)")
+    if abs(moved["dtx_serving_ttft_ms_sum"] - ttft_sum) > 1.0:
+        fail(f"3-obs: TTFT sum moved {moved['dtx_serving_ttft_ms_sum']}, "
+             f"request_stats say {ttft_sum}")
+    code, rich = http_get(port, "/metrics?exemplars=1")
+    named = [n for n in names if f'trace_id="{n}"' in rich]
+    if code != 200 or not named:
+        fail(f"3-obs: /metrics?exemplars=1 ({code}) names none of {names}")
+    code, plain = http_get(port, "/metrics")
+    if "trace_id=" in plain:
+        fail("3-obs: the plain /metrics carries exemplars")
+    for n in names:
+        code, body = http_get(port, f"/debug/trace/{n}")
+        if code != 200:
+            fail(f"3-obs: /debug/trace/{n} answered {code}")
+        (span,) = json.loads(body)["spans"]
+        st, attrs = stats[n], span["attrs"]
+        events = [e["name"] for e in span["events"]]
+        err = max(abs(attrs["ttft_ms"] - st["ttft_s"] * 1e3),
+                  abs(attrs["tpot_ms"] - st["tpot_s"] * 1e3))
+        if err > 1e-3 or not {"admit", "first_token"} <= set(events):
+            fail(f"3-obs: span of {n}: {attrs}, events {events}; "
+                 f"request_stats {st} (|diff| {err})")
+        if n == names[0]:
+            first_events = events
+    log(f"  /debug/trace: 4 spans agree with request_stats to 1e-3 ms; "
+        f"events of {names[0]}: {first_events}")
+    if http_get(port, "/debug/trace/no-such-id")[0] != 404:
+        fail("3-obs: an unknown trace id did not answer 404")
+    with open(spans_path) as f:
+        logged = [json.loads(ln)["trace_id"] for ln in f]
+    if sorted(t for t in logged if t in names) != sorted(names):
+        fail(f"3-obs: spans.jsonl holds {logged}")
+    code, body = http_get(port, "/debug/slo")
+    rep = json.loads(body)
+    if code != 200 or [s["name"] for s in rep["slos"]] != [OBS_SLO["name"]]:
+        fail(f"3-obs: /debug/slo answered {code} {body[:300]}")
+    log(f"  spans.jsonl: {len(logged)} lines (the warm-up's and the 4); "
+        f"/debug/slo: {rep['slos'][0]['name']} compliant "
+        f"{rep['slos'][0]['compliant']}, windows "
+        f"{[(w['window_s'], w['total']) for w in rep['slos'][0]['windows']]}")
+
+    # a profiler window over a second batch of the same requests
+    code, doc = admin(port, "POST", "/debug/profile", {"seconds": 3})
+    if code != 202:
+        fail(f"3-obs: POST /debug/profile answered {code} {doc}")
+    code2, doc2 = admin(port, "POST", "/debug/profile", {"seconds": 3})
+    if code2 != 409:
+        fail(f"3-obs: a second POST inside the window answered {code2}")
+    batch("batch 2 (profiled)")
+    done = process_profiler().wait(120)
+    if not done or done.get("error") or not done.get("trace"):
+        fail(f"3-obs: the profile window ended with {done}")
+    decode, prefill, kernels, inside = read_profile(done["trace"])
+    size = os.path.getsize(done["trace"])
+    log(f"  /debug/profile: 202 then 409; trace {size} bytes, "
+        f"{len(decode)} dtx_engine_decode and {len(prefill)} "
+        f"dtx_engine_prefill_chunk ranges; kernels K7 {len(kernels['K7'])}, "
+        f"K8 {len(kernels['K8'])}, K9 {len(kernels['K9'])}; K7 launches "
+        f"inside a decode range {inside}")
+    if not decode or not prefill or not all(kernels.values()) \
+            or inside <= 0:
+        fail("3-obs: the profile lacks the engine's ranges or kernels")
+    stop_server(srv, state)
+
+    # tracing on (the server's engine) and off: equal streams and launches
+    prompts = [r[1]["messages"] for r in OBS_REQS
+               if not r[1].get("temperature")]
+
+    def drive(e):
+        """The greedy prompts one at a time (one schedule for both
+        engines), counters zeroed just before."""
+        e.request_stats.clear()
+        zero(counters)
+        streams = []
+        for msgs in prompts:
+            ids, stops = e._encode_chat(msgs)
+            r = e.submit(ids, max_new_tokens=64, stop_ids=stops)
+            if not r.done.wait(600) or r.error:
+                fail(f"3-obs: tracing={e.tracing}: {r.error}")
+            streams.append(r.tokens)
+        return {"streams": streams,
+                "launches": tuple(getattr(c, a) for c, a in counters),
+                "tok_s": [1.0 / s["tpot_s"] for s in e.request_stats
+                          if s["tpot_s"]],
+                "spans": len(e.trace_store)}
+
+    runs = {}
+    try:
+        runs[True] = drive(eng)
+    finally:
+        eng.close()
+    del eng
+    off = BatchedEngine("preset:tinyllama-1.1b", slots=4, kv_block_size=16,
+                        tracing=False)
+    try:
+        runs[False] = drive(off)
+    finally:
+        off.close()
+    on, no = runs[True], runs[False]
+    log(f"  tracing on: launches K7/K8/K9 {on['launches']}, decode "
+        f"{[round(x, 1) for x in on['tok_s']]} tok/s a request; tracing "
+        f"off: {no['launches']}, {[round(x, 1) for x in no['tok_s']]} tok/s")
+    if on["streams"] != no["streams"] or on["launches"] != no["launches"]:
+        fail(f"3-obs: tracing off changed the streams or the launches "
+             f"({on['launches']} vs {no['launches']})")
+    if no["spans"] != 0 or min(on["launches"]) <= 0:
+        fail("3-obs: an engine without tracing kept spans, or a kernel "
+             "never launched")
+    log(f"  one /metrics scrape with 4 slots busy: median "
+        f"{median(scrape_ms):.2f} ms of {[round(x, 2) for x in scrape_ms]}")
+    log(f"  3-obs on {card}: decode {median(on['tok_s']):.1f} tok/s a "
+        f"request with tracing on, {median(no['tok_s']):.1f} off; scrape "
+        f"{median(scrape_ms):.2f} ms; profile trace {size} bytes")
+    return {"scrape_ms": median(scrape_ms), "profile_bytes": size,
+            "tok_s_on": median(on["tok_s"]), "tok_s_off": median(no["tok_s"])}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -2182,7 +2514,9 @@ def spec_phase(torch, label, flags, reqs, path):
     depends on the schedule, the slots and the controllers' state, in the
     reference too), greedy streams against an engine without a draft
     (``check_greedy``), and the same prompts through that engine for its
-    TTFT and tok/s. Returns the K8 launches keyed by ``path``."""
+    TTFT and tok/s. Its ``/metrics`` must show ``dtx_serving_spec_enabled
+    1`` and the accept-length histogram's count move by the drafting rows
+    ``spec_info()`` counts. Returns the K8 launches keyed by ``path``."""
     from datatunerx_tpu_torch.ops import cuda_paged_attention as cpa
     from datatunerx_tpu_torch.ops import cuda_sampling as cs
     from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
@@ -2201,6 +2535,8 @@ def spec_phase(torch, label, flags, reqs, path):
         return post(port, body, trace=name)
 
     before = dict(eng.spec_info())
+    hist = "dtx_serving_spec_accept_len_count"
+    hist0 = scrape_metrics(port).get(hist, 0)
     for c, a in counters:
         setattr(c, a, 0)
     eng.sched_trace.clear()
@@ -2221,6 +2557,15 @@ def spec_phase(torch, label, flags, reqs, path):
     prop = info["proposed"] - before["proposed"]
     acc = info["accepted"] - before["accepted"]
     rows = info["row_steps"] - before["row_steps"]
+    metrics = scrape_metrics(port)
+    log(f"  {label} /metrics: dtx_serving_spec_enabled "
+        f"{metrics.get('dtx_serving_spec_enabled'):g}, {hist} "
+        f"+{metrics.get(hist, 0) - hist0:g} against spec_info()'s "
+        f"{rows} drafting rows")
+    if (metrics.get("dtx_serving_spec_enabled") != 1
+            or metrics.get(hist, 0) - hist0 != rows):
+        fail(f"{label}: /metrics spec family {metrics.get(hist)} "
+             f"(from {hist0}) against {rows} drafting rows")
     for name, body in reqs:
         st = stats.get(name)
         if st is None or st["tokens"] <= 0:
@@ -2672,6 +3017,18 @@ def adapter_phase(torch, counters, base):
             f"{[round(x, 1) for x in occ['load_ms']]}")
         if got != ADAPTER_EXPECT:
             fail(f"3-adapters: registry {got}, expected {ADAPTER_EXPECT}")
+        # the residency set a gateway's adapter-aware routing scrapes
+        metrics = scrape_metrics(port)
+        for fam, key in (("resident", "resident_adapters"),
+                         ("registered", "registered_adapters")):
+            prefix = f'dtx_serving_adapter_{fam}{{adapter="'
+            named = sorted(k[len(prefix):-2] for k, v in metrics.items()
+                           if k.startswith(prefix) and v == 1)
+            if named != sorted(occ[key]):
+                fail(f"3-adapters: /metrics {fam} {named}, occupancy "
+                     f"{sorted(occ[key])}")
+        log(f"  /metrics: dtx_serving_adapter_resident equals the resident "
+            f"set {sorted(occ['resident_adapters'])}")
         # each stream teacher-forced through a plain forward that carries
         # only the request's own adapter, at its own rank
         stats = {s["trace_id"]: s for s in eng.request_stats}
@@ -3546,7 +3903,8 @@ def expected_launches(quant, steps, layers=LAYERS, forwards=2, dropped=2):
 
 def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
                 profile=PROFILE_STEPS, export=True,
-                model="preset:tinyllama-1.1b", layers=LAYERS):
+                model="preset:tinyllama-1.1b", layers=LAYERS,
+                remote_write=False):
     from datatunerx_tpu_torch.ops import cuda_prng
     from datatunerx_tpu_torch.ops import cuda_quant as cq
     from datatunerx_tpu_torch.ops import flash_attention as fa
@@ -3572,6 +3930,9 @@ def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
         argv += ["--quantization", quant]  # quant_impl: pallas (default)
     if export:
         argv += ["--export_dir", export_dir]
+    receiver = RemoteWriteReceiver() if remote_write else None
+    if receiver is not None:
+        argv += ["--metrics_export_address", receiver.url]
     # time each step to its end on the device, and look at the adapters
     # after the first (B starts at 0)
     real_step = train_lib.Trainer.train_step
@@ -3606,8 +3967,12 @@ def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
         launches = {c.__name__: c.launches for c in counters}
     finally:
         train_lib.Trainer.train_step = real_step
+        if receiver is not None:
+            receiver.close()
     if rc != 0:
         fail(f"train CLI returned {rc}")
+    if receiver is not None:
+        check_remote_write(receiver, out, steps)
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = expected_launches(quant, steps, layers)
     for name, n in launches.items():
@@ -3676,6 +4041,79 @@ def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
                                 for k, v in groups.items()))
     return launches, {"step_ms": step_s * 1e3, "peak_gib": peak,
                       "busy": busy, **trained}
+
+
+class RemoteWriteReceiver:
+    """A Prometheus remote-write endpoint on localhost, in-process, that
+    keeps every POST's path and body."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        posts = self.posts = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                posts.append((self.path, self.headers.get(
+                    "Content-Encoding"), self.rfile.read(n)))
+                self.send_response(204)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(timeout=10)
+
+
+def unsnappy(data: bytes) -> bytes:
+    """A snappy block of literal elements (what the trainer writes)."""
+    n, shift, i = 0, 0, 0
+    while True:
+        b = data[i]
+        i += 1
+        n |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            break
+    out = bytearray()
+    while i < len(data):
+        if data[i] & 3:
+            fail("remote-write: a snappy element other than a literal")
+        ln = (data[i] >> 2) + 1
+        out += data[i + 1:i + 1 + ln]
+        i += 1 + ln
+    if len(out) != n:
+        fail(f"remote-write: {len(out)} bytes decoded, header says {n}")
+    return bytes(out)
+
+
+def check_remote_write(receiver, out, steps):
+    """One snappy-framed WriteRequest a logging step carrying the loss
+    sample, and the ``watch/metrics.prom`` mirror."""
+    train = [unsnappy(body) for path, enc, body in receiver.posts
+             if path == "/api/v1/write" and enc == "snappy"
+             and b"dtx_train_loss" in unsnappy(body)]
+    prom = os.path.join(out, "watch", "metrics.prom")
+    if len(train) != steps or not os.path.exists(prom):
+        fail(f"remote-write: {len(train)} WriteRequests with the loss "
+             f"for {steps} logging steps; metrics.prom "
+             f"{os.path.exists(prom)}")
+    with open(prom) as f:
+        families = sum(1 for ln in f if ln.startswith("# TYPE "))
+    log(f"  remote-write: {len(receiver.posts)} WriteRequests received "
+        f"({len(train)} with dtx_train_loss, one a logging step, "
+        f"{sum(map(len, train))} bytes of protobuf); watch/metrics.prom "
+        f"{families} families")
 
 
 # ------------------------------------------------------------------ phase 6
@@ -4404,6 +4842,12 @@ def main(argv=None) -> int:
             eng.close()
         del eng
         torch.cuda.empty_cache()
+        log("[3-obs] the observability plane: /metrics, /debug/trace, "
+            "/debug/slo and a /debug/profile window over the paged server "
+            "(--trace_ring 64 --trace_log --slo_config --slo_sample_s 0.5), "
+            "4 concurrent requests twice; tracing on vs off")
+        obs_phase(torch, [by_name[k] for k in ("K7", "K8", "K9")], card)
+        torch.cuda.empty_cache()
         from datatunerx_tpu_torch.ops import cuda_quant as cq
 
         log("[3-prefix] prefix cache + KV overcommit (COW blocks, growth, "
@@ -4452,7 +4896,7 @@ def main(argv=None) -> int:
             if opts.phase != "qlora":
                 log("[5] train preset:tinyllama-1.1b: LoRA SFT through the "
                     "trainer CLI (flash, remat dots, bf16, packed 8x1024)")
-                trained, run = train_phase(torch, tmp)
+                trained, run = train_phase(torch, tmp, remote_write=True)
                 launches.update({k: trained[k] for k in flash_keys})
                 launches["threefry_bits"] = trained["threefry_bits"]
                 log(f"  with the twin's dropout masks: step "

@@ -13,3 +13,5 @@ decode, paged multi-token and fused sampling kernels) and SFT/QLoRA training
 (tuning/train.py → training/train_lib.py → models/llama.py → the flash
 attention kernels and, for a quantized base, the nf4/int8 matmul kernels).
 """
+
+__version__ = "0.23.0"  # the JAX package release this port twins

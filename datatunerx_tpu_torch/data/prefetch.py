@@ -7,8 +7,8 @@
                      re-raise at the consumer, and ``close()`` stops it.
   HostPrefetcher   — runs a batch iterator in a background thread behind a
                      bounded queue (backpressure, exception propagation,
-                     clean shutdown), so step N's host build overlaps step
-                     N-1's compute.
+                     clean shutdown, ``resize`` live), so step N's host
+                     build overlaps step N-1's compute.
   prefetch_batches — adds the device half: each host batch is copied into
                      pinned memory and sent to the device with
                      ``non_blocking`` copies up to ``depth`` batches ahead,
@@ -151,6 +151,19 @@ class HostPrefetcher:
         self._thread = threading.Thread(target=self._worker,
                                         name="dtx-host-prefetch", daemon=True)
         self._thread.start()
+
+    def resize(self, depth: int) -> int:
+        """Grow (or shrink) the bounded queue live — the in-run half of the
+        training logger's prefetch advisory. A worker blocked on put() is
+        woken at once; shrinking drops no batch, the queue just stops
+        refilling until it drains below the new bound."""
+        depth = int(depth)
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        with self._q.mutex:
+            self._q.maxsize = depth
+            self._q.not_full.notify_all()
+        return depth
 
     def _put(self, item) -> bool:
         """Queue-put that stays responsive to close(); False = stopping."""

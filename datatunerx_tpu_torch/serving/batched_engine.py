@@ -71,6 +71,18 @@
   distribution-exact from the slot's key. Slots run in pending-token form
   and settle before they park. ``spec_mode`` auto backs off to the plain
   pending-form decode when acceptance collapses; off is the plain engine.
+- OBSERVABILITY (obs/): the engine records into a shared ``registry``
+  (the serving server's): one TTFT/TPOT observe pair per completed request,
+  one prefill-chunk observe per chunk, one accept-length observe per
+  drafting row of a verify step, and adapter load times. With ``tracing``
+  on, each request's scheduler timeline (``Request.mark``: admit, adapter,
+  prefill, activate, preempt, resume, export, import, spill, finish) folds
+  into a span in ``trace_store`` (``GET /debug/trace/<id>``; ``trace_log_path``
+  appends each span to a JSONL file) and the TTFT/TPOT observes carry the
+  trace id as an exemplar. The ticks run inside ``record_function`` ranges
+  (``dtx_engine_prefill_chunk``, ``dtx_engine_decode``,
+  ``dtx_engine_spec_step``, ``dtx_engine_spec_tree``) for a profiler
+  window. Tracing off changes no token and no kernel launch.
 
 The scheduler thread owns every piece of slot state; callers only enqueue
 requests. The caches are updated in place.
@@ -90,6 +102,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from datatunerx_tpu_torch.data.templates import Template, get_template
 from datatunerx_tpu_torch.models.llama import forward, init_cache
@@ -99,6 +112,13 @@ from datatunerx_tpu_torch.models.lora import (
     lora_scaling,
     target_dims,
 )
+from datatunerx_tpu_torch.obs.metrics import (
+    Registry,
+    adapter_load_histogram,
+    serving_latency_histograms,
+    spec_accept_len_histogram,
+)
+from datatunerx_tpu_torch.obs.trace import TraceStore, build_request_span
 from datatunerx_tpu_torch.ops import prng
 from datatunerx_tpu_torch.ops.cuda_sampling import fused_sample
 from datatunerx_tpu_torch.ops.paged_attention import (
@@ -386,16 +406,25 @@ class Request:
         # orders overcommit's preemption victims
         self.tenant = tenant
         self.tenant_tier = tenant_tier
-        # pooled mode: a re-admission retry does not count its lookup twice
+        # pooled mode: residency at the FIRST admission attempt (the span's
+        # "loaded" flag), and a re-admission retry does not count its
+        # lookup twice
+        self.adapter_was_resident: Optional[bool] = None
         self.adapter_stats_counted = False
         self.tokens: List[int] = []
         self.stream: "queue.Queue[Optional[int]]" = queue.Queue()
         self.done = threading.Event()
         self.error: Optional[str] = None
-        # latency stamps: plain attribute writes from the scheduler thread
+        # the request's span timeline: plain attribute writes from the
+        # scheduler thread (no locks, no device reads)
         self.t_submit = time.perf_counter()
+        self.wall_submit_ms = time.time() * 1e3
+        self.timeline: List[tuple] = []  # (perf stamp, event, detail dict)
         self.first_token_ts: Optional[float] = None
         self.last_token_ts: Optional[float] = None
+
+    def mark(self, event: str, **detail):
+        self.timeline.append((time.perf_counter(), event, detail))
 
     def push(self, token: int):
         now = time.perf_counter()
@@ -440,6 +469,10 @@ class BatchedEngine:
         prefill_token_budget: int = 0,
         tenants=None,  # TenantDirectory / dict / path / inline JSON
         host_adapter_cache_mb: float = 0.0,  # host-RAM adapter tier budget
+        registry: Optional[Registry] = None,  # shared /metrics registry
+        tracing: bool = True,  # per-request span timelines + trace ring
+        trace_ring: int = 256,  # completed traces kept for /debug/trace
+        trace_log_path: Optional[str] = None,  # JSONL log of every span
         seed: int = 0,  # preset weights' random init
         device="cuda",
     ):
@@ -522,6 +555,8 @@ class BatchedEngine:
                     int(float(host_adapter_cache_mb) * 1024 * 1024))
             self.adapter_registry = AdapterRegistry(
                 self.adapter_store,
+                # bound late: the histogram exists once the registry does
+                load_observer=lambda ms: self._h_adapter_load.observe(ms),
                 # a resolved load wakes the scheduler, so the waiting head
                 # admits at once instead of at the next poll
                 on_load_done=self._wake.set, host_tier=host_tier)
@@ -545,6 +580,9 @@ class BatchedEngine:
             self.cfg = dataclasses.replace(self.cfg, paged_kernel=True)
         self.sampling_epilogue = "on" if _resolve_auto(
             sampling_epilogue, "sampling_epilogue", cuda) else "off"
+        # /metrics' dtx_serving_sampling_epilogue: 2 = the fused kernel (K9)
+        self._epilogue_impl = ("kernel" if self.sampling_epilogue == "on"
+                               else "off")
         # decode chunks that sampled through the fused epilogue vs the
         # legacy sampler; written by the scheduler thread only
         self.sampling_stats = {"fused_steps": 0, "legacy_steps": 0}
@@ -673,6 +711,22 @@ class BatchedEngine:
         # measured on the host clock at the chunk's designed sync point
         self.request_stats: "collections.deque[dict]" = \
             collections.deque(maxlen=4096)
+        # shared-registry histograms. Recording is BUFFERED off the hot
+        # path: token stamps are attribute writes in Request.push; the
+        # observes fire once per completed request (TTFT/TPOT), once per
+        # prefill chunk, once per drafting row of a verify step — never
+        # per token
+        self.registry = registry if registry is not None else Registry()
+        (self._h_ttft, self._h_tpot,
+         self._h_prefill_chunk) = serving_latency_histograms(self.registry)
+        self._h_adapter_load = adapter_load_histogram(self.registry)
+        self._h_accept_len = (spec_accept_len_histogram(self.registry)
+                              if self.spec is not None else None)
+        # per-request span timelines: completed requests land in a bounded
+        # ring keyed by trace id (GET /debug/trace/<id>)
+        self.tracing = tracing
+        self.trace_store = TraceStore(capacity=trace_ring,
+                                      jsonl_path=trace_log_path)
 
         self._thread = threading.Thread(target=self._scheduler, daemon=True)
         self._thread.start()
@@ -831,6 +885,9 @@ class BatchedEngine:
         pinned = False
         self._admit_wait_reason = "blocks"
         if self.adapter_registry is not None and req.adapter_name:
+            if req.adapter_was_resident is None:
+                req.adapter_was_resident = (
+                    req.adapter_name in self.adapter_registry.resident())
             idx = self.adapter_registry.acquire(
                 req.adapter_name, count_hit=not req.adapter_stats_counted)
             if idx is not None:
@@ -850,6 +907,9 @@ class BatchedEngine:
             self._last_adapter_wait = None
             pinned = True
             req.adapter = idx
+            if self.tracing:
+                req.mark("adapter", name=req.adapter_name, slot=idx,
+                         loaded=not req.adapter_was_resident)
         try:
             ok = self._admit_slot(req, slot)
         except Exception:
@@ -997,6 +1057,8 @@ class BatchedEngine:
             self._slot_req[slot] = req
             self._note_admitted()
             self._trace("admit", slot, plen, "dense")
+            if self.tracing:
+                req.mark("admit", slot=slot, plen=plen, mode="dense")
             self._arm_slot(slot, req, row_logits, cursor, n_prompt, max_new)
             return True
         if self.cow:
@@ -1029,6 +1091,8 @@ class BatchedEngine:
                 self._slot_demand[slot] = self._eager_demand(cursor, max_new)
                 self._note_admitted()
                 self._trace("admit", slot, plen, "cache")
+                if self.tracing:
+                    req.mark("admit", slot=slot, plen=plen, mode="cache")
                 self._arm_slot(slot, req, row_logits, cursor, n_prompt,
                                max_new)
                 return True
@@ -1053,6 +1117,8 @@ class BatchedEngine:
         }
         self._note_admitted()
         self._trace("admit", slot, plen, "chunked")
+        if self.tracing:
+            req.mark("admit", slot=slot, plen=plen, mode="chunked")
         return True
 
     # ------------------------------------------------- COW prefix blocks
@@ -1077,6 +1143,8 @@ class BatchedEngine:
             if ok:
                 self.prefill_stats["reuse"] += 1
                 self._trace("admit", slot, plen, "cow")
+                if self.tracing:
+                    req.mark("admit", slot=slot, plen=plen, mode="cow")
             return ok
         pkey, pent = self._prefix.longest_prefix(used, akey)
         if pent is not None and pent.get("blocks") is not None:
@@ -1088,6 +1156,9 @@ class BatchedEngine:
                 if ok:
                     self.prefill_stats["extend"] += 1
                     self._trace("admit", slot, plen, "cow_extend")
+                    if self.tracing:
+                        req.mark("admit", slot=slot, plen=plen,
+                                 mode="cow_extend")
                 return ok
         return None
 
@@ -1199,17 +1270,26 @@ class BatchedEngine:
                 c = int(min(self.prefill_chunk, st["plen"] - st["done"],
                             budget - spent))
                 lo = st["done"]
+                t0 = time.perf_counter()
                 try:
-                    logits = self._prefill_chunk_fn(
-                        slot, st["ids"][lo:lo + c], st["mask"][lo:lo + c],
-                        st["positions"][lo:lo + c])
+                    with record_function("dtx_engine_prefill_chunk"):
+                        logits = self._prefill_chunk_fn(
+                            slot, st["ids"][lo:lo + c],
+                            st["mask"][lo:lo + c],
+                            st["positions"][lo:lo + c])
                 except Exception as e:  # noqa: BLE001 — fail request, not loop
                     self._release_slot(slot)
                     self._complete(req, error=str(e))
                     break
+                # wall time as the scheduler sees it: on CUDA the chunk's
+                # dispatch (no sync is added to make it "exact")
+                self._h_prefill_chunk.observe(
+                    (time.perf_counter() - t0) * 1e3)
                 st["done"] += c
                 spent += c
                 self._trace("prefill", slot, c)
+                if self.tracing:
+                    req.mark("prefill", slot=slot, tokens=c)
                 if st["done"] >= st["plen"]:
                     self._finish_prefill(slot, st, logits)
                     break
@@ -1227,6 +1307,8 @@ class BatchedEngine:
         if st["key"] is None:
             # an imported mid-prefill tail: no cold prefill, no entry
             self._trace("activate", slot)
+            if self.tracing:
+                st["req"].mark("activate", slot=slot)
             return
         if not st["base"]:
             self.prefill_stats["full"] += 1  # extensions counted at admission
@@ -1243,6 +1325,8 @@ class BatchedEngine:
                                              "logits": row_logits,
                                              "cursor": cursor})
         self._trace("activate", slot)
+        if self.tracing:
+            st["req"].mark("activate", slot=slot)
 
     def _arm_slot(self, slot: int, req: Request, row_logits, cursor: int,
                   n_prompt: int, max_new: int):
@@ -1443,6 +1527,8 @@ class BatchedEngine:
         self._preempted.sort(key=lambda e: e["req"].seq)
         self._count_preempt("exported")
         self._trace("preempt", slot, req.seq)
+        if self.tracing:
+            req.mark("preempt", slot=slot)
 
     def _unadmit_pending(self, slot: int):
         """Roll a chunk-prefilling admission back to the cold queue at its
@@ -1453,6 +1539,8 @@ class BatchedEngine:
             sorted([*self._waiting_front, req], key=lambda r: r.seq))
         self._count_preempt("requeued_prefill")
         self._trace("preempt_prefill", slot, req.seq)
+        if self.tracing:
+            req.mark("preempt", slot=slot, kind="prefill")
 
     def _resume_preempted_tick(self):
         """Re-admit parked sessions, oldest first, ahead of the cold queue;
@@ -1551,6 +1639,8 @@ class BatchedEngine:
         self._note_admitted()
         self._count_preempt("resumed")
         self._trace("resume", slot, cursor)
+        if self.tracing:
+            req.mark("resume", slot=slot, cursor=cursor)
         return True
 
     # ------------------------------------------------- session migration
@@ -1761,6 +1851,9 @@ class BatchedEngine:
                 sessions.append(payload)
                 self._count_mig("export", "ok_prefill")
                 self._trace("export_prefill", slot)
+                if self.tracing:
+                    req.mark("export", slot=slot, prefill=True,
+                             done=st["done"])
                 self._deactivate(slot)
                 self._complete(req, error=f"{mig.MIGRATED_SESSION}: "
                                           "prefill slot exported")
@@ -1778,6 +1871,8 @@ class BatchedEngine:
             sessions.append(payload)
             self._count_mig("export", "ok")
             self._trace("export", slot)
+            if self.tracing:
+                req.mark("export", slot=slot, cursor=payload["cursor"])
             self._deactivate(slot)
             self._complete(req, error=f"{mig.MIGRATED_SESSION}: "
                                       "slot exported")
@@ -1794,6 +1889,8 @@ class BatchedEngine:
                 sessions.append(mig.encode_payload(entry["payload"]))
                 self._count_mig("export", "ok")
                 self._trace("export_parked", req.seq)
+                if self.tracing:
+                    req.mark("export", parked=True)
                 self._complete(req, error=f"{mig.MIGRATED_SESSION}: "
                                           "parked session exported")
         return {"sessions": sessions, "skipped": skipped}
@@ -1897,6 +1994,9 @@ class BatchedEngine:
         self._note_admitted()
         self._count_mig("import", "ok")
         self._trace("import", slot, cursor)
+        if self.tracing:
+            req.mark("import", slot=slot, cursor=cursor, adapter=name,
+                     tail_tokens=req.resume_base)
         return self._import_meta(req, slot, cursor, remaining)
 
     def _import_prefill_tail(self, payload: dict, slot: int, idx: int,
@@ -1949,6 +2049,9 @@ class BatchedEngine:
         self._note_admitted()
         self._count_mig("import", "ok_prefill")
         self._trace("import_prefill", slot, cursor)
+        if self.tracing:
+            req.mark("import", slot=slot, cursor=cursor,
+                     adapter=payload["adapter"], prefill=True, tail=len(ids))
         return self._import_meta(req, slot, cursor, max_new, prefill=True)
 
     # ------------------------------------------- peer spill of parked sessions
@@ -1982,6 +2085,8 @@ class BatchedEngine:
             dropped += 1
             self._count_preempt("spilled")
             self._trace("spill", req.seq)
+            if self.tracing:
+                req.mark("spill")
             self._complete(req, error=f"{mig.MIGRATED_SESSION}: "
                                       "parked session spilled")
         self._preempted = keep
@@ -2372,15 +2477,19 @@ class BatchedEngine:
             if plan[0] == "tree":
                 widths = plan[1]
                 k = len(widths)
-                (emitted, acc, self._cache, sp["dcache"], self._spec_pending,
-                 self._pos, self._remaining, self._active, self._keys,
-                 margin) = progs.tree_step(*args, widths=widths, mode=bmode)
+                with record_function("dtx_engine_spec_tree"):
+                    (emitted, acc, self._cache, sp["dcache"],
+                     self._spec_pending, self._pos, self._remaining,
+                     self._active, self._keys, margin) = progs.tree_step(
+                        *args, widths=widths, mode=bmode)
                 self.spec_stats["tree_steps"] += 1
             else:
                 k = plan[1]
-                (emitted, acc, self._cache, sp["dcache"], self._spec_pending,
-                 self._pos, self._remaining, self._active,
-                 self._keys) = progs.step(*args, k=k, mode=bmode)
+                with record_function("dtx_engine_spec_step"):
+                    (emitted, acc, self._cache, sp["dcache"],
+                     self._spec_pending, self._pos, self._remaining,
+                     self._active, self._keys) = progs.step(*args, k=k,
+                                                            mode=bmode)
             # the step's one sync: its tokens, acceptances and active mask
             host = torch.cat([emitted.T.to(torch.int32),
                               acc[None].to(torch.int32),
@@ -2395,12 +2504,14 @@ class BatchedEngine:
             self._trace("spec", k, len(obs), bmode,
                         plan[1] if plan[0] == "tree" else None)
         else:
-            (emitted, self._cache, self._spec_pending, self._pos,
-             self._remaining, self._active, self._keys) = progs.decode(
-                self.params, lora, self._cache, self._spec_pending,
-                self._pos, self._remaining, self._active, self._keys,
-                self._temps, self._top_ps, self._stops, self._adapter_idx,
-                K=self.chunk, mode=emode, batch=bmode)
+            with record_function("dtx_engine_decode"):
+                (emitted, self._cache, self._spec_pending, self._pos,
+                 self._remaining, self._active, self._keys) = progs.decode(
+                    self.params, lora, self._cache, self._spec_pending,
+                    self._pos, self._remaining, self._active, self._keys,
+                    self._temps, self._top_ps, self._stops,
+                    self._adapter_idx, K=self.chunk, mode=emode,
+                    batch=bmode)
             host = torch.cat([emitted.to(torch.int32),
                               self._active[None].to(torch.int32)]).cpu()
             rows.extend(host[:-1].tolist())
@@ -2423,6 +2534,7 @@ class BatchedEngine:
         for s, a, kk in obs:
             st["proposed"] += kk
             st["accepted"] += a
+            self._h_accept_len.observe(a)
             if plan[0] == "tree":
                 ema_t = self._spec_tree_slot_path.get(s)
                 self._spec_tree_slot_path[s] = (
@@ -2529,7 +2641,8 @@ class BatchedEngine:
                     emitted, active = self._spec_decode_tick()
                 else:
                     mode = self._epilogue_mode()
-                    out = self._decode_chunk(self.chunk, mode)
+                    with record_function("dtx_engine_decode"):
+                        out = self._decode_chunk(self.chunk, mode)
                     self.sampling_stats["fused_steps" if mode != "off"
                                         else "legacy_steps"] += 1
                     self._trace("decode", self.chunk)
@@ -2555,6 +2668,8 @@ class BatchedEngine:
                 if (req is not None and self._decode_ready[slot]
                         and not active[slot]):
                     self._release_slot(slot)
+                    if self.tracing:
+                        req.mark("finish", slot=slot)
                     self._complete(req)
                     self._trace("finish", slot)
 
@@ -2583,6 +2698,9 @@ class BatchedEngine:
             self._allocator.free(blocks)
 
     def _complete(self, req: Request, error: Optional[str] = None):
+        """Finish a request AND flush its buffered observability: one
+        TTFT/TPOT observe pair (never one a token) and, with tracing on,
+        the request's span into the trace ring."""
         n = len(req.tokens)
         if self.tenants is not None and req.tenant:
             self._tenant_count(req.tenant, "tokens_out", n)
@@ -2594,6 +2712,20 @@ class BatchedEngine:
                 "trace_id": req.trace_id,
                 "ttft_s": req.first_token_ts - req.t_submit,
                 "tpot_s": tpot, "tokens": n})
+            # an exemplar only while tracing: its trace id then resolves
+            # at GET /debug/trace/<id>
+            tid = req.trace_id if self.tracing else None
+            self._h_ttft.observe((req.first_token_ts - req.t_submit) * 1e3,
+                                 trace_id=tid)
+            if tpot is not None:
+                self._h_tpot.observe(tpot * 1e3, trace_id=tid)
+        if self.tracing:
+            self.trace_store.add(build_request_span(
+                req.trace_id, req.t_submit, req.timeline,
+                req.first_token_ts, req.last_token_ts, n,
+                req.wall_submit_ms, error=error,
+                attrs={"adapter": req.adapter_name or req.adapter,
+                       "prompt_len": len(req.prompt_ids)}))
         req.finish(error=error)
 
     # ------------------------------------------------------------- adapters

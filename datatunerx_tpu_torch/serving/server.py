@@ -41,9 +41,25 @@ events, ``[DONE]``) or, with ``"stream": false``, one JSON body;
 peer-spill coordinator; ``/admin/prefix/{export,import}`` move prefix-cache
 entries. A refusal answers 409, an engine without the surface (the
 single-request engine) 501, a timeout or an unloaded model 503.
-``--role`` declares the replica's disaggregation role. ``GET /metrics``
-carries the fleet gauges a gateway scrapes (busy slots, free KV blocks,
-parked sessions, the role), under the JAX server's names.
+``--role`` declares the replica's disaggregation role.
+
+Observability (``obs/``): ``GET /metrics`` is the JAX server's exposition
+under the same names, help text and label sets — the engine's TTFT, TPOT,
+prefill-chunk, adapter-load and spec accept-length histograms, and the
+scrape-time families: slots and KV blocks, prefix cache, preemptions, role
+and parked sessions, the adapter pool and its residency set, the spec
+family, session export/import counters, tenancy, build info, uptime and
+the ``dtx_slo_*`` verdicts. ``/metrics?exemplars=1`` adds the trace-id
+exemplars (the plain wire leaves them out, for classic parsers). ``GET
+/debug/trace/<id>`` answers a request's span (404 for an unknown id; the
+ring holds ``--trace_ring`` traces and ``--trace_log`` appends each span to
+a JSONL file). ``GET /debug/slo`` judges ``--slo_config`` (a file or inline
+JSON; default the built-in serving objectives), sampled every
+``--slo_sample_s`` seconds. ``POST /debug/profile {"seconds", "dir"}``
+opens a ``torch.profiler`` window over the process (202 with the clamped
+window; 400 for a bad ``seconds`` or a ``dir`` outside ``DTX_PROFILE_DIR``;
+409 while a window is open; 500 when the profiler fails to start) and
+writes ``<dir>/trace.json``, a Chrome trace.
 
 Run::
 
@@ -51,8 +67,7 @@ Run::
         --model_path preset:tinyllama-1.1b --kv_block_size 16 \\
         --prefix_cache 8 --kv_overcommit on
 
-The flag names are the JAX server's. Flags whose feature is not ported yet
-are refused at startup with the ROADMAP item they wait for.
+The flag names are the JAX server's.
 """
 
 from __future__ import annotations
@@ -65,6 +80,17 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from datatunerx_tpu_torch.obs.metrics import (
+    Registry,
+    adapter_load_histogram,
+    exemplars_requested,
+    serving_latency_histograms,
+    set_build_info,
+    set_uptime,
+    spec_accept_len_histogram,
+)
+from datatunerx_tpu_torch.obs.slo import SLOEvaluator, default_slos
+
 
 class ServingState:
     def __init__(self):
@@ -73,9 +99,405 @@ class ServingState:
         self.model_path = ""
         # the disaggregation role this replica declares to the fleet
         self.role = "mixed"
+        # the server's ONE registry: the engine's histograms record into
+        # it and every scrape re-states its gauges there
+        self.registry = Registry()
+        self.started_at = time.monotonic()
+        # serializes scrape-time restating (concurrent scrapes would race
+        # clear/set on the labeled series)
+        self.scrape_lock = threading.Lock()
+        # the SLO evaluator over the registry, built on first use unless
+        # start() installed a --slo_config set
+        self.slo: Optional[SLOEvaluator] = None
+        self.slo_lock = threading.Lock()
 
 
 STATE = ServingState()
+
+# ceiling on slot-labeled series per family in the exposition: slots are a
+# small fixed pool, so this never binds on a healthy engine — it is a guard
+# against unbounded label cardinality if a spec_info document goes wrong
+_SLOT_SERIES_CAP = 1024
+
+
+def slo_evaluator(state: Optional[ServingState] = None) -> SLOEvaluator:
+    """The server's evaluator, created on first use with the default
+    serving objectives unless start() already installed a configured one."""
+    state = state or STATE
+    with state.slo_lock:
+        if state.slo is None:
+            state.slo = SLOEvaluator(state.registry, default_slos("serving"))
+        return state.slo
+
+
+def metrics_text(with_exemplars: bool = True,
+                 state: Optional[ServingState] = None) -> str:
+    """The /metrics body: scrape-time gauges re-stated into the shared
+    registry next to the engine's live histograms, the JAX server's bytes
+    for the same engine state. The HTTP wire defaults to
+    ``with_exemplars=False`` (classic-parser safety); ``/metrics?exemplars=1``
+    opts in."""
+    state = state or STATE
+    with state.scrape_lock:
+        return _metrics_text_locked(state, with_exemplars)
+
+
+def _metrics_text_locked(state: "ServingState",
+                         with_exemplars: bool = True) -> str:
+    reg = state.registry
+    eng = state.engine
+    set_build_info(reg, "serving")
+    set_uptime(reg, "serving", state.started_at)
+    # dtx_slo_* verdict gauges: sample FIRST so window baselines advance
+    # under scrape-only deployments (no /debug/slo poller, no sampler)
+    ev = slo_evaluator(state)
+    ev.sample()
+    ev.restate_gauges(ev.evaluate())
+    # declare the serving latency histograms even before the engine loads:
+    # a scraper sees stable series from the first scrape (zero counts), and
+    # an engine sharing this registry observes into these same objects
+    # (one declaration site in obs.metrics — help text cannot diverge)
+    serving_latency_histograms(reg)
+    reg.gauge("dtx_serving_up", "1 once the model is fully loaded.").set(
+        1 if eng is not None else 0)
+    stats = getattr(eng, "prefill_stats", None)
+    pf = reg.counter("dtx_serving_prefill_total",
+                     "Admissions by prefill kind (full/reuse/extend).")
+    # engine-derived series are re-stated per scrape — cleared first so a
+    # swapped/reloaded engine can't leave stale samples behind
+    hits = reg.counter("dtx_serving_prefix_cache_hits_total",
+                       "Exact prefix-cache hits (prefill skipped).")
+    partial = reg.counter("dtx_serving_prefix_cache_partial_hits_total",
+                          "Strict-prefix hits (suffix-only prefill).")
+    misses = reg.counter("dtx_serving_prefix_cache_misses_total",
+                         "Full prefills.")
+    evictions = reg.counter("dtx_serving_prefix_cache_evictions_total",
+                            "Prefix-cache LRU evictions.")
+    for c in (pf, hits, partial, misses, evictions):
+        c.clear()
+    if stats is not None:
+        for kind, n in sorted(stats.items()):
+            pf.set(n, {"kind": kind})
+        # hit = exact reuse, partial = suffix extension, miss = full;
+        # .get so a partially-populated stats dict (engine mid-init or a
+        # duck-typed test engine) can't 500 the scrape
+        hits.set(stats.get("reuse", 0))
+        partial.set(stats.get("extend", 0))
+        misses.set(stats.get("full", 0))
+    prefix = getattr(eng, "_prefix", None)
+    entries = reg.gauge("dtx_serving_prefix_cache_entries",
+                        "Live prefix-cache entries.")
+    entries.clear()
+    if prefix is not None:
+        entries.set(len(prefix))
+        evictions.set(prefix.evictions)
+    slots_busy = reg.gauge("dtx_serving_slots_busy",
+                           "Cache slots holding an in-flight request.")
+    # _capacity, not _total: the Prometheus _total suffix is reserved for
+    # counters, and these are gauges (the gateway's scrape parser also
+    # accepts the older dtx_serving_{slots,kv_blocks}_total names)
+    slots_total = reg.gauge("dtx_serving_slots_capacity",
+                            "Configured cache slots.")
+    slots_busy.clear()
+    slots_total.clear()
+    if eng is not None and hasattr(eng, "_slot_req"):
+        slots_busy.set(sum(1 for r in eng._slot_req if r is not None))
+        slots_total.set(eng.slots)
+    # paged KV cache: FREE BLOCKS are the real admission headroom (the
+    # gateway prefers this gauge over free slots — a slot is cheap, the
+    # blocks behind it are not)
+    blocks_free = reg.gauge("dtx_serving_kv_blocks_free",
+                            "Free paged KV-cache blocks.")
+    blocks_total = reg.gauge("dtx_serving_kv_blocks_capacity",
+                             "Total paged KV-cache blocks.")
+    blocks_reserved = reg.gauge("dtx_serving_kv_blocks_reserved",
+                                "Allocated paged KV-cache blocks (slots' "
+                                "tables + COW prefix-cache entries).")
+    block_size_g = reg.gauge("dtx_serving_kv_block_size",
+                             "Tokens per paged KV block — the unit the "
+                             "gateway's fleet-true admission prices "
+                             "admits in.")
+    over_ratio = reg.gauge("dtx_serving_kv_overcommit_ratio",
+                           "Live sessions' eager-equivalent block demand "
+                           "over the physical pool (> 1 = overcommitted; "
+                           "only meaningful with --kv_overcommit on).")
+    preempt = reg.counter("dtx_serving_preemptions_total",
+                          "KV-overcommit preemptions by outcome (exported "
+                          "= session parked host-side, resumed = parked "
+                          "session re-admitted token-exactly, "
+                          "requeued_prefill = mid-prefill admission "
+                          "rolled back to the cold queue).")
+    blocks_free.clear()
+    blocks_total.clear()
+    blocks_reserved.clear()
+    block_size_g.clear()
+    over_ratio.clear()
+    preempt.clear()
+    if getattr(eng, "total_kv_blocks", None):
+        blocks_free.set(eng.free_kv_blocks)
+        blocks_total.set(eng.total_kv_blocks)
+        reserved = getattr(eng, "kv_blocks_reserved", None)
+        if reserved is None:
+            reserved = eng.total_kv_blocks - eng.free_kv_blocks
+        blocks_reserved.set(reserved)
+        block_size_g.set(getattr(eng, "block_size", 0) or 0)
+        ratio = getattr(eng, "kv_overcommit_ratio", None)
+        if ratio is not None:
+            over_ratio.set(ratio)
+    pstats = getattr(eng, "preempt_stats", None)
+    if isinstance(pstats, dict):
+        for outcome, np_ in sorted(pstats.items()):
+            preempt.set(np_, {"outcome": outcome})
+    # disaggregated fleet plane: the role this replica declares (one-hot
+    # label the gateway's role-aware routing scrapes) and the parked-
+    # session backlog the fleet spill coordinator treats as work
+    role_g = reg.gauge("dtx_serving_role",
+                       "Replica disaggregation role, one-hot by label "
+                       "(prefill / decode / mixed).")
+    parked_g = reg.gauge("dtx_serving_sessions_parked",
+                         "Preemption-parked sessions awaiting resume — "
+                         "the fleet spill coordinator's work signal.")
+    role_g.clear()
+    role_g.set(1, {"role": state.role})
+    parked_g.set(int(getattr(eng, "parked_sessions", 0) or 0))
+    # dynamic adapter pool (adapters/): occupancy, the
+    # residency set the gateway's cache-locality routing scrapes, and
+    # per-adapter traffic. Declared/cleared on every scrape so a swapped
+    # engine or an unloaded adapter can't leave stale series behind.
+    adapter_load_histogram(reg)  # stable series even pre-engine-load
+    pool_cap = reg.gauge("dtx_serving_adapter_pool_slots_capacity",
+                         "Adapter pool slots (loadable adapters resident "
+                         "at once; the base model is not a slot).")
+    pool_free = reg.gauge("dtx_serving_adapter_pool_slots_free",
+                          "Adapter pool slots holding no adapter.")
+    resident_g = reg.gauge("dtx_serving_adapter_resident",
+                           "1 per adapter resident in the pool "
+                           "(load-on-miss already paid).")
+    registered_g = reg.gauge("dtx_serving_adapter_registered",
+                             "1 per adapter this replica can serve "
+                             "(resident or loadable on miss).")
+    a_loads = reg.counter("dtx_serving_adapter_loads_total",
+                          "Adapters materialised into pool slots "
+                          "(checkpoint load + device insert).")
+    a_evict = reg.counter("dtx_serving_adapter_evictions_total",
+                          "Unpinned residents LRU-evicted to make room.")
+    a_hits = reg.counter("dtx_serving_adapter_hits_total",
+                         "Admissions whose adapter was already resident.")
+    a_miss = reg.counter("dtx_serving_adapter_misses_total",
+                         "Admissions that had to load their adapter.")
+    a_reqs = reg.counter("dtx_serving_adapter_requests_total",
+                         "Requests per adapter name ('' = base model).")
+    for m in (pool_cap, pool_free, resident_g, registered_g, a_loads,
+              a_evict, a_hits, a_miss, a_reqs):
+        m.clear()
+    occ_fn = getattr(eng, "adapter_occupancy", None)
+    occ = occ_fn() if callable(occ_fn) else None
+    if occ:
+        pool_cap.set(occ.get("slots", 0))
+        pool_free.set(occ.get("free", 0))
+        for name in occ.get("resident_adapters") or []:
+            resident_g.set(1, {"adapter": name})
+        for name in occ.get("registered_adapters") or []:
+            registered_g.set(1, {"adapter": name})
+        a_loads.set(occ.get("loads", 0))
+        a_evict.set(occ.get("evictions", 0))
+        a_hits.set(occ.get("hits", 0))
+        a_miss.set(occ.get("misses", 0))
+    # speculative decoding: proposal/acceptance counters + the acceptance-
+    # rate EMAs (global, per adapter, per slot) the gateway's spec-friendly
+    # routing reads. Declared every scrape (stable zero series on non-spec
+    # engines), restated from the engine's spec_info document.
+    spec_accept_len_histogram(reg)  # engine observes into this same object
+    sp_enabled = reg.gauge("dtx_serving_spec_enabled",
+                           "1 when speculative decoding is configured "
+                           "(a draft model is loaded).")
+    sp_active = reg.gauge("dtx_serving_spec_active",
+                          "1 while the adaptive controller is actually "
+                          "drafting (0 = fallen back to plain decode).")
+    sp_k = reg.gauge("dtx_serving_spec_k",
+                     "Current proposal depth k (adaptive, <= --spec_k).")
+    sp_rate = reg.gauge("dtx_serving_spec_accept_rate",
+                        "Global acceptance-rate EMA (accepted/proposed "
+                        "per verify step).")
+    sp_rate_adapter = reg.gauge("dtx_serving_spec_adapter_accept_rate",
+                                "Acceptance-rate EMA per adapter name "
+                                "('' = base model).")
+    sp_rate_slot = reg.gauge("dtx_serving_spec_slot_accept_rate",
+                             "Acceptance-rate EMA per live cache slot.")
+    sp_prop = reg.counter("dtx_serving_spec_proposed_total",
+                          "Draft tokens proposed to the verifier.")
+    sp_acc = reg.counter("dtx_serving_spec_accepted_total",
+                         "Proposed tokens the target accepted.")
+    sp_steps = reg.counter("dtx_serving_spec_steps_total",
+                           "Decode programs run by path (spec = draft/"
+                           "verify, plain = pending-form fallback).")
+    # tree-draft families: declared every scrape like the rest (stable
+    # zeros on chain-only engines), restated from spec_info()["tree"]
+    sp_tree_steps = reg.counter("dtx_serving_spec_tree_steps_total",
+                                "Verify steps that ran the tree-draft "
+                                "program (vs chain draft/verify).")
+    sp_tree_width = reg.gauge("dtx_serving_spec_tree_width",
+                              "Current tree branch width per draft depth "
+                              "(learned/adaptive, <= the --spec_tree W; "
+                              "label depth is 1-based).")
+    sp_tree_depth = reg.gauge("dtx_serving_spec_tree_depth",
+                              "Configured tree draft depth D (0 = chain "
+                              "drafts).")
+    sp_tree_path = reg.gauge("dtx_serving_spec_tree_slot_path_len",
+                             "Accepted root-to-leaf path length EMA per "
+                             "live cache slot.")
+    # fused sampling epilogue (K9, ops/cuda_sampling.py): resolved mode +
+    # decode ticks by sampler path, which say which path actually ran. The
+    # help text is the JAX server's, byte for byte, so a fleet of both
+    # packages aggregates one family
+    sp_epilogue = reg.gauge("dtx_serving_sampling_epilogue",
+                            "Fused sampling epilogue state: 0 = off "
+                            "(legacy host sampler), 1 = on via the XLA "
+                            "oracle, 2 = on via the Pallas kernel.")
+    sp_fused = reg.counter("dtx_serving_sampling_fused_steps_total",
+                           "Decode/spec ticks by sampler path (fused = "
+                           "on-chip epilogue, legacy = host argsort).")
+    for m in (sp_enabled, sp_active, sp_k, sp_rate, sp_rate_adapter,
+              sp_rate_slot, sp_prop, sp_acc, sp_steps, sp_tree_steps,
+              sp_tree_width, sp_tree_depth, sp_tree_path, sp_epilogue,
+              sp_fused):
+        m.clear()
+    spec_fn = getattr(eng, "spec_info", None)
+    spec_doc = spec_fn() if callable(spec_fn) else None
+    sp_enabled.set(1 if spec_doc else 0)
+    if spec_doc:
+        sp_active.set(1 if spec_doc.get("active") else 0)
+        sp_k.set(spec_doc.get("k", 0))
+        if spec_doc.get("accept_rate") is not None:
+            sp_rate.set(spec_doc["accept_rate"])
+        for name, v in sorted(
+                (spec_doc.get("adapter_accept_rate") or {}).items()):
+            sp_rate_adapter.set(v, {"adapter": name})
+        # per-slot series are pruned on slot release engine-side; the cap
+        # here bounds exposition cardinality even if an engine misbehaves
+        for slot, v in sorted(
+                (spec_doc.get("slot_accept_rate") or {}).items()
+                )[:_SLOT_SERIES_CAP]:
+            sp_rate_slot.set(v, {"slot": str(slot)})
+        sp_prop.set(spec_doc.get("proposed", 0))
+        sp_acc.set(spec_doc.get("accepted", 0))
+        sp_steps.set(spec_doc.get("spec_steps", 0), {"path": "spec"})
+        sp_steps.set(spec_doc.get("plain_steps", 0), {"path": "plain"})
+        sp_tree_steps.set(spec_doc.get("tree_steps", 0))
+        tree_doc = spec_doc.get("tree")
+        if tree_doc:
+            widths = (tree_doc.get("widths") or
+                      [tree_doc.get("plan_width", 0)])
+            for j, w in enumerate(widths):
+                sp_tree_width.set(w, {"depth": str(j + 1)})
+            sp_tree_depth.set(tree_doc.get("depth", 0))
+            for slot, v in sorted(
+                    (tree_doc.get("slot_path_len") or {}).items()
+                    )[:_SLOT_SERIES_CAP]:
+                sp_tree_path.set(v, {"slot": str(slot)})
+    # the fused epilogue runs in plain decode too, spec or not — restate
+    # from the engine, not the spec document
+    impl = getattr(eng, "_epilogue_impl", "off")
+    sp_epilogue.set({"off": 0, "xla": 1, "kernel": 2}.get(impl, 0))
+    samp_stats = getattr(eng, "sampling_stats", None)
+    if isinstance(samp_stats, dict):
+        sp_fused.set(samp_stats.get("fused_steps", 0), {"path": "fused"})
+        sp_fused.set(samp_stats.get("legacy_steps", 0), {"path": "legacy"})
+    # KV migration fabric: session export/import outcomes (restated from
+    # the engine's scheduler-thread counters, cleared first like the rest)
+    s_exp = reg.counter("dtx_serving_session_export_total",
+                        "Live decode sessions exported for replica-to-"
+                        "replica handoff, by outcome.")
+    s_imp = reg.counter("dtx_serving_session_import_total",
+                        "Exported sessions imported (re-prefill-free "
+                        "resume), by outcome.")
+    s_exp.clear()
+    s_imp.clear()
+    sess_stats = getattr(eng, "session_stats", None)
+    if isinstance(sess_stats, dict):
+        for outcome, n in sorted((sess_stats.get("export") or {}).items()):
+            s_exp.set(n, {"outcome": outcome})
+        for outcome, n in sorted((sess_stats.get("import") or {}).items()):
+            s_imp.set(n, {"outcome": outcome})
+    # multi-tenant QoS plane: per-tenant usage + the host-RAM adapter
+    # tier's load split. BOTH families are created only when their plane
+    # is configured — a tenancy-less engine's scrape stays byte-identical
+    # to one without the plane.
+    usage_fn = getattr(eng, "tenant_usage", None)
+    usage = usage_fn() if callable(usage_fn) else None
+    if usage is not None:
+        t_reqs = reg.counter("dtx_serving_tenant_requests_total",
+                             "Requests per tenant ('' = anonymous).")
+        t_toks = reg.counter("dtx_serving_tenant_tokens_total",
+                             "Tokens per tenant by direction (in = "
+                             "prompt, out = generated).")
+        t_blocks = reg.gauge("dtx_serving_tenant_kv_blocks",
+                             "Live paged KV blocks held by the tenant's "
+                             "in-flight sessions.")
+        t_res = reg.gauge("dtx_serving_tenant_adapters_resident",
+                          "The tenant's adapters currently resident in "
+                          "the pool.")
+        t_tier = reg.gauge("dtx_serving_tenant_tier",
+                           "Tenant tier, one-hot by label "
+                           "(pinned / standard / bulk).")
+        for m in (t_reqs, t_toks, t_blocks, t_res, t_tier):
+            m.clear()
+        for tname, row in sorted(usage.items()):
+            lbl = {"tenant": tname}
+            t_reqs.set(row.get("requests", 0), lbl)
+            t_toks.set(row.get("tokens_in", 0),
+                       {"tenant": tname, "direction": "in"})
+            t_toks.set(row.get("tokens_out", 0),
+                       {"tenant": tname, "direction": "out"})
+            if "kv_blocks" in row:
+                t_blocks.set(row["kv_blocks"], lbl)
+            if "adapters_resident" in row:
+                t_res.set(row["adapters_resident"], lbl)
+            if row.get("tier"):
+                t_tier.set(1, {"tenant": tname, "tier": row["tier"]})
+    host_fn = getattr(getattr(eng, "adapter_registry", None),
+                      "host_tier_stats", None)
+    host = host_fn() if callable(host_fn) else None
+    if host is not None:
+        h_hits = reg.counter("dtx_serving_adapter_host_hits_total",
+                             "Adapter loads served from the host-RAM "
+                             "tier (no orbax read).")
+        h_orbax = reg.counter("dtx_serving_adapter_orbax_loads_total",
+                              "Adapter loads that paid the orbax "
+                              "checkpoint read.")
+        h_evict = reg.counter("dtx_serving_adapter_host_evictions_total",
+                              "Host-tier entries evicted to fit newer "
+                              "weights under the byte budget.")
+        h_bytes = reg.gauge("dtx_serving_adapter_host_bytes",
+                            "Bytes of adapter weights cached in the "
+                            "host-RAM tier.")
+        h_entries = reg.gauge("dtx_serving_adapter_host_entries",
+                              "Adapters cached in the host-RAM tier.")
+        for m in (h_hits, h_orbax, h_evict, h_bytes, h_entries):
+            m.clear()
+        h_hits.set(host.get("host_hits", 0))
+        h_orbax.set(host.get("orbax_loads", 0))
+        h_evict.set(host.get("evictions", 0))
+        h_bytes.set(host.get("bytes", 0))
+        h_entries.set(host.get("entries", 0))
+    # per-adapter demand: prefer the occupancy doc's LOCK-GUARDED copy
+    # (dynamic engines); static engines snapshot under the engine's own
+    # lock — copying the live dict bare would race a concurrent submit
+    reqs = (occ or {}).get("requests")
+    if reqs is None:
+        raw = getattr(eng, "adapter_requests", None)
+        if raw:
+            lock = getattr(eng, "_adapter_req_lock", None)
+            if lock is not None:
+                with lock:
+                    reqs = dict(raw)
+            else:
+                reqs = dict(raw)
+    for name, n in sorted((reqs or {}).items()):
+        a_reqs.set(n, {"adapter": name})
+    return reg.expose(with_exemplars=with_exemplars)
+
+
 
 
 class Handler(BaseHTTPRequestHandler):
@@ -84,6 +506,12 @@ class Handler(BaseHTTPRequestHandler):
     state = STATE
 
     def _json(self, code: int, payload: dict):
+        # counted BEFORE the body goes out, so a scrape racing the response
+        # sees its own request
+        self.state.registry.counter(
+            "dtx_serving_requests_total",
+            "Requests by terminal HTTP code (gateway-parity naming).").inc(
+            {"code": str(code)})
         body = json.dumps(payload).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
@@ -110,48 +538,69 @@ class Handler(BaseHTTPRequestHandler):
             self._adapters_get()
         elif self.path.split("?")[0] == "/metrics":
             self._metrics()
+        elif self.path == "/debug/slo":
+            self._json(200, slo_evaluator(self.state).report(
+                plane="serving"))
+        elif self.path.startswith("/debug/trace/"):
+            self._debug_trace(self.path[len("/debug/trace/"):])
         else:
             self._json(404, {"error": "not found"})
 
     def _metrics(self):
-        """The fleet gauges of ``/metrics``, under the JAX server's names:
-        what a gateway's ``HTTPReplica`` scrapes to place sessions (busy
-        slots, free KV blocks, parked sessions and the declared role). The
-        rest of the JAX server's exposition waits for ROADMAP Queue 1 item
-        12."""
-        eng = self.state.engine
-        gauges = []
-        if eng is not None and hasattr(eng, "_slot_req"):
-            gauges += [
-                ("slots_busy", "Cache slots holding an in-flight request.",
-                 sum(1 for r in eng._slot_req if r is not None)),
-                ("slots_capacity", "Configured cache slots.", eng.slots)]
-        if eng is not None and getattr(eng, "total_kv_blocks", None):
-            gauges += [
-                ("kv_blocks_free", "Free paged KV-cache blocks.",
-                 eng.free_kv_blocks),
-                ("kv_blocks_capacity", "Total paged KV-cache blocks.",
-                 eng.total_kv_blocks),
-                ("kv_block_size", "Tokens per paged KV block.",
-                 getattr(eng, "block_size", 0) or 0)]
-        gauges.append(("sessions_parked", "Preemption-parked sessions "
-                       "awaiting resume.",
-                       int(getattr(eng, "parked_sessions", 0) or 0)))
-        lines = []
-        for name, doc, value in gauges:
-            lines += [f"# HELP dtx_serving_{name} {doc}",
-                      f"# TYPE dtx_serving_{name} gauge",
-                      f"dtx_serving_{name} {value}"]
-        lines += ["# HELP dtx_serving_role Replica disaggregation role, "
-                  "one-hot by label (prefill / decode / mixed).",
-                  "# TYPE dtx_serving_role gauge",
-                  f'dtx_serving_role{{role="{self.state.role}"}} 1']
-        body = ("\n".join(lines) + "\n").encode()
+        """The Prometheus exposition of the shared registry; exemplar
+        annotations only on the ``?exemplars=1`` view (classic parsers
+        reject the tail)."""
+        body = metrics_text(
+            with_exemplars=exemplars_requested(getattr(self, "path", "")),
+            state=self.state).encode()
         self.send_response(200)
         self.send_header("Content-Type", "text/plain; version=0.0.4")
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
+
+    # ----------------------------------------------------------- debugging
+    def _debug_trace(self, trace_id: str):
+        """A request's span from the engine's trace ring (the replica half
+        of the gateway's ``GET /debug/trace/<id>`` merge)."""
+        store = getattr(self.state.engine, "trace_store", None)
+        doc = store.get(trace_id) if store is not None and trace_id else None
+        if doc is None:
+            self._json(404, {"error": f"no trace {trace_id!r}"})
+        else:
+            self._json(200, doc)
+
+    def _debug_profile(self, req: dict):
+        """Open a ``torch.profiler`` window of ``seconds`` over the process
+        (one at a time). The engine's ticks run inside ``dtx_engine_*``
+        ranges, so the Chrome trace at ``<dir>/trace.json`` reads like the
+        scheduler's own timeline, with the kernels under them."""
+        from datatunerx_tpu_torch.obs.profiling import (
+            process_profiler,
+            resolve_profile_dir,
+        )
+
+        try:
+            seconds = float(req.get("seconds", 2.0))
+        except (TypeError, ValueError):
+            self._json(400, {"error": "seconds must be a number"})
+            return
+        try:
+            log_dir = resolve_profile_dir(str(req.get("dir") or ""))
+        except ValueError as e:  # dir escapes the allowed root
+            self._json(400, {"error": str(e)})
+            return
+        try:
+            effective = process_profiler().start(log_dir, seconds)
+        except Exception as e:  # noqa: BLE001 — profiler fault ≠ server fault
+            self._json(500, {"error": f"profiler failed to start: {e}"})
+            return
+        if effective is None:
+            self._json(409, {"error": "a profile capture is already running",
+                             "active": process_profiler().status()})
+            return
+        # echo the CLAMPED window, not the request — what will actually run
+        self._json(202, {"profiling": log_dir, "seconds": effective})
 
     # ---------------------------------------- session migration, fleet plane
     def _read_json(self) -> Optional[dict]:
@@ -386,6 +835,7 @@ class Handler(BaseHTTPRequestHandler):
             "/admin/prefix/export": self._prefix_export,
             "/admin/prefix/import": self._prefix_import,
             "/admin/adapters": self._adapters_post,
+            "/debug/profile": self._debug_profile,
         }
         if self.path in admin:
             req = self._read_json()
@@ -559,7 +1009,7 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
                       checkpoint_path="", adapters=None, adapter_pool=0,
                       adapter_rank_max=8, adapter_targets=None,
                       tenants_config="", host_adapter_cache_mb=0.0,
-                      state=None):
+                      trace_ring=256, trace_log_path="", state=None):
     """Build the engine on a background thread into ``state`` (default: the
     module's ``STATE``); ``/healthz`` flips to 200 when it is ready (or to
     500 with the error). ``slots > 1`` without ``quantization`` builds the
@@ -616,6 +1066,10 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
                     spec_tree=spec_tree or None,
                     prefill_chunk=prefill_chunk,
                     prefill_token_budget=prefill_token_budget,
+                    # the server's registry: the engine's histograms land
+                    # in the same /metrics exposition
+                    registry=state.registry, trace_ring=trace_ring,
+                    trace_log_path=trace_log_path or None,
                     device=device, seed=seed)
             else:
                 from datatunerx_tpu_torch.serving.engine import (
@@ -633,13 +1087,6 @@ def load_engine_async(model_path, template="llama2", max_seq_len=1024,
     t = threading.Thread(target=_load, daemon=True)
     t.start()
     return t
-
-
-# flag → (value that means "feature off", ROADMAP Queue 1 item it waits for)
-_REFUSED = {
-    "trace_log": ("", "item 12 (tooling)"),
-    "slo_config": ("", "item 12 (tooling)"),
-}
 
 
 def parse_adapters(spec: str) -> dict:
@@ -745,22 +1192,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host_adapter_cache_mb", type=float, default=0.0,
                    help="host-RAM budget for evicted pool adapters (MB); 0 "
                         "= off")
-    p.add_argument("--trace_ring", type=int, default=256)
-    p.add_argument("--trace_log", default="")
-    p.add_argument("--slo_config", default="")
-    p.add_argument("--slo_sample_s", type=float, default=15.0)
+    p.add_argument("--trace_ring", type=int, default=256,
+                   help="completed request traces kept for "
+                        "GET /debug/trace/<id>")
+    p.add_argument("--trace_log", default="",
+                   help="append every completed request span as one JSON "
+                        "line to this file")
+    p.add_argument("--slo_config", default="",
+                   help="SLO specs (obs/slo.py format) judged at GET "
+                        "/debug/slo: a JSON file or inline JSON; default "
+                        "the built-in serving objectives")
+    p.add_argument("--slo_sample_s", type=float, default=15.0,
+                   help="background SLO sampling interval (0 = sample only "
+                        "on /debug/slo and /metrics)")
     return p
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """Parse the JAX server's flags; refuse those whose feature the port
-    does not carry yet."""
+    """Parse the JAX server's flags."""
     p = build_parser()
     args = p.parse_args(argv)
-    for flag, (off, item) in _REFUSED.items():
-        if getattr(args, flag) != off:
-            p.error(f"--{flag} is not ported to the PyTorch server yet "
-                    f"(ROADMAP Queue 1 {item})")
     if args.paged_kernel == "on" and args.kv_block_size <= 0:
         p.error("--paged_kernel on requires the paged KV cache "
                 "(--kv_block_size > 0)")
@@ -778,9 +1229,18 @@ def start(args: argparse.Namespace,
     """Start loading the engine and return the bound (not yet serving) HTTP
     server; ``serve_forever`` is the caller's. ``state`` (default: the
     module's ``STATE``) holds the engine; a fresh one lets a process serve
-    a second engine on another port."""
+    a second engine on another port. With ``--slo_sample_s`` above 0 the
+    SLO sampler thread starts here; ``state.slo.stop()`` ends it."""
+    from datatunerx_tpu_torch.obs.slo import load_slos
+
     state = state or STATE
     state.role = args.role
+    if args.slo_config:
+        with state.slo_lock:
+            state.slo = SLOEvaluator(state.registry,
+                                     load_slos(args.slo_config))
+    if args.slo_sample_s > 0:
+        slo_evaluator(state).start(args.slo_sample_s)
     load_engine_async(
         args.model_path, template=args.template, max_seq_len=args.max_seq_len,
         quantization=args.quantization, slots=args.slots,
@@ -799,7 +1259,9 @@ def start(args: argparse.Namespace,
         adapter_rank_max=args.adapter_rank_max,
         adapter_targets=args.adapter_targets,
         tenants_config=args.tenants_config,
-        host_adapter_cache_mb=args.host_adapter_cache_mb, state=state)
+        host_adapter_cache_mb=args.host_adapter_cache_mb,
+        trace_ring=args.trace_ring, trace_log_path=args.trace_log,
+        state=state)
     handler = (Handler if state is STATE else
                type("BoundHandler", (Handler,), {"state": state}))
     return ThreadingHTTPServer((args.host, args.port), handler)
@@ -816,6 +1278,8 @@ def main(argv=None):
         pass
     finally:
         srv.server_close()
+        if STATE.slo is not None:
+            STATE.slo.stop()
         if STATE.engine is not None:
             STATE.engine.close()
     return 0

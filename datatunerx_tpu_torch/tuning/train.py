@@ -76,8 +76,6 @@ def refuse_unported(args: TrainArgs):
             int(v) > 1 for v in (args.mesh_dims or {}).values()),
          "a mesh or worker count above 1 (ROADMAP Queue 1 item 10: "
          "multi-GPU)"),
-        (bool(args.metrics_export_address),
-         "--metrics_export_address (ROADMAP Queue 1 item 12)"),
     ]
     for path in (args.train_path, args.evaluation_path, args.storage_path,
                  args.export_dir, args.output_dir):
@@ -219,7 +217,12 @@ def run(args: TrainArgs) -> dict:
         print(f"[resume] restored step {start_step} from {ckpt_dir}",
               flush=True)
 
-    logger = MetricsLogger(args.output_dir, total_steps)
+    logger = MetricsLogger(
+        args.output_dir, total_steps,
+        metrics_export_address=args.metrics_export_address, uid=args.uid,
+        # the prefetch advisory suggests (and retunes to) a deeper depth
+        # when pipe_step_wait_ms says the step loop waits on the input path
+        prefetch_depth=args.prefetch_depth)
 
     # ----- loop --------------------------------------------------------
     # profiling: a torch.profiler window over steps [start+1, start+1+N);
@@ -277,9 +280,13 @@ def run(args: TrainArgs) -> dict:
             if exhausted:
                 batches = iter(())
             elif pipelined:
+                # a retuned depth carries into every later epoch
                 batches, host_pf = prefetch_batches(
-                    src, device=device, depth=args.prefetch_depth,
+                    src, device=device,
+                    depth=logger.effective_prefetch_depth()
+                    or args.prefetch_depth,
                     stats=pipe_stats)
+                logger.attach_prefetcher(host_pf)
             else:
                 batches = src
             try:

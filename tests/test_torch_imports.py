@@ -87,6 +87,12 @@ REQUIRED = (
     "datatunerx_tpu_torch.ops.cuda_prng",
     "datatunerx_tpu_torch.training.generate",
     "datatunerx_tpu_torch.scoring.metrics",
+    "datatunerx_tpu_torch.obs",
+    "datatunerx_tpu_torch.obs.metrics",
+    "datatunerx_tpu_torch.obs.trace",
+    "datatunerx_tpu_torch.obs.slo",
+    "datatunerx_tpu_torch.obs.profiling",
+    "datatunerx_tpu_torch.training.metrics_log",
 )
 
 
@@ -101,7 +107,7 @@ def test_every_module_imports_without_jax(tmp_path):
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 51  # the modules of slices 1 to 4 and 10 to 14
+    assert n >= 56  # the modules of slices 1 to 4 and 10 to 16
 
 
 def test_engine_defaults_to_cuda_and_refuses_without_it():

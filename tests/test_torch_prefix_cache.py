@@ -7,8 +7,8 @@ with the JAX engine with the prefix cache on, on the same weights (the JAX
 rule.
 
 The reference's ``/metrics`` prefix counters
-(``test_metrics_endpoint_exposes_prefix_counters``) come with ROADMAP Queue 1
-item 12; the port's ``/metrics`` carries only the fleet gauges so far."""
+(``test_metrics_endpoint_exposes_prefix_counters``) are held on the port's
+server too, on both layouts."""
 
 import jax
 import jax.numpy as jnp
@@ -186,6 +186,41 @@ def test_reuse_never_shrinks_decode_budget(engines):
     # the exact entry's cursor (128) cannot serve 180 new tokens
     assert cached.prefill_stats["reuse"] == before["reuse"]
     assert cached.prefill_stats["full"] == before["full"] + 1
+
+
+def test_metrics_endpoint_exposes_prefix_counters(engines):
+    """``GET /metrics`` on the port's server surfaces the prefix cache's
+    hit, miss and eviction counters and its entries gauge, and an exact
+    repeat counts a hit (the reference's test of the same name)."""
+    import threading
+    import urllib.request
+
+    from datatunerx_tpu_torch.serving import server as srv_mod
+
+    _, cached = engines
+    prompt = cached.tokenizer.encode("metrics endpoint probe")
+    cached.generate(prompt, max_new_tokens=2)
+    cached.generate(prompt, max_new_tokens=2)  # exact hit
+    state = srv_mod.ServingState()
+    state.engine = cached
+    handler = type("H", (srv_mod.Handler,), {"state": state})
+    srv = srv_mod.ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_port}/metrics"
+        body = urllib.request.urlopen(url, timeout=10).read().decode()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    for name in ("dtx_serving_prefix_cache_hits_total",
+                 "dtx_serving_prefix_cache_misses_total",
+                 "dtx_serving_prefix_cache_evictions_total",
+                 "dtx_serving_prefix_cache_entries"):
+        assert name in body
+    hits = [line for line in body.splitlines()
+            if line.startswith("dtx_serving_prefix_cache_hits_total")]
+    assert hits and float(hits[0].split()[-1]) >= 1
 
 
 def test_reuse_does_not_corrupt_shared_entry(engines):

@@ -184,18 +184,19 @@ def test_response_keys_equal_the_jax_servers():
          tserver.STATE.error) = saved
 
 
-# the spec flags (item 5) and --role (item 6) are ported; --trace_log and
-# --slo_config stay refused with their item, a role or not
+# every flag of the JAX server is ported now: --trace_log and --slo_config,
+# once refused, parse as the JAX server parses them, a role or not (what
+# they do is held in tests/test_torch_obs.py)
 @pytest.mark.parametrize("extra", [
     ["--trace_log", "x", "--role", "prefill"],
     ["--trace_log", "x"], ["--slo_config", "x"],
     ["--slo_config", "x", "--role", "decode"],
 ])
 def test_flags_outside_the_slice_are_refused(extra, capsys):
-    with pytest.raises(SystemExit) as exc:
-        tserver.parse_args(ARGS + extra)
-    assert exc.value.code == 2
-    assert "ROADMAP Queue 1" in capsys.readouterr().err
+    args = tserver.parse_args(ARGS + extra)
+    for flag, value in zip(extra[::2], extra[1::2]):
+        assert getattr(args, flag[2:]) == value
+    assert capsys.readouterr().err == ""
 
 
 def _serve_one(extra, check):
@@ -461,8 +462,14 @@ def test_metrics_fleet_gauges_match_the_jax_server(role):
         eng = state.engine
         code, body = _request(port, "GET", "/metrics")
         assert code == 200
+        # the fleet gauges among the whole exposition (its other families
+        # are held against the JAX server in tests/test_torch_obs.py)
+        fleet = ("dtx_serving_slots_busy", "dtx_serving_slots_capacity",
+                 "dtx_serving_kv_blocks_free", "dtx_serving_kv_blocks_capacity",
+                 "dtx_serving_kv_block_size", "dtx_serving_sessions_parked",
+                 "dtx_serving_role")
         samples = [ln for ln in body.splitlines()
-                   if ln and not ln.startswith("#")]
+                   if ln.split("{")[0].split(" ")[0] in fleet]
         assert len(samples) == 7, samples
         assert f'dtx_serving_role{{role="{role}"}} 1' in samples
         jserver.STATE.engine, jserver.STATE.role = eng, role

@@ -173,7 +173,6 @@ def test_unported_options_are_refused_with_their_item(tmp_path):
              "requires finetuning_type lora"),
             (dict(attention="ring"), nie, "item 10"),
             (dict(mesh="dp=2"), nie, "item 10"),
-            (dict(metrics_export_address="http://x"), nie, "item 12"),
             (dict(storage_path="gs://bucket/x"), nie, "item 11"),
             (dict(train_path="s3://bucket/t.csv"), nie, "item 11"),
             # the reference's own argument checks, raised by the port too
