@@ -87,7 +87,26 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
     ``generated_predictions.jsonl`` and rouge/bleu in the eval log); K1-K3
     and threefry launch counts exact in every run; prints each run's step
     ms and peak GiB;
-12. prints one JSON ``{"kernels": [...]}`` line (K7, K8, K7-int8,
+12. PPO (after phase 11, whose RM run is its ``--reward_model``): the
+    trainer CLI with ``--stage ppo`` at tinyllama-1.1b's full width and
+    depth (flash, remat dots, bf16, LoRA r8 on q_proj,v_proj), 4 prompts
+    a step filling ``--block_size 192``, ``--ppo_gen_len 64 --ppo_epochs
+    2``, 4 steps; each step's launches exact (K1 = 22 reference + 22
+    reward + 44 a pass = 132, K2 = K3 = 44, threefry 0: PPO runs no
+    dropout), the first pass at the rollout's policy (approx_kl below
+    1e-3, clipfrac 0), finite losses, ``ppo_controller.json`` written;
+    prints the median of steps 3-4: rollout, update and step ms, rollout
+    tokens/s, peak GiB, and step 2's busy share, device ms by kernel
+    group and GPU kernel count (the CLI's ``--profile_steps 1``); the run's K1-K3 and threefry launches go into the
+    kernels line as ``launches@ppo``;
+13. the launch backends: the port's ``LocalProcessBackend`` runs a
+    2-step tinyllama-1.1b LoRA SFT job as a subprocess (``--device
+    cuda``, a ``file://`` storage path), its manifest appears, the port's ``LocalServingBackend``
+    serves its checkpoint in a server subprocess until ``/healthz`` says
+    HEALTHY, which answers two ``/chat/completions`` and two
+    ``/perplexity``; ``delete`` leaves no process; prints the job's time,
+    the time to HEALTHY and the requests' times;
+14. prints one JSON ``{"kernels": [...]}`` line (K7, K8, K7-int8,
     K8-int8, K9, threefry, K10, K1-K6; K7's entries add the splits its
     wrapper launched, the
     CUDA kernels one call launched as torch.profiler traced them, and its
@@ -311,7 +330,7 @@ f32, and the threefry kernel against its plain version, bit for bit, at
 [-1, 1)) and at odd lengths. ``--phase kernels`` stops after phase 2;
 ``--phase serve`` runs phases 1-4, the eight above, the spec phases,
 3-adapters, 3-migrate and 10; ``--phase train`` runs phases 1, 2, 5,
-5-serve, 6-9 and 11; ``--phase qlora`` runs phases 1, 2 and 7-9; ``--phase
+5-serve, 6-9 and 11-13; ``--phase qlora`` runs phases 1, 2 and 7-9; ``--phase
 hf`` runs phases 1, 2 and the three HF phases. The script imports nothing
 of JAX, of the JAX package or of the HF libraries.
 """
@@ -4295,7 +4314,8 @@ def trainer_paths_phase(torch, tmp):
     reference forward included), RM (4 pairs; ``v_head.weight`` in the
     merged export), adafactor and lion (SFT, packed 8 x 1024), streaming
     (SFT, 8 padded rows a step) and generative eval (4 examples, 32 new
-    tokens; ``generated_predictions.jsonl``)."""
+    tokens; ``generated_predictions.jsonl``). Returns the RM run's
+    directory (manifest and checkpoint), phase 12's reward model."""
     import numpy as np
 
     sft = os.path.join(tmp, "train.csv")
@@ -4310,8 +4330,9 @@ def trainer_paths_phase(torch, tmp):
         fail(f"[11] dpo: first-step loss {recs[0]['loss']}, expected ln 2 "
              "(the policy starts equal to the reference)")
     export = os.path.join(tmp, "rm", "export")
-    cli_path(torch, tmp, "rm", ["--stage", "rm", "--train_path", pref,
-                                "--export_dir", export], batch=4)
+    _, _, rm_run, *_ = cli_path(torch, tmp, "rm", [
+        "--stage", "rm", "--train_path", pref, "--export_dir", export],
+        batch=4)
     with np.load(os.path.join(export, "model.npz")) as z:
         if "v_head.weight" not in z.files or z["v_head.weight"].shape != (
                 2048,) or not np.isfinite(z["v_head.weight"]).all():
@@ -4337,6 +4358,333 @@ def trainer_paths_phase(torch, tmp):
     log(f"  generate: {len(rows)} predictions; "
         + ", ".join(f"{k} {scores[-1][k]:.4f}"
                     for k in ("rouge-1", "rouge-2", "rouge-l", "bleu-4")))
+    return rm_run
+
+
+PPO_STEPS, PPO_BATCH, PPO_BLOCK, PPO_GEN, PPO_EPOCHS = 5, 4, 192, 64, 2
+
+
+def write_prompt_csv(path, seed=2, n=PPO_STEPS * PPO_BATCH, words_each=300):
+    """Prompts (an instruction column) made from a seed, each long enough
+    to fill the PPO block: no row is left-padded (ROADMAP Queue 3: the
+    flash forward attends to left pads in both packages)."""
+    import csv
+    import random
+
+    rnd = random.Random(seed)
+    words = ["alpha", "beta", "gamma", "delta", "tensor", "kernel", "train",
+             "model", "token", "layer", "adapter", "rank", "reward", "policy"]
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["instruction"])
+        for i in range(n):
+            w.writerow([f"#{i}: " + " ".join(rnd.choice(words)
+                                            for _ in range(words_each))])
+
+
+def ppo_launches(layers=LAYERS, epochs=PPO_EPOCHS):
+    """A PPO step's flash launches: K1 once a layer for the reference and
+    the reward forwards (no grad, no remat) and twice a layer an update
+    pass (forward + the ``dots`` recompute), K2 and K3 once a layer a
+    pass; no threefry (PPO runs no dropout). The rollout's prefill and
+    decode read the dense cache on the biased path, in both packages."""
+    return {"flash_fwd": 2 * layers + 2 * layers * epochs,
+            "flash_bwd_dq": layers * epochs, "flash_bwd_dkv": layers * epochs,
+            "threefry_bits": 0}
+
+
+def ppo_first_logps(torch, trainer, state, ro):
+    """The first rollout's response log-probs through the update's forward
+    (no grad, the pass's params) three ways: ``flash`` (K1 in bf16, what
+    the pass runs), ``plain`` (the plain attention in bf16) and ``f32``
+    (the plain attention in f32)."""
+    import dataclasses
+
+    from datatunerx_tpu_torch.models.llama import forward, lm_logits
+
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        return tree.float()
+
+    G = ro["old_logp"].shape[1]
+    Tp = ro["seq"].shape[1] - G
+    out = {}
+    for name, impl in (("flash", "flash"), ("plain", "xla"), ("f32", "xla")):
+        cfg = dataclasses.replace(trainer.model_cfg, attention_impl=impl)
+        wide = name == "f32"
+        params = f32(state.params) if wide else state.params
+        lora = f32(state.lora) if wide else state.lora
+        with torch.no_grad():
+            _, _, hid = forward(
+                params, ro["seq"], cfg, positions=ro["positions"],
+                attention_mask=ro["full_mask"], lora=(lora, trainer.scaling),
+                compute_dtype=None if wide else trainer.cfg.compute_dtype,
+                return_hidden=True, skip_logits=True)
+            lg = lm_logits(params, hid[:, Tp - 1:-1], cfg)
+            out[name] = torch.gather(torch.log_softmax(lg, -1), -1,
+                                     ro["seq"][:, Tp:].long()[..., None])[
+                                         ..., 0].float()
+        del params, lora, hid, lg
+    return out
+
+
+def ppo_phase(torch, tmp, rm_run):
+    """``--stage ppo`` through the trainer CLI at tinyllama-1.1b's full
+    width and depth (flash, remat dots, bf16, LoRA r8 on q_proj,v_proj)
+    against phase 11's RM run: 4 prompts a step filling ``PPO_BLOCK``,
+    ``PPO_GEN`` sampled tokens, 2 passes, 5 steps, step 2 under the CLI's
+    profiler window.
+    Holds each step's K1/K2/K3 launches to ``ppo_launches`` and threefry
+    to 0; the first pass's ratio at the rollout's policy (the pass's
+    forward runs before its update, the lr = 0 case): clipfrac 0, and the
+    flash forward's approx_kl within 1e-3 of the plain attention's on the
+    same rollout, with its log-probs no further from the f32 forward's
+    than 1.5 times the plain attention's (bf16 alone parts the cached
+    decode from a full forward by about 1e-3 at this depth); finite
+    losses and the controller state; logs the median
+    of steps 3-5 and the profiled step's busy share, device ms and GPU
+    kernels."""
+    from datatunerx_tpu_torch.ops import cuda_prng
+    from datatunerx_tpu_torch.ops import flash_attention as fa
+    from datatunerx_tpu_torch.training import ppo
+    from datatunerx_tpu_torch.tuning import train
+
+    prompts = os.path.join(tmp, "prompts.csv")
+    write_prompt_csv(prompts)
+    out, store = (os.path.join(tmp, "ppo", n) for n in ("out", "store"))
+    argv = ["--model_name_or_path", "preset:tinyllama-1.1b",
+            "--stage", "ppo",
+            "--reward_model", rm_run, "--train_path", prompts,
+            "--template", "alpaca", "--finetuning_type", "lora",
+            "--lora_target", "q_proj,v_proj", "--attention", "flash",
+            "--remat", "dots", "--bf16", "--block_size", str(PPO_BLOCK),
+            "--per_device_train_batch_size", str(PPO_BATCH),
+            "--ppo_gen_len", str(PPO_GEN), "--ppo_epochs", str(PPO_EPOCHS),
+            "--max_steps", str(PPO_STEPS), "--logging_steps", "1",
+            "--profile_steps", "1", "--output_dir", out,
+            "--storage_path", store, "--uid", "ppo"]
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                cuda_prng.threefry_bits)
+    T = ppo.PPOTrainer
+    real = {n: getattr(T, n) for n in ("step", "_rollout", "_update")}
+    steps, passes = [], []
+
+    def timed(name, sink):
+        def run(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](self, *a, **kw)
+            torch.cuda.synchronize()
+            sink.append({"s": time.perf_counter() - t0})
+            return out
+        return run
+
+    rollouts, updates = [], []
+
+    def step(self, state, batch):
+        before = {c.__name__: c.launches for c in counters}
+        new, metrics = timed("step", steps)(self, state, batch)
+        steps[-1]["launches"] = {c.__name__: c.launches - before[c.__name__]
+                                 for c in counters}
+        return new, metrics
+
+    first_in = []
+
+    def update(self, state, ro):
+        if not first_in:  # the first rollout and the state it was drawn at
+            first_in.extend((self, state, ro))
+        new, metrics = timed("_update", updates)(self, state, ro)
+        passes.append({k: float(metrics[k]) for k in
+                       ("loss", "pg_loss", "vf_loss", "approx_kl",
+                        "clipfrac")})
+        return new, metrics
+
+    T.step, T._rollout, T._update = step, timed("_rollout", rollouts), update
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        rc = train.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        for n, fn in real.items():
+            setattr(T, n, fn)
+    peak = torch.cuda.max_memory_allocated() / 2**30  # before the f32 copy
+    if rc != 0:
+        fail(f"[12] ppo: the trainer CLI returned {rc}")
+    if len(steps) != PPO_STEPS or len(passes) != PPO_STEPS * PPO_EPOCHS:
+        fail(f"[12] ppo: {len(steps)} steps, {len(passes)} update passes")
+    want = ppo_launches()
+    for i, st in enumerate(steps):
+        if st["launches"] != want:
+            fail(f"[12] ppo step {i + 1}: launches {st['launches']}, "
+                 f"expected {want}")
+    first = passes[0]
+    saved = {c.__name__: c.launches for c in counters}
+    lp = ppo_first_logps(torch, *first_in)
+    for c in counters:  # the comparison's launches are not the path's
+        c.launches = saved[c.__name__]
+    ro = first_in[2]
+    m = ro["resp_mask"]
+
+    def mmean(x):
+        return float(torch.sum(x * m) / torch.sum(m))
+
+    kl = {n: mmean(ro["old_logp"] - v) for n, v in lp.items()}
+    err = {n: mmean(torch.abs(v - lp["f32"])) for n, v in lp.items()}
+    err["decode"] = mmean(torch.abs(ro["old_logp"] - lp["f32"]))
+    first_in.clear()
+    log(f"  ppo: first rollout, approx_kl of the cached decode against the "
+        f"update's forward: flash {kl['flash']:.4g} (the pass read "
+        f"{first['approx_kl']:.4g}), plain attention {kl['plain']:.4g}, "
+        f"f32 {kl['f32']:.4g}; mean |log-prob - f32's|: flash "
+        f"{err['flash']:.4g}, plain {err['plain']:.4g}, cached decode "
+        f"{err['decode']:.4g}")
+    if not (first["clipfrac"] == 0.0
+            and abs(kl["flash"] - kl["plain"]) < 1e-3
+            and err["flash"] <= 1.5 * err["plain"]):
+        fail(f"[12] ppo: the first pass (at the rollout's policy) reads "
+             f"clipfrac {first['clipfrac']}, approx_kl {kl['flash']} "
+             f"through flash against {kl['plain']} through the plain "
+             f"attention, mean log-prob error {err['flash']} against "
+             f"{err['plain']}: the flash forward disagrees")
+    if not all(math.isfinite(v) for p in passes for v in p.values()):
+        fail(f"[12] ppo: non-finite update metrics {passes}")
+    with open(os.path.join(out, "watch", "trainer_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if len(recs) != PPO_STEPS or not all(
+            math.isfinite(r[k]) for r in recs
+            for k in ("loss", "reward_score", "kl", "grad_norm")):
+        fail(f"[12] ppo: train records {recs}")
+    cs = ppo.load_controller_state(os.path.join(store, "ppo", "checkpoints"))
+    if cs is None or cs["step"] != PPO_STEPS:
+        fail(f"[12] ppo: controller state {cs}")
+    after = range(2, PPO_STEPS)  # step 2 ran under the profiler
+    roll = median([rollouts[i]["s"] for i in after])
+    upd = median([sum(u["s"] for u in updates[i * PPO_EPOCHS:
+                                               (i + 1) * PPO_EPOCHS])
+                  for i in after])
+    stp = median([steps[i]["s"] for i in after])
+    trace = os.path.join(out, "trace", "trace.json")
+    groups, busy, window_ms, gpu_ms = device_breakdown(trace, 1)
+    with open(trace) as f:
+        kernels = sum(1 for e in json.load(f)["traceEvents"]
+                      if e.get("cat") == "kernel")
+    log(f"  ppo: profiled step 2: {window_ms:.1f} ms of device span, "
+        f"busy {busy * 100:.1f} %, device ms {gpu_ms:.1f} ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in groups.items())
+        + f"); {kernels} GPU kernels in the step")
+    log(f"  ppo: {PPO_STEPS} steps in {wall:.1f} s wall; steps 3-"
+        f"{PPO_STEPS} (median): rollout {roll * 1e3:.1f} ms "
+        f"({PPO_BATCH * PPO_GEN / roll:.1f} tokens/s), update ({PPO_EPOCHS} "
+        f"passes) {upd * 1e3:.1f} ms, step {stp * 1e3:.1f} ms; all steps "
+        f"{[round(st['s'] * 1e3, 1) for st in steps]} ms; peak "
+        f"{peak:.2f} GiB; launches a step {steps[0]['launches']}")
+    log(f"  ppo: first pass approx_kl {first['approx_kl']:.3g}, clipfrac "
+        f"{first['clipfrac']}; records "
+        + "; ".join(f"reward {r['reward_score']:.4f} kl {r['kl']:.4g} loss "
+                    f"{r['loss']:.4f} len {r['response_len']:.1f}"
+                    for r in recs)
+        + f"; kl_coef saved {cs['kl_coef']:.6f}")
+    return {"launches": {k: sum(st["launches"][k] for st in steps)
+                         for k in want},
+            "rollout_ms": roll * 1e3, "update_ms": upd * 1e3,
+            "step_ms": stp * 1e3, "peak_gib": peak}
+
+
+def wait_for(label, probe, want, timeout, poll=0.5):
+    """Poll ``probe()`` until it returns one of ``want``; seconds taken."""
+    t0 = time.perf_counter()
+    while True:
+        got = probe()
+        if got in want:
+            return time.perf_counter() - t0, got
+        if time.perf_counter() - t0 > timeout:
+            fail(f"{label}: still {got!r} after {timeout} s")
+        time.sleep(poll)
+
+
+def launch_phase(torch, tmp):
+    """The port's launch backends on the card: ``LocalProcessBackend``
+    runs a 2-step LoRA SFT job (a trainer subprocess) with a ``file://``
+    storage path, its manifest appears there, ``LocalServingBackend``
+    serves the manifest's checkpoint (a server subprocess) until HEALTHY,
+    which answers two ``/chat/completions`` and two ``/perplexity``;
+    ``delete`` tears both down. The reference operator cannot run here
+    (it imports the JAX package): its half of the pipeline is held on the
+    CPU (``tests/test_torch_pipeline_e2e.py``)."""
+    from datatunerx_tpu_torch.operator.backends import LocalProcessBackend
+    from datatunerx_tpu_torch.serving.local_backend import (
+        LocalServingBackend,
+    )
+    from datatunerx_tpu_torch.training.checkpoint import read_manifest
+
+    csv_path = os.path.join(tmp, "launch.csv")
+    write_train_csv(csv_path, seed=4, n=64)
+    work = os.path.join(tmp, "launch", "jobs")
+    # the storage path through fsspec's file:// scheme: the manifest and
+    # checkpoint are written and served through the object-store plane
+    store = "file://" + os.path.join(tmp, "launch", "store")
+    model, timeout = "preset:tinyllama-1.1b", 600
+    torch.cuda.empty_cache()  # the subprocesses share the card
+    training = LocalProcessBackend(work)
+    serving = LocalServingBackend(work, template="alpaca")
+    try:
+        training.submit("smoke-job", {"args": [
+            "--model_name_or_path", model, "--train_path", csv_path,
+            "--storage_path", store, "--uid", "smoke-job", "--output_dir",
+            "result", "--template", "alpaca", "--lora_target",
+            "q_proj,v_proj", "--attention", "flash", "--remat", "dots",
+            "--bf16", "true", "--block_size", "256",
+            "--per_device_train_batch_size", "4", "--max_steps", "2",
+            "--logging_steps", "1"]})
+        job_s, state = wait_for("[13] training job", lambda: training.status(
+            "smoke-job"), ("Succeeded", "Failed"), timeout)
+        if state != "Succeeded":
+            fail(f"[13] the trainer subprocess failed:\n"
+                 f"{training.log_tail('smoke-job')}")
+        manifest = read_manifest(store, "smoke-job")
+        if manifest is None or manifest.get("steps") != 2 or not manifest[
+                "checkpoint"].startswith("file://"):
+            fail(f"[13] manifest {manifest}")
+        serving.deploy("smoke-app", {
+            "model_path": model, "checkpoint_path": manifest["checkpoint"]})
+        up_s, state = wait_for("[13] server", lambda: serving.status(
+            "smoke-app"), ("HEALTHY", "FAILED"), timeout)
+        if state != "HEALTHY":
+            with open(os.path.join(work, "serve-smoke-app", "log.txt")) as f:
+                fail(f"[13] the server subprocess failed:\n{f.read()[-3000:]}")
+        port = int(serving.endpoint("smoke-app").rsplit(":", 1)[1])
+        # twice each: the first request carries the server's first use of
+        # the card
+        chats = [post(port, {"messages": [{"role": "user",
+                                           "content": "add 2+2"}],
+                             "max_tokens": 16}) for _ in range(2)]
+        ppls = [post_perplexity(port, "add 2+2", " answer 4")
+                for _ in range(2)]
+        ppl = ppls[0][0]
+        if not all(isinstance(c["text"], str) for c in chats) or not (
+                ppl["num_tokens"] > 0 and math.isfinite(ppl["perplexity"])):
+            fail(f"[13] answers: chats {chats}, perplexity {ppl}")
+    finally:
+        serving.delete("smoke-app")
+        training.delete("smoke-job")
+    if serving.status("smoke-app") != "NotFound" or training.status(
+            "smoke-job") != "NotFound":
+        fail("[13] delete left a process behind")
+    chat_ms = [round(c["wall_s"] * 1e3, 1) for c in chats]
+    ppl_ms = [round(ms, 1) for _, ms in ppls]
+    log(f"  launch: job (2 steps, subprocess) {job_s:.1f} s to Succeeded; "
+        f"server to HEALTHY {up_s:.1f} s; /chat/completions {chat_ms} ms "
+        f"(16 tokens max, first and second); /perplexity {ppl_ms} ms "
+        f"({ppl['num_tokens']} tokens, perplexity {ppl['perplexity']:.2f}); "
+        "torn down")
+    return {"job_s": job_s, "up_s": up_s, "chat_ms": chat_ms,
+            "ppl_ms": ppl_ms}
 
 
 # ------------------------------------------------------------- HF phases
@@ -4944,7 +5292,23 @@ def main(argv=None) -> int:
             with tempfile.TemporaryDirectory(prefix="dtx-paths-") as tmp:
                 log("[11] the trainer's paths at tinyllama-1.1b: DPO, RM, "
                     "adafactor, lion, streaming, generative eval")
-                trainer_paths_phase(torch, tmp)
+                rm_run = trainer_paths_phase(torch, tmp)
+                torch.cuda.empty_cache()
+                log(f"[12] PPO at tinyllama-1.1b against phase 11's RM run: "
+                    f"{PPO_BATCH} prompts x block {PPO_BLOCK} a step, "
+                    f"{PPO_GEN} sampled tokens, {PPO_EPOCHS} passes, "
+                    f"{PPO_STEPS} steps (flash, remat dots, bf16)")
+                ppo = ppo_phase(torch, tmp, rm_run)
+                for e in entries:  # the PPO run's launches beside phase 5's
+                    name = getattr(e["counter"], "__name__", "")
+                    if not e.get("path") and name in ppo["launches"]:
+                        e.setdefault("extra", {})["launches@ppo"] = (
+                            ppo["launches"][name])
+                torch.cuda.empty_cache()
+                log("[13] the launch backends: LocalProcessBackend trains 2 "
+                    "steps in a subprocess, LocalServingBackend serves its "
+                    "checkpoint, two chats and two perplexities, teardown")
+                launch_phase(torch, tmp)
             torch.cuda.empty_cache()
 
     if opts.phase in ("all", "hf"):

@@ -1,8 +1,8 @@
 """Dataset ingest and deterministic batch iteration (the port of
 ``datatunerx_tpu/data/loader.py``).
 
-- ``CsvDataset``: a plain CSV/JSONL reader (local paths; object stores are
-  ROADMAP Queue 1 item 11).
+- ``CsvDataset``: a plain CSV/JSONL reader over a local path or an
+  object-store URI (``utils/storage``).
 - ``BatchIterator``: a seedable iterator whose per-epoch permutation is
   numpy's ``default_rng(seed + epoch)``, so it yields the reference's
   batches array for array; ``PreferenceBatchIterator`` runs two of them
@@ -12,6 +12,8 @@
   ``data/prefetch.ReadAheadIterator``), encoded on the fly and shuffled
   through a bounded reservoir with the reference's draws, so a seed gives
   its batches too.
+- ``PromptBatchIterator``: left-padded prompt batches for PPO rollouts,
+  with ``BatchIterator``'s shuffle.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ class CsvDataset:
                 return json.loads(text)
             return [json.loads(line) for line in text.splitlines()
                     if line.strip()]
-        with open(path, "r", newline="") as f:
+        with storage.open_uri(path, "r") as f:
             return list(csv.DictReader(f))
 
     def encode(self, template: Template | str, tokenizer,
@@ -83,7 +85,7 @@ class StreamingCsvDataset:
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         if self.path.endswith((".jsonl", ".json")):
-            with open(self.path, "r") as f:
+            with storage.open_uri(self.path, "r") as f:
                 # blank lines before the first record are skipped, as
                 # CsvDataset strips the whole text
                 first = f.readline()
@@ -98,7 +100,7 @@ class StreamingCsvDataset:
                         yield json.loads(line.strip())
                     line = f.readline()
         else:
-            with open(self.path, "r", newline="") as f:
+            with storage.open_uri(self.path, "r") as f:
                 yield from csv.DictReader(f)
 
 
@@ -310,6 +312,54 @@ class PreferenceBatchIterator:
                    "chosen_labels": bc["labels"],
                    "rejected_ids": br["input_ids"],
                    "rejected_labels": br["labels"]}
+
+    def __iter__(self):
+        return self.epoch(0)
+
+
+class PromptBatchIterator:
+    """Prompt-only batches for PPO rollouts (``training/ppo.py``):
+    LEFT-padded ``prompt_ids`` [B, block] and ``prompt_mask``, real tokens
+    at the end (the generation convention). ``BatchIterator``'s contract:
+    a ``default_rng(seed + epoch)`` permutation, static shapes, the
+    trailing partial batch dropped."""
+
+    def __init__(
+        self,
+        examples: Sequence[Dict[str, List[int]]],
+        *,
+        global_batch: int,
+        block_size: int,
+        pad_id: int = 0,
+        shuffle: bool = True,
+        seed: int = 0,
+        **_ignored,  # grad_accum/pack: the reference's contract, unused
+    ):
+        self.examples = [e for e in examples if e.get("prompt_ids")]
+        self.global_batch = global_batch
+        self.block_size = block_size
+        self.pad_id = pad_id
+        self.shuffle = shuffle
+        self.seed = seed
+
+    def steps_per_epoch(self) -> int:
+        return len(self.examples) // self.global_batch
+
+    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        order = np.arange(len(self.examples))
+        if self.shuffle:
+            order = np.random.default_rng(self.seed + epoch).permutation(
+                order)
+        T = self.block_size
+        for s in range(self.steps_per_epoch()):
+            idx = order[s * self.global_batch:(s + 1) * self.global_batch]
+            ids = np.full((len(idx), T), self.pad_id, np.int32)
+            mask = np.zeros((len(idx), T), np.int32)
+            for r, i in enumerate(idx):
+                p = self.examples[i]["prompt_ids"][-T:]
+                ids[r, T - len(p):] = p
+                mask[r, T - len(p):] = 1
+            yield {"prompt_ids": ids, "prompt_mask": mask}
 
     def __iter__(self):
         return self.epoch(0)

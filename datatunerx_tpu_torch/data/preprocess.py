@@ -1,8 +1,8 @@
-"""Supervised preprocessing (SFT, pt and DPO/RM preference pairs): encode,
-prompt-mask, fixed-shape padding and greedy packing (the port of
-``datatunerx_tpu/data/preprocess.py``, without its native C++ fill: the
-loops below are the reference's own fallback, and the tests hold the
-batches equal).
+"""Supervised preprocessing (SFT, pt, DPO/RM preference pairs, PPO
+prompts): encode, prompt-mask, fixed-shape padding and greedy packing
+(the port of ``datatunerx_tpu/data/preprocess.py``, without its native
+C++ fill: the loops below are the reference's own fallback, and the
+tests hold the batches equal).
 
 - column-mapped records with ``instruction``/``response`` (+ optional
   ``query`` appended to the instruction with a newline, ``history``,
@@ -127,6 +127,33 @@ def preprocess_preference_records(
             pair[f"{side}_ids"] = ids
             pair[f"{side}_labels"] = labels
         out.append(pair)
+    return out
+
+
+def preprocess_prompt_records(
+    records: Iterable[Dict[str, Any]],
+    template: Template,
+    tokenizer,
+    cutoff_len: int = 1024,
+    columns: Optional[Dict[str, str]] = None,
+) -> List[Dict[str, List[int]]]:
+    """PPO prompt sets: only ``instruction`` (+ optional query/history/
+    system) is read, since the policy generates the response; a
+    ``response`` column is ignored. The prompt is encoded as generative
+    eval encodes it, keeping its last ``cutoff_len`` tokens."""
+    out = []
+    for rec in records:
+        rec = map_columns(rec, columns)
+        query = rec.get("instruction")
+        if not (isinstance(query, str) and query):
+            continue
+        if rec.get("query"):
+            query = query + "\n" + rec["query"]
+        prompt_ids, _ = template.encode_oneturn(
+            tokenizer, query, "", rec.get("history"), rec.get("system"))
+        if not prompt_ids:
+            continue
+        out.append({"prompt_ids": prompt_ids[-cutoff_len:]})
     return out
 
 

@@ -9,7 +9,9 @@ merged export (the port of ``datatunerx_tpu/training/checkpoint.py``).
   frozen base is reloaded from the model source — else the params), the
   optimizer state and the run's threefry key (dropout and NEFTune draw
   from it). Orbax checkpoints of the JAX package are not read; the
-  packages cross-load through the export below.
+  packages cross-load through the export below. The directory may be a
+  URI (``utils/storage``). ``checkpoint_steps``/``checkpoint_probe`` list
+  a run's steps for the reference experiment loop.
 - ``write_manifest``/``read_manifest``: ``<storage_path>/<run>/manifest.json``
   plus the legacy ``checkpoint_path`` file, the reference's keys and paths.
 - ``export_merged_model``: the LoRA-merged weights as an HF-layout
@@ -21,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import posixpath
 import shutil
 import time
 import warnings
@@ -41,7 +44,9 @@ class CheckpointManager:
     def __init__(self, directory: str, save_interval_steps: int = 0,
                  max_to_keep: int = 3):
         storage.makedirs(directory)
-        self.directory = os.path.abspath(directory)
+        # an object-store directory (gs://…) is kept as given
+        self.directory = (directory if storage.is_uri(directory)
+                          else os.path.abspath(directory))
         self.save_interval_steps = save_interval_steps
         self.max_to_keep = max_to_keep
 
@@ -60,7 +65,7 @@ class CheckpointManager:
         save_raw_state(self.directory, step, payload)
         if self.max_to_keep:
             for old in self.all_steps()[:-self.max_to_keep]:
-                shutil.rmtree(os.path.join(self.directory, str(old)))
+                storage.remove_tree(storage.join(self.directory, str(old)))
         return True
 
     def latest_step(self) -> Optional[int]:
@@ -82,7 +87,7 @@ class CheckpointManager:
         device = next(iter(_leaves(leaf))).device
         saved = load_raw_state(self.directory, step, map_location=device)
         if "rng" in saved:
-            rng = saved["rng"].numpy().astype(np.uint32)
+            rng = saved["rng"].cpu().numpy().astype(np.uint32)
         else:
             # written before training drew from the threefry twin: only the
             # run seed was kept, and the key a fresh run builds from it
@@ -101,19 +106,46 @@ class CheckpointManager:
 
 
 def saved_steps(directory: str) -> list:
-    """Every step saved under ``directory``, ascending ([] when it holds
-    none or does not exist)."""
-    if not os.path.isdir(directory):
+    """Every step saved under ``directory`` (a local path or a URI),
+    ascending ([] when it holds none or does not exist)."""
+    if not directory:
         return []
-    return sorted(int(n) for n in os.listdir(directory)
-                  if n.isdigit() and os.path.exists(
-                      os.path.join(directory, n, STATE_FILE)))
+    steps = (posixpath.basename(posixpath.dirname(p)) for p in
+             storage.glob(storage.join(directory, "*", STATE_FILE)))
+    return sorted(int(n) for n in steps if n.isdigit())
+
+
+def checkpoint_steps(job) -> list:
+    """The saved steps of an experiment job's ``spec["checkpoint_dir"]``
+    (ascending; [] with no directory configured or nothing saved): the
+    port's listing for the reference experiment loop's
+    ``ContinuousScoringWatcher(checkpoints_fn=...)``. ``job`` is
+    duck-typed: anything with a ``spec`` dict."""
+    return saved_steps(job.spec.get("checkpoint_dir"))
+
+
+def checkpoint_probe(job) -> Optional[int]:
+    """The newest saved step a resumed job fast-forwards to (None: nothing
+    saved, it restarts from step 0): the port's probe for the reference
+    ``SliceScheduler(checkpoint_probe=...)``."""
+    steps = checkpoint_steps(job)
+    return steps[-1] if steps else None
 
 
 def save_raw_state(directory: str, step: int, payload: dict) -> str:
-    """Write ``payload`` as ``<directory>/<step>/state.pt``: into a
-    temporary directory first, then renamed, so a reader never sees half a
-    checkpoint. Returns the step directory."""
+    """Write ``payload`` as ``<directory>/<step>/state.pt``. A local
+    directory is written into a temporary directory first, then renamed; a
+    URI directory's ``state.pt`` is written under a temporary name beside
+    it, then moved into place. Either way a reader (``saved_steps``) never
+    lists half a checkpoint. Returns the step directory."""
+    if storage.is_uri(directory):
+        final = storage.join(directory, str(step))
+        storage.makedirs(final)
+        tmp = storage.join(final, f"{STATE_FILE}.tmp-{os.getpid()}")
+        with storage.open_uri(tmp, "wb") as f:
+            torch.save(payload, f)
+        storage.move(tmp, storage.join(final, STATE_FILE))
+        return final
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, str(step))
     tmp = os.path.join(directory, f".{step}.tmp-{os.getpid()}")
@@ -128,8 +160,9 @@ def save_raw_state(directory: str, step: int, payload: dict) -> str:
 def load_raw_state(directory: str, step: int, map_location="cpu") -> dict:
     """The saved dict of ``<directory>/<step>/state.pt`` (tensors only:
     ``weights_only``)."""
-    return torch.load(os.path.join(directory, str(step), STATE_FILE),
-                      map_location=map_location, weights_only=True)
+    with storage.open_uri(storage.join(directory, str(step), STATE_FILE),
+                          "rb") as f:
+        return torch.load(f, map_location=map_location, weights_only=True)
 
 
 def _leaves(tree):

@@ -1,5 +1,6 @@
 """The train/eval loop in PyTorch (the port of
-``datatunerx_tpu/training/train_lib.py``): SFT, DPO and RM.
+``datatunerx_tpu/training/train_lib.py``): SFT, DPO and RM, and the state
+PPO (``training/ppo.py``) builds on.
 
 One ``Trainer`` covers the finetuning types:
 
@@ -22,7 +23,8 @@ responses under the policy (base + adapter) and under the reference policy
 (π_r − ref_r)])``; ``rm`` trains the adapter and a scalar value head
 ``v_head`` [D] on ``-log σ(r_c − r_r)``, with the reward read at each
 sequence's last response token. Padding pairs (all labels IGNORE) count in
-neither the sum nor the count. PPO is ROADMAP Queue 1 item 11.
+neither the sum nor the count. ``ppo`` gives the policy the same value
+head; ``training/ppo.PPOTrainer`` runs its steps.
 
 Randomness follows the reference's key chain on the threefry twin
 (``ops/prng.py``), on the host: the state's key is ``PRNGKey(seed)``, the
@@ -91,14 +93,14 @@ class TrainConfig:
     grad_accum: int = 1
     neftune_alpha: float = 0.0
     compute_dtype: Any = torch.bfloat16
-    stage: str = "sft"  # sft | dpo | rm
+    stage: str = "sft"  # sft | dpo | rm | ppo
     dpo_beta: float = 0.1
 
     def __post_init__(self):
         if self.finetuning_type not in ("lora", "freeze", "full", "none"):
             raise ValueError(
                 f"invalid finetuning_type {self.finetuning_type!r}")
-        if self.stage not in ("sft", "dpo", "rm"):
+        if self.stage not in ("sft", "dpo", "rm", "ppo"):
             raise ValueError(f"invalid stage {self.stage!r}")
         if self.stage != "sft" and self.finetuning_type != "lora":
             raise ValueError(
@@ -167,7 +169,7 @@ class Trainer:
                 self.model_cfg, prng.fold_in(rng, 0x10AA),
                 rank=self.cfg.lora_rank, targets=tuple(self.cfg.lora_targets),
                 device=self.device)
-            if self.cfg.stage == "rm":
+            if self.cfg.stage in ("rm", "ppo"):
                 # the scalar value head over the final-norm hidden state
                 D = self.model_cfg.hidden_size
                 v = normal(prng.fold_in(rng, 0x4EAD), (D,))

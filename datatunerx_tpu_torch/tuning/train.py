@@ -1,11 +1,15 @@
 """Trainer entry point: ``python -m datatunerx_tpu_torch.tuning.train
 --model_name_or_path … --train_path … --storage_path …`` (the port of
-``datatunerx_tpu/tuning/train.py`` on one device): the sft, pt, dpo and rm
-stages, every optimizer, QLoRA with ``--quantization int4|int8`` (the base
-is quantized on the device right after load, the adapters train, and the
-export dequantizes), ``--streaming`` ingest and ``--predict_with_generate``
+``datatunerx_tpu/tuning/train.py`` on one device): the sft, pt, dpo, rm
+and ppo stages (ppo against the ``--reward_model`` of an rm run), every
+optimizer, QLoRA with ``--quantization int4|int8`` (the base is quantized
+on the device right after load, the adapters train, and the export
+dequantizes), ``--streaming`` ingest and ``--predict_with_generate``
 (rouge/bleu over greedy generations at the end of the run, and every
-``--generate_eval_steps`` steps).
+``--generate_eval_steps`` steps). Datasets, the storage path and the
+manifest may be object-store URIs (``utils/storage``); the output and
+export directories are written with plain file IO, as the reference
+writes them.
 
   parse → load model + tokenizer → template/encode/pack (or a stream) →
   Trainer → (resume?) → epoch loop [train_step, log, eval, generative
@@ -29,6 +33,7 @@ from datatunerx_tpu_torch.data.loader import (
     BatchIterator,
     CsvDataset,
     PreferenceBatchIterator,
+    PromptBatchIterator,
     StreamingBatchIterator,
     StreamingCsvDataset,
 )
@@ -41,6 +46,7 @@ from datatunerx_tpu_torch.data.prefetch import (
 from datatunerx_tpu_torch.data.preprocess import (
     preprocess_preference_records,
     preprocess_pretrain_records,
+    preprocess_prompt_records,
     preprocess_records,
 )
 from datatunerx_tpu_torch.data.templates import get_template
@@ -56,6 +62,13 @@ from datatunerx_tpu_torch.training.checkpoint import (
 )
 from datatunerx_tpu_torch.training.generate import generative_eval
 from datatunerx_tpu_torch.training.metrics_log import MetricsLogger
+from datatunerx_tpu_torch.training.ppo import (
+    PPOConfig,
+    PPOTrainer,
+    load_controller_state,
+    load_reward_model,
+    save_controller_state,
+)
 from datatunerx_tpu_torch.training.train_lib import (
     TrainConfig,
     Trainer,
@@ -69,7 +82,6 @@ from datatunerx_tpu_torch.utils.model_loader import load_model_and_tokenizer
 def refuse_unported(args: TrainArgs):
     """Raise for what this slice does not carry, naming its ROADMAP item."""
     refusals = [
-        (args.stage == "ppo", "--stage ppo (ROADMAP Queue 1 item 11)"),
         (args.attention == "ring",
          "--attention ring (ROADMAP Queue 1 item 10: multi-GPU)"),
         (args.num_workers > 1 or any(
@@ -77,11 +89,6 @@ def refuse_unported(args: TrainArgs):
          "a mesh or worker count above 1 (ROADMAP Queue 1 item 10: "
          "multi-GPU)"),
     ]
-    for path in (args.train_path, args.evaluation_path, args.storage_path,
-                 args.export_dir, args.output_dir):
-        refusals.append((path is not None and storage.is_uri(path),
-                         f"object-store URI {path!r} (ROADMAP Queue 1 item "
-                         "11)"))
     for bad, what in refusals:
         if bad:
             raise NotImplementedError(f"not ported yet: {what}")
@@ -128,10 +135,15 @@ def run(args: TrainArgs) -> dict:
     pad_id = tokenizer.pad_token_id or 0
 
     preference = args.stage in ("dpo", "rm")
+    ppo = args.stage == "ppo"
 
     def encode(records):
         if preference:
             return preprocess_preference_records(
+                records, template, tokenizer, cutoff_len=args.block_size,
+                columns=args.columns_map)
+        if ppo:
+            return preprocess_prompt_records(
                 records, template, tokenizer, cutoff_len=args.block_size,
                 columns=args.columns_map)
         if args.stage == "pt":
@@ -149,7 +161,10 @@ def run(args: TrainArgs) -> dict:
         if not train_examples:
             raise RuntimeError("Empty dataset!")
     eval_examples = eval_records = None
-    if args.evaluation_path:
+    if args.evaluation_path and ppo:
+        print("[ppo] --evaluation_path ignored: PPO's held-out signal is the "
+              "reward/KL curve, not a loss over a fixed eval set", flush=True)
+    elif args.evaluation_path:
         eval_records = CsvDataset(args.evaluation_path,
                                   columns=args.columns_map).records
         eval_examples = encode(eval_records)
@@ -157,8 +172,16 @@ def run(args: TrainArgs) -> dict:
             eval_records = None
 
     grad_accum = args.gradient_accumulation_steps
+    if ppo:
+        if grad_accum > 1:
+            print(f"[ppo] --gradient_accumulation_steps {grad_accum} ignored:"
+                  " a PPO step already makes ppo_epochs optimization passes "
+                  "per rollout batch", flush=True)
+        grad_accum = 1
     global_batch = args.per_device_train_batch_size * grad_accum
-    iterator_cls = PreferenceBatchIterator if preference else BatchIterator
+    iterator_cls = (PreferenceBatchIterator if preference else
+                    PromptBatchIterator if ppo else
+                    BatchIterator)
     if args.streaming:
         it = StreamingBatchIterator(
             StreamingCsvDataset(args.train_path, columns=args.columns_map),
@@ -197,14 +220,30 @@ def run(args: TrainArgs) -> dict:
         warmup_ratio=args.warmup_ratio,
         weight_decay=args.weight_decay,
         max_grad_norm=args.max_grad_norm,
-        total_steps=total_steps,
+        # a PPO step makes ppo_epochs optimizer updates and the schedule
+        # counts updates: the horizon scales so the LR decays over the run
+        total_steps=(total_steps * max(args.ppo_epochs, 1) if ppo
+                     else total_steps),
         grad_accum=grad_accum,
         neftune_alpha=args.neft_alpha,
         compute_dtype=torch.bfloat16 if args.bf16 else None,
-        stage=args.stage if preference else "sft",
+        stage=args.stage if preference or ppo else "sft",
         dpo_beta=args.dpo_beta,
     )
-    trainer = Trainer(cfg, tcfg, device=device)
+    if ppo:
+        reward_lora, reward_scaling = load_reward_model(
+            cfg, params, args.reward_model, device=device)
+        trainer = PPOTrainer(
+            cfg, tcfg,
+            PPOConfig(gen_len=args.ppo_gen_len,
+                      temperature=args.ppo_temperature,
+                      kl_coef=args.init_kl_coef, ppo_target=args.ppo_target,
+                      ppo_epochs=args.ppo_epochs,
+                      score_norm=args.ppo_score_norm),
+            reward_lora=reward_lora, reward_scaling=reward_scaling,
+            eos_id=tokenizer.eos_token_id, pad_id=pad_id, device=device)
+    else:
+        trainer = Trainer(cfg, tcfg, device=device)
     state = trainer.init_state(params, args.seed)
 
     run_name = args.uid or os.path.basename(args.output_dir.rstrip("/")) \
@@ -214,6 +253,10 @@ def run(args: TrainArgs) -> dict:
     start_step = 0
     if args.resume and ckpt.latest_step() is not None:
         state, start_step = ckpt.restore(state)
+        if ppo:
+            cs = load_controller_state(ckpt_dir)
+            if cs is not None:
+                trainer.kl_coef = float(cs["kl_coef"])
         print(f"[resume] restored step {start_step} from {ckpt_dir}",
               flush=True)
 
@@ -236,13 +279,16 @@ def run(args: TrainArgs) -> dict:
     # tokenizer copy, or (not copyable) the pipeline stays synchronous
     gen_in_training = (args.predict_with_generate and eval_records
                        and args.generate_eval_steps > 0)
-    pipelined = args.prefetch_depth > 0
+    # PPO keeps the synchronous path: its step interleaves generation
+    # with optimization and places the prompt batches itself
+    pipelined = args.prefetch_depth > 0 and not ppo
     if pipelined and args.streaming and gen_in_training \
             and not it.ensure_thread_safe_encoding():
         pipelined = False
         print("[pipeline] disabled: --streaming with in-training generative "
               "eval shares one tokenizer that cannot be copied", flush=True)
     lora_run = tcfg.finetuning_type == "lora"
+    step_fn = trainer.step if ppo else trainer.train_step
     pipe_stats = PipelineStats() if pipelined else None
     # step outputs stay on the device and resolve one logging interval
     # late, so a logging boundary never drains the stream
@@ -300,7 +346,7 @@ def run(args: TrainArgs) -> dict:
                             and step >= start_step + 1):
                         prof = _start_profiler(device)
                         prof_until = step + args.profile_steps
-                    state, metrics = trainer.train_step(state, batch)
+                    state, metrics = step_fn(state, batch)
                     step += 1
                     if prof is not None and step >= prof_until:
                         _stop_profiler(prof, device, trace_dir)
@@ -311,8 +357,9 @@ def run(args: TrainArgs) -> dict:
                             extra.update(pipe_stats.snapshot())
                         mbuf.push(step, metrics, extra)
                         log_resolved(mbuf.pop_ready())
-                    if args.save_steps > 0:
-                        ckpt.maybe_save(state, step)
+                    if args.save_steps > 0 and ckpt.maybe_save(state, step) \
+                            and ppo:
+                        save_controller_state(ckpt_dir, step, trainer.kl_coef)
                     if (eval_examples and args.eval_steps > 0
                             and step % args.eval_steps == 0):
                         _run_eval(trainer, state, eval_examples, args,
@@ -347,6 +394,8 @@ def run(args: TrainArgs) -> dict:
         final_metrics.update(_run_eval(trainer, state, eval_examples, args,
                                        pad_id, logger, step))
     ckpt.maybe_save(state, step, force=True)
+    if ppo:
+        save_controller_state(ckpt_dir, step, trainer.kl_coef)
     if args.predict_with_generate and eval_records:
         final_metrics.update(_generate(
             state, trainer, cfg, tokenizer, template, eval_records, args,

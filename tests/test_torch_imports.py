@@ -6,11 +6,14 @@ and tokenize under the same blocker; its entry points default to CUDA and
 refuse to carry on without it, and ``chip_smoke.py`` fails (printing no
 result) without a card or outside a checkout."""
 
+import json
 import os
 import shutil
 import subprocess
 import sys
 import textwrap
+import urllib.error
+import urllib.request
 
 import pytest
 import torch
@@ -52,6 +55,8 @@ _BLOCKER = textwrap.dedent("""
         assert tok.decode(tok.encode(text), skip_special_tokens=True) == text
         assert params["embed_tokens"]["embedding"].shape[0] == cfg.vocab_size
     assert not any(m.split(".")[0] in Block.BLOCKED for m in sys.modules)
+    # fsspec loads only when a URI is used
+    assert "fsspec" not in sys.modules
     print("IMPORTED", len(names))
 """)
 
@@ -93,6 +98,11 @@ REQUIRED = (
     "datatunerx_tpu_torch.obs.slo",
     "datatunerx_tpu_torch.obs.profiling",
     "datatunerx_tpu_torch.training.metrics_log",
+    "datatunerx_tpu_torch.training.ppo",
+    "datatunerx_tpu_torch.utils.storage",
+    "datatunerx_tpu_torch.operator",
+    "datatunerx_tpu_torch.operator.backends",
+    "datatunerx_tpu_torch.serving.local_backend",
 )
 
 
@@ -107,7 +117,7 @@ def test_every_module_imports_without_jax(tmp_path):
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 56  # the modules of slices 1 to 4 and 10 to 16
+    assert n >= 59  # the modules of slices 1 to 4 and 10 to 17
 
 
 def test_engine_defaults_to_cuda_and_refuses_without_it():
@@ -146,6 +156,55 @@ def test_trainer_cli_defaults_to_cuda_and_refuses_without_it(tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(get_config("debug"), TrainConfig())
+
+
+def test_launch_backends_default_to_cuda_and_fail_without_it(tmp_path):
+    """The port's trainer and server subprocesses get ``--device cuda``
+    unless the backend is built with ``device="cpu"``: here, without a
+    card, the job fails and the server never turns healthy."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default would run")
+    import time
+
+    from datatunerx_tpu_torch.operator.backends import LocalProcessBackend
+    from datatunerx_tpu_torch.serving.local_backend import (
+        LocalServingBackend,
+    )
+
+    train = tmp_path / "train.csv"
+    train.write_text("instruction,response\nhi,there\n")
+    training = LocalProcessBackend(str(tmp_path / "jobs"))
+    serving = LocalServingBackend(str(tmp_path / "jobs"))
+    training.submit("job", {"args": [
+        "--model_name_or_path", "preset:debug", "--train_path", str(train),
+        "--storage_path", str(tmp_path / "s")]})
+    serving.deploy("app", {"model_path": "preset:debug"})
+    def health():
+        try:
+            with urllib.request.urlopen(serving.endpoint("app") + "/healthz",
+                                        timeout=2) as r:
+                return json.load(r)
+        except urllib.error.HTTPError as e:  # a failed load answers 500
+            return json.load(e)
+        except OSError:
+            return {}
+
+    try:
+        deadline = time.time() + 90
+        while time.time() < deadline and (
+                training.status("job") == "Running"
+                or health().get("status") != "FAILED"):
+            time.sleep(0.2)
+        assert training.status("job") == "Failed"
+        assert "CUDA" in training.log_tail("job")
+        with open(tmp_path / "jobs" / "job" / "cmd.txt") as f:
+            assert f.read().endswith("--device cuda")
+        doc = health()
+        assert doc["status"] == "FAILED" and "CUDA" in doc["error"]
+        assert serving.status("app") != "HEALTHY"
+    finally:
+        training.delete("job")
+        serving.delete("app")
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):

@@ -166,15 +166,12 @@ def test_export_loads_into_both_packages(tmp_path):
 def test_unported_options_are_refused_with_their_item(tmp_path):
     nie = NotImplementedError
     for extra, exc, item in (
-            (dict(stage="ppo", reward_model="x"), nie, "item 11"),
             # QLoRA's own refusals, as the reference's
             (dict(quantization="int4", quantization_type="fp4"), nie, "fp4"),
             (dict(quantization="int8", finetuning_type="full"), ValueError,
              "requires finetuning_type lora"),
             (dict(attention="ring"), nie, "item 10"),
             (dict(mesh="dp=2"), nie, "item 10"),
-            (dict(storage_path="gs://bucket/x"), nie, "item 11"),
-            (dict(train_path="s3://bucket/t.csv"), nie, "item 11"),
             # the reference's own argument checks, raised by the port too
             (dict(streaming="true"), ValueError, "exclusive"),
             (dict(stage="rm", finetuning_type="full"), ValueError,
