@@ -249,6 +249,37 @@ And after it:
   run's stream, and the source's spilled count equals the coordinator's.
   Prints payload bytes (bf16 and int8 wire), export and import ms, the
   client's gap, TTFTs and each engine's ``session_stats``.
+- 14a, gateway: two port servers in this process (tinyllama-1.1b,
+  ``--template vanilla --max_seq_len 2048 --kv_block_size 16 --slots 4
+  --prefix_cache 8``, one ``--role prefill``, one ``--role decode``)
+  behind the port's ``Gateway`` over two ``HTTPReplica``s, served on a
+  free port: role-aware routing (``prefill_threshold`` 768 tokens), the
+  fleet prefix tier and prefill→decode handoff (ticked by the phase),
+  session handoff on drain, and a tenant directory (a pinned ``gold``, a
+  bulk ``batch`` with a 16-block quota). K7, K8 and K9 are zeroed before
+  the gateway's traffic: four concurrent greedy chats; a ~520-token
+  prompt, then the prefix tier's ticks; a ~880-token prompt holding it,
+  which the prefill replica admits from the pushed prefix (no prefill
+  chunk of the shared part) and whose decode a tick moves to the decode
+  replica mid-stream; a 64-token greedy stream on the decode replica, held
+  by a gate at 8 tokens and drained with ``POST /admin/drain`` (one
+  session imported, the drained replica empty); ``batch``'s ~600-token
+  request answers 429 naming the tenant and the blocks, ``gold``'s 200,
+  ``GET /admin/tenants`` lists both; ``/metrics`` holds the gateway's,
+  the tenants' and the fleet's families and both replicas' KV gauges.
+  The launches, summed over both replicas, must equal their schedulers'
+  traces (the kernels line adds ``launches@gateway`` to K7, K8 and K9).
+  The same prompts sent straight to a replica afterwards hold every
+  stream (``check_greedy``), and every spliced client stream is the
+  tail's text plus its continuation's. Prints the handoff tick's ms, the
+  drain's client gap and, each request alone in turns, TTFT and tok/s
+  through the gateway and direct, and the gateway's added ms;
+- 14b, gateway spawn: ``LocalServingBackend`` deploys ``{"replicas": 2,
+  "kv_block_size": 16, "slots": 4}`` of tinyllama-1.1b: the port's gateway
+  process spawns two port server processes on the card; HEALTHY within
+  600 s, two chats, ``scale_hint`` 2, ``scale`` to 1 (the drained
+  process reaped), and after ``delete`` no port server process is left
+  and ``nvidia-smi --query-compute-apps`` lists none of them.
 
 After phase 5 (``--phase train`` and ``all``):
 
@@ -329,7 +360,8 @@ f32, and the threefry kernel against its plain version, bit for bit, at
 8 x 1024 x 2048 (the keep mask at p = 0.9 and the uniform draw over
 [-1, 1)) and at odd lengths. ``--phase kernels`` stops after phase 2;
 ``--phase serve`` runs phases 1-4, the eight above, the spec phases,
-3-adapters, 3-migrate and 10; ``--phase train`` runs phases 1, 2, 5,
+3-adapters, 3-migrate, 14 and 10; ``--phase gateway`` runs phases 1, 2
+and 14; ``--phase train`` runs phases 1, 2, 5,
 5-serve, 6-9 and 11-13; ``--phase qlora`` runs phases 1, 2 and 7-9; ``--phase
 hf`` runs phases 1, 2 and the three HF phases. The script imports nothing
 of JAX, of the JAX package or of the HF libraries.
@@ -4687,6 +4719,467 @@ def launch_phase(torch, tmp):
             "ppl_ms": ppl_ms}
 
 
+# ------------------------------------------------------------- phase 14
+
+GATEWAY_FLAGS = ("--template", "vanilla", "--max_seq_len", "2048",
+                 "--kv_block_size", "16", "--slots", "4",
+                 "--prefix_cache", "8")
+GATEWAY_NEW = 64
+GATEWAY_THRESHOLD = 768  # tokens: only the handoff prompt reaches it
+# a pinned tenant, and a bulk one whose quota is below what a ~600-token
+# prompt needs (blocks_for_admit(600, 16) = 42)
+GATEWAY_TENANTS = {"gold": {"tier": "pinned", "share": 3},
+                   "batch": {"tier": "bulk", "share": 1,
+                             "kv_block_quota": 16}}
+GW_FAMILIES = (
+    "dtx_gateway_requests_total", "dtx_gateway_request_latency_seconds",
+    "dtx_gateway_replica_up", "dtx_gateway_replica_role",
+    "dtx_gateway_role_routes_total", "dtx_gateway_handoff_total",
+    "dtx_gateway_handoff_splices_total", "dtx_gateway_shed_total",
+    "dtx_gateway_tenant_requests_total", "dtx_gateway_tenant_share",
+    "dtx_gateway_replica_kv_blocks_free",
+    "dtx_gateway_adapter_resident_replicas",
+    "dtx_fleet_handoff_total", "dtx_fleet_prefix_entries")
+
+
+def rand_text(rnd, n):
+    """``n`` bytes of lowercase words: ``n`` tokens under the byte-level
+    tokenizer of the presets."""
+    out = ""
+    while len(out) < n:
+        out += "".join(rnd.choice("abcdefghijklmnopqrstuvwxyz")
+                       for _ in range(rnd.randrange(2, 9))) + " "
+    return out[:n]
+
+
+def gate(eng, when):
+    """Hold ``eng``'s scheduler between two ticks while ``when()`` is true,
+    until the returned callable releases it; the held loop keeps serving
+    session commands (the first call of every tick), so an export or an
+    import still runs: a gate, not a clock."""
+    opened = threading.Event()
+    serve = eng._service_migrations
+
+    def held():
+        serve()
+        while when() and not opened.is_set():
+            opened.wait(0.001)
+            serve()
+
+    eng._service_migrations = held
+
+    def release():
+        opened.set()
+        del eng._service_migrations
+
+    return release
+
+
+def gw_post(port, body, trace="", tenant="", stream=False):
+    """(status, JSON body or SSE text, wall s) of one chat to the
+    gateway."""
+    headers = {"Content-Type": "application/json", "X-DTX-Trace-Id": trace}
+    if tenant:
+        headers["X-DTX-Tenant"] = tenant
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/chat/completions", headers=headers,
+        data=json.dumps(dict(body, stream=stream)).encode())
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            if not stream:
+                return resp.status, json.loads(resp.read()), \
+                    time.perf_counter() - t0
+            text = ""
+            for ev in sse_events(resp):
+                if "error" in ev:
+                    raise RuntimeError(ev["error"])
+                text += ev["choices"][0]["delta"].get("content") or ""
+            return resp.status, text, time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.perf_counter() - t0
+
+
+def spliced_text(tok, tail, full):
+    """A client's stream spliced at ``tail``: the gateway sends the
+    import's ``text_so_far`` (the tail's whole text), then the
+    continuation's stream past the tail."""
+    return (tok.decode(tail, skip_special_tokens=True)
+            + sse_text(tok, full, len(tail)))
+
+
+def server_pids(root=None):
+    """Pids of the port's server processes (whose working directory is
+    under ``root``, if given)."""
+    pids = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().split(b"\0")
+            cwd = os.readlink(f"/proc/{pid}/cwd")
+        except OSError:
+            continue
+        if b"datatunerx_tpu_torch.serving.server" in cmd and (
+                root is None or cwd.startswith(root)):
+            pids.append(int(pid))
+    return sorted(pids)
+
+
+def gateway_phase(torch, counters):
+    """14a (see the module docstring): the port's gateway in this process
+    over two in-process port servers. ``counters`` are K7, K8 and K9's
+    ``(wrapper, attribute)``; returns their launches over the gateway's
+    traffic."""
+    import random
+
+    from datatunerx_tpu_torch.gateway.admission import AdmissionController
+    from datatunerx_tpu_torch.gateway.replica_pool import (
+        HTTPReplica,
+        ReplicaPool,
+    )
+    from datatunerx_tpu_torch.gateway.server import Gateway, serve
+    from datatunerx_tpu_torch.serving import server
+    from datatunerx_tpu_torch.utils.model_loader import load_tokenizer
+
+    rnd = random.Random(18)
+    t_phase = time.perf_counter()
+    servers, ports, engines = {}, {}, {}
+    for role in ("prefill", "decode"):
+        state = server.ServingState()
+        srv, ports[role], engines[role] = start_server(
+            torch, GATEWAY_FLAGS + ("--role", role), state=state)
+        servers[role] = (srv, state)
+    gw = srv_gw = None
+    try:
+        tok = load_tokenizer("preset:tinyllama-1.1b")
+        pool = ReplicaPool(
+            [HTTPReplica(role, f"http://127.0.0.1:{ports[role]}", role=role)
+             for role in ("prefill", "decode")], health_interval_s=1.0)
+        gw = Gateway(pool, model_name="preset:tinyllama-1.1b",
+                     admission=AdmissionController(
+                         count_tokens=lambda t: len(tok.encode(t))),
+                     prefill_threshold=GATEWAY_THRESHOLD,
+                     fleet_prefix_bytes=256 << 20, fleet_handoff=True,
+                     session_handoff=True, tenants=GATEWAY_TENANTS)
+        srv_gw = serve(gw, port=0, host="127.0.0.1")
+        threading.Thread(target=srv_gw.serve_forever, daemon=True).start()
+        gport = srv_gw.server_port
+        seen = {r: record_submits(e) for r, e in engines.items()}
+        imported = {r: capture_imports(e) for r, e in engines.items()}
+        P, D = engines["prefill"], engines["decode"]
+
+        def where(tid):
+            return next(r for r in engines if tid in seen[r])
+
+        def body(text, new=GATEWAY_NEW):
+            return {"messages": [{"role": "user", "content": text}],
+                    "max_tokens": new, "temperature": 0.0}
+
+        zero(counters)
+        marks = {r: len(e.sched_trace) for r, e in engines.items()}
+
+        # ---- 1. four concurrent greedy chats
+        chats = [rand_text(rnd, 160 + 48 * i) for i in range(4)]
+        out = {}
+        threads = [threading.Thread(target=lambda i=i: out.setdefault(
+            i, gw_post(gport, body(chats[i]), trace=f"gw-chat-{i}")))
+            for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        if any(out.get(i, (0,))[0] != 200 for i in range(4)):
+            fail(f"14 chats: {out}")
+        chat_reqs = [seen[where(f"gw-chat-{i}")][f"gw-chat-{i}"]
+                     for i in range(4)]
+        log(f"  chats: replicas {[where(f'gw-chat-{i}') for i in range(4)]}"
+            f", {[len(r.tokens) for r in chat_reqs]} tokens")
+
+        # ---- 2. the prefix tier: a shared ~520-token prompt served once
+        shared = rand_text(rnd, 520)
+        code, _, _ = gw_post(gport, body(shared, 8), trace="gw-shared")
+        if code != 200 or where("gw-shared") != "decode":
+            fail(f"14 prefix: the shared prompt answered {code} on "
+                 f"{where('gw-shared')}")
+        # a tick syncs the replicas in turn, pulling before it pushes: the
+        # decode replica's entries reach the prefill replica on the second
+        t0 = time.perf_counter()
+        ticks = [gw.fleet.tick() for _ in range(2)]
+        tick1_ms = (time.perf_counter() - t0) * 1e3
+        if ticks[1]["prefix"]["pushed"] < 1:
+            fail(f"14 prefix: the tier pushed nothing: {ticks}")
+
+        # ---- 3. handoff: a prompt above the threshold, the shared one
+        # inside it, goes to the prefill replica; its decode moves on
+        long_text = shared + rand_text(rnd, 360)
+        mark_p = len(P.sched_trace)
+        release = gate(P, lambda: any(r is not None and len(r.tokens) >= 3
+                                      for r in P._slot_req))
+        hand = {}
+        th = threading.Thread(target=lambda: hand.setdefault(
+            "out", gw_post(gport, body(long_text), trace="gw-handoff",
+                           stream=True)))
+        try:
+            th.start()
+            t0 = time.perf_counter()
+            while not any(r is not None and len(r.tokens) >= 3
+                          for r in P._slot_req):
+                if time.perf_counter() - t0 > 300 or not th.is_alive():
+                    fail("14 handoff: the prefill replica never decoded")
+                time.sleep(0.001)
+            # the coordinator reads the replica's last scraped stats, which
+            # routing refreshes once their 1 s lifetime is up: refresh them
+            # as routing would, until they show the session
+            rep = gw.pool.get("prefill")
+            while not rep.stats().get("slots_busy"):
+                if time.perf_counter() - t0 > 300:
+                    fail("14 handoff: the prefill replica's stats never "
+                         "showed the session")
+                time.sleep(0.01)
+            t0 = time.perf_counter()
+            tick2 = gw.fleet.tick()
+            handoff_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            release()
+        th.join(timeout=600)
+        if tick2["handoff"]["moved"] != 1 or hand["out"][0] != 200:
+            fail(f"14 handoff: tick {tick2}, answer {hand['out'][0]}")
+        trace_p = list(P.sched_trace)[mark_p:]
+        admits = [e for e in trace_p if e[0] == "admit"]
+        p_tokens = sum(e[2] for e in trace_p if e[0] == "prefill")
+        h_req = seen["prefill"]["gw-handoff"]
+        h_ids = list(h_req.prompt_ids)
+        s_len = len(tok.encode(shared, add_special_tokens=True))
+        log(f"  prefix + handoff: the {len(h_ids)}-token prompt was admitted "
+            f"on the prefill replica as {[e[3] for e in admits]}, which "
+            f"prefilled {p_tokens} tokens in chunks (the shared "
+            f"{s_len}-token prompt none); the tick moving it took "
+            f"{handoff_ms:.1f} ms (the prefix tier's two ticks "
+            f"{tick1_ms:.1f} ms: {[t['prefix'] for t in ticks]})")
+        if p_tokens > len(h_ids) - s_len + 64:
+            fail(f"14 prefix: the prefill replica prefilled {p_tokens} of "
+                 f"{len(h_ids)} tokens with {s_len} shared")
+        stats = gw.fleet.stats()
+        if stats["handoff"].get("ok") != 1:
+            fail(f"14 handoff: the gateway's stats {stats['handoff']}")
+        h_tail, h_full = list(h_req.tokens), imported["decode"][
+            "gw-handoff"].tokens
+        if h_full[:len(h_tail)] != h_tail or hand["out"][1] != spliced_text(
+                tok, h_tail, h_full):
+            fail("14 handoff: the client's stream is not the tail and its "
+                 "continuation")
+
+        # ---- 4. drain: a 64-token greedy stream on the decode replica
+        drain_text = rand_text(rnd, 300)
+        release = gate(D, lambda: any(r is not None and len(r.tokens) >= 8
+                                      for r in D._slot_req))
+        drained = {}
+        th = threading.Thread(target=lambda: drained.setdefault(
+            "out", gw_post(gport, body(drain_text), trace="gw-drain",
+                           stream=True)))
+        try:
+            th.start()
+            t0 = time.perf_counter()
+            while not any(r is not None and len(r.tokens) >= 8
+                          for r in D._slot_req):
+                if time.perf_counter() - t0 > 300 or not th.is_alive():
+                    fail("14 drain: the decode replica never decoded")
+                time.sleep(0.001)
+            code, doc = admin(gport, "POST", "/admin/drain",
+                              {"replica": "decode"})
+            last = dict(gw.last_handoff)
+            empty = all(r is None for r in D._slot_req)
+        finally:
+            release()
+        th.join(timeout=600)
+        if code != 200 or last.get("imported") != 1 or not empty:
+            fail(f"14 drain: answered {code} {doc}, last handoff {last}, "
+                 f"the drained replica empty: {empty}")
+        d_req = seen["decode"]["gw-drain"]
+        d_imp = imported["prefill"]["gw-drain"]
+        d_tail, d_full = list(d_req.tokens), list(d_imp.tokens)
+        if drained["out"][0] != 200 or d_full[:len(d_tail)] != d_tail or \
+                drained["out"][1] != spliced_text(tok, d_tail, d_full):
+            fail("14 drain: the client's stream is not the tail and its "
+                 "continuation")
+        drain_gap_ms = (d_imp.first_token_ts - d_req.last_token_ts) * 1e3
+        gw.pool.get("decode").undrain()
+        log(f"  drain: {len(d_tail)} tokens on the decode replica, "
+            f"{len(d_full) - len(d_tail)} after the splice on the prefill "
+            f"replica; the client's gap (the source's last token to the "
+            f"destination's first) {drain_gap_ms:.1f} ms; handoffs "
+            f"{gw.handoff_stats()}")
+
+        # ---- 5. tenancy
+        t_text = rand_text(rnd, 600)
+        code_b, doc_b, _ = gw_post(gport, body(t_text), trace="gw-batch",
+                                   tenant="batch")
+        err = doc_b.get("error", "") if isinstance(doc_b, dict) else ""
+        if code_b != 429 or "tenant batch" not in err or "blocks" not in err:
+            fail(f"14 tenancy: the bulk request answered {code_b} {doc_b}")
+        code_g, _, _ = gw_post(gport, body(t_text), trace="gw-gold",
+                               tenant="gold")
+        code_t, tenants = admin(gport, "GET", "/admin/tenants")
+        if code_g != 200 or code_t != 200 or sorted(
+                tenants.get("tenants", {})) != ["batch", "gold"]:
+            fail(f"14 tenancy: gold answered {code_g}, /admin/tenants "
+                 f"{code_t} {tenants}")
+        log(f"  tenancy: bulk 429 ({err}); pinned 200; /admin/tenants "
+            f"lists {sorted(tenants['tenants'])}")
+
+        # ---- 6. /metrics
+        with urllib.request.urlopen(f"http://127.0.0.1:{gport}/metrics",
+                                    timeout=60) as r:
+            text = r.read().decode()
+        missing = [f for f in GW_FAMILIES if f"# TYPE {f} " not in text]
+        kv = [ln for ln in text.splitlines()
+              if ln.startswith("dtx_gateway_replica_kv_blocks_free{")]
+        if missing or len(kv) != 2:
+            fail(f"14 /metrics: missing {missing}, kv lines {kv}")
+
+        # ---- 7. launches over the gateway's traffic, summed over both
+        got = {counter_key(c, a): getattr(c, a) for c, a in counters}
+        L = P.cfg.num_layers
+        steps = chunks = 0
+        for r, e in engines.items():
+            s_, c_, _ = trace_counts(e, marks[r])
+            steps, chunks = steps + s_, chunks + c_
+        want = dict(zip(got, (L * steps, L * chunks, steps)))
+        log(f"  launches: {got} over {steps} decode steps and {chunks} "
+            f"prefill chunks of both replicas' traces; expected {want}")
+        if got != want or steps <= 0 or chunks <= 0:
+            fail(f"14 launches {got}, expected {want}")
+
+        # ---- the same prompts straight to a replica (not counted)
+        for i, req in enumerate(chat_reqs):
+            r = where(f"gw-chat-{i}")
+            code, _, _ = gw_post(ports[r], body(chats[i]),
+                                 trace=f"direct-chat-{i}")
+            ref = seen[r][f"direct-chat-{i}"]
+            check_greedy(torch, f"14 chat {i}", list(req.tokens),
+                         list(ref.tokens), engines[r], list(req.prompt_ids),
+                         GATEWAY_NEW, stops=req.stop_ids)
+        for label, tid, full, text in (
+                ("handoff", "gw-handoff", h_full, long_text),
+                ("drain", "gw-drain", d_full, drain_text)):
+            gw_post(ports["decode"], body(text), trace=f"direct-{label}")
+            ref = seen["decode"][f"direct-{label}"]
+            req = seen["prefill" if label == "handoff" else "decode"][tid]
+            check_greedy(torch, f"14 {label}", list(full), list(ref.tokens),
+                         D, list(req.prompt_ids), GATEWAY_NEW,
+                         stops=req.stop_ids)
+
+        # ---- timing: each request alone, gateway and direct in turns
+        timing = {"gateway": {"ttft": [], "wall": [], "tokens": []},
+                  "direct": {"ttft": [], "wall": [], "tokens": []}}
+        for k in range(2):
+            for j, route in enumerate(
+                    ("gateway", "direct", "direct", "gateway") if k == 0
+                    else ("direct", "gateway", "gateway", "direct")):
+                port = gport if route == "gateway" else ports["decode"]
+                tid = f"time-{route}-{k}-{j}"
+                _, _, ttft = gw_post(port, body(rand_text(rnd, 400), 1))
+                code, doc, wall = gw_post(port, body(rand_text(rnd, 400)),
+                                          trace=tid)
+                if code != 200:
+                    fail(f"14 timing: {route} answered {code} {doc}")
+                n = len(seen[where(tid)][tid].tokens)
+                timing[route]["ttft"].append(ttft * 1e3)
+                timing[route]["wall"].append(wall * 1e3)
+                timing[route]["tokens"].append(n)
+        summary = {}
+        for route, t in timing.items():
+            summary[route] = {
+                "ttft_ms": median(t["ttft"]), "wall_ms": median(t["wall"]),
+                "tok_s": median([n / (w / 1e3) for n, w in
+                                 zip(t["tokens"], t["wall"])])}
+        added = summary["gateway"]["wall_ms"] - summary["direct"]["wall_ms"]
+        log(f"  a request alone (400-token prompts, host clock, medians of "
+            f"4): through the gateway TTFT (1 token) "
+            f"{summary['gateway']['ttft_ms']:.1f} ms, 64 tokens "
+            f"{summary['gateway']['wall_ms']:.1f} ms = "
+            f"{summary['gateway']['tok_s']:.1f} tok/s; direct TTFT "
+            f"{summary['direct']['ttft_ms']:.1f} ms, "
+            f"{summary['direct']['wall_ms']:.1f} ms = "
+            f"{summary['direct']['tok_s']:.1f} tok/s; the gateway adds "
+            f"{added:.1f} ms a request")
+        log(f"  14a took {time.perf_counter() - t_phase:.1f} s")
+        return got
+    finally:
+        if srv_gw is not None:
+            srv_gw.shutdown()
+            srv_gw.server_close()
+        if gw is not None:
+            gw.slo.stop()
+            gw.pool.close()
+        for role in list(servers):
+            srv, state = servers.pop(role)
+            eng = state.engine
+            stop_server(srv, state)
+            eng.close()
+
+
+def gateway_spawn_phase(torch, tmp):
+    """14b (see the module docstring): ``LocalServingBackend`` deploys the
+    port's gateway, which spawns two port servers on the card; scaled to
+    one, then deleted, leaving no server process."""
+    from datatunerx_tpu_torch.serving.local_backend import (
+        LocalServingBackend,
+    )
+
+    work = os.path.join(tmp, "gateway-deploy")
+    torch.cuda.empty_cache()  # the subprocesses share the card
+    backend = LocalServingBackend(work)
+    pids = []
+    try:
+        backend.deploy("gw", {"model_path": "preset:tinyllama-1.1b",
+                              "replicas": 2, "kv_block_size": 16,
+                              "slots": 4})
+        up_s, state = wait_for("[14b] gateway", lambda: backend.status(
+            "gw"), ("HEALTHY", "FAILED"), 600)
+        if state != "HEALTHY":
+            with open(os.path.join(work, "serve-gw", "log.txt")) as f:
+                fail(f"[14b] the gateway failed:\n{f.read()[-3000:]}")
+        pids = server_pids(work)
+        if len(pids) != 2:
+            fail(f"[14b] {len(pids)} replica processes, expected 2")
+        port = int(backend.endpoint("gw").rsplit(":", 1)[1])
+        chats = []
+        for i in range(2):
+            code, doc, wall = gw_post(port, {
+                "messages": [{"role": "user", "content": f"chat {i}"}],
+                "max_tokens": 16})
+            if code != 200 or "content" not in doc["choices"][0]["message"]:
+                fail(f"[14b] chat {i}: {code} {doc}")
+            chats.append(round(wall * 1e3, 1))
+        hint = backend.scale_hint("gw")
+        if not hint or hint["replicas"] != 2:
+            fail(f"[14b] hint {hint}, expected 2 replicas")
+        if not backend.scale("gw", 1):
+            fail("[14b] scale to 1 was refused")
+        scale_s, _ = wait_for("[14b] scale", lambda: (backend.scale_hint(
+            "gw") or {}).get("replicas"), (1,), 120)
+        reap_s, _ = wait_for("[14b] reap", lambda: len(server_pids(work)),
+                             (1,), 120)
+    finally:
+        backend.delete("gw")
+    left_s, _ = wait_for("[14b] delete", lambda: len(server_pids()), (0,), 60)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True)
+    listed = {int(x) for x in smi.stdout.split() if x.strip().isdigit()}
+    if smi.returncode != 0 or listed & set(pids):
+        fail(f"[14b] nvidia-smi still lists {listed & set(pids)} "
+             f"({smi.stderr.strip()})")
+    log(f"  deploy: HEALTHY in {up_s:.1f} s (a gateway and 2 port servers); "
+        f"chats {chats} ms (16 tokens max); hint 2 replicas, then 1 after "
+        f"{scale_s:.1f} s, the drained replica's process gone after "
+        f"{reap_s:.1f} s more; after delete no server process within "
+        f"{left_s:.1f} s, none of {pids} on the card")
+
+
 # ------------------------------------------------------------- HF phases
 HF_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_hf")
 # the published configurations' config.json fields (Llama-2-7b-hf,
@@ -5068,7 +5561,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", default="all",
                     choices=["all", "kernels", "serve", "train", "qlora",
-                             "hf"])
+                             "hf", "gateway"])
     opts = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "datatunerx_tpu_torch", "csrc")):
         fail("datatunerx_tpu_torch/ is missing: run from a repository "
@@ -5236,6 +5729,24 @@ def main(argv=None) -> int:
             "prefix tier, peer spill")
         migrate_phase(torch, [by_name[k] for k in ("K7", "K8", "K9")],
                       [by_name[k] for k in ("K7-int8", "K8-int8")])
+    if opts.phase in ("all", "serve", "gateway"):
+        log("[14a] the port's gateway over two port servers in this "
+            "process (prefill and decode roles, the fleet prefix tier and "
+            "handoff, session handoff, tenants): chats, a prefix, a "
+            "handoff, a drain, a tenant's 429, /metrics")
+        gated = gateway_phase(torch, [by_name[k] for k in ("K7", "K8", "K9")])
+        for e in entries:  # the gateway's launches beside the serve phase's
+            if not e.get("path") and e["name"].split()[0] in ("K7", "K8",
+                                                               "K9"):
+                e.setdefault("extra", {})["launches@gateway"] = gated[
+                    counter_key(e["counter"], e.get("count", "launches"))]
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="dtx-gateway-") as tmp:
+            log("[14b] LocalServingBackend deploys the port's gateway over "
+                "2 port server subprocesses: HEALTHY, chats, scale 2 -> 1, "
+                "delete")
+            gateway_spawn_phase(torch, tmp)
+        torch.cuda.empty_cache()
 
     if opts.phase in ("all", "train", "qlora"):
         # each kernel's launches come from the run of its own path

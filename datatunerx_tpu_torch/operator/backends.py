@@ -10,8 +10,14 @@ root on ``PYTHONPATH``. Completion is the process's exit plus the
 trainer's completion manifest. Status vocabulary: Pending | Running |
 Succeeded | Failed | NotFound.
 
-One host only: ``spec["num_hosts"] > 1`` raises (multi-GPU is ROADMAP
-Queue 1 item 10).
+``ManifestBackend`` renders the same workloads as Kubernetes manifests for
+a GKE GPU node pool (a JobSet for training, a Deployment and Service for
+serving: ``nvidia.com/gpu`` limits, a ``cloud.google.com/gke-accelerator``
+node selector, ``--device cuda``) without submitting them; ``status``
+reads a ``<name>-status.json`` dropped beside the manifest.
+
+One host only: ``spec["num_hosts"] > 1`` raises in both backends
+(multi-GPU is ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -32,6 +38,15 @@ def _pkg_root() -> str:
 
     return os.path.dirname(os.path.dirname(os.path.abspath(
         datatunerx_tpu_torch.__file__)))
+
+
+def _one_host(name: str, spec: dict) -> int:
+    hosts = max(1, int(spec.get("num_hosts", 1) or 1))
+    if hosts > 1:
+        raise NotImplementedError(
+            f"job {name!r} asks for {hosts} hosts: multi-GPU training "
+            "is not ported yet (ROADMAP Queue 1 item 10)")
+    return hosts
 
 
 def subprocess_env(extra_env: dict, spec_env: Optional[dict] = None) -> dict:
@@ -56,11 +71,7 @@ class LocalProcessBackend:
         self._lock = threading.Lock()
 
     def submit(self, name: str, spec: dict) -> None:
-        hosts = max(1, int(spec.get("num_hosts", 1) or 1))
-        if hosts > 1:
-            raise NotImplementedError(
-                f"job {name!r} asks for {hosts} hosts: multi-GPU training "
-                "is not ported yet (ROADMAP Queue 1 item 10)")
+        _one_host(name, spec)
         with self._lock:
             if name in self._procs:
                 return
@@ -130,3 +141,186 @@ class LocalProcessBackend:
             return "".join(data.splitlines(keepends=True)[-n:])
         except OSError:
             return ""
+
+
+# -------------------------------------------------------------- manifests
+
+def jobset_state(status: dict) -> str:
+    """JobSet status → backend state vocabulary. A 'Completed'=True
+    condition is terminal success, 'Failed'=True terminal failure; any
+    active/ready replicated job counts as Running; otherwise Pending."""
+    for cond in status.get("conditions") or []:
+        if str(cond.get("status")) != "True":
+            continue
+        t = cond.get("type", "")
+        if t == "Completed":
+            return "Succeeded"
+        if t in ("Failed", "FailurePolicyComplete"):
+            return "Failed"
+    for rj in status.get("replicatedJobsStatus") or []:
+        if (rj.get("active", 0) or 0) > 0 or (rj.get("ready", 0) or 0) > 0:
+            return "Running"
+    return "Pending"
+
+
+def deployment_state(status: dict) -> str:
+    for cond in status.get("conditions") or []:
+        if (cond.get("type") == "ReplicaFailure"
+                and str(cond.get("status")) == "True"):
+            return "FAILED"
+        # crash-looping pods never set ReplicaFailure; the deployment's
+        # progress deadline (default 600s) is the terminal signal for them
+        if (cond.get("type") == "Progressing"
+                and str(cond.get("status")) == "False"
+                and cond.get("reason") == "ProgressDeadlineExceeded"):
+            return "FAILED"
+    if (status.get("availableReplicas") or 0) >= 1:
+        return "HEALTHY"
+    return "PENDING"
+
+
+class ManifestBackend:
+    """Renders k8s manifests for a GKE GPU node pool instead of submitting
+    them: training → a JobSet of one host running the port's trainer CLI;
+    serving → Deployment + Service running the port's server, one GPU a
+    pod."""
+
+    def __init__(self, out_dir: str, accelerator: str = "nvidia-h100-80gb"):
+        self.out_dir = out_dir
+        self.accelerator = accelerator
+        os.makedirs(out_dir, exist_ok=True)
+        self._submitted: Dict[str, dict] = {}
+
+    def _node_selector(self, spec: dict) -> dict:
+        return {"cloud.google.com/gke-accelerator": self.accelerator,
+                **(spec.get("node_selector") or {})}
+
+    def render_training(self, name: str, spec: dict) -> dict:
+        hosts = _one_host(name, spec)
+        image = spec.get("image", "datatunerx-tpu/trainer:latest")
+        args = [str(a) for a in spec["args"]] + ["--device", "cuda"]
+        return {
+            "apiVersion": "jobset.x-k8s.io/v1alpha2",
+            "kind": "JobSet",
+            "metadata": {"name": name, "labels": spec.get("labels", {})},
+            "spec": {
+                "replicatedJobs": [{
+                    "name": "gpu-hosts",
+                    "replicas": 1,
+                    "template": {
+                        "spec": {
+                            "parallelism": hosts,
+                            "completions": hosts,
+                            "backoffLimit": 0,
+                            "template": {
+                                "metadata": {"labels": spec.get("labels", {})},
+                                "spec": {
+                                    "restartPolicy": "Never",
+                                    "nodeSelector": self._node_selector(spec),
+                                    "containers": [{
+                                        "name": "trainer",
+                                        "image": image,
+                                        "command": ["python", "-m", "datatunerx_tpu_torch.tuning.train"],
+                                        "args": args,
+                                        "env": [
+                                            {"name": "DTX_COORDINATOR_ADDRESS",
+                                             "value": f"{name}-gpu-hosts-0-0.{name}:8476"},
+                                            {"name": "DTX_NUM_PROCESSES", "value": str(hosts)},
+                                            {"name": "DTX_PROCESS_ID",
+                                             "valueFrom": {"fieldRef": {"fieldPath": (
+                                                 "metadata.annotations['batch.kubernetes.io/job-completion-index']")}}},
+                                        ] + [
+                                            {"name": k, "value": str(v)}
+                                            for k, v in spec.get("env", {}).items()
+                                        ],
+                                        "resources": {"limits": {"nvidia.com/gpu": "1"}},
+                                    }],
+                                },
+                            },
+                        },
+                    },
+                }],
+            },
+        }
+
+    def render_serving(self, name: str, spec: dict) -> list:
+        labels = {"app": name, **spec.get("labels", {})}
+        deployment = {
+            "apiVersion": "apps/v1",
+            "kind": "Deployment",
+            "metadata": {"name": name, "labels": labels},
+            "spec": {
+                # horizontal serving scale: the Service spreads requests
+                # over the server pods
+                "replicas": int(spec.get("replicas") or 1),
+                "selector": {"matchLabels": {"app": name}},
+                "template": {
+                    "metadata": {"labels": labels},
+                    "spec": {
+                        "nodeSelector": self._node_selector(spec),
+                        "tolerations": spec.get("tolerations", []),
+                        "containers": [{
+                            "name": "server",
+                            "image": spec.get("image", "datatunerx-tpu/serving:latest"),
+                            "command": ["python", "-m", "datatunerx_tpu_torch.serving.server"],
+                            "args": [
+                                "--model_path", spec["model_path"],
+                                "--checkpoint_path", spec.get("checkpoint_path", ""),
+                                "--port", "8000",
+                                "--quantization", spec.get("quantization", ""),
+                                *(["--slots", str(spec["slots"])]
+                                  if spec.get("slots") is not None else []),
+                                "--device", "cuda",
+                            ],
+                            "ports": [{"containerPort": 8000}],
+                            "readinessProbe": {
+                                "httpGet": {"path": "/healthz", "port": 8000},
+                                "periodSeconds": 5,
+                            },
+                            "resources": {"limits": {"nvidia.com/gpu": "1"}},
+                        }],
+                    },
+                },
+            },
+        }
+        service = {
+            "apiVersion": "v1",
+            "kind": "Service",
+            "metadata": {"name": name, "labels": labels},
+            "spec": {
+                "selector": {"app": name},
+                "ports": [{"port": 8000, "targetPort": 8000}],
+            },
+        }
+        return [deployment, service]
+
+    def submit(self, name, spec):
+        manifest = self.render_training(name, spec)
+        self._submitted[name] = manifest
+        with open(os.path.join(self.out_dir, f"{name}-jobset.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+
+    def status(self, name):
+        """No apiserver to poll: the feedback is a status file
+        (``<name>-status.json``) dropped next to the manifest by whatever
+        applied it — either ``{"state": "Running"}`` or a raw JobSet status
+        object (mapped through ``jobset_state``). No file = Pending."""
+        if name not in self._submitted:
+            return "NotFound"
+        path = os.path.join(self.out_dir, f"{name}-status.json")
+        try:
+            with open(path) as f:
+                status = json.load(f)
+        except (OSError, ValueError):
+            return "Pending"
+        if isinstance(status, dict) and isinstance(status.get("state"), str):
+            return status["state"]
+        return jobset_state(status if isinstance(status, dict) else {})
+
+    def delete(self, name):
+        self._submitted.pop(name, None)
+        for suffix in ("-jobset.json", "-status.json"):
+            try:
+                os.remove(os.path.join(self.out_dir, f"{name}{suffix}"))
+            except OSError:
+                pass

@@ -103,6 +103,17 @@ REQUIRED = (
     "datatunerx_tpu_torch.operator",
     "datatunerx_tpu_torch.operator.backends",
     "datatunerx_tpu_torch.serving.local_backend",
+    "datatunerx_tpu_torch.gateway",
+    "datatunerx_tpu_torch.gateway.admission",
+    "datatunerx_tpu_torch.gateway.autoscale",
+    "datatunerx_tpu_torch.gateway.metrics",
+    "datatunerx_tpu_torch.gateway.replica_pool",
+    "datatunerx_tpu_torch.gateway.router",
+    "datatunerx_tpu_torch.gateway.server",
+    "datatunerx_tpu_torch.experiment",
+    "datatunerx_tpu_torch.experiment.metrics",
+    "datatunerx_tpu_torch.experiment.promotion",
+    "datatunerx_tpu_torch.cli",
 )
 
 
@@ -117,7 +128,57 @@ def test_every_module_imports_without_jax(tmp_path):
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 59  # the modules of slices 1 to 4 and 10 to 17
+    assert n >= 80  # the modules of slices 1 to 4 and 10 to 18
+
+
+def test_gateway_and_backend_launch_only_port_modules(monkeypatch,
+                                                      tmp_path):
+    """The port gateway's spawned replicas and ``LocalServingBackend``'s
+    command lines name only ``datatunerx_tpu_torch`` modules, on ``--device
+    cuda`` unless the caller asks for the CPU."""
+    from datatunerx_tpu_torch.gateway import server as gateway
+    from datatunerx_tpu_torch.serving.local_backend import (
+        LocalServingBackend,
+    )
+
+    launched = []
+
+    class FakeProc:
+        def __init__(self, argv, **kw):
+            launched.append(list(argv))
+
+        def poll(self):
+            return None
+
+        def terminate(self):
+            pass
+
+        def wait(self, timeout=None):
+            return 0
+
+    monkeypatch.setattr(gateway.subprocess, "Popen", FakeProc)
+    for device in ("cuda", "cpu"):
+        kw = {} if device == "cuda" else {"device": "cpu"}
+        rs = gateway.ManagedReplicaSet(
+            gateway.ReplicaPool(), ["--model_path", "preset:debug"],
+            workdir=str(tmp_path), supervise_interval_s=0,
+            roles=["prefill", "decode"], **kw)
+        rs.scale(2)
+        rs.close()
+        backend = LocalServingBackend(str(tmp_path), **kw)
+        for replicas in (1, 2):
+            launched.append(backend.argv(
+                {"model_path": "m", "replicas": replicas, "role": "decode"},
+                8000, str(tmp_path)))
+        cmds = launched[-4:]
+        assert [c[2] for c in cmds] == [
+            "datatunerx_tpu_torch.serving.server"] * 3 + [
+            "datatunerx_tpu_torch.gateway.server"]
+        for c in cmds:
+            assert c[1] == "-m" and c[c.index("--device") + 1] == device
+            assert not any("datatunerx_tpu." in a for a in c)
+        assert [c[c.index("--role") + 1] for c in cmds[:2]] == [
+            "prefill", "decode"]
 
 
 def test_engine_defaults_to_cuda_and_refuses_without_it():

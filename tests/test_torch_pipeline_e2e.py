@@ -198,9 +198,15 @@ def test_experiment_loop_sees_port_steps(tmp_path):
 
 @pytest.mark.parametrize("spec", [{"replicas": 2}, {"gateway": True}])
 def test_serving_gateway_and_multi_host_training_are_refused(tmp_path, spec):
+    """More than one host is refused (item 10); a gateway deployment is not
+    any more: it launches the port's gateway over port replicas on the
+    backend's device (deployed and scaled in tests/test_torch_gateway.py)."""
     serving = LocalServingBackend(str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        serving.deploy("x", dict(spec, model_path="preset:debug"))
+    argv = serving.argv(dict(spec, model_path="preset:debug"), 8000,
+                        str(tmp_path))
+    assert argv[1:3] == ["-m", "datatunerx_tpu_torch.gateway.server"]
+    assert argv[argv.index("--replicas") + 1] == str(spec.get("replicas", 1))
+    assert argv[argv.index("--device") + 1] == "cpu"
     assert serving.status("x") == "NotFound"
     training = LocalProcessBackend(str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
