@@ -363,8 +363,36 @@ f32, and the threefry kernel against its plain version, bit for bit, at
 3-adapters, 3-migrate, 14 and 10; ``--phase gateway`` runs phases 1, 2
 and 14; ``--phase train`` runs phases 1, 2, 5,
 5-serve, 6-9 and 11-13; ``--phase qlora`` runs phases 1, 2 and 7-9; ``--phase
-hf`` runs phases 1, 2 and the three HF phases. The script imports nothing
-of JAX, of the JAX package or of the HF libraries.
+hf`` runs phases 1, 2 and the three HF phases; ``--phase parallel`` runs
+phases 1, 2 and 15.
+
+15. parallel (``--phase parallel`` and ``all``, last): the multi-GPU
+    slice on one card. (a) The threefry kernel's block draws (a rank's
+    dp rows, sp chunk or tp column shard of a global draw) bit-equal to its
+    plain version; K1, K2 and K3 with ``causal=False`` (the ring's
+    past chunks) against their plain versions within ``FLASH_TOL`` at a
+    ring chunk of tinyllama's heads (B 2, T 1024, H 32, KV 4, d 64) and of
+    llama2-7b's (H = KV = 32, d 128), timed with the L2 flushed beside the
+    plain versions and non-causal SDPA forward and backward: the
+    ``K1@ring``/``K2@ring``/``K3@ring`` entries of the kernels line, whose
+    launches are (b)'s. (b) The sp = 4 ring's schedule for every rank in
+    this process over the kernels (``ring_schedule``: the rotation by
+    indexing; one process cannot hold an NCCL ring on one card), T = 4 x
+    1024 at tinyllama's heads: output and dQ/dK/dV within ``FLASH_TOL`` of
+    the same schedule over the plain versions and within ``RING_TOL`` of
+    one causal flash call over T = 4096, exactly 16 launches each of K1, K2
+    and K3, the ring's wall time beside the one call's. (c) The trainer
+    CLI at tinyllama width (phase 5's data and shape, 2 steps) with
+    ``--attention ring --mesh dp=1`` and with ``--attention xla``: equal
+    losses; ``maybe_initialize_distributed`` reports a world of 1. (d)
+    ``estimate_footprint`` at phases 5, 7 and 8 and hf-llama2's LoRA at or
+    above the peaks those phases measured in this run; ``check_fits`` on
+    the card's budget rejects a 7B full-parameter job and admits a 7B
+    QLoRA one. (e) ``LocalProcessBackend`` with more hosts than cards on
+    CUDA raises, naming the card count.
+
+The script imports nothing of JAX, of the JAX package or of the HF
+libraries.
 """
 
 from __future__ import annotations
@@ -5513,8 +5541,10 @@ def hf_phases(torch, tmp, by_name):
     launches.update({k + "@hf-llama2": v for k, v in served.items()})
     log("[hf-llama2 train] the trainer CLI on the same directory: LoRA r8 "
         "on q_proj,v_proj, bf16, flash, remat dots, packed 8x1024, 3 steps")
-    trained, _ = train_phase(torch, tmp, steps=3, profile=0, export=False,
-                             model=path, layers=layers)
+    trained, run = train_phase(torch, tmp, steps=3, profile=0,
+                               export=False, model=path, layers=layers)
+    if layers == 32:  # phase 15's estimate is at full depth
+        PEAKS["hf-llama2"] = run["peak_gib"]
     launches.update({k + "@hf-llama2": trained[k] for k in
                      ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
     torch.cuda.empty_cache()
@@ -5557,11 +5587,409 @@ def hf_phases(torch, tmp, by_name):
 
 
 # ------------------------------------------------------------------- main
+# ------------------------------------------------------------------ phase 15
+RING_SHAPES = {"tinyllama": (2, 1024, 32, 4, 64),
+               "llama2": (2, 1024, 32, 32, 128)}  # B, T_local, H, KV, d
+RING_SP = 4
+# the sp = 4 ring against ONE causal flash call over the whole sequence:
+# the ring rounds each chunk's output (and each chunk's dQ/dK/dV) to bf16
+# before the f32 merge, so it carries two bf16 roundings where the one
+# call carries one: twice FLASH_TOL
+RING_TOL = (2**-5, 2**-5)
+# peak GiB (torch.cuda.max_memory_allocated) of this run's training phases,
+# by phase: read by phase 15's memory check
+PEAKS = {}
+
+
+def check_flash_ring(torch, timer, gen):
+    """Phase 15a: K1, K2 and K3 with ``causal=False`` (the ring's past
+    chunks) against their plain versions at the ring's chunk shapes
+    (``RING_SHAPES``), timed with the L2 flushed beside the plain versions
+    and non-causal SDPA. Returns the ``@ring`` kernel entries (timed at
+    tinyllama's heads) and logs llama2-7b's."""
+    from datatunerx_tpu_torch.ops import flash_attention as fa
+
+    rows = {}
+    for label, (B, T, H, KV, d) in RING_SHAPES.items():
+        q, k, v, do, _ = flash_inputs(torch, B, T, H, KV, d, gen)
+        got_o, got_lse = fa.flash_fwd(q, k, v, None, causal=False)
+        want_o, want_lse = fa._plain_fwd(q, k, v, None, False, 512, 512)
+        dsum = fa.row_dot(do, want_o)
+        got_dq = fa.flash_bwd_dq(q, k, v, do, want_lse, dsum, None,
+                                 causal=False)
+        got_dk, got_dv = fa.flash_bwd_dkv(q, k, v, do, want_lse, dsum, None,
+                                          causal=False)
+        want_dq = fa._plain_bwd_dq(q, k, v, do, want_lse, dsum, None, False,
+                                   512, 512)
+        want_dk, want_dv = fa._plain_bwd_dkv(q, k, v, do, want_lse, dsum,
+                                             None, False, 512, 512)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, pairs in (("K1", [(got_o, want_o)]),
+                            ("K2", [(got_dq, want_dq)]),
+                            ("K3", [(got_dk, want_dk), (got_dv, want_dv)])):
+            err = 0.0
+            for got, want in pairs:
+                if not bool(torch.isfinite(got.float()).all()):
+                    fail(f"{name}@ring ({label}) wrote non-finite values")
+                ok, e = close_enough(torch, got, want, *FLASH_TOL)
+                if not ok:
+                    fail(f"{name}@ring ({label}, causal=False) disagrees "
+                         f"with its plain version: max abs err {e}")
+                err = max(err, e)
+            errs[name] = err
+        lse_err = float((got_lse - want_lse).abs().max())
+        if lse_err > 1e-3:
+            fail(f"K1@ring ({label}) lse differs from the plain version by "
+                 f"{lse_err}")
+        pairs = B * H * T * T  # every (query, key) pair: no mask
+        io = 2 * (2 * B * T * H * d + 2 * B * T * KV * d)
+        stats = 2 * B * H * T * 4
+        bounds = {
+            "K1": bound_ms(io + B * H * T * 4, 4 * d * pairs,
+                           BF16_OPS_PER_S),
+            "K2": bound_ms(io + 2 * B * T * H * d + stats, 6 * d * pairs,
+                           BF16_OPS_PER_S),
+            "K3": bound_ms(io + 4 * B * T * KV * d + stats, 8 * d * pairs,
+                           BF16_OPS_PER_S),
+        }
+        ms = {
+            "K1": timer.ms(lambda: fa.flash_fwd(q, k, v, None, causal=False)),
+            "K2": timer.ms(lambda: fa.flash_bwd_dq(
+                q, k, v, do, want_lse, dsum, None, causal=False)),
+            "K3": timer.ms(lambda: fa.flash_bwd_dkv(
+                q, k, v, do, want_lse, dsum, None, causal=False)),
+        }
+        plain = {
+            "K1": timer.ms(lambda: fa._plain_fwd(q, k, v, None, False, 512,
+                                                 512), reps=3, warmup=1),
+            "K2": timer.ms(lambda: fa._plain_bwd_dq(
+                q, k, v, do, want_lse, dsum, None, False, 512, 512), reps=3,
+                warmup=1),
+            "K3": timer.ms(lambda: fa._plain_bwd_dkv(
+                q, k, v, do, want_lse, dsum, None, False, 512, 512), reps=3,
+                warmup=1),
+        }
+        qs, ks, vs, dos = (t.transpose(1, 2) for t in (q, k, v, do))
+        lib_fwd = timer.ms(lambda: sdpa(torch, qs, ks, vs, causal=False))
+        leaf = [t.detach().requires_grad_() for t in (qs, ks, vs)]
+        o2 = sdpa(torch, *leaf, causal=False)
+        lib_bwd = timer.ms(lambda: torch.autograd.grad(o2, leaf, dos,
+                                                       retain_graph=True))
+        log(f"  flash non-causal {label} [B={B} T=S={T} H={H} KV={KV} d={d}]"
+            ": " + ", ".join(
+                f"{n} {ms[n]:.4f} ms (err {errs[n]:.3g}, plain "
+                f"{plain[n]:.2f} ms, bound {bounds[n][0]:.4f} "
+                f"{bounds[n][1]})" for n in ms)
+            + f"; SDPA non-causal forward {lib_fwd:.4f} ms, backward "
+            f"{lib_bwd:.4f} ms; K1 {ms['K1'] / lib_fwd:.2f}x, K2+K3 "
+            f"{(ms['K2'] + ms['K3']) / lib_bwd:.2f}x")
+        rows[label] = (errs, ms, bounds, plain,
+                       {"K1": lib_fwd, "K2": lib_bwd, "K3": lib_bwd})
+        del q, k, v, do, leaf, o2
+    meta = {
+        "K1": ("K1@ring flash_fwd", "datatunerx_tpu/ops/flash_attention.py:85",
+               fa.flash_fwd),
+        "K2": ("K2@ring flash_bwd_dq",
+               "datatunerx_tpu/ops/flash_attention.py:191", fa.flash_bwd_dq),
+        "K3": ("K3@ring flash_bwd_dkv",
+               "datatunerx_tpu/ops/flash_attention.py:233", fa.flash_bwd_dkv),
+    }
+    errs, ms, bounds, plain, lib = rows["tinyllama"]
+    entries = []
+    for key, (name, replaces, counter) in meta.items():
+        library = ("SDPA forward, non-causal" if key == "K1" else
+                   "SDPA backward, non-causal (dQ, dK, dV together), "
+                   "compare with K2+K3")
+        entries.append({
+            "name": name, "route": "cuda", "path": "@ring",
+            "source": "datatunerx_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces, "counter": counter,
+            "max_abs_err": max(r[0][key] for r in rows.values()),
+            "tolerance": "atol 2^-6 + rtol 2^-6 (bf16), causal=False, "
+                         "tinyllama and llama2-7b heads",
+            "ms": ms[key], "plain_ms": plain[key],
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            "library_ms": lib[key], "library": library,
+            "shape": "B=2 T=S=1024 H=32 KV=4 d=64 causal=False bf16 (a "
+                     "ring chunk; timed); library: " + library,
+        })
+    return entries
+
+
+def check_threefry_blocks(torch, timer):
+    """Phase 15a: the threefry kernel drawing a rank's block of a global
+    draw (``index``: a start counter and the block's strides) against its
+    plain version, bit for bit, on blocks of phase 5's [8, 1024, 2048]
+    (dp rows, an sp chunk, an sp chunk of a tp column shard) and of the
+    down projection's [8, 1024, 5632] input (a row module's column
+    shard); times an sp chunk (B strided runs) beside a contiguous draw of
+    as many elements."""
+    from datatunerx_tpu_torch.ops import cuda_prng, prng
+
+    key = prng.fold_in(prng.PRNGKey(19), 3)
+    blocks = (((8, 1024, 2048), (4, 0, 0), (4, 1024, 2048)),
+              ((8, 1024, 2048), (0, 512, 0), (8, 512, 2048)),
+              ((8, 1024, 2048), (2, 256, 1024), (2, 256, 1024)),
+              ((8, 1024, 5632), (0, 0, 2816), (8, 1024, 2816)))
+    for global_shape, starts, local in blocks:
+        idx = prng.slice_index(global_shape, starts)
+        got = cuda_prng.threefry_bits(key, local, "cuda", p=0.9, index=idx)
+        want = cuda_prng.plain_bernoulli(key, 0.9, local, "cuda", idx)
+        if not torch.equal(got, want):
+            fail(f"threefry kernel: the block {local} at {starts} of "
+                 f"{global_shape} differs from its plain version")
+        got = cuda_prng.threefry_bits(key, local, "cuda", lo=-1.0, hi=1.0,
+                                      index=idx)
+        want = cuda_prng.plain_uniform(key, local, -1.0, 1.0, "cuda", idx)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"threefry kernel: the uniform block {local} at {starts} "
+                 "differs from its plain version")
+    idx = prng.slice_index((8, 1024, 2048), (0, 512, 0))
+    strided = timer.ms(lambda: cuda_prng.threefry_bits(
+        key, (8, 512, 2048), "cuda", p=0.9, index=idx))
+    flat = timer.ms(lambda: cuda_prng.threefry_bits(
+        key, (8, 512, 2048), "cuda", p=0.9))
+    log(f"  threefry blocks (dp rows, sp chunk, sp x tp shard, row-module "
+        f"shard): kernel == plain bit for bit, mask and uniform; an sp "
+        f"chunk [8, 512, 2048] of [8, 1024, 2048] {strided:.4f} ms vs a "
+        f"contiguous draw of as many {flat:.4f} ms")
+
+
+def ring_phase(torch, timer, gen):
+    """Phase 15b: the sp = 4 ring's schedule for every rank in this process
+    (``ops/ring_attention.ring_schedule``: the rotation by indexing) over
+    the kernels, at tinyllama's heads and T = 4 x 1024: output and
+    dQ/dK/dV against the same schedule over the plain versions
+    (``FLASH_TOL``) and against one causal flash call over T = 4096
+    (``RING_TOL``); K1, K2 and K3 launched exactly n² = 16 times each.
+    Returns the launch counts."""
+    from datatunerx_tpu_torch.ops import flash_attention as fa
+    from datatunerx_tpu_torch.ops import ring_attention as ra
+
+    B, t, H, KV, d = RING_SHAPES["tinyllama"]
+    n = RING_SP
+    T = n * t
+    q, k, v, do, _ = flash_inputs(torch, B, T, H, KV, d, gen)
+
+    def chunks(x):
+        return [x[:, r * t:(r + 1) * t].contiguous() for r in range(n)]
+
+    qs, ks, vs, dos = chunks(q), chunks(k), chunks(v), chunks(do)
+    counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for c in counters:
+        c.launches = 0
+    got = ra.ring_schedule(qs, ks, vs, dos)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    want = {c.__name__: n * n for c in counters}
+    if launches != want:
+        fail(f"ring schedule launches {launches}, expected {want}")
+    plain = ra.ring_schedule(qs, ks, vs, dos, plain=True)
+    names = ("out", "lse", "dQ", "dK", "dV")
+    errs = {}
+    for name, g_list, p_list in zip(names, got, plain):
+        g_all, p_all = torch.cat(g_list, 1), torch.cat(p_list, 1)
+        if not bool(torch.isfinite(g_all.float()).all()):
+            fail(f"ring schedule wrote non-finite {name}")
+        tol = (1e-3, 0.0) if name == "lse" else FLASH_TOL
+        ok, e = close_enough(torch, g_all, p_all, *tol)
+        if not ok:
+            fail(f"ring schedule {name} disagrees with the plain schedule: "
+                 f"max abs err {e}")
+        errs[name] = e
+    o_full, lse_full = fa.flash_fwd(q, k, v)
+    dsum = fa.row_dot(do, o_full)
+    dq_full = fa.flash_bwd_dq(q, k, v, do, lse_full, dsum)
+    dk_full, dv_full = fa.flash_bwd_dkv(q, k, v, do, lse_full, dsum)
+    whole = {"out": o_full, "dQ": dq_full, "dK": dk_full, "dV": dv_full}
+    one_errs = {}
+    for name, g_list in zip(names, got):
+        if name == "lse":
+            continue
+        ok, e = close_enough(torch, torch.cat(g_list, 1), whole[name],
+                             *RING_TOL)
+        if not ok:
+            fail(f"ring schedule {name} disagrees with one causal flash call "
+                 f"over T={T}: max abs err {e}")
+        one_errs[name] = e
+    ring_ms = timer.ms(lambda: ra.ring_schedule(qs, ks, vs, dos), reps=5,
+                       warmup=1)
+
+    def one_call():
+        o, lse = fa.flash_fwd(q, k, v)
+        ds = fa.row_dot(do, o)
+        fa.flash_bwd_dq(q, k, v, do, lse, ds)
+        fa.flash_bwd_dkv(q, k, v, do, lse, ds)
+
+    one_ms = timer.ms(one_call, reps=5, warmup=1)
+    log(f"  ring sp={n} [B={B} T={T}={n}x{t} H={H} KV={KV} d={d} bf16], "
+        f"every rank's schedule in one process: launches {launches}; vs "
+        f"the plain schedule max abs err "
+        + ", ".join(f"{k_} {e:.3g}" for k_, e in errs.items())
+        + f" ({FLASH_TOL}); vs one causal flash call over T={T} "
+        + ", ".join(f"{k_} {e:.3g}" for k_, e in one_errs.items())
+        + f" ({RING_TOL})")
+    log(f"  ring schedule forward+backward {ring_ms:.3f} ms (16 K1, 16 K2, "
+        f"16 K3; 6 of each chunk pair are masked future chunks) vs one "
+        f"causal flash call forward+backward over T={T} {one_ms:.3f} ms "
+        f"({ring_ms / one_ms:.2f}x)")
+    return launches
+
+
+def ring_cli_phase(torch, tmp):
+    """Phase 15c: the trainer CLI at tinyllama's full width (LoRA r8 on
+    q_proj,v_proj, phase 5's data and shape), 2 steps with ``--attention
+    ring --mesh dp=1`` and with ``--attention xla``: equal losses (at sp 1
+    the ring is the plain biased attention); one process reports a world
+    of 1."""
+    from datatunerx_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+    from datatunerx_tpu_torch.tuning import train
+
+    info = maybe_initialize_distributed(1, "cuda")
+    if info != {"initialized": False, "process_id": 0, "num_processes": 1}:
+        fail(f"maybe_initialize_distributed(1) gave {info}")
+    csv_path = os.path.join(tmp, "train.csv")
+    write_train_csv(csv_path)
+    losses = {}
+    for impl, extra in (("ring", ["--mesh", "dp=1"]), ("xla", [])):
+        out = os.path.join(tmp, impl)
+        argv = ["--model_name_or_path", "preset:tinyllama-1.1b",
+                "--train_path", csv_path, "--template", "alpaca",
+                "--finetuning_type", "lora", "--lora_target",
+                "q_proj,v_proj", "--attention", impl, "--remat", "dots",
+                "--bf16", "--block_size", str(TRAIN_SHAPE["block"]),
+                "--pack_sequences", "--per_device_train_batch_size",
+                str(TRAIN_SHAPE["batch"]), "--max_steps", "2",
+                "--logging_steps", "1", "--output_dir", out,
+                "--storage_path", os.path.join(tmp, "store"),
+                "--device", "cuda", *extra]
+        t0 = time.perf_counter()
+        if train.main(argv) != 0:
+            fail(f"train CLI --attention {impl} failed")
+        with open(os.path.join(out, "watch", "trainer_log.jsonl")) as f:
+            losses[impl] = [json.loads(line)["loss"] for line in f]
+        log(f"  --attention {impl} {' '.join(extra)}: losses "
+            f"{losses[impl]} ({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+    if losses["ring"] != losses["xla"] or len(losses["ring"]) != 2:
+        fail(f"ring at sp 1 {losses['ring']} != xla {losses['xla']}")
+    log(f"  world: {info}; ring at sp 1 == xla, loss for loss")
+
+
+def memory_phase(torch):
+    """Phase 15d: ``estimate_footprint`` at the geometries of phases 5, 7,
+    8 and hf-llama2's LoRA beside the peaks those phases measured in this
+    run (``PEAKS``; a phase that did not run is marked so): every estimate
+    at or above its peak. ``check_fits`` on the card's budget rejects a 7B
+    full-parameter job on one card and admits a 7B QLoRA one; the budget
+    table's total equals the card's."""
+    from datatunerx_tpu_torch.models.config import get_config
+    from datatunerx_tpu_torch.parallel import memory
+    from datatunerx_tpu_torch.training.train_lib import TrainConfig
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    if memory.HBM_BYTES["h100-80gb"] != total:
+        fail(f"memory.HBM_BYTES['h100-80gb'] is "
+             f"{memory.HBM_BYTES['h100-80gb']}, the card reports {total}")
+    lora = TrainConfig(finetuning_type="lora", lora_rank=8,
+                       lora_targets=("q_proj", "v_proj"))
+    geo = dict(batch=TRAIN_SHAPE["batch"], seq=TRAIN_SHAPE["block"])
+    cases = (("5", "tinyllama-1.1b", {}), ("7", "tinyllama-1.1b",
+                                          {"quantization": "int4"}),
+             ("8", "tinyllama-1.1b", {"quantization": "int8"}),
+             ("hf-llama2", "llama2-7b", {}))
+    for label, preset, over in cases:
+        cfg = get_config(preset, attention_impl="flash", remat="dots",
+                         **over)
+        fp = memory.estimate_footprint(cfg, lora, **geo)
+        ref = memory.estimate_footprint(cfg, lora, activations="reference",
+                                        **geo)
+        est = fp.total / 2**30
+        peak = PEAKS.get(label)
+        seen = "not run in this call" if peak is None else f"{peak:.2f} GiB"
+        log(f"  phase {label} ({preset} LoRA r8{' ' + over['quantization'] if over else ''}, "
+            f"8x1024): estimate {est:.2f} GiB (the reference's activation "
+            f"and logit terms: {ref.total / 2**30:.2f} GiB), measured peak "
+            f"{seen}; {fp.gb()}")
+        if peak is not None and peak > est:
+            fail(f"phase {label}: measured peak {peak:.2f} GiB above the "
+                 f"estimate {est:.2f} GiB")
+    budget = memory.hbm_budget("h100-80gb")
+    full = TrainConfig(finetuning_type="full")
+    fits, fp, _ = memory.check_fits(
+        get_config("llama2-7b", remat="dots", attention_impl="flash"), full,
+        generation="h100-80gb", **geo)
+    if fits:
+        fail(f"check_fits admitted a 7B full-parameter job on one card "
+             f"({fp.total / 1e9:.1f} GB <= {budget / 1e9:.1f} GB)")
+    qfits, qfp, _ = memory.check_fits(
+        get_config("llama2-7b", remat="dots", attention_impl="flash",
+                   quantization="int4"), lora, generation="h100-80gb",
+        **geo)
+    if not qfits:
+        fail(f"check_fits rejected a 7B QLoRA job on one card "
+             f"({qfp.total / 1e9:.1f} GB > {budget / 1e9:.1f} GB)")
+    log(f"  budget h100-80gb: {budget / 1e9:.2f} GB of the card's "
+        f"{total} bytes; 7B full-parameter (8 x 1024) "
+        f"{fp.total / 1e9:.1f} GB rejected, 7B QLoRA int4 "
+        f"{qfp.total / 1e9:.1f} GB admitted")
+
+
+def hosts_phase(torch, tmp):
+    """Phase 15e: ``LocalProcessBackend`` asked for 2 hosts on CUDA raises
+    on a machine with fewer cards, naming the count, and starts nothing."""
+    from datatunerx_tpu_torch.operator.backends import LocalProcessBackend
+
+    cards = torch.cuda.device_count()
+    backend = LocalProcessBackend(os.path.join(tmp, "jobs"), device="cuda")
+    try:
+        backend.submit("two-hosts", {"args": ["--max_steps", "1"],
+                                     "num_hosts": cards + 1})
+    except RuntimeError as e:
+        if f"{cards} card(s)" not in str(e):
+            fail(f"the refusal does not name the card count: {e}")
+        log(f"  num_hosts {cards + 1} on {cards} card(s): refused ({e})")
+    else:
+        backend.delete("two-hosts")
+        fail(f"LocalProcessBackend started {cards + 1} hosts on {cards} "
+             "card(s)")
+    if backend.status("two-hosts") != "NotFound":
+        fail("a refused job left a process behind")
+
+
+def parallel_phase(torch, timer, gen, tmp):
+    """Phase 15: the multi-GPU slice on one card (a + b + c + d + e).
+    Returns (the @ring kernel entries, the ring schedule's launches)."""
+    log("[15a] K1/K2/K3 with causal=False (the ring's past chunks) vs "
+        "their plain versions at ring chunk shapes; threefry block draws")
+    entries = check_flash_ring(torch, timer, gen)
+    check_threefry_blocks(torch, timer)
+    torch.cuda.empty_cache()
+    log(f"[15b] the sp={RING_SP} ring schedule in one process over the "
+        "kernels (rotation by indexing)")
+    launches = ring_phase(torch, timer, gen)
+    torch.cuda.empty_cache()
+    log("[15c] the trainer CLI at tinyllama width: --attention ring --mesh "
+        "dp=1 vs --attention xla, 2 steps each")
+    ring_cli_phase(torch, tmp)
+    torch.cuda.empty_cache()
+    log("[15d] memory: estimate_footprint beside the training phases' "
+        "peaks; check_fits on the card's budget")
+    memory_phase(torch)
+    log("[15e] LocalProcessBackend: more hosts than cards under --device "
+        "cuda")
+    hosts_phase(torch, tmp)
+    return entries, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", default="all",
                     choices=["all", "kernels", "serve", "train", "qlora",
-                             "hf", "gateway"])
+                             "hf", "gateway", "parallel"])
     opts = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "datatunerx_tpu_torch", "csrc")):
         fail("datatunerx_tpu_torch/ is missing: run from a repository "
@@ -5756,6 +6184,7 @@ def main(argv=None) -> int:
                 log("[5] train preset:tinyllama-1.1b: LoRA SFT through the "
                     "trainer CLI (flash, remat dots, bf16, packed 8x1024)")
                 trained, run = train_phase(torch, tmp, remote_write=True)
+                PEAKS["5"] = run["peak_gib"]
                 launches.update({k: trained[k] for k in flash_keys})
                 launches["threefry_bits"] = trained["threefry_bits"]
                 log(f"  with the twin's dropout masks: step "
@@ -5778,14 +6207,16 @@ def main(argv=None) -> int:
                     torch.cuda.empty_cache()
             log("[7] QLoRA train preset:tinyllama-1.1b --quantization int4 "
                 "(nf4 base on K4/K5, flash, remat dots, bf16, packed 8x1024)")
-            trained, _ = train_phase(torch, tmp, quant="int4",
-                                     steps=QLORA_STEPS)
+            trained, run = train_phase(torch, tmp, quant="int4",
+                                       steps=QLORA_STEPS)
+            PEAKS["7"] = run["peak_gib"]
             launches.update({k: trained[k] for k in
                              ("nf4_matmul", "nf4_matmul_t")})
             torch.cuda.empty_cache()
             log("[8] QLoRA train --quantization int8 (int8 base on K6)")
-            trained, _ = train_phase(torch, tmp, quant="int8",
-                                     steps=INT8_STEPS, export=False)
+            trained, run = train_phase(torch, tmp, quant="int8",
+                                       steps=INT8_STEPS, export=False)
+            PEAKS["8"] = run["peak_gib"]
             launches["int8_matmul"] = trained["int8_matmul"]
             torch.cuda.empty_cache()
         for mode in ("int4", "int8"):
@@ -5832,6 +6263,15 @@ def main(argv=None) -> int:
         log("[10] fused LoRA matmul (K10) at tinyllama-1.1b's adapted "
             "projections vs the f32 composite")
         launches.update(lora_phase(torch))
+    if opts.phase in ("all", "parallel"):
+        with tempfile.TemporaryDirectory(prefix="dtx-parallel-") as tmp:
+            ring_entries, ring_launches = parallel_phase(
+                torch, Timer(torch), torch.Generator().manual_seed(19), tmp)
+        for e in ring_entries:
+            e["key"] = counter_key(e["counter"]) + e["path"]
+            launches[e["key"]] = ring_launches[e["counter"].__name__]
+            report(e)
+        torch.cuda.empty_cache()
     if opts.phase == "all":
         for e in entries:
             if launches[e["key"]] <= 0:

@@ -110,7 +110,8 @@ class StreamingBatchIterator:
     ``buffer_size``, and emitted as fixed-shape [global_batch, block]
     batches; the trailing partial batch is dropped. Deterministic per
     (seed, epoch): the reservoir's draws are the reference's. SFT and pt
-    only."""
+    only. ``host_id``/``num_hosts`` slice each batch as ``BatchIterator``
+    does."""
 
     def __init__(
         self,
@@ -125,10 +126,16 @@ class StreamingBatchIterator:
         grad_accum: int = 1,
         buffer_size: int = 2048,
         seed: int = 0,
+        host_id: int = 0,
+        num_hosts: int = 1,
         stage: str = "sft",  # sft = templated pairs; pt = plain LM
     ):
         if global_batch % max(grad_accum, 1) != 0:
             raise ValueError("global_batch must be divisible by grad_accum")
+        if (global_batch // max(grad_accum, 1)) % num_hosts != 0:
+            raise ValueError("per-step batch must be divisible by num_hosts")
+        self.host_id = host_id
+        self.num_hosts = num_hosts
         self.dataset = dataset
         self.template = template
         self.tokenizer = tokenizer
@@ -190,7 +197,8 @@ class StreamingBatchIterator:
             reader.close()
 
     def _emit(self, exs):
-        batch = pad_to_block(exs, self.block_size, self.pad_id)
+        batch = _host_slice(pad_to_block(exs, self.block_size, self.pad_id),
+                            self.host_id, self.num_hosts)
         if self.grad_accum > 1:
             batch = {k: v.reshape(self.grad_accum, -1, *v.shape[1:])
                      for k, v in batch.items()}
@@ -224,7 +232,12 @@ class BatchIterator:
     batches: ``global_batch`` examples per step padded (or packed) to
     ``block_size``; ``grad_accum`` reshapes to [A, mb, T]; the trailing
     partial batch is dropped (or, with ``drop_remainder=False``, padded with
-    empty rows whose labels are all IGNORE)."""
+    empty rows whose labels are all IGNORE). ``host_id``/``num_hosts``
+    slice the global batch for a multi-process run (every process draws
+    the same permutation from the seed and keeps rows ``[host_id · per,
+    (host_id + 1) · per)`` before the grad-accum reshape, as the
+    reference slices them); the trainer CLI passes a rank's data-parallel
+    index and size."""
 
     def __init__(
         self,
@@ -237,10 +250,16 @@ class BatchIterator:
         shuffle: bool = True,
         seed: int = 0,
         pack: bool = False,
+        host_id: int = 0,
+        num_hosts: int = 1,
         drop_remainder: bool = True,
     ):
         if global_batch % max(grad_accum, 1) != 0:
             raise ValueError("global_batch must be divisible by grad_accum")
+        if (global_batch // max(grad_accum, 1)) % num_hosts != 0:
+            raise ValueError("per-step batch must be divisible by num_hosts")
+        self.host_id = host_id
+        self.num_hosts = num_hosts
         self.drop_remainder = drop_remainder
         self.examples = list(examples)
         self.global_batch = global_batch
@@ -279,6 +298,7 @@ class BatchIterator:
                 exs += ([{"input_ids": [], "labels": []}]
                         * (self.global_batch - len(exs)))
                 batch = pad_to_block(exs, self.block_size, self.pad_id)
+            batch = _host_slice(batch, self.host_id, self.num_hosts)
             if self.grad_accum > 1:
                 batch = {k: v.reshape(self.grad_accum, -1, *v.shape[1:])
                          for k, v in batch.items()}
@@ -286,6 +306,16 @@ class BatchIterator:
 
     def __iter__(self):
         return self.epoch(0)
+
+
+def _host_slice(batch: Dict[str, np.ndarray], host_id: int,
+                num_hosts: int) -> Dict[str, np.ndarray]:
+    """Rows ``[host_id · per, (host_id + 1) · per)`` of a global batch."""
+    if num_hosts == 1:
+        return batch
+    B = next(iter(batch.values())).shape[0]
+    per = B // num_hosts
+    return {k: v[host_id * per:(host_id + 1) * per] for k, v in batch.items()}
 
 
 class PreferenceBatchIterator:

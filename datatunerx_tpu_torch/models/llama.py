@@ -74,11 +74,17 @@ from datatunerx_tpu_torch.ops.cuda_paged_attention import (
     paged_attention_multitoken_step,
 )
 from datatunerx_tpu_torch.ops.paged_attention import POS_SENTINEL
-from datatunerx_tpu_torch.ops.quant import quantized_matmul
+from datatunerx_tpu_torch.ops.quant import NF4_BLOCK, quantized_matmul
 from datatunerx_tpu_torch.ops.rope import (
     apply_rope_tables,
     rope_cos_sin,
     rope_tables,
+)
+from datatunerx_tpu_torch.parallel.sharding import (
+    all_gather_dim,
+    copy_to_group,
+    gather_dim,
+    reduce_from_group,
 )
 
 Params = Any  # nested dict of tensors
@@ -98,10 +104,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     """Random init from a seeded ``torch.Generator`` on ``device``: normal
     with std 0.02 for every matrix, ones for the norm scales (the reference's
     scheme; the draws themselves differ from jax.random's)."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    meta = torch.device(device).type == "meta"  # shapes only (memory.py)
+    gen = None if meta else torch.Generator(device=device).manual_seed(seed)
     D, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
 
     def dense(shape, scale=0.02):
+        if meta:
+            return torch.empty(shape, dtype=dtype, device=device)
         w = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=device)
         return (w * scale).to(dtype)
@@ -182,11 +191,31 @@ def _keep_rate(drop_rate: float, h: torch.Tensor) -> torch.Tensor:
     return _KEEP_RATES[key]
 
 
+def block_draw(draw, shape, local=None, width=None, col0: int = 0):
+    """A [b, t, w] draw taken as this rank's block of the draw over the
+    global array: rows by ``local``'s runs (``parallel/sharding.
+    LocalSlice``), positions from its ``t0``, columns ``[col0, col0 + w)``
+    of ``width``. ``draw(shape, index)`` makes one block. Without a slice
+    and at full width it is the plain draw."""
+    b, t, w = shape
+    width = w if width is None else width
+    if local is None and col0 == 0 and width == w:
+        return draw(tuple(shape), None)
+    rows = local.rows if local is not None else ((0, b, 0),)
+    B = local.batch if local is not None else b
+    T = local.seq if local is not None else t
+    t0 = local.t0 if local is not None else 0
+    parts = [draw((n, t, w), prng.slice_index((B, T, width), (g0, t0, col0)))
+             for _, n, g0 in rows]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
+
+
 def _proj(h: torch.Tensor, p: dict, lora_p: Optional[dict] = None,
           lora_scale=0.0, drop_key=None,
           drop_rate: float = 0.0, quant_mode: Optional[str] = None,
           dims: Optional[tuple] = None, use_pallas: bool = False,
-          lora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+          lora_idx: Optional[torch.Tensor] = None, drop_where=None,
+          tp=None) -> torch.Tensor:
     """Dense projection with optional LoRA delta: ``h W (+ b) +
     (drop(h) A) B * scale`` in h's dtype. The base weight is a
     full-precision ``kernel`` or a frozen ``quant`` collection
@@ -202,19 +231,36 @@ def _proj(h: torch.Tensor, p: dict, lora_p: Optional[dict] = None,
     and ``lora_scale`` is an ``[E]`` tensor; each batch row gathers its own
     adapter, so one decode step serves a mixed-adapter batch. Row 0 of a
     stack is the all-zero base adapter. The scale is rounded to h's dtype
-    before the product on both branches, as the reference does."""
+    before the product on both branches, as the reference does.
+
+    Tensor parallelism: ``tp = ("col" | "row", group)`` with this rank's
+    shards of W (and of A/B, by ``parallel/sharding``'s rules). A column
+    module takes the whole h (identity forward, all-reduce backward) and
+    gives its output columns; its adapter runs ``x·A`` whole and enters
+    ``·B`` through the same copy. A row module takes its input columns,
+    and both its ``x·W`` and its adapter's ``x·A`` are summed over the
+    group (all-reduce forward, identity backward) before ``+`` and ``·B``.
+    ``drop_where = (local, width, col0)`` places h in the global array for
+    the dropout draw (``block_draw``)."""
+    mode, group = tp if tp is not None else (None, None)
+    h_in = copy_to_group(h, group) if mode == "col" else h
     if "quant" in p:
-        out = quantized_matmul(h, p["quant"], quant_mode, dims,
+        out = quantized_matmul(h_in, p["quant"], quant_mode, dims,
                                use_pallas=use_pallas)
     else:
-        out = h @ p["kernel"].to(h.dtype)
+        out = h_in @ p["kernel"].to(h.dtype)
+    if mode == "row":
+        out = reduce_from_group(out, group)
     if "bias" in p:
         out = out + p["bias"].to(h.dtype)
     if lora_p is not None:
         hl = h
         if drop_key is not None and drop_rate > 0.0:
-            keep = cuda_prng.bernoulli(drop_key, 1.0 - drop_rate, h.shape,
-                                       h.device)
+            local, width, col0 = drop_where or (None, None, 0)
+            keep = block_draw(
+                lambda shape, index: cuda_prng.bernoulli(
+                    drop_key, 1.0 - drop_rate, shape, h.device, index),
+                h.shape, local, width, col0)
             hl = torch.where(keep, h / _keep_rate(drop_rate, h), 0.0)
         if lora_idx is not None:
             # gather first, then cast: the same values as casting the whole
@@ -228,8 +274,39 @@ def _proj(h: torch.Tensor, p: dict, lora_p: Optional[dict] = None,
             scale = float(torch.tensor(float(lora_scale), dtype=h.dtype))
             a = lora_p["a"].to(h.dtype)
             b = lora_p["b"].to(h.dtype)
-            out = out + ((hl @ a) @ b) * scale
+            u = hl @ a
+            if mode == "col":
+                u = copy_to_group(u, group)
+            elif mode == "row":
+                u = reduce_from_group(u, group)
+            out = out + (u @ b) * scale
     return out
+
+
+def nf4_tp_shard(quant: dict, dims: tuple, role: str, tp: int,
+                 idx: int) -> dict:
+    """One layer's nf4 collection cut to this rank's tp shard of W [in,
+    out]. The sharding rules keep nf4 leaves whole over tp (their blocks
+    run along ``in`` within an output channel); a column module keeps its
+    output channels' blocks (a contiguous run), a row module its input
+    range's blocks of every channel (``in / tp`` a multiple of the block)."""
+    d_in, d_out = dims
+    per_row = d_in // NF4_BLOCK  # blocks an output channel
+    packed = quant["packed"].reshape(d_out, per_row, NF4_BLOCK // 2)
+    scale_q = quant["scale_q"].reshape(d_out, per_row)
+    if role == "col":
+        w = d_out // tp
+        packed, scale_q = (t[idx * w:(idx + 1) * w] for t in (packed,
+                                                               scale_q))
+    else:
+        if (d_in // tp) % NF4_BLOCK:
+            raise ValueError(f"tp={tp}: a row shard of in={d_in} must hold "
+                             f"whole nf4 blocks of {NF4_BLOCK}")
+        w = per_row // tp
+        packed, scale_q = (t[:, idx * w:(idx + 1) * w] for t in (packed,
+                                                                  scale_q))
+    return dict(quant, packed=packed.reshape(-1, NF4_BLOCK // 2),
+                scale_q=scale_q.reshape(-1))
 
 
 def lm_logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -289,6 +366,8 @@ def forward(
     skip_logits: bool = False,
     window_mask: Optional[torch.Tensor] = None,  # [B, T, WN] bool
     window_start: Optional[torch.Tensor] = None,  # [B]
+    mesh=None,  # parallel/mesh.Mesh: tp shards, the sp ring
+    local=None,  # parallel/sharding.LocalSlice: this rank's block
 ):
     """Returns (logits [B, T, V] float32, new_cache | None); with
     ``return_hidden`` also the final-norm hidden states [B, T, D], and
@@ -312,17 +391,30 @@ def forward(
     (a speculative tree step; the start defaults to the cache cursors)
     restrict the step's own lanes (``ops/attention.attention_allow``) in
     the ``allow`` tensor K8 takes and in the gather path's bias; such a
-    step never takes K7."""
-    if cfg.attention_impl == "ring":
-        raise NotImplementedError(
-            "ring attention is not ported yet (ROADMAP Queue 1 item 10, "
-            "multi-GPU)")
+    step never takes K7.
+
+    Under a ``mesh`` (training, no cache) ``params`` hold this rank's tp
+    shards of the projections (whole embedding, norms and head), tokens are
+    this rank's rows and sequence chunk, and ``local`` places them in the
+    global batch: rope takes global positions, dropout and NEFTune draw the
+    rank's block of the global draws. ``attention_impl="ring"`` runs the
+    sp ring when sp > 1 and no ``segment_ids`` are given (the ring is
+    causal only), else the biased path; with sp > 1 every other path
+    gathers q/k/v over sp, attends over the whole sequence and keeps this
+    rank's chunk."""
     if skip_logits and not return_hidden:
         raise ValueError("skip_logits without return_hidden returns nothing")
     B, T = tokens.shape
+    t0 = local.t0 if local is not None else 0
+    T_all = local.seq if local is not None else T  # the global length
     if positions is None:
-        positions = torch.arange(T, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(B, T)
+        positions = (t0 + torch.arange(T, dtype=torch.int32,
+                                       device=tokens.device))[None].expand(
+                                           B, T)
+    tp = mesh.shape["tp"] if mesh is not None else 1
+    sp = mesh.shape["sp"] if mesh is not None else 1
+    if cache is not None and (tp > 1 or sp > 1):
+        raise ValueError("a KV cache runs on one device (no mesh)")
 
     x = params["embed_tokens"]["embedding"][tokens.long()]
     if compute_dtype is not None:
@@ -332,12 +424,15 @@ def forward(
         # the embedding output, magnitude alpha / sqrt(T * D) in f32,
         # training only
         mag = float(np.float32(neftune_alpha)
-                    / np.sqrt(np.float32(T * x.shape[-1])))
-        noise = cuda_prng.uniform(prng.fold_in(dropout_rng, 0x4EF), x.shape,
-                                  -1.0, 1.0, x.device)
+                    / np.sqrt(np.float32(T_all * x.shape[-1])))
+        nkey = prng.fold_in(dropout_rng, 0x4EF)
+        noise = block_draw(
+            lambda shape, index: cuda_prng.uniform(nkey, shape, -1.0, 1.0,
+                                                   x.device, index),
+            x.shape, local)
         x = x + (noise * mag).to(x.dtype)
 
-    seq_len = T if cache is None else kv_cache_width(cache)
+    seq_len = T_all if cache is None else kv_cache_width(cache)
     cos, sin = rope_cos_sin(
         positions, cfg.head_dim, theta=cfg.rope_theta,
         scaling_type=cfg.rope_scaling_type,
@@ -372,10 +467,25 @@ def forward(
         kv_valid = None
         kv_seg = None
     # flash handles causal + packed segments in-kernel and skips the
-    # [B, T, S] bias entirely; cache decode keeps the biased path
+    # [B, T, S] bias entirely; cache decode keeps the biased path. The
+    # ring (causal only) takes no segments; at sp 1 it is the biased path.
     flash = (cfg.attention_impl == "flash" and cache is None
              and cfg.sliding_window is None
-             and (T % 128 == 0 or T < 128))
+             and (T_all % 128 == 0 or T_all < 128))
+    ring = (cfg.attention_impl == "ring" and cache is None
+            and cfg.sliding_window is None and segment_ids is None
+            and sp > 1)
+    gather_seq = sp > 1 and not ring
+    q_positions, att_seg = positions, segment_ids
+    if gather_seq:
+        # every other path attends over the whole sequence: the masks'
+        # inputs are gathered here, q/k/v in each layer
+        grp = mesh.group(("sp",))
+        q_positions = kv_positions = all_gather_dim(positions, 1, grp, sp)
+        if kv_valid is not None:
+            kv_valid = all_gather_dim(kv_valid, 1, grp, sp)
+        if segment_ids is not None:
+            att_seg = kv_seg = all_gather_dim(segment_ids, 1, grp, sp)
     bias = allow = None
     if window_mask is not None and window_start is None:
         if cache is None:
@@ -385,10 +495,10 @@ def forward(
         allow = attention_allow(positions, kv_positions, kv_valid,
                                 window_mask=window_mask,
                                 window_start=window_start)
-    elif not paged_kernel and not flash:
-        bias = make_causal_bias(positions, kv_positions, kv_valid,
+    elif not paged_kernel and not flash and not ring:
+        bias = make_causal_bias(q_positions, kv_positions, kv_valid,
                                 sliding_window=cfg.sliding_window,
-                                q_segment_ids=segment_ids,
+                                q_segment_ids=att_seg,
                                 kv_segment_ids=kv_seg,
                                 window_mask=window_mask,
                                 window_start=window_start)
@@ -403,6 +513,21 @@ def forward(
                 else None)
 
     H, KV, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if tp > 1:
+        if H % tp or KV % tp:
+            raise ValueError(f"tp={tp} must divide the heads ({H}) and the "
+                             f"KV heads ({KV})")
+        H, KV = H // tp, KV // tp
+    tp_idx = mesh.coords["tp"] if mesh is not None else 0
+    tp_group = mesh.group(("tp",)) if tp > 1 else None
+    # (module → its tp role, its input's global width, its columns' start)
+    place = {}
+    for name in _PROJECTIONS:
+        if name in ("o_proj", "down_proj"):
+            width = cfg.q_dim if name == "o_proj" else cfg.intermediate_size
+            place[name] = ("row", width, tp_idx * width // tp)
+        else:
+            place[name] = ("col", cfg.hidden_size, 0)
     use_pallas = cfg.quant_impl == "pallas"
     quant_kv = cache is not None and "k_scale" in cache
     # the dropout keys of the adapted projections, once a forward (a remat
@@ -421,9 +546,19 @@ def forward(
         keys = drop_keys[i]
 
         def proj(h, name, j):
-            return _proj(h, lp[name], ll.get(name), lora_scale, keys.get(j),
-                         drop, cfg.quantization, target_dims(cfg, name),
-                         use_pallas, lora_idx)
+            role, width, col0 = place[name]
+            dims = target_dims(cfg, name)
+            p = lp[name]
+            if tp > 1:
+                if "packed" in p.get("quant", {}):
+                    p = dict(p, quant=nf4_tp_shard(p["quant"], dims, role,
+                                                   tp, tp_idx))
+                dims = ((dims[0] // tp, dims[1]) if role == "row"
+                        else (dims[0], dims[1] // tp))
+            return _proj(h, p, ll.get(name), lora_scale, keys.get(j),
+                         drop, cfg.quantization, dims, use_pallas, lora_idx,
+                         drop_where=(local, width, col0),
+                         tp=(role, tp_group) if tp > 1 else None)
 
         h = rms_norm(x, lp["input_layernorm"]["scale"], cfg.rms_norm_eps)
         q = proj(h, "q_proj", 0).reshape(B, T, H, d)
@@ -450,10 +585,18 @@ def forward(
                                                    k, v, targets)
             else:
                 k_att, v_att = k, v
-            attn = attention(q, k_att, v_att, bias,
-                             impl="flash" if flash else "xla",
-                             segment_ids=segment_ids if flash else None)
-        x = x + proj(attn.reshape(B, T, cfg.q_dim), "o_proj", 3)
+            q_att = q
+            if gather_seq:
+                q_att, k_att, v_att = (gather_dim(t_, 1, mesh, "sp")
+                                       for t_ in (q, k_att, v_att))
+            attn = attention(q_att, k_att, v_att, bias,
+                             impl=("ring" if ring else
+                                   "flash" if flash else "xla"),
+                             segment_ids=att_seg if flash else None,
+                             mesh=mesh)
+            if gather_seq:
+                attn = attn.narrow(1, mesh.coords["sp"] * T, T)
+        x = x + proj(attn.reshape(B, T, H * d), "o_proj", 3)
 
         h = rms_norm(x, lp["post_attention_layernorm"]["scale"],
                      cfg.rms_norm_eps)

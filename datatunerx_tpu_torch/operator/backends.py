@@ -10,14 +10,19 @@ root on ``PYTHONPATH``. Completion is the process's exit plus the
 trainer's completion manifest. Status vocabulary: Pending | Running |
 Succeeded | Failed | NotFound.
 
-``ManifestBackend`` renders the same workloads as Kubernetes manifests for
-a GKE GPU node pool (a JobSet for training, a Deployment and Service for
-serving: ``nvidia.com/gpu`` limits, a ``cloud.google.com/gke-accelerator``
-node selector, ``--device cuda``) without submitting them; ``status``
-reads a ``<name>-status.json`` dropped beside the manifest.
+``spec["num_hosts"] > 1`` spawns that many trainers wired with the
+``DTX_*`` env contract the JobSet sets (``parallel/distributed.py``): one
+process a card, rank 0 on ``log.txt``, rank i on ``log.<i>.txt``. Under
+``--device cuda`` each rank gets its own card through
+``CUDA_VISIBLE_DEVICES`` (index ``i`` of the cards visible to the backend),
+and a job asking for more hosts than there are cards raises at submit.
 
-One host only: ``spec["num_hosts"] > 1`` raises in both backends
-(multi-GPU is ROADMAP Queue 1 item 10).
+``ManifestBackend`` renders the same workloads as Kubernetes manifests for
+a GKE GPU node pool (a JobSet of ``num_hosts`` pods for training, one GPU
+each, with the coordinator env; a Deployment and Service for serving:
+``nvidia.com/gpu`` limits, a ``cloud.google.com/gke-accelerator`` node
+selector, ``--device cuda``) without submitting them; ``status`` reads a
+``<name>-status.json`` dropped beside the manifest.
 """
 
 from __future__ import annotations
@@ -40,13 +45,27 @@ def _pkg_root() -> str:
         datatunerx_tpu_torch.__file__)))
 
 
-def _one_host(name: str, spec: dict) -> int:
-    hosts = max(1, int(spec.get("num_hosts", 1) or 1))
-    if hosts > 1:
-        raise NotImplementedError(
-            f"job {name!r} asks for {hosts} hosts: multi-GPU training "
-            "is not ported yet (ROADMAP Queue 1 item 10)")
-    return hosts
+def _hosts(spec: dict) -> int:
+    return max(1, int(spec.get("num_hosts", 1) or 1))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _visible_cards() -> list:
+    """The card indices this process may hand out: its own
+    ``CUDA_VISIBLE_DEVICES`` list, else every card torch sees."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return [c for c in env.split(",") if c.strip()]
+    import torch
+
+    return [str(i) for i in range(torch.cuda.device_count())]
 
 
 def subprocess_env(extra_env: dict, spec_env: Optional[dict] = None) -> dict:
@@ -71,7 +90,14 @@ class LocalProcessBackend:
         self._lock = threading.Lock()
 
     def submit(self, name: str, spec: dict) -> None:
-        _one_host(name, spec)
+        hosts = _hosts(spec)
+        cards = None
+        if hosts > 1 and self.device == "cuda":
+            cards = _visible_cards()
+            if len(cards) < hosts:
+                raise RuntimeError(
+                    f"job {name!r} asks for {hosts} hosts on CUDA, one card "
+                    f"each, and {len(cards)} card(s) are visible")
         with self._lock:
             if name in self._procs:
                 return
@@ -81,39 +107,62 @@ class LocalProcessBackend:
                     *(str(a) for a in spec["args"]), "--device", self.device]
             with open(os.path.join(jobdir, "cmd.txt"), "w") as f:
                 f.write(shlex.join(argv))
-            log = open(os.path.join(jobdir, "log.txt"), "w")
-            try:
-                self._procs[name] = subprocess.Popen(
-                    argv, cwd=jobdir, stdout=log, stderr=subprocess.STDOUT,
-                    env=subprocess_env(self.extra_env, spec.get("env")))
-            finally:
-                log.close()  # the child holds its own descriptor
+            env = subprocess_env(self.extra_env, spec.get("env"))
+            coord = f"127.0.0.1:{_free_port()}"
+            procs = []
+            for pid in range(hosts):
+                henv = dict(env)
+                if hosts > 1:
+                    henv.update(DTX_COORDINATOR_ADDRESS=coord,
+                                DTX_NUM_PROCESSES=str(hosts),
+                                DTX_PROCESS_ID=str(pid))
+                    # ranks on one machine share its cores: a starved rank
+                    # must not time out its peers
+                    henv.setdefault("DTX_DIST_HEARTBEAT_S", "600")
+                    henv.setdefault("DTX_DIST_SHUTDOWN_S", "600")
+                if cards is not None:
+                    henv["CUDA_VISIBLE_DEVICES"] = cards[pid]
+                # rank 0 writes checkpoints and the manifest; the rest log
+                # beside it
+                log_name = "log.txt" if pid == 0 else f"log.{pid}.txt"
+                log = open(os.path.join(jobdir, log_name), "w")
+                try:
+                    procs.append(subprocess.Popen(
+                        argv, cwd=jobdir, stdout=log,
+                        stderr=subprocess.STDOUT, env=henv))
+                finally:
+                    log.close()  # the child holds its own descriptor
+            self._procs[name] = procs
 
     def status(self, name: str) -> str:
         with self._lock:
-            proc = self._procs.get(name)
-        if proc is None:
+            procs = self._procs.get(name)
+        if procs is None:
             return "NotFound"
-        rc = proc.poll()
-        if rc is None:
+        rcs = [p.poll() for p in procs]
+        if any(rc not in (None, 0) for rc in rcs):
+            return "Failed"  # JobSet semantics: a failing host fails the job
+        if any(rc is None for rc in rcs):
             return "Running"
-        return "Succeeded" if rc == 0 else "Failed"
+        return "Succeeded"
 
     def delete(self, name: str) -> None:
         with self._lock:
-            proc = self._procs.pop(name, None)
-        if proc is not None and proc.poll() is None:
-            proc.terminate()
-            try:
-                proc.wait(timeout=10)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
+            procs = self._procs.pop(name, None)
+        for proc in procs or []:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
 
     def has_active_jobs(self) -> bool:
         """True while any trainer subprocess is live."""
         with self._lock:
-            return any(p.poll() is None for p in self._procs.values())
+            return any(p.poll() is None
+                       for procs in self._procs.values() for p in procs)
 
     def metrics_series(self, name: str, max_points: int = 2000) -> dict:
         """The job's parsed trainer and eval jsonl curves (the UI's feed)."""
@@ -181,9 +230,9 @@ def deployment_state(status: dict) -> str:
 
 class ManifestBackend:
     """Renders k8s manifests for a GKE GPU node pool instead of submitting
-    them: training → a JobSet of one host running the port's trainer CLI;
-    serving → Deployment + Service running the port's server, one GPU a
-    pod."""
+    them: training → a JobSet of ``num_hosts`` pods (one GPU each) running
+    the port's trainer CLI, wired by the coordinator env; serving →
+    Deployment + Service running the port's server, one GPU a pod."""
 
     def __init__(self, out_dir: str, accelerator: str = "nvidia-h100-80gb"):
         self.out_dir = out_dir
@@ -196,7 +245,7 @@ class ManifestBackend:
                 **(spec.get("node_selector") or {})}
 
     def render_training(self, name: str, spec: dict) -> dict:
-        hosts = _one_host(name, spec)
+        hosts = _hosts(spec)
         image = spec.get("image", "datatunerx-tpu/trainer:latest")
         args = [str(a) for a in spec["args"]] + ["--device", "cuda"]
         return {

@@ -220,12 +220,12 @@ def _declare(lib: ctypes.CDLL):
     # x, temps, us, out, S, Vp, greedy, stream
     fn.argtypes = [_P] * 4 + [_I] * 3 + [_P]
     fn.restype = _I
-    # k0, k1, n, p | (lo, span), out, stream
+    # k0, k1, n, p | (lo, span), offset, n1, n2, s0, s1, out, stream
     fn = lib.dtx_threefry_bernoulli
-    fn.argtypes = [_U32, _U32, _LL, _F, _P, _P]
+    fn.argtypes = [_U32, _U32, _LL, _F] + [_LL] * 5 + [_P, _P]
     fn.restype = _I
     fn = lib.dtx_threefry_uniform
-    fn.argtypes = [_U32, _U32, _LL, _F, _F, _P, _P]
+    fn.argtypes = [_U32, _U32, _LL, _F, _F] + [_LL] * 5 + [_P, _P]
     fn.restype = _I
     fn = lib.dtx_empty_kernel  # stream
     fn.argtypes = [_P]

@@ -130,12 +130,21 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(v.dtype).reshape(B, T, H, d)
 
 
+def ring_active(mesh, axis: str = "sp") -> bool:
+    """A sequence-parallel axis above 1 is active (the ring's condition)."""
+    return mesh is not None and mesh.shape.get(axis, 1) > 1
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: Optional[torch.Tensor], *, impl: str = "xla",
-              segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+              segment_ids: Optional[torch.Tensor] = None,
+              mesh=None) -> torch.Tensor:
     """Dispatch on ``cfg.attention_impl``: ``xla`` is the biased reference
     path, ``flash`` the K1-K3 kernels (causal and segments in-kernel, the
-    bias unused). Ring attention needs a mesh (ROADMAP Queue 1 item 10)."""
+    bias unused), ``ring`` the sequence-parallel ring over ``mesh``'s sp
+    axis (``ops/ring_attention.py``; q/k/v are this rank's chunk) when
+    that axis is above 1, else the plain biased attention, which is exact
+    there (the model then hands the causal bias)."""
     if impl == "xla":
         return xla_attention(q, k, v, bias)
     if impl == "flash":
@@ -143,9 +152,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
         return flash_attention(q, k, v, bias, segment_ids=segment_ids)
     if impl == "ring":
-        raise NotImplementedError(
-            "ring attention is not ported yet (ROADMAP Queue 1 item 10, "
-            "multi-GPU)")
+        if not ring_active(mesh):
+            return xla_attention(q, k, v, bias)
+        from datatunerx_tpu_torch.ops.ring_attention import (
+            ring_attention_local,
+        )
+
+        return ring_attention_local(q, k, v, mesh)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 

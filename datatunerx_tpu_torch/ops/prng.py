@@ -79,22 +79,52 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def _counters(shape: Sequence[int], like):
-    """The flattened index of ``shape`` as (high, low) 32-bit words."""
+def slice_index(global_shape: Sequence[int], starts: Sequence[int]):
+    """The ``index`` of a block of a draw over ``global_shape`` whose first
+    element sits at ``starts``: (offset, row-major strides of the global
+    shape). A rank that holds that block of a sharded array draws exactly
+    its elements of the global draw (partitionable threefry: an element's
+    bits depend only on its flattened global index)."""
+    strides = []
+    acc = 1
+    for n in reversed(tuple(global_shape)):
+        strides.append(acc)
+        acc *= int(n)
+    strides = tuple(reversed(strides))
+    offset = sum(int(s) * st for s, st in zip(starts, strides))
+    return offset, strides
+
+
+def _counters(shape: Sequence[int], like, index=None):
+    """The counter of every element of ``shape`` as (high, low) 32-bit
+    words: its flattened index, or with ``index = (offset, strides)``
+    ``offset + sum(i_k * strides[k])``."""
+    shape = tuple(shape)
     n = int(np.prod(shape, dtype=np.int64)) if len(shape) else 1
     if _is_torch(like):
-        i = torch.arange(n, dtype=torch.int64, device=like.device)
+        ar = lambda m: torch.arange(m, dtype=torch.int64,  # noqa: E731
+                                    device=like.device)
     else:
-        i = np.arange(n, dtype=np.uint64)
-    return (i >> 32).reshape(tuple(shape)), (i & _M32).reshape(tuple(shape))
+        ar = lambda m: np.arange(m, dtype=np.uint64)  # noqa: E731
+    if index is None:
+        i = ar(n).reshape(shape)
+    else:
+        offset, strides = index
+        i = ar(1).reshape((1,) * len(shape)) * 0 + offset
+        for k, (m, st) in enumerate(zip(shape, strides)):
+            view = [1] * len(shape)
+            view[k] = m
+            i = i + ar(m).reshape(view) * st
+        i = i.reshape(shape)
+    return i >> 32, i & _M32
 
 
-def _bits_pair(key, shape):
+def _bits_pair(key, shape, index=None):
     """threefry's two output words for every index of ``shape``, one set
     per key: ``[*key.shape[:-1], *shape]`` each."""
     k0, k1 = _words(key)
     batch = tuple(k0.shape)
-    hi, lo = _counters(shape, k0)
+    hi, lo = _counters(shape, k0, index)
     extra = (None,) * len(shape)
     k0 = k0[(Ellipsis,) + extra]
     k1 = k1[(Ellipsis,) + extra]
@@ -132,10 +162,11 @@ def fold_in(key: Key, data: int) -> Key:
     return _out_key(key, w0, w1)
 
 
-def random_bits(key: Key, shape: Sequence[int] = ()):
+def random_bits(key: Key, shape: Sequence[int] = (), index=None):
     """``jax.random.bits(key, shape)`` (uint32): numpy uint32 on the host,
-    int64 words in [0, 2^32) for a torch key."""
-    w0, w1 = _bits_pair(key, tuple(shape))
+    int64 words in [0, 2^32) for a torch key. With ``index`` (from
+    ``slice_index``), the block of a larger draw it names."""
+    w0, w1 = _bits_pair(key, tuple(shape), index)
     out = w0 ^ w1
     return out if _is_torch(key) else out.astype(np.uint32)
 
@@ -157,9 +188,9 @@ def _fma32(a, b, c):
 
 
 def uniform(key: Key, shape: Sequence[int] = (), minval: float = 0.0,
-            maxval: float = 1.0):
-    """``jax.random.uniform`` in float32."""
-    bits = random_bits(key, shape)
+            maxval: float = 1.0, index=None):
+    """``jax.random.uniform`` in float32 (``index``: as ``random_bits``)."""
+    bits = random_bits(key, shape, index)
     one = 0x3F800000
     floats = _to_f32((bits >> 9) | one) - 1.0
     lo = np.float32(minval)
@@ -170,9 +201,10 @@ def uniform(key: Key, shape: Sequence[int] = (), minval: float = 0.0,
     return np.maximum(out, lo)
 
 
-def bernoulli(key: Key, p: float = 0.5, shape: Sequence[int] = ()):
+def bernoulli(key: Key, p: float = 0.5, shape: Sequence[int] = (),
+              index=None):
     """``jax.random.bernoulli(key, p, shape)``: ``uniform < p``."""
-    return uniform(key, shape) < np.float32(p)
+    return uniform(key, shape, index=index) < np.float32(p)
 
 
 # XLA:CPU's float32 log: the Cephes polynomial, products fused into the

@@ -50,10 +50,13 @@ class CheckpointManager:
         self.save_interval_steps = save_interval_steps
         self.max_to_keep = max_to_keep
 
+    def due(self, step: int, force: bool = False) -> bool:
+        """Whether ``maybe_save`` would save at ``step``."""
+        return force or (self.save_interval_steps > 0 and step > 0
+                         and step % self.save_interval_steps == 0)
+
     def maybe_save(self, state, step: int, force: bool = False) -> bool:
-        due = force or (self.save_interval_steps > 0 and step > 0
-                        and step % self.save_interval_steps == 0)
-        if not due:
+        if not self.due(step, force):
             return False
         payload = {"step": state.step,
                    "rng": torch.from_numpy(state.rng.astype(np.int64)),

@@ -19,8 +19,15 @@ def causal_lm_loss(
     """Returns (sum_loss, n_valid_tokens) as tensors. Mean = sum/n; callers
     combine across microbatches by summing both, so gradient accumulation
     is exact."""
-    logits = logits[:, :-1].float()
-    labels = labels[:, 1:].long()
+    return shifted_lm_loss(logits[:, :-1], labels[:, 1:])
+
+
+def shifted_lm_loss(logits: torch.Tensor, labels_next: torch.Tensor):
+    """``causal_lm_loss`` over labels already shifted by one (position t
+    holds the label of t+1; a sequence chunk gets them shifted on the whole
+    sequence)."""
+    logits = logits.float()
+    labels = labels_next.long()
     valid = labels != IGNORE_INDEX
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logz = torch.logsumexp(logits, dim=-1)

@@ -217,19 +217,21 @@ class Optimizer:
         return {"count": 0, "mu": tree_map(zeros, params),
                 "nu": tree_map(zeros, params)}
 
-    def _clip(self, grads):
+    def _clip(self, grads, norm=None):
         if not self.max_grad_norm or self.max_grad_norm <= 0:
             return grads
-        norm = global_norm(grads)
+        norm = global_norm(grads) if norm is None else norm
         keep = norm < self.max_grad_norm
         return tree_map(
             lambda t: torch.where(keep, t,
                                   (t / norm.to(t.dtype)) * self.max_grad_norm),
             grads)
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, norm=None):
+        """``norm``: the global norm the clip divides by, when ``grads`` are
+        one rank's shards of a sharded gradient (else computed here)."""
         count = state["count"]
-        g = self._clip(grads)
+        g = self._clip(grads, norm)
         lr = self.schedule(count)
         if self.kind == "sgd":
             trace = tree_map(lambda g_, t: g_ + SGD_MOMENTUM * t, g,

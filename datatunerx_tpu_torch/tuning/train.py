@@ -1,6 +1,6 @@
 """Trainer entry point: ``python -m datatunerx_tpu_torch.tuning.train
 --model_name_or_path … --train_path … --storage_path …`` (the port of
-``datatunerx_tpu/tuning/train.py`` on one device): the sft, pt, dpo, rm
+``datatunerx_tpu/tuning/train.py``): the sft, pt, dpo, rm
 and ppo stages (ppo against the ``--reward_model`` of an rm run), every
 optimizer, QLoRA with ``--quantization int4|int8`` (the base is quantized
 on the device right after load, the adapters train, and the export
@@ -11,13 +11,20 @@ manifest may be object-store URIs (``utils/storage``); the output and
 export directories are written with plain file IO, as the reference
 writes them.
 
-  parse → load model + tokenizer → template/encode/pack (or a stream) →
-  Trainer → (resume?) → epoch loop [train_step, log, eval, generative
-  eval, save] → final eval → final checkpoint → generative eval →
-  completion manifest → merged export
+  parse → process group → load model + tokenizer → template/encode/pack
+  (or a stream) → mesh → Trainer → (resume?) → epoch loop [train_step,
+  log, eval, generative eval, save] → final eval → final checkpoint →
+  generative eval → completion manifest → merged export
 
-Runs on CUDA unless ``--device cpu``; without a GPU it raises. What this
-slice leaves out is refused up front with the ROADMAP item that ports it.
+Runs on CUDA unless ``--device cpu``; without a GPU it raises. Several
+processes (``--num_workers`` or the ``DTX_*`` env of
+``parallel/distributed.py``: one process a card, NCCL on CUDA, gloo with
+``--device cpu``) train as one over ``--mesh "dp=…,fsdp=…,tp=…,sp=…,dcn=…"``
+(the None-axis absorption of ``mesh_shape_for``): each rank reads its
+data-parallel rows of every global batch; only rank 0 logs and writes the
+checkpoint, the manifest and the export (whole: the ranks gather their
+shards first). ``--stage ppo`` under a mesh above 1 is refused with its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -55,6 +62,11 @@ from datatunerx_tpu_torch.ops.quant import (
     dequantize_model_params,
     quantize_model_params,
 )
+from datatunerx_tpu_torch.parallel.distributed import (
+    maybe_initialize_distributed,
+)
+from datatunerx_tpu_torch.parallel.mesh import make_mesh, mesh_shape_for
+from datatunerx_tpu_torch.parallel.sharding import place_batch
 from datatunerx_tpu_torch.training.checkpoint import (
     CheckpointManager,
     export_merged_model,
@@ -80,22 +92,44 @@ from datatunerx_tpu_torch.utils.model_loader import load_model_and_tokenizer
 
 
 def refuse_unported(args: TrainArgs):
-    """Raise for what this slice does not carry, naming its ROADMAP item."""
-    refusals = [
-        (args.attention == "ring",
-         "--attention ring (ROADMAP Queue 1 item 10: multi-GPU)"),
-        (args.num_workers > 1 or any(
-            int(v) > 1 for v in (args.mesh_dims or {}).values()),
-         "a mesh or worker count above 1 (ROADMAP Queue 1 item 10: "
-         "multi-GPU)"),
-    ]
-    for bad, what in refusals:
-        if bad:
-            raise NotImplementedError(f"not ported yet: {what}")
+    """Raise for what the port does not carry, naming its ROADMAP item."""
+    meshed = args.num_workers > 1 or any(
+        int(v) > 1 for v in (args.mesh_dims or {}).values())
+    if args.stage == "ppo" and meshed:
+        raise NotImplementedError(
+            "not ported yet: --stage ppo under a mesh above 1 (ROADMAP "
+            "Queue 1 item 10 (PPO under a mesh))")
+
+
+class _QuietLogger:
+    """The logger of a rank other than 0: logging stays on rank 0."""
+
+    def log_train(self, *a, **k):
+        pass
+
+    log_eval = attach_prefetcher = log_train
+
+    def effective_prefetch_depth(self):
+        return None
+
+
+def build_mesh(args: TrainArgs, world: int):
+    """(shape, mesh) as the reference's CLI builds its mesh: ``--mesh``
+    dims, the ``dcn`` factor popped, the unset data axis absorbing the
+    rest (``fsdp`` defaults to 1 when ``dp`` is given)."""
+    dims = dict(args.mesh_dims or {})
+    dcn_dp = int(dims.pop("dcn", 1) or 1)
+    shape = mesh_shape_for(
+        world, dp=dims.get("dp"),
+        fsdp=dims.get("fsdp", 1 if "dp" in dims else None),
+        tp=dims.get("tp", 1), sp=dims.get("sp", 1))
+    return shape, make_mesh(shape, dcn_dp=dcn_dp)
 
 
 def run(args: TrainArgs) -> dict:
     refuse_unported(args)
+    dist_info = maybe_initialize_distributed(args.num_workers, args.device)
+    is_main = dist_info["process_id"] == 0
     device = resolve_device(args.device)
 
     # ----- model -------------------------------------------------------
@@ -171,6 +205,12 @@ def run(args: TrainArgs) -> dict:
         if args.stage != "sft":  # generation reads instruction/response
             eval_records = None
 
+    # ----- mesh --------------------------------------------------------
+    shape, mesh = build_mesh(args, dist_info["num_processes"])
+    data_par = shape[0] * shape[1]
+    host = dict(host_id=mesh.data_index if mesh is not None else 0,
+                num_hosts=data_par)
+
     grad_accum = args.gradient_accumulation_steps
     if ppo:
         if grad_accum > 1:
@@ -178,7 +218,7 @@ def run(args: TrainArgs) -> dict:
                   " a PPO step already makes ppo_epochs optimization passes "
                   "per rollout batch", flush=True)
         grad_accum = 1
-    global_batch = args.per_device_train_batch_size * grad_accum
+    global_batch = args.per_device_train_batch_size * data_par * grad_accum
     iterator_cls = (PreferenceBatchIterator if preference else
                     PromptBatchIterator if ppo else
                     BatchIterator)
@@ -188,7 +228,7 @@ def run(args: TrainArgs) -> dict:
             template, tokenizer, global_batch=global_batch,
             block_size=args.block_size, pad_id=pad_id, grad_accum=grad_accum,
             buffer_size=args.shuffle_buffer, seed=args.seed,
-            stage=args.stage)
+            stage=args.stage, **host)
         # a stream's length is unknown: the loop re-opens it (a new shuffle
         # order) until max_steps (required with --streaming) land
         total_steps = steps_per_epoch = args.max_steps
@@ -196,7 +236,7 @@ def run(args: TrainArgs) -> dict:
         it = iterator_cls(
             train_examples, global_batch=global_batch,
             block_size=args.block_size, pad_id=pad_id, grad_accum=grad_accum,
-            seed=args.seed, pack=args.pack_sequences)
+            seed=args.seed, pack=args.pack_sequences, **host)
         steps_per_epoch = it.steps_per_epoch()
         if steps_per_epoch == 0:
             raise RuntimeError(
@@ -243,7 +283,7 @@ def run(args: TrainArgs) -> dict:
             reward_lora=reward_lora, reward_scaling=reward_scaling,
             eos_id=tokenizer.eos_token_id, pad_id=pad_id, device=device)
     else:
-        trainer = Trainer(cfg, tcfg, device=device)
+        trainer = Trainer(cfg, tcfg, device=device, mesh=mesh)
     state = trainer.init_state(params, args.seed)
 
     run_name = args.uid or os.path.basename(args.output_dir.rstrip("/")) \
@@ -252,7 +292,9 @@ def run(args: TrainArgs) -> dict:
     ckpt = CheckpointManager(ckpt_dir, save_interval_steps=args.save_steps)
     start_step = 0
     if args.resume and ckpt.latest_step() is not None:
-        state, start_step = ckpt.restore(state)
+        # every rank reads the whole checkpoint and keeps its shards
+        state, start_step = ckpt.restore(trainer.gather_state(state))
+        state = trainer.place_state(state)
         if ppo:
             cs = load_controller_state(ckpt_dir)
             if cs is not None:
@@ -265,7 +307,16 @@ def run(args: TrainArgs) -> dict:
         metrics_export_address=args.metrics_export_address, uid=args.uid,
         # the prefetch advisory suggests (and retunes to) a deeper depth
         # when pipe_step_wait_ms says the step loop waits on the input path
-        prefetch_depth=args.prefetch_depth)
+        prefetch_depth=args.prefetch_depth) if is_main else _QuietLogger()
+
+    def save(at: int, force: bool = False) -> bool:
+        """A checkpoint when due: every rank gathers, rank 0 writes."""
+        if not ckpt.due(at, force):
+            return False
+        whole = trainer.gather_state(state) if mesh is not None else state
+        if is_main:
+            ckpt.maybe_save(whole, at, force=True)
+        return True
 
     # ----- loop --------------------------------------------------------
     # profiling: a torch.profiler window over steps [start+1, start+1+N);
@@ -323,6 +374,10 @@ def run(args: TrainArgs) -> dict:
             if step >= total_steps:
                 break
             host_pf: HostPrefetcher | None = None
+            if mesh is not None:
+                # this rank's sequence chunk, labels shifted, on the host
+                src = (place_batch(b, mesh, accum=grad_accum > 1)
+                       for b in src)
             if exhausted:
                 batches = iter(())
             elif pipelined:
@@ -341,7 +396,7 @@ def run(args: TrainArgs) -> dict:
                     if step >= total_steps:
                         done = True
                         break
-                    if (prof is None and not profiled
+                    if (prof is None and not profiled and is_main
                             and args.profile_steps > 0
                             and step >= start_step + 1):
                         prof = _start_profiler(device)
@@ -357,27 +412,27 @@ def run(args: TrainArgs) -> dict:
                             extra.update(pipe_stats.snapshot())
                         mbuf.push(step, metrics, extra)
                         log_resolved(mbuf.pop_ready())
-                    if args.save_steps > 0 and ckpt.maybe_save(state, step) \
-                            and ppo:
+                    if args.save_steps > 0 and save(step) and ppo:
                         save_controller_state(ckpt_dir, step, trainer.kl_coef)
                     if (eval_examples and args.eval_steps > 0
                             and step % args.eval_steps == 0):
                         _run_eval(trainer, state, eval_examples, args,
-                                  pad_id, logger, step)
+                                  pad_id, logger, step, host)
                     if (gen_in_training and step < total_steps
                             and step % args.generate_eval_steps == 0):
                         # a small sample at intervals, so rouge/bleu have
                         # curves; the final step gets the full pass below
-                        _generate(state, trainer, cfg, tokenizer, template,
-                                  eval_records, args, lora_run, logger, step,
-                                  min(args.generate_examples, 8))
+                        _generate(trainer.gather_state(state), trainer, cfg,
+                                  tokenizer, template, eval_records, args,
+                                  lora_run, logger, step,
+                                  min(args.generate_examples, 8), is_main)
             finally:
                 if host_pf is not None:
                     host_pf.close()
             if (eval_examples and args.eval_steps == 0 and not done
                     and step < total_steps):
                 _run_eval(trainer, state, eval_examples, args, pad_id,
-                          logger, step)
+                          logger, step, host)
             if not saw_batch:  # a stream's pass gave no full batch
                 if step == 0:
                     raise RuntimeError("Empty dataset!")
@@ -392,14 +447,18 @@ def run(args: TrainArgs) -> dict:
     # ----- final eval / save / manifest / export -------------------------
     if eval_examples:
         final_metrics.update(_run_eval(trainer, state, eval_examples, args,
-                                       pad_id, logger, step))
-    ckpt.maybe_save(state, step, force=True)
+                                       pad_id, logger, step, host))
+    save(step, force=True)
     if ppo:
         save_controller_state(ckpt_dir, step, trainer.kl_coef)
+    whole = trainer.gather_state(state)  # every rank takes part
     if args.predict_with_generate and eval_records:
         final_metrics.update(_generate(
-            state, trainer, cfg, tokenizer, template, eval_records, args,
-            lora_run, logger, step, args.generate_examples))
+            whole, trainer, cfg, tokenizer, template, eval_records, args,
+            lora_run, logger, step, args.generate_examples, is_main))
+    if not is_main:
+        return {"steps": step, "metrics": final_metrics, "manifest": None,
+                "checkpoint_dir": ckpt_dir}
     manifest_path = write_manifest(
         args.storage_path, run_name, storage.join(ckpt_dir, str(step)),
         metrics=final_metrics,
@@ -415,19 +474,19 @@ def run(args: TrainArgs) -> dict:
             "optimizer": args.optim,
             "reward_model": args.reward_model,
             "template": args.template,
-            "mesh": {"dp": 1, "fsdp": 1, "tp": 1, "sp": 1},
+            "mesh": dict(zip(("dp", "fsdp", "tp", "sp"), shape)),
             "steps": step,
             "trace": trace_dir if profiled else None,
         },
     )
     if args.export_dir:
-        export_params = state.params
+        export_params = whole.params
         if args.quantization:  # the export holds full (dequantized) kernels
             export_params = dequantize_model_params(
                 export_params, args.quantization,
                 dims_fn=lambda n: target_dims(cfg, n))
         export_merged_model(export_params, cfg, args.export_dir,
-                            lora=state.lora if lora_run else None,
+                            lora=whole.lora if lora_run else None,
                             scaling=trainer.scaling)
     return {"steps": step, "metrics": final_metrics,
             "manifest": manifest_path, "checkpoint_dir": ckpt_dir}
@@ -451,13 +510,16 @@ def _stop_profiler(prof, device, trace_dir: str):
     print(f"[profile] trace captured to {trace_dir}", flush=True)
 
 
-def _run_eval(trainer, state, eval_examples, args, pad_id, logger, step):
+def _run_eval(trainer, state, eval_examples, args, pad_id, logger, step,
+              host):
     iterator_cls = (PreferenceBatchIterator if args.stage in ("dpo", "rm")
                     else BatchIterator)
     eval_it = iterator_cls(
-        eval_examples, global_batch=args.per_device_eval_batch_size,
+        eval_examples,
+        global_batch=args.per_device_eval_batch_size * host["num_hosts"],
         block_size=args.block_size, pad_id=pad_id, shuffle=False,
-        drop_remainder=False)  # pad the tail: every eval example counts
+        drop_remainder=False,  # pad the tail: every eval example counts
+        **host)
     m = trainer.evaluate(state, eval_it.epoch(0))
     if args.stage in ("dpo", "rm"):
         # eval_loss is the mean pairwise loss: exp of it is no perplexity
@@ -467,9 +529,12 @@ def _run_eval(trainer, state, eval_examples, args, pad_id, logger, step):
 
 
 def _generate(state, trainer, cfg, tokenizer, template, records, args,
-              lora_run, logger, step, max_examples) -> dict:
-    """Greedy generations over the eval records, scored and logged; a
-    failure is printed and never ends a run."""
+              lora_run, logger, step, max_examples, is_main=True) -> dict:
+    """Greedy generations over the eval records, scored and logged (rank 0
+    of a multi-process run, on the whole state); a failure is printed and
+    never ends a run."""
+    if not is_main:
+        return {}
     try:
         m = generative_eval(
             state.params, cfg, tokenizer, template, records, args.output_dir,
@@ -484,11 +549,23 @@ def _generate(state, trainer, cfg, tokenizer, template, records, args,
     return m
 
 
+def _leave_process_group():
+    """Every rank reaches the end before any tears its group down: a rank
+    that exits while another still holds the group's store or its gloo
+    pairs can abort that one at interpreter exit."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def main(argv=None):
     args = parse_train_args(argv)
     result = run(args)
     print(f"[done] {result['steps']} steps; manifest: {result['manifest']}",
           flush=True)
+    _leave_process_group()
     return 0
 
 

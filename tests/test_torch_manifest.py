@@ -15,8 +15,9 @@ of substitutions, and nothing else differs:
   address names it too).
 
 The status-file feedback, ``jobset_state``/``deployment_state`` and
-``delete`` behave as the reference's; more than one host raises (multi-GPU
-is ROADMAP Queue 1 item 10).
+``delete`` behave as the reference's; more than one host renders the
+reference's N-pod JobSet under the same map (one GPU a pod, the
+coordinator env).
 """
 
 import copy
@@ -108,12 +109,22 @@ def test_deployment_is_the_references_under_the_map(tmp_path, spec):
     assert port.render_serving("app", spec) == want
 
 
-def test_more_than_one_host_raises(tmp_path):
-    port = tb.ManifestBackend(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port.submit("big", dict(TRAIN_SPEC, num_hosts=2))
-    assert port.status("big") == "NotFound"
-    assert not os.listdir(tmp_path)
+def test_more_than_one_host_renders_the_references_jobset(tmp_path):
+    ref = jb.ManifestBackend(str(tmp_path / "ref"))
+    port = tb.ManifestBackend(str(tmp_path / "port"))
+    spec = dict(TRAIN_SPEC, num_hosts=2)
+    want = to_port_training(ref.render_training("big", spec))
+    port.submit("big", spec)
+    got = port.render_training("big", spec)
+    assert got == want
+    rj = got["spec"]["replicatedJobs"][0]["template"]["spec"]
+    assert rj["parallelism"] == rj["completions"] == 2
+    env = {e["name"]: e for e in _pod(got)["containers"][0]["env"]}
+    assert env["DTX_NUM_PROCESSES"]["value"] == "2"
+    assert env["DTX_COORDINATOR_ADDRESS"]["value"] == (
+        "big-gpu-hosts-0-0.big:8476")
+    assert port.status("big") == "Pending"
+    assert os.listdir(tmp_path / "port") == ["big-jobset.json"]
 
 
 STATUSES = [

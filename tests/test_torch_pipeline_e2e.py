@@ -198,9 +198,11 @@ def test_experiment_loop_sees_port_steps(tmp_path):
 
 @pytest.mark.parametrize("spec", [{"replicas": 2}, {"gateway": True}])
 def test_serving_gateway_and_multi_host_training_are_refused(tmp_path, spec):
-    """More than one host is refused (item 10); a gateway deployment is not
-    any more: it launches the port's gateway over port replicas on the
-    backend's device (deployed and scaled in tests/test_torch_gateway.py)."""
+    """More hosts than visible cards is refused on CUDA (one card a host,
+    and this machine has none; multi-host training on the CPU runs in
+    tests/test_torch_multihost.py); a gateway deployment is not refused: it
+    launches the port's gateway over port replicas on the backend's device
+    (deployed and scaled in tests/test_torch_gateway.py)."""
     serving = LocalServingBackend(str(tmp_path), device="cpu")
     argv = serving.argv(dict(spec, model_path="preset:debug"), 8000,
                         str(tmp_path))
@@ -208,7 +210,7 @@ def test_serving_gateway_and_multi_host_training_are_refused(tmp_path, spec):
     assert argv[argv.index("--replicas") + 1] == str(spec.get("replicas", 1))
     assert argv[argv.index("--device") + 1] == "cpu"
     assert serving.status("x") == "NotFound"
-    training = LocalProcessBackend(str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    training = LocalProcessBackend(str(tmp_path), device="cuda")
+    with pytest.raises(RuntimeError, match=r"2 hosts on CUDA.*0 card\(s\)"):
         training.submit("y", {"args": [], "num_hosts": 2})
     assert training.status("y") == "NotFound"
