@@ -364,7 +364,8 @@ f32, and the threefry kernel against its plain version, bit for bit, at
 and 14; ``--phase train`` runs phases 1, 2, 5,
 5-serve, 6-9 and 11-13; ``--phase qlora`` runs phases 1, 2 and 7-9; ``--phase
 hf`` runs phases 1, 2 and the three HF phases; ``--phase parallel`` runs
-phases 1, 2 and 15.
+phases 1, 2 and 15; ``--phase operator`` runs phases 1, 2 and 16 (``train``
+and ``all`` run 16 after 13).
 
 15. parallel (``--phase parallel`` and ``all``, last): the multi-GPU
     slice on one card. (a) The threefry kernel's block draws (a rank's
@@ -384,12 +385,48 @@ phases 1, 2 and 15.
     and K3, the ring's wall time beside the one call's. (c) The trainer
     CLI at tinyllama width (phase 5's data and shape, 2 steps) with
     ``--attention ring --mesh dp=1`` and with ``--attention xla``: equal
-    losses; ``maybe_initialize_distributed`` reports a world of 1. (d)
+    losses; ``maybe_initialize_distributed`` reports a world of 1; then
+    ``--stage ppo`` (phase 12's flags, 2 steps of 16 tokens, against a
+    2-step rm run) with ``--mesh dp=1`` and without a mesh: losses,
+    approx_kl and kl_coef within 1e-5 (the multi-rank PPO is held on the
+    CPU under gloo). (d)
     ``estimate_footprint`` at phases 5, 7 and 8 and hf-llama2's LoRA at or
     above the peaks those phases measured in this run; ``check_fits`` on
     the card's budget rejects a 7B full-parameter job and admits a 7B
     QLoRA one. (e) ``LocalProcessBackend`` with more hosts than cards on
     CUDA raises, naming the card count.
+
+16. operator (``--phase operator``, ``train`` and ``all``): the port's
+    controller-manager as a subprocess (``python -m
+    datatunerx_tpu_torch.operator.manager --backend local``, a ``file://``
+    storage path, the device health probe every 5 s, ``TPU_SLICE_POOL``
+    one slice of 1 card). ``dtx-torch apply`` registers a Dataset (phase
+    13's CSV generator, 8 rows), an LLM (``preset:tinyllama-1.1b``), two
+    Hyperparameters that differ in learningRate and a FinetuneExperiment
+    of two FinetuneJobs (LoRA r8 on q_proj,v_proj, batch 4: 2 steps each,
+    built-in scoring). Checked: ``dtx_device_healthy 1`` and the slice
+    gauges on the manager's ``/metrics``; one job waits for the card
+    (``PLACEMENT_PENDING``) while the other holds it; both jobs
+    Successful with an LLMCheckpoint and a numeric score; the experiment
+    Success with the ``bestVersion`` the reference's ``parse_score``
+    ranks first. Each job's server subprocess is probed as soon as it
+    appears, with the manager held (SIGSTOP) until the probes are done
+    so that the operator cannot tear it down meanwhile: the built-in
+    probes' greedy answers with ``"model": "default"`` (the job's
+    adapter) and their references' ``nll_sum`` with and without the
+    adapter, which must differ. Then, for each job, an in-process engine
+    loaded from the same LLMCheckpoint with the same flags gives the
+    Scoring's answers (the base: the Scoring sends no ``model``) and the
+    adapter's answers (else the streams part at a near-tie, then
+    ``FORCED_ULPS``, the plain forward carrying the adapter) and each
+    ``nll_sum`` within ``PPL_BOUND``, the adapter's in all nearer the
+    in-process engine's than the adapter moves them from the base, with
+    that engine's K7/K8/K9
+    launches held to its trace (the serving spec sets no
+    ``kv_block_size``: the dense cache, K9 only); deleting the
+    experiment leaves no trainer or server process. Prints the seconds
+    from apply to each job's training, HEALTHY and score, and the
+    experiment's wall time, less the seconds the manager was held.
 
 The script imports nothing of JAX, of the JAX package or of the HF
 libraries.
@@ -403,6 +440,7 @@ import gc
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2999,9 +3037,9 @@ def record_submits(eng):
     return seen
 
 
-def adapter_tree(torch, path):
-    """``(adapter tree on the card, scaling)`` of an adapter checkpoint, at
-    the scaling the engines serve it with."""
+def adapter_tree(torch, path, device="cuda"):
+    """``(adapter tree on ``device``, scaling)`` of an adapter checkpoint,
+    at the scaling the engines serve it with."""
     from datatunerx_tpu_torch.models.lora import lora_scaling
     from datatunerx_tpu_torch.serving.batched_engine import (
         load_checkpoint_state,
@@ -3014,7 +3052,7 @@ def adapter_tree(torch, path):
     if scaling is None:
         scaling = lora_scaling(32.0, next(iter(layers.values()))["a"]
                                .shape[-1])
-    return tree_to(state["lora"], "cuda", torch.float32), scaling
+    return tree_to(state["lora"], device, torch.float32), scaling
 
 
 def adapter_phase(torch, counters, base):
@@ -5879,6 +5917,476 @@ def ring_cli_phase(torch, tmp):
     log(f"  world: {info}; ring at sp 1 == xla, loss for loss")
 
 
+def ppo_mesh_cli_phase(torch, tmp):
+    """Phase 15c's PPO case: an rm run (2 steps), then ``--stage ppo``
+    through the trainer CLI (phase 12's flags, 2 steps of 16 sampled
+    tokens) with ``--mesh dp=1`` and without a mesh: equal losses,
+    approx_kl and kl_coef within 1e-5. One card admits a world of 1 (NCCL
+    refuses two ranks on one GPU); the multi-rank PPO is held on the CPU
+    under gloo (``tests/test_torch_ppo_mesh.py``)."""
+    from datatunerx_tpu_torch.tuning import train
+
+    prefs, prompts = (os.path.join(tmp, n) for n in ("prefs.csv",
+                                                      "prompts.csv"))
+    write_pref_csv(prefs)
+    write_prompt_csv(prompts, n=2 * PPO_BATCH)
+    store = os.path.join(tmp, "ppo-store")
+    common = ["--model_name_or_path", "preset:tinyllama-1.1b",
+              "--template", "alpaca", "--finetuning_type", "lora",
+              "--lora_target", "q_proj,v_proj", "--attention", "flash",
+              "--remat", "dots", "--bf16", "--max_steps", "2",
+              "--logging_steps", "1", "--storage_path", store,
+              "--device", "cuda"]
+    t0 = time.perf_counter()
+    if train.main(common + [
+            "--stage", "rm", "--train_path", prefs, "--block_size", "256",
+            "--per_device_train_batch_size", "4", "--uid", "rm",
+            "--output_dir", os.path.join(tmp, "rm-out")]) != 0:
+        fail("15c: the rm run failed")
+    log(f"  rm run (2 steps): {time.perf_counter() - t0:.1f} s")
+    keys = ("loss", "pg_loss", "vf_loss", "approx_kl", "kl", "kl_coef")
+    runs = {}
+    for label, extra in (("mesh dp=1", ["--mesh", "dp=1"]), ("no mesh", [])):
+        out = os.path.join(tmp, f"ppo-{len(runs)}")
+        t0 = time.perf_counter()
+        if train.main(common + [
+                "--stage", "ppo", "--reward_model", os.path.join(store, "rm"),
+                "--train_path", prompts, "--block_size", str(PPO_BLOCK),
+                "--per_device_train_batch_size", str(PPO_BATCH),
+                "--ppo_gen_len", "16", "--ppo_epochs", str(PPO_EPOCHS),
+                "--ppo_target", "0.01", "--uid", f"ppo-{len(runs)}",
+                "--output_dir", out, *extra]) != 0:
+            fail(f"15c: PPO ({label}) failed")
+        with open(os.path.join(out, "watch", "trainer_log.jsonl")) as f:
+            runs[label] = [{k: json.loads(line)[k] for k in keys}
+                           for line in f]
+        log(f"  PPO {label}: {runs[label]} ({time.perf_counter() - t0:.1f} "
+            "s)")
+        torch.cuda.empty_cache()
+    a, b = runs["mesh dp=1"], runs["no mesh"]
+    if len(a) != 2 or len(b) != 2 or any(
+            not math.isfinite(r[k]) for r in a for k in keys):
+        fail(f"15c: PPO records {a} / {b}")
+    worst = max(abs(x[k] - y[k]) for x, y in zip(a, b) for k in keys)
+    if worst > 1e-5:
+        fail(f"15c: PPO --mesh dp=1 parts from the run without a mesh by "
+             f"{worst:.3g}")
+    log(f"  PPO --mesh dp=1 == no mesh within {worst:.3g} (bound 1e-5)")
+
+
+# ------------------------------------------------------------- phase 16
+# one slice of one card: the second job waits for the first's card
+OPERATOR_POOL = [{"name": "card0", "topology": "1x1", "chips": 1}]
+OPERATOR_POLL_ENV = {"DTX_POLL_INTERVAL_S": "0.5", "DTX_RUNNING_POLL_S": "1",
+                     "DTX_SERVE_POLL_S": "1", "DTX_EXPERIMENT_POLL_S": "1",
+                     "DTX_SCORING_RETRY_S": "2"}
+OPERATOR_JOBS = (("opj-a", "hp-a", "2e-4"), ("opj-b", "hp-b", "1e-3"))
+
+
+def operator_crs(model, csv_path, block=256):
+    """The phase's CRs: a Dataset over ``csv_path``, an LLM, two
+    Hyperparameters that differ in learningRate, and a FinetuneExperiment
+    of two FinetuneJobs (LoRA r8 on q_proj,v_proj, built-in scoring)."""
+    fin = "finetune.datatunerx.io/v1beta1"
+    core = "core.datatunerx.io/v1beta1"
+    docs = [
+        {"apiVersion": "extension.datatunerx.io/v1beta1", "kind": "Dataset",
+         "metadata": {"name": "ds"},
+         "spec": {"datasetMetadata": {"datasetInfo": {
+             "subsets": [{"splits": {"train": {"file": csv_path}}}],
+             "features": [{"name": "instruction", "mapTo": "instruction"},
+                          {"name": "response", "mapTo": "response"}]}}}},
+        {"apiVersion": core, "kind": "LLM", "metadata": {"name": "llm"},
+         "spec": {"path": model}}]
+    for _, hp, lr in OPERATOR_JOBS:
+        docs.append({"apiVersion": core, "kind": "Hyperparameter",
+                     "metadata": {"name": hp}, "spec": {"parameters": {
+                         "scheduler": "cosine", "optimizer": "adamw",
+                         "loRA_R": "8", "loRA_Alpha": "32",
+                         "loRA_Dropout": "0.1", "learningRate": lr,
+                         "epochs": "1", "blockSize": str(block),
+                         "batchSize": "4", "gradAccSteps": "1",
+                         "PEFT": "true", "attention": "flash",
+                         "loRATarget": "q_proj,v_proj"}}})
+    docs.append({"apiVersion": fin, "kind": "FinetuneExperiment",
+                 "metadata": {"name": "exp"}, "spec": {"finetuneJobs": [
+                     {"name": job, "spec": {"finetune": {
+                         "name": f"{job}-finetune", "finetuneSpec": {
+                             "llm": "llm", "dataset": "ds",
+                             "hyperparameter": {"hyperparameterRef": hp},
+                             "image": {"name": "trainer", "path": model},
+                             "node": 1}}}}
+                     for job, hp, _ in OPERATOR_JOBS]}})
+    return docs
+
+
+def port_procs(root):
+    """(pid, argv) of the port's trainer and server processes whose working
+    directory is under ``root``."""
+    procs = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = [c.decode() for c in f.read().split(b"\0")]
+            cwd = os.readlink(f"/proc/{pid}/cwd")
+        except OSError:
+            continue
+        if cwd.startswith(root) and any(
+                m in cmd for m in ("datatunerx_tpu_torch.tuning.train",
+                                   "datatunerx_tpu_torch.serving.server")):
+            procs.append((int(pid), cmd))
+    return sorted(procs)
+
+
+def port_pids(root):
+    """Pids of ``port_procs(root)``."""
+    return [pid for pid, _ in port_procs(root)]
+
+
+def _running(pid) -> bool:
+    """``pid`` exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def probe_operator_server(mgr, pid, port, timeout=600):
+    """The built-in Scoring probes on a server the operator launched
+    (process ``pid`` on ``port``), with the manager held (SIGSTOP) so that
+    it can neither score nor tear the server down meanwhile: each probe's
+    greedy answer with ``"model": "default"`` (the job's adapter), and
+    the ``nll_sum`` of its reference answer under the adapter and under
+    the base. Returns those and the seconds the probes took once the
+    server answered (the manager's timeline is short by those: the
+    server's load while held is not)."""
+    from datatunerx_tpu_torch.scoring.builtin import DEFAULT_PROBES
+
+    t0 = t1 = time.perf_counter()
+    os.kill(mgr.pid, signal.SIGSTOP)
+    try:
+        while not _reachable(f"http://127.0.0.1:{port}/healthz"):
+            if not _running(pid):
+                fail(f"16: the operator's server {pid} exited before it "
+                     "answered /healthz")
+            if time.perf_counter() - t0 > timeout:
+                fail(f"16: the operator's server {pid} did not answer "
+                     f"/healthz within {timeout} s")
+            time.sleep(0.2)
+        t1 = time.perf_counter()
+        out = {"answers": [], "nll": [], "base_nll": []}
+        for pr in DEFAULT_PROBES:
+            out["answers"].append(post(port, {
+                "messages": [{"role": "user", "content": pr["prompt"]}],
+                "model": "default", "max_tokens": 64,
+                "temperature": 0.0})["text"])
+            for key, name in (("nll", "default"), ("base_nll", "")):
+                out[key].append(post_perplexity(port, pr["prompt"],
+                                                pr["reference"], name)[0])
+    finally:
+        os.kill(mgr.pid, signal.SIGCONT)
+    return out, time.perf_counter() - t1
+
+
+def operator_phase(torch, tmp, model="preset:tinyllama-1.1b", device="cuda",
+                   counters=(), timeout=900):
+    """16 (see the module docstring). ``counters``: K7, K8 and K9's
+    (wrapper, attribute) pairs, counted over the in-process engine's
+    requests (empty where the plain versions run: they count nothing).
+    Returns the phase's seconds and that engine's launches."""
+    from datatunerx_tpu_torch import cli
+    from datatunerx_tpu_torch.operator.backends import _free_port
+    from datatunerx_tpu_torch.operator.finetune_controller import (
+        PLACEMENT_PENDING,
+    )
+    from datatunerx_tpu_torch.operator.finetuneexperiment_controller import (
+        parse_score,
+    )
+    from datatunerx_tpu_torch.scoring.builtin import DEFAULT_PROBES
+
+    csv_path = os.path.join(tmp, "operator.csv")
+    write_train_csv(csv_path, seed=4, n=8)  # 8 rows at batch 4: 2 steps
+    work = os.path.join(tmp, "operator")
+    os.makedirs(work, exist_ok=True)
+    crs = os.path.join(tmp, "operator-crs.json")
+    with open(crs, "w") as f:
+        json.dump(operator_crs(model, csv_path), f)
+    api_port, health_port = _free_port(), _free_port()
+    server = f"http://127.0.0.1:{api_port}"
+    env = dict(os.environ, TPU_SLICE_POOL=json.dumps(OPERATOR_POOL),
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""),
+               **OPERATOR_POLL_ENV)
+    argv = [sys.executable, "-m", "datatunerx_tpu_torch.operator.manager",
+            "--backend", "local", "--device", device,
+            "--storage-path", "file://" + os.path.join(tmp, "storage"),
+            "--workdir", work, "--device-health-interval", "5",
+            "--metrics-bind-address", f"127.0.0.1:{api_port}",
+            "--health-probe-bind-address", f"127.0.0.1:{health_port}"]
+    mlog = open(os.path.join(tmp, "manager.log"), "w")
+    mgr = subprocess.Popen(argv, stdout=mlog, stderr=subprocess.STDOUT,
+                           env=env, cwd=work, start_new_session=True)
+    mlog.close()
+
+    def manager_log():
+        with open(os.path.join(tmp, "manager.log")) as f:
+            return f.read()[-4000:]
+
+    def get(kind, name):
+        try:
+            with urllib.request.urlopen(cli._url(server, kind, "default",
+                                                 name), timeout=30) as r:
+                return json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            if e.code == 404:
+                return None
+            raise
+
+    def metrics():
+        with urllib.request.urlopen(f"{server}/metrics", timeout=30) as r:
+            return {ln.rsplit(None, 1)[0]: float(ln.rsplit(None, 1)[1])
+                    for ln in r.read().decode().splitlines()
+                    if ln and not ln.startswith("#")}
+
+    def dtx(*args):
+        p = subprocess.run([sys.executable, "-m", "datatunerx_tpu_torch.cli",
+                            "--server", server, *args], env=env,
+                           capture_output=True, text=True, timeout=120)
+        if p.returncode != 0:
+            fail(f"16: dtx-torch {' '.join(args)}: {p.stderr[-2000:]}")
+        return p.stdout
+
+    eng = srv = None
+    try:
+        wait_for("16: the manager's API", lambda: _reachable(
+            f"{server}/healthz"), (True,), 120)
+        t_apply = time.perf_counter()
+        applied = dtx("apply", "-f", crs)
+        log(f"  dtx-torch apply: {applied.strip().splitlines()}")
+        seen = {j: {} for j, _, _ in OPERATOR_JOBS}
+        held = set()  # jobs seen waiting for the card while the other ran
+        served = {}  # checkpoint → its operator's server's answers
+        paused = 0.0  # seconds those probes held the manager
+        exp = None
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline + paused:
+            if mgr.poll() is not None:
+                fail(f"16: the manager exited {mgr.returncode}:\n"
+                     f"{manager_log()}")
+            now = time.perf_counter() - t_apply - paused
+            fts = {j: get("Finetune", f"{j}-finetune") for j in seen}
+            for j, ft in fts.items():
+                st = (ft or {}).get("status", {})
+                if st.get("backendUnavailable"):
+                    fail(f"16: {j} held for device health: {st}")
+                others = [o for o in fts if o != j and fts[o] is not None
+                          and (fts[o].get("status") or {}).get("placement")
+                          and fts[o]["status"].get("state") not in (
+                              "Successful", "Failed")]
+                if (st.get("placementPending") == PLACEMENT_PENDING
+                        and st.get("state") == "Pending" and others):
+                    held.add(j)
+                if st.get("state") == "Successful":
+                    seen[j].setdefault("trained_s", now)
+                job = get("FinetuneJob", j) or {}
+                if (job.get("status") or {}).get("result", {}).get("serve"):
+                    seen[j].setdefault("healthy_s", now)
+                sc = get("Scoring", j)
+                if sc and (sc.get("status") or {}).get("score") is not None:
+                    seen[j].setdefault("scored_s", now)
+                    seen[j]["scoring"] = sc
+                if (job.get("status") or {}).get("state") in (
+                        "Successful", "Failed"):
+                    seen[j]["job"] = job
+            for pid, cmd in port_procs(work):
+                ckpt = cmd[cmd.index("--checkpoint_path") + 1] \
+                    if "--checkpoint_path" in cmd else None
+                if ("datatunerx_tpu_torch.serving.server" in cmd
+                        and ckpt not in served):
+                    served[ckpt], held_s = probe_operator_server(
+                        mgr, pid, int(cmd[cmd.index("--port") + 1]))
+                    paused += held_s
+            exp = get("FinetuneExperiment", "exp")
+            state = ((exp or {}).get("status") or {}).get("state")
+            if state in ("Success", "Failed"):
+                break
+            time.sleep(0.25)
+        wall = time.perf_counter() - t_apply - paused
+        if state != "Success":
+            fail(f"16: the experiment is {state!r} after {wall:.0f} s: "
+                 f"{json.dumps((exp or {}).get('status'))[:1500]}\n"
+                 f"{manager_log()}")
+        for j, rec in seen.items():
+            job = rec.get("job") or get("FinetuneJob", j)
+            jst = job["status"]
+            if jst.get("state") != "Successful":
+                fail(f"16: {j} is {jst}")
+            score = jst["result"]["score"]
+            if not isinstance(score, str) or not math.isfinite(
+                    float(score)):
+                fail(f"16: {j}'s score {score!r}")
+            ref = jst["finetuneStatus"]["llmCheckpoint"]["llmCheckpointRef"]
+            rec["checkpoint"] = get("LLMCheckpoint", ref)
+            if rec["checkpoint"] is None:
+                fail(f"16: {j} has no LLMCheckpoint {ref}")
+            rec["score"] = score
+            rec["checkpointPath"] = jst["result"]["checkpointPath"]
+        if not held:
+            fail("16: no job was seen waiting for the slice while the other "
+                 "held it")
+        best = max((seen[j] for j, _, _ in OPERATOR_JOBS),
+                   key=lambda r: parse_score(r["score"]))
+        bv = exp["status"]["bestVersion"]
+        if (bv["checkpointPath"] != best["checkpointPath"]
+                or bv["score"] != best["score"]):
+            fail(f"16: bestVersion {bv}, expected the job scoring "
+                 f"{best['score']} ({best['checkpointPath']})")
+        m = {}
+        for _ in range(60):  # the probe runs while no job trains
+            m = metrics()
+            if m.get("dtx_device_healthy") == 1.0:
+                break
+            time.sleep(1)
+        if m.get("dtx_device_healthy") != 1.0 or m.get(
+                "dtx_slices_total") != 1.0 or m.get("dtx_slices_free") != 1.0:
+            fail(f"16: /metrics {m}")
+        # each served checkpoint: its Scoring's answers (the base) and the
+        # answers and NLLs with "model": "default" (the adapter), both
+        # through the operator's server subprocess, against an in-process
+        # engine loaded from the same LLMCheckpoint with the same flags
+        launched = {}
+        for j, _, _ in OPERATOR_JOBS:
+            rec = seen[j]
+            ckpt = rec["checkpoint"]["spec"]["checkpoint"]
+            op = served.get(ckpt)
+            if op is None:
+                fail(f"16: no server of the operator's was seen serving "
+                     f"{j}'s checkpoint {ckpt} (seen: {sorted(served)})")
+            if all(a == b for a, b in zip(op["nll"], op["base_nll"])):
+                fail(f'16: {j}\'s server scores "default" as the base: '
+                     f"nll_sum {op['nll']}")
+            flags = ("--template", "vanilla", "--checkpoint_path", ckpt,
+                     "--device", device)
+            srv, port, eng = start_server(torch, flags, model=model)
+            if eng.adapter_ids != {"": 0, "default": 1}:
+                fail(f"16: the in-process engine's adapters "
+                     f"{eng.adapter_ids}")
+            lora = adapter_tree(torch, ckpt, device)
+            zero(counters)
+            mark = len(eng.sched_trace)
+            subs = record_submits(eng)
+            probes = [(d["prompt"], d["answer"], "", None)
+                      for d in rec["scoring"]["status"]["details"]]
+            probes += [(pr["prompt"], ans, "default", lora)
+                       for pr, ans in zip(DEFAULT_PROBES, op["answers"])]
+            for i, (prompt, answer, name, adapter) in enumerate(probes):
+                body = {"messages": [{"role": "user", "content": prompt}],
+                        "max_tokens": 64, "temperature": 0.0}
+                if name:
+                    body["model"] = name
+                out = post(port, body, trace=f"{j}-{i}")
+                req = subs[f"{j}-{i}"]
+                if out["text"] == answer:
+                    continue
+                got = eng.tokenizer.encode(answer, add_special_tokens=False)
+                check_greedy(torch, f"16 {j} probe {i} ({name or 'base'})",
+                             got, req.tokens, eng, req.prompt_ids, 64,
+                             req.stop_ids, lora=adapter)
+            if counters:
+                steps, chunks, _ = trace_counts(eng, mark)
+                got = {counter_key(c, a): getattr(c, a) for c, a in counters}
+                dense = eng.decode_path == "dense"
+                L = eng.cfg.num_layers
+                want = dict(zip(got, (0 if dense else L * steps,
+                                      0 if dense else L * chunks, steps)))
+                if got != want or steps <= 0:
+                    fail(f"16: the engine's launches {got}, expected {want} "
+                         f"({steps} decode steps, {chunks} prefill chunks, "
+                         f"decode path {eng.decode_path})")
+                for k, v in got.items():
+                    launched[k] = launched.get(k, 0) + v
+            mine = {"nll": [], "base_nll": []}
+            for i, pr in enumerate(DEFAULT_PROBES):
+                for key, name in (("nll", "default"), ("base_nll", "")):
+                    ours = post_perplexity(port, pr["prompt"],
+                                           pr["reference"], name)[0]
+                    theirs = op[key][i]
+                    rel = abs(theirs["nll_sum"] - ours["nll_sum"]) / abs(
+                        ours["nll_sum"])
+                    if (theirs["num_tokens"] != ours["num_tokens"]
+                            or not rel <= PPL_BOUND):
+                        fail(f"16: {j} probe {i} ({name or 'base'}): the "
+                             f"operator's server reads nll_sum {theirs}, the "
+                             f"in-process engine {ours} (rel {rel:.2e}, "
+                             f"bound {PPL_BOUND:g})")
+                    mine[key].append(ours["nll_sum"])
+            # the same adapter: the operator's readings lie nearer the
+            # in-process adapter's than the adapter lies from the base
+            apart = sum(abs(x["nll_sum"] - y)
+                        for x, y in zip(op["nll"], mine["nll"]))
+            shift = sum(abs(x - y)
+                        for x, y in zip(mine["nll"], mine["base_nll"]))
+            if not apart < shift:
+                fail(f"16: {j}'s server reads the adapter's nll_sum "
+                     f"{apart:.3g} away from the in-process engine's, which "
+                     f"moves {shift:.3g} from the base")
+            log(f"  {j}: {len(probes)} greedy probe answers of the "
+                f"operator's server (base and \"default\") equal to the "
+                f"in-process engine's (decode path {eng.decode_path}); "
+                f"nll_sum with the adapter {[x['nll_sum'] for x in op['nll']]}"
+                f", the base {[x['nll_sum'] for x in op['base_nll']]}; the "
+                f"in-process adapter's {apart:.3g} away, {shift:.3g} from "
+                f"its base")
+            stop_server(srv)
+            srv = None
+            eng.close()
+            eng = None
+        log(f"  the in-process engines' launches {launched}; the operator's "
+            f"servers' probes held the manager {paused:.1f} s (left out of "
+            f"the seconds below)")
+        # teardown: the experiment's deletion cascades to every workload
+        dtx("delete", "FinetuneExperiment", "exp")
+        wait_for("16: delete", lambda: get("FinetuneExperiment", "exp")
+                 is None and all(get("Finetune", f"{j}-finetune") is None
+                                 for j in seen), (True,), 120)
+        left = port_pids(work)
+        if left:
+            fail(f"16: processes left after the experiment's deletion: "
+                 f"{left}")
+    finally:
+        if srv is not None:
+            stop_server(srv)
+        if eng is not None:
+            eng.close()
+        if mgr.poll() is None:
+            os.killpg(mgr.pid, 15)
+            try:
+                mgr.wait(60)
+            except subprocess.TimeoutExpired:
+                os.killpg(mgr.pid, 9)
+                mgr.wait()
+        for pid in port_pids(work):  # whatever a failed run left
+            os.kill(pid, 9)
+    times = {j: {k: round(v, 1) for k, v in rec.items() if k.endswith("_s")}
+             for j, rec in seen.items()}
+    log(f"  seconds from apply: {times}; experiment {wall:.1f} s; scores "
+        f"{ {j: r['score'] for j, r in seen.items()} }; held for the card: "
+        f"{sorted(held)}; bestVersion {bv['hyperparameter']} "
+        f"({bv['score']})")
+    return {"times": times, "wall_s": wall, "launches": launched}
+
+
+def _reachable(url) -> bool:
+    try:
+        with urllib.request.urlopen(url, timeout=5) as r:
+            return r.status == 200
+    except (OSError, urllib.error.URLError):
+        return False
+
+
 def memory_phase(torch):
     """Phase 15d: ``estimate_footprint`` at the geometries of phases 5, 7,
     8 and hf-llama2's LoRA beside the peaks those phases measured in this
@@ -5976,6 +6484,10 @@ def parallel_phase(torch, timer, gen, tmp):
         "dp=1 vs --attention xla, 2 steps each")
     ring_cli_phase(torch, tmp)
     torch.cuda.empty_cache()
+    log("[15c] PPO through the trainer CLI at tinyllama width: --mesh dp=1 "
+        "vs no mesh, 2 steps each, against a 2-step rm run")
+    ppo_mesh_cli_phase(torch, tmp)
+    torch.cuda.empty_cache()
     log("[15d] memory: estimate_footprint beside the training phases' "
         "peaks; check_fits on the card's budget")
     memory_phase(torch)
@@ -5989,7 +6501,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", default="all",
                     choices=["all", "kernels", "serve", "train", "qlora",
-                             "hf", "gateway", "parallel"])
+                             "hf", "gateway", "parallel", "operator"])
     opts = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "datatunerx_tpu_torch", "csrc")):
         fail("datatunerx_tpu_torch/ is missing: run from a repository "
@@ -6252,6 +6764,19 @@ def main(argv=None) -> int:
                     "checkpoint, two chats and two perplexities, teardown")
                 launch_phase(torch, tmp)
             torch.cuda.empty_cache()
+    if opts.phase in ("all", "train", "operator"):
+        with tempfile.TemporaryDirectory(prefix="dtx-operator-") as tmp:
+            log("[16] the port's controller-manager (--backend local, one "
+                "slice of 1 card) takes a FinetuneExperiment of two "
+                "FinetuneJobs through dtx-torch apply to Success")
+            op = operator_phase(torch, tmp, counters=[
+                by_name[k] for k in ("K7", "K8", "K9")])
+        for e in entries:  # the operator's engine's launches
+            key = counter_key(e["counter"], e.get("count", "launches"))
+            if not e.get("path") and key in op["launches"]:
+                e.setdefault("extra", {})["launches@operator"] = (
+                    op["launches"][key])
+        torch.cuda.empty_cache()
 
     if opts.phase in ("all", "hf"):
         # HF checkpoint directories at the published configurations

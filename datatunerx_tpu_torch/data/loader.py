@@ -351,8 +351,9 @@ class PromptBatchIterator:
     """Prompt-only batches for PPO rollouts (``training/ppo.py``):
     LEFT-padded ``prompt_ids`` [B, block] and ``prompt_mask``, real tokens
     at the end (the generation convention). ``BatchIterator``'s contract:
-    a ``default_rng(seed + epoch)`` permutation, static shapes, the
-    trailing partial batch dropped."""
+    a ``default_rng(seed + epoch)`` permutation, host slicing (host
+    ``host_id`` of ``num_hosts`` gets its contiguous rows of each global
+    batch), static shapes, the trailing partial batch dropped."""
 
     def __init__(
         self,
@@ -363,14 +364,20 @@ class PromptBatchIterator:
         pad_id: int = 0,
         shuffle: bool = True,
         seed: int = 0,
+        host_id: int = 0,
+        num_hosts: int = 1,
         **_ignored,  # grad_accum/pack: the reference's contract, unused
     ):
+        if global_batch % num_hosts != 0:
+            raise ValueError("global_batch must be divisible by num_hosts")
         self.examples = [e for e in examples if e.get("prompt_ids")]
         self.global_batch = global_batch
         self.block_size = block_size
         self.pad_id = pad_id
         self.shuffle = shuffle
         self.seed = seed
+        self.host_id = host_id
+        self.num_hosts = num_hosts
 
     def steps_per_epoch(self) -> int:
         return len(self.examples) // self.global_batch
@@ -389,7 +396,12 @@ class PromptBatchIterator:
                 p = self.examples[i]["prompt_ids"][-T:]
                 ids[r, T - len(p):] = p
                 mask[r, T - len(p):] = 1
-            yield {"prompt_ids": ids, "prompt_mask": mask}
+            batch = {"prompt_ids": ids, "prompt_mask": mask}
+            if self.num_hosts > 1:
+                per = self.global_batch // self.num_hosts
+                lo = self.host_id * per
+                batch = {k: v[lo:lo + per] for k, v in batch.items()}
+            yield batch
 
     def __iter__(self):
         return self.epoch(0)

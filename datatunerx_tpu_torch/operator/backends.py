@@ -23,6 +23,9 @@ each, with the coordinator env; a Deployment and Service for serving:
 ``nvidia.com/gpu`` limits, a ``cloud.google.com/gke-accelerator`` node
 selector, ``--device cuda``) without submitting them; ``status`` reads a
 ``<name>-status.json`` dropped beside the manifest.
+
+``FakeTrainingBackend`` and ``FakeServingBackend`` are the scripted
+backends of the controllers' tests (tests set each state by hand).
 """
 
 from __future__ import annotations
@@ -33,7 +36,78 @@ import shlex
 import subprocess
 import sys
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Protocol
+
+
+class TrainingBackend(Protocol):
+    def submit(self, name: str, spec: dict) -> None: ...
+
+    def status(self, name: str) -> str: ...
+
+    def delete(self, name: str) -> None: ...
+
+
+class ServingBackend(Protocol):
+    def deploy(self, name: str, spec: dict) -> None: ...
+
+    def status(self, name: str) -> str: ...  # HEALTHY | PENDING | FAILED
+
+    def endpoint(self, name: str) -> Optional[str]: ...
+
+    def delete(self, name: str) -> None: ...
+
+
+# ----------------------------------------------------------------- fakes
+
+class FakeTrainingBackend:
+    """Scripted backend: tests drive transitions explicitly."""
+
+    def __init__(self):
+        self.jobs: Dict[str, dict] = {}
+        self.states: Dict[str, str] = {}
+        self.deleted: List[str] = []
+
+    def submit(self, name, spec):
+        self.jobs[name] = spec
+        self.states.setdefault(name, "Pending")
+
+    def status(self, name):
+        return self.states.get(name, "NotFound")
+
+    def delete(self, name):
+        self.deleted.append(name)
+        self.states.pop(name, None)
+        self.jobs.pop(name, None)
+
+    def set_state(self, name, state):
+        self.states[name] = state
+
+
+class FakeServingBackend:
+    def __init__(self):
+        self.apps: Dict[str, dict] = {}
+        self.states: Dict[str, str] = {}
+        self.deleted: List[str] = []
+
+    def deploy(self, name, spec):
+        self.apps[name] = spec
+        self.states.setdefault(name, "PENDING")
+
+    def status(self, name):
+        return self.states.get(name, "NotFound")
+
+    def endpoint(self, name):
+        if self.states.get(name) == "HEALTHY":
+            return f"http://{name}.default.svc:8000"
+        return None
+
+    def delete(self, name):
+        self.deleted.append(name)
+        self.states.pop(name, None)
+        self.apps.pop(name, None)
+
+    def set_state(self, name, state):
+        self.states[name] = state
 
 
 def _pkg_root() -> str:

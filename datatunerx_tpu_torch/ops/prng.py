@@ -269,20 +269,23 @@ def xla_log(x):
     return r
 
 
-def gumbel(key: Key, shape: Sequence[int] = ()):
-    """``jax.random.gumbel(key, shape)`` in float32."""
-    u = uniform(key, shape, minval=_F32_TINY, maxval=1.0)
+def gumbel(key: Key, shape: Sequence[int] = (), index=None):
+    """``jax.random.gumbel(key, shape)`` in float32 (``index``: as
+    ``random_bits``)."""
+    u = uniform(key, shape, minval=_F32_TINY, maxval=1.0, index=index)
     return -xla_log(-xla_log(u))
 
 
-def categorical(key: Key, logits, axis: int = -1):
+def categorical(key: Key, logits, axis: int = -1, index=None):
     """``jax.random.categorical(key, logits)``: the first index of the
     largest ``logits + gumbel``. The key's batch axes lead ``logits``'s
     (``[S, 2]`` keys over ``[S, V]`` logits: one draw per row, as
-    ``jax.vmap`` gives); the noise takes the rest of the logits' shape."""
+    ``jax.vmap`` gives); the noise takes the rest of the logits' shape.
+    With ``index`` (``slice_index``) the logits are a block of a larger
+    draw's and the noise is that block's."""
     nb = (key.dim() if _is_torch(key) else np.ndim(key)) - 1
     shape = tuple(logits.shape[nb:])
-    g = gumbel(key, shape)
+    g = gumbel(key, shape, index)
     if _is_torch(logits):
         return torch.argmax(logits.to(torch.float32) + g, dim=axis)
     return np.argmax(np.asarray(logits, np.float32) + g, axis=axis)

@@ -25,6 +25,27 @@ step's key is ``fold_in(fold_in(rng, 0x990), step)``, split once a decode
 step, and each draw is ``jax.random.categorical`` over the ``[B, V]``
 logits from one key (``ops/prng.categorical``; its bits computed on the
 logits' device), so a seeded rollout gives the JAX package's tokens.
+
+Under a ``mesh`` (``parallel/mesh.py``, one process a card) a step takes
+the rank's rows over (dp, fsdp) of the global prompt batch:
+
+- the rollout decodes them on a dense cache with the whole params and
+  adapters (the cache runs on one device: the tree is gathered over fsdp
+  and tp), and each draw is the rank's block of the global ``[B, V]``
+  draw (the offset threefry twin), so every row gets the reference's
+  token; tp and sp ranks of one data rank decode alike;
+- every statistic the reference takes over the batch is taken over the
+  global batch: the scores' mean and std for ``score_norm`` (the scores
+  gathered over (dp, fsdp)), the rollout stats, the advantages'
+  whitening, and the update's masked means (sums over (dp, fsdp, sp)
+  before the divide, ``Trainer._reduce_sums``), so every rank feeds the
+  adaptive controller the same KL;
+- the update's forward runs on the rank's rows and sequence chunk
+  through the sharded ``Trainer`` machinery (the fsdp gather, tp shards,
+  the sp gather; the reduce-scatter and the sharded clip norm of
+  ``Trainer._apply_grads``): each per-token array is laid at the
+  position that predicts its token, so a chunk scores the part of the
+  response window it holds.
 """
 
 from __future__ import annotations
@@ -37,19 +58,23 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from datatunerx_tpu_torch.data.prefetch import to_device
 from datatunerx_tpu_torch.models.config import ModelConfig
 from datatunerx_tpu_torch.models.llama import forward, init_cache, lm_logits
 from datatunerx_tpu_torch.ops import prng
-from datatunerx_tpu_torch.training.optimizer import (
-    global_norm,
-    tree_leaves,
-    tree_map,
+from datatunerx_tpu_torch.parallel.sharding import (
+    LocalSlice,
+    all_gather_dim,
+    all_reduce,
+    gather_for_use,
+    gather_tree,
+    shard_tree,
 )
+from datatunerx_tpu_torch.training.optimizer import tree_leaves, tree_map
 from datatunerx_tpu_torch.training.train_lib import (
     TrainConfig,
     Trainer,
     TrainState,
-    _unflatten,
 )
 from datatunerx_tpu_torch.utils import storage
 
@@ -101,12 +126,6 @@ def _masked_mean(x, m, eps=1e-8):
     return torch.sum(x * m) / torch.clamp(torch.sum(m), min=eps)
 
 
-def _whiten(x, m):
-    mean = _masked_mean(x, m)
-    var = _masked_mean(torch.square(x - mean), m)
-    return (x - mean) * torch.rsqrt(var + 1e-8) * m
-
-
 def _gather(logp, ids):
     return torch.gather(logp, -1, ids.long()[..., None])[..., 0]
 
@@ -119,13 +138,13 @@ class PPOTrainer(Trainer):
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  ppo_cfg: PPOConfig, *, reward_lora: Any,
                  reward_scaling: float, eos_id: int, pad_id: int = 0,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         assert train_cfg.stage == "ppo", "PPOTrainer requires stage='ppo'"
         if "v_head" not in reward_lora:
             raise ValueError(
                 "reward_lora must come from an --stage rm run (no v_head "
                 "found)")
-        super().__init__(model_cfg, train_cfg, device=device)
+        super().__init__(model_cfg, train_cfg, device=device, mesh=mesh)
         self.ppo_cfg = ppo_cfg
         if eos_id is None:
             raise ValueError(
@@ -135,13 +154,37 @@ class PPOTrainer(Trainer):
         self.eos_id = int(eos_id)
         self.pad_id = int(pad_id)
         self.kl_coef = float(ppo_cfg.kl_coef)  # host-side, adaptively tuned
-        self.reward_lora = tree_map(
-            lambda x: x.detach().to(self.device), reward_lora)
+        # sharded as the reference shards it; the rollout gathers it whole
+        self.reward_lora = shard_tree(tree_map(
+            lambda x: x.detach().to(self.device), reward_lora), mesh)
         self.reward_scaling = float(reward_scaling)
 
+    # --------------------------------------------------------------- mesh
+    def _data_group(self):
+        return self._group(("dp", "fsdp"))
+
+    def _row_sum(self, x):
+        """The sum of ``x`` over the global batch's rows (the data axes)."""
+        return all_reduce(torch.sum(x).float().clone(), self._data_group())
+
+    def _row_mean(self, x, m=None, eps=1e-8):
+        """``_masked_mean`` over the global batch (``torch.mean`` without
+        a mask)."""
+        if self.mesh is None:
+            return torch.mean(x) if m is None else _masked_mean(x, m, eps)
+        if m is None:
+            return self._row_sum(x) / (x.numel() * self.mesh.data_size)
+        return self._row_sum(x * m) / torch.clamp(self._row_sum(m), min=eps)
+
+    def _whiten(self, x, m):
+        mean = self._row_mean(x, m)
+        var = self._row_mean(torch.square(x - mean), m)
+        return (x - mean) * torch.rsqrt(var + 1e-8) * m
+
     # ------------------------------------------------------------ rollout
-    def _sample(self, logits, key):
-        """One token a row from f32 ``logits`` [B, V] and one device key."""
+    def _sample(self, logits, key, index=None):
+        """One token a row from f32 ``logits`` [B, V] and one device key
+        (``index``: the rows' block of the global draw)."""
         p = self.ppo_cfg
         if p.temperature <= 0.0:
             return torch.argmax(logits, dim=-1)
@@ -152,21 +195,31 @@ class PPOTrainer(Trainer):
             kth = torch.topk(logits, p.top_k, dim=-1).values[..., -1:]
             logits = torch.where(logits < kth,
                                  torch.full_like(logits, -torch.inf), logits)
-        return prng.categorical(key, logits)
+        return prng.categorical(key, logits, index=index)
 
     @torch.no_grad()
     def _rollout(self, state: TrainState, batch, kl_coef: float):
-        """Sample ``gen_len`` tokens a prompt and score them. Returns (the
-        rollout tensors, stats)."""
+        """Sample ``gen_len`` tokens a prompt and score them (under a mesh,
+        the rank's rows). Returns (the rollout tensors, stats)."""
         cfg, p = self.model_cfg, self.ppo_cfg
         cdt = self.cfg.compute_dtype
         dev = self.device
+        mesh = self.mesh
         prompt_ids = batch["prompt_ids"].to(torch.int32)
         pmask = batch["prompt_mask"].to(torch.int32)
         B, Tp = prompt_ids.shape
         G = p.gen_len
-        lora = (state.lora, self.scaling)
-        v_head = state.lora["v_head"].float()
+        # the cache runs on one device: whole trees (no-ops without a mesh)
+        params = gather_tree(state.params, mesh)
+        policy = gather_tree(state.lora, mesh)
+        reward_lora = gather_tree(self.reward_lora, mesh)
+        lora = (policy, self.scaling)
+        v_head = policy["v_head"].float()
+        index = None
+        if mesh is not None:  # the rows' block of the global [B, V] draw
+            index = prng.slice_index(
+                (B * mesh.data_size, cfg.vocab_size),
+                (B * mesh.data_index, 0))
         # the step's key chain on the host; every decode step's key goes to
         # the device in one copy
         r = prng.fold_in(prng.fold_in(state.rng, 0x990), state.step)
@@ -180,7 +233,6 @@ class PPOTrainer(Trainer):
         positions = torch.clamp(torch.cumsum(pmask, 1) - 1, min=0).to(
             torch.int32)
         n_prompt = torch.sum(pmask, 1).to(torch.int32)
-        params = state.params
         cache = init_cache(
             cfg, B, Tp + G,
             dtype=torch.bfloat16 if cdt is not None else torch.float32,
@@ -194,7 +246,7 @@ class PPOTrainer(Trainer):
         toks, old_logp, values, resp_mask = [], [], [], []
         for i in range(G):
             lg_prev = lg_prev.float()
-            a = self._sample(lg_prev, step_keys[i])
+            a = self._sample(lg_prev, step_keys[i], index)
             lp_a = _gather(torch.log_softmax(lg_prev, -1), a)
             values.append(h_prev.float() @ v_head)              # V(s_t)
             m = (~done).to(torch.int32)  # token i is part of the response
@@ -234,16 +286,18 @@ class PPOTrainer(Trainer):
 
         _, _, rh = forward(params, seq, cfg, positions=full_pos,
                            attention_mask=full_mask,
-                           lora=(self.reward_lora, self.reward_scaling),
+                           lora=(reward_lora, self.reward_scaling),
                            compute_dtype=cdt, return_hidden=True,
                            skip_logits=True)
         n_resp = torch.sum(resp_mask, 1).to(torch.int64)         # >= 1
         h_last = rh[torch.arange(B, device=dev), Tp + n_resp - 1].float()
-        score = h_last @ self.reward_lora["v_head"].float()      # [B]
+        score = h_last @ reward_lora["v_head"].float()           # [B]
         raw_score = score
         if p.score_norm:
-            score = (score - torch.mean(score)) / (
-                torch.std(score, unbiased=False) + 1e-6)
+            every = score if mesh is None else all_gather_dim(
+                score, 0, self._data_group(), mesh.data_size)
+            score = (score - torch.mean(every)) / (
+                torch.std(every, unbiased=False) + 1e-6)
 
         kl = (old_logp - ref_logp) * resp_mask                   # [B, G]
         last = (torch.arange(G, device=dev)[None, :]
@@ -253,9 +307,9 @@ class PPOTrainer(Trainer):
         adv, rets = compute_gae(rewards, values, resp_mask, p.gamma,
                                 p.gae_lambda)
         stats = {
-            "reward_score": torch.mean(raw_score),
-            "kl": _masked_mean(kl, resp_mask),
-            "response_len": torch.mean(n_resp.float()),
+            "reward_score": self._row_mean(raw_score),
+            "kl": self._row_mean(kl, resp_mask),
+            "response_len": self._row_mean(n_resp.float()),
         }
         ro = {"seq": seq, "full_mask": full_mask, "positions": full_pos,
               "resp_mask": resp_mask, "old_logp": old_logp,
@@ -264,73 +318,106 @@ class PPOTrainer(Trainer):
 
     # ------------------------------------------------------------- update
     def _update(self, state: TrainState, ro):
-        """One full-batch PPO pass over the rollout ``ro``: returns (the
-        new state, metrics)."""
-        cfg, p = self.model_cfg, self.ppo_cfg
+        """One full-batch PPO pass over the rollout ``ro`` (under a mesh,
+        the rank's rows): returns (the new state, metrics). The forward
+        takes the rank's sequence chunk (the whole sequence without a
+        mesh), and the masked means are sums over the data axes before
+        the divide."""
+        cfg, p, m = self.model_cfg, self.ppo_cfg, self.mesh
         cdt = self.cfg.compute_dtype
+        seq = ro["seq"]
+        b, T = seq.shape
         G = ro["old_logp"].shape[1]
-        Tp = ro["seq"].shape[1] - G
-        m = ro["resp_mask"]
-        adv = _whiten(ro["advantages"], m) if p.whiten_advantages \
-            else ro["advantages"]
-        lora_tr = state.lora
+        Tp = T - G
+        adv = self._whiten(ro["advantages"], ro["resp_mask"]) \
+            if p.whiten_advantages else ro["advantages"]
+        sp, j = (1, 0) if m is None else (m.shape["sp"], m.coords["sp"])
+        if T % sp:
+            raise ValueError(f"sequence {T} does not divide over sp={sp}")
+        t = T // sp
+        t0 = j * t
+        # the response window: position Tp - 1 + g predicts token g; this
+        # chunk holds positions [lo, hi) of it (maybe none)
+        lo = max(t0, Tp - 1)
+        hi = max(min(t0 + t, T - 1), lo)
+        g0, g1 = lo - (Tp - 1), hi - (Tp - 1)
+        win = {k: ro[k][:, g0:g1] for k in ("old_logp", "values", "returns",
+                                            "resp_mask")}
+        win["advantages"] = adv[:, g0:g1]
+        local = None if m is None else LocalSlice(
+            rows=((0, b, m.data_index * b),), batch=b * m.data_size, t0=t0,
+            seq=T)
+        params = gather_for_use(state.params, m)
+        lora_tr = gather_for_use(state.lora, m)
         leaves = tree_leaves(lora_tr)
         for leaf in leaves:
             leaf.requires_grad_(True)
         try:
             _, _, hid = forward(
-                state.params, ro["seq"], cfg, positions=ro["positions"],
-                attention_mask=ro["full_mask"], lora=(lora_tr, self.scaling),
-                compute_dtype=cdt, return_hidden=True, skip_logits=True)
-            h_pred = hid[:, Tp - 1:-1]                            # [B, G, D]
-            lg = lm_logits(state.params, h_pred, cfg)             # [B, G, V]
-            new_logp = _gather(torch.log_softmax(lg, -1), ro["seq"][:, Tp:])
+                params, seq[:, t0:t0 + t], cfg,
+                positions=ro["positions"][:, t0:t0 + t],
+                attention_mask=ro["full_mask"][:, t0:t0 + t],
+                lora=(lora_tr, self.scaling), compute_dtype=cdt,
+                return_hidden=True, skip_logits=True, mesh=m, local=local)
+            h_pred = hid[:, lo - t0:hi - t0]
+            lg = lm_logits(params, h_pred, cfg)
+            new_logp = _gather(torch.log_softmax(lg, -1),
+                               seq[:, lo + 1:hi + 1])
             new_v = h_pred.float() @ lora_tr["v_head"].float()
+            mask = win["resp_mask"]
             # clamp before exp: at post-eos lanes old_logp is the sampled
             # token's and new_logp the pad's; adv 0 cancels the term, but
             # an unclamped exp could overflow to inf and inf * 0 is NaN
-            ratio = torch.exp(torch.clamp(new_logp - ro["old_logp"], -20.0,
+            ratio = torch.exp(torch.clamp(new_logp - win["old_logp"], -20.0,
                                           20.0))
             clipped = torch.clamp(ratio, 1.0 - p.clip_ratio,
                                   1.0 + p.clip_ratio)
-            pg_loss = _masked_mean(-torch.minimum(ratio * adv, clipped * adv),
-                                   m)
-            v_clip = ro["values"] + torch.clamp(new_v - ro["values"],
-                                                -p.vf_clip, p.vf_clip)
-            vf = 0.5 * torch.maximum(torch.square(new_v - ro["returns"]),
-                                     torch.square(v_clip - ro["returns"]))
-            vf_loss = _masked_mean(vf, m)
-            loss = pg_loss + p.vf_coef * vf_loss
-            g = torch.autograd.grad(loss, leaves, allow_unused=True)
+            a = win["advantages"]
+            pg = torch.sum(-torch.minimum(ratio * a, clipped * a) * mask)
+            v_clip = win["values"] + torch.clamp(new_v - win["values"],
+                                                 -p.vf_clip, p.vf_clip)
+            vf = torch.sum(0.5 * torch.maximum(
+                torch.square(new_v - win["returns"]),
+                torch.square(v_clip - win["returns"])) * mask)
+            g = torch.autograd.grad(pg + p.vf_coef * vf, leaves,
+                                    allow_unused=True)
         finally:
             for leaf in leaves:
                 leaf.requires_grad_(False)
         with torch.no_grad():
-            grads = _unflatten(lora_tr, [
-                torch.zeros_like(x) if gi is None else gi
-                for gi, x in zip(g, leaves)])
-            updates, opt_state = self.optimizer.update(
-                grads, state.opt_state, lora_tr)
-            new_lora = tree_map(lambda w, u: (w + u).to(w.dtype), lora_tr,
-                                updates)
+            sums = torch.stack([
+                pg.detach(), vf.detach(),
+                torch.sum((win["old_logp"] - new_logp) * mask),
+                torch.sum((torch.abs(ratio - 1.0) > p.clip_ratio).float()
+                          * mask)])
+            sums, n = self._reduce_sums(sums, torch.sum(mask))
+            denom = torch.clamp(n.float(), min=1e-8)
+            pg_loss, vf_loss, approx_kl, clipfrac = sums / denom
+            grads = [torch.zeros_like(x) if gi is None else gi
+                     for gi, x in zip(g, leaves)]
+            new_lora, opt_state, norm = self._apply_grads(
+                state, state.lora, lora_tr, grads, denom)
             metrics = {
-                "pg_loss": pg_loss.detach(),
-                "vf_loss": vf_loss.detach(),
-                "approx_kl": _masked_mean(ro["old_logp"] - new_logp, m),
-                "clipfrac": _masked_mean(
-                    (torch.abs(ratio - 1.0) > p.clip_ratio).float(), m),
-                "loss": loss.detach(),
-                "lr": self.schedule(state.step),
-                "grad_norm": global_norm(grads),
+                "pg_loss": pg_loss, "vf_loss": vf_loss,
+                "approx_kl": approx_kl, "clipfrac": clipfrac,
+                "loss": pg_loss + p.vf_coef * vf_loss,
+                "lr": self.schedule(state.step), "grad_norm": norm,
             }
         return dataclasses.replace(state, step=state.step + 1, lora=new_lora,
                                    opt_state=opt_state), metrics
 
     # --------------------------------------------------------- public API
+    def put_batch(self, batch, accum: bool = False) -> dict:
+        """A prompt batch (under a mesh, the rank's rows) on the device: the
+        rollout takes whole prompts, so no sequence cut."""
+        return to_device({k: v for k, v in batch.items() if v is not None},
+                         self.device)
+
     def step(self, state: TrainState, batch):
         """One PPO iteration: a rollout, then ``ppo_epochs`` update passes.
         Returns (state, metrics): the rollout stats (reward_score, kl,
-        response_len) with the last pass's losses."""
+        response_len) with the last pass's losses. Under a mesh ``batch``
+        is the rank's rows over (dp, fsdp) and the metrics are global."""
         p = self.ppo_cfg
         batch = self.put_batch(batch)
         ro, stats = self._rollout(state, batch, self.kl_coef)

@@ -191,10 +191,6 @@ class Trainer:
         self.cfg = train_cfg
         self.device = resolve_device(device)
         self.mesh = mesh
-        if mesh is not None and train_cfg.stage == "ppo" and mesh.size > 1:
-            raise NotImplementedError(
-                "not ported yet: --stage ppo under a mesh above 1 (ROADMAP "
-                "Queue 1 item 10 (PPO under a mesh))")
         self.schedule = make_schedule(
             train_cfg.scheduler, train_cfg.learning_rate,
             train_cfg.total_steps, train_cfg.warmup_ratio)
@@ -537,32 +533,8 @@ class Trainer:
             total_nll, total_n = self._reduce_sums(total_nll, total_n)
             denom = torch.clamp(torch.as_tensor(total_n, device=self.device),
                                 min=1).float()
-            if m is not None:
-                paths = []
-                tree_map_with_path(lambda p, x: paths.append(p), trainable)
-                grads = [self._shard_grad(p, g) for p, g in zip(paths, grads)]
-            grads = _unflatten(shards, [g / denom for g in grads])
-            if cfg.finetuning_type == "freeze":
-                mask = self._freeze_mask(shards)
-                grads = tree_map(torch.mul, grads, mask)
-            if m is None:
-                norm = global_norm(grads)
-                updates, opt_state = self.optimizer.update(
-                    grads, state.opt_state, shards)
-            elif self._whole_opt():
-                whole = gather_tree(grads, m)
-                norm = global_norm(whole)
-                updates, opt_state = self.optimizer.update(
-                    whole, state.opt_state, gather_tree(shards, m))
-                updates = shard_tree(updates, m)
-            else:
-                norm = self._sharded_norm(grads)
-                updates, opt_state = self.optimizer.update(
-                    grads, state.opt_state, shards, norm=norm)
-            if cfg.finetuning_type == "freeze":
-                updates = tree_map(torch.mul, updates, mask)
-            new = tree_map(lambda p, u: (p + u).to(p.dtype), shards,
-                           updates)
+            new, opt_state, norm = self._apply_grads(state, shards,
+                                                     trainable, grads, denom)
             metrics = {
                 "loss": total_nll / denom,
                 "lr": self.schedule(state.step),
@@ -573,6 +545,42 @@ class Trainer:
                                rng=state.rng,
                                **self._with_trainable(state, new))
         return new_state, metrics
+
+    def _apply_grads(self, state: TrainState, shards, trainable, grads,
+                     denom):
+        """One optimizer update from this rank's local gradients of the
+        ``trainable`` leaves the forward used (``tree_leaves`` order):
+        reduced to this rank's shards under a mesh, divided by ``denom``,
+        masked for freeze, clipped by the global norm. Returns (the new
+        trainable shards, the optimizer state, the gradient norm)."""
+        m = self.mesh
+        if m is not None:
+            paths = []
+            tree_map_with_path(lambda p, x: paths.append(p), trainable)
+            grads = [self._shard_grad(p, g) for p, g in zip(paths, grads)]
+        grads = _unflatten(shards, [g / denom for g in grads])
+        freeze = self.cfg.finetuning_type == "freeze"
+        if freeze:
+            mask = self._freeze_mask(shards)
+            grads = tree_map(torch.mul, grads, mask)
+        if m is None:
+            norm = global_norm(grads)
+            updates, opt_state = self.optimizer.update(
+                grads, state.opt_state, shards)
+        elif self._whole_opt():
+            whole = gather_tree(grads, m)
+            norm = global_norm(whole)
+            updates, opt_state = self.optimizer.update(
+                whole, state.opt_state, gather_tree(shards, m))
+            updates = shard_tree(updates, m)
+        else:
+            norm = self._sharded_norm(grads)
+            updates, opt_state = self.optimizer.update(
+                grads, state.opt_state, shards, norm=norm)
+        if freeze:
+            updates = tree_map(torch.mul, updates, mask)
+        new = tree_map(lambda p, u: (p + u).to(p.dtype), shards, updates)
+        return new, opt_state, norm
 
     def eval_step(self, state: TrainState, batch):
         batch = self.put_batch(batch)

@@ -3,8 +3,7 @@
 The same flag surface as the reference's ``TrainArgs`` (the flag set the
 controller emits plus the trainer's own schema), with one addition:
 ``--device cuda|cpu`` (default ``cuda``; the CLI raises without a GPU unless
-it gets ``--device cpu``). Flags of parts not ported yet parse as before and
-are refused by ``tuning/train.py`` with the ROADMAP item that ports them.
+it gets ``--device cpu``).
 
 Contract-compat notes kept from the reference:
 - the controller sends ``--lora_r``; ``--lora_rank`` is accepted too;

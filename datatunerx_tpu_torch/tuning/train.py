@@ -23,8 +23,9 @@ processes (``--num_workers`` or the ``DTX_*`` env of
 (the None-axis absorption of ``mesh_shape_for``): each rank reads its
 data-parallel rows of every global batch; only rank 0 logs and writes the
 checkpoint, the manifest and the export (whole: the ranks gather their
-shards first). ``--stage ppo`` under a mesh above 1 is refused with its
-ROADMAP item.
+shards first). ``--stage ppo`` under a mesh takes each rank's prompt rows
+whole (the rollout decodes whole prompts); rank 0 writes the adaptive KL
+controller's state beside the checkpoints.
 """
 
 from __future__ import annotations
@@ -91,16 +92,6 @@ from datatunerx_tpu_torch.utils import storage
 from datatunerx_tpu_torch.utils.model_loader import load_model_and_tokenizer
 
 
-def refuse_unported(args: TrainArgs):
-    """Raise for what the port does not carry, naming its ROADMAP item."""
-    meshed = args.num_workers > 1 or any(
-        int(v) > 1 for v in (args.mesh_dims or {}).values())
-    if args.stage == "ppo" and meshed:
-        raise NotImplementedError(
-            "not ported yet: --stage ppo under a mesh above 1 (ROADMAP "
-            "Queue 1 item 10 (PPO under a mesh))")
-
-
 class _QuietLogger:
     """The logger of a rank other than 0: logging stays on rank 0."""
 
@@ -127,7 +118,6 @@ def build_mesh(args: TrainArgs, world: int):
 
 
 def run(args: TrainArgs) -> dict:
-    refuse_unported(args)
     dist_info = maybe_initialize_distributed(args.num_workers, args.device)
     is_main = dist_info["process_id"] == 0
     device = resolve_device(args.device)
@@ -281,7 +271,8 @@ def run(args: TrainArgs) -> dict:
                       ppo_epochs=args.ppo_epochs,
                       score_norm=args.ppo_score_norm),
             reward_lora=reward_lora, reward_scaling=reward_scaling,
-            eos_id=tokenizer.eos_token_id, pad_id=pad_id, device=device)
+            eos_id=tokenizer.eos_token_id, pad_id=pad_id, device=device,
+            mesh=mesh)
     else:
         trainer = Trainer(cfg, tcfg, device=device, mesh=mesh)
     state = trainer.init_state(params, args.seed)
@@ -374,7 +365,7 @@ def run(args: TrainArgs) -> dict:
             if step >= total_steps:
                 break
             host_pf: HostPrefetcher | None = None
-            if mesh is not None:
+            if mesh is not None and not ppo:
                 # this rank's sequence chunk, labels shifted, on the host
                 src = (place_batch(b, mesh, accum=grad_accum > 1)
                        for b in src)
@@ -412,7 +403,8 @@ def run(args: TrainArgs) -> dict:
                             extra.update(pipe_stats.snapshot())
                         mbuf.push(step, metrics, extra)
                         log_resolved(mbuf.pop_ready())
-                    if args.save_steps > 0 and save(step) and ppo:
+                    if args.save_steps > 0 and save(step) and ppo \
+                            and is_main:
                         save_controller_state(ckpt_dir, step, trainer.kl_coef)
                     if (eval_examples and args.eval_steps > 0
                             and step % args.eval_steps == 0):
@@ -449,7 +441,7 @@ def run(args: TrainArgs) -> dict:
         final_metrics.update(_run_eval(trainer, state, eval_examples, args,
                                        pad_id, logger, step, host))
     save(step, force=True)
-    if ppo:
+    if ppo and is_main:
         save_controller_state(ckpt_dir, step, trainer.kl_coef)
     whole = trainer.gather_state(state)  # every rank takes part
     if args.predict_with_generate and eval_records:

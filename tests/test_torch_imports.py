@@ -123,6 +123,26 @@ REQUIRED = (
     "datatunerx_tpu_torch.operator.capacity",
     "datatunerx_tpu_torch.operator.kubeclient",
     "datatunerx_tpu_torch.operator.kubebackends",
+    "datatunerx_tpu_torch.operator.errors",
+    "datatunerx_tpu_torch.operator.labels",
+    "datatunerx_tpu_torch.operator.events",
+    "datatunerx_tpu_torch.operator.api",
+    "datatunerx_tpu_torch.operator.store",
+    "datatunerx_tpu_torch.operator.reconciler",
+    "datatunerx_tpu_torch.operator.webhooks",
+    "datatunerx_tpu_torch.operator.config",
+    "datatunerx_tpu_torch.operator.generate",
+    "datatunerx_tpu_torch.operator.placement",
+    "datatunerx_tpu_torch.operator.health",
+    "datatunerx_tpu_torch.operator.finetune_controller",
+    "datatunerx_tpu_torch.operator.finetunejob_controller",
+    "datatunerx_tpu_torch.operator.finetuneexperiment_controller",
+    "datatunerx_tpu_torch.operator.apiserver",
+    "datatunerx_tpu_torch.operator.manager",
+    "datatunerx_tpu_torch.scoring.plugin",
+    "datatunerx_tpu_torch.scoring.builtin",
+    "datatunerx_tpu_torch.scoring.dataset_scoring",
+    "datatunerx_tpu_torch.scoring.controller",
 )
 
 
@@ -291,3 +311,51 @@ def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
                          text=True, timeout=120, cwd=tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_controller_manager_holds_jobs_without_a_card(tmp_path):
+    """The port's controller-manager defaults to the card: its health
+    probe runs on ``cuda`` and, without a card, reports unhealthy, so a
+    Finetune holds in Pending and nothing is launched (``--device cpu``
+    runs it on the CPU: ``tests/test_torch_operator_e2e.py``)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default would run")
+    from datatunerx_tpu_torch.operator.api import (
+        Dataset,
+        Finetune,
+        Hyperparameter,
+        LLM,
+        ObjectMeta,
+    )
+    from datatunerx_tpu_torch.operator.backends import LocalProcessBackend
+    from datatunerx_tpu_torch.operator.health import DeviceHealthProbe
+    from datatunerx_tpu_torch.operator.manager import build_manager
+    from datatunerx_tpu_torch.operator.store import ObjectStore
+    from datatunerx_tpu_torch.serving.local_backend import (
+        LocalServingBackend,
+    )
+
+    training = LocalProcessBackend(str(tmp_path / "jobs"))
+    assert training.device == "cuda"
+    probe = DeviceHealthProbe(interval_s=3600)
+    assert probe.device == "cuda" and not probe.check_now()
+    store = ObjectStore()
+    mgr = build_manager(store, training,
+                        LocalServingBackend(str(tmp_path / "jobs")),
+                        storage_path=str(tmp_path / "s"), health_probe=probe)
+    store.create(LLM(metadata=ObjectMeta(name="m"),
+                     spec={"path": "preset:debug"}))
+    store.create(Hyperparameter(metadata=ObjectMeta(name="hp"),
+                                spec={"parameters": {"PEFT": "true"}}))
+    store.create(Dataset(metadata=ObjectMeta(name="ds"), spec={
+        "datasetMetadata": {"datasetInfo": {"subsets": [{"splits": {
+            "train": {"file": "/t.csv"}}}]}}}))
+    store.create(Finetune(metadata=ObjectMeta(name="f"), spec={
+        "llm": "m", "dataset": "ds",
+        "hyperparameter": {"hyperparameterRef": "hp"},
+        "image": {"path": "preset:debug"}}))
+    mgr.run_until_idle()
+    st = store.get(Finetune, "f").status
+    assert st["state"] == Finetune.STATE_PENDING
+    assert "no CUDA device" in st["backendUnavailable"]
+    assert training.status("f") == "NotFound"

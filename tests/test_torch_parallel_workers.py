@@ -107,3 +107,64 @@ def ring_worker(rank, n, spec):
 def train_many(rank, n, specs):
     """``train_worker`` over several specs in one process group."""
     return [train_worker(rank, n, spec) for spec in specs]
+
+
+def ppo_worker(rank, n, specs):
+    """The port's ``PPOTrainer`` under a mesh, per spec: cfg, train
+    (TrainConfig kwargs, the compute dtype included), ppo (PPOConfig kwargs), shape, params, lora and
+    reward (numpy trees with ``v_head``), scaling, eos_id, batches (GLOBAL
+    prompt batches) and ``ro`` (a GLOBAL rollout). Returns the rank's
+    rollout of the first batch and its stats, two update passes from its
+    rows of ``ro`` (metrics and the adapters after), and two steps
+    (metrics and the adapters after); from rank 0 with ``one_device``,
+    the same steps on one device (no mesh)."""
+    from datatunerx_tpu_torch.parallel.mesh import make_mesh
+    from datatunerx_tpu_torch.parallel.sharding import host_rows
+
+    outs = []
+    for spec in specs:
+        mesh = make_mesh(spec["shape"])
+        tr, state = _ppo_trainer(spec, mesh)
+        rows = [host_rows(b, mesh) for b in spec["batches"]]
+        ro, stats = tr._rollout(state, tr.put_batch(rows[0]), tr.kl_coef)
+        out = {"ro": {k: v.numpy() for k, v in ro.items()},
+               "stats": {k: float(v) for k, v in stats.items()}}
+        ro_rows = {k: torch.from_numpy(np.array(v))
+                   for k, v in host_rows(spec["ro"], mesh).items()}
+        st, ms = state, []
+        for _ in range(2):
+            st, m = tr._update(st, ro_rows)
+            ms.append({k: float(v) for k, v in m.items()})
+        out["update"] = {"metrics": ms,
+                         "lora": _to_numpy(tr.gather_state(st).lora)}
+        out["steps"] = _ppo_steps(tr, state, rows)
+        if spec.get("one_device") and rank == 0:
+            out["one_device"] = _ppo_steps(*_ppo_trainer(spec, None),
+                                           spec["batches"])
+        outs.append(out)
+    return outs
+
+
+def _ppo_trainer(spec, mesh):
+    from datatunerx_tpu_torch.models.config import get_config
+    from datatunerx_tpu_torch.training.ppo import PPOConfig, PPOTrainer
+    from datatunerx_tpu_torch.training.train_lib import TrainConfig
+
+    tr = PPOTrainer(get_config(spec["preset"], **spec["cfg"]),
+                    TrainConfig(**spec["train"]),
+                    PPOConfig(**spec["ppo"]),
+                    reward_lora=_to_torch(spec["reward"]),
+                    reward_scaling=spec["scaling"], eos_id=spec["eos_id"],
+                    pad_id=0, device="cpu", mesh=mesh)
+    state = tr.gather_state(tr.init_state(_to_torch(spec["params"]), 1))
+    lora = _to_torch(spec["lora"])
+    return tr, tr.place_state(dataclasses.replace(
+        state, lora=lora, opt_state=tr.optimizer.init(lora)))
+
+
+def _ppo_steps(tr, state, batches):
+    ms = []
+    for b in batches:
+        state, m = tr.step(state, b)
+        ms.append({k: float(v) for k, v in m.items()})
+    return {"metrics": ms, "lora": _to_numpy(tr.gather_state(state).lora)}

@@ -197,7 +197,8 @@ def test_experiment_loop_sees_port_steps(tmp_path):
 
 
 @pytest.mark.parametrize("spec", [{"replicas": 2}, {"gateway": True}])
-def test_serving_gateway_and_multi_host_training_are_refused(tmp_path, spec):
+def test_gateway_deployments_launch_and_multi_host_on_cuda_is_refused(
+        tmp_path, spec):
     """More hosts than visible cards is refused on CUDA (one card a host,
     and this machine has none; multi-host training on the CPU runs in
     tests/test_torch_multihost.py); a gateway deployment is not refused: it
