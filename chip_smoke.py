@@ -360,12 +360,13 @@ f32, and the threefry kernel against its plain version, bit for bit, at
 8 x 1024 x 2048 (the keep mask at p = 0.9 and the uniform draw over
 [-1, 1)) and at odd lengths. ``--phase kernels`` stops after phase 2;
 ``--phase serve`` runs phases 1-4, the eight above, the spec phases,
-3-adapters, 3-migrate, 14 and 10; ``--phase gateway`` runs phases 1, 2
-and 14; ``--phase train`` runs phases 1, 2, 5,
-5-serve, 6-9 and 11-13; ``--phase qlora`` runs phases 1, 2 and 7-9; ``--phase
-hf`` runs phases 1, 2 and the three HF phases; ``--phase parallel`` runs
-phases 1, 2 and 15; ``--phase operator`` runs phases 1, 2 and 16 (``train``
-and ``all`` run 16 after 13).
+3-adapters, 3-migrate, 14, 17 and 10; ``--phase gateway`` runs phases 1, 2,
+14 and 17; ``--phase loadgen`` runs phases 1, 2 and 17; ``--phase train``
+runs phases 1, 2, 5, 5-serve, 6-9, 11-13, 16 and 18; ``--phase qlora`` runs
+phases 1, 2 and 7-9; ``--phase hf`` runs phases 1, 2 and the three HF
+phases; ``--phase parallel`` runs phases 1, 2 and 15; ``--phase operator``
+runs phases 1, 2, 16 and 18 (``train`` and ``all`` run 16 and 18 after
+13).
 
 15. parallel (``--phase parallel`` and ``all``, last): the multi-GPU
     slice on one card. (a) The threefry kernel's block draws (a rank's
@@ -427,6 +428,40 @@ and ``all`` run 16 after 13).
     experiment leaves no trainer or server process. Prints the seconds
     from apply to each job's training, HEALTHY and score, and the
     experiment's wall time, less the seconds the manager was held.
+
+17. replay (``--phase loadgen``, ``gateway``, ``serve`` and ``all``, after
+    14): the port's paged server in-process as phase 3 starts it
+    (``preset:tinyllama-1.1b`` at full width and depth, random weights from
+    seed 0, ``--kv_block_size 16 --slots 4 --max_seq_len 1024``), then
+    ``dtx-torch replay --url <server> --requests 40 --sessions 6 --rps 25
+    --seed 0 --record <trace> --report_json <report>`` as a subprocess (the
+    reference's defaults), then the recorded trace (``--trace``) through a
+    port ``Gateway`` over the same server twice: built as phase 14a builds
+    it (fleet-true admission prices each request in KV blocks against the
+    server's free blocks and sheds what the pool cannot hold: the 429s are
+    counted, not failed), and with the block signal off and a static
+    prefill budget of the trace's own estimate. Each run: every request
+    answers 200 (the block-priced gateway: 200 or 429), the server's
+    ``dtx_serving_ttft_ms_count`` moves by the 200s, K7, K8 and K9 launch
+    on the server (``launches@replay`` and ``launches@replay-gateway`` on
+    the kernels line); prints the client's TTFT and latency p50/p90/p99,
+    the requests whose stream carried no content (random weights: the byte
+    tokenizer decodes ids of 266 and above to nothing, and text ending in
+    U+FFFD is held back), the server's TTFT and TPOT quantiles from its
+    ``/metrics`` histograms and the SLO epilogue's verdicts (exit 1 is the
+    epilogue's FAIL, which is printed, not failed).
+
+18. experiment (``--phase operator``, ``train`` and ``all``, after 16):
+    ``dtx-torch experiment -f spec.json --backend local --status_json`` as
+    a subprocess: two LoRA jobs on ``preset:tinyllama-1.1b`` (r8 on
+    q_proj,v_proj, flash, 8 rows at batch 4: 2 steps, a checkpoint every
+    step) that differ only in learning rate, a pool of one slice of 1
+    card, each job scored at a port paged server this phase starts
+    in-process (random weights: it scores the base). Checked: exit 0; both
+    jobs Succeeded; the second job started only after the first succeeded;
+    each job scored at exactly the steps ``checkpoint_steps`` lists (1 and
+    2, ``minEvals``); no trainer process left. Prints the experiment's wall
+    seconds beside phase 16's.
 
 The script imports nothing of JAX, of the JAX package or of the HF
 libraries.
@@ -6379,6 +6414,285 @@ def operator_phase(torch, tmp, model="preset:tinyllama-1.1b", device="cuda",
     return {"times": times, "wall_s": wall, "launches": launched}
 
 
+# ------------------------------------------------------------- phase 17
+
+# the reference's replay defaults (loadgen/replay.py), at the port's
+# paged server as phase 3 runs it
+REPLAY_ARGS = ("--requests", "40", "--sessions", "6", "--rps", "25",
+               "--seed", "0")
+REPLAY_FLAGS = ("--kv_block_size", "16", "--slots", "4",
+                "--max_seq_len", "1024")
+REPLAY_REQUESTS = 40
+
+
+def hist_quantile(after, before, name, q):
+    """The ``q`` quantile of histogram ``name`` over what it counted
+    between two ``parse_metrics`` samples (linear within a bucket, as
+    Prometheus' ``histogram_quantile``); nan when it counted nothing."""
+    buckets = []
+    for series, v in after.items():
+        if series.startswith(name + "_bucket{"):
+            le = series.split('le="', 1)[1].split('"', 1)[0]
+            buckets.append((math.inf if le == "+Inf" else float(le),
+                            v - before.get(series, 0.0)))
+    buckets.sort()
+    if not buckets or buckets[-1][1] <= 0:
+        return math.nan
+    rank = q * buckets[-1][1]
+    lo, below = 0.0, 0.0
+    for le, n in buckets:
+        if n >= rank:
+            if le == math.inf:
+                return lo
+            return lo + (le - lo) * (rank - below) / max(n - below, 1e-12)
+        lo, below = le, n
+    return lo
+
+
+def replay_run(label, url, args, report, counters, port, all_ok=True):
+    """``dtx-torch replay --url url *args --report_json report`` as a
+    subprocess, with ``counters`` zeroed just before and read just after
+    and the server's ``/metrics`` scraped around it. With ``all_ok`` every
+    request must answer 200; else only those that did reach the server.
+    Returns (report, launches, server TTFT/TPOT quantiles, the epilogue's
+    lines, wall s, exit code)."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("DTX_SAN", None)  # the port refuses the reference's sanitizers
+    code, text = http_get(port, "/metrics")
+    if code != 200:
+        fail(f"17 {label}: /metrics answered {code}")
+    before, _ = parse_metrics(text)
+    zero(counters)
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "datatunerx_tpu_torch.cli", "replay",
+         "--url", url, *args, "--report_json", report],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    launches = {counter_key(c, a): getattr(c, a) for c, a in counters}
+    # exit 1 is the SLO epilogue's FAIL verdict, which the phase prints;
+    # anything else is a broken run
+    if p.returncode not in (0, 1) or not os.path.exists(report):
+        fail(f"17 {label}: dtx-torch replay exited {p.returncode}:\n"
+             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+    with open(report) as f:
+        rep = json.load(f)
+    code, text = http_get(port, "/metrics")
+    after, _ = parse_metrics(text)
+    moved = after.get("dtx_serving_ttft_ms_count", 0.0) - before.get(
+        "dtx_serving_ttft_ms_count", 0.0)
+    ok = rep["codes"].get("200", 0)
+    if rep["requests"] != REPLAY_REQUESTS or (all_ok and ok != (
+            REPLAY_REQUESTS)) or set(rep["codes"]) - {"200", "429"}:
+        fail(f"17 {label}: {rep['requests']} requests, codes {rep['codes']}"
+             f"\n{p.stdout[-3000:]}")
+    if moved != ok:
+        fail(f"17 {label}: the server's dtx_serving_ttft_ms_count moved by "
+             f"{moved:g}, not {ok}")
+    for k, n in launches.items():
+        if n <= 0 and ok:
+            fail(f"17 {label}: {k} was never launched on the server")
+    server = {f"{m}_p{int(q * 100)}": hist_quantile(
+        after, before, f"dtx_serving_{m}_ms", q)
+        for m in ("ttft", "tpot") for q in (0.5, 0.9, 0.99)}
+    slo = [ln for ln in p.stdout.splitlines() if ln.startswith("[slo]")
+           or "SLO verdict" in ln]
+    return rep, launches, server, slo, wall, p.returncode
+
+
+def loadgen_phase(torch, tmp, counters, card, model="preset:tinyllama-1.1b",
+                  flags=REPLAY_FLAGS):
+    """17 (see the module docstring). ``counters``: K7, K8 and K9's
+    (wrapper, attribute) pairs (empty where the plain versions run: they
+    count nothing). Returns their launches in each replay."""
+    from datatunerx_tpu_torch.gateway.admission import AdmissionController
+    from datatunerx_tpu_torch.gateway.replica_pool import (
+        HTTPReplica,
+        ReplicaPool,
+    )
+    from datatunerx_tpu_torch.gateway.server import Gateway, serve
+
+    from datatunerx_tpu_torch.loadgen.workload import read_trace
+
+    srv, port, eng = start_server(torch, flags, model=model)
+    out, gateways = {}, []
+    trace = os.path.join(tmp, "replay-trace.jsonl")
+    url = f"http://127.0.0.1:{port}"
+    try:
+        tok = eng.tokenizer
+        count = lambda t: len(tok.encode(t))  # noqa: E731
+        runs = [("direct", url, REPLAY_ARGS + ("--record", trace), None)]
+        for label, admission in (
+                # the gateway as phase 14a builds it: fleet-true admission
+                # prices each request in KV blocks against the server's
+                # free blocks and sheds (429) what the pool cannot hold now
+                ("gateway-blocks", AdmissionController(count_tokens=count)),
+                # the block signal off and a static budget of the whole
+                # trace's prefill estimate (set once the direct run has
+                # recorded it): the gateway queues the burst on the
+                # server, as the direct replay does
+                ("gateway", AdmissionController(
+                    count_tokens=count, fleet_blocks_fn=lambda: None))):
+            gw = Gateway(ReplicaPool([HTTPReplica("r0", url)],
+                                     health_interval_s=1.0),
+                         model_name=model, admission=admission)
+            srv_gw = serve(gw, port=0, host="127.0.0.1")
+            threading.Thread(target=srv_gw.serve_forever,
+                             daemon=True).start()
+            gateways.append((gw, srv_gw))
+            runs.append((label, f"http://127.0.0.1:{srv_gw.server_port}",
+                         ("--trace", trace), admission))
+        for label, target, args, admission in runs:
+            if label == "gateway":
+                admission.token_budget = sum(
+                    admission.estimate(e["messages"])
+                    for e in read_trace(trace)[1])
+            rep, launches, server, slo, wall, rc = replay_run(
+                label, target, args,
+                os.path.join(tmp, f"replay-{label}.json"), counters, port,
+                all_ok=label != "gateway-blocks")
+            out[label] = launches
+            log(f"  {label} ({target}): {rep['requests']} requests, codes "
+                f"{rep['codes']}, {rep['duration_s']} s of replay "
+                f"({wall:.1f} s with the process), exit {rc}; the "
+                f"server's TTFT count moved by {rep['codes'].get('200')}; "
+                f"launches {launches}")
+            log(f"    client TTFT ms p50 {rep['ttft_ms_p50']} p90 "
+                f"{rep['ttft_ms_p90']} p99 {rep['ttft_ms_p99']}; latency ms "
+                f"p50 {rep['latency_ms_p50']} p90 {rep['latency_ms_p90']} "
+                f"p99 {rep['latency_ms_p99']}; {rep['no_content']} of "
+                f"{rep['requests']} streams carried no content (no client "
+                "TTFT)")
+            log("    server TTFT ms p50 {ttft_p50:.1f} p90 {ttft_p90:.1f} "
+                "p99 {ttft_p99:.1f}; TPOT ms p50 {tpot_p50:.2f} p90 "
+                "{tpot_p90:.2f} p99 {tpot_p99:.2f} (/metrics histograms, "
+                "bucket-interpolated)".format(**server))
+            for ln in slo:
+                log(f"    {ln}")
+        log(f"  the gateway's static prefill budget: "
+            f"{runs[-1][3].token_budget} tokens (the trace's own "
+            f"estimate); {card}")
+    finally:
+        for gw, srv_gw in gateways:
+            srv_gw.shutdown()
+            gw.slo.stop()
+        stop_server(srv)
+        eng.close()
+    return out
+
+
+# ------------------------------------------------------------- phase 18
+
+EXPERIMENT_JOBS = (("exp-a", "2e-4"), ("exp-b", "1e-3"))
+EXPERIMENT_MIN_EVALS = 2
+
+
+def experiment_spec(tmp, csv_path, storage, endpoint,
+                    model="preset:tinyllama-1.1b"):
+    """Two LoRA jobs that differ only in learning rate (r8 on q_proj,v_proj,
+    flash, 8 rows at batch 4: 2 steps, a checkpoint every step), a pool of
+    one slice of 1 card, each job scored at ``endpoint``."""
+    jobs = []
+    for name, lr in EXPERIMENT_JOBS:
+        jobs.append({"name": name, "spec": {
+            "args": ["--model_name_or_path", model, "--train_path",
+                     csv_path, "--storage_path", storage, "--uid", name,
+                     "--output_dir", "result", "--template", "alpaca",
+                     "--lora_target", "q_proj,v_proj", "--lora_rank", "8",
+                     "--attention", "flash", "--remat", "dots", "--bf16",
+                     "true", "--block_size", "256",
+                     "--per_device_train_batch_size", "4",
+                     "--learning_rate", lr, "--max_steps", "2",
+                     "--save_steps", "1", "--logging_steps", "1"],
+            "checkpoint_dir": os.path.join(storage, name, "checkpoints"),
+            "score_endpoint": endpoint}})
+    return {"name": "smoke-exp", "jobs": jobs,
+            "pool": {"slices": [{"name": "card0", "chips": 1,
+                                 "topology": "1x1"}]},
+            "scoring": {"minEvals": EXPERIMENT_MIN_EVALS}}
+
+
+def experiment_phase(torch, tmp, model="preset:tinyllama-1.1b",
+                     device="cuda", flags=REPLAY_FLAGS):
+    """18 (see the module docstring). Returns the experiment's wall s."""
+    from datatunerx_tpu_torch.training.checkpoint import saved_steps
+
+    csv_path = os.path.join(tmp, "experiment.csv")
+    write_train_csv(csv_path, seed=4, n=8)  # 8 rows at batch 4: 2 steps
+    storage = os.path.join(tmp, "storage")
+    work = os.path.join(tmp, "jobs")
+    spec_path = os.path.join(tmp, "experiment.json")
+    status_path = os.path.join(tmp, "status.json")
+    srv, port, eng = start_server(torch, flags, model=model)
+    try:
+        with open(spec_path, "w") as f:
+            json.dump(experiment_spec(
+                tmp, csv_path, storage,
+                f"http://127.0.0.1:{port}/chat/completions", model), f)
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        torch.cuda.empty_cache()  # the trainers share the card
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "datatunerx_tpu_torch.cli", "experiment",
+             "-f", spec_path, "--backend", "local", "--device", device,
+             "--workdir", work, "--tick_s", "0.5", "--max_ticks", "1200",
+             "--status_json", status_path],
+            capture_output=True, text=True, timeout=900, env=env, cwd=tmp)
+        wall = time.perf_counter() - t0
+    finally:
+        stop_server(srv)
+        eng.close()
+    left = port_pids(tmp)
+    if left:
+        for pid in left:
+            os.kill(pid, 9)
+        fail(f"18: trainer processes left after the runner exited: {left}")
+
+    def job_log(name):
+        path = os.path.join(work, name, "log.txt")
+        if not os.path.exists(path):
+            return f"({name}: no log)"
+        with open(path) as f:
+            return f.read()[-3000:]
+
+    logs = "\n".join(job_log(n) for n, _ in EXPERIMENT_JOBS)
+    if p.returncode != 0 or not os.path.exists(status_path):
+        fail(f"18: dtx-torch experiment exited {p.returncode}:\n"
+             f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}\n{logs}")
+    with open(status_path) as f:
+        status = json.load(f)
+    events = [json.loads(ln[len("[experiment] "):])
+              for ln in p.stdout.splitlines()
+              if ln.startswith("[experiment] {")]
+    states = {j["name"]: j["state"] for j in status["jobs"]}
+    if states != {n: "Succeeded" for n, _ in EXPERIMENT_JOBS}:
+        fail(f"18: job states {states}\n{logs}")
+    order = [(e["event"], e.get("job")) for e in events
+             if e.get("event") in ("started", "succeeded")]
+    first, second = EXPERIMENT_JOBS[0][0], EXPERIMENT_JOBS[1][0]
+    want = [("started", first), ("succeeded", first), ("started", second),
+            ("succeeded", second)]
+    if order != want:
+        fail(f"18: the slice's order {order}, expected {want}")
+    board = {e["job"]: e for e in status["leaderboard"]["standings"]}
+    for name, _ in EXPERIMENT_JOBS:
+        steps = saved_steps(os.path.join(storage, name, "checkpoints"))
+        got = [s for s, _ in board.get(name, {}).get("history", [])]
+        if steps != [1, 2] or got != steps or len(got) < (
+                EXPERIMENT_MIN_EVALS):
+            fail(f"18: {name} scored at steps {got}; its checkpoints "
+                 f"{steps}")
+        if not all(math.isfinite(float(sc)) for _, sc in board[name][
+                "history"]):
+            fail(f"18: {name}'s scores {board[name]['history']}")
+    log(f"  dtx-torch experiment: exit 0 in {wall:.1f} s; order {order}; "
+        f"leaderboard {[(e['job'], e['history']) for e in status['leaderboard']['standings']]}"
+        f"; winner {status['winner']}; no trainer process left")
+    return wall
+
+
 def _reachable(url) -> bool:
     try:
         with urllib.request.urlopen(url, timeout=5) as r:
@@ -6501,7 +6815,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", default="all",
                     choices=["all", "kernels", "serve", "train", "qlora",
-                             "hf", "gateway", "parallel", "operator"])
+                             "hf", "gateway", "parallel", "operator",
+                             "loadgen"])
     opts = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "datatunerx_tpu_torch", "csrc")):
         fail("datatunerx_tpu_torch/ is missing: run from a repository "
@@ -6687,6 +7002,20 @@ def main(argv=None) -> int:
                 "delete")
             gateway_spawn_phase(torch, tmp)
         torch.cuda.empty_cache()
+    if opts.phase in ("all", "serve", "gateway", "loadgen"):
+        with tempfile.TemporaryDirectory(prefix="dtx-replay-") as tmp:
+            log("[17] dtx-torch replay (40 requests, 6 sessions, 25 rps, "
+                "seed 0) against the port's paged server, then its recorded "
+                "trace through a port gateway over the same server")
+            replayed = loadgen_phase(
+                torch, tmp, [by_name[k] for k in ("K7", "K8", "K9")], card)
+        for e in entries:  # each replay's launches beside the serve phase's
+            key = counter_key(e["counter"], e.get("count", "launches"))
+            if not e.get("path") and key in replayed["direct"]:
+                e.setdefault("extra", {}).update({
+                    "launches@replay": replayed["direct"][key],
+                    "launches@replay-gateway": replayed["gateway"][key]})
+        torch.cuda.empty_cache()
 
     if opts.phase in ("all", "train", "qlora"):
         # each kernel's launches come from the run of its own path
@@ -6776,6 +7105,15 @@ def main(argv=None) -> int:
             if not e.get("path") and key in op["launches"]:
                 e.setdefault("extra", {})["launches@operator"] = (
                     op["launches"][key])
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="dtx-experiment-") as tmp:
+            log("[18] dtx-torch experiment --backend local: two LoRA jobs "
+                "(learning rates 2e-4 and 1e-3) on one slice of 1 card, "
+                "scored at a port paged server")
+            wall = experiment_phase(torch, tmp)
+        log(f"  {card}: the experiment {wall:.1f} s through dtx-torch "
+            f"experiment, {op['wall_s']:.1f} s through the operator (phase "
+            "16, less its probes' hold)")
         torch.cuda.empty_cache()
 
     if opts.phase in ("all", "hf"):

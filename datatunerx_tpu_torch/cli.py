@@ -14,9 +14,17 @@ Talks to the operator's REST API (operator/apiserver.py):
       [--replicas N] [--gateway]           --device (default cuda); with
       [--device cuda|cpu]                  N > 1 or --gateway the port's
                                            gateway fronts N port servers
+  dtx-torch experiment -f spec.json        the closed experiment loop
+      [--backend fake|local]               (experiment/runner.py); local
+      [--device cuda|cpu]                  trainers run on --device
+  dtx-torch replay [args...]               load replay + chaos + SLO
+                                           verdict (loadgen/replay.py; its
+                                           flags pass through)
+  dtx-torch install [--dry-run]            CRDs, RBAC, config and the
+                                           controller-manager Deployment
 
-The reference's ``install``, ``experiment``, ``replay``, ``lint`` and
-``san`` are not part of the port's CLI.
+The reference's ``lint`` and ``san`` (its ``analysis/``, which checks JAX
+programs) are not part of the port's CLI.
 
 Server address from --server or DTX_SERVER (default http://127.0.0.1:8080);
 bearer auth via DTX_API_TOKEN when the server requires it.
@@ -30,6 +38,8 @@ import os
 import sys
 import urllib.error
 import urllib.request
+
+from datatunerx_tpu_torch.operator.install import OPERATOR_IMAGE
 
 _GROUP_BY_KIND = {
     "Finetune": "finetune.datatunerx.io",
@@ -251,11 +261,100 @@ def cmd_serve(args):
     return serving_main(argv)
 
 
+def cmd_experiment(args):
+    """Run a closed-loop experiment (experiment/runner.py): N jobs
+    elastically scheduled on a shared slice pool, continuous scoring into
+    a live leaderboard, winner promoted through canary traffic weights."""
+    from datatunerx_tpu_torch.experiment.runner import main as experiment_main
+
+    argv = ["-f", args.filename, "--backend", args.backend,
+            "--workdir", args.workdir,
+            "--max_ticks", str(args.max_ticks),
+            "--tick_s", str(args.tick_s),
+            "--device", args.device]
+    if args.status_json:
+        argv += ["--status_json", args.status_json]
+    return experiment_main(argv)
+
+
+def _passthrough_tail(argv, cmd):
+    """The argv tail after ``cmd`` when it is the subcommand — allowing
+    the one global option (``--server``) before it — else None. ``replay``
+    (loadgen) owns its full flag surface, so it must bypass argparse
+    entirely: a REMAINDER positional drops leading optionals like
+    ``--url``, so it dispatches before parsing."""
+    i = 0
+    while i < len(argv):
+        tok = argv[i]
+        if tok == "--server":
+            i += 2
+            continue
+        if tok.startswith("--server="):
+            i += 1
+            continue
+        return argv[i + 1:] if tok == cmd else None
+    return None
+
+
+def cmd_replay(args):
+    # unreachable in practice — main() dispatches replay before argparse —
+    # kept so the help-listing subparser has an action
+    from datatunerx_tpu_torch.loadgen.replay import main as replay_main
+
+    return replay_main([])
+
+
+def cmd_install(args):
+    """One-command install (reference dtx-ctl + Helm, INSTALL.md:26-48)."""
+    from datatunerx_tpu_torch.operator.install import (
+        install,
+        render_install_manifests,
+    )
+
+    env = {}
+    for item in args.set or []:
+        key, sep, val = item.partition("=")
+        if not sep:
+            sys.exit(f"error: --set expects KEY=VALUE, got {item!r}")
+        env[key] = val
+
+    kw = dict(
+        namespace=args.namespace,
+        image=args.image,
+        env=env,
+        storage_path=args.storage_path,
+        leader_elect=args.leader_elect,
+        replicas=args.replicas,
+        include_webhooks=not args.no_webhooks,
+    )
+    if args.dry_run:
+        docs = render_install_manifests(**kw)
+        try:
+            import yaml
+
+            print(yaml.safe_dump_all(docs, sort_keys=False), end="")
+        except ImportError:
+            print(json.dumps(docs, indent=1))
+        return
+    from datatunerx_tpu_torch.operator.kubeclient import KubeClient
+
+    client = KubeClient(base_url=args.kube_url,
+                        namespace=args.namespace)
+    ns = kw.pop("namespace")
+    for line in install(client, namespace=ns, **kw):
+        print(line)
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    replay_tail = _passthrough_tail(argv, "replay")
+    if replay_tail is not None:
+        from datatunerx_tpu_torch.loadgen.replay import main as replay_main
+
+        return replay_main(replay_tail)
     p = argparse.ArgumentParser(
         prog="dtx-torch",
-        epilog="install, experiment, replay, lint and san are the JAX "
-               "package's dtx only (not ported).")
+        epilog="lint and san are the JAX package's dtx only (not ported).")
     p.add_argument("--server", default=os.environ.get("DTX_SERVER",
                                                       "http://127.0.0.1:8080"))
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -388,6 +487,51 @@ def main(argv=None):
                     help="torch device of the server(s); cpu only when "
                          "asked")
     vp.set_defaults(fn=cmd_serve)
+
+    ep = sub.add_parser(
+        "experiment",
+        help="run a closed-loop experiment: shared slice pool, continuous "
+             "scoring, canary promotion (experiment/)")
+    ep.add_argument("-f", "--filename", required=True,
+                    help="experiment spec JSON")
+    ep.add_argument("--backend", choices=["fake", "local"], default="fake")
+    ep.add_argument("--workdir", default="experiment-jobs")
+    ep.add_argument("--max_ticks", type=int, default=2000)
+    ep.add_argument("--tick_s", type=float, default=0.05)
+    ep.add_argument("--status_json", default="")
+    ep.add_argument("--device", default="cuda",
+                    help="torch device of the local backend's trainers; "
+                         "cpu only when asked")
+    ep.set_defaults(fn=cmd_experiment)
+
+    rp = sub.add_parser(
+        "replay",
+        help="trace-driven load replay + chaos harness with SLO verdict "
+             "(loadgen/); args pass through",
+        add_help=False)
+    rp.set_defaults(fn=cmd_replay)
+
+    ip = sub.add_parser(
+        "install",
+        help="install CRDs + RBAC + operator Deployment + config "
+             "(reference dtx-ctl/Helm flow, INSTALL.md:26-48)")
+    ip.add_argument("-n", "--namespace", default="datatunerx-dev")
+    ip.add_argument("--image", default=OPERATOR_IMAGE)
+    ip.add_argument("--storage-path", default="/storage")
+    ip.add_argument("--set", action="append", metavar="KEY=VALUE",
+                    help="operator env config; credential keys "
+                         "(S3_ACCESS_KEY, S3_SECRET_KEY, REGISTRY_USER, "
+                         "REGISTRY_PASSWORD) land in a Secret, the rest in "
+                         "a ConfigMap")
+    ip.add_argument("--leader-elect", action="store_true")
+    ip.add_argument("--replicas", type=int, default=1)
+    ip.add_argument("--no-webhooks", action="store_true",
+                    help="skip the admission webhook Service + configurations")
+    ip.add_argument("--dry-run", action="store_true",
+                    help="print the manifests instead of applying")
+    ip.add_argument("--kube-url", default=os.environ.get("DTX_KUBE_URL"),
+                    help="apiserver base URL (default: in-cluster config)")
+    ip.set_defaults(fn=cmd_install)
 
     args = p.parse_args(argv)
     rc = args.fn(args)

@@ -6,9 +6,11 @@ finalizers, owner references and requeue-with-backoff, over the port's
 launch backends: ``backends.LocalProcessBackend`` (the port's trainer CLI
 as subprocesses), ``serving/local_backend.LocalServingBackend`` (port
 servers and gateways), ``backends.ManifestBackend`` (GPU JobSets and
-Deployments) and the scripted fakes. ``manager.main`` is
-``dtx-torch-controller-manager``. The Kubernetes mode (store, leader
-election, webhook server, install) is not ported yet.
+Deployments) and the scripted fakes, and the Kubernetes mode: the CRs in
+an apiserver (``kubestore``), lease-based leader election
+(``leaderelection``), the HTTPS admission webhooks (``webhook_server``)
+and the install bundle (``crdgen``, ``install``; ``dtx-torch install``).
+``manager.main`` is ``dtx-torch-controller-manager``.
 """
 
 from datatunerx_tpu_torch.operator.api import (

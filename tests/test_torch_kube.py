@@ -3,7 +3,9 @@
 ``tests/test_kube_backends.py``: the port's GPU JobSet and server
 Deployment are what reach the apiserver, JobSet conditions and Deployment
 availability map as the reference maps them, and the reference operator
-takes a Finetune to Succeeded through the port's ``KubeTrainingBackend``."""
+takes a Finetune to Succeeded through the port's ``KubeTrainingBackend``
+and the port's ``KubeObjectStore``. Each package's store reads only its
+own client's ``ApiError``."""
 
 import os
 import time
@@ -13,7 +15,6 @@ import pytest
 from datatunerx_tpu.operator import kubebackends as jkb
 from datatunerx_tpu.operator.api import Finetune, ObjectMeta
 from datatunerx_tpu.operator.backends import FakeServingBackend
-from datatunerx_tpu.operator.kubestore import KubeObjectStore
 from datatunerx_tpu.operator.manager import build_manager
 from datatunerx_tpu_torch.operator import backends as tb
 from datatunerx_tpu_torch.operator.kubebackends import (
@@ -24,6 +25,7 @@ from datatunerx_tpu_torch.operator.kubebackends import (
     KubeTrainingBackend,
 )
 from datatunerx_tpu_torch.operator.kubeclient import ApiError, KubeClient
+from datatunerx_tpu_torch.operator.kubestore import KubeObjectStore
 from datatunerx_tpu_torch.training.checkpoint import write_manifest
 from tests.fake_apiserver import FakeKubeApiServer
 from tests.test_operator import _seed_deps
@@ -138,11 +140,10 @@ def test_reference_operator_takes_a_finetune_to_succeeded(cluster):
     the port's trainer writes."""
     srv, client, workdir = cluster
     storage = os.path.join(workdir, "storage")
-    # the reference's store speaks through the reference's client (it
-    # reads that client's ApiError); the port's backend through its own
-    from datatunerx_tpu.operator.kubeclient import KubeClient as JKubeClient
-
-    store = KubeObjectStore(JKubeClient(base_url=srv.url))
+    # the CRs through the port's store over the port's client (it reads
+    # that client's ApiError), as the workloads go through the port's
+    # backend
+    store = KubeObjectStore(client)
     training = KubeTrainingBackend(client, out_dir=os.path.join(workdir, "m"))
     mgr = build_manager(store, training, FakeServingBackend(),
                         storage_path=storage, with_scoring=False)
@@ -186,3 +187,21 @@ def test_reference_operator_takes_a_finetune_to_succeeded(cluster):
             "checkpointPath"] == "/storage/ckpt/9"
     finally:
         store.stop()
+
+
+def test_each_store_reads_its_own_clients_errors(cluster):
+    """The pairing each package keeps: the port's ``KubeObjectStore`` turns
+    the port's ``ApiError`` 404 into NotFound (``try_get`` → None); the
+    reference's store catches only the reference's ``ApiError``, so over
+    the port's client the 404 escapes as the port's error."""
+    from datatunerx_tpu.operator.kubestore import KubeObjectStore as JStore
+    from datatunerx_tpu_torch.operator.store import NotFound
+
+    srv, client, _ = cluster
+    port = KubeObjectStore(client)
+    assert port.try_get("LLM", "missing") is None
+    with pytest.raises(NotFound):
+        port.get("LLM", "missing")
+    with pytest.raises(ApiError) as ei:
+        JStore(client).try_get("LLM", "missing")
+    assert ei.value.status == 404

@@ -15,7 +15,8 @@ Scoring controller) against the JAX package's, on the CPU.
   (one card a host, the hold reason, the 80 GB budget);
 - the health probe is healthy on ``device="cpu"`` and unhealthy on
   ``cuda`` without a card;
-- ``--backend kube`` raises with its ROADMAP item."""
+- ``--backend kube`` keeps the CRs in an apiserver
+  (``tests/fake_apiserver.py``)."""
 
 import importlib
 import json
@@ -565,11 +566,62 @@ def test_health_probe_runs_on_the_device_it_is_given():
         assert not p.check_now()
 
 
-def test_kube_backend_raises_with_its_roadmap_item():
-    from datatunerx_tpu_torch.operator.manager import main
+def test_kube_backend_builds_the_manager_over_an_apiserver(tmp_path):
+    """``--backend kube``: the manager keeps the CRs in the apiserver, so
+    an LLM created through its REST API is an object of the fake
+    apiserver's."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.request
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        main(["--backend", "kube"])
+    from datatunerx_tpu_torch.operator.kubeclient import KubeClient
+    from tests.fake_apiserver import FakeKubeApiServer
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    srv = FakeKubeApiServer().start()
+    api_port = free_port()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    log = open(tmp_path / "manager.log", "w")
+    mgr = subprocess.Popen(
+        [sys.executable, "-m", "datatunerx_tpu_torch.operator.manager",
+         "--backend", "kube", "--kube-url", srv.url,
+         "--webhook-bind-address", "disabled",
+         "--workdir", str(tmp_path / "work"),
+         "--metrics-bind-address", f"127.0.0.1:{api_port}",
+         "--health-probe-bind-address", f"127.0.0.1:{free_port()}"],
+        stdout=log, stderr=subprocess.STDOUT, cwd=str(tmp_path),
+        env=dict(os.environ, PYTHONPATH=root))
+    log.close()
+    try:
+        deadline = time.monotonic() + 60
+        while "running; api+metrics" not in (
+                tmp_path / "manager.log").read_text():
+            assert mgr.poll() is None, (tmp_path / "manager.log").read_text()
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+        body = {"apiVersion": "core.datatunerx.io/v1beta1", "kind": "LLM",
+                "metadata": {"name": "m", "namespace": "default"},
+                "spec": {"path": "/models/m"}}
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{api_port}/apis/core.datatunerx.io/v1beta1/llm",
+            data=json.dumps(body).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            assert r.status == 201
+        got = KubeClient(base_url=srv.url).get(
+            "core.datatunerx.io", "v1beta1", "llms", "default", "m")
+        assert got["spec"] == {"path": "/models/m"}
+    finally:
+        mgr.terminate()
+        mgr.wait(30)
+        srv.stop()
 
 
 def test_fake_backends_match_the_reference():
