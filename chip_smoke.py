@@ -6,7 +6,9 @@ Run from the repository root on a machine with one NVIDIA H100::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``datatunerx_tpu_torch/csrc`` with
-nvcc, then, each phase failing the run (non-zero exit) on any error:
+nvcc, then, each phase failing the run (non-zero exit) on any error (each
+phase prints its seconds on the host clock on a line of its own,
+``[time] phase <name>: <s> s``, and the end the whole script's):
 
 1. device: prints the card's name and power limit (nvidia-smi) and the
    kernel build time;
@@ -44,7 +46,10 @@ nvcc, then, each phase failing the run (non-zero exit) on any error:
    ``--metrics_export_address`` pointed at a remote-write receiver the
    script runs in-process, which must get one snappy-framed WriteRequest a
    logging step carrying ``dtx_train_loss``, and ``watch/metrics.prom``
-   must exist; prints step time,
+   must exist; the batches are packed by the port's native packer
+   (``native/``, built by g++ from the checkout: the phase fails unless it
+   builds, prints the build's seconds, and counts the trainer's packing
+   calls through it, none falling back to Python); prints step time,
    tokens/s over the steady steps, the peak memory, ``pipe_step_wait_ms``
    from ``trainer_log.jsonl`` and, for the profiled steps, the busy share
    and device ms by kernel group (threefry apart);
@@ -213,11 +218,23 @@ And after it:
 
 - 3-migrate: session migration and the fleet plane between port servers
   in this process, each on its own ``ServingState`` (``--kv_block_size 16
-  --slots 4``, tinyllama-1.1b at full width and depth, random weights from
-  seed 0). A source (``--prefix_cache 8 --role prefill``) decodes four
+  --slots 8``, tinyllama-1.1b at full width and depth, random weights from
+  seed 0; 8 slots so the keep-warm source has four for fillers, and every
+  server the same count: K7's split plan follows it). A source
+  (``--prefix_cache 4 --role prefill --kv_overcommit on``, its engine's
+  ``prefix_keep_warm`` on) decodes four
   ~600-token prompts, 64 new tokens each (three greedy, one sampled at
-  0.8 with a seed); once each has 8 tokens, ``POST /admin/sessions/export``
-  takes all four and ``/admin/sessions/import`` (SSE) resumes them on a
+  0.8 with a seed); once each has 8 tokens, four one-token fillers churn
+  the prompts' entries out of its prefix cache and ``POST
+  /admin/sessions/export`` takes all four sessions: the source's cache
+  must then hold one ``no_reuse`` block entry per prompt (``full``,
+  ``rem`` = divmod(``cursor``, 16), ``cursor`` the prompt's 64-lane
+  bucket, no logits) and its trace four ``keep_warm`` events, and the
+  first prompt extended by 40 tokens must admit ``cow_extend`` on its
+  entry and prefill only the extension on K8 (K7/K8/K9 held to the
+  source's trace), its greedy stream equal to a cold run of the same
+  prompt on the destination by ``check_greedy``.
+  ``/admin/sessions/import`` (SSE) resumes the four sessions on a
   destination (``--prefix_cache 8``): the destination's K7, K8 and K9
   counters, zeroed just before, must equal its scheduler trace's (22 K7
   and one K9 a decode step, no K8), the receipt's text must be the tail's
@@ -410,21 +427,13 @@ runs phases 1, 2, 16 and 18 (``train`` and ``all`` run 16 and 18 after
     (``PLACEMENT_PENDING``) while the other holds it; both jobs
     Successful with an LLMCheckpoint and a numeric score; the experiment
     Success with the ``bestVersion`` the reference's ``parse_score``
-    ranks first. Each job's server subprocess is probed as soon as it
+    ranks first. The first job's server subprocess is probed as soon as it
     appears, with the manager held (SIGSTOP) until the probes are done
     so that the operator cannot tear it down meanwhile: the built-in
     probes' greedy answers with ``"model": "default"`` (the job's
     adapter) and their references' ``nll_sum`` with and without the
-    adapter, which must differ. Then, for each job, an in-process engine
-    loaded from the same LLMCheckpoint with the same flags gives the
-    Scoring's answers (the base: the Scoring sends no ``model``) and the
-    adapter's answers (else the streams part at a near-tie, then
-    ``FORCED_ULPS``, the plain forward carrying the adapter) and each
-    ``nll_sum`` within ``PPL_BOUND``, the adapter's in all nearer the
-    in-process engine's than the adapter moves them from the base, with
-    that engine's K7/K8/K9
-    launches held to its trace (the serving spec sets no
-    ``kv_block_size``: the dense cache, K9 only); deleting the
+    adapter, which must differ (the first job's server only: the second
+    runs the same path); deleting the
     experiment leaves no trainer or server process. Prints the seconds
     from apply to each job's training, HEALTHY and score, and the
     experiment's wall time, less the seconds the manager was held.
@@ -449,7 +458,13 @@ runs phases 1, 2, 16 and 18 (``train`` and ``all`` run 16 and 18 after
     tokenizer decodes ids of 266 and above to nothing, and text ending in
     U+FFFD is held back), the server's TTFT and TPOT quantiles from its
     ``/metrics`` histograms and the SLO epilogue's verdicts (exit 1 is the
-    epilogue's FAIL, which is printed, not failed).
+    epilogue's FAIL, which is printed, not failed). The static-budget
+    gateway runs under the port's sanitizers (lock order, thread leaks,
+    builds; ``analysis/sanitizers``), installed before that gateway is
+    built and taken out after it closes, as ``dtx-torch replay``'s
+    ``DTX_SAN`` bracket does: no new finding against the empty
+    ``dtxsan-torch-baseline.json``, no build in the window, and its
+    K7/K8/K9 launches equal to the direct replay's.
 
 18. experiment (``--phase operator``, ``train`` and ``all``, after 16):
     ``dtx-torch experiment -f spec.json --backend local --status_json`` as
@@ -475,6 +490,7 @@ import gc
 import json
 import math
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -502,8 +518,30 @@ def fail(msg: str):
     sys.exit(1)
 
 
+# a phase's header is logged at column 0 as "[<phase>] ..."; each header
+# closes the phase before it, which prints its seconds on a line of its own
+_PHASE_RE = re.compile(r"^\[([0-9][0-9a-z-]*|hf-[a-z0-9]+(?: [a-z]+)?)\] ")
+_PHASES = {"name": None, "t0": 0.0, "seconds": []}
+T_START = time.perf_counter()
+
+
 def log(msg: str):
+    m = _PHASE_RE.match(msg)
+    if m:
+        phase_done()
+        _PHASES["name"], _PHASES["t0"] = m.group(1), time.perf_counter()
     print(msg, flush=True)
+
+
+def phase_done():
+    """Close the running phase: print its seconds (host clock)."""
+    name = _PHASES["name"]
+    if name is None:
+        return
+    secs = time.perf_counter() - _PHASES["t0"]
+    _PHASES["seconds"].append((name, secs))
+    _PHASES["name"] = None
+    print(f"  [time] phase {name}: {secs:.1f} s", flush=True)
 
 
 # ------------------------------------------------------------------ timing
@@ -1866,17 +1904,6 @@ def serve_phase(torch, counters, flags=("--kv_block_size", "16",
     for name, n in launches.items():
         if n <= 0:
             fail(f"serve phase: kernel {name} was never launched")
-    # the same batch twice more, for the spread inside one process: the
-    # decode step follows the host, whose speed moves from second to second
-    for again in (2, 3):
-        _, wall_n, stats_n = batch()
-        ttft = sorted(s["ttft_s"] for s in stats_n.values())
-        tpot = sorted(s["tpot_s"] for s in stats_n.values() if s["tpot_s"])
-        tokens = sum(s["tokens"] for s in stats_n.values())
-        log(f"  batch {again} (not counted): TTFT median "
-            f"{ttft[len(ttft) // 2] * 1e3:.1f} ms, decode "
-            f"{1.0 / tpot[len(tpot) // 2]:.1f} tok/s per request, "
-            f"{tokens / wall_n:.1f} tok/s aggregate")
     stop_server(srv)
     return eng, launches, {"wall_s": wall, "tokens": total, **first}
 
@@ -3253,7 +3280,11 @@ def adapter_phase(torch, counters, base):
 MIGRATE_NEW = 64
 SPILL_NEW = 160  # two ~400-token sessions outgrow a 64-block pool
 MIGRATE_TEMP, MIGRATE_SEED = 0.8, 7
-MIGRATE_FLAGS = ("--kv_block_size", "16", "--slots", "4")
+# 8 slots on every server of 3-migrate: the keep-warm source runs four
+# fillers beside its four sessions, and K7's split plan follows the slot
+# count, so a sampled stream moved between servers of two counts would
+# part from its unmoved run at a near-tie of the draw
+MIGRATE_FLAGS = ("--kv_block_size", "16", "--slots", "8")
 
 
 def capture_imports(eng):
@@ -3433,7 +3464,8 @@ def scrape_metrics(port):
             for ln in text.splitlines() if ln and not ln.startswith("#")}
 
 
-def check_launches(label, counters, eng, mark, prefill=True):
+def check_launches(label, counters, eng, mark, prefill=True,
+                   whose="destination"):
     """The counters (K7, K8, K9 wrappers and attributes) against what the
     engine's trace since ``mark`` ran: L K7 a decode step, L K8 a prefill
     chunk, one K9 a decode step. Returns the launch table."""
@@ -3442,7 +3474,7 @@ def check_launches(label, counters, eng, mark, prefill=True):
     got = {counter_key(c, a): getattr(c, a) for c, a in counters}
     want = dict(zip(got, (L * steps, L * chunks, steps)))
     log(f"  {label}: {steps} decode steps and {chunks} prefill chunks by "
-        f"the destination's trace; launches {got}, expected {want}")
+        f"the {whose}'s trace; launches {got}, expected {want}")
     if got != want or steps <= 0 or (prefill and chunks <= 0):
         fail(f"3-migrate {label}: launches {got}, expected {want}")
     return got
@@ -3528,6 +3560,55 @@ def export_mid_prefill_http(label, port, eng, prompt, **kw):
     return h, doc["sessions"][0]
 
 
+def keep_warm_check(torch, counters, src, prompts, mark, rnd):
+    """3-migrate's keep-warm: after the export, one no_reuse block entry a
+    exported prompt in ``src``'s prefix cache (``full``, ``rem`` =
+    divmod(``cursor``, 16), the prompt's blocks, no logits) and one
+    ``keep_warm`` trace event each; then a request that extends the first
+    prompt admits through a COW strict-prefix hit on its entry
+    (``cow_extend``) and prefills only the extension, on K8, as the trace
+    says. Returns (the extended prompt, its greedy tokens)."""
+    bs = src.block_size
+    events = [e for e in list(src.sched_trace)[mark:]
+              if e[0] == "keep_warm"]
+    entries = {k[0]: e for k, e in src._prefix.snapshot_entries()}
+    for i, p in enumerate(prompts):
+        e = entries.get(tuple(p))
+        if e is None or not e.get("no_reuse") or e.get("logits") is not None:
+            fail(f"3-migrate keep-warm: prompt {i} has no no_reuse entry "
+                 f"after the export ({sorted(len(k) for k in entries)})")
+        full, rem = divmod(e["cursor"], bs)
+        # the cursor is the prompt's lanes, left-padded to a 64-lane bucket
+        if (e["full"], e["rem"]) != (full, rem) or len(e["blocks"]) != (
+                full + (1 if rem else 0)) or e["cursor"] != -(-len(p) // 64) * 64:
+            fail(f"3-migrate keep-warm: prompt {i} ({len(p)} tokens): "
+                 f"entry full {e['full']} rem {e['rem']} cursor "
+                 f"{e['cursor']} with {len(e['blocks'])} blocks")
+    if len(events) != len(prompts):
+        fail(f"3-migrate keep-warm: {len(events)} keep_warm events, "
+             f"expected {len(prompts)}")
+    log(f"  keep-warm: {len(events)} no_reuse entries published by the "
+        f"export, cursors {[e[2] for e in events]}")
+    ext = list(prompts[0]) + rand_ids(rnd, 40)
+    zero(counters)
+    mark = len(src.sched_trace)
+    req = src.submit(ext, max_new_tokens=MIGRATE_NEW, temperature=0.0,
+                     trace_id="keep-warm-ext")
+    finished("keep-warm", [req], 300)
+    if req.error:
+        fail(f"3-migrate keep-warm: {req.error}")
+    admits = [e[3] for e in list(src.sched_trace)[mark:] if e[0] == "admit"]
+    _, _, ptoks = trace_counts(src, mark)
+    if admits != ["cow_extend"] or not 40 <= ptoks < len(ext) - bs:
+        fail(f"3-migrate keep-warm: the extension admitted {admits} and "
+             f"prefilled {ptoks} of its {len(ext)} tokens")
+    log(f"  keep-warm: the first prompt plus 40 tokens admitted "
+        f"cow_extend, prefilled {ptoks} tokens (not {len(ext)})")
+    check_launches("keep-warm cow_extend", counters, src, mark,
+                   whose="source")
+    return ext, req.tokens
+
+
 def migrate_phase(torch, counters, int8_counters):
     """3-migrate (see the module docstring). ``counters`` are K7, K8 and
     K9's ``(wrapper, attribute)``, ``int8_counters`` the int8 K7/K8's."""
@@ -3556,7 +3637,13 @@ def migrate_phase(torch, counters, int8_counters):
 
     try:
         # ---- 1. session handoff: 3 greedy + 1 sampled, moved mid-decode
-        sport, src = up("A", ("--prefix_cache", "8", "--role", "prefill"))
+        # the source runs keep-warm, which needs COW prefix blocks: KV
+        # overcommit beside the prefix cache
+        sport, src = up("A", ("--prefix_cache", "4", "--role", "prefill",
+                              "--kv_overcommit", "on"))
+        if not src.cow:
+            fail("3-migrate: the source has no COW prefix blocks")
+        src.prefix_keep_warm = True
         dport, dst = up("B", ("--prefix_cache", "8"))
         imported = capture_imports(dst)
         roles = [k for k, v in scrape_metrics(sport).items()
@@ -3574,6 +3661,16 @@ def migrate_phase(torch, counters, int8_counters):
 
         moving = submit_all(src, "")
         wait_tokens("handoff", moving, 8)
+        # four short one-token fillers churn the 4-entry prefix cache: the
+        # sessions' prompt entries leave it, as they would under traffic
+        fillers = [src.submit(rand_ids(rnd, 64), max_new_tokens=1,
+                              trace_id=f"filler-{i}") for i in range(4)]
+        finished("fillers", fillers, 120)
+        ptoks = {tuple(p) for p in prompts}
+        if ptoks & {k[0] for k, _ in src._prefix.snapshot_entries()}:
+            fail("3-migrate keep-warm: a session's prompt entry is still "
+                 "in the source's prefix cache after the fillers")
+        kw_mark = len(src.sched_trace)
         # the host's split of the export: the scheduler's command, and in
         # it the device-to-host copies and the base64 encoding
         split = {k: [] for k in ("export", "host", "b64", "import",
@@ -3591,6 +3688,8 @@ def migrate_phase(torch, counters, int8_counters):
                 "session migrated" not in (h.error or "") for h in moving):
             fail(f"3-migrate handoff: exported {len(doc['sessions'])} "
                  f"sessions, skipped {doc['skipped']}")
+        kw_ext, kw_got = keep_warm_check(torch, counters, src, prompts,
+                                         kw_mark, rnd)
         payloads = {p["trace_id"]: p for p in doc["sessions"]}
         zero(counters)
         mark = len(dst.sched_trace)
@@ -3615,6 +3714,10 @@ def migrate_phase(torch, counters, int8_counters):
         if bad or len(out) != 4:
             fail(f"3-migrate handoff: imports failed {bad}")
         check_launches("handoff", counters, dst, mark, prefill=False)
+        # the keep-warm extension against its cold run on the destination
+        want = dst.generate(kw_ext, max_new_tokens=MIGRATE_NEW)
+        check_greedy(torch, "3-migrate keep-warm cow_extend", kw_got, want,
+                     dst, kw_ext, MIGRATE_NEW)
         unmoved = submit_all(src, "unmoved-")
         finished("handoff unmoved", unmoved)
         tok = src.tokenizer
@@ -4056,7 +4159,8 @@ def expected_launches(quant, steps, layers=LAYERS, forwards=2, dropped=2):
 def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
                 profile=PROFILE_STEPS, export=True,
                 model="preset:tinyllama-1.1b", layers=LAYERS,
-                remote_write=False):
+                remote_write=False, native_packer=False):
+    from datatunerx_tpu_torch import native
     from datatunerx_tpu_torch.ops import cuda_prng
     from datatunerx_tpu_torch.ops import cuda_quant as cq
     from datatunerx_tpu_torch.ops import flash_attention as fa
@@ -4106,6 +4210,25 @@ def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
     counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
                 cq.nf4_matmul, cq.nf4_matmul_t, cq.int8_matmul,
                 cuda_prng.threefry_bits)
+    packed = []
+    real_pack = native.pack_batch_native
+    if native_packer:
+        # the trainer's batches must pack through the native packer: built
+        # from the checkout here (g++), and no Python fallback allowed
+        t0 = time.perf_counter()
+        if not native.available():
+            fail("phase 5: the native packer did not build (g++)")
+        log(f"  native packer: {native._library_path().name} "
+            + (f"built by g++ in {native.build_seconds:.2f} s"
+               if native.build_seconds else "loaded (already built)")
+            + f", {time.perf_counter() - t0:.2f} s to load")
+
+        def counted_pack(*a, **kw):
+            out = real_pack(*a, **kw)
+            packed.append(out is not None)
+            return out
+
+        native.pack_batch_native = counted_pack
     train_lib.Trainer.train_step = timed_step
     try:
         gc.collect()
@@ -4119,10 +4242,18 @@ def train_phase(torch, tmp, quant=None, steps=TRAIN_STEPS,
         launches = {c.__name__: c.launches for c in counters}
     finally:
         train_lib.Trainer.train_step = real_step
+        native.pack_batch_native = real_pack
         if receiver is not None:
             receiver.close()
     if rc != 0:
         fail(f"train CLI returned {rc}")
+    if native_packer:
+        if not packed or not all(packed):
+            fail(f"phase 5: the trainer packed {len(packed)} times through "
+                 f"the native packer, {packed.count(False)} of them fell "
+                 "back to Python")
+        log(f"  the trainer's packing ran {len(packed)} time(s) through the "
+            "native packer")
     if receiver is not None:
         check_remote_write(receiver, out, steps)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -4494,7 +4625,7 @@ def trainer_paths_phase(torch, tmp):
     return rm_run
 
 
-PPO_STEPS, PPO_BATCH, PPO_BLOCK, PPO_GEN, PPO_EPOCHS = 5, 4, 192, 64, 2
+PPO_STEPS, PPO_BATCH, PPO_BLOCK, PPO_GEN, PPO_EPOCHS = 4, 4, 192, 64, 2
 
 
 def write_prompt_csv(path, seed=2, n=PPO_STEPS * PPO_BATCH, words_each=300):
@@ -4566,8 +4697,8 @@ def ppo_phase(torch, tmp, rm_run):
     """``--stage ppo`` through the trainer CLI at tinyllama-1.1b's full
     width and depth (flash, remat dots, bf16, LoRA r8 on q_proj,v_proj)
     against phase 11's RM run: 4 prompts a step filling ``PPO_BLOCK``,
-    ``PPO_GEN`` sampled tokens, 2 passes, 5 steps, step 2 under the CLI's
-    profiler window.
+    ``PPO_GEN`` sampled tokens, 2 passes, ``PPO_STEPS`` steps, step 2
+    under the CLI's profiler window.
     Holds each step's K1/K2/K3 launches to ``ppo_launches`` and threefry
     to 0; the first pass's ratio at the rollout's policy (the pass's
     forward runs before its update, the lr = 0 case): clipfrac 0, and the
@@ -4576,8 +4707,8 @@ def ppo_phase(torch, tmp, rm_run):
     than 1.5 times the plain attention's (bf16 alone parts the cached
     decode from a full forward by about 1e-3 at this depth); finite
     losses and the controller state; logs the median
-    of steps 3-5 and the profiled step's busy share, device ms and GPU
-    kernels."""
+    of the steps after 2 and the profiled step's busy share, device ms and
+    GPU kernels."""
     from datatunerx_tpu_torch.ops import cuda_prng
     from datatunerx_tpu_torch.ops import flash_attention as fa
     from datatunerx_tpu_torch.training import ppo
@@ -5175,21 +5306,19 @@ def gateway_phase(torch, counters):
         # ---- timing: each request alone, gateway and direct in turns
         timing = {"gateway": {"ttft": [], "wall": [], "tokens": []},
                   "direct": {"ttft": [], "wall": [], "tokens": []}}
-        for k in range(2):
-            for j, route in enumerate(
-                    ("gateway", "direct", "direct", "gateway") if k == 0
-                    else ("direct", "gateway", "gateway", "direct")):
-                port = gport if route == "gateway" else ports["decode"]
-                tid = f"time-{route}-{k}-{j}"
-                _, _, ttft = gw_post(port, body(rand_text(rnd, 400), 1))
-                code, doc, wall = gw_post(port, body(rand_text(rnd, 400)),
-                                          trace=tid)
-                if code != 200:
-                    fail(f"14 timing: {route} answered {code} {doc}")
-                n = len(seen[where(tid)][tid].tokens)
-                timing[route]["ttft"].append(ttft * 1e3)
-                timing[route]["wall"].append(wall * 1e3)
-                timing[route]["tokens"].append(n)
+        for j, route in enumerate(("gateway", "direct", "direct",
+                                   "gateway")):
+            port = gport if route == "gateway" else ports["decode"]
+            tid = f"time-{route}-{j}"
+            _, _, ttft = gw_post(port, body(rand_text(rnd, 400), 1))
+            code, doc, wall = gw_post(port, body(rand_text(rnd, 400)),
+                                      trace=tid)
+            if code != 200:
+                fail(f"14 timing: {route} answered {code} {doc}")
+            n = len(seen[where(tid)][tid].tokens)
+            timing[route]["ttft"].append(ttft * 1e3)
+            timing[route]["wall"].append(wall * 1e3)
+            timing[route]["tokens"].append(n)
         summary = {}
         for route, t in timing.items():
             summary[route] = {
@@ -5198,7 +5327,8 @@ def gateway_phase(torch, counters):
                                  zip(t["tokens"], t["wall"])])}
         added = summary["gateway"]["wall_ms"] - summary["direct"]["wall_ms"]
         log(f"  a request alone (400-token prompts, host clock, medians of "
-            f"4): through the gateway TTFT (1 token) "
+            f"{len(timing['direct']['wall'])}): through the gateway TTFT "
+            f"(1 token) "
             f"{summary['gateway']['ttft_ms']:.1f} ms, 64 tokens "
             f"{summary['gateway']['wall_ms']:.1f} ms = "
             f"{summary['gateway']['tok_s']:.1f} tok/s; direct TTFT "
@@ -6127,11 +6257,8 @@ def probe_operator_server(mgr, pid, port, timeout=600):
 
 
 def operator_phase(torch, tmp, model="preset:tinyllama-1.1b", device="cuda",
-                   counters=(), timeout=900):
-    """16 (see the module docstring). ``counters``: K7, K8 and K9's
-    (wrapper, attribute) pairs, counted over the in-process engine's
-    requests (empty where the plain versions run: they count nothing).
-    Returns the phase's seconds and that engine's launches."""
+                   timeout=900):
+    """16 (see the module docstring). Returns the phase's seconds."""
     from datatunerx_tpu_torch import cli
     from datatunerx_tpu_torch.operator.backends import _free_port
     from datatunerx_tpu_torch.operator.finetune_controller import (
@@ -6140,8 +6267,6 @@ def operator_phase(torch, tmp, model="preset:tinyllama-1.1b", device="cuda",
     from datatunerx_tpu_torch.operator.finetuneexperiment_controller import (
         parse_score,
     )
-    from datatunerx_tpu_torch.scoring.builtin import DEFAULT_PROBES
-
     csv_path = os.path.join(tmp, "operator.csv")
     write_train_csv(csv_path, seed=4, n=8)  # 8 rows at batch 4: 2 steps
     work = os.path.join(tmp, "operator")
@@ -6194,7 +6319,6 @@ def operator_phase(torch, tmp, model="preset:tinyllama-1.1b", device="cuda",
             fail(f"16: dtx-torch {' '.join(args)}: {p.stderr[-2000:]}")
         return p.stdout
 
-    eng = srv = None
     try:
         wait_for("16: the manager's API", lambda: _reachable(
             f"{server}/healthz"), (True,), 120)
@@ -6239,8 +6363,10 @@ def operator_phase(torch, tmp, model="preset:tinyllama-1.1b", device="cuda",
             for pid, cmd in port_procs(work):
                 ckpt = cmd[cmd.index("--checkpoint_path") + 1] \
                     if "--checkpoint_path" in cmd else None
+                # the first job's server only: the second runs the same
+                # serving path, and its hold would stretch the phase
                 if ("datatunerx_tpu_torch.serving.server" in cmd
-                        and ckpt not in served):
+                        and not served):
                     served[ckpt], held_s = probe_operator_server(
                         mgr, pid, int(cmd[cmd.index("--port") + 1]))
                     paused += held_s
@@ -6288,99 +6414,24 @@ def operator_phase(torch, tmp, model="preset:tinyllama-1.1b", device="cuda",
         if m.get("dtx_device_healthy") != 1.0 or m.get(
                 "dtx_slices_total") != 1.0 or m.get("dtx_slices_free") != 1.0:
             fail(f"16: /metrics {m}")
-        # each served checkpoint: its Scoring's answers (the base) and the
-        # answers and NLLs with "model": "default" (the adapter), both
-        # through the operator's server subprocess, against an in-process
-        # engine loaded from the same LLMCheckpoint with the same flags
-        launched = {}
-        for j, _, _ in OPERATOR_JOBS:
-            rec = seen[j]
-            ckpt = rec["checkpoint"]["spec"]["checkpoint"]
-            op = served.get(ckpt)
-            if op is None:
-                fail(f"16: no server of the operator's was seen serving "
-                     f"{j}'s checkpoint {ckpt} (seen: {sorted(served)})")
+        # the probed server (the first job's): its adapter moves every
+        # answer's nll_sum off the base's, so the operator's server serves
+        # "default" from the job's LLMCheckpoint
+        probed = [(j, seen[j]) for j, _, _ in OPERATOR_JOBS
+                  if seen[j]["checkpoint"]["spec"]["checkpoint"] in served]
+        if [j for j, _ in probed] != [OPERATOR_JOBS[0][0]]:
+            fail(f"16: probed the servers of {[j for j, _ in probed]} "
+                 f"(seen: {sorted(served)}), expected the first job's")
+        for j, rec in probed:
+            op = served[rec["checkpoint"]["spec"]["checkpoint"]]
             if all(a == b for a, b in zip(op["nll"], op["base_nll"])):
                 fail(f'16: {j}\'s server scores "default" as the base: '
                      f"nll_sum {op['nll']}")
-            flags = ("--template", "vanilla", "--checkpoint_path", ckpt,
-                     "--device", device)
-            srv, port, eng = start_server(torch, flags, model=model)
-            if eng.adapter_ids != {"": 0, "default": 1}:
-                fail(f"16: the in-process engine's adapters "
-                     f"{eng.adapter_ids}")
-            lora = adapter_tree(torch, ckpt, device)
-            zero(counters)
-            mark = len(eng.sched_trace)
-            subs = record_submits(eng)
-            probes = [(d["prompt"], d["answer"], "", None)
-                      for d in rec["scoring"]["status"]["details"]]
-            probes += [(pr["prompt"], ans, "default", lora)
-                       for pr, ans in zip(DEFAULT_PROBES, op["answers"])]
-            for i, (prompt, answer, name, adapter) in enumerate(probes):
-                body = {"messages": [{"role": "user", "content": prompt}],
-                        "max_tokens": 64, "temperature": 0.0}
-                if name:
-                    body["model"] = name
-                out = post(port, body, trace=f"{j}-{i}")
-                req = subs[f"{j}-{i}"]
-                if out["text"] == answer:
-                    continue
-                got = eng.tokenizer.encode(answer, add_special_tokens=False)
-                check_greedy(torch, f"16 {j} probe {i} ({name or 'base'})",
-                             got, req.tokens, eng, req.prompt_ids, 64,
-                             req.stop_ids, lora=adapter)
-            if counters:
-                steps, chunks, _ = trace_counts(eng, mark)
-                got = {counter_key(c, a): getattr(c, a) for c, a in counters}
-                dense = eng.decode_path == "dense"
-                L = eng.cfg.num_layers
-                want = dict(zip(got, (0 if dense else L * steps,
-                                      0 if dense else L * chunks, steps)))
-                if got != want or steps <= 0:
-                    fail(f"16: the engine's launches {got}, expected {want} "
-                         f"({steps} decode steps, {chunks} prefill chunks, "
-                         f"decode path {eng.decode_path})")
-                for k, v in got.items():
-                    launched[k] = launched.get(k, 0) + v
-            mine = {"nll": [], "base_nll": []}
-            for i, pr in enumerate(DEFAULT_PROBES):
-                for key, name in (("nll", "default"), ("base_nll", "")):
-                    ours = post_perplexity(port, pr["prompt"],
-                                           pr["reference"], name)[0]
-                    theirs = op[key][i]
-                    rel = abs(theirs["nll_sum"] - ours["nll_sum"]) / abs(
-                        ours["nll_sum"])
-                    if (theirs["num_tokens"] != ours["num_tokens"]
-                            or not rel <= PPL_BOUND):
-                        fail(f"16: {j} probe {i} ({name or 'base'}): the "
-                             f"operator's server reads nll_sum {theirs}, the "
-                             f"in-process engine {ours} (rel {rel:.2e}, "
-                             f"bound {PPL_BOUND:g})")
-                    mine[key].append(ours["nll_sum"])
-            # the same adapter: the operator's readings lie nearer the
-            # in-process adapter's than the adapter lies from the base
-            apart = sum(abs(x["nll_sum"] - y)
-                        for x, y in zip(op["nll"], mine["nll"]))
-            shift = sum(abs(x - y)
-                        for x, y in zip(mine["nll"], mine["base_nll"]))
-            if not apart < shift:
-                fail(f"16: {j}'s server reads the adapter's nll_sum "
-                     f"{apart:.3g} away from the in-process engine's, which "
-                     f"moves {shift:.3g} from the base")
-            log(f"  {j}: {len(probes)} greedy probe answers of the "
-                f"operator's server (base and \"default\") equal to the "
-                f"in-process engine's (decode path {eng.decode_path}); "
-                f"nll_sum with the adapter {[x['nll_sum'] for x in op['nll']]}"
-                f", the base {[x['nll_sum'] for x in op['base_nll']]}; the "
-                f"in-process adapter's {apart:.3g} away, {shift:.3g} from "
-                f"its base")
-            stop_server(srv)
-            srv = None
-            eng.close()
-            eng = None
-        log(f"  the in-process engines' launches {launched}; the operator's "
-            f"servers' probes held the manager {paused:.1f} s (left out of "
+            log(f"  {j}: the operator's server answered {len(op['answers'])}"
+                f" greedy probes with \"default\"; nll_sum with the adapter "
+                f"{[x['nll_sum'] for x in op['nll']]}, the base "
+                f"{[x['nll_sum'] for x in op['base_nll']]}")
+        log(f"  the probes held the manager {paused:.1f} s (left out of "
             f"the seconds below)")
         # teardown: the experiment's deletion cascades to every workload
         dtx("delete", "FinetuneExperiment", "exp")
@@ -6392,10 +6443,6 @@ def operator_phase(torch, tmp, model="preset:tinyllama-1.1b", device="cuda",
             fail(f"16: processes left after the experiment's deletion: "
                  f"{left}")
     finally:
-        if srv is not None:
-            stop_server(srv)
-        if eng is not None:
-            eng.close()
         if mgr.poll() is None:
             os.killpg(mgr.pid, 15)
             try:
@@ -6411,7 +6458,7 @@ def operator_phase(torch, tmp, model="preset:tinyllama-1.1b", device="cuda",
         f"{ {j: r['score'] for j, r in seen.items()} }; held for the card: "
         f"{sorted(held)}; bestVersion {bv['hyperparameter']} "
         f"({bv['score']})")
-    return {"times": times, "wall_s": wall, "launches": launched}
+    return {"times": times, "wall_s": wall}
 
 
 # ------------------------------------------------------------- phase 17
@@ -6458,7 +6505,8 @@ def replay_run(label, url, args, report, counters, port, all_ok=True):
     lines, wall s, exit code)."""
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    env.pop("DTX_SAN", None)  # the port refuses the reference's sanitizers
+    # the client runs unsanitized: the phase sanitizes the gateway here
+    env.pop("DTX_SAN", None)
     code, text = http_get(port, "/metrics")
     if code != 200:
         fail(f"17 {label}: /metrics answered {code}")
@@ -6513,17 +6561,33 @@ def loadgen_phase(torch, tmp, counters, card, model="preset:tinyllama-1.1b",
     )
     from datatunerx_tpu_torch.gateway.server import Gateway, serve
 
+    from datatunerx_tpu_torch.analysis.sanitizers import runtime
     from datatunerx_tpu_torch.loadgen.workload import read_trace
 
     srv, port, eng = start_server(torch, flags, model=model)
-    out, gateways = {}, []
+    out = {}
     trace = os.path.join(tmp, "replay-trace.jsonl")
     url = f"http://127.0.0.1:{port}"
+
+    def open_gateway(admission):
+        gw = Gateway(ReplicaPool([HTTPReplica("r0", url)],
+                                 health_interval_s=1.0),
+                     model_name=model, admission=admission)
+        srv_gw = serve(gw, port=0, host="127.0.0.1")
+        th = threading.Thread(target=srv_gw.serve_forever, daemon=True)
+        th.start()
+        return gw, srv_gw, th
+
+    def close_gateway(gw, srv_gw, th):
+        srv_gw.shutdown()
+        srv_gw.server_close()
+        th.join(timeout=30)
+        gw.close()  # HTTP replicas: the pool's thread, nothing remote
+
     try:
         tok = eng.tokenizer
         count = lambda t: len(tok.encode(t))  # noqa: E731
-        runs = [("direct", url, REPLAY_ARGS + ("--record", trace), None)]
-        for label, admission in (
+        runs = [("direct", None),
                 # the gateway as phase 14a builds it: fleet-true admission
                 # prices each request in KV blocks against the server's
                 # free blocks and sheds (429) what the pool cannot hold now
@@ -6531,27 +6595,36 @@ def loadgen_phase(torch, tmp, counters, card, model="preset:tinyllama-1.1b",
                 # the block signal off and a static budget of the whole
                 # trace's prefill estimate (set once the direct run has
                 # recorded it): the gateway queues the burst on the
-                # server, as the direct replay does
+                # server, as the direct replay does; it runs under the
+                # sanitizers
                 ("gateway", AdmissionController(
-                    count_tokens=count, fleet_blocks_fn=lambda: None))):
-            gw = Gateway(ReplicaPool([HTTPReplica("r0", url)],
-                                     health_interval_s=1.0),
-                         model_name=model, admission=admission)
-            srv_gw = serve(gw, port=0, host="127.0.0.1")
-            threading.Thread(target=srv_gw.serve_forever,
-                             daemon=True).start()
-            gateways.append((gw, srv_gw))
-            runs.append((label, f"http://127.0.0.1:{srv_gw.server_port}",
-                         ("--trace", trace), admission))
-        for label, target, args, admission in runs:
+                    count_tokens=count, fleet_blocks_fn=lambda: None))]
+        for label, admission in runs:
+            san = None
             if label == "gateway":
                 admission.token_budget = sum(
                     admission.estimate(e["messages"])
                     for e in read_trace(trace)[1])
-            rep, launches, server, slo, wall, rc = replay_run(
-                label, target, args,
-                os.path.join(tmp, f"replay-{label}.json"), counters, port,
-                all_ok=label != "gateway-blocks")
+                runtime.COLLECTOR.reset()
+                # before the gateway is built
+                san = runtime.open_window("lock,thread,compile")
+            opened = None
+            try:
+                if admission is None:
+                    target, args = url, REPLAY_ARGS + ("--record", trace)
+                else:
+                    opened = open_gateway(admission)
+                    target = f"http://127.0.0.1:{opened[1].server_port}"
+                    args = ("--trace", trace)
+                rep, launches, server, slo, wall, rc = replay_run(
+                    label, target, args,
+                    os.path.join(tmp, f"replay-{label}.json"), counters,
+                    port, all_ok=label != "gateway-blocks")
+            finally:
+                if opened is not None:
+                    close_gateway(*opened)
+            if san is not None:  # after the gateway closed
+                san_epilogue(san, "17 gateway")
             out[label] = launches
             log(f"  {label} ({target}): {rep['requests']} requests, codes "
                 f"{rep['codes']}, {rep['duration_s']} s of replay "
@@ -6570,16 +6643,36 @@ def loadgen_phase(torch, tmp, counters, card, model="preset:tinyllama-1.1b",
                 "bucket-interpolated)".format(**server))
             for ln in slo:
                 log(f"    {ln}")
+        if counters and out["gateway"] != out["direct"]:
+            fail(f"17: the sanitized gateway replay launched "
+                 f"{out['gateway']}, the direct replay {out['direct']}")
         log(f"  the gateway's static prefill budget: "
-            f"{runs[-1][3].token_budget} tokens (the trace's own "
+            f"{runs[-1][1].token_budget} tokens (the trace's own "
             f"estimate); {card}")
     finally:
-        for gw, srv_gw in gateways:
-            srv_gw.shutdown()
-            gw.slo.stop()
         stop_server(srv)
         eng.close()
     return out
+
+
+def san_epilogue(win, label):
+    """The sweep after phase 17's sanitized window (``dtx-torch
+    replay``'s): lock-order cycles, the threads started in the window and
+    still alive, the builds in it; the sanitizers then come out. Fails on
+    any new finding against ``dtxsan-torch-baseline.json`` (empty) or
+    any build."""
+    from datatunerx_tpu_torch.analysis.sanitizers import report, runtime
+
+    findings, suppressed, counters = runtime.close_window(win, label)
+    evaluation = report.evaluate(findings, suppressed)
+    builds = counters["window_builds"]
+    log("    " + report.render_text(evaluation, counters).replace(
+        "\n", "\n    "))
+    log(f"    dtxsan: {builds} builds in the sanitized window; installed "
+        f"{list(win.installed)}, taken out again")
+    if evaluation["failed"] or builds:
+        fail(f"{label}: {len(evaluation['new'])} new dtxsan findings, "
+             f"{builds} builds in the sanitized window")
 
 
 # ------------------------------------------------------------- phase 18
@@ -7024,7 +7117,8 @@ def main(argv=None) -> int:
             if opts.phase != "qlora":
                 log("[5] train preset:tinyllama-1.1b: LoRA SFT through the "
                     "trainer CLI (flash, remat dots, bf16, packed 8x1024)")
-                trained, run = train_phase(torch, tmp, remote_write=True)
+                trained, run = train_phase(torch, tmp, remote_write=True,
+                                           native_packer=True)
                 PEAKS["5"] = run["peak_gib"]
                 launches.update({k: trained[k] for k in flash_keys})
                 launches["threefry_bits"] = trained["threefry_bits"]
@@ -7098,13 +7192,7 @@ def main(argv=None) -> int:
             log("[16] the port's controller-manager (--backend local, one "
                 "slice of 1 card) takes a FinetuneExperiment of two "
                 "FinetuneJobs through dtx-torch apply to Success")
-            op = operator_phase(torch, tmp, counters=[
-                by_name[k] for k in ("K7", "K8", "K9")])
-        for e in entries:  # the operator's engine's launches
-            key = counter_key(e["counter"], e.get("count", "launches"))
-            if not e.get("path") and key in op["launches"]:
-                e.setdefault("extra", {})["launches@operator"] = (
-                    op["launches"][key])
+            op = operator_phase(torch, tmp)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="dtx-experiment-") as tmp:
             log("[18] dtx-torch experiment --backend local: two LoRA jobs "
@@ -7150,6 +7238,11 @@ def main(argv=None) -> int:
             "bound_by": e["bound_by"], "library_ms": e["library_ms"],
             **({"library": e["library"]} if "library" in e else {}),
             **e.get("extra", {})})
+    phase_done()
+    total = time.perf_counter() - T_START
+    log(f"  [time] {len(_PHASES['seconds'])} phases "
+        f"{sum(t for _, t in _PHASES['seconds']):.1f} s; the whole script "
+        f"{total:.1f} s on {card}")
     log(card)  # name and power limit, as nvidia-smi prints them
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -179,7 +179,7 @@ class AdapterStore:
             rows[t] = (a_row.to(self.dtype).to(self.device),
                        b_row.to(self.dtype).to(self.device))
         with self._lock:
-            self._write(slot, rows, scaling)
+            self._write(slot, rows, scaling)  # dtxlint: disable=DTX009 — bounded copy wait; the lock serialises pool writers only (ROADMAP Queue 3)
         return rank
 
     def clear(self, slot: int):
@@ -190,7 +190,7 @@ class AdapterStore:
             rows = {t: (torch.zeros_like(buf["a"][:, slot]),
                         torch.zeros_like(buf["b"][:, slot]))
                     for t, buf in self._buffers.items()}
-            self._write(slot, rows, 0.0)
+            self._write(slot, rows, 0.0)  # dtxlint: disable=DTX009 — bounded copy wait; the lock serialises pool writers only (ROADMAP Queue 3)
 
     def _check_slot(self, slot: int):
         if not 1 <= slot <= self.pool_slots:

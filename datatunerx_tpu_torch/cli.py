@@ -22,9 +22,10 @@ Talks to the operator's REST API (operator/apiserver.py):
                                            flags pass through)
   dtx-torch install [--dry-run]            CRDs, RBAC, config and the
                                            controller-manager Deployment
-
-The reference's ``lint`` and ``san`` (its ``analysis/``, which checks JAX
-programs) are not part of the port's CLI.
+  dtx-torch lint [paths...]                static analysis of the port
+                                           (analysis/; dtxlint's flags)
+  dtx-torch san [args...] [-- pytest...]   pytest under the runtime
+                                           sanitizers (analysis/sanitizers)
 
 Server address from --server or DTX_SERVER (default http://127.0.0.1:8080);
 bearer auth via DTX_API_TOKEN when the server requires it.
@@ -347,14 +348,24 @@ def cmd_install(args):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
+    lint_tail = _passthrough_tail(argv, "lint")
+    if lint_tail is not None:
+        from datatunerx_tpu_torch.analysis.cli import main as lint_main
+
+        return lint_main(lint_tail)
     replay_tail = _passthrough_tail(argv, "replay")
     if replay_tail is not None:
         from datatunerx_tpu_torch.loadgen.replay import main as replay_main
 
         return replay_main(replay_tail)
-    p = argparse.ArgumentParser(
-        prog="dtx-torch",
-        epilog="lint and san are the JAX package's dtx only (not ported).")
+    san_tail = _passthrough_tail(argv, "san")
+    if san_tail is not None:
+        from datatunerx_tpu_torch.analysis.sanitizers.cli import (
+            main as san_main,
+        )
+
+        return san_main(san_tail)
+    p = argparse.ArgumentParser(prog="dtx-torch")
     p.add_argument("--server", default=os.environ.get("DTX_SERVER",
                                                       "http://127.0.0.1:8080"))
     sub = p.add_subparsers(dest="cmd", required=True)

@@ -1,8 +1,9 @@
 """Supervised preprocessing (SFT, pt, DPO/RM preference pairs, PPO
 prompts): encode, prompt-mask, fixed-shape padding and greedy packing
-(the port of ``datatunerx_tpu/data/preprocess.py``, without its native
-C++ fill: the loops below are the reference's own fallback, and the
-tests hold the batches equal).
+(the port of ``datatunerx_tpu/data/preprocess.py``). Padding and packing
+run in the port's native C++ packer (``native/``) when it builds, and in the
+Python loops below, the same algorithm, when it does not; the tests hold
+both paths and the reference's equal.
 
 - column-mapped records with ``instruction``/``response`` (+ optional
   ``query`` appended to the instruction with a newline, ``history``,
@@ -193,8 +194,17 @@ def pad_to_block(
     examples: Sequence[Dict[str, List[int]]],
     block_size: int,
     pad_id: int = 0,
+    use_native: bool = True,
 ) -> Dict[str, np.ndarray]:
-    """Right-pad each example to the static block_size."""
+    """Right-pad each example to the static block_size. The loop runs in
+    the native C++ packer when it is available."""
+    if use_native and examples:
+        from datatunerx_tpu_torch import native
+
+        out = native.fill_batch_native(examples, block_size, pad_id,
+                                       IGNORE_INDEX)
+        if out is not None:
+            return out
     B = len(examples)
     input_ids = np.full((B, block_size), pad_id, np.int32)
     labels = np.full((B, block_size), IGNORE_INDEX, np.int32)
@@ -211,10 +221,19 @@ def pack_to_block(
     examples: Sequence[Dict[str, List[int]]],
     block_size: int,
     pad_id: int = 0,
+    use_native: bool = True,
 ) -> Dict[str, np.ndarray]:
     """Greedy first-fit packing of examples (longest first) into block_size
     rows with segment_ids (1, 2, ... per row; 0 = pad) and per-segment
-    positions; cross-segment attention is masked by the model."""
+    positions; cross-segment attention is masked by the model. The loops
+    run in the native C++ packer when it is available."""
+    if use_native and examples:
+        from datatunerx_tpu_torch import native
+
+        out = native.pack_batch_native(examples, block_size, pad_id,
+                                       IGNORE_INDEX)
+        if out is not None:
+            return out
     rows: List[List[Dict[str, List[int]]]] = []
     used: List[int] = []
     for ex in sorted(examples, key=lambda e: -len(e["input_ids"])):

@@ -19,9 +19,10 @@ Two clients:
                  reach surfaces that have no wire form (replica kill,
                  slice-pool shrink) via injected actions.
 
-The port's copy of ``datatunerx_tpu/loadgen/replay.py``. ``DTX_SAN`` is
-refused: the runtime sanitizers are the reference's ``analysis/``, which
-the port does not carry.
+The port's copy of ``datatunerx_tpu/loadgen/replay.py``. ``DTX_SAN`` (1,
+or a comma list of lock,thread,compile) installs the port's runtime
+sanitizers (``analysis/sanitizers``) around the replay and sweeps them at
+its end: new findings fail the run like an SLO breach.
 
 CLI (``dtx-torch replay`` / ``python -m datatunerx_tpu_torch.loadgen.replay``):
 
@@ -596,27 +597,37 @@ def apply_tighten(slos: List[SLO], specs: List[str]) -> List[SLO]:
 
 # ---------------------------------------------------------------------- CLI
 
-#: DTX_SAN values that ask for no sanitizer (the reference's off values)
-_SAN_OFF = ("", "0", "off", "false")
-
-
-def _refuse_san() -> None:
-    """The reference installs its runtime sanitizers (lock order, thread
-    leaks, compile budgets) when ``DTX_SAN`` asks for them. They live in
-    the reference's ``analysis/`` package, which the port does not carry
-    (its rules check JAX programs), so a replay that asks for them stops
-    here rather than running without the checks it asked for."""
-    spec = os.environ.get("DTX_SAN", "")
-    if spec.strip().lower() not in _SAN_OFF:
-        raise SystemExit(
-            f"dtx-torch replay: DTX_SAN={spec!r} asks for the runtime "
-            "sanitizers (analysis.sanitizers), which the port does not "
-            "have; unset DTX_SAN to replay without them")
-
-
 def main(argv=None) -> int:
-    _refuse_san()
-    return _replay_main(argv)
+    """The replay CLI. ``DTX_SAN`` (1, or a comma list of lock,thread,
+    compile) runs it in a sanitized window: the chaos harness is exactly
+    the kind of concurrency-heavy path whose lock orders, thread
+    lifetimes and builds the plane exists to watch. At the end the window
+    is swept (lock-order cycles, build budgets, repo threads the fleet
+    left alive); new findings (vs the empty baseline) fail the run like
+    an SLO breach does."""
+    from datatunerx_tpu_torch.analysis.sanitizers import report
+    from datatunerx_tpu_torch.analysis.sanitizers import runtime as san
+
+    win = san.open_window(os.environ.get("DTX_SAN", ""))
+    rc = _replay_main(argv)
+    if win is None:
+        return rc
+    findings, suppressed, counters = san.close_window(
+        win, "dtx-torch replay")
+    evaluation = report.evaluate(
+        findings, suppressed,
+        baseline_path=os.environ.get("DTX_SAN_BASELINE") or None,
+        no_baseline=os.environ.get("DTX_SAN_NO_BASELINE") == "1")
+    print("[replay] " + report.render_text(
+        evaluation, counters).replace("\n", "\n[replay] "))
+    report_path = os.environ.get("DTX_SAN_REPORT")
+    if report_path:
+        report.write_raw(report_path, findings, suppressed,
+                         counters=counters, classes=win.classes)
+    if evaluation["failed"]:
+        print("[replay] sanitizer assertion FAILED: new dtxsan findings")
+        return 1
+    return rc
 
 
 def _replay_main(argv=None) -> int:

@@ -124,7 +124,7 @@ def library() -> ctypes.CDLL:
         out = BUILD_DIR / f"libdtx_kernels-{_digest(sources)}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            _build(sources, out)
+            _build(sources, out)  # dtxlint: disable=DTX009 -- deliberate one-time build under lock
         lib = ctypes.CDLL(str(out))
         _declare(lib)
         _lib = lib

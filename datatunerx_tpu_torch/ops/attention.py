@@ -39,7 +39,7 @@ from datatunerx_tpu_torch.ops.paged_attention import (
 def softmax_scale(d: int) -> float:
     """The reference's scale arithmetic exactly: 1/sqrt(f32(d)) in f32 (a
     Python ``d ** -0.5`` double differs by one ulp for some head dims)."""
-    return float(np.float32(1.0) / np.sqrt(np.float32(d)))
+    return float(np.float32(1.0) / np.sqrt(np.float32(d)))  # dtxlint: disable=DTX001 — host numpy scalar (d is a static shape), no device sync
 
 
 def attention_allow(

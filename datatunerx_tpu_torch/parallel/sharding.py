@@ -287,7 +287,7 @@ def place_batch(batch: dict, mesh, accum: bool = False) -> dict:
     index of a row's last response token, for the reward head), then keeps
     positions ``[t0, t0 + t)`` of every [.., T] leaf. ``seq_len`` records
     the global T."""
-    flat = {k: np.asarray(v) for k, v in batch.items() if v is not None}
+    flat = {k: np.asarray(v) for k, v in batch.items() if v is not None}  # dtxlint: disable=DTX001 -- host numpy, no sync
     if mesh is None:
         return flat
     seq_ax = 2 if accum else 1

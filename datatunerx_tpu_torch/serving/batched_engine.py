@@ -473,6 +473,7 @@ class BatchedEngine:
         tracing: bool = True,  # per-request span timelines + trace ring
         trace_ring: int = 256,  # completed traces kept for /debug/trace
         trace_log_path: Optional[str] = None,  # JSONL log of every span
+        prefix_keep_warm: bool = False,  # publish prompt blocks on preempt
         seed: int = 0,  # preset weights' random init
         device="cuda",
     ):
@@ -692,6 +693,11 @@ class BatchedEngine:
         # COW prefix blocks: overcommit engines with a prefix cache store
         # refcounted BLOCK entries that a hit maps into the new slot's table
         self.cow = self.overcommit and self._prefix is not None
+        # keep-warm (off by default): a preempted or exported slot publishes
+        # its prompt blocks as a no_reuse prefix entry before it frees them,
+        # so the prompt outlives the slot as a COW-extendable prefix. The
+        # publish is a block incref plus a tail copy: it needs COW entries.
+        self.prefix_keep_warm = bool(prefix_keep_warm) and self.cow
         # slot → (prefix-cache key, prompt cursor) of the prompt it holds
         self._slot_key: List[Optional[tuple]] = [None] * slots
         # how admissions were served
@@ -701,7 +707,8 @@ class BatchedEngine:
         # "cow_extend") / ("prefill", slot, ntokens) / ("activate", slot) /
         # ("decode", K) / ("finish", slot) / ("grow", slot, nblocks) /
         # ("preempt", slot, seq) / ("preempt_prefill", slot, seq) /
-        # ("resume", slot, cursor) / ("adapter_wait", name); spec engines:
+        # ("resume", slot, cursor) / ("adapter_wait", name) /
+        # ("keep_warm", slot, prompt cursor); spec engines:
         # ("spec_prime", slot, n) / ("spec_enter", n, epilogue mode) /
         # ("spec", k, rows, batch mode, tree widths | None) /
         # ("spec_settle", slot) / ("decode", K, epilogue mode)
@@ -1363,7 +1370,7 @@ class BatchedEngine:
         if not ready:
             return
         # the tick's designed sync: the cursors and budgets, one transfer
-        lens, rem = torch.stack(
+        lens, rem = torch.stack(  # dtxlint: disable=DTX001
             (self._cache["len"], self._remaining)).cpu().tolist()
         ready.sort(key=lambda s: self._slot_req[s].seq)
         for slot in ready:
@@ -1471,7 +1478,7 @@ class BatchedEngine:
         key (``b64=False``: host numpy bodies, for preemption parking), plus
         the spec controller's learned state on a spec engine."""
         # the export's designed sync: the slot's scalar decode state
-        cursor, pos, remaining = torch.stack(
+        cursor, pos, remaining = torch.stack(  # dtxlint: disable=DTX001
             (self._cache["len"][slot], self._pos[slot],
              self._remaining[slot])).cpu().tolist()
         payload = mig.build_payload(
@@ -1513,6 +1520,40 @@ class BatchedEngine:
         self._active[slot] = False
         self._remaining[slot] = 0
 
+    def _keep_warm(self, slot: int):
+        """Publish the slot's PROMPT prefix as a no_reuse COW block entry
+        right before the slot is released (preemption, drain export), so a
+        resume here or on a peer admits through a COW strict-prefix hit
+        instead of prefilling the prefix again. No logits are stored: a
+        slot that has decoded past its prompt no longer holds the prompt's
+        last-token logits, hence ``no_reuse``. Best effort: a missing key,
+        an existing entry or no block for the tail copy skip it."""
+        sk = self._slot_key[slot]
+        if sk is None:
+            return
+        key, pcursor = sk
+        if self._prefix.get(key) is not None:
+            return
+        full, rem = divmod(pcursor, self.block_size)
+        blocks = self._slot_blocks[slot]
+        if len(blocks) < full + (1 if rem else 0):
+            return
+        shared = list(blocks[:full])
+        ent_blocks = list(shared)
+        if rem:
+            tail = self._allocator.alloc(1)
+            if tail is None:
+                return
+            # decode lanes past the prompt cursor sit at offsets >= rem of
+            # the tail block: the copy scrubs them (and carries int8 scales)
+            paged_copy_block(self._cache, blocks[full], tail[0], rem)
+            ent_blocks = shared + tail
+        self._allocator.incref(shared)
+        self._prefix.put(key, {"blocks": ent_blocks, "full": full,
+                               "rem": rem, "cursor": pcursor,
+                               "logits": None, "no_reuse": True})
+        self._trace("keep_warm", slot, pcursor)
+
     def _preempt_slot(self, slot: int):
         """Park a decode session host-side and release everything it held.
         The Request stays live (same stream, same done event): resume
@@ -1522,6 +1563,8 @@ class BatchedEngine:
         if self.spec is not None and self._spec_form[slot]:
             self._spec_settle_slot(slot)  # the row format is logits form
         payload = self._export_slot(slot, req, None, b64=False)
+        if self.prefix_keep_warm:
+            self._keep_warm(slot)
         self._deactivate(slot, note_session=False)
         self._preempted.append({"payload": payload, "req": req})
         self._preempted.sort(key=lambda e: e["req"].seq)
@@ -1873,6 +1916,10 @@ class BatchedEngine:
             self._trace("export", slot)
             if self.tracing:
                 req.mark("export", slot=slot, cursor=payload["cursor"])
+            if self.prefix_keep_warm:
+                # the prompt stays warm across the drain: a later resume
+                # or a sibling request gets a COW hit, not a cold prefill
+                self._keep_warm(slot)
             self._deactivate(slot)
             self._complete(req, error=f"{mig.MIGRATED_SESSION}: "
                                       "slot exported")
@@ -2456,7 +2503,7 @@ class BatchedEngine:
         parts = [self._active.to(torch.int32), self._remaining]
         if enter_emitted is not None:
             parts.append(enter_emitted.to(torch.int32))
-        host = torch.stack(parts).cpu().tolist()
+        host = torch.stack(parts).cpu().tolist()  # dtxlint: disable=DTX001
         active_prev, rem = host[0], host[1]
         if enter_emitted is not None:
             rows.append(host[2])
@@ -2491,11 +2538,11 @@ class BatchedEngine:
                      self._active, self._keys) = progs.step(*args, k=k,
                                                             mode=bmode)
             # the step's one sync: its tokens, acceptances and active mask
-            host = torch.cat([emitted.T.to(torch.int32),
+            host = torch.cat([emitted.T.to(torch.int32),  # dtxlint: disable=DTX001
                               acc[None].to(torch.int32),
                               self._active[None].to(torch.int32)]).cpu()
-            rows.extend(host[:-2].tolist())
-            acc_h, active = host[-2].tolist(), host[-1].tolist()
+            rows.extend(host[:-2].tolist())  # dtxlint: disable=DTX001
+            acc_h, active = host[-2].tolist(), host[-1].tolist()  # dtxlint: disable=DTX001
             obs = [(s, acc_h[s], k) for s in range(self.slots)
                    if spec_rows[s] and active_prev[s]]
             self._spec_observe(plan, obs, margin)
@@ -2512,10 +2559,10 @@ class BatchedEngine:
                     self._temps, self._top_ps, self._stops,
                     self._adapter_idx, K=self.chunk, mode=emode,
                     batch=bmode)
-            host = torch.cat([emitted.to(torch.int32),
+            host = torch.cat([emitted.to(torch.int32),  # dtxlint: disable=DTX001
                               self._active[None].to(torch.int32)]).cpu()
-            rows.extend(host[:-1].tolist())
-            active = host[-1].tolist()
+            rows.extend(host[:-1].tolist())  # dtxlint: disable=DTX001
+            active = host[-1].tolist()  # dtxlint: disable=DTX001
             self.spec_stats["plain_steps"] += 1
             self.sampling_stats["fused_steps" if emode != "off"
                                 else "legacy_steps"] += 1
@@ -2548,7 +2595,7 @@ class BatchedEngine:
         if plan[0] == "tree" and self.spec_tree_learned and obs:
             depth_fracs = [sum(1 for _, a, _ in obs if a >= j + 1) / len(obs)
                            for j in range(len(plan[1]))]
-            margins = margin.cpu().tolist()
+            margins = margin.cpu().tolist()  # dtxlint: disable=DTX001 — designed sync point: the tick already host-read obs at this boundary
             decisive = sum(1 for s, _, _ in obs
                            if margins[s] >= self.spec_ctrl.DECISIVE_MARGIN)
             self.spec_ctrl.observe_tree(depth_fracs, decisive / len(obs))
@@ -2648,8 +2695,8 @@ class BatchedEngine:
                     self._trace("decode", self.chunk)
                     # the decode loop's ONE designed sync point: K tokens
                     # per chunk (and the active mask) cross to the host
-                    host = out.cpu()
-                    emitted, active = host[:-1].tolist(), host[-1].tolist()
+                    host = out.cpu()  # dtxlint: disable=DTX001
+                    emitted, active = host[:-1].tolist(), host[-1].tolist()  # dtxlint: disable=DTX001
             except Exception as e:  # noqa: BLE001 — device fault: fail all in-flight
                 for slot, req in enumerate(self._slot_req):
                     if req is not None:

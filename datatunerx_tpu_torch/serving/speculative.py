@@ -839,7 +839,7 @@ class SpecPrograms:
                 nxt = torch.argmax(dlogits[:, :wn], dim=-1).to(torch.int32)
                 qj = None
             else:
-                split = prng.split(keys, wn + 1)
+                split = prng.split(keys, wn + 1)  # dtxlint: disable=DTX004 — keys is re-bound from this split on the next line (the loop carry)
                 keys = split[:, 0]
                 nxt = torch.stack([self._sample(dlogits[:, b], temps, top_ps,
                                                 split[:, 1 + b], dsub, mode)

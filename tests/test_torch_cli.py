@@ -152,11 +152,18 @@ def test_only_the_ported_subcommands(capsys):
     text = capsys.readouterr().out
     assert ("{apply,get,delete,status,logs,serve,experiment,replay,"
             "install}") in text
-    assert "lint and san are the JAX package's dtx only" in text
-    # lint and san are not subcommands; experiment needs -f and replay a
-    # target (its own parser, dispatched before dtx-torch's)
-    for cmd in ("lint", "san", "experiment", "replay"):
+    assert "not ported" not in text
+    # experiment needs -f and replay a target (its own parser, dispatched
+    # before dtx-torch's)
+    for cmd in ("experiment", "replay"):
         with pytest.raises(SystemExit) as ei:
             tcli.main([cmd])
         assert ei.value.code == 2
     capsys.readouterr()
+    # lint and san are the port's analysis/ CLIs, dispatched before
+    # argparse as the reference's are: their own flags and exit codes
+    assert tcli.main(["lint", "--list-rules"]) == 0
+    rules = capsys.readouterr().out
+    assert all(f"DTX{i:03d}" in rules for i in range(1, 13))
+    assert tcli.main(["san", "--module-budget", "nonsense"]) == 2
+    assert "dtx-torch san: bad --module-budget" in capsys.readouterr().err

@@ -394,20 +394,60 @@ def test_the_port_report_adds_its_p90s_and_no_content_count():
     assert port["ttft_ms_p90"] == 20.0 and port["no_content"] == 1
 
 
-def test_dtx_san_is_refused_with_the_unported_sanitizers(monkeypatch,
-                                                           capsys):
-    from datatunerx_tpu_torch.cli import main as cli_main
-    from datatunerx_tpu_torch.loadgen.replay import main
+def test_dtx_san_installs_and_sweeps_the_ports_sanitizers(monkeypatch,
+                                                          capsys, tmp_path):
+    """``DTX_SAN=lock,thread`` wraps a replay in the port's sanitizers, as
+    the reference's replay does: installed before the fleet is built,
+    swept at the end (lock-order cycles, threads the fleet left behind),
+    reported under the baseline contract, and taken out again so the
+    process gets its ``threading.Lock`` back."""
+    import threading
 
-    for value in ("1", "lock,thread", "compile"):
-        monkeypatch.setenv("DTX_SAN", value)
-        for run in (lambda: main(["--selftest", "--requests", "2"]),
-                    lambda: cli_main(["replay", "--selftest"])):
-            with pytest.raises(SystemExit, match="analysis.sanitizers"):
-                run()
-    assert "SLO verdict" not in capsys.readouterr().out
-    monkeypatch.setenv("DTX_SAN", "0")  # the reference's "off" values run
-    assert main(["--record", "/dev/null", "--requests", "2"]) == 0
+    from datatunerx_tpu_torch.analysis.sanitizers import runtime
+    from datatunerx_tpu_torch.analysis.sanitizers.lockorder import (
+        LOCK_SANITIZER,
+    )
+    from datatunerx_tpu_torch.cli import main as cli_main
+    from datatunerx_tpu_torch.loadgen import replay
+
+    seen = {}
+    real_main = replay._replay_main
+
+    def spy(argv):
+        seen["active"] = runtime.active_classes()
+        seen["lock"] = threading.Lock
+        return real_main(argv)
+
+    monkeypatch.setattr(replay, "_replay_main", spy)
+    monkeypatch.setattr(runtime, "COLLECTOR", runtime.Collector())
+    # under ``dtx-torch san`` the plugin has installed them already: the
+    # replay must then leave them as it found them
+    active_before = runtime.active_classes()
+    enabled_before = LOCK_SANITIZER.enabled
+    lock_before = threading.Lock
+    raw = tmp_path / "san.json"
+    monkeypatch.setenv("DTX_SAN", "lock,thread")
+    monkeypatch.setenv("DTX_SAN_REPORT", str(raw))
+    for run in (lambda: replay.main(["--selftest", "--requests", "4"]),
+                lambda: cli_main(["replay", "--selftest", "--requests",
+                                  "4"])):
+        assert run() == 0
+        assert {"lock", "thread"} <= set(seen["active"])
+        assert seen["lock"] is not lock_before or enabled_before
+        out = capsys.readouterr().out
+        assert "SLO verdict: PASS" in out
+        assert "[replay] dtxsan: 0 findings" in out
+        doc = json.loads(raw.read_text())
+        assert doc["kind"] == "dtxsan-raw" and doc["findings"] == []
+        assert {"lock", "thread"} <= set(doc["classes"])
+        assert runtime.active_classes() == active_before
+        assert threading.Lock is lock_before
+        assert LOCK_SANITIZER.enabled == enabled_before
+    monkeypatch.setenv("DTX_SAN", "0")  # the reference's "off" values
+    monkeypatch.delenv("DTX_SAN_REPORT")
+    raw.unlink()
+    assert replay.main(["--record", "/dev/null", "--requests", "2"]) == 0
+    assert "dtxsan" not in capsys.readouterr().out and not raw.exists()
 
 
 def test_cli_dispatches_replay_before_argparse(tmp_path, capsys):

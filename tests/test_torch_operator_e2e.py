@@ -8,11 +8,10 @@ FinetuneExperiment of two 2-step FinetuneJobs, registered through
 subprocesses to Success: the second job waits for the slice while the
 first holds it, both get an LLMCheckpoint and a numeric score, the
 ``bestVersion`` is the job the reference's ``parse_score`` ranks first,
-``/metrics`` reads ``dtx_device_healthy 1``, each job's server answers
-the probes with ``"model": "default"`` (its adapter: NLLs off the
-base's) and without, greedy and in NLL, as an in-process engine loaded
-from the same LLMCheckpoint does, and deleting the experiment leaves no
-trainer or server process."""
+``/metrics`` reads ``dtx_device_healthy 1``, the first job's server
+answers the probes with ``"model": "default"`` (its adapter: NLLs off the
+base's), and deleting the experiment leaves no trainer or server
+process."""
 
 import importlib.util
 import os
