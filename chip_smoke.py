@@ -186,9 +186,12 @@ Four more run right after 3-obs, each failing the run on any error:
   greedy chats in turn; its 64-token streams equal the dense batched
   engine's up to a near-tie. Then ``--slots 1 --quantization int8`` and
   ``int4`` (weights quantized on the host, the ``xla`` dequantize-then-
-  matmul path): 32 greedy tokens each, equal to an unquantized engine's
-  over the dequantized weights up to a near-tie, with the K4-K6 counters
-  left at 0; prints each weight tree's bytes beside the bf16 tree's.
+  matmul path) on an HF directory of TinyLlama-1.1B's configuration cut to
+  ``SINGLE_QUANT_LAYERS`` = 4 layers (the host quantization of all 22
+  took ~40 s of the script's time limit): 32 greedy tokens each, equal to
+  an unquantized engine's over the dequantized weights up to a near-tie,
+  with the K4-K6 counters left at 0; prints each weight tree's bytes
+  beside the directory's bf16 weights'.
 
 Then, last of the serving phases:
 
@@ -321,8 +324,10 @@ placement are timed apart and the weight tree's parameters must equal the
 configuration's count.
 
 - hf-llama2: Llama-2-7b-hf's configuration (V 32000, D 4096, F 11008,
-  H = KV = 32, d 128) at full depth when the disk holds it (else 16, 8
-  or 4 layers), F16 safetensors in shards of at most 10 GB with an index. The
+  H = KV = 32, d 128) cut to ``HF_LLAMA2_LAYERS`` = 8 of its 32 layers
+  (the script's time limit; 4 when the disk is short), F16 safetensors in
+  shards with an index (the 10 GB shard limit cut with the depth, so the
+  sharded loader runs: two shards at 8 layers). The
   server (``--kv_block_size 16 --slots 4``) answers four ~600-token
   prompts at once, two greedy and two sampled at 0.8, 64 new tokens each:
   K7, K8 and K9 must have launched exactly as the scheduler's trace says
@@ -376,7 +381,8 @@ matmul) at M=8192 and M=4 rows, N=2048 and N=256, K=2048, r=8, in bf16 and
 f32, and the threefry kernel against its plain version, bit for bit, at
 8 x 1024 x 2048 (the keep mask at p = 0.9 and the uniform draw over
 [-1, 1)) and at odd lengths. ``--phase kernels`` stops after phase 2;
-``--phase serve`` runs phases 1-4, the eight above, the spec phases,
+``--phase install`` runs phases 1, 2 and install (19 below); ``--phase
+serve`` runs phases 1, 2, install, 3, 4, the eight above, the spec phases,
 3-adapters, 3-migrate, 14, 17 and 10; ``--phase gateway`` runs phases 1, 2,
 14 and 17; ``--phase loadgen`` runs phases 1, 2 and 17; ``--phase train``
 runs phases 1, 2, 5, 5-serve, 6-9, 11-13, 16 and 18; ``--phase qlora`` runs
@@ -408,8 +414,9 @@ runs phases 1, 2, 16 and 18 (``train`` and ``all`` run 16 and 18 after
     2-step rm run) with ``--mesh dp=1`` and without a mesh: losses,
     approx_kl and kl_coef within 1e-5 (the multi-rank PPO is held on the
     CPU under gloo). (d)
-    ``estimate_footprint`` at phases 5, 7 and 8 and hf-llama2's LoRA at or
-    above the peaks those phases measured in this run; ``check_fits`` on
+    ``estimate_footprint`` at phases 5, 7 and 8 and hf-llama2's LoRA (at
+    the depth it ran) at or above the peaks those phases measured in this
+    run; ``check_fits`` on
     the card's budget rejects a 7B full-parameter job and admits a 7B
     QLoRA one. (e) ``LocalProcessBackend`` with more hosts than cards on
     CUDA raises, naming the card count.
@@ -431,7 +438,8 @@ runs phases 1, 2, 16 and 18 (``train`` and ``all`` run 16 and 18 after
     appears, with the manager held (SIGSTOP) until the probes are done
     so that the operator cannot tear it down meanwhile: the built-in
     probes' greedy answers with ``"model": "default"`` (the job's
-    adapter) and their references' ``nll_sum`` with and without the
+    adapter; ``PROBE_NEW`` tokens each) and their references' ``nll_sum``
+    with and without the
     adapter, which must differ (the first job's server only: the second
     runs the same path); deleting the
     experiment leaves no trainer or server process. Prints the seconds
@@ -478,6 +486,40 @@ runs phases 1, 2, 16 and 18 (``train`` and ``all`` run 16 and 18 after
     2, ``minEvals``); no trainer process left. Prints the experiment's wall
     seconds beside phase 16's.
 
+19. install (``--phase install``, ``serve`` and ``all``, right after phase
+    2; logged as ``[install]``): the port as an installed package. Its
+    card-free half runs in a thread at nice 19, begun beside phase 1's
+    build and joined when the phase starts (``start_install_prep``): ``pip
+    wheel --no-build-isolation``
+    builds the project's wheel from a temporary copy of ``pyproject.toml``
+    and ``datatunerx_tpu_torch`` (what the trainer image copies; no
+    ``build/`` or egg-info lands in the checkout) and ``pip install
+    --no-deps --no-index --target`` installs it into a temporary directory;
+    from a temporary working directory, with only that directory on
+    ``PYTHONPATH`` and a fresh ``XDG_CACHE_HOME``, ``python -m
+    datatunerx_tpu_torch.ops._build`` compiles the installed sources (nvcc,
+    nothing loaded). The phase then runs a child process (written out from
+    ``INSTALL_CHILD``) that checks that the package, ``_build.CSRC`` and the
+    apiserver lie in the install and both build directories under the cache,
+    loads the library without a build, serves the two greedy 32-token
+    prompts of phase 4 on a paged ``BatchedEngine(device="cuda")``
+    (tinyllama-1.1b, full width and depth, seed 0, block 16), runs two steps
+    of the trainer CLI's ``main`` as phase 5 does (flash, remat dots, bf16,
+    packed 8x1024) with its packing counted through the installed native
+    packer (a fresh g++ build in the cache), and gets ``GET /ui`` from an
+    installed apiserver. The parent requires the installed sources' digest
+    to equal the checkout's, no module of the port loaded from outside the
+    install, K1-K3 and threefry equal to ``expected_launches(None, 2)``,
+    every packing call native and ``/ui`` 200 with the checkout's
+    ``ui.html`` bytes. Phase 4 then holds the child's token ids against
+    its own generations of the same prompts on phase 3's engine (the
+    shared near-tie check), and the child's K7, K8 and K9 launches to
+    exactly the counts those generations launched (with ``--phase
+    install`` a checkout engine of the same geometry, logged as
+    ``[install-streams]``); the phase prints the pip, nvcc and child
+    seconds, and the kernels line carries the child's counts as
+    ``launches@install``.
+
 The script imports nothing of JAX, of the JAX package or of the HF
 libraries.
 """
@@ -520,7 +562,8 @@ def fail(msg: str):
 
 # a phase's header is logged at column 0 as "[<phase>] ..."; each header
 # closes the phase before it, which prints its seconds on a line of its own
-_PHASE_RE = re.compile(r"^\[([0-9][0-9a-z-]*|hf-[a-z0-9]+(?: [a-z]+)?)\] ")
+_PHASE_RE = re.compile(
+    r"^\[([0-9][0-9a-z-]*|hf-[a-z0-9]+(?: [a-z]+)?|install(?:-streams)?)\] ")
 _PHASES = {"name": None, "t0": 0.0, "seconds": []}
 T_START = time.perf_counter()
 
@@ -2354,10 +2397,27 @@ def check_greedy(torch, label, got, want, ref, prompt, max_new,
              f"{gaps[worst]:.2f} ulps below the plain forward's top")
 
 
-def parity_phase(torch, eng, kv_quant=None):
+PARITY_PROMPTS = ("The capital of France is", "def fibonacci(n):" * 20)
+PARITY_NEW = 32
+
+
+def greedy_streams(eng, counters=()):
+    """``eng``'s greedy streams of ``PARITY_PROMPTS``: (the prompts' token
+    ids, the streams, the launches of ``counters``, zeroed just before the
+    streams and read just after)."""
+    prompts = [eng.tokenizer.encode(t) for t in PARITY_PROMPTS]
+    for c, attr in counters:
+        setattr(c, attr, 0)
+    streams = [eng.generate(p, max_new_tokens=PARITY_NEW) for p in prompts]
+    return prompts, streams, {counter_key(c, attr): getattr(c, attr)
+                              for c, attr in counters}
+
+
+def parity_phase(torch, eng, kv_quant=None, counters=()):
     """Greedy streams of ``eng`` against an engine on the paged gather path
     with the legacy sampler (and the same KV quantization): equal, or
-    diverging at a near-tie of the gather path's logits."""
+    diverging at a near-tie of the gather path's logits. Returns
+    ``greedy_streams(eng, counters)``."""
     from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
 
     plain = BatchedEngine("preset:tinyllama-1.1b", template="llama2",
@@ -2365,16 +2425,14 @@ def parity_phase(torch, eng, kv_quant=None):
                           kv_quant=kv_quant, paged_kernel="off",
                           sampling_epilogue="off")
     try:
-        tok = eng.tokenizer
-        prompts = [tok.encode("The capital of France is"),
-                   tok.encode("def fibonacci(n):" * 20)]
-        for p in prompts:
-            check_greedy(torch, "greedy parity",
-                         eng.generate(p, max_new_tokens=32),
-                         plain.generate(p, max_new_tokens=32), plain, p, 32,
-                         kv_quant=kv_quant)
+        out = greedy_streams(eng, counters)
+        for p, got in zip(out[0], out[1]):
+            check_greedy(torch, "greedy parity", got,
+                         plain.generate(p, max_new_tokens=PARITY_NEW), plain,
+                         p, PARITY_NEW, kv_quant=kv_quant)
     finally:
         plain.close()
+    return out
 
 
 # -------------------------------------------------- phases 3-prefix and on
@@ -2979,13 +3037,10 @@ def single_phase(torch, quant_counters):
     answers two greedy chats in turn, whose streams must equal the dense
     batched engine's; then ``--slots 1 --quantization int8`` and ``int4``
     (host-quantized weights, the ``xla`` dequantize-then-matmul path: K4-K6
-    must not launch) generate 32 greedy tokens each, equal to an unquantized
-    engine's over the dequantized weights, each up to a near-tie."""
-    import copy
-    import dataclasses
-
-    from datatunerx_tpu_torch.models.lora import target_dims
-    from datatunerx_tpu_torch.ops.quant import dequantize_model_params
+    must not launch) on a ``SINGLE_QUANT_LAYERS``-layer directory of
+    TinyLlama-1.1B's configuration generate 32 greedy tokens each, equal to
+    an unquantized engine's over the dequantized weights, each up to a
+    near-tie."""
     from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
 
     srv, port, eng = start_server(torch, ("--slots", "1"))
@@ -3013,43 +3068,60 @@ def single_phase(torch, quant_counters):
                          want, dense, ids, 64, stops)
     finally:
         dense.close()
-    bf16_bytes = tree_bytes(eng.params)
     del eng, dense
     torch.cuda.empty_cache()
-    for mode in ("int8", "int4"):
-        for c, attr in quant_counters:
-            setattr(c, attr, 0)
-        srv, port, qeng = start_server(torch, ("--slots", "1",
-                                               "--quantization", mode))
-        stop_server(srv)
-        ids = qeng.tokenizer.encode("The history of the printing press")
-        t0 = time.perf_counter()
-        got = qeng.generate(ids, max_new_tokens=32, stop_ids={-1})
-        ms = (time.perf_counter() - t0) * 1e3
-        launched = {counter_key(c, attr): getattr(c, attr)
-                    for c, attr in quant_counters}
-        if any(launched.values()):
-            fail(f"--quantization {mode} launched {launched}: the serving "
-                 "path is the xla one")
-        ppl = qeng.perplexity(ids, got)["perplexity"]
-        if len(got) != 32 or not math.isfinite(ppl):
-            fail(f"--quantization {mode}: {len(got)} tokens, perplexity "
-                 f"{ppl}")
-        ref = copy.copy(qeng)
-        ref.params = dequantize_model_params(
-            qeng.params, mode, lambda n: target_dims(qeng.cfg, n))
-        ref.cfg = dataclasses.replace(qeng.cfg, quantization=None)
-        want = ref.generate(ids, max_new_tokens=32, stop_ids={-1})
-        log(f"  --quantization {mode}: weights {tree_bytes(qeng.params)} "
-            f"bytes vs bf16 {bf16_bytes} "
-            f"({tree_bytes(qeng.params) / bf16_bytes:.4f}); 32 tokens in "
-            f"{ms:.0f} ms ({32 / ms * 1e3:.1f} tok/s), perplexity of its "
-            f"own stream {ppl:.3f}; K4-K6 launches "
-            f"{launched}")
-        check_greedy(torch, f"{mode} vs its dequantized weights", got, want,
-                     ref, ids, 32, plain=qeng)
-        del ref, qeng
-        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="dtx-single-") as tmp:
+        path = os.path.join(tmp, "tinyllama")
+        bf16_bytes, _ = write_hf_checkpoint(
+            torch, path, TINYLLAMA_1B, SINGLE_QUANT_LAYERS, "BF16",
+            "safetensors", 3, "llama")
+        for mode in ("int8", "int4"):
+            quantized_single(torch, quant_counters, path, mode, bf16_bytes)
+
+
+def quantized_single(torch, quant_counters, path, mode, bf16_bytes):
+    """3-single's ``--slots 1 --quantization mode`` server on ``path``,
+    whose bf16 weights take ``bf16_bytes``."""
+    import copy
+    import dataclasses
+
+    from datatunerx_tpu_torch.models.lora import target_dims
+    from datatunerx_tpu_torch.ops.quant import dequantize_model_params
+
+    for c, attr in quant_counters:
+        setattr(c, attr, 0)
+    srv, port, qeng = start_server(torch, ("--slots", "1",
+                                           "--quantization", mode),
+                                   model=path)
+    stop_server(srv)
+    ids = qeng.tokenizer.encode("The history of the printing press")
+    t0 = time.perf_counter()
+    got = qeng.generate(ids, max_new_tokens=32, stop_ids={-1})
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = {counter_key(c, attr): getattr(c, attr)
+                for c, attr in quant_counters}
+    if any(launched.values()):
+        fail(f"--quantization {mode} launched {launched}: the serving "
+             "path is the xla one")
+    ppl = qeng.perplexity(ids, got)["perplexity"]
+    if len(got) != 32 or not math.isfinite(ppl):
+        fail(f"--quantization {mode}: {len(got)} tokens, perplexity "
+             f"{ppl}")
+    ref = copy.copy(qeng)
+    ref.params = dequantize_model_params(
+        qeng.params, mode, lambda n: target_dims(qeng.cfg, n))
+    ref.cfg = dataclasses.replace(qeng.cfg, quantization=None)
+    want = ref.generate(ids, max_new_tokens=32, stop_ids={-1})
+    log(f"  --quantization {mode}, {qeng.cfg.num_layers} layers: weights "
+        f"{tree_bytes(qeng.params)} bytes vs bf16 {bf16_bytes} "
+        f"({tree_bytes(qeng.params) / bf16_bytes:.4f}); 32 tokens in "
+        f"{ms:.0f} ms ({32 / ms * 1e3:.1f} tok/s), perplexity of its "
+        f"own stream {ppl:.3f}; K4-K6 launches "
+        f"{launched}")
+    check_greedy(torch, f"{mode} vs its dequantized weights", got, want,
+                 ref, ids, 32, plain=qeng)
+    del ref, qeng
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------- phase 3-adapters
@@ -3465,10 +3537,14 @@ def scrape_metrics(port):
 
 
 def check_launches(label, counters, eng, mark, prefill=True,
-                   whose="destination"):
+                   whose="destination", phase="3-migrate"):
     """The counters (K7, K8, K9 wrappers and attributes) against what the
     engine's trace since ``mark`` ran: L K7 a decode step, L K8 a prefill
     chunk, one K9 a decode step. Returns the launch table."""
+    if len(eng.sched_trace) == eng.sched_trace.maxlen:
+        fail(f"{phase} {label}: the scheduler trace filled its "
+             f"{eng.sched_trace.maxlen} entries, so it no longer counts "
+             "from the mark")
     steps, chunks, _ = trace_counts(eng, mark)
     L = eng.cfg.num_layers
     got = {counter_key(c, a): getattr(c, a) for c, a in counters}
@@ -3476,7 +3552,7 @@ def check_launches(label, counters, eng, mark, prefill=True,
     log(f"  {label}: {steps} decode steps and {chunks} prefill chunks by "
         f"the {whose}'s trace; launches {got}, expected {want}")
     if got != want or steps <= 0 or (prefill and chunks <= 0):
-        fail(f"3-migrate {label}: launches {got}, expected {want}")
+        fail(f"{phase} {label}: launches {got}, expected {want}")
     return got
 
 
@@ -5431,6 +5507,15 @@ MISTRAL_7B = {
     "rms_norm_eps": 1e-05, "rope_theta": 10000.0, "sliding_window": 4096,
     "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2,
     "hidden_act": "silu", "torch_dtype": "bfloat16"}
+TINYLLAMA_1B = {  # TinyLlama-1.1B's config.json (3-single's directory)
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "vocab_size": 32000, "hidden_size": 2048, "intermediate_size": 5632,
+    "num_hidden_layers": 22, "num_attention_heads": 32,
+    "num_key_value_heads": 4, "max_position_embeddings": 2048,
+    "rms_norm_eps": 1e-05, "rope_theta": 10000.0, "rope_scaling": None,
+    "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2,
+    "hidden_act": "silu", "torch_dtype": "bfloat16"}
+SINGLE_QUANT_LAYERS = 4
 QWEN15_7B = {
     "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
     "vocab_size": 151936, "hidden_size": 4096, "intermediate_size": 11008,
@@ -5443,6 +5528,9 @@ QWEN15_7B = {
 HF_DTYPES = {"F16": "float16", "BF16": "bfloat16", "F32": "float32"}
 SHARD_BYTES = 10 * 10**9  # save_pretrained's default largest shard
 HF_NEW = 64
+# hf-llama2's depth: 8 of Llama-2-7b's 32 layers keeps the script inside
+# its time limit (full depth took ~25 s more; PERF.md)
+HF_LLAMA2_LAYERS = 8
 HF_LIVE_ULPS = 4 * FORCED_ULPS  # the window's effect must exceed this
 
 
@@ -5474,11 +5562,12 @@ def hf_tensors(config):
 
 
 def write_hf_checkpoint(torch, path, config, layers, stored, fmt, seed,
-                        tokenizer):
+                        tokenizer, shard_bytes=SHARD_BYTES):
     """An HF checkpoint directory as ``save_pretrained`` lays one out:
     ``config.json`` (``config`` with ``layers`` layers), the weights in
-    ``stored`` dtype as safetensors (shards of at most ``SHARD_BYTES``
-    with an index, written by the few lines below, one tensor at a time)
+    ``stored`` dtype as safetensors (shards of at most ``shard_bytes``,
+    with an index where there are two or more, written by the few lines
+    below, one tensor at a time)
     or as one ``pytorch_model.bin`` (``torch.save``), made on the card from
     a seeded generator, and the ``tokenizer`` fixture's three files.
     Returns (bytes of weights, seconds)."""
@@ -5509,7 +5598,7 @@ def write_hf_checkpoint(torch, path, config, layers, stored, fmt, seed,
         shards, size = [[]], 0
         for item in items:
             nbytes = math.prod(item[1]) * dtype.itemsize
-            if shards[-1] and size + nbytes > SHARD_BYTES:
+            if shards[-1] and size + nbytes > shard_bytes:
                 shards.append([])
                 size = 0
             shards[-1].append(item)
@@ -5721,17 +5810,28 @@ def hf_phases(torch, tmp, by_name):
     kernels = [by_name[k] for k in ("K7", "K8", "K9")]
     free = shutil.disk_usage(tmp).free
     full = 2 * sum(math.prod(s) for _, s, _ in hf_tensors(LLAMA2_7B))
-    # full depth when the disk holds it with a margin, else cut the depth
-    layers = next((n for n in (32, 16, 8) if free > 1.25 * full * n / 32),
-                  4)
+    # the depth cut to the script's time limit, and to 4 layers when the
+    # disk cannot hold that with a margin
+    layers = (HF_LLAMA2_LAYERS if free > 1.25 * full * HF_LLAMA2_LAYERS / 32
+              else 4)
+    # the shard limit cut with the depth, so the cut directory is sharded
+    # with an index as the full-depth one is (13.5 GB in two 10 GB shards)
+    shard = SHARD_BYTES * layers // 32
     log(f"[hf-llama2] Llama-2-7b-hf's configuration, F16 safetensors in "
-        f"shards with an index, {layers} of 32 layers ({free / 1e9:.1f} GB "
-        f"free for {full / 1e9:.2f} GB at full depth)")
+        f"shards of at most {shard / 1e9:.2f} GB with an index, {layers} of "
+        f"32 layers ({free / 1e9:.1f} GB free; {full / 1e9:.2f} GB at full "
+        "depth)")
     path = os.path.join(tmp, "llama2-7b")
     nbytes, secs = write_hf_checkpoint(torch, path, LLAMA2_7B, layers, "F16",
-                                       "safetensors", 0, "llama")
+                                       "safetensors", 0, "llama",
+                                       shard_bytes=shard)
+    files = sorted(os.listdir(path))
     log(f"  written: {nbytes} bytes of weights in {secs:.1f} s: "
-        + ", ".join(sorted(os.listdir(path))))
+        + ", ".join(files))
+    if "model.safetensors.index.json" not in files or sum(
+            f.endswith(".safetensors") for f in files) < 2:
+        fail("hf-llama2: the directory is not sharded with an index, so "
+             "the sharded loader would not run")
     tok = hf_load_check(torch, path)
     reqs = [(f"{kind}-{i}", hf_prompt(tok, "llama2", 600, i), temp)
             for i, (kind, temp) in enumerate((("greedy", 0.0),
@@ -5746,8 +5846,8 @@ def hf_phases(torch, tmp, by_name):
         "on q_proj,v_proj, bf16, flash, remat dots, packed 8x1024, 3 steps")
     trained, run = train_phase(torch, tmp, steps=3, profile=0,
                                export=False, model=path, layers=layers)
-    if layers == 32:  # phase 15's estimate is at full depth
-        PEAKS["hf-llama2"] = run["peak_gib"]
+    PEAKS["hf-llama2"] = run["peak_gib"]
+    PEAK_LAYERS["hf-llama2"] = layers  # phase 15d estimates at this depth
     launches.update({k + "@hf-llama2": trained[k] for k in
                      ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
     torch.cuda.empty_cache()
@@ -5802,6 +5902,7 @@ RING_TOL = (2**-5, 2**-5)
 # peak GiB (torch.cuda.max_memory_allocated) of this run's training phases,
 # by phase: read by phase 15's memory check
 PEAKS = {}
+PEAK_LAYERS = {}  # a phase's depth where it ran cut
 
 
 def check_flash_ring(torch, timer, gen):
@@ -6219,6 +6320,11 @@ def _running(pid) -> bool:
         return False
 
 
+# each probe's greedy answer: 16 tokens, cut from 64 to the script's time
+# limit (the manager's own Scoring probes run at their own length)
+PROBE_NEW = 16
+
+
 def probe_operator_server(mgr, pid, port, timeout=600):
     """The built-in Scoring probes on a server the operator launched
     (process ``pid`` on ``port``), with the manager held (SIGSTOP) so that
@@ -6246,7 +6352,7 @@ def probe_operator_server(mgr, pid, port, timeout=600):
         for pr in DEFAULT_PROBES:
             out["answers"].append(post(port, {
                 "messages": [{"role": "user", "content": pr["prompt"]}],
-                "model": "default", "max_tokens": 64,
+                "model": "default", "max_tokens": PROBE_NEW,
                 "temperature": 0.0})["text"])
             for key, name in (("nll", "default"), ("base_nll", "")):
                 out[key].append(post_perplexity(port, pr["prompt"],
@@ -6609,6 +6715,7 @@ def loadgen_phase(torch, tmp, counters, card, model="preset:tinyllama-1.1b",
                 # before the gateway is built
                 san = runtime.open_window("lock,thread,compile")
             opened = None
+            mark = len(eng.sched_trace)
             try:
                 if admission is None:
                     target, args = url, REPLAY_ARGS + ("--record", trace)
@@ -6625,6 +6732,9 @@ def loadgen_phase(torch, tmp, counters, card, model="preset:tinyllama-1.1b",
                     close_gateway(*opened)
             if san is not None:  # after the gateway closed
                 san_epilogue(san, "17 gateway")
+            if counters:
+                check_launches(label, counters, eng, mark, whose="server",
+                               phase="17")
             out[label] = launches
             log(f"  {label} ({target}): {rep['requests']} requests, codes "
                 f"{rep['codes']}, {rep['duration_s']} s of replay "
@@ -6643,9 +6753,16 @@ def loadgen_phase(torch, tmp, counters, card, model="preset:tinyllama-1.1b",
                 "bucket-interpolated)".format(**server))
             for ln in slo:
                 log(f"    {ln}")
-        if counters and out["gateway"] != out["direct"]:
+        # every replay's launches equal its own scheduler trace (above).
+        # The prefill chunks are the trace's prompts, so the sanitized
+        # gateway replay prefills what the direct one did; the decode
+        # steps follow the arrivals' timing (4 slots batch the requests
+        # as they come), and two runs of one trace part by a few steps
+        k8 = counter_key(*counters[1]) if counters else None
+        if counters and out["gateway"][k8] != out["direct"][k8]:
             fail(f"17: the sanitized gateway replay launched "
-                 f"{out['gateway']}, the direct replay {out['direct']}")
+                 f"{out['gateway']}, the direct replay {out['direct']}: "
+                 "not the same prefill chunks")
         log(f"  the gateway's static prefill budget: "
             f"{runs[-1][1].token_budget} tokens (the trace's own "
             f"estimate); {card}")
@@ -6801,6 +6918,8 @@ def memory_phase(torch):
     at or above its peak. ``check_fits`` on the card's budget rejects a 7B
     full-parameter job on one card and admits a 7B QLoRA one; the budget
     table's total equals the card's."""
+    import dataclasses
+
     from datatunerx_tpu_torch.models.config import get_config
     from datatunerx_tpu_torch.parallel import memory
     from datatunerx_tpu_torch.training.train_lib import TrainConfig
@@ -6819,13 +6938,15 @@ def memory_phase(torch):
     for label, preset, over in cases:
         cfg = get_config(preset, attention_impl="flash", remat="dots",
                          **over)
+        if label in PEAK_LAYERS:
+            cfg = dataclasses.replace(cfg, num_layers=PEAK_LAYERS[label])
         fp = memory.estimate_footprint(cfg, lora, **geo)
         ref = memory.estimate_footprint(cfg, lora, activations="reference",
                                         **geo)
         est = fp.total / 2**30
         peak = PEAKS.get(label)
         seen = "not run in this call" if peak is None else f"{peak:.2f} GiB"
-        log(f"  phase {label} ({preset} LoRA r8{' ' + over['quantization'] if over else ''}, "
+        log(f"  phase {label} ({preset}, {cfg.num_layers} layers, LoRA r8{' ' + over['quantization'] if over else ''}, "
             f"8x1024): estimate {est:.2f} GiB (the reference's activation "
             f"and logit terms: {ref.total / 2**30:.2f} GiB), measured peak "
             f"{seen}; {fp.gb()}")
@@ -6904,12 +7025,390 @@ def parallel_phase(torch, timer, gen, tmp):
     return entries, launches
 
 
+# ------------------------------------------------------------ phase install
+INSTALL_STEPS = 2
+# the counters the child reads: the serving path's K7, K8, K9, then the
+# trainer's K1-K3 and threefry
+INSTALL_SERVE = ("paged_decode_attention", "paged_multitoken_attention",
+                 "kernel_sample")
+INSTALL_TRAIN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "threefry_bits")
+
+# The child runs the installed package alone (its own cwd, only the install
+# target on the path, a fresh XDG_CACHE_HOME), so it cannot import this
+# script: it is written out and run as a file. It stops at the first miss.
+INSTALL_CHILD = r'''
+import hashlib
+import json
+import os
+import sys
+import time
+import urllib.request
+
+cfg = json.load(open(sys.argv[1]))
+site, checkout, cache = (os.path.realpath(cfg[k])
+                         for k in ("site", "checkout", "cache"))
+res = {}
+
+
+def say(msg):
+    print(f"[install-child] {msg}", flush=True)
+
+
+def under(path, root):
+    path = os.path.realpath(str(path))
+    return path == root or path.startswith(root + os.sep)
+
+
+def installed(label, path):
+    if not under(path, site) or under(path, checkout):
+        raise SystemExit(f"{label} {path} is not in the install target "
+                         f"{site}, or lies in the checkout {checkout}")
+
+
+def cached(label, path):
+    if not under(path, cache) or under(path, site) or under(path, checkout):
+        raise SystemExit(f"{label} {path} is not under XDG_CACHE_HOME "
+                         f"{cache}")
+
+
+import torch
+
+import datatunerx_tpu_torch as pkg
+from datatunerx_tpu_torch import native
+from datatunerx_tpu_torch.ops import _build
+
+installed("datatunerx_tpu_torch", pkg.__file__)
+installed("_build.CSRC", _build.CSRC)
+cached("_build.BUILD_DIR", _build.BUILD_DIR)
+cached("native.BUILD_DIR", native.BUILD_DIR)
+res["digest"] = _build._digest(_build._sources())
+lib = _build.BUILD_DIR / f"libdtx_kernels-{res['digest']}.so"
+if not lib.exists():
+    raise SystemExit(f"the compile-only entry left no {lib}")
+t0 = time.perf_counter()
+_build.library()
+res["library"] = str(lib)
+say(f"loaded {lib} in {time.perf_counter() - t0:.2f} s (no build)")
+
+# serving: the paged engine, two greedy prompts
+from datatunerx_tpu_torch.ops import cuda_paged_attention as cpa
+from datatunerx_tpu_torch.ops import cuda_sampling as cs
+from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
+
+t0 = time.perf_counter()
+eng = BatchedEngine(cfg["model"], template="llama2", max_seq_len=1024,
+                    slots=4, kv_block_size=16, device="cuda")
+res["prompts"] = [eng.tokenizer.encode(p) for p in cfg["prompts"]]
+counters = (cpa.paged_decode_attention, cpa.paged_multitoken_attention,
+            cs.kernel_sample)
+for c in counters:
+    c.launches = 0
+res["streams"] = [eng.generate(p, max_new_tokens=cfg["max_new"])
+                  for p in res["prompts"]]
+res["serve_launches"] = {c.__name__: c.launches for c in counters}
+eng.close()
+del eng
+torch.cuda.empty_cache()
+say(f"served {len(res['streams'])} greedy prompts in "
+    f"{time.perf_counter() - t0:.1f} s (load included), launches "
+    f"{res['serve_launches']}")
+
+# training: the trainer CLI's main, packing through the installed packer
+from datatunerx_tpu_torch.ops import cuda_prng
+from datatunerx_tpu_torch.ops import flash_attention as fa
+from datatunerx_tpu_torch.tuning import train
+
+so = native._library_path()
+if so is None:
+    raise SystemExit("the installed package holds no native/packer.cpp")
+res["native_fresh"] = not so.exists()
+if not native.available():
+    raise SystemExit("the installed native packer did not build (g++)")
+cached("the native packer", so)
+res["native_library"] = str(so)
+res["native_build_s"] = native.build_seconds
+packed = []
+real_pack = native.pack_batch_native
+
+
+def counted_pack(*a, **kw):
+    out = real_pack(*a, **kw)
+    packed.append(out is not None)
+    return out
+
+
+native.pack_batch_native = counted_pack
+counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+            cuda_prng.threefry_bits)
+for c in counters:
+    c.launches = 0
+t0 = time.perf_counter()
+res["train_rc"] = train.main(cfg["train_argv"])
+res["train_s"] = time.perf_counter() - t0
+res["train_launches"] = {c.__name__: c.launches for c in counters}
+native.pack_batch_native = real_pack
+res["packed"] = packed
+with open(cfg["train_log"]) as f:
+    res["losses"] = [json.loads(line)["loss"] for line in f]
+say(f"trained {len(res['losses'])} steps in {res['train_s']:.1f} s, "
+    f"launches {res['train_launches']}, packing calls {packed}")
+
+# the control plane's UI
+from datatunerx_tpu_torch.operator import apiserver
+from datatunerx_tpu_torch.operator.store import ObjectStore
+
+installed("operator/apiserver.py", apiserver.__file__)
+srv, port = apiserver.serve_api(ObjectStore(), port=0)
+try:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/ui",
+                                timeout=30) as r:
+        res["ui_status"], body = r.status, r.read()
+        res["ui_type"] = r.headers.get("Content-Type", "")
+finally:
+    srv.shutdown()
+    srv.server_close()
+res["ui_sha256"] = hashlib.sha256(body).hexdigest()
+
+res["stray"] = sorted(
+    m.__file__ for name, m in list(sys.modules.items())
+    if name.split(".")[0] == "datatunerx_tpu_torch"
+    and getattr(m, "__file__", None) and not under(m.__file__, site))
+res["blocked"] = sorted({n.split(".")[0] for n in sys.modules}
+                        & {"jax", "jaxlib", "datatunerx_tpu"})
+with open(cfg["out"], "w") as f:
+    json.dump(res, f)
+'''
+
+
+def run_logged(label, argv, timeout, procs=None, **kw):
+    """Run ``argv`` to its end (killed at ``timeout``); fail with its
+    output's tail unless it exits 0. Returns its output. ``procs`` (a
+    list) holds the process while it runs."""
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, **kw)
+    if procs is not None:
+        procs.append(proc)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        fail(f"{label} did not finish within {timeout} s:\n{out[-4000:]}")
+    if proc.returncode != 0:
+        fail(f"{label} exited {proc.returncode}:\n{out[-6000:]}")
+    return out
+
+
+# the install prep's processes run at the lowest priority, so phase 1's
+# build and phase 2's timings keep the cores they need
+NICE = ("nice", "-n", "19")
+
+
+def start_install_prep(tmp):
+    """The install phase's card-free half, begun beside phase 1's build in
+    a thread at nice 19 and joined when the install phase starts (after
+    phase 2): the project's wheel built from a copy of the tree's
+    ``pyproject.toml`` and ``datatunerx_tpu_torch`` (what
+    ``Dockerfile.torch-trainer`` copies), ``pip install --target`` into
+    ``tmp``, then the compile-only entry run by the installed package from
+    an empty directory into a fresh ``XDG_CACHE_HOME``. Returns a function
+    that joins it and returns the paths, the child's environment and the
+    seconds; the run fails if a step did."""
+    import atexit
+    import shutil
+
+    res = {"procs": []}
+    src, wheels, site, cache, cwd = (os.path.join(tmp, n) for n in
+                                     ("src", "wheels", "site", "cache",
+                                      "cwd"))
+
+    def work():
+        try:
+            for d in (src, cwd):
+                os.makedirs(d)
+            shutil.copy2(os.path.join(ROOT, "pyproject.toml"), src)
+            shutil.copytree(os.path.join(ROOT, "datatunerx_tpu_torch"),
+                            os.path.join(src, "datatunerx_tpu_torch"),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            t0 = time.perf_counter()
+            run_logged("pip wheel", [
+                *NICE, sys.executable, "-m", "pip", "wheel", "--no-deps",
+                "--no-build-isolation", "--no-index", "-q", "-w", wheels,
+                src], 600, res["procs"])
+            whl = [os.path.join(wheels, f) for f in os.listdir(wheels)
+                   if f.endswith(".whl")]
+            if len(whl) != 1:
+                fail(f"pip wheel left {whl}")
+            run_logged("pip install --target", [
+                *NICE, sys.executable, "-m", "pip", "install", "--no-deps",
+                "--no-index", "-q", "--target", site, whl[0]], 600,
+                res["procs"])
+            res["wheel"], res["pip_s"] = whl[0], time.perf_counter() - t0
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("PYTHONPATH", "PYTHONHOME", "PYTHONSTARTUP")}
+            env.update(PYTHONPATH=site, XDG_CACHE_HOME=cache,
+                       PYTHONNOUSERSITE="1")
+            t0 = time.perf_counter()
+            res["build_out"] = run_logged(
+                "python -m datatunerx_tpu_torch.ops._build",
+                [*NICE, sys.executable, "-m",
+                 "datatunerx_tpu_torch.ops._build"],
+                600, res["procs"], cwd=cwd, env=env).strip()
+            res.update(site=site, cache=cache, cwd=cwd, env=env,
+                       nvcc_s=time.perf_counter() - t0)
+        except SystemExit:  # fail() has printed the step's output
+            pass
+
+    # a failing run exits with the prep still running: stop its processes
+    atexit.register(lambda: [p.kill() for p in res["procs"]
+                             if p.poll() is None])
+    th = threading.Thread(target=work, daemon=True)
+    th.start()
+
+    def join():
+        th.join(timeout=1200)
+        if "nvcc_s" not in res:
+            fail("install: the wheel, its install or the compile-only "
+                 "build failed or hung (above)")
+        return res
+
+    return join
+
+
+def install_phase(torch, tmp, prep):
+    """The port as an installed package: ``prep`` (``start_install_prep``'s
+    result: the wheel installed with ``pip install --target`` and its
+    kernels compiled by the compile-only entry into a fresh
+    ``XDG_CACHE_HOME``) run by a child that sees only the install. Returns
+    the child's result, whose greedy streams and serving launches
+    ``install_streams_check`` holds against a checkout engine's."""
+    import hashlib
+
+    from datatunerx_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    log(f"  {os.path.basename(prep['wheel'])}: built and installed in "
+        f"{prep['pip_s']:.1f} s; the compile-only entry (nvcc, no load): "
+        f"{prep['build_out']}, {prep['nvcc_s']:.1f} s with its "
+        "interpreter's start (both at nice 19 beside phases 1 and 2)")
+    child_dir = os.path.join(tmp, "child")
+    os.makedirs(child_dir)
+    csv_path = os.path.join(tmp, "train.csv")
+    write_train_csv(csv_path)
+    out_dir = os.path.join(tmp, "out")
+    train_argv = [
+        "--model_name_or_path", "preset:tinyllama-1.1b",
+        "--train_path", csv_path, "--template", "alpaca",
+        "--finetuning_type", "lora", "--lora_target", "q_proj,v_proj",
+        "--attention", "flash", "--remat", "dots", "--bf16",
+        "--block_size", str(TRAIN_SHAPE["block"]), "--pack_sequences",
+        "--per_device_train_batch_size", str(TRAIN_SHAPE["batch"]),
+        "--max_steps", str(INSTALL_STEPS), "--logging_steps", "1",
+        "--output_dir", out_dir, "--storage_path",
+        os.path.join(tmp, "store"), "--device", "cuda"]
+    cfg_path = os.path.join(tmp, "child.json")
+    result_path = os.path.join(tmp, "child-result.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"site": prep["site"], "checkout": ROOT,
+                   "cache": prep["cache"],
+                   "model": "preset:tinyllama-1.1b",
+                   "prompts": list(PARITY_PROMPTS),
+                   "max_new": PARITY_NEW, "train_argv": train_argv,
+                   "train_log": os.path.join(out_dir, "watch",
+                                             "trainer_log.jsonl"),
+                   "out": result_path}, f)
+    child = os.path.join(child_dir, "install_child.py")
+    with open(child, "w") as f:
+        f.write(INSTALL_CHILD)
+    t0 = time.perf_counter()
+    out = run_logged("the install child", [sys.executable, "-s", child,
+                                           cfg_path], 900, cwd=prep["cwd"],
+                     env=prep["env"])
+    child_s = time.perf_counter() - t0
+    for line in out.splitlines():
+        if line.startswith("[install-child] "):
+            log("  " + line)
+    with open(result_path) as f:
+        res = json.load(f)
+
+    digest = _build._digest(_build._sources())
+    if res["digest"] != digest:
+        fail(f"install: the installed sources' digest {res['digest']} is "
+             f"not the checkout's {digest}")
+    if res["stray"] or res["blocked"]:
+        fail(f"install: modules from outside the install {res['stray']}, "
+             f"blocked packages imported {res['blocked']}")
+    for name in INSTALL_SERVE:
+        if res["serve_launches"].get(name, 0) <= 0:
+            fail(f"install: {name} was never launched by the installed "
+                 "engine")
+    if res["train_rc"] != 0:
+        fail(f"install: the installed trainer CLI returned "
+             f"{res['train_rc']}")
+    want = expected_launches(None, INSTALL_STEPS)
+    want = {k: want[k] for k in INSTALL_TRAIN}
+    if res["train_launches"] != want:
+        fail(f"install: trainer launches {res['train_launches']}, "
+             f"expected {want}")
+    if len(res["losses"]) != INSTALL_STEPS or not all(
+            math.isfinite(x) for x in res["losses"]):
+        fail(f"install: train losses {res['losses']}")
+    if not res["native_fresh"] or not res["packed"] or not all(
+            res["packed"]):
+        fail(f"install: the native packer (fresh build "
+             f"{res['native_fresh']}) packed {res['packed']}")
+    with open(os.path.join(ROOT, "datatunerx_tpu_torch", "operator",
+                           "ui.html"), "rb") as f:
+        ui_sha = hashlib.sha256(f.read()).hexdigest()
+    if res["ui_status"] != 200 or res["ui_sha256"] != ui_sha or not \
+            res["ui_type"].startswith("text/html"):
+        fail(f"install: GET /ui answered {res['ui_status']} "
+             f"({res['ui_type']}), sha256 {res['ui_sha256']} against the "
+             f"checkout's {ui_sha}")
+    log(f"  the installed package: kernels {os.path.basename(res['library'])}"
+        f" and {os.path.basename(res['native_library'])} (g++ "
+        f"{res['native_build_s']:.2f} s) under XDG_CACHE_HOME; serve "
+        f"launches {res['serve_launches']}; train launches "
+        f"{res['train_launches']} (expected), losses "
+        f"{[round(x, 4) for x in res['losses']]}, {len(res['packed'])} "
+        f"packing call(s) through the native packer; GET /ui 200, "
+        f"{ui_sha[:12]}")
+    log(f"  [time] install: wheel + install {prep['pip_s']:.1f} s and nvcc "
+        f"{prep['nvcc_s']:.1f} s beside phases 1 and 2; the child "
+        f"{child_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def install_streams_check(torch, installed, ref, checkout):
+    """The install child's greedy streams and serving launches against
+    ``checkout`` (``greedy_streams`` of ``ref``, a checkout engine of the
+    child's geometry, with K7, K8 and K9 counted): the same token ids for
+    the same prompts, each stream equal up to a near-tie
+    (``check_greedy``), and every serving kernel launched exactly as often
+    as the checkout's engine launched it for the same generations."""
+    prompts, streams, launches = checkout
+    if installed["prompts"] != prompts:
+        fail("install: the installed tokenizer encodes a prompt "
+             "differently")
+    if installed["serve_launches"] != launches:
+        fail(f"install: the installed engine launched "
+             f"{installed['serve_launches']}, the checkout's {launches} "
+             f"(streams of {[len(x) for x in installed['streams']]} and "
+             f"{[len(x) for x in streams]} tokens)")
+    for ids, got, want in zip(prompts, installed["streams"], streams):
+        check_greedy(torch, "install greedy vs the checkout", got, want,
+                     ref, ids, PARITY_NEW)
+    log(f"  install: serving launches {launches}, equal to the checkout "
+        "engine's for the same two generations")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", default="all",
                     choices=["all", "kernels", "serve", "train", "qlora",
                              "hf", "gateway", "parallel", "operator",
-                             "loadgen"])
+                             "loadgen", "install"])
     opts = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "datatunerx_tpu_torch", "csrc")):
         fail("datatunerx_tpu_torch/ is missing: run from a repository "
@@ -6932,10 +7431,17 @@ def main(argv=None) -> int:
 
     from datatunerx_tpu_torch.ops import _build
 
+    install_tmp = None
+    if opts.phase in ("all", "serve", "install"):
+        # the install phase's wheel and nvcc build run beside this one
+        install_tmp = tempfile.TemporaryDirectory(prefix="dtx-install-")
+        join_install_prep = start_install_prep(install_tmp.name)
     t0 = time.perf_counter()
     _build.library()
     log(f"    kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-        f"({_build.BUILD_DIR})")
+        f"({_build.BUILD_DIR})"
+        + ("; the install phase's wheel and build beside it, at nice 19"
+           if install_tmp else ""))
 
     log("[2] kernels vs their plain versions (tinyllama-1.1b shapes)")
     gen = torch.Generator().manual_seed(0)
@@ -6988,16 +7494,55 @@ def main(argv=None) -> int:
     by_name = {e["name"].split()[0]: (e["counter"], e.get("count", "launches"))
                for e in entries}
     launches = {e["key"]: 0 for e in entries}
+    serving_counters = [by_name[k] for k in ("K7", "K8", "K9")]
+    installed = None
+    if install_tmp is not None:
+        with install_tmp as tmp:
+            log("[install] the port as an installed package: a wheel from a "
+                "copy of the tree, pip install --target, kernels and packer "
+                "built under a fresh XDG_CACHE_HOME, two greedy prompts, "
+                f"{INSTALL_STEPS} LoRA steps and GET /ui from the install")
+            t0 = time.perf_counter()
+            install_prep = join_install_prep()
+            log(f"  waited {time.perf_counter() - t0:.1f} s for the wheel and "
+                "the compile-only build begun in phase 1")
+            installed = install_phase(torch, tmp, install_prep)
+        counts = {**installed["serve_launches"],
+                  **installed["train_launches"]}
+        for e in entries:  # the install's launches beside the main path's
+            key = counter_key(e["counter"], e.get("count", "launches"))
+            if not e.get("path") and key in counts:
+                e.setdefault("extra", {})["launches@install"] = counts[key]
+        torch.cuda.empty_cache()
     serving = opts.phase in ("all", "serve")
+    if installed is not None and not serving:
+        from datatunerx_tpu_torch.serving.batched_engine import BatchedEngine
+
+        log("[install-streams] the install's streams and launches against a "
+            "checkout engine of its geometry")
+        ref = BatchedEngine("preset:tinyllama-1.1b", template="llama2",
+                            max_seq_len=1024, slots=4, kv_block_size=16,
+                            device="cuda")
+        try:
+            install_streams_check(torch, installed, ref,
+                                  greedy_streams(ref, serving_counters))
+        finally:
+            ref.close()
+        del ref
+        torch.cuda.empty_cache()
     if serving:
         log("[3] serve preset:tinyllama-1.1b (4 concurrent /chat/completions)")
         eng, served, base_batch = serve_phase(
             torch, [by_name[k] for k in ("K7", "K8", "K9")])
         launches.update(served)
         bf16_pool_bytes = eng.kv_cache_bytes
-        log("[4] greedy parity: kernels vs gather path + legacy sampler")
+        log("[4] greedy parity: kernels vs gather path + legacy sampler"
+            + ("; the install's streams and launches against the same "
+               "generations" if installed else ""))
         try:
-            parity_phase(torch, eng)
+            checkout = parity_phase(torch, eng, counters=serving_counters)
+            if installed is not None:
+                install_streams_check(torch, installed, eng, checkout)
         finally:
             eng.close()
         del eng

@@ -21,10 +21,20 @@ A rank above rank_max, or a target outside the pool's set, is refused with
 a typed error.
 
 Writes never touch a buffer a reader may hold: ``insert``/``clear`` clone
-the target's buffers, write the slot, wait for the copies on the current
-stream, and only then swap ``self.tree``. A decode step that read the
-previous snapshot keeps reading consistent buffers, and a slot that a live
-row indexes is never written (the registry pins it).
+the target's buffers, write the slot, and only then swap ``self.tree``. A
+decode step that read the previous snapshot keeps reading consistent
+buffers, and a slot that a live row indexes is never written (the registry
+pins it).
+
+No host wait orders the copies before a reader. The port creates no
+``torch.cuda.Stream``: the engine's scheduler thread and the registry's
+loader threads all enqueue on the legacy default stream, which runs their
+work in the order the host issued it. A snapshot is published only after
+its copies were enqueued, so every kernel that reads it is enqueued after
+them and runs after them; and the caching allocator hands a freed buffer
+out again only in that same stream's order. A reader moved to a stream of
+its own would need the snapshot to carry a ``torch.cuda.Event`` recorded
+after the copies, and to ``wait_event`` on it.
 """
 
 from __future__ import annotations
@@ -76,11 +86,6 @@ def validate_adapter(layers: dict, rank_max: int,
             "re-train at a lower rank or restart with a larger "
             "--adapter_rank_max")
     return rank
-
-
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
 
 
 class AdapterStore:
@@ -135,8 +140,9 @@ class AdapterStore:
         return self.tree
 
     def _write(self, slot: int, rows: Dict[str, tuple], scaling: float):
-        """Clone every target's buffers, write ``slot``'s rows, order the
-        copies before any later reader, then publish the new snapshot."""
+        """Clone every target's buffers, write ``slot``'s rows, then publish
+        the new snapshot (the copies are enqueued on the stream its readers
+        use: see the module docstring)."""
         with torch.no_grad():
             for t, (a_row, b_row) in rows.items():
                 buf = self._buffers[t]
@@ -147,7 +153,6 @@ class AdapterStore:
             scales = self._scales.clone()
             scales[slot] = float(scaling)
             self._scales = scales
-            _sync(self.device)
         self._republish()
 
     def insert(self, slot: int, layers: dict, scaling: float,
@@ -179,7 +184,7 @@ class AdapterStore:
             rows[t] = (a_row.to(self.dtype).to(self.device),
                        b_row.to(self.dtype).to(self.device))
         with self._lock:
-            self._write(slot, rows, scaling)  # dtxlint: disable=DTX009 — bounded copy wait; the lock serialises pool writers only (ROADMAP Queue 3)
+            self._write(slot, rows, scaling)
         return rank
 
     def clear(self, slot: int):
@@ -190,7 +195,7 @@ class AdapterStore:
             rows = {t: (torch.zeros_like(buf["a"][:, slot]),
                         torch.zeros_like(buf["b"][:, slot]))
                     for t, buf in self._buffers.items()}
-            self._write(slot, rows, 0.0)  # dtxlint: disable=DTX009 — bounded copy wait; the lock serialises pool writers only (ROADMAP Queue 3)
+            self._write(slot, rows, 0.0)
 
     def _check_slot(self, slot: int):
         if not 1 <= slot <= self.pool_slots:

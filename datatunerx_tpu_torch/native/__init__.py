@@ -2,9 +2,12 @@
 it through ctypes. Every entry point has a pure-Python fallback in
 data/preprocess: a missing toolchain costs speed, never correctness.
 
-The library goes to ``build/torch_native/`` under the repository root, named
-by a hash of the source and flags, so an edited source rebuilds and an
-unchanged one loads the library already there. Nothing is built at import.
+The library goes to ``build/torch_native/`` under the repository root in a
+checkout, and to ``${XDG_CACHE_HOME:-~/.cache}/datatunerx_tpu_torch/
+torch_native/`` for an installed package (``utils/build_dirs.py``), named by
+a hash of the source and flags, so an edited source rebuilds and an
+unchanged one loads the library already there. Nothing is built at import;
+a missing ``packer.cpp`` leaves the Python loops.
 """
 
 from __future__ import annotations
@@ -20,8 +23,10 @@ from typing import Optional
 
 import numpy as np
 
+from datatunerx_tpu_torch.utils.build_dirs import build_dir
+
 _SRC = Path(__file__).resolve().parent / "packer.cpp"
-BUILD_DIR = _SRC.parent.parent.parent / "build" / "torch_native"
+BUILD_DIR = build_dir("torch_native")
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
@@ -34,9 +39,15 @@ _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 
 
-def _library_path() -> Path:
+def _library_path() -> Optional[Path]:
+    """The library's path, named by the source's hash; None when the
+    source is missing."""
+    try:
+        src = _SRC.read_bytes()
+    except OSError:
+        return None
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(_SRC.read_bytes())
+    h.update(src)
     return BUILD_DIR / f"dtx_native-{h.hexdigest()[:16]}.so"
 
 
@@ -69,7 +80,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
             return _lib
         _tried = True
         so = _library_path()
-        if not so.exists():
+        if so is not None and not so.exists():
             # every caller waits behind the one-time first-use compile (a
             # second g++ on the same library would race); the subprocess
             # inside carries timeout=120

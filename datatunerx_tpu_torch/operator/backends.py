@@ -21,7 +21,9 @@ and a job asking for more hosts than there are cards raises at submit.
 a GKE GPU node pool (a JobSet of ``num_hosts`` pods for training, one GPU
 each, with the coordinator env; a Deployment and Service for serving:
 ``nvidia.com/gpu`` limits, a ``cloud.google.com/gke-accelerator`` node
-selector, ``--device cuda``) without submitting them; ``status`` reads a
+selector, ``--device cuda``; a spec without an image gets
+``config.get_base_image()``, the port's trainer image, which also serves)
+without submitting them; ``status`` reads a
 ``<name>-status.json`` dropped beside the manifest.
 
 ``FakeTrainingBackend`` and ``FakeServingBackend`` are the scripted
@@ -37,6 +39,8 @@ import subprocess
 import sys
 import threading
 from typing import Dict, List, Optional, Protocol
+
+from datatunerx_tpu_torch.operator import config
 
 
 class TrainingBackend(Protocol):
@@ -320,7 +324,7 @@ class ManifestBackend:
 
     def render_training(self, name: str, spec: dict) -> dict:
         hosts = _hosts(spec)
-        image = spec.get("image", "datatunerx-tpu/trainer:latest")
+        image = spec.get("image") or config.get_base_image()
         args = [str(a) for a in spec["args"]] + ["--device", "cuda"]
         return {
             "apiVersion": "jobset.x-k8s.io/v1alpha2",
@@ -384,7 +388,9 @@ class ManifestBackend:
                         "tolerations": spec.get("tolerations", []),
                         "containers": [{
                             "name": "server",
-                            "image": spec.get("image", "datatunerx-tpu/serving:latest"),
+                            # one image trains and serves
+                            # (Dockerfile.torch-trainer)
+                            "image": spec.get("image") or config.get_base_image(),
                             "command": ["python", "-m", "datatunerx_tpu_torch.serving.server"],
                             "args": [
                                 "--model_path", spec["model_path"],

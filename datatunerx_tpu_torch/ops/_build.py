@@ -4,11 +4,16 @@
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc -c``
 per source, all started together), linked into ONE shared library with a
 plain C interface, and loaded with ``ctypes``. The library goes to
-``build/torch_kernels/`` under the repository root, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-the library already there. Nothing is built at import: the first kernel
-launch builds, which is why this module is safe to import on a machine with
-no CUDA toolkit (the CPU tests import every module).
+``build/torch_kernels/`` under the repository root in a checkout, and to
+``${XDG_CACHE_HOME:-~/.cache}/datatunerx_tpu_torch/torch_kernels/`` for an
+installed package (``utils/build_dirs.py``), named by a hash of the sources
+and flags, so an edited source rebuilds and an unchanged one loads the
+library already there. Nothing is built at import: the first kernel launch
+builds, which is why this module is safe to import on a machine with no
+CUDA toolkit (the CPU tests import every module).
+
+``python -m datatunerx_tpu_torch.ops._build`` compiles the library without
+loading it. nvcc needs no card, so an image builds it at image build time.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into a ``RuntimeError``.
@@ -21,15 +26,17 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
-import torch
+from datatunerx_tpu_torch.utils.build_dirs import build_dir
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+BUILD_DIR = build_dir("torch_kernels")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -111,6 +118,19 @@ def _build(sources, out: Path):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def compile_library() -> Path:
+    """The path of the library built from the sources under ``CSRC``,
+    compiled first if no build of them exists. Loads nothing."""
+    sources = _sources()
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    out = BUILD_DIR / f"libdtx_kernels-{_digest(sources)}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        _build(sources, out)
+    return out
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call in this process
     (or loaded when a build of the same sources already exists)."""
@@ -118,13 +138,7 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        sources = _sources()
-        if not sources:
-            raise RuntimeError(f"no CUDA sources under {CSRC}")
-        out = BUILD_DIR / f"libdtx_kernels-{_digest(sources)}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            _build(sources, out)  # dtxlint: disable=DTX009 -- deliberate one-time build under lock
+        out = compile_library()  # dtxlint: disable=DTX009 -- deliberate one-time build under lock
         lib = ctypes.CDLL(str(out))
         _declare(lib)
         _lib = lib
@@ -256,4 +270,19 @@ def operand(t, name: str, dtype, device, vector: bool = True):
 
 def stream(t) -> int:
     """The current CUDA stream of t's device, as the kernels take it."""
+    import torch  # here, so that the compile-only entry needs no torch
+
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def main() -> int:
+    """Compile the library into ``BUILD_DIR`` (no card, no ``ctypes``
+    load) and print its path and the seconds it took."""
+    t0 = time.perf_counter()
+    out = compile_library()
+    print(f"{out} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,6 +20,7 @@ import dataclasses
 import json
 import os
 import subprocess
+import sys
 import textwrap
 
 import pytest
@@ -1567,3 +1568,25 @@ def test_port_lints_clean_against_its_baseline(port_lint):
     assert warm_stats.analyzed == 0
     assert [f.render() for f in warm.findings] \
         == [f.render() for f in res.findings]
+
+
+def test_adapter_store_holds_no_host_wait_under_its_lock(port_lint):
+    """The adapter pool's writers publish a snapshot without a host wait
+    (the copies and every reader share the default stream): the store
+    lints free of DTX009 with no inline disable, alone and in the program
+    lint of the whole port."""
+    rel = os.path.join("datatunerx_tpu_torch", "adapters", "store.py")
+    with open(os.path.join(ROOT, rel), encoding="utf-8") as f:
+        src = f.read()
+    assert "disable=DTX009" not in src
+    assert "synchronize(" not in src
+    proc = subprocess.run(
+        [sys.executable, "-m", "datatunerx_tpu_torch.analysis", rel,
+         "--no-baseline"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "DTX009" not in proc.stdout
+    res, _ = port_lint
+    assert not [f for f in res.findings
+                if f.rule == "DTX009" and f.path.endswith(
+                    "adapters/store.py")]

@@ -12,7 +12,10 @@ of substitutions, and nothing else differs:
   ``cloud.google.com/gke-accelerator`` (``nvidia-h100-80gb`` by default),
   and the TPU topology selector goes;
 - the replicated job ``tpu-hosts`` is ``gpu-hosts`` (so the coordinator
-  address names it too).
+  address names it too);
+- a spec without an image: the reference falls back to its TPU trainer
+  and serving images, the port to its one CUDA image,
+  ``config.get_base_image()``, for both.
 
 The status-file feedback, ``jobset_state``/``deployment_state`` and
 ``delete`` behave as the reference's; more than one host renders the
@@ -28,6 +31,7 @@ import pytest
 
 from datatunerx_tpu.operator import backends as jb
 from datatunerx_tpu_torch.operator import backends as tb
+from datatunerx_tpu_torch.operator import config as tconfig
 
 TRAIN_SPEC = {"args": ["--model_name_or_path", "preset:tinyllama-1.1b",
                        "--train_path", "/data/t.csv", "--max_steps", 5],
@@ -47,7 +51,7 @@ def _pod(jobset):
         "template"]["spec"]
 
 
-def to_port_training(js, accelerator="nvidia-h100-80gb"):
+def to_port_training(js, spec, accelerator="nvidia-h100-80gb"):
     """The reference's JobSet under the substitution map."""
     js = copy.deepcopy(js)
     rj = js["spec"]["replicatedJobs"][0]
@@ -61,6 +65,8 @@ def to_port_training(js, accelerator="nvidia-h100-80gb"):
     c = pod["containers"][0]
     assert c["command"] == ["python", "-m", "datatunerx_tpu.tuning.train"]
     c["command"] = ["python", "-m", "datatunerx_tpu_torch.tuning.train"]
+    if not spec.get("image"):
+        c["image"] = tconfig.get_base_image()
     c["args"] = c["args"] + ["--device", "cuda"]
     c["resources"] = {"limits": {"nvidia.com/gpu": "1"}}
     for e in c["env"]:
@@ -69,7 +75,7 @@ def to_port_training(js, accelerator="nvidia-h100-80gb"):
     return js
 
 
-def to_port_serving(docs, accelerator="nvidia-h100-80gb"):
+def to_port_serving(docs, spec, accelerator="nvidia-h100-80gb"):
     docs = copy.deepcopy(docs)
     pod = docs[0]["spec"]["template"]["spec"]
     sel = pod["nodeSelector"]
@@ -79,6 +85,8 @@ def to_port_serving(docs, accelerator="nvidia-h100-80gb"):
     c = pod["containers"][0]
     assert c["command"] == ["python", "-m", "datatunerx_tpu.serving.server"]
     c["command"] = ["python", "-m", "datatunerx_tpu_torch.serving.server"]
+    if not spec.get("image"):
+        c["image"] = tconfig.get_base_image()
     c["args"] = c["args"] + ["--device", "cuda"]
     c["resources"] = {"limits": {"nvidia.com/gpu": "1"}}
     return docs
@@ -90,7 +98,7 @@ def to_port_serving(docs, accelerator="nvidia-h100-80gb"):
 def test_jobset_is_the_references_under_the_map(tmp_path, spec):
     ref = jb.ManifestBackend(str(tmp_path / "ref"))
     port = tb.ManifestBackend(str(tmp_path / "port"))
-    want = to_port_training(ref.render_training("job-1", spec))
+    want = to_port_training(ref.render_training("job-1", spec), spec)
     got = port.render_training("job-1", spec)
     assert got == want
     text = json.dumps(got)
@@ -104,7 +112,7 @@ def test_deployment_is_the_references_under_the_map(tmp_path, spec):
     ref = jb.ManifestBackend(str(tmp_path / "ref"))
     port = tb.ManifestBackend(str(tmp_path / "port"),
                               accelerator="nvidia-h100-mega-80gb")
-    want = to_port_serving(ref.render_serving("app", spec),
+    want = to_port_serving(ref.render_serving("app", spec), spec,
                            accelerator="nvidia-h100-mega-80gb")
     assert port.render_serving("app", spec) == want
 
@@ -113,7 +121,7 @@ def test_more_than_one_host_renders_the_references_jobset(tmp_path):
     ref = jb.ManifestBackend(str(tmp_path / "ref"))
     port = tb.ManifestBackend(str(tmp_path / "port"))
     spec = dict(TRAIN_SPEC, num_hosts=2)
-    want = to_port_training(ref.render_training("big", spec))
+    want = to_port_training(ref.render_training("big", spec), spec)
     port.submit("big", spec)
     got = port.render_training("big", spec)
     assert got == want
